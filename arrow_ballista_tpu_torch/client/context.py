@@ -22,6 +22,7 @@ from ..models import logical as L
 from ..models.batch import ColumnBatch
 from ..models.schema import Schema
 from ..ops.kernels import to_host
+from ..ops.operators import clear_job_build_caches
 from ..ops.physical import ExecutionPlan, TaskContext
 from ..scheduler.physical_planner import PhysicalPlanner, PlannedQuery
 from ..sql import ast
@@ -204,14 +205,19 @@ class BallistaContext:
         return self._execute_local(planned)
 
     def _execute_local(self, planned: PlannedQuery) -> List[ColumnBatch]:
+        # a fresh job id per query: the joins' broadcast build caches are
+        # keyed by it, and dropped when the job ends
         ctx = TaskContext(device=self.device, config=self.config, work_dir=self.work_dir,
                           job_id=uuid.uuid4().hex[:7])
-        for sid, splan in planned.scalars:
-            ctx.scalars[sid] = extract_scalar(splan, ctx)
-        out: List[ColumnBatch] = []
-        for p in range(planned.plan.output_partition_count()):
-            out.extend(planned.plan.execute(p, ctx))
-        return out
+        try:
+            for sid, splan in planned.scalars:
+                ctx.scalars[sid] = extract_scalar(splan, ctx)
+            out: List[ColumnBatch] = []
+            for p in range(planned.plan.output_partition_count()):
+                out.extend(planned.plan.execute(p, ctx))
+            return out
+        finally:
+            clear_job_build_caches(ctx.job_id)
 
 
 def extract_scalar(plan: ExecutionPlan, ctx: TaskContext):

@@ -21,37 +21,6 @@
 #define AB_ITEMS 16
 #define AB_TILE (AB_THREADS * AB_ITEMS)
 #define AB_WARPS (AB_THREADS / 32)
-#define AB_SCAN_THREADS 1024
-
-// exclusive scan of v over the block; *total gets the block's sum.
-// warp_sums must hold blockDim.x / 32 ints.
-__device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums, int* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = (lane < nwarps) ? warp_sums[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      int y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    if (lane < nwarps) warp_sums[lane] = w;  // inclusive over warps
-  }
-  __syncthreads();
-  int before = (warp > 0) ? warp_sums[warp - 1] : 0;
-  *total = warp_sums[nwarps - 1];
-  __syncthreads();  // warp_sums is reused by the caller's next scan
-  return before + x - v;
-}
 
 __global__ void tile_count(const uint8_t* __restrict__ mask, long long n, int* __restrict__ counts) {
   __shared__ int warp_sums[AB_WARPS];
@@ -63,19 +32,19 @@ __global__ void tile_count(const uint8_t* __restrict__ mask, long long n, int* _
     if (i < n) c += (mask[i] != 0);
   }
   int total;
-  block_exclusive_scan(c, warp_sums, &total);
+  ab_block_exclusive_scan<int>(c, warp_sums, &total);
   if (threadIdx.x == 0) counts[blockIdx.x] = total;
 }
 
 __global__ void tile_scan(const int* __restrict__ counts, int num_tiles, int* __restrict__ offsets,
                           int* __restrict__ n_live) {
-  __shared__ int warp_sums[AB_SCAN_THREADS / 32];
+  __shared__ int warp_sums[AB_SCAN_TOP_THREADS / 32];
   int carry = 0;
-  for (int start = 0; start < num_tiles; start += AB_SCAN_THREADS) {
+  for (int start = 0; start < num_tiles; start += AB_SCAN_TOP_THREADS) {
     int t = start + (int)threadIdx.x;
     int v = (t < num_tiles) ? counts[t] : 0;
     int total;
-    int ex = block_exclusive_scan(v, warp_sums, &total);
+    int ex = ab_block_exclusive_scan<int>(v, warp_sums, &total);
     if (t < num_tiles) offsets[t] = carry + ex;
     carry += total;
   }
@@ -96,7 +65,7 @@ __global__ void tile_scatter(const uint8_t* __restrict__ mask, long long n,
     c += f[j];
   }
   int total;
-  int ex = block_exclusive_scan(c, warp_sums, &total);
+  int ex = ab_block_exclusive_scan<int>(c, warp_sums, &total);
   long long live_before = (long long)offsets[blockIdx.x] + ex;  // live rows before `base`
   const long long live_total = *n_live;
 #pragma unroll
@@ -130,7 +99,7 @@ AB_EXPORT int ab_compaction_order(const void* mask, long long n, void* perm, voi
   tile_count<<<num_tiles, AB_THREADS, 0, s>>>((const uint8_t*)mask, n, counts);
   int err = ab_last_error();
   if (err) return err;
-  tile_scan<<<1, AB_SCAN_THREADS, 0, s>>>(counts, num_tiles, offsets, live);
+  tile_scan<<<1, AB_SCAN_TOP_THREADS, 0, s>>>(counts, num_tiles, offsets, live);
   err = ab_last_error();
   if (err) return err;
   tile_scatter<<<num_tiles, AB_THREADS, 0, s>>>((const uint8_t*)mask, n, offsets, live,

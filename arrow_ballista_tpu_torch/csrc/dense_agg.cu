@@ -80,21 +80,6 @@ __device__ __forceinline__ int row_slot(const DenseSpec& s, const uint8_t* mask,
   return fused;
 }
 
-__device__ __forceinline__ void f64_min_max(unsigned long long* addr, double v, bool is_min) {
-  unsigned long long old = *(volatile unsigned long long*)addr;
-  while (true) {
-    double cur = __longlong_as_double((long long)old);
-    double next;
-    if (isnan(cur) || isnan(v)) next = isnan(cur) ? cur : v;
-    else next = is_min ? fmin(cur, v) : fmax(cur, v);
-    unsigned long long nb = (unsigned long long)__double_as_longlong(next);
-    if (nb == old) return;
-    unsigned long long seen = atomicCAS(addr, old, nb);
-    if (seen == old) return;
-    old = seen;
-  }
-}
-
 // fold value word `x` (an int64 or the bits of a double) into accumulator `acc`
 __device__ __forceinline__ void fold(unsigned long long* acc, int how, bool f64,
                                      unsigned long long x) {
@@ -107,11 +92,11 @@ __device__ __forceinline__ void fold(unsigned long long* acc, int how, bool f64,
       else atomicAdd(acc, x);
       break;
     case AB_AGG_MIN:
-      if (f64) f64_min_max(acc, __longlong_as_double((long long)x), true);
+      if (f64) ab_f64_min_max(acc, __longlong_as_double((long long)x), true);
       else atomicMin((long long*)acc, (long long)x);
       break;
     default:  // AB_AGG_MAX
-      if (f64) f64_min_max(acc, __longlong_as_double((long long)x), false);
+      if (f64) ab_f64_min_max(acc, __longlong_as_double((long long)x), false);
       else atomicMax((long long*)acc, (long long)x);
       break;
   }

@@ -8,75 +8,34 @@
 // with splitmix64, and combined h = h*0x9E3779B97F4A7C15 + x; h ^= h>>29 in
 // wrapping uint64.  bucket_of is that hash % n as int32.
 //
+// The widening and the mix-and-combine step live in common.cuh
+// (ab_hash_row), which K5 shares.
+//
 // Bound: bytes.  One pass reads each key once and writes 4 or 8 bytes a
 // row; the few integer multiplies a row are far below the card's rate.  One
 // thread a row, grid-stride, neighbouring threads on neighbouring rows.
 #include "common.cuh"
 
-#define AB_MAX_HASH_COLS 16
-
-struct HashCols {
-  const void* ptr[AB_MAX_HASH_COLS];
-  int kind[AB_MAX_HASH_COLS];
-  int k;
-};
-
-__device__ __forceinline__ uint64_t widen_u64(const HashCols& c, int j, long long i) {
-  switch (c.kind[j]) {
-    case AB_KIND_I32:
-      return (uint64_t)(int64_t)((const int32_t*)c.ptr[j])[i];
-    case AB_KIND_I64:
-      return (uint64_t)((const int64_t*)c.ptr[j])[i];
-    default:  // AB_KIND_BOOL
-      return (uint64_t)(((const uint8_t*)c.ptr[j])[i] != 0);
-  }
-}
-
-__device__ __forceinline__ uint64_t hash_row(const HashCols& c, long long i) {
-  uint64_t h = 0ULL;
-  for (int j = 0; j < c.k; ++j) {
-    uint64_t x = widen_u64(c, j, i);
-    x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ULL;
-    x = (x ^ (x >> 27)) * 0x94D049BB133111EBULL;
-    x = x ^ (x >> 31);
-    h = h * 0x9E3779B97F4A7C15ULL + x;
-    h = h ^ (h >> 29);
-  }
-  return h;
-}
-
 __global__ void hash64_kernel(HashCols c, long long n, int zero, uint64_t* out) {
   long long step = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step) {
-    out[i] = zero ? 0ULL : hash_row(c, i);
+    out[i] = zero ? 0ULL : ab_hash_row(c, i);
   }
 }
 
 __global__ void bucket_kernel(HashCols c, long long n, int zero, uint64_t buckets, int32_t* out) {
   long long step = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step) {
-    uint64_t h = zero ? 0ULL : hash_row(c, i);
+    uint64_t h = zero ? 0ULL : ab_hash_row(c, i);
     out[i] = (int32_t)(h % buckets);
   }
-}
-
-static int fill_cols(HashCols* c, const void* const* ptrs, const int* kinds, int k) {
-  if (k < 1 || k > AB_MAX_HASH_COLS) return (int)cudaErrorInvalidValue;
-  for (int j = 0; j < k; ++j) {
-    if (kinds[j] != AB_KIND_I32 && kinds[j] != AB_KIND_I64 && kinds[j] != AB_KIND_BOOL)
-      return (int)cudaErrorInvalidValue;
-    c->ptr[j] = ptrs[j];
-    c->kind[j] = kinds[j];
-  }
-  c->k = k;
-  return 0;
 }
 
 // out: uint64[n] (handed over as int64 bits)
 AB_EXPORT int ab_hash64(const void* const* ptrs, const int* kinds, int k, long long n,
                         int zero, void* out, void* stream) {
   HashCols c;
-  int err = fill_cols(&c, ptrs, kinds, k);
+  int err = ab_fill_hash_cols(&c, ptrs, kinds, k);
   if (err) return err;
   const int threads = 256;
   hash64_kernel<<<ab_grid(n, threads, 132 * 16), threads, 0, (cudaStream_t)stream>>>(
@@ -88,7 +47,7 @@ AB_EXPORT int ab_hash64(const void* const* ptrs, const int* kinds, int k, long l
 AB_EXPORT int ab_bucket_of(const void* const* ptrs, const int* kinds, int k, long long n,
                            int zero, int num_buckets, void* out, void* stream) {
   HashCols c;
-  int err = fill_cols(&c, ptrs, kinds, k);
+  int err = ab_fill_hash_cols(&c, ptrs, kinds, k);
   if (err) return err;
   if (num_buckets < 1) return (int)cudaErrorInvalidValue;
   const int threads = 256;

@@ -49,6 +49,22 @@ SIGNATURES = {
     "dense_agg": {
         "ab_dense_group_states": ([_P, _P, _LL, _I, _P, _P, _P, _P], _I),
     },
+    "join_build": {
+        "ab_build_scratch_bytes": ([_LL], _LL),
+        "ab_build_side_sort": ([_P, _P, _I, _P, _LL, _I, _P, _P, _P, _P, _P], _I),
+    },
+    "probe": {
+        "ab_probe_scratch_bytes": ([_LL], _LL),
+        "ab_probe_counts": ([_P, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P], _I),
+        "ab_probe_expand": ([_P, _P, _P, _P, _LL, _LL, _LL, _P, _P, _P, _P], _I),
+    },
+    "segment": {
+        "ab_segment_any": ([_P, _I, _P, _LL, _LL, _P, _P], _I),
+    },
+    "seg_agg": {
+        "ab_seg_scratch_bytes": ([_LL], _LL),
+        "ab_grouped_on_order": ([_P, _P, _LL, _LL, _P, _P, _P, _P], _I),
+    },
 }
 
 

@@ -1,4 +1,4 @@
-"""Device kernels of the port: four hand-written CUDA kernels, each beside
+"""Device kernels of the port: eight hand-written CUDA kernels, each beside
 its plain PyTorch twin.
 
 | kernel | source | replaces (arrow_ballista_tpu/ops/kernels.py) |
@@ -7,6 +7,10 @@ its plain PyTorch twin.
 | K2 ``compaction_order`` | ``csrc/compact.cu`` | ``compaction_order`` l.88 |
 | K3 ``hash64`` / ``bucket_of`` | ``csrc/hash.cu`` | ``hash64`` l.62, ``bucket_of`` l.77 |
 | K4 ``sort_order`` | ``csrc/sort.cu`` | ``sort_order`` l.195 |
+| K5 ``build_side_sort`` | ``csrc/join_build.cu`` | ``build_side_sort`` l.728 |
+| K6 ``probe_join`` / ``probe_counts`` | ``csrc/probe.cu`` | ``probe_join`` l.739 |
+| K7 ``segment_any`` | ``csrc/segment.cu`` | ``segment_any`` l.772 |
+| K8 ``grouped_on_order`` | ``csrc/seg_agg.cu`` | ``_grouped_aggregate_on_order`` l.314 |
 
 A wrapper takes the twin only for a tensor that lies on the CPU (the
 tests); for a CUDA tensor it launches its kernel or raises.  ``LAUNCHES``
@@ -34,7 +38,8 @@ from ..utils.config import env_flag
 from . import _cuda
 
 LAUNCHES: Dict[str, int] = {"dense_group_states": 0, "compaction_order": 0,
-                            "hash64": 0, "sort_order": 0}
+                            "hash64": 0, "sort_order": 0, "build_side_sort": 0,
+                            "probe_join": 0, "segment_any": 0, "grouped_on_order": 0}
 
 
 def reset_launch_counts() -> None:
@@ -139,8 +144,12 @@ def bucket_of_plain(key_arrays: Sequence[torch.Tensor], num_buckets: int) -> tor
     return _umod(hash64_plain(key_arrays), num_buckets).to(torch.int32)
 
 
-def _hash_launch(arrays: Sequence[torch.Tensor], num_buckets: Optional[int]) -> torch.Tensor:
-    _require_cuda(*arrays)
+def _hash_columns(arrays: Sequence[torch.Tensor]):
+    """Key columns as the hash kernels (K3, K5) take them: contiguous, with
+    pointer and kind arrays for ctypes.  Returns (cols, ptrs, kinds); the
+    caller keeps ``cols`` alive until the launch is queued."""
+    if not 1 <= len(arrays) <= 16:
+        raise ValueError(f"hash kernels take 1-16 key columns, got {len(arrays)}")
     cols, kind_list = [], []
     for a in arrays:
         if a.dtype == torch.uint64:
@@ -149,6 +158,15 @@ def _hash_launch(arrays: Sequence[torch.Tensor], num_buckets: Optional[int]) -> 
             raise TypeError(f"hash keys must be int32, int64 or bool, got {a.dtype}")
         cols.append(_flat(a))
         kind_list.append(_KIND[a.dtype])
+    k = len(cols)
+    ptrs = (ctypes.c_void_p * k)(*[c.data_ptr() for c in cols])
+    kinds = (ctypes.c_int * k)(*kind_list)
+    return cols, ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(kinds, ctypes.c_void_p)
+
+
+def _hash_launch(arrays: Sequence[torch.Tensor], num_buckets: Optional[int]) -> torch.Tensor:
+    _require_cuda(*arrays)
+    cols, ptrs, kinds = _hash_columns(arrays)
     n = cols[0].shape[0]
     dev = cols[0].device
     out = torch.empty(n, dtype=torch.int64 if num_buckets is None else torch.int32,
@@ -156,18 +174,13 @@ def _hash_launch(arrays: Sequence[torch.Tensor], num_buckets: Optional[int]) -> 
     if n == 0:
         return out
     k = len(cols)
-    ptrs = (ctypes.c_void_p * k)(*[c.data_ptr() for c in cols])
-    kinds = (ctypes.c_int * k)(*kind_list)
     lib = _cuda.LIBRARIES.get("hash")
     zero = int(force_hash_collisions())
     if num_buckets is None:
-        err = lib.ab_hash64(ctypes.cast(ptrs, ctypes.c_void_p),
-                            ctypes.cast(kinds, ctypes.c_void_p), k, n, zero, _ptr(out),
-                            _stream(dev))
+        err = lib.ab_hash64(ptrs, kinds, k, n, zero, _ptr(out), _stream(dev))
     else:
-        err = lib.ab_bucket_of(ctypes.cast(ptrs, ctypes.c_void_p),
-                               ctypes.cast(kinds, ctypes.c_void_p), k, n, zero,
-                               int(num_buckets), _ptr(out), _stream(dev))
+        err = lib.ab_bucket_of(ptrs, kinds, k, n, zero, int(num_buckets), _ptr(out),
+                               _stream(dev))
     _cuda.check(err, "hash")
     LAUNCHES["hash64"] += 1
     return out
@@ -582,16 +595,326 @@ def _grouped_aggregate_dense(key_cols, val_cols, mask, out_capacity, key_ranges,
 def grouped_aggregate(key_cols, val_cols, mask, out_capacity: int, key_ranges=None):
     """Group by ``key_cols`` and reduce ``val_cols`` (list of (array, how)).
 
-    Returns (out_keys, out_vals, out_mask, overflow or None).  Only the
-    dense path is ported: every key needs a static (lo, hi) range and the
-    domain must stay within DENSE_DOMAIN_LIMIT.  CONTRACT (as in the
-    reference): every live row's key lies inside its declared range; when
-    the domain fits ``out_capacity`` out-of-range rows are dropped
-    silently."""
-    domain = dense_domain(key_ranges) if key_cols else None
-    if domain is None:
-        raise NotImplementedError(
-            "grouping without a dense key domain (the sort path) is not ported "
-            "yet (ROADMAP.md queue 2 item 7)")
-    return _grouped_aggregate_dense(key_cols, val_cols, mask, out_capacity,
-                                    key_ranges, domain)
+    Returns (out_keys, out_vals, out_mask, overflow or None).  When every
+    key has a static (lo, hi) range and the domain stays within
+    DENSE_DOMAIN_LIMIT, the dense path (K1 + K2); otherwise the sort path:
+    K4's order over the keys (K2's live-first order when there are no
+    keys), then K8 over the reordered rows.  Groups come out in ascending
+    key order on both paths.  CONTRACT (as in the reference): every live
+    row's key lies inside its declared range; when the domain fits
+    ``out_capacity`` out-of-range rows are dropped silently."""
+    if key_cols:
+        domain = dense_domain(key_ranges)
+        if domain is not None:
+            return _grouped_aggregate_dense(key_cols, val_cols, mask, out_capacity,
+                                            key_ranges, domain)
+    n = mask.shape[0]
+    if key_cols:
+        order = sort_order([(k, True) for k in key_cols], mask)
+    else:
+        order = compaction_order(mask)
+    idx = order.long()
+    return grouped_on_order([k[idx] for k in key_cols], [(v[idx], how) for v, how in val_cols],
+                            mask[idx], out_capacity, n)
+
+
+# --------------------------------------------------------------------------
+# K8: grouped aggregation over rows in group order (the sort path)
+# --------------------------------------------------------------------------
+
+
+def overflow_flag(x):
+    """A grouped_aggregate overflow result as a tensor: None (statically
+    impossible) becomes a constant False."""
+    return torch.zeros((), dtype=torch.bool) if x is None else x
+
+
+def grouped_on_order_plain(keys_s, val_cols, mask_s, out_capacity: int, n: int):
+    """Plain twin of K8 (the reference's formulation): boundary flags ->
+    cumsum segment ids -> index_add_ / scatter_reduce_ into a dump-slotted
+    accumulator -> each group's first row scatters its keys."""
+    dev = mask_s.device
+    cap = out_capacity
+    first = torch.arange(n, device=dev) == 0
+    if keys_s:
+        diff = torch.zeros(n, dtype=torch.bool, device=dev)
+        for k in keys_s:
+            diff = diff | (k != torch.roll(k, 1))
+        boundary = mask_s & (first | diff)
+    else:
+        boundary = first & mask_s.any()
+    seg = torch.cumsum(boundary.to(torch.int64), 0) - 1
+    num_groups = boundary.sum()
+    seg_ok = mask_s & (seg >= 0) & (seg < cap)
+    seg_ids = torch.where(seg_ok, seg, cap)
+    out_vals = []
+    for a, how in val_cols:
+        if how == AGG_COUNT:
+            v = torch.zeros(cap + 1, dtype=torch.int64, device=dev).index_add_(
+                0, seg_ids, seg_ok.to(torch.int64))
+        elif how == AGG_SUM:
+            v = torch.zeros(cap + 1, dtype=a.dtype, device=dev).index_add_(
+                0, seg_ids, torch.where(seg_ok, a, torch.zeros((), dtype=a.dtype, device=dev)))
+        elif how in (AGG_MIN, AGG_MAX):
+            ident = _max_ident(a.dtype) if how == AGG_MIN else _min_ident(a.dtype)
+            fill = torch.full((), ident, dtype=a.dtype, device=dev)
+            v = torch.full((cap + 1,), ident, dtype=a.dtype, device=dev).scatter_reduce_(
+                0, seg_ids, torch.where(seg_ok, a, fill), "amin" if how == AGG_MIN else "amax",
+                include_self=True)
+        else:
+            raise ValueError(f"unknown agg {how}")
+        out_vals.append(v[:cap])
+    opens = torch.where(boundary & seg_ok, seg, cap)
+    out_keys = []
+    for k in keys_s:
+        ok = torch.zeros(cap + 1, dtype=k.dtype, device=dev)
+        ok[opens] = k  # only the dump slot sees more than one row
+        out_keys.append(ok[:cap])
+    out_mask = torch.arange(cap, device=dev) < torch.clamp(num_groups, max=cap)
+    overflow = (num_groups > cap) if cap < n else None
+    return out_keys, out_vals, out_mask, overflow
+
+
+class _SegSpec(ctypes.Structure):
+    """csrc/seg_agg.cu ``SegSpec`` (SEG_MAX_KEYS 8, SEG_MAX_AGGS 32)."""
+
+    _fields_ = [("key", ctypes.c_void_p * 8), ("key_kind", ctypes.c_int * 8),
+                ("key_out", ctypes.c_void_p * 8), ("k", ctypes.c_int),
+                ("val", ctypes.c_void_p * 32), ("val_kind", ctypes.c_int * 32),
+                ("how", ctypes.c_int * 32), ("val_out", ctypes.c_void_p * 32),
+                ("m", ctypes.c_int)]
+
+
+def grouped_on_order(keys_s, val_cols, mask_s, out_capacity: int, n: int):
+    """Grouping over rows ALREADY in group order (live rows first, equal
+    keys adjacent).  Returns (out_keys, out_vals, out_mask, overflow or
+    None); ``overflow`` is a device flag only when ``out_capacity < n``."""
+    if _is_cpu(mask_s):
+        return grouped_on_order_plain(keys_s, val_cols, mask_s, out_capacity, n)
+    _require_cuda(mask_s, *keys_s, *[a for a, how in val_cols if how != AGG_COUNT])
+    k, m = len(keys_s), len(val_cols)
+    if k > 8 or m > 32:
+        raise ValueError(f"sort-path grouping takes at most 8 keys and 32 aggregates "
+                         f"(got {k}, {m})")
+    mk = _flat(mask_s)
+    if mk.shape[0] == 0:
+        raise ValueError("grouped aggregation over an empty batch")
+    dev = mk.device
+    cap = int(out_capacity)
+    keep = []  # contiguous copies whose pointers the launch reads
+    spec = _SegSpec()
+    out_keys = []
+    for j, col in enumerate(keys_s):
+        if col.dtype not in _KIND:
+            raise TypeError(f"unsupported group key dtype {col.dtype}")
+        c = _flat(col)
+        out = torch.empty(cap, dtype=col.dtype, device=dev)
+        keep.append(c)
+        out_keys.append(out)
+        spec.key[j] = c.data_ptr()
+        spec.key_kind[j] = _KIND[col.dtype]
+        spec.key_out[j] = _flat(out).data_ptr()
+    spec.k = k
+    out_vals = []
+    for a, (arr, how) in enumerate(val_cols):
+        spec.how[a] = _HOW[how]
+        if how == AGG_COUNT:
+            out = torch.empty(cap, dtype=torch.int64, device=dev)
+            spec.val_kind[a] = _KIND[torch.int64]
+        else:
+            if arr.dtype not in (torch.int32, torch.int64, torch.float32, torch.float64):
+                raise TypeError(f"sort-path {how} over {arr.dtype} has no kernel")
+            c = _flat(arr)
+            keep.append(c)
+            out = torch.empty(cap, dtype=arr.dtype, device=dev)
+            spec.val[a] = c.data_ptr()
+            spec.val_kind[a] = _KIND[arr.dtype]
+        spec.val_out[a] = out.data_ptr()
+        out_vals.append(out)
+    spec.m = m
+    out_mask = torch.empty(cap, dtype=torch.bool, device=dev)
+    num_groups = torch.empty(1, dtype=torch.int64, device=dev)
+    lib = _cuda.LIBRARIES.get("seg_agg")
+    scratch = torch.empty(lib.ab_seg_scratch_bytes(mk.shape[0]), dtype=torch.uint8, device=dev)
+    err = lib.ab_grouped_on_order(ctypes.byref(spec), _ptr(mk), mk.shape[0], cap,
+                                  _ptr(_flat(out_mask)), _ptr(num_groups), _ptr(scratch),
+                                  _stream(dev))
+    _cuda.check(err, "grouped_on_order")
+    LAUNCHES["grouped_on_order"] += 1
+    overflow = (num_groups[0] > cap) if cap < n else None
+    return out_keys, out_vals, out_mask, overflow
+
+
+# --------------------------------------------------------------------------
+# top-k (sort + limit)
+# --------------------------------------------------------------------------
+
+
+def topk_order(keys, mask, k: int) -> torch.Tensor:
+    """First k positions of the sort order (K4), as the reference
+    computes it.  The JAX package defines it and never calls it; SortExec
+    slices its own order."""
+    return sort_order(keys, mask)[:k]
+
+
+# --------------------------------------------------------------------------
+# K5-K7: joins (sorted build + binary-search probe + pair expansion)
+# --------------------------------------------------------------------------
+
+# int64 with only the sign bit set: x ^ _SIGN maps unsigned order of the
+# 64-bit hash bits onto signed int64 order (torch on the CPU cannot sort or
+# search uint64)
+_SIGN = -(1 << 63)
+
+
+def build_side_sort_plain(build_keys, build_mask):
+    """Plain twin of K5: hash, dead rows to 0xFFFF...FFFF, stable sort of
+    the sign-flipped hashes."""
+    h = hash64_plain(build_keys)
+    h = torch.where(build_mask, h, torch.full((), -1, dtype=torch.int64, device=h.device))
+    order = torch.sort(h ^ _SIGN, stable=True).indices
+    return h[order], order.to(torch.int32), build_mask.sum()
+
+
+def build_side_sort(build_keys: List[torch.Tensor], build_mask: torch.Tensor):
+    """Sort the build side by its 64-bit key hash (int64 bits; dead rows
+    carry 0xFFFF...FFFF and sort last).  Returns (hash_sorted, order:
+    int32 stable permutation, live row count)."""
+    if _is_cpu(build_mask):
+        return build_side_sort_plain(build_keys, build_mask)
+    _require_cuda(build_mask, *build_keys)
+    cols, ptrs, kinds = _hash_columns(build_keys)
+    m = _flat(build_mask)
+    n = m.shape[0]
+    if n == 0:
+        raise ValueError("build_side_sort over an empty batch")
+    dev = m.device
+    hash_out = torch.empty(n, dtype=torch.int64, device=dev)
+    order = torch.empty(n, dtype=torch.int32, device=dev)
+    n_live = torch.empty(1, dtype=torch.int64, device=dev)
+    lib = _cuda.LIBRARIES.get("join_build")
+    scratch = torch.empty(lib.ab_build_scratch_bytes(n), dtype=torch.uint8, device=dev)
+    err = lib.ab_build_side_sort(ptrs, kinds, len(cols), _ptr(m), n,
+                                 int(force_hash_collisions()), _ptr(hash_out), _ptr(order),
+                                 _ptr(n_live), _ptr(scratch), _stream(dev))
+    _cuda.check(err, "build_side_sort")
+    LAUNCHES["build_side_sort"] += 1
+    return hash_out, order, n_live[0]
+
+
+def probe_counts_plain(probe_hash, probe_mask, build_hash_sorted):
+    """Plain twin of K6's count step: (lo, count, inclusive offsets,
+    total), lo and count as int64."""
+    b = build_hash_sorted ^ _SIGN
+    p = probe_hash ^ _SIGN
+    lo = torch.searchsorted(b, p, side="left")
+    hi = torch.searchsorted(b, p, side="right")
+    count = torch.where(probe_mask, hi - lo, 0)
+    offsets = torch.cumsum(count, 0)
+    return lo, count, offsets, offsets[-1]
+
+
+def _probe_counts_launch(probe_hash, probe_mask, build_hash_sorted):
+    _require_cuda(probe_hash, probe_mask, build_hash_sorted)
+    if probe_hash.dtype != torch.int64 or build_hash_sorted.dtype != torch.int64:
+        raise TypeError("probe and build hashes travel as int64 bits")
+    ph, pm, bh = _flat(probe_hash), _flat(probe_mask), _flat(build_hash_sorted)
+    n = ph.shape[0]
+    if n == 0:
+        raise ValueError("probe over an empty batch")
+    dev = ph.device
+    lo = torch.empty(n, dtype=torch.int32, device=dev)
+    count = torch.empty(n, dtype=torch.int64, device=dev)
+    offsets = torch.empty(n, dtype=torch.int64, device=dev)
+    total = torch.empty(1, dtype=torch.int64, device=dev)
+    lib = _cuda.LIBRARIES.get("probe")
+    scratch = torch.empty(lib.ab_probe_scratch_bytes(n), dtype=torch.uint8, device=dev)
+    _cuda.check(lib.ab_probe_counts(_ptr(ph), _ptr(pm), n, _ptr(bh), bh.shape[0], _ptr(lo),
+                                    _ptr(count), _ptr(offsets), _ptr(total), _ptr(scratch),
+                                    _stream(dev)), "probe_counts")
+    return lib, lo, count, offsets, total
+
+
+def probe_counts(probe_hash, probe_mask, build_hash_sorted):
+    """Candidate pairs per probe row against the sorted build hashes:
+    (lo, count, inclusive offsets, total).  JoinExec's count passes read
+    the total, and per-window counts from the offsets at window edges."""
+    if _is_cpu(probe_hash):
+        return probe_counts_plain(probe_hash, probe_mask, build_hash_sorted)
+    _lib, lo, count, offsets, total = _probe_counts_launch(probe_hash, probe_mask,
+                                                           build_hash_sorted)
+    LAUNCHES["probe_join"] += 1
+    return lo, count, offsets, total[0]
+
+
+def probe_join_plain(probe_hash, probe_mask, build_hash_sorted, out_capacity: int):
+    """Plain twin of K6 (the reference's formulation): pair slot j belongs
+    to the first probe row whose inclusive offset exceeds j."""
+    lo, count, offsets, total = probe_counts_plain(probe_hash, probe_mask, build_hash_sorted)
+    starts = offsets - count
+    j = torch.arange(out_capacity, device=probe_hash.device)
+    probe_idx = torch.clamp(torch.searchsorted(offsets, j, side="right"), 0,
+                            probe_hash.shape[0] - 1)
+    k = j - starts[probe_idx]
+    build_pos = lo[probe_idx] + k
+    pair_valid = (j < total) & (k >= 0) & (k < count[probe_idx])
+    build_pos = torch.clamp(build_pos, 0, build_hash_sorted.shape[0] - 1)
+    return probe_idx.to(torch.int32), build_pos.to(torch.int32), pair_valid, total
+
+
+def probe_join(probe_hash: torch.Tensor, probe_mask: torch.Tensor,
+               build_hash_sorted: torch.Tensor, out_capacity: int):
+    """Match probe rows against the sorted build hashes.
+
+    Returns (probe_idx: int32, build_pos: int32 position in the *sorted*
+    build, pair_valid, total pairs).  Slots at or past the total are
+    invalid.  Callers MUST verify real key equality afterwards (hash
+    collisions)."""
+    if _is_cpu(probe_hash):
+        return probe_join_plain(probe_hash, probe_mask, build_hash_sorted, out_capacity)
+    lib, lo, count, offsets, total = _probe_counts_launch(probe_hash, probe_mask,
+                                                          build_hash_sorted)
+    n, nb = probe_hash.shape[0], build_hash_sorted.shape[0]
+    if nb == 0:
+        raise ValueError("probe against an empty build side")
+    dev = lo.device
+    cap = int(out_capacity)
+    probe_idx = torch.empty(cap, dtype=torch.int32, device=dev)
+    build_pos = torch.empty(cap, dtype=torch.int32, device=dev)
+    pair_valid = torch.empty(cap, dtype=torch.bool, device=dev)  # every slot is written
+    _cuda.check(lib.ab_probe_expand(_ptr(lo), _ptr(count), _ptr(offsets), _ptr(total), n, nb,
+                                    cap, _ptr(probe_idx), _ptr(build_pos),
+                                    _ptr(_flat(pair_valid)), _stream(dev)), "probe_join")
+    LAUNCHES["probe_join"] += 1
+    return probe_idx, build_pos, pair_valid, total[0]
+
+
+def segment_any_plain(values, seg_ids, num_segments: int) -> torch.Tensor:
+    """Plain twin of K7: segment_max(values as int32) > 0, out-of-range
+    ids dropped."""
+    v = values.to(torch.int32)
+    seg = seg_ids.long()
+    ok = (seg >= 0) & (seg < num_segments)
+    idx = torch.where(ok, seg, num_segments)
+    best = torch.full((num_segments + 1,), torch.iinfo(torch.int32).min, dtype=torch.int32,
+                      device=v.device).scatter_reduce_(0, idx, v, "amax", include_self=True)
+    return best[:num_segments] > 0
+
+
+def segment_any(values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Per-segment logical OR (the semi/anti/left/full join verdicts)."""
+    if _is_cpu(values):
+        return segment_any_plain(values, seg_ids, num_segments)
+    _require_cuda(values, seg_ids)
+    if values.dtype not in (torch.bool, torch.int32) or seg_ids.dtype != torch.int32:
+        raise TypeError(f"segment_any takes bool or int32 values and int32 ids, got "
+                        f"{values.dtype}, {seg_ids.dtype}")
+    v, sg = _flat(values), _flat(seg_ids)
+    dev = v.device
+    hit = torch.empty(int(num_segments), dtype=torch.bool, device=dev)
+    lib = _cuda.LIBRARIES.get("segment")
+    _cuda.check(lib.ab_segment_any(_ptr(v), _KIND[values.dtype], _ptr(sg), v.shape[0],
+                                   int(num_segments), _ptr(_flat(hit)), _stream(dev)),
+                "segment_any")
+    LAUNCHES["segment_any"] += 1
+    return hit

@@ -1,15 +1,19 @@
 """Physical operators of the slice: projection, rename, filter, grouped
-aggregate (dense path), sort, limit, coalesce.
+aggregate, join, sort, limit, coalesce.
 
 Mirrors arrow_ballista_tpu/ops/operators.py.  Each operator works on
-fixed-capacity batches with liveness masks; the grouped aggregate runs K1
-(ops/kernels.dense_group_states), the sort K4, compaction K2.  Joins are
-still to be ported (ROADMAP.md queue 1 item 9); the planner raises before
-it would build one.
+fixed-capacity batches with liveness masks.  The grouped aggregate runs K1
+(ops/kernels.dense_group_states) on a dense key domain and K4 + K8 (the
+sort path) otherwise; the join K3 + K5 (build), K3 + K6 (probe) and K7
+(semi/anti/outer verdicts); the sort K4; compaction K2.  The spilled join
+build needs the memory governor, which is not ported (ROADMAP.md queue 1
+item 11).
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -19,11 +23,41 @@ from ..models import expr as E
 from ..models.batch import ColumnBatch, concat_batches, round_capacity, upload
 from ..models.logical import expr_nullable as _expr_nullable
 from ..models.schema import BOOL, DataType, Field, INT64, Schema
+from ..utils.config import JOIN_MAX_CAPACITY, resolve_task_budget
 from ..utils.errors import CapacityError, InternalError
 from . import kernels as K
 from .expressions import Compiled, ExprCompiler
 from .physical import (ExecutionPlan, Partitioning, TaskContext, exprs_sig,
                        has_scalar_subquery, schema_sig, shared_program)
+
+
+# job-keyed weakref registry of join operators holding a materialized
+# broadcast build side; the local context clears a job's entries when the
+# job ends, so a plan kept for inspection does not pin the build table
+_build_cache_registry: Dict[str, list] = {}
+_build_cache_lock = threading.Lock()
+
+
+def _register_build_cache(job_id: str, op) -> None:
+    with _build_cache_lock:
+        _build_cache_registry.setdefault(job_id, []).append(weakref.ref(op))
+
+
+def clear_job_build_caches(job_id: str) -> None:
+    """Drop materialized broadcast build sides cached for ``job_id``."""
+    with _build_cache_lock:
+        refs = _build_cache_registry.pop(job_id, [])
+    for r in refs:
+        op = r()
+        if op is None:
+            continue
+        with op.build_lock():
+            cached = getattr(op, "_build_cache", None)
+            if cached is not None and cached[0] == job_id:
+                op._build_cache = None
+            pc = getattr(op, "_prep_cache", None)
+            if pc is not None and pc[0] == job_id:
+                op._prep_cache = None
 
 
 def _substitute_scalars(e: E.Expr, scalars: Dict[str, object]) -> E.Expr:
@@ -348,7 +382,7 @@ class HashAggregateExec(ExecutionPlan):
         with self.build_lock():
             if self._compiled is None:
                 self._compiled = self._make_compiled(ctx, in_schema)
-        return [self._execute_device(big)]
+        return [self._execute_device(big, ctx.device)]
 
     def _make_compiled(self, ctx, in_schema):
         all_exprs = [e for e, _ in self.group_exprs] + [a.operand for a in self.aggs]
@@ -430,9 +464,12 @@ class HashAggregateExec(ExecutionPlan):
                 key_ranges.append(None)
         return tuple(key_ranges)
 
-    def _execute_device(self, big: ColumnBatch) -> ColumnBatch:
+    def _execute_device(self, big: ColumnBatch, device) -> ColumnBatch:
         comp, group_c, agg_c, tracked = self._compiled
         key_ranges = self._key_ranges(group_c, big.dicts)
+        # the group count is bounded by the dense key domain when the ranges
+        # are static, else by the input capacity (the sort path): out_cap
+        # provably holds every group and the overflow flag is None
         out_cap = big.capacity
         domain = K.dense_domain(key_ranges)
         if domain is not None:
@@ -463,12 +500,411 @@ class HashAggregateExec(ExecutionPlan):
             sent = torch.full((), _py_scalar(f.dtype.null_sentinel), dtype=cols[name].dtype,
                               device=cnt.device)
             cols[name] = torch.where(cnt > 0, cols[name], sent)
-        return ColumnBatch(self._schema, cols, out_mask, dicts)
+        result = ColumnBatch(self._schema, cols, out_mask, dicts)
+        # SQL: a global aggregate ('single'/'final' with no keys) over empty
+        # input yields one row: count = 0, sum/min/max = NULL
+        if not self.group_exprs and self.mode in ("single", "final") and result.num_rows == 0:
+            data = {}
+            for a in self.aggs:
+                f = self._schema.field(a.name)
+                fill = f.dtype.null_sentinel if f.nullable else 0
+                data[a.name] = np.asarray([fill], dtype=f.dtype.np_dtype)
+            result = ColumnBatch.from_numpy(self._schema, data, dicts={}, device=device)
+        return result
 
     def _label(self):
         g = ", ".join(n for _, n in self.group_exprs)
         a = ", ".join(f"{x.func}({x.name})" for x in self.aggs)
         return f"HashAggregateExec({self.mode}): groupBy=[{g}] aggr=[{a}]"
+
+
+# --------------------------------------------------------------------------
+# join
+# --------------------------------------------------------------------------
+
+
+def _window_mask(mask: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Probe-window liveness: live AND row index in [lo, hi)."""
+    idx = torch.arange(mask.shape[0], device=mask.device)
+    return mask & (idx >= lo) & (idx < hi)
+
+
+def _mask_or(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a | b
+
+
+def window_counts(offsets: torch.Tensor, chunk_rows: int, n_windows: int) -> torch.Tensor:
+    """Candidate pairs per probe window of ``chunk_rows`` rows, from K6's
+    inclusive offsets at the window edges (no second reduction)."""
+    n = offsets.shape[0]
+    ends = torch.clamp(torch.arange(1, n_windows + 1, device=offsets.device) * chunk_rows,
+                       max=n)
+    upto = torch.cat([torch.zeros(1, dtype=offsets.dtype, device=offsets.device), offsets])
+    edge = upto[ends]  # pairs of the rows before each window's end
+    return torch.diff(edge, prepend=torch.zeros(1, dtype=edge.dtype, device=edge.device))
+
+
+class JoinExec(ExecutionPlan):
+    """Equi-join: sorted build (K3 + K5) + binary-search probe (K6) +
+    fixed-capacity pair expansion.  Probe = left child, build = right child.
+
+    ``dist``: 'partitioned' (both children hash-partitioned on the keys;
+    the planner inserts the exchanges) or 'broadcast' (the build side read
+    whole by every probe partition, materialized once per job).
+
+    Hash collisions cannot corrupt results: real key equality is
+    re-verified on every candidate pair."""
+
+    def __init__(self, left: ExecutionPlan, right: ExecutionPlan,
+                 on: List[Tuple[E.Expr, E.Expr]], join_type: str = "inner",
+                 filter: Optional[E.Expr] = None, dist: str = "partitioned"):
+        if join_type not in ("inner", "left", "full", "semi", "anti"):
+            raise InternalError(f"unknown join type {join_type!r}")
+        if dist not in ("partitioned", "broadcast"):
+            raise InternalError(f"unknown join distribution {dist!r}")
+        # a broadcast full join would emit each unmatched build row once per
+        # probe partition: the planner uses the partitioned path instead
+        if join_type == "full" and dist == "broadcast":
+            raise InternalError("a full join cannot broadcast its build side")
+        self.left = left
+        self.right = right
+        self.on = on
+        self.join_type = join_type
+        self.filter = filter
+        self.dist = dist
+        if join_type in ("semi", "anti"):
+            self._schema = left.schema
+        elif join_type == "left":
+            self._schema = Schema(
+                list(left.schema)
+                + [Field(f.name, f.dtype, nullable=True) for f in right.schema])
+        elif join_type == "full":
+            self._schema = Schema(
+                [Field(f.name, f.dtype, nullable=True) for f in left.schema]
+                + [Field(f.name, f.dtype, nullable=True) for f in right.schema])
+        else:
+            self._schema = left.schema.merge(right.schema)
+        self._compiled = None
+
+    def children(self):
+        return [self.left, self.right]
+
+    def output_partition_count(self):
+        return self.left.output_partition_count()
+
+    def output_partitioning(self):
+        return self.left.output_partitioning()
+
+    def execute(self, partition: int, ctx: TaskContext) -> List[ColumnBatch]:
+        with ctx.op_span(self):
+            return self._execute(partition, ctx)
+
+    def _execute(self, partition: int, ctx: TaskContext) -> List[ColumnBatch]:
+        ctx.check_cancelled()
+        probe = concat_batches(self.left.schema, self.left.execute(partition, ctx),
+                               device=ctx.device).shrink()
+        ctx.check_cancelled()
+        if self.dist == "broadcast":
+            # materialize the build side once per job: every probe partition
+            # shares this operator, and re-running the build subtree per
+            # partition would multiply its scans by the partition count
+            with self.build_lock():
+                cached = getattr(self, "_build_cache", None)
+                if cached is None or cached[0] != ctx.job_id:
+                    build_parts = []
+                    for p in range(self.right.output_partition_count()):
+                        build_parts.extend(self.right.execute(p, ctx))
+                    build = concat_batches(self.right.schema, build_parts,
+                                           device=ctx.device).shrink()
+                    cached = (ctx.job_id, build)
+                    self._build_cache = cached
+                    _register_build_cache(ctx.job_id, self)
+                build = cached[1]
+        else:
+            bparts = self.right.execute(partition, ctx)
+            if getattr(ctx, "governor", None) is not None:
+                # where the reference's memory governor may deny the build
+                # reservation and route to the spilled build
+                raise NotImplementedError(
+                    "the memory governor and the spilled join build are not ported yet "
+                    "(ROADMAP.md queue 1 item 11)")
+            build = concat_batches(self.right.schema, bparts, device=ctx.device).shrink()
+
+        lsch, rsch = self.left.schema, self.right.schema
+        with self.build_lock():
+            self._ensure_compiled(ctx, lsch, rsch)
+        return self._join_device(ctx, probe, build)
+
+    def _ensure_compiled(self, ctx, lsch, rsch):
+        if self._compiled is None:
+            join_exprs = [e for pair in self.on for e in pair] + [self.filter]
+            if not has_scalar_subquery(*join_exprs):
+                key = ("join", self.join_type, self.dist, str(ctx.device),
+                       schema_sig(lsch), schema_sig(rsch),
+                       schema_sig(self._schema), exprs_sig(join_exprs))
+                self._compiled = shared_program(
+                    key, lambda: self._build_join(ctx, lsch, rsch))
+            else:
+                self._compiled = self._build_join(ctx, lsch, rsch)
+
+    def _build_join(self, ctx, lsch, rsch):
+        dev = ctx.device
+        lcomp = ExprCompiler(lsch, "device", dev)
+        rcomp = ExprCompiler(rsch, "device", dev)
+        lkeys = [lcomp.compile_key(le) for le, _ in self.on]
+        rkeys = [rcomp.compile_key(re_) for _, re_ in self.on]
+        # NULL join keys never match (string keys through NULL_KEY_SENTINEL,
+        # numeric nullable keys through their validity)
+        lkey_valid = [lcomp.validity_fn(lcomp.nullable_refs(le)) for le, _ in self.on]
+        rkey_valid = [rcomp.validity_fn(rcomp.nullable_refs(re_)) for _, re_ in self.on]
+        fcomp = fpred = None
+        if self.filter is not None:
+            fcomp = ExprCompiler(lsch.merge(rsch), "device", dev)
+            fpred = fcomp.compile_pred(_substitute_scalars(self.filter, ctx.scalars))
+
+        jt = self.join_type
+        lnames = [f.name for f in lsch]
+        rnames = [f.name for f in rsch]
+        rfill = {f.name: _py_scalar(f.dtype.null_sentinel) for f in rsch}
+        lfill = {f.name: _py_scalar(f.dtype.null_sentinel) for f in lsch}
+        # the pair filter gathers only the columns it references
+        fnames = self.filter.column_refs() if self.filter is not None else set()
+        null_key = K._s64(int(ExprCompiler.NULL_KEY_SENTINEL))
+
+        def key_arrays(compiled, cols, aux, n):
+            return [_full_column(c.fn(cols, aux), n) for c in compiled]
+
+        def prep_fn(bcols, bmask, raux):
+            # build-side hash + sort, once per broadcast build (cached)
+            bk = key_arrays(rkeys, bcols, raux, bmask.shape[0])
+            bh_sorted, border, _ = K.build_side_sort(bk, bmask)
+            return bh_sorted, border
+
+        def join_fn(pcols, pmask, bcols, bmask, bh_sorted, border, laux, raux, faux, out_cap):
+            n_probe, n_build = pmask.shape[0], bmask.shape[0]
+            pk = key_arrays(lkeys, pcols, laux, n_probe)
+            bk = key_arrays(rkeys, bcols, raux, n_build)
+            ph = K.hash64(pk)
+            pi, bp, pair_valid, total = K.probe_join(ph, pmask, bh_sorted, out_cap)
+            bidx = border[bp.long()]
+            pil, bil = pi.long(), bidx.long()
+            # verify real key equality (hash collisions) + build liveness;
+            # string keys are value hashes: the NULL sentinel never matches
+            ok = pair_valid & bmask[bil]
+            for i, (a, b) in enumerate(zip(pk, bk)):
+                ok = ok & (a[pil] == b[bil])
+                if lkeys[i].dtype.is_string:
+                    ok = ok & (a[pil] != null_key)
+                if lkey_valid[i] is not None:
+                    ok = ok & lkey_valid[i](pcols, laux)[pil]
+                if rkey_valid[i] is not None:
+                    ok = ok & rkey_valid[i](bcols, raux)[bil]
+            if fpred is not None:
+                pair_cols = {n: pcols[n][pil] for n in lnames if n in fnames}
+                pair_cols.update({n: bcols[n][bil] for n in rnames if n in fnames})
+                ok = ok & _full_column(fpred.fn(pair_cols, faux), out_cap)
+
+            if jt in ("semi", "anti"):
+                hit = K.segment_any(ok, pi, n_probe)
+                return pcols, pmask & (hit if jt == "semi" else ~hit), total
+
+            # the output-column gathers are data movement (index_select)
+            out_cols = {n: pcols[n][pil] for n in lnames}
+            out_cols.update({n: bcols[n][bil] for n in rnames})
+            out_mask = ok
+            if jt in ("left", "full"):
+                # unmatched probe rows, build side NULL-filled
+                hit = K.segment_any(ok, pi, n_probe)
+                out_cols = {n: torch.cat([v, pcols[n] if n in lnames else torch.full(
+                    (n_probe,), rfill[n], dtype=v.dtype, device=v.device)])
+                    for n, v in out_cols.items()}
+                out_mask = torch.cat([out_mask, pmask & ~hit])
+            if jt == "full":
+                # unmatched build rows, probe side NULL-filled
+                hit_b = K.segment_any(ok, bidx, n_build)
+                out_cols = {n: torch.cat([v, bcols[n] if n in rnames else torch.full(
+                    (n_build,), lfill[n], dtype=v.dtype, device=v.device)])
+                    for n, v in out_cols.items()}
+                out_mask = torch.cat([out_mask, bmask & ~hit_b])
+            return out_cols, out_mask, total
+
+        def count_fn(pcols, pmask, bh_sorted, laux):
+            # candidate-pair total only: K3 + K6's count step, no gathers
+            ph = K.hash64(key_arrays(lkeys, pcols, laux, pmask.shape[0]))
+            return K.probe_counts(ph, pmask, bh_sorted)[3]
+
+        def wcount_fn(pcols, pmask, bh_sorted, laux, chunk_rows, n_windows):
+            # per-window candidate counts for the budget-windowed probe, in
+            # one pass and one host transfer
+            ph = K.hash64(key_arrays(lkeys, pcols, laux, pmask.shape[0]))
+            offsets = K.probe_counts(ph, pmask, bh_sorted)[2]
+            return window_counts(offsets, chunk_rows, n_windows)
+
+        return lcomp, rcomp, fcomp, join_fn, count_fn, prep_fn, wcount_fn
+
+    def _out_row_bytes(self) -> int:
+        return self._schema.row_byte_width()
+
+    def _join_device(self, ctx, probe: ColumnBatch, build: ColumnBatch) -> List[ColumnBatch]:
+        lcomp, rcomp, fcomp, jfn, cfn, pfn, _ = self._compiled
+        laux = lcomp.aux_arrays(probe.dicts)
+        raux = rcomp.aux_arrays(build.dicts)
+        faux = fcomp.aux_arrays({**probe.dicts, **build.dicts}) if fcomp is not None else {}
+
+        with self.metrics().timer("join_time"):
+            # build-side hash + sort, computed once per broadcast build and
+            # shared by every probe partition; partitioned builds prep inline
+            prep = None
+            if self.dist == "broadcast":
+                pc = getattr(self, "_prep_cache", None)
+                if pc is not None and pc[0] == ctx.job_id and pc[1] is build:
+                    prep = pc[2]
+            if prep is None:
+                prep = pfn(build.columns, build.mask, raux)
+                if self.dist == "broadcast":
+                    # install only while this job's build cache is alive, so
+                    # a concurrent clear is not followed by a re-install
+                    with self.build_lock():
+                        bc = getattr(self, "_build_cache", None)
+                        if bc is not None and bc[0] == ctx.job_id:
+                            self._prep_cache = (ctx.job_id, build, prep)
+            bh_sorted, border = prep
+            # count pass -> exact candidate total -> capacity bucket: the low
+            # floor for selective joins, else a power of two of at least
+            # probe.capacity // 4, never above the configured ceiling
+            ceiling = ctx.config.get(JOIN_MAX_CAPACITY)
+            low_floor = max(64, probe.capacity // 64)
+            # capacity-bucket hint: same-shape sibling tasks of this job skip
+            # the count pass once one task found the low bucket; the total
+            # the join returns is checked below, and a miss reruns the join
+            hint_state = getattr(self, "_out_cap_hint", None)
+            hint = None
+            if hint_state is not None and hint_state[0] == ctx.job_id:
+                hint = hint_state[1].get(probe.capacity)
+            if hint is not None:
+                out_cap = hint
+            else:
+                total_est = int(cfn(probe.columns, probe.mask, bh_sorted, laux))
+                if total_est > ceiling:
+                    raise CapacityError(
+                        f"join produced {total_est} candidate pairs, above the {ceiling}-row "
+                        f"ceiling; likely an accidental near-cross join — check join keys, "
+                        f"or raise {JOIN_MAX_CAPACITY}")
+                if total_est <= low_floor:
+                    out_cap = low_floor
+                else:
+                    out_cap = max(1 << max(0, total_est - 1).bit_length(), probe.capacity // 4)
+                if out_cap > ceiling:
+                    out_cap = max(total_est, 64)
+            # memory control: when the expansion would exceed the per-task
+            # budget, probe in bounded windows instead of one allocation
+            # (inner/semi/anti only: a full join's unmatched-build pass needs
+            # every probe row's hits, a left join's miss block is
+            # probe-sized per window)
+            budget = resolve_task_budget(ctx.config, probe.device.type == "cuda")
+            windowed = (budget and self.join_type in ("inner", "semi", "anti")
+                        and probe.capacity >= 2048)
+            if windowed and out_cap * self._out_row_bytes() > budget:
+                return self._join_chunked(ctx, probe, build, bh_sorted, border,
+                                          laux, raux, faux, budget, ceiling, out_cap)
+            out_cols, out_mask, total = jfn(probe.columns, probe.mask, build.columns,
+                                            build.mask, bh_sorted, border, laux, raux, faux,
+                                            out_cap)
+            # out_cap >= the counted total by construction; a hinted bucket
+            # may be too small, and then the join reruns at the size it needs
+            if int(total) > out_cap:
+                need = 1 << (int(total) - 1).bit_length()
+                if need > ceiling:
+                    raise CapacityError(
+                        f"join produced {int(total)} candidate pairs, above the "
+                        f"{ceiling}-row ceiling; raise {JOIN_MAX_CAPACITY}")
+                if windowed and need * self._out_row_bytes() > budget:
+                    return self._join_chunked(ctx, probe, build, bh_sorted, border,
+                                              laux, raux, faux, budget, ceiling, need)
+                self.metrics().add("capacity_recompiles", 1)
+                out_cols, out_mask, total = jfn(probe.columns, probe.mask, build.columns,
+                                                build.mask, bh_sorted, border, laux, raux,
+                                                faux, need)
+                out_cap = need
+            if out_cap == low_floor:
+                # latch only the selective low bucket (job-scoped)
+                hint_state = getattr(self, "_out_cap_hint", None)
+                if hint_state is None or hint_state[0] != ctx.job_id:
+                    self._out_cap_hint = hint_state = (ctx.job_id, {})
+                hint_state[1][probe.capacity] = out_cap
+
+        dicts = dict(probe.dicts)
+        if self.join_type in ("inner", "left", "full"):
+            dicts.update(build.dicts)
+        return [ColumnBatch(self._schema, dict(out_cols), out_mask, dicts)]
+
+    def _join_chunked(self, ctx, probe, build, bh_sorted, border, laux, raux, faux,
+                      budget: int, ceiling: int, planned_cap: int) -> List[ColumnBatch]:
+        """Bounded-footprint probe loop: the probe is windowed by row-range
+        masks and each window's expansion is sized by its own count.  Exact
+        for inner/semi/anti: a probe row's matches depend only on that row
+        and the build side.  Semi/anti windows OR their verdict masks into
+        one output batch; inner windows each emit a batch."""
+        lcomp, rcomp, fcomp, jfn, cfn, pfn, wcfn = self._compiled
+        cap = probe.capacity
+        width = self._out_row_bytes()
+        want = max(1, -(-planned_cap * width // budget))
+        chunks = 1 << (want - 1).bit_length()
+        chunks = min(chunks, max(1, cap // 1024))
+        chunk_rows = -(-cap // chunks)
+        # windows whose counts fit half the budget share one bucket size
+        bucket_floor = 64
+        half_budget_rows = budget // (2 * width)
+        if half_budget_rows > 64:
+            bucket_floor = 1 << (half_budget_rows.bit_length() - 1)
+        bucket_floor = min(bucket_floor, max(64, chunk_rows))
+        self.metrics().add("join_probe_chunks", chunks)
+        out_batches: List[ColumnBatch] = []
+        mask_acc = None  # semi/anti: accumulated verdict mask
+        dicts = dict(probe.dicts)
+        if self.join_type == "inner":
+            dicts.update(build.dicts)
+        # all window counts in one pass and one host transfer
+        window_counts_h = K.to_host(wcfn(probe.columns, probe.mask, bh_sorted, laux,
+                                         chunk_rows, chunks))
+        grand_total = 0  # the cross-join guard sees the sum of the windows
+        for i in range(chunks):
+            ctx.check_cancelled()
+            pmask_c = _window_mask(probe.mask, i * chunk_rows, min((i + 1) * chunk_rows, cap))
+            total_c = int(window_counts_h[i])
+            grand_total += total_c
+            if grand_total > ceiling:
+                raise CapacityError(
+                    f"join produced {grand_total}+ candidate pairs, above the {ceiling}-row "
+                    f"ceiling; likely an accidental near-cross join — check join keys, or "
+                    f"raise {JOIN_MAX_CAPACITY}")
+            out_cap = max(64, 1 << max(0, total_c - 1).bit_length(), bucket_floor)
+            if out_cap > ceiling:
+                out_cap = max(total_c, 64)
+            out_cols, out_mask, total = jfn(probe.columns, pmask_c, build.columns, build.mask,
+                                            bh_sorted, border, laux, raux, faux, out_cap)
+            if int(total) > out_cap:
+                need = 1 << (int(total) - 1).bit_length()
+                if need > ceiling:
+                    raise CapacityError(
+                        f"join window produced {int(total)} candidate pairs, above the "
+                        f"{ceiling}-row ceiling; raise {JOIN_MAX_CAPACITY}")
+                self.metrics().add("capacity_recompiles", 1)
+                out_cols, out_mask, total = jfn(probe.columns, pmask_c, build.columns,
+                                                build.mask, bh_sorted, border, laux, raux,
+                                                faux, need)
+            if self.join_type in ("semi", "anti"):
+                mask_acc = out_mask if mask_acc is None else _mask_or(mask_acc, out_mask)
+            else:
+                out_batches.append(ColumnBatch(self._schema, dict(out_cols), out_mask, dicts))
+        if self.join_type in ("semi", "anti"):
+            return [ColumnBatch(self._schema, dict(probe.columns), mask_acc, dicts)]
+        return out_batches
+
+    def _label(self):
+        on = ", ".join(f"{l} = {r}" for l, r in self.on)
+        f = f" filter={self.filter}" if self.filter is not None else ""
+        return f"JoinExec({self.join_type}, {self.dist}): on=[{on}]{f}"
 
 
 # --------------------------------------------------------------------------

@@ -1,15 +1,14 @@
 """Logical plan -> physical plan with exchange (repartition) insertion.
 
 Mirrors arrow_ballista_tpu/scheduler/physical_planner.py for the operators
-this package has: scans of in-memory tables, projection, filter, dense
-grouped aggregation (partial -> hash repartition -> final), sort and
+this package has: scans of in-memory tables, projection, filter, grouped
+aggregation (partial -> hash repartition -> final), joins (broadcast or
+partitioned, inner chains reordered by estimated build size), sort and
 limit.  Plans that need an operator not ported yet raise
-NotImplementedError at plan time, naming the ROADMAP.md item:
-
-- joins (queue 1 item 9; hash join kernels are queue 2 items 14-15);
-- the mesh exchange (queue 1 item 10), the clustered early-HAVING rewrite
-  (queue 1 item 9, it needs parquet statistics) and the distributed stage
-  split behind EXPLAIN VERBOSE (queue 1 item 8).
+NotImplementedError at plan time, naming the ROADMAP.md item: the mesh
+exchange (queue 1 item 10), the clustered early-HAVING rewrite (queue 1
+item 9, it needs parquet statistics) and the distributed stage split
+behind EXPLAIN VERBOSE (queue 1 item 8).
 
 Projections producing float64 (division) run host-side, as in the
 reference.
@@ -25,7 +24,8 @@ from ..models import logical as L
 from ..ops import operators as O
 from ..ops.physical import ExecutionPlan, Partitioning
 from ..ops.shuffle import RepartitionExec
-from ..utils.config import MESH_SHUFFLE, BallistaConfig, resolve_task_budget
+from ..utils.config import (BROADCAST_THRESHOLD, MESH_SHUFFLE, BallistaConfig,
+                            resolve_task_budget)
 from ..utils.errors import PlanningError
 
 
@@ -154,8 +154,7 @@ class PhysicalPlanner:
             return self._plan_aggregate(agg)
 
         if isinstance(node, L.Join):
-            raise NotImplementedError(
-                "joins are not ported yet (ROADMAP.md queue 1 item 9)")
+            return self._plan_join(node)
 
         if isinstance(node, L.CrossJoin):
             raise PlanningError("cross joins are not supported yet")
@@ -239,3 +238,126 @@ class PhysicalPlanner:
         outer_groups = [(E.Column(n), n) for _, n in node.group_exprs]
         outer_aggs = [(E.Agg(a.func, E.Column(dkey)), n) for a, n in distincts]
         return L.Aggregate(inner, outer_groups, outer_aggs)
+
+    def _reorder_inner_chain(self, node: L.Join) -> L.Join:
+        """Reorder a left-deep chain of INNER equi-joins so the most
+        selective builds apply first (greedy ascending build-size estimate,
+        subject to key-column availability).  Inner joins commute; applying
+        a small filtered dimension first cuts the probe early."""
+        chain = []  # (right, on, filter) from the top down
+        cur: L.LogicalPlan = node
+        while isinstance(cur, L.Join) and cur.join_type == "inner" and cur.on:
+            chain.append((cur.right, cur.on, cur.filter))
+            cur = cur.left
+        if len(chain) < 2:
+            return node
+        base = cur
+        chain.reverse()  # original application order
+
+        def deps(on, filt, right_names):
+            refs = set()
+            for le, _re in on:
+                refs |= le.column_refs()
+            if filt is not None:
+                refs |= filt.column_refs() - right_names
+            return refs
+
+        items = []
+        for right, on, filt in chain:
+            rnames = {f.name for f in right.schema}
+            items.append({"right": right, "on": on, "filter": filt, "names": rnames,
+                          "deps": deps(on, filt, rnames), "est": self._estimate_rows(right)})
+        available = {f.name for f in base.schema}
+        order = []
+        remaining = list(items)
+        while remaining:
+            ready = [it for it in remaining if it["deps"] <= available]
+            if not ready:
+                return node  # a cross-dependency not modelled: keep SQL order
+            pick = min(ready, key=lambda it: it["est"])
+            order.append(pick)
+            available |= pick["names"]
+            remaining.remove(pick)
+        # identity comparison: logical nodes are field-less dataclasses whose
+        # generated __eq__ calls every instance equal
+        if all(a["right"] is b["right"] for a, b in zip(order, items)):
+            return node
+        out: L.LogicalPlan = base
+        for it in order:
+            out = L.Join(out, it["right"], it["on"], "inner", it["filter"])
+        return out
+
+    def _plan_join(self, node: L.Join) -> ExecutionPlan:
+        if node.join_type == "inner":
+            node = self._reorder_inner_chain(node)
+        left = self.create(node.left)
+        right = self.create(node.right)
+        on = [(self._prep_expr(l), self._prep_expr(r)) for l, r in node.on]
+        filt = self._prep_expr(node.filter) if node.filter is not None else None
+
+        # side ordering (inner joins are symmetric): when either side fits
+        # the broadcast threshold, the SMALLER side becomes the build
+        # (right), so the big probe side streams with no repartition
+        left_est = self._estimate_rows(node.left)
+        right_est = self._estimate_rows(node.right)
+        threshold = self.config.get(BROADCAST_THRESHOLD)
+        if node.join_type == "inner" and min(left_est, right_est) <= threshold \
+                and left_est < right_est:
+            left, right = right, left
+            on = [(r, l) for l, r in on]
+            left_est, right_est = right_est, left_est
+
+        if node.join_type != "full" and right_est <= threshold:
+            # full joins cannot broadcast: unmatched build rows would be
+            # emitted once per probe partition
+            right_bc = self._to_single_partition(right)
+            return O.JoinExec(left, right_bc, on, node.join_type, filt, dist="broadcast")
+
+        p = self.partitions
+        lpart = RepartitionExec(left, Partitioning.hash(tuple(l for l, _ in on), p))
+        rpart = RepartitionExec(right, Partitioning.hash(tuple(r for _, r in on), p))
+        return O.JoinExec(lpart, rpart, on, node.join_type, filt, dist="partitioned")
+
+    def _estimate_rows(self, node: L.LogicalPlan) -> int:
+        if isinstance(node, L.TableScan):
+            n = self.catalog.provider(node.table).row_count()
+            est = n if n is not None else 10_000_000
+            return max(1, est // (4 if node.filters else 1))
+        if isinstance(node, L.Filter):
+            if isinstance(node.input, L.Aggregate):
+                # HAVING over an aggregate is selective by design
+                return max(1, self._estimate_rows(node.input) // 100)
+            return max(1, self._estimate_rows(node.input) // 4)
+        if isinstance(node, (L.Projection, L.SubqueryAlias, L.Sort)):
+            return self._estimate_rows(node.input)
+        if isinstance(node, L.Limit):
+            return node.n
+        if isinstance(node, L.Aggregate):
+            return max(1, self._estimate_rows(node.input) // 8)
+        if isinstance(node, L.Distinct):
+            return self._estimate_rows(node.input)
+        if isinstance(node, L.Join):
+            if node.join_type == "semi":
+                # bounded by the left side; 1% match selectivity is the
+                # working guess for IN/EXISTS over selective subqueries
+                return max(1, self._estimate_rows(node.left) // 100)
+            if node.join_type == "anti":
+                return self._estimate_rows(node.left)
+            if node.join_type == "full":
+                return self._estimate_rows(node.left) + self._estimate_rows(node.right)
+            # inner/left equi-joins in analytic schemas are key-FK: trust the
+            # small side only when it is decisively small (a quarter of the
+            # broadcast threshold), else the larger side
+            left_e = self._estimate_rows(node.left)
+            right_e = self._estimate_rows(node.right)
+            decisive = self.config.get(BROADCAST_THRESHOLD) // 4
+            est = max(left_e, right_e)
+            if min(left_e, right_e) <= decisive:
+                est = min(left_e, right_e)
+            if node.join_type == "left":
+                # every left row is emitted at least once
+                est = max(est, left_e)
+            return est
+        if isinstance(node, L.CrossJoin):
+            return self._estimate_rows(node.left) * self._estimate_rows(node.right)
+        return 10_000_000

@@ -20,6 +20,10 @@ MEM_TASK_BUDGET = "ballista.memory.task.budget.bytes"
 # ICI all-to-all exchange in the reference; the planner raises when it is on
 # (ROADMAP.md queue 1 item 10)
 MESH_SHUFFLE = "ballista.shuffle.mesh"
+# rows; join build sides estimated at or under it are broadcast (no shuffle)
+BROADCAST_THRESHOLD = "ballista.join.broadcast_threshold"
+# ceiling on a join's candidate pairs (CapacityError above it)
+JOIN_MAX_CAPACITY = "ballista.join.max_capacity"
 
 
 @dataclasses.dataclass
@@ -79,6 +83,12 @@ _ENTRIES: Dict[str, ConfigEntry] = {
         ConfigEntry(MESH_SHUFFLE, False, _parse_bool,
                     "mesh all-to-all exchange; not ported, planning raises "
                     "when it is on"),
+        ConfigEntry(BROADCAST_THRESHOLD, 4_000_000, int,
+                    "broadcast join build sides with at most this many "
+                    "estimated rows (no shuffle of either side)"),
+        ConfigEntry(JOIN_MAX_CAPACITY, 1 << 26, int,
+                    "ceiling on a join's candidate pairs (rows); above it the "
+                    "join raises CapacityError"),
     ]
 }
 

@@ -7,26 +7,39 @@ Phases (any failure exits non-zero and prints no result line):
 1. the card's name and power limit, as nvidia-smi reports them;
 2. build of the port's CUDA kernels from ``arrow_ballista_tpu_torch/csrc``
    (one nvcc per source, all started together; set-up time);
-3. the main path: TPC-H q1 at SF1 (``benchmarks.datagen``, seed 0)
-   through ``BallistaContext.local()`` -> ``sql`` -> ``to_pandas``, once
-   cold and several times warm, with every kernel's launch counter reset
-   just before the cold run and read just after it.  The inputs of each
-   kernel's largest call on that path are captured;
+3. the main paths, on the TPC-H tables at SF1 (``benchmarks.datagen``, seed
+   0, generated once) through ``BallistaContext.local()`` -> ``sql`` ->
+   ``to_pandas``: q1 (K1-K4), q3 (two broadcast inner joins and the
+   sort-path aggregate: K2-K6, K8) and q4 (a semi join and a dense
+   aggregate: K1, K5-K7).  Each path runs once cold and then warm (q1 five
+   times, q3 and q4 three), with every launch counter reset just before
+   the cold run and read just after it: each path must launch its own
+   kernels, and every tensor a kernel gets must lie on the card.  The
+   inputs of each kernel's largest call over the paths are captured;
 4. each kernel held against its plain PyTorch twin on the card: on the
-   captured main-path inputs, and at a stress shape of 6M rows (sums that
+   captured main-path inputs, and at stress shapes of 6M rows (sums that
    wrap, negative and NULL-sentinel keys; for the sort ties, desc keys,
-   bools, NaN and dead rows).  Integers exact; float64 sums at rtol 1e-12
-   (atomic summation order differs from the twin's);
-5. q1's result held against an independent numpy computation on the same
-   generated arrays: decimal sums and counts exact, averages at rtol 1e-12;
-6. times (warm): kernel, plain twin and library call at the main-path
+   bools, NaN and dead rows; for the join build and probe duplicate keys
+   with fan-out, all-dead rows, forced equal hashes and truncation at the
+   pair capacity; one segment hit by every row; for the sort-path
+   aggregate empty slots, one 6M-row group, no keys and float columns).
+   Integers exact; float sums at rtol 1e-12 (atomic summation order
+   differs from the twin's);
+5. results held against independent numpy computations on the same
+   generated arrays: q1 (decimal sums and counts exact, averages at rtol
+   1e-12), q3's top 10 and q3 without its LIMIT (every group, by
+   l_orderkey), both exact in scaled-decimal revenue, date and priority,
+   and q4's five counts, exact;
+6. times (warm): kernel, plain twin and library call at the main path's
    shapes, each as device time per call (torch.profiler: the card's own
    time for everything one call launches; where it records nothing, CUDA
    events around calls queued behind a spin kernel) and as wall time per
    call (CUDA events around back-to-back calls, host work included), with
    each kernel's least time (bytes moved at 3.35 TB/s); K1's device time
-   over 1 to 289 hot groups; q1 cold/warm wall time; the ``entry()``
-   step's rows/s at 4096 and 6M rows.
+   over 1 to 289 hot groups; each query's cold/warm wall time and profiled
+   device busy share; the device time and bytes bound of the expression
+   programs, the host packing and the batch concat/shrink on q3's path;
+   the ``entry()`` step's rows/s at 4096 and 6M rows.
 
 The second-to-last lines are the nvidia-smi line and a JSON object with one
 entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -43,7 +56,14 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 SF = 1.0
 STRESS_ROWS = 6_000_000
-WARM_RUNS = 5
+WARM_RUNS = {"q1": 5, "q3": 3, "q4": 3}
+# kernels (launch counters of ops/kernels.py) each main path must launch
+PATH_KERNELS = {
+    "q1": ("dense_group_states", "compaction_order", "hash64", "sort_order"),
+    "q3": ("compaction_order", "hash64", "sort_order", "build_side_sort", "probe_join",
+           "grouped_on_order"),
+    "q4": ("dense_group_states", "build_side_sort", "probe_join", "segment_any"),
+}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -151,12 +171,35 @@ def nbytes(*tensors) -> int:
 # --------------------------------------------------------------------------
 
 
+def _clone(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone(v) for v in x)
+    return x
+
+
+def _tensors(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
 class Capture:
     """Wraps the kernel wrappers of ops/kernels.py to keep (clones of) the
-    inputs of the largest call each one gets, and to check that every
-    tensor on the path lies on the card."""
+    arguments of the largest call each one gets, and to check that every
+    tensor handed to a kernel on the path lies on the card."""
 
-    NAMES = ("dense_group_states", "compaction_order", "bucket_of", "sort_order")
+    # wrapper -> index of the argument whose first dimension sizes the call
+    NAMES = {"dense_group_states": 2, "compaction_order": 0, "bucket_of": 0, "sort_order": 1,
+             "build_side_sort": 1, "probe_join": 0, "segment_any": 0, "grouped_on_order": 2}
+    CHECKED_ONLY = ("hash64", "probe_counts")
 
     def __init__(self, K, device):
         self.K = K
@@ -165,47 +208,25 @@ class Capture:
         self.orig = {}
         self.off_device = []
 
-    def _check(self, name, tensors):
-        for t in tensors:
-            if t.device.type != self.device.type:
-                self.off_device.append((name, str(t.device)))
-
     def __enter__(self):
-        K = self.K
-        for name in self.NAMES:
-            self.orig[name] = getattr(K, name)
-
-        def dense(key_cols, val_cols, mask, key_ranges, domain):
-            self._keep("dense_group_states", mask.shape[0],
-                       lambda: ([k.clone() for k in key_cols],
-                                [(v.clone(), h) for v, h in val_cols],
-                                mask.clone(), key_ranges, domain))
-            self._check("dense_group_states", [*key_cols, mask, *[v for v, _ in val_cols]])
-            return self.orig["dense_group_states"](key_cols, val_cols, mask, key_ranges, domain)
-
-        def compact(mask):
-            self._keep("compaction_order", mask.shape[0], lambda: (mask.clone(),))
-            self._check("compaction_order", [mask])
-            return self.orig["compaction_order"](mask)
-
-        def bucket(keys, n):
-            self._keep("bucket_of", keys[0].shape[0], lambda: ([k.clone() for k in keys], n))
-            self._check("bucket_of", keys)
-            return self.orig["bucket_of"](keys, n)
-
-        def sort(keys, mask):
-            self._keep("sort_order", mask.shape[0],
-                       lambda: ([(k.clone(), a) for k, a in keys], mask.clone()))
-            self._check("sort_order", [mask, *[k for k, _ in keys]])
-            return self.orig["sort_order"](keys, mask)
-
-        for name, fn in zip(self.NAMES, (dense, compact, bucket, sort)):
-            setattr(K, name, fn)
+        for name in (*self.NAMES, *self.CHECKED_ONLY):
+            self.orig[name] = getattr(self.K, name)
+            setattr(self.K, name, self._wrap(name, self.orig[name]))
         return self
 
-    def _keep(self, name, n, make):
-        if name not in self.calls or n > self.calls[name][0]:
-            self.calls[name] = (n, make())
+    def _wrap(self, name, fn):
+        def wrapper(*args, **kwargs):
+            for t in _tensors(args):
+                if t.device.type != self.device.type:
+                    self.off_device.append((name, str(t.device)))
+            if name in self.NAMES:
+                sized = args[self.NAMES[name]]
+                n = (sized[0] if isinstance(sized, (list, tuple)) else sized).shape[0]
+                if name not in self.calls or n > self.calls[name][0]:
+                    self.calls[name] = (n, _clone(args))
+            return fn(*args, **kwargs)
+
+        return wrapper
 
     def __exit__(self, *exc):
         for name, fn in self.orig.items():
@@ -282,6 +303,117 @@ def check_q1(ctx, sql, oracle):
     return len(rows), worst
 
 
+# --------------------------------------------------------------------------
+# q3 and q4 and their numpy oracles
+# --------------------------------------------------------------------------
+
+
+def _days(iso: str) -> int:
+    import numpy as np
+
+    return int((np.datetime64(iso) - np.datetime64("1970-01-01")).astype(int))
+
+
+def _cents(table, name):
+    import numpy as np
+
+    fl = table.column(name).cast("float64").to_numpy()
+    return np.round(fl * 100).astype(np.int64)
+
+
+def q3_oracle(tables):
+    """q3's groups by numpy on the same generated arrays: {l_orderkey:
+    (revenue as scale-4 int64, o_orderdate days, o_shippriority)}."""
+    import numpy as np
+    import pyarrow.compute as pc
+
+    cust, orders, li = tables["customer"], tables["orders"], tables["lineitem"]
+    cutoff = _days("1995-03-15")
+    building = np.zeros(int(pc.max(cust.column("c_custkey")).as_py()) + 1, dtype=bool)
+    seg = pc.equal(cust.column("c_mktsegment").cast("string"), "BUILDING").to_numpy(
+        zero_copy_only=False)
+    building[cust.column("c_custkey").to_numpy()[seg]] = True
+    okey = orders.column("o_orderkey").to_numpy()
+    odate = orders.column("o_orderdate").cast("int32").to_numpy()
+    oship = orders.column("o_shippriority").to_numpy()
+    keep_o = (odate < cutoff) & building[orders.column("o_custkey").to_numpy()]
+    size = int(max(okey.max(), li.column("l_orderkey").to_numpy().max())) + 1
+    order_ok = np.zeros(size, dtype=bool)
+    order_ok[okey[keep_o]] = True
+    date_of = np.zeros(size, dtype=np.int32)
+    date_of[okey] = odate
+    ship_of = np.zeros(size, dtype=np.int32)
+    ship_of[okey] = oship
+    lkey = li.column("l_orderkey").to_numpy()
+    keep_l = (li.column("l_shipdate").cast("int32").to_numpy() > cutoff) & order_ok[lkey]
+    rev = _cents(li, "l_extendedprice")[keep_l] * (100 - _cents(li, "l_discount")[keep_l])
+    keys, inv = np.unique(lkey[keep_l], return_inverse=True)
+    sums = np.zeros(keys.shape[0], dtype=np.int64)
+    np.add.at(sums, inv, rev)
+    return {int(k): (int(r), int(date_of[k]), int(ship_of[k])) for k, r in zip(keys, sums)}
+
+
+def q3_rows(ctx, sql):
+    """The engine's q3 rows in its physical units, in result order."""
+    rows = []
+    for b in ctx.sql(sql).collect():
+        if b.device.type != ctx.device.type:
+            fail(f"q3 result batch on {b.device}")
+        scale = b.schema.field("revenue").dtype.scale
+        if scale != 4:
+            fail(f"q3 revenue has scale {scale}, the oracle computes scale 4")
+        d = b.compacted_numpy()
+        rows.extend(zip(d["l_orderkey"].tolist(), d["revenue"].tolist(),
+                        d["o_orderdate"].tolist(), d["o_shippriority"].tolist()))
+    return rows
+
+
+def check_q3(ctx, sql, oracle):
+    """Top 10 (revenue desc, date asc) and every group without the LIMIT
+    (ordered by l_orderkey), exact."""
+    top = q3_rows(ctx, sql)
+    want_top = sorted(oracle.items(), key=lambda kv: (-kv[1][0], kv[1][1], kv[0]))[:10]
+    # rows tied in (revenue, date) may come in either order: compare the
+    # order of the sort keys and the set of rows
+    if [(r, d) for _, r, d, _ in top] != [(v[0], v[1]) for _, v in want_top] or \
+            sorted(top) != sorted((k, *v) for k, v in want_top):
+        fail(f"q3 top 10 differs from the numpy oracle:\n{top}\n{want_top}")
+    every = q3_rows(ctx, sql.split("order by")[0] + " order by l_orderkey")
+    want = [(k, *oracle[k]) for k in sorted(oracle)]
+    if every != want:
+        bad = next(i for i, (a, b) in enumerate(zip(every + [None] * len(want), want)) if a != b)
+        fail(f"q3 groups differ from the numpy oracle: {len(every)} vs {len(want)} groups, "
+             f"first difference at {bad}: {every[bad] if bad < len(every) else None} vs "
+             f"{want[bad]}")
+    return len(every)
+
+
+def q4_oracle(tables):
+    """q4 by numpy: {o_orderpriority: count}."""
+    import numpy as np
+
+    orders, li = tables["orders"], tables["lineitem"]
+    lkey = li.column("l_orderkey").to_numpy()
+    late = li.column("l_commitdate").cast("int32").to_numpy() < \
+        li.column("l_receiptdate").cast("int32").to_numpy()
+    okey = orders.column("o_orderkey").to_numpy()
+    has = np.zeros(int(max(okey.max(), lkey.max())) + 1, dtype=bool)
+    has[lkey[late]] = True
+    odate = orders.column("o_orderdate").cast("int32").to_numpy()
+    keep = (odate >= _days("1993-07-01")) & (odate < _days("1993-10-01")) & has[okey]
+    prio = np.asarray(orders.column("o_orderpriority").cast("string").to_pylist(), dtype=object)
+    names, counts = np.unique(prio[keep], return_counts=True)
+    return {str(n): int(c) for n, c in zip(names, counts)}
+
+
+def check_q4(ctx, sql, oracle):
+    df = ctx.sql(sql).to_pandas()
+    got = {str(p): int(c) for p, c in zip(df["o_orderpriority"], df["order_count"])}
+    if list(df["o_orderpriority"]) != sorted(oracle) or got != oracle:
+        fail(f"q4 differs from the numpy oracle: {got} vs {oracle}")
+    return got
+
+
 def plan_breakdown(plan, indent=0):
     """Per-operator host wall times of the last query (children included
     in a parent's elapsed_time), one line per operator."""
@@ -293,9 +425,9 @@ def plan_breakdown(plan, indent=0):
     return lines
 
 
-def profile_q1(ctx, sql):
-    """One warm q1 under torch.profiler: device time by kernel name and the
-    device's busy share of the wall time."""
+def profile_query(ctx, sql, label):
+    """One warm query under torch.profiler: device time by kernel name and
+    the device's busy share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -307,12 +439,134 @@ def profile_q1(ctx, sql):
     rows = device_rows(prof)
     busy_ms = sum(r[0] for r in rows)
     if not rows:
-        log("profile: no device time recorded (device busy share not measured)")
-        return
-    log(f"profile q1 (warm, profiled): wall {wall_ms:.1f} ms, device busy {busy_ms:.2f} ms "
+        log(f"profile {label}: no device time recorded (device busy share not measured)")
+        return None
+    log(f"profile {label} (warm, profiled): wall {wall_ms:.1f} ms, device busy {busy_ms:.2f} ms "
         f"= {busy_ms / wall_ms:.4f} of wall (idle share {1 - busy_ms / wall_ms:.4f})")
     for dev_ms, count, key in rows[:15]:
         log(f"  device {dev_ms:9.3f} ms  x{count:<5d} {key[:100]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "busy_share": busy_ms / wall_ms}
+
+
+def profile_programs(ctx, sql, device):
+    """Rows 5-7 of the kernel table on one warm run of ``sql``: the
+    expression programs (every compiled expression's fn), the host packing
+    (kernels.pack_for_host) and the batch concat and shrink, each inside a
+    torch.profiler range.  Returns {row: (device ms per query, bytes the
+    calls must move, calls)}; device ms is None where the profiler gives
+    none.  Bytes: expressions read their referenced columns and write
+    their result; the packing reads the mask and ``target`` rows of each
+    column and writes its buffers; a concat of several batches reads and
+    writes its output once each; a shrink reads the mask and moves the
+    kept rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from arrow_ballista_tpu_torch.models import batch as B
+    from arrow_ballista_tpu_torch.ops import expressions as X
+    from arrow_ballista_tpu_torch.ops import kernels as K
+    from arrow_ballista_tpu_torch.ops import operators as O
+    from arrow_ballista_tpu_torch.ops import physical as P
+
+    names = {"expr": "ab.row5.expressions", "pack": "ab.row6.pack_for_host",
+             "concat": "ab.row7.concat_shrink"}
+    moved = {k: 0 for k in names}
+    calls = {k: 0 for k in names}
+    active = [False]
+
+    def cuda_bytes(ts):
+        return sum(nbytes(t) for t in ts if isinstance(t, torch.Tensor) and t.is_cuda)
+
+    def account(row, b):
+        if active[0]:
+            moved[row] += b
+            calls[row] += 1
+
+    def wrap_compiled(c, refs):
+        fn = c.fn
+
+        def run(cols, aux):
+            with record_function(names["expr"]):
+                out = fn(cols, aux)
+            if isinstance(out, torch.Tensor) and out.is_cuda:
+                account("expr", nbytes(out) + cuda_bytes([cols[n] for n in refs if n in cols]))
+            return out
+
+        return X.Compiled(run, c.dtype, c.dict_fn, c.lit_value)
+
+    orig = {"compile": X.ExprCompiler.compile, "compile_pred": X.ExprCompiler.compile_pred,
+            "pack": K.pack_for_host, "concat": O.concat_batches, "shrink": B.ColumnBatch.shrink}
+
+    def compile_(self, expr):
+        return wrap_compiled(orig["compile"](self, expr), expr.column_refs())
+
+    def compile_pred(self, expr):
+        return wrap_compiled(orig["compile_pred"](self, expr), expr.column_refs())
+
+    def pack(cols, mask, target, namesi64, namesf64, names32):
+        with record_function(names["pack"]):
+            buf, fbuf = orig["pack"](cols, mask, target, namesi64, namesf64, names32)
+        read = sum(cols[k].element_size() * min(target, cols[k].shape[0])
+                   for k in (*namesi64, *namesf64, *names32))
+        account("pack", nbytes(mask) + read + cuda_bytes([buf, fbuf]))
+        return buf, fbuf
+
+    def concat(schema, batches, capacity=None, device=None):
+        batches = list(batches)
+        with record_function(names["concat"]):
+            out = orig["concat"](schema, batches, capacity=capacity, device=device)
+        if len(batches) > 1:
+            account("concat", 2 * cuda_bytes([*out.columns.values(), out.mask]))
+        return out
+
+    def shrink(self):
+        with record_function(names["concat"]):
+            out = orig["shrink"](self)
+        if out is not self:
+            account("concat", nbytes(self.mask) + 2 * cuda_bytes(out.columns.values()))
+        return out
+
+    X.ExprCompiler.compile, X.ExprCompiler.compile_pred = compile_, compile_pred
+    K.pack_for_host, O.concat_batches, B.ColumnBatch.shrink = pack, concat, shrink
+    try:
+        P._program_cache.clear()  # rebuild the shared closures through the wrappers
+        ctx.sql(sql).to_pandas()
+        torch.cuda.synchronize()
+        active[0] = True
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ctx.sql(sql).to_pandas()
+            torch.cuda.synchronize()
+        active[0] = False
+    finally:
+        X.ExprCompiler.compile, X.ExprCompiler.compile_pred = orig["compile"], orig["compile_pred"]
+        K.pack_for_host, O.concat_batches, B.ColumnBatch.shrink = \
+            orig["pack"], orig["concat"], orig["shrink"]
+        P._program_cache.clear()
+    out = {row: (range_device_ms(prof, label), moved[row], calls[row])
+           for row, label in names.items()}
+    # the ranges' own device-timeline rows are spans, not work: left out
+    out["whole query"] = (sum(r[0] for r in device_rows(prof) if r[2] not in names.values()),
+                          0, 1)
+    return out
+
+
+def range_device_ms(prof, label):
+    """Device time of the kernels and copies launched inside the host-side
+    profiler ranges named ``label`` (outermost ranges only), in ms; None
+    when the profiler attributes none.  The ranges' device-timeline spans
+    are left out: they include the card's idle gaps between launches."""
+    import torch
+
+    total_us = 0.0
+    for ev in prof.events():
+        if ev.name != label or ev.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        parent = ev.cpu_parent
+        while parent is not None and parent.name != label:
+            parent = parent.cpu_parent
+        if parent is None:
+            total_us += ev.device_time_total
+    return total_us / 1000 if total_us else None
 
 
 # --------------------------------------------------------------------------
@@ -353,7 +607,7 @@ def dense_check(K, args):
     return err
 
 
-def stress_inputs(device, n, seed=1):
+def stress_inputs(K, device, n, seed=1):
     """6M-row stress inputs for each kernel, made from a seed with numpy."""
     import numpy as np
     import torch
@@ -392,7 +646,82 @@ def stress_inputs(device, n, seed=1):
         "compaction_order": [(mask,)],
         "bucket_of": [(hash_keys, 16), (hash_keys, 7)],
         "sort_order": [(sort_keys, mask)],
+        **join_stress(K, t, rng, n),
+        "grouped_on_order": seg_agg_stress(t, rng, n),
     }
+
+
+def join_stress(K, t, rng, n):
+    """K5, K6 and K7 stress inputs: duplicate keys with fan-out (about 3
+    live build rows a key), all-dead build rows, and pair capacities that
+    truncate the total and that leave dead slots; one segment hit by every
+    row, and signed int32 values with out-of-range segment ids."""
+    import numpy as np
+    import torch
+
+    bkeys = [t(rng.integers(0, n // 6, n).astype(np.int64)), t(rng.integers(0, 2, n).astype(np.int32))]
+    bmask = t(rng.random(n) < 0.9)
+    dead = torch.zeros_like(bmask)
+    pkeys = [t(rng.integers(0, n // 5, n).astype(np.int64)), t(rng.integers(0, 2, n).astype(np.int32))]
+    pmask = t(rng.random(n) < 0.8)
+    ph = K.hash64_plain(pkeys)
+    probes = []
+    for mask in (bmask, dead):
+        bh = K.build_side_sort_plain(bkeys, mask)[0]
+        total = int(K.probe_counts_plain(ph, pmask, bh)[3])
+        for cap in sorted({max(64, total // 2), total + 1000}):
+            probes.append((ph, pmask, bh, cap))
+    ns = 1 << 20
+    return {
+        "build_side_sort": [(bkeys, bmask), (bkeys, dead)],
+        "probe_join": probes,
+        "segment_any": [(torch.ones(n, dtype=torch.bool, device=bmask.device),
+                         torch.full((n,), ns // 2, dtype=torch.int32, device=bmask.device), ns),
+                        (t(rng.integers(-3, 3, n).astype(np.int32)),
+                         t(rng.integers(-5, ns + 5, n).astype(np.int32)), ns)],
+    }
+
+
+def forced_collision_inputs(K, device, n, seed=2):
+    """Build and probe under forced equal hashes (every live hash 0): call
+    with kernels._FORCE_COLLISIONS set.  A 4096-row probe against n build
+    rows: every live probe row matches every live build row, far past the
+    2^20 pair slots."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    bkeys = [torch.from_numpy(rng.integers(0, 1000, n).astype(np.int64)).to(device)]
+    bmask = torch.from_numpy(rng.random(n) < 0.9).to(device)
+    pkeys = [torch.from_numpy(rng.integers(0, 1000, 4096).astype(np.int64)).to(device)]
+    pmask = torch.from_numpy(rng.random(4096) < 0.8).to(device)
+    bh = K.build_side_sort_plain(bkeys, bmask)[0]
+    return {"build_side_sort": (bkeys, bmask),
+            "probe_join": (K.hash64_plain(pkeys), pmask, bh, 1 << 20)}
+
+
+def seg_agg_stress(t, rng, n):
+    """K8 inputs in group order: many small groups (sums that wrap, every
+    value type, empty slots past the groups), one n-row group, no keys, and
+    a capacity below the group count (overflow)."""
+    import numpy as np
+
+    keys = [t(np.sort(rng.integers(0, n // 4, n)).astype(np.int64))]
+    mask = t(rng.random(n) < 0.9)
+    quarter = t((rng.integers(-256, 256, n) / 4).astype(np.float32))  # small groups: exact sums
+    pos = t(rng.random(n) * 100)  # positive: float64 sums without cancellation
+    i64 = t(rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64))
+    i32 = t(rng.integers(-1000, 1000, n).astype(np.int32))
+    wrap = t(rng.integers(2**61, 2**62, n).astype(np.int64))
+    count = t(np.zeros(n, np.int64))
+    many = [(wrap, "sum"), (count, "count"), (i64, "min"), (i64, "max"), (i32, "sum"),
+            (i32, "min"), (i32, "max"), (pos, "sum"), (pos, "min"), (quarter, "sum"),
+            (quarter, "max")]
+    one = [t(np.full(n, 7, np.int64))]
+    return [(keys, many, mask, n, n),
+            (one, [(wrap, "sum"), (count, "count"), (pos, "sum"), (i64, "min")], mask, n, n),
+            ([], [(wrap, "sum"), (count, "count"), (pos, "max"), (i32, "min")], mask, n, n),
+            (keys, many[:2], mask, 100_000, n)]
 
 
 def check_kernel(K, name, args):
@@ -406,6 +735,33 @@ def check_kernel(K, name, args):
         return max(err, max_err(K.hash64(keys), K.hash64_plain(keys)))
     if name == "sort_order":
         return max_err(K.sort_order(*args), K.sort_order_plain(*args))
+    if name == "build_side_sort":
+        got, want = K.build_side_sort(*args), K.build_side_sort_plain(*args)
+        err = max_err(got[0], want[0]) + max_err(got[1], want[1])
+        if int(got[2]) != int(want[2]):
+            raise AssertionError("live build row counts differ")
+        return err
+    if name == "probe_join":  # every slot: the twin mirrors the invalid ones too
+        got, want = K.probe_join(*args), K.probe_join_plain(*args)
+        err = max(max_err(g, w) for g, w in zip(got[:3], want[:3]))
+        if int(got[3]) != int(want[3]):
+            raise AssertionError(f"pair totals differ: {int(got[3])} vs {int(want[3])}")
+        return err
+    if name == "segment_any":
+        return max_err(K.segment_any(*args), K.segment_any_plain(*args))
+    if name == "grouped_on_order":
+        keys, vals, mask, cap, n = args
+        got, want = K.grouped_on_order(*args), K.grouped_on_order_plain(*args)
+        err = max_err(got[2], want[2])
+        if (got[3] is None) != (want[3] is None) or \
+                (got[3] is not None and bool(got[3]) != bool(want[3])):
+            raise AssertionError("overflow flags differ")
+        for g, w in zip(got[0], want[0]):
+            err = max(err, max_err(g, w))
+        for (v, how), g, w in zip(vals, got[1], want[1]):
+            float_sum = how == "sum" and v.dtype.is_floating_point
+            err = max(err, max_err(g, w, rtol=1e-12 if float_sum else 0.0))
+        return err
     raise KeyError(name)
 
 
@@ -471,6 +827,71 @@ def kernel_timings(K, name, args, device):
             library = lambda: torch.sort(word, stable=True)  # noqa: E731
         else:
             library = None
+    elif name == "build_side_sort":
+        keys, mask = args
+        n = mask.shape[0]
+        moved = nbytes(*keys, mask) + n * 8 + n * 4 + 8
+        kern = lambda: K.build_side_sort(keys, mask)  # noqa: E731
+        plain = lambda: K.build_side_sort_plain(keys, mask)  # noqa: E731
+        # one stable sort of the sign-flipped, dead-masked hashes (the
+        # hashing itself left out)
+        flipped = torch.where(mask, K.hash64(keys), -1) ^ K._SIGN
+        library = lambda: torch.sort(flipped, stable=True)  # noqa: E731
+    elif name == "probe_join":
+        ph, pm, bh, cap = args
+        moved = nbytes(ph, pm, bh) + cap * 9 + 8
+        kern = lambda: K.probe_join(ph, pm, bh, cap)  # noqa: E731
+        plain = lambda: K.probe_join_plain(ph, pm, bh, cap)  # noqa: E731
+        pf, bf = ph ^ K._SIGN, bh ^ K._SIGN
+        rows = torch.arange(ph.shape[0], device=device)
+        total = int(K.probe_counts_plain(ph, pm, bh)[3])
+
+        def library():  # searchsorted x2 + cumsum + repeat_interleave
+            lo = torch.searchsorted(bf, pf, side="left")
+            hi = torch.searchsorted(bf, pf, side="right")
+            counts = torch.where(pm, hi - lo, 0)
+            return torch.cumsum(counts, 0), torch.repeat_interleave(rows, counts,
+                                                                    output_size=total)
+    elif name == "segment_any":
+        v, seg, ns = args
+        moved = nbytes(v, seg) + ns
+        kern = lambda: K.segment_any(v, seg, ns)  # noqa: E731
+        plain = lambda: K.segment_any_plain(v, seg, ns)  # noqa: E731
+        v32 = v.to(torch.int32)
+        seg64 = torch.where((seg >= 0) & (seg < ns), seg, ns).long()
+        library = lambda: torch.zeros(ns + 1, dtype=torch.int32, device=device).scatter_reduce_(  # noqa: E731
+            0, seg64, v32, "amax")
+    elif name == "grouped_on_order":
+        keys, vals, mask, cap, n = args
+        read = [v for v, how in vals if how != "count"]
+        out_w = sum(k.element_size() for k in keys) + sum(
+            8 if how == "count" else v.element_size() for v, how in vals) + 1
+        moved = nbytes(mask, *keys, *read) + cap * out_w + 8
+        kern = lambda: K.grouped_on_order(keys, vals, mask, cap, n)  # noqa: E731
+        plain = lambda: K.grouped_on_order_plain(keys, vals, mask, cap, n)  # noqa: E731
+        # index_add_ / scatter_reduce_ of each column at the twin's segment
+        # ids (the K4 order and the boundary scan left out)
+        first = torch.arange(n, device=device) == 0
+        diff = torch.zeros(n, dtype=torch.bool, device=device)
+        for k in keys:
+            diff |= k != torch.roll(k, 1)
+        boundary = mask & (first | diff) if keys else first & mask.any()
+        seg = torch.cumsum(boundary.to(torch.int64), 0) - 1
+        ok = mask & (seg >= 0) & (seg < cap)
+        seg = torch.where(ok, seg, cap)
+        prepared = [(torch.where(ok, v, torch.zeros((), dtype=v.dtype, device=device))
+                     if how != "count" else ok.to(torch.int64), how, v.dtype) for v, how in vals]
+
+        def library():
+            out = []
+            for v, how, dt in prepared:
+                if how in ("sum", "count"):
+                    out.append(torch.zeros(cap + 1, dtype=v.dtype, device=device).index_add_(
+                        0, seg, v))
+                else:
+                    out.append(torch.zeros(cap + 1, dtype=v.dtype, device=device).scatter_reduce_(
+                        0, seg, v, "amin" if how == "min" else "amax", include_self=False))
+            return out
     else:
         raise KeyError(name)
     times = {}
@@ -517,9 +938,17 @@ KERNEL_META = {
                   "arrow_ballista_tpu/ops/kernels.py:77"),
     "sort_order": ("arrow_ballista_tpu_torch/csrc/sort.cu",
                    "arrow_ballista_tpu/ops/kernels.py:195"),
+    "build_side_sort": ("arrow_ballista_tpu_torch/csrc/join_build.cu",
+                        "arrow_ballista_tpu/ops/kernels.py:728"),
+    "probe_join": ("arrow_ballista_tpu_torch/csrc/probe.cu",
+                   "arrow_ballista_tpu/ops/kernels.py:739"),
+    "segment_any": ("arrow_ballista_tpu_torch/csrc/segment.cu",
+                    "arrow_ballista_tpu/ops/kernels.py:772"),
+    "grouped_on_order": ("arrow_ballista_tpu_torch/csrc/seg_agg.cu",
+                         "arrow_ballista_tpu/ops/kernels.py:314"),
 }
-LAUNCH_KEY = {"dense_group_states": "dense_group_states", "compaction_order": "compaction_order",
-              "bucket_of": "hash64", "sort_order": "sort_order"}
+LAUNCH_KEY = {name: name for name in KERNEL_META}
+LAUNCH_KEY["bucket_of"] = "hash64"
 
 
 # --------------------------------------------------------------------------
@@ -528,7 +957,6 @@ LAUNCH_KEY = {"dense_group_states": "dense_group_states", "compaction_order": "c
 
 
 def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROWS) -> dict:
-    import numpy as np
     import torch
 
     sys.path.insert(0, ROOT)
@@ -545,10 +973,11 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
            or m == "arrow_ballista_tpu" for m in sys.modules):
         fail("the port imported JAX or the JAX package")
     device = torch.device(device_name)
+    cuda = device.type == "cuda"
     report = {"kernels": []}
 
     # phase 2: build
-    if device.type == "cuda":
+    if cuda:
         t0 = time.perf_counter()
         _cuda.LIBRARIES.build_all()
         for name in _cuda.SIGNATURES:
@@ -556,7 +985,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         log(f"build: {time.perf_counter() - t0:.3f} s for {len(_cuda.SIGNATURES)} kernel "
             f"libraries (nvcc {_cuda.LIBRARIES.build_seconds:.3f} s, parallel)")
 
-    # phase 3: the main path
+    # phase 3: the main paths
     t0 = time.perf_counter()
     tables = generate_tables(sf, seed=0)
     lineitem = tables["lineitem"]
@@ -565,72 +994,105 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     ctx = BallistaContext.local(device=device)
     for name, table in tables.items():
         ctx.register_table(name, table)
-    sql = QUERIES[1]
+    sqls = {"q1": QUERIES[1], "q3": QUERIES[3], "q4": QUERIES[4]}
 
-    def q1_once():
+    def once(sql):
         t = time.perf_counter()
         df = ctx.sql(sql).to_pandas()
-        if device.type == "cuda":
+        if cuda:
             torch.cuda.synchronize()
         return df, time.perf_counter() - t
 
-    K.reset_launch_counts()
-    with Capture(K, device) as cap:
-        df, cold_s = q1_once()
-    launches = dict(K.LAUNCHES)
-    if cap.off_device:
-        fail(f"tensors off the card on the main path: {cap.off_device[:5]}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        fail(f"kernels not launched on the main path: {missing} ({launches})")
-    if len(df) != 4 or df.isna().any().any():
-        fail(f"q1 result malformed:\n{df}")
-    warm = []
-    for _ in range(WARM_RUNS):
+    captured = {}  # kernel -> (rows, args, path) of its largest call over the paths
+    launches = {}  # path -> launch counts of its cold run
+    for path, sql in sqls.items():
         K.reset_launch_counts()
-        _, s = q1_once()
-        warm.append(s)
-        if dict(K.LAUNCHES) != launches:
-            fail(f"warm run launched {dict(K.LAUNCHES)} != cold {launches}")
-    warm_s = statistics.median(warm)
-    rows = lineitem.num_rows
-    log(f"q1 SF{sf}: cold {cold_s * 1000:.1f} ms ({rows / cold_s:.0f} rows/s), warm median of "
-        f"{WARM_RUNS} {warm_s * 1000:.1f} ms ({rows / warm_s:.0f} rows/s) "
-        f"[runs ms: {', '.join(f'{w * 1000:.1f}' for w in warm)}]; tables uploaded per query "
-        "(no scan cache)")
-    log(f"q1 launches per query: {json.dumps(launches)}")
-    log(df.to_string())
+        with Capture(K, device) as cap:
+            df, cold_s = once(sql)
+        launches[path] = dict(K.LAUNCHES)
+        if cap.off_device:
+            fail(f"{path}: tensors off the card on the main path: {cap.off_device[:5]}")
+        missing = [k for k in PATH_KERNELS[path] if launches[path][k] == 0]
+        if missing:
+            fail(f"{path}: kernels not launched on its path: {missing} ({launches[path]})")
+        for name, (n, args) in cap.calls.items():
+            if name not in captured or n > captured[name][0]:
+                captured[name] = (n, args, path)
+        if df.empty or df.isna().any().any() or (path == "q1" and len(df) != 4):
+            fail(f"{path} result malformed:\n{df}")
+        warm = []
+        for _ in range(WARM_RUNS[path]):
+            K.reset_launch_counts()
+            _, s = once(sql)
+            warm.append(s)
+            if dict(K.LAUNCHES) != launches[path]:
+                fail(f"{path}: warm run launched {dict(K.LAUNCHES)} != cold {launches[path]}")
+        warm_s = statistics.median(warm)
+        rows = lineitem.num_rows
+        log(f"{path} SF{sf}: cold {cold_s * 1000:.1f} ms ({rows / cold_s:.0f} lineitem rows/s), "
+            f"warm median of {len(warm)} {warm_s * 1000:.1f} ms ({rows / warm_s:.0f} rows/s) "
+            f"[runs ms: {', '.join(f'{w * 1000:.1f}' for w in warm)}]; tables uploaded per "
+            "query (no scan cache)")
+        log(f"{path} launches per query: "
+            f"{json.dumps({k: v for k, v in launches[path].items() if v})}")
+        log(df.head(10).to_string())
+        log(f"{path} operator host times (last warm run, ms; elapsed_time includes children):")
+        for line in plan_breakdown(ctx.last_plan):
+            log("  " + line)
+        report[f"{path}_cold_ms"] = cold_s * 1000
+        report[f"{path}_warm_ms"] = warm_s * 1000
+        if cuda:
+            report[f"{path}_profile"] = profile_query(ctx, sql, path)
 
-    log("q1 operator host times (last warm run, ms; elapsed_time includes children):")
-    for line in plan_breakdown(ctx.last_plan):
-        log("  " + line)
-    if device.type == "cuda":
-        profile_q1(ctx, sql)
-
-    # phase 5: q1 against the numpy oracle
-    n_groups, worst = check_q1(ctx, sql, q1_oracle(lineitem))
+    # phase 5: results against the numpy oracles
+    n_groups, worst = check_q1(ctx, sqls["q1"], q1_oracle(lineitem))
     log(f"q1 vs numpy oracle: {n_groups} groups, sums and counts exact, avg max rel err {worst:.3g}")
+    n_groups = check_q3(ctx, sqls["q3"], q3_oracle(tables))
+    log(f"q3 vs numpy oracle: top 10 exact, and all {n_groups} groups without the LIMIT exact")
+    counts = check_q4(ctx, sqls["q4"], q4_oracle(tables))
+    log(f"q4 vs numpy oracle: {json.dumps(counts)} exact")
 
-    # phase 4 + 6: kernels against their twins, timings at the main path's shapes
-    stress = stress_inputs(device, stress_rows)
+    # table rows 5-7 on q3's path
+    if cuda:
+        programs = profile_programs(ctx, sqls["q3"], device)
+        for row, (dev_ms, moved, calls) in programs.items():
+            bound = moved / HBM_BYTES_PER_S * 1000
+            log(f"q3 programs {row}: device {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}"
+                f" per query over {calls} calls, bound {bound:.6f} ms ({moved} bytes)")
+        report["q3_programs"] = {row: {"ms": v[0], "bytes": v[1], "calls": v[2],
+                                       "bound_ms": v[1] / HBM_BYTES_PER_S * 1000}
+                                 for row, v in programs.items()}
+
+    # phase 4 + 6: kernels against their twins, timings at the main paths' shapes
+    stress = stress_inputs(K, device, stress_rows)
     for name in Capture.NAMES:
-        n, args = cap.calls[name]
+        n, args, path = captured[name]
         try:
             err = check_kernel(K, name, args)
             for sargs in stress[name]:
                 err = max(err, check_kernel(K, name, sargs))
+            if name in ("build_side_sort", "probe_join"):
+                was = K._FORCE_COLLISIONS
+                K._FORCE_COLLISIONS = True
+                try:
+                    forced = forced_collision_inputs(K, device, stress_rows)
+                    err = max(err, check_kernel(K, name, forced[name]))
+                finally:
+                    K._FORCE_COLLISIONS = was
         except AssertionError as e:
             fail(f"{name}: kernel disagrees with its plain twin: {e}")
-        if device.type == "cuda":
+        if cuda:
             torch.cuda.synchronize()
         times, moved = kernel_timings(K, name, args, device)
         bound_ms = moved / HBM_BYTES_PER_S * 1000
         src, replaces = KERNEL_META[name]
+        per_path = {p: launches[p][LAUNCH_KEY[name]] for p in sqls}
         report["kernels"].append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[LAUNCH_KEY[name]], "max_abs_err": err,
+            "launches": sum(per_path.values()), "max_abs_err": err,
             "ms": times["ms"], "plain_ms": times["plain_ms"], "bound_ms": bound_ms,
             "bound_by": "bytes", "library_ms": times["library_ms"], "rows": n,
+            "captured_on": path, "launches_per_path": per_path,
             "wall_ms": times["wall_ms"], "plain_wall_ms": times["plain_wall_ms"],
             "library_wall_ms": times["library_wall_ms"],
             "ms_source": [times[k] for k in ("ms_source", "plain_ms_source",
@@ -639,14 +1101,14 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         def fmt(v):
             return "n/a" if v is None else f"{v:.4f} ms"
 
-        log(f"kernel {name}: main-path rows {n}; device time per call "
+        log(f"kernel {name}: main-path rows {n} (largest call, {path}); device time per call "
             f"(kernel/plain/library from {'/'.join(map(str, report['kernels'][-1]['ms_source']))}): "
             f"kernel {fmt(times['ms'])}, bound {bound_ms:.6f} ms ({moved} bytes), plain "
             f"{fmt(times['plain_ms'])}, library {fmt(times['library_ms'])}; wall per call: "
             f"kernel {fmt(times['wall_ms'])}, plain {fmt(times['plain_wall_ms'])}, library "
             f"{fmt(times['library_wall_ms'])}; stress {stress_rows} rows ok; "
-            f"max abs err {err:.3g}; launches per q1 {launches[LAUNCH_KEY[name]]}")
-        if name == "dense_group_states" and device.type == "cuda":
+            f"max abs err {err:.3g}; launches per query {json.dumps(per_path)}")
+        if name == "dense_group_states" and cuda:
             sweep = dense_hot_slot_sweep(K, args, device)
             log("kernel dense_group_states hot-slot sweep (device ms per call, "
                 f"{n} rows): " + ", ".join(
@@ -667,8 +1129,6 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         ms = time_ms(lambda: step(cols, mask), device, iters=10, reps=5)
         log(f"entry step: {n_rows} rows in {ms:.4f} ms = {n_rows / ms * 1000:.0f} rows/s")
         report[f"entry_rows_per_s_{n_rows}"] = n_rows / ms * 1000
-    report["q1_cold_ms"] = cold_s * 1000
-    report["q1_warm_ms"] = warm_s * 1000
     return report
 
 

@@ -4,12 +4,17 @@ Imports no JAX (the machine with the card has none); run there with
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.  Skips
 where torch sees no card: a CUDA kernel has no CPU mode.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 from arrow_ballista_tpu_torch.ops import kernels as TK
-from tests.torch_cases import DENSE_CASES, SORT_CASES, dense_case, hash_cols, mask_case, sort_case
+from tests.torch_cases import (DENSE_CASES, JOIN_CASES, JOIN_QUERIES, SEG_AGG_CASES,
+                               SEGMENT_CASES, SETTINGS, SORT_CASES, UNORDERED,
+                               assert_frames_equal, dense_case, hash_cols, join_case,
+                               mask_case, seg_agg_case, segment_case, sort_case)
 
 N = 100_003
 
@@ -70,3 +75,78 @@ def test_dense_kernel_matches_twin(dev, case):
             np.testing.assert_allclose(g.cpu().numpy(), p.numpy(), rtol=1e-12, atol=0)
         else:
             assert torch.equal(g.cpu(), p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", JOIN_CASES)
+def test_build_sort_and_probe_kernels_match_twins(dev, case):
+    bk, bmask, pk, pmask = join_case(case, N, N // 2, np.random.default_rng(5))
+    gh, go, gn = TK.build_side_sort([_t(k).to(dev) for k in bk], _t(bmask).to(dev))
+    ph, po, pn = TK.build_side_sort_plain([_t(k) for k in bk], _t(bmask))
+    assert torch.equal(gh.cpu(), ph) and torch.equal(go.cpu(), po) and int(gn) == int(pn)
+    probe_hash = TK.hash64([_t(k) for k in pk])
+    total = int(TK.probe_counts_plain(probe_hash, _t(pmask), ph)[3])
+    for out_cap in sorted({max(1, total // 3), max(1, total), total + 37}):
+        got = TK.probe_join(probe_hash.to(dev), _t(pmask).to(dev), gh, out_cap)
+        want = TK.probe_join_plain(probe_hash, _t(pmask), ph, out_cap)
+        for g, w in zip(got[:3], want[:3]):
+            assert torch.equal(g.cpu(), w)
+        assert int(got[3]) == int(want[3]) == total
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_segment_any_kernel_matches_twin(dev, case):
+    v, seg = segment_case(case, N, 4099, np.random.default_rng(6))
+    got = TK.segment_any(_t(v).to(dev), _t(seg).to(dev), 4099)
+    assert torch.equal(got.cpu(), TK.segment_any_plain(_t(v), _t(seg), 4099))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SEG_AGG_CASES)
+def test_sort_path_aggregate_kernel_matches_twin(dev, case):
+    keys, vals, mask = seg_agg_case(case, N, np.random.default_rng(7))
+    for out_cap in (N, 100):  # the operator's size, then one that overflows
+        got = TK.grouped_aggregate([_t(k).to(dev) for k in keys],
+                                   [(_t(v).to(dev), h) for v, h in vals], _t(mask).to(dev), out_cap)
+        want = TK.grouped_aggregate([_t(k) for k in keys], [(_t(v), h) for v, h in vals],
+                                    _t(mask), out_cap)
+        assert torch.equal(got[2].cpu(), want[2])
+        assert (got[3] is None) == (want[3] is None)
+        if got[3] is not None:
+            assert bool(got[3]) == bool(want[3])
+        for g, w in zip(got[0], want[0]):  # NaN keys compare equal here
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+        for (v, how), g, w in zip(vals, got[1], want[1]):
+            if v.dtype.kind == "f" and how == "sum":  # atomic order differs from the twin's
+                np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-12, atol=0)
+            else:
+                assert torch.equal(g.cpu(), w)
+
+
+@functools.lru_cache(maxsize=1)
+def _sf001_tables():
+    from benchmarks.datagen import generate_tables
+
+    return generate_tables(0.01, seed=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, setting", [(q, None) for q in JOIN_QUERIES]
+                         + [("q3", s) for s in SETTINGS])
+def test_join_queries_on_the_card_match_the_cpu(dev, name, setting):
+    """Every join type and the sort-path aggregate, on the card against the
+    port on the CPU (which tests/test_torch_joins.py holds against the JAX
+    package) at SF0.01."""
+    from arrow_ballista_tpu_torch import BallistaContext
+
+    frames = []
+    for device in (dev, "cpu"):
+        ctx = BallistaContext.local(device=device)
+        for table, data in _sf001_tables().items():
+            ctx.register_table(table, data)
+        if setting is not None:
+            ctx.sql(SETTINGS[setting])
+        frames.append(ctx.sql(JOIN_QUERIES[name]).to_pandas())
+    assert len(frames[1]) > 0
+    assert_frames_equal(frames[0], frames[1], ordered=name not in UNORDERED)

@@ -163,9 +163,19 @@ def test_grouped_aggregate_dense_matches(case, out_capacity):
 
 
 def test_grouping_without_dense_domain_raises():
-    k = _t(np.arange(10, dtype=np.int64))
-    with pytest.raises(NotImplementedError, match="queue 2 item 7"):
-        TK.grouped_aggregate([k], [(k, "sum")], _t(np.ones(10, bool)), 16, key_ranges=(None,))
+    """Keys without a dense domain take the sort path (K4 order + K8),
+    which matches the reference (more cases: tests/test_torch_join_kernels.py)."""
+    rng = np.random.default_rng(13)
+    k = rng.integers(0, 5, 40).astype(np.int64)
+    mask = rng.random(40) < 0.8
+    jk, jv, jm, jo = JK.grouped_aggregate([jnp.asarray(k)], [(jnp.asarray(k), "sum")],
+                                          jnp.asarray(mask), 64, key_ranges=(None,))
+    tk, tv, tm, to = TK.grouped_aggregate([_t(k)], [(_t(k), "sum")], _t(mask), 64,
+                                          key_ranges=(None,))
+    assert to is None and jo is None
+    np.testing.assert_array_equal(tm.numpy(), _np(jm))
+    np.testing.assert_array_equal(tk[0].numpy(), _np(jk[0]))
+    np.testing.assert_array_equal(tv[0].numpy(), _np(jv[0]))
 
 
 # --------------------------------------------------------------------------

@@ -1,8 +1,12 @@
-"""Input cases shared by the port's kernel tests (numpy only, no JAX):
-tests/test_torch_kernels.py holds the twins against the JAX package on the
-CPU, tests/test_torch_cuda.py the CUDA kernels against the twins on the
-card."""
+"""Input cases shared by the port's tests (numpy only, no JAX):
+tests/test_torch_kernels.py and tests/test_torch_join_kernels.py hold the
+twins against the JAX package on the CPU, tests/test_torch_joins.py the
+port's SQL against the JAX package, and tests/test_torch_cuda.py the CUDA
+kernels against the twins and the port's SQL on the card against the port
+on the CPU."""
 import numpy as np
+
+from benchmarks.queries import QUERIES
 
 I64_MIN, I64_MAX = np.iinfo(np.int64).min, np.iinfo(np.int64).max
 
@@ -123,3 +127,167 @@ def dense_case(case, n, rng):
     else:
         raise KeyError(case)
     return keys, vals, mask, ranges
+
+
+# --------------------------------------------------------------------------
+# joins (K5 build_side_sort, K6 probe_join, K7 segment_any)
+# --------------------------------------------------------------------------
+
+JOIN_CASES = ["dup_keys", "null_code_keys", "all_dead_build", "all_dead_probe", "heavy_fanout"]
+
+
+def join_case(case, n_build, n_probe, rng):
+    """(build_keys, build_mask, probe_keys, probe_mask): two key columns
+    each side, int64 and int32 (the int32 side sign-extends in the hash)."""
+    bmask = rng.random(n_build) < 0.85
+    pmask = rng.random(n_probe) < 0.75
+    if case == "dup_keys":  # several build rows per key, fan-out 1-10
+        bk = [rng.integers(0, n_build // 5, n_build).astype(np.int64),
+              rng.integers(0, 2, n_build).astype(np.int32)]
+        pk = [rng.integers(0, n_build // 4, n_probe).astype(np.int64),
+              rng.integers(0, 2, n_probe).astype(np.int32)]
+    elif case == "null_code_keys":
+        bk = [rng.integers(-1, 30, n_build).astype(np.int32)]
+        pk = [rng.integers(-1, 40, n_probe).astype(np.int32)]
+    elif case == "all_dead_build":
+        bk = [rng.integers(0, 50, n_build).astype(np.int64)]
+        pk = [rng.integers(0, 50, n_probe).astype(np.int64)]
+        bmask[:] = False
+    elif case == "all_dead_probe":
+        bk = [rng.integers(0, 50, n_build).astype(np.int64)]
+        pk = [rng.integers(0, 50, n_probe).astype(np.int64)]
+        pmask[:] = False
+    elif case == "heavy_fanout":  # a handful of keys: hundreds of pairs a probe row
+        bk = [rng.integers(0, 8, n_build).astype(np.int64)]
+        pk = [rng.integers(0, 9, n_probe).astype(np.int64)]
+    else:
+        raise KeyError(case)
+    return bk, bmask, pk, pmask
+
+
+def segment_case(case, n, num_segments, rng):
+    """(values, seg_ids) for segment_any."""
+    if case == "bool_random":
+        return rng.random(n) < 0.2, rng.integers(0, num_segments, n).astype(np.int32)
+    if case == "int32_signed_out_of_range":  # only values > 0 count; bad ids drop
+        return (rng.integers(-3, 3, n).astype(np.int32),
+                rng.integers(-5, num_segments + 5, n).astype(np.int32))
+    if case == "one_segment_all_rows":
+        return np.ones(n, dtype=bool), np.full(n, num_segments // 2, dtype=np.int32)
+    raise KeyError(case)
+
+
+SEGMENT_CASES = ["bool_random", "int32_signed_out_of_range", "one_segment_all_rows"]
+
+# --------------------------------------------------------------------------
+# K8: the sort-path grouped aggregate
+# --------------------------------------------------------------------------
+
+SEG_AGG_CASES = ["q3_keys_decimal_sums", "sums_wrap", "empty_slots_identities", "keyless",
+                 "keyless_all_dead", "int32_f32_f64_values", "float_keys", "one_big_group"]
+
+
+def seg_agg_case(case, n, rng):
+    """(keys, vals, mask) for grouped_aggregate with no key ranges."""
+    mask = rng.random(n) < 0.9
+    okey = rng.integers(0, n // 4, n).astype(np.int64)
+    if case == "q3_keys_decimal_sums":  # (l_orderkey, o_orderdate, o_shippriority)
+        keys = [okey, (9000 + okey % 700).astype(np.int32), np.zeros(n, np.int32)]
+        vals = [(rng.integers(0, 10**9, n).astype(np.int64), "sum"),
+                (np.zeros(n, np.int64), "count")]
+    elif case == "sums_wrap":
+        keys = [rng.integers(0, 40, n).astype(np.int64)]
+        vals = [(rng.integers(2**61, 2**62, n).astype(np.int64), "sum"),
+                (rng.integers(I64_MIN, I64_MAX, n, dtype=np.int64), "min"),
+                (rng.integers(I64_MIN, I64_MAX, n, dtype=np.int64), "max")]
+    elif case == "empty_slots_identities":  # few groups in many slots
+        keys = [rng.integers(-3, 3, n).astype(np.int32)]
+        vals = [(rng.integers(-50, 50, n).astype(np.int64), "min"),
+                (rng.integers(-50, 50, n).astype(np.int64), "max"),
+                (rng.integers(-50, 50, n).astype(np.int32), "min"),
+                (rng.integers(-50, 50, n).astype(np.int32), "max"),
+                (rng.normal(size=n), "min"), (rng.normal(size=n), "max")]
+    elif case == "keyless":
+        keys = []
+        vals = [(rng.integers(-10**12, 10**12, n).astype(np.int64), "sum"),
+                (np.zeros(n, np.int64), "count"),
+                (rng.integers(-10**6, 10**6, n).astype(np.int64), "min"),
+                (rng.normal(size=n), "max")]
+    elif case == "keyless_all_dead":
+        keys = []
+        mask[:] = False
+        vals = [(rng.integers(0, 9, n).astype(np.int64), "sum"), (np.zeros(n, np.int64), "count"),
+                (rng.integers(0, 9, n).astype(np.int64), "min"),
+                (rng.normal(size=n), "max")]
+    elif case == "int32_f32_f64_values":
+        keys = [rng.integers(0, 64, n).astype(np.int32)]
+        quarter = (rng.integers(-256, 256, n) / 4).astype(np.float32)  # sums exact in any order
+        vals = [(rng.integers(-1000, 1000, n).astype(np.int32), "sum"),
+                (rng.integers(-1000, 1000, n).astype(np.int32), "min"),
+                (quarter, "sum"), (quarter, "max"),
+                (rng.normal(size=n) * 1e3, "sum"), (rng.normal(size=n), "min")]
+    elif case == "float_keys":  # -0.0 groups with 0.0; every NaN row opens a group
+        f = rng.integers(-2, 3, n).astype(np.float64)
+        f[rng.random(n) < 0.05] = np.nan
+        f[rng.random(n) < 0.1] = -0.0
+        keys = [f]
+        vals = [(rng.integers(0, 100, n).astype(np.int64), "sum"),
+                (np.zeros(n, np.int64), "count")]
+    elif case == "one_big_group":
+        keys = [np.full(n, 7, np.int64)]
+        vals = [(rng.integers(2**61, 2**62, n).astype(np.int64), "sum"),
+                (np.zeros(n, np.int64), "count"),
+                (rng.normal(size=n), "sum")]
+    else:
+        raise KeyError(case)
+    return keys, vals, mask
+
+
+# --------------------------------------------------------------------------
+# SQL through the joins and the sort-path aggregate (SF0.01, seed 0)
+# --------------------------------------------------------------------------
+
+JOIN_QUERIES = {
+    "q3": QUERIES[3],
+    "q4": QUERIES[4],
+    "q6": QUERIES[6],
+    "q12": QUERIES[12],
+    "q13": QUERIES[13],
+    "anti_not_exists": """
+        select c_mktsegment, count(*) as n from customer
+        where not exists (select * from orders where o_custkey = c_custkey)
+        group by c_mktsegment order by c_mktsegment""",
+    "full_outer": """
+        select c_custkey, o_orderkey, o_totalprice
+        from (select c_custkey from customer where c_custkey < 60) c
+        full outer join (select o_orderkey, o_custkey, o_totalprice from orders
+                         where o_orderkey < 300) o on c_custkey = o_custkey""",
+    "left_residual": """
+        select c_custkey, count(o_orderkey) as n, sum(o_totalprice) as tp
+        from customer left join orders on c_custkey = o_custkey and o_totalprice > 100000
+        where c_custkey < 300 group by c_custkey order by c_custkey""",
+}
+UNORDERED = {"full_outer"}
+
+# settings applied to both packages: the partitioned join path, and a task
+# budget (bytes) that windows q3's lineitem probe (_join_chunked)
+SETTINGS = {
+    "partitioned": "set ballista.join.broadcast_threshold = 0",
+    "windowed": "set ballista.memory.task.budget.bytes = 4096",
+}
+
+
+def assert_frames_equal(got, want, ordered: bool = True):
+    assert list(got.columns) == list(want.columns)
+    assert len(got) == len(want)
+    if not ordered:
+        cols = list(want.columns)
+        got = got.sort_values(cols).reset_index(drop=True)
+        want = want.sort_values(cols).reset_index(drop=True)
+    for c in want.columns:
+        g, w = got[c].to_numpy(), want[c].to_numpy()
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g.astype(float), w.astype(float), rtol=1e-12,
+                                       equal_nan=True)
+        else:
+            np.testing.assert_array_equal(g, w)
