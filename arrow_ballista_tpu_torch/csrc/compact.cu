@@ -7,59 +7,27 @@
 // number of dead rows before it; perm[dest] = i.
 //
 // Three launches, no library scan:
-//   1. tile_count: each block counts the live flags of one tile of
-//      AB_TILE rows;
-//   2. tile_scan:  one block scans the tile counts (exclusive) in chunks of
-//      its width and writes the total number of live rows;
+//   1. ab_scan_tile_sums (common.cuh): each block counts the live flags of
+//      one tile of AB_SCAN_TILE rows;
+//   2. ab_scan_tile_offsets (common.cuh): one block turns the tile counts
+//      into exclusive offsets, in place, and writes the number of live rows
+//      after them;
 //   3. tile_scatter: each block rescans its tile (warp shuffles, then the
 //      warp totals in shared memory), adds the tile's offset and scatters.
 // Bound: bytes.  The flags are read twice (1 byte a row each time) and the
 // permutation written once (4 bytes a row); the minimum is 5 bytes a row.
 #include "common.cuh"
 
-#define AB_THREADS 256
-#define AB_ITEMS 16
-#define AB_TILE (AB_THREADS * AB_ITEMS)
-#define AB_WARPS (AB_THREADS / 32)
-
-__global__ void tile_count(const uint8_t* __restrict__ mask, long long n, int* __restrict__ counts) {
-  __shared__ int warp_sums[AB_WARPS];
-  const long long base = (long long)blockIdx.x * AB_TILE;
-  int c = 0;
-#pragma unroll
-  for (int j = 0; j < AB_ITEMS; ++j) {
-    long long i = base + (long long)j * AB_THREADS + threadIdx.x;  // coalesced
-    if (i < n) c += (mask[i] != 0);
-  }
-  int total;
-  ab_block_exclusive_scan<int>(c, warp_sums, &total);
-  if (threadIdx.x == 0) counts[blockIdx.x] = total;
-}
-
-__global__ void tile_scan(const int* __restrict__ counts, int num_tiles, int* __restrict__ offsets,
-                          int* __restrict__ n_live) {
-  __shared__ int warp_sums[AB_SCAN_TOP_THREADS / 32];
-  int carry = 0;
-  for (int start = 0; start < num_tiles; start += AB_SCAN_TOP_THREADS) {
-    int t = start + (int)threadIdx.x;
-    int v = (t < num_tiles) ? counts[t] : 0;
-    int total;
-    int ex = ab_block_exclusive_scan<int>(v, warp_sums, &total);
-    if (t < num_tiles) offsets[t] = carry + ex;
-    carry += total;
-  }
-  if (threadIdx.x == 0) *n_live = carry;
-}
-
 __global__ void tile_scatter(const uint8_t* __restrict__ mask, long long n,
                              const int* __restrict__ offsets, const int* __restrict__ n_live,
                              int32_t* __restrict__ perm) {
-  __shared__ int warp_sums[AB_WARPS];
-  const long long base = (long long)blockIdx.x * AB_TILE + (long long)threadIdx.x * AB_ITEMS;
-  uint8_t f[AB_ITEMS];
+  __shared__ int warp_sums[AB_SCAN_THREADS / 32];
+  const long long base =
+      (long long)blockIdx.x * AB_SCAN_TILE + (long long)threadIdx.x * AB_SCAN_ITEMS;
+  uint8_t f[AB_SCAN_ITEMS];
   int c = 0;
 #pragma unroll
-  for (int j = 0; j < AB_ITEMS; ++j) {
+  for (int j = 0; j < AB_SCAN_ITEMS; ++j) {
     long long i = base + j;
     f[j] = (i < n) ? (mask[i] != 0) : 0;
     c += f[j];
@@ -69,7 +37,7 @@ __global__ void tile_scatter(const uint8_t* __restrict__ mask, long long n,
   long long live_before = (long long)offsets[blockIdx.x] + ex;  // live rows before `base`
   const long long live_total = *n_live;
 #pragma unroll
-  for (int j = 0; j < AB_ITEMS; ++j) {
+  for (int j = 0; j < AB_SCAN_ITEMS; ++j) {
     long long i = base + j;
     if (i >= n) break;
     long long dest;
@@ -83,26 +51,26 @@ __global__ void tile_scatter(const uint8_t* __restrict__ mask, long long n,
   }
 }
 
-// perm: int32[n]; scratch: int32[2 * num_tiles + 1] with
-// num_tiles = ceil(n / ab_compact_tile()); scratch[2 * num_tiles] receives
-// the number of live rows.
-AB_EXPORT int ab_compact_tile() { return AB_TILE; }
+// perm: int32[n]; scratch: int32[num_tiles + 1] with
+// num_tiles = ceil(n / ab_compact_tile()); scratch[num_tiles] receives the
+// number of live rows.
+AB_EXPORT int ab_compact_tile() { return AB_SCAN_TILE; }
 
 AB_EXPORT int ab_compaction_order(const void* mask, long long n, void* perm, void* scratch,
                                   void* stream) {
   if (n < 1 || n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int num_tiles = (int)((n + AB_TILE - 1) / AB_TILE);
-  int* counts = (int*)scratch;
-  int* offsets = counts + num_tiles;
-  int* live = offsets + num_tiles;
-  tile_count<<<num_tiles, AB_THREADS, 0, s>>>((const uint8_t*)mask, n, counts);
+  const long long num_tiles = ab_scan_tiles(n);
+  int* offsets = (int*)scratch;
+  // the flags are 0 or 1 (torch bool), so their sum is the live count
+  ab_scan_tile_sums<uint8_t, int><<<(unsigned)num_tiles, AB_SCAN_THREADS, 0, s>>>(
+      (const uint8_t*)mask, n, offsets);
   int err = ab_last_error();
   if (err) return err;
-  tile_scan<<<1, AB_SCAN_TOP_THREADS, 0, s>>>(counts, num_tiles, offsets, live);
+  ab_scan_tile_offsets<int><<<1, AB_SCAN_TOP_THREADS, 0, s>>>(offsets, num_tiles);
   err = ab_last_error();
   if (err) return err;
-  tile_scatter<<<num_tiles, AB_THREADS, 0, s>>>((const uint8_t*)mask, n, offsets, live,
-                                                 (int32_t*)perm);
+  tile_scatter<<<(unsigned)num_tiles, AB_SCAN_THREADS, 0, s>>>(
+      (const uint8_t*)mask, n, offsets, offsets + num_tiles, (int32_t*)perm);
   return ab_last_error();
 }

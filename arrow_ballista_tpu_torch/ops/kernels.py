@@ -231,7 +231,7 @@ def compaction_order(mask: torch.Tensor) -> torch.Tensor:
         return perm
     lib = _cuda.LIBRARIES.get("compact")
     tiles = -(-n // lib.ab_compact_tile())
-    scratch = torch.empty(2 * tiles + 1, dtype=torch.int32, device=m.device)
+    scratch = torch.empty(tiles + 1, dtype=torch.int32, device=m.device)
     _cuda.check(lib.ab_compaction_order(_ptr(m), n, _ptr(perm), _ptr(scratch),
                                         _stream(m.device)), "compaction_order")
     LAUNCHES["compaction_order"] += 1

@@ -15,9 +15,11 @@ Phases (any failure exits non-zero and prints no result line):
    times, q3 and q4 three), with every launch counter reset just before
    the cold run and read just after it: each path must launch its own
    kernels, and every tensor a kernel gets must lie on the card.  The
-   inputs of each kernel's largest call over the paths are captured;
-4. each kernel held against its plain PyTorch twin on the card: on the
-   captured main-path inputs, and at stress shapes of 6M rows (sums that
+   inputs of each wrapper's largest call on each path are captured;
+4. each kernel held against its plain PyTorch twin on the card: on every
+   path that launched it, at the inputs of that path's largest call of each
+   of its wrappers (K3: bucket_of and hash64; K6: probe_join and
+   probe_counts), and at stress shapes of 6M rows (sums that
    wrap, negative and NULL-sentinel keys; for the sort ties, desc keys,
    bools, NaN and dead rows; for the join build and probe duplicate keys
    with fan-out, all-dead rows, forced equal hashes and truncation at the
@@ -38,7 +40,8 @@ Phases (any failure exits non-zero and prints no result line):
    each kernel's least time (bytes moved at 3.35 TB/s); K1's device time
    over 1 to 289 hot groups; each query's cold/warm wall time and profiled
    device busy share; the device time and bytes bound of the expression
-   programs, the host packing and the batch concat/shrink on q3's path;
+   programs, the host packing and the batch concat/shrink on q3's path
+   (kernel timings at the largest call over the paths);
    the ``entry()`` step's rows/s at 4096 and 6M rows.
 
 The second-to-last lines are the nvidia-smi line and a JSON object with one
@@ -197,9 +200,9 @@ class Capture:
     tensor handed to a kernel on the path lies on the card."""
 
     # wrapper -> index of the argument whose first dimension sizes the call
-    NAMES = {"dense_group_states": 2, "compaction_order": 0, "bucket_of": 0, "sort_order": 1,
-             "build_side_sort": 1, "probe_join": 0, "segment_any": 0, "grouped_on_order": 2}
-    CHECKED_ONLY = ("hash64", "probe_counts")
+    NAMES = {"dense_group_states": 2, "compaction_order": 0, "bucket_of": 0, "hash64": 0,
+             "sort_order": 1, "build_side_sort": 1, "probe_join": 0, "probe_counts": 0,
+             "segment_any": 0, "grouped_on_order": 2}
 
     def __init__(self, K, device):
         self.K = K
@@ -209,7 +212,7 @@ class Capture:
         self.off_device = []
 
     def __enter__(self):
-        for name in (*self.NAMES, *self.CHECKED_ONLY):
+        for name in self.NAMES:
             self.orig[name] = getattr(self.K, name)
             setattr(self.K, name, self._wrap(name, self.orig[name]))
         return self
@@ -219,11 +222,10 @@ class Capture:
             for t in _tensors(args):
                 if t.device.type != self.device.type:
                     self.off_device.append((name, str(t.device)))
-            if name in self.NAMES:
-                sized = args[self.NAMES[name]]
-                n = (sized[0] if isinstance(sized, (list, tuple)) else sized).shape[0]
-                if name not in self.calls or n > self.calls[name][0]:
-                    self.calls[name] = (n, _clone(args))
+            sized = args[self.NAMES[name]]
+            n = (sized[0] if isinstance(sized, (list, tuple)) else sized).shape[0]
+            if name not in self.calls or n > self.calls[name][0]:
+                self.calls[name] = (n, _clone(args))
             return fn(*args, **kwargs)
 
         return wrapper
@@ -733,6 +735,8 @@ def check_kernel(K, name, args):
         keys, n = args
         err = max_err(K.bucket_of(keys, n), K.bucket_of_plain(keys, n))
         return max(err, max_err(K.hash64(keys), K.hash64_plain(keys)))
+    if name == "hash64":
+        return max_err(K.hash64(*args), K.hash64_plain(*args))
     if name == "sort_order":
         return max_err(K.sort_order(*args), K.sort_order_plain(*args))
     if name == "build_side_sort":
@@ -744,6 +748,13 @@ def check_kernel(K, name, args):
     if name == "probe_join":  # every slot: the twin mirrors the invalid ones too
         got, want = K.probe_join(*args), K.probe_join_plain(*args)
         err = max(max_err(g, w) for g, w in zip(got[:3], want[:3]))
+        if int(got[3]) != int(want[3]):
+            raise AssertionError(f"pair totals differ: {int(got[3])} vs {int(want[3])}")
+        return err
+    if name == "probe_counts":  # (lo, count, inclusive offsets, total)
+        got, want = K.probe_counts(*args), K.probe_counts_plain(*args)
+        err = max_err(got[0].long(), want[0]) + max_err(got[1], want[1])
+        err += max_err(got[2], want[2])
         if int(got[3]) != int(want[3]):
             raise AssertionError(f"pair totals differ: {int(got[3])} vs {int(want[3])}")
         return err
@@ -949,6 +960,10 @@ KERNEL_META = {
 }
 LAUNCH_KEY = {name: name for name in KERNEL_META}
 LAUNCH_KEY["bucket_of"] = "hash64"
+# kernel -> the wrappers that launch it, each held against its twin
+WRAPPERS = {name: (name,) for name in KERNEL_META}
+WRAPPERS["bucket_of"] = ("bucket_of", "hash64")
+WRAPPERS["probe_join"] = ("probe_join", "probe_counts")
 
 
 # --------------------------------------------------------------------------
@@ -1003,7 +1018,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             torch.cuda.synchronize()
         return df, time.perf_counter() - t
 
-    captured = {}  # kernel -> (rows, args, path) of its largest call over the paths
+    captured = {}  # path -> wrapper -> (rows, args) of the path's largest call
     launches = {}  # path -> launch counts of its cold run
     for path, sql in sqls.items():
         K.reset_launch_counts()
@@ -1015,9 +1030,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         missing = [k for k in PATH_KERNELS[path] if launches[path][k] == 0]
         if missing:
             fail(f"{path}: kernels not launched on its path: {missing} ({launches[path]})")
-        for name, (n, args) in cap.calls.items():
-            if name not in captured or n > captured[name][0]:
-                captured[name] = (n, args, path)
+        captured[path] = cap.calls
         if df.empty or df.isna().any().any() or (path == "q1" and len(df) != 4):
             fail(f"{path} result malformed:\n{df}")
         warm = []
@@ -1063,12 +1076,21 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                                        "bound_ms": v[1] / HBM_BYTES_PER_S * 1000}
                                  for row, v in programs.items()}
 
-    # phase 4 + 6: kernels against their twins, timings at the main paths' shapes
+    # phase 4 + 6: kernels against their twins at each path's own shapes and
+    # at the stress shapes; timings at the largest call over the paths
     stress = stress_inputs(K, device, stress_rows)
-    for name in Capture.NAMES:
-        n, args, path = captured[name]
+    for name in KERNEL_META:
+        per_path = {p: launches[p][LAUNCH_KEY[name]] for p in sqls}
+        checked = {}  # path -> wrapper -> rows and max abs err of that path's largest call
         try:
-            err = check_kernel(K, name, args)
+            for path in sqls:
+                calls = {w: captured[path][w] for w in WRAPPERS[name] if w in captured[path]}
+                if per_path[path] and not calls:
+                    fail(f"{name}: launched on {path} but no call of it was captured")
+                if calls:
+                    checked[path] = {w: {"rows": n, "max_abs_err": check_kernel(K, w, args)}
+                                     for w, (n, args) in calls.items()}
+            err = max(c["max_abs_err"] for w in checked.values() for c in w.values())
             for sargs in stress[name]:
                 err = max(err, check_kernel(K, name, sargs))
             if name in ("build_side_sort", "probe_join"):
@@ -1083,16 +1105,17 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             fail(f"{name}: kernel disagrees with its plain twin: {e}")
         if cuda:
             torch.cuda.synchronize()
+        path = max((p for p in sqls if name in captured[p]), key=lambda p: captured[p][name][0])
+        n, args = captured[path][name]
         times, moved = kernel_timings(K, name, args, device)
         bound_ms = moved / HBM_BYTES_PER_S * 1000
         src, replaces = KERNEL_META[name]
-        per_path = {p: launches[p][LAUNCH_KEY[name]] for p in sqls}
         report["kernels"].append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(per_path.values()), "max_abs_err": err,
             "ms": times["ms"], "plain_ms": times["plain_ms"], "bound_ms": bound_ms,
             "bound_by": "bytes", "library_ms": times["library_ms"], "rows": n,
-            "captured_on": path, "launches_per_path": per_path,
+            "captured_on": path, "launches_per_path": per_path, "checked_per_path": checked,
             "wall_ms": times["wall_ms"], "plain_wall_ms": times["plain_wall_ms"],
             "library_wall_ms": times["library_wall_ms"],
             "ms_source": [times[k] for k in ("ms_source", "plain_ms_source",
@@ -1101,6 +1124,8 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         def fmt(v):
             return "n/a" if v is None else f"{v:.4f} ms"
 
+        log(f"kernel {name}: held against its twin per path at that path's largest call "
+            f"{json.dumps(checked)}")
         log(f"kernel {name}: main-path rows {n} (largest call, {path}); device time per call "
             f"(kernel/plain/library from {'/'.join(map(str, report['kernels'][-1]['ms_source']))}): "
             f"kernel {fmt(times['ms'])}, bound {bound_ms:.6f} ms ({moved} bytes), plain "
