@@ -1,9 +1,9 @@
 """Table providers: named datasets resolvable to schemas and scans.
 
 Providers serve both the SQL planner (schemas) and the physical planner
-(scans, row-count estimates).  This package has in-memory tables only;
-file-backed providers (parquet, csv, json, avro) are still to be ported
-(ROADMAP.md, queue 1 item 4).
+(scans, row-count estimates).  This package has in-memory tables and
+local parquet files; csv, json and avro providers and object-store paths
+are still to be ported (ROADMAP.md, queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -96,6 +96,62 @@ class MemoryTable(TableProvider):
 
     def row_count(self):
         return self.table.num_rows
+
+
+class ParquetTable(TableProvider):
+    """Parquet files (a file, a directory of ``*.parquet`` or a list of
+    either), schema from the first file's footer.  Nullability comes from
+    the row-group statistics of every file: a column with no statistics,
+    or with NULLs anywhere, is nullable."""
+
+    def __init__(self, name: str, paths, schema: Optional[Schema] = None):
+        from .utils import local_files
+
+        self.name = name
+        self.paths = [paths] if isinstance(paths, str) else list(paths)
+        if schema is None:
+            files = []
+            for p in self.paths:
+                files.extend(local_files.list_files(p, (".parquet",)))
+            if not files:
+                raise PlanningError(f"no parquet files in {self.paths}")
+            nullable: Dict[str, bool] = {}
+            arrow_schema = None
+            for fpath in files:
+                with local_files.parquet_file(fpath) as pf:
+                    meta = pf.metadata
+                    if arrow_schema is None:
+                        arrow_schema = pf.schema_arrow
+                for ci in range(meta.num_columns):
+                    col_name = meta.schema.column(ci).name
+                    if nullable.get(col_name):
+                        continue
+                    has_nulls = False
+                    for rg in range(meta.num_row_groups):
+                        st = meta.row_group(rg).column(ci).statistics
+                        if st is None or st.null_count is None or st.null_count > 0:
+                            has_nulls = True
+                            break
+                    nullable[col_name] = has_nulls
+            schema = arrow_schema_to_engine(arrow_schema, nullable)
+        self.schema = schema
+        self._rows: Optional[int] = None
+
+    def scan(self, projection, filters, target_partitions):
+        from .ops.physical import ParquetScanExec
+
+        schema = self.schema if projection is None else self.schema.project(projection)
+        return ParquetScanExec(schema, self.paths, target_partitions, filters,
+                               table_schema=self.schema)
+
+    def row_count(self):
+        """Rows in the footers (for the planner's estimates)."""
+        if self._rows is None:
+            from .ops.physical import ParquetScanExec
+
+            self._rows = ParquetScanExec(self.schema, self.paths, 1,
+                                         table_schema=self.schema).row_count_estimate()
+        return self._rows
 
 
 class SchemaCatalog(Catalog):

@@ -17,10 +17,10 @@ from typing import Dict, List, Optional
 
 import torch
 
-from ..catalog import MemoryTable, SchemaCatalog
+from ..catalog import MemoryTable, ParquetTable, SchemaCatalog
 from ..models import logical as L
 from ..models.batch import ColumnBatch
-from ..models.schema import Schema
+from ..models.schema import Field, Schema
 from ..ops.kernels import to_host
 from ..ops.operators import clear_job_build_caches
 from ..ops.physical import ExecutionPlan, TaskContext
@@ -28,7 +28,7 @@ from ..scheduler.physical_planner import PhysicalPlanner, PlannedQuery
 from ..sql import ast
 from ..sql.optimizer import optimize
 from ..sql.parser import parse_sql
-from ..sql.planner import SqlToRel
+from ..sql.planner import SqlToRel, parse_type_name
 from ..utils.config import BallistaConfig
 from ..utils.errors import PlanningError
 
@@ -130,9 +130,10 @@ class BallistaContext:
     def register_table(self, name: str, table) -> None:
         self.catalog.register(MemoryTable(name, table))
 
-    def register_parquet(self, *_args, **_kwargs) -> None:
-        raise NotImplementedError(
-            "parquet tables are not ported yet (ROADMAP.md queue 1 item 4)")
+    def register_parquet(self, name: str, path, schema: Optional[Schema] = None) -> None:
+        """A parquet file, a directory of them, or a list of either (local
+        paths; object-store URLs raise)."""
+        self.catalog.register(ParquetTable(name, path, schema))
 
     def deregister_table(self, name: str) -> None:
         self.catalog.deregister(name)
@@ -148,9 +149,7 @@ class BallistaContext:
         if isinstance(stmt, ast.Explain):
             return self._explain(stmt)
         if isinstance(stmt, ast.CreateExternalTable):
-            raise NotImplementedError(
-                "CREATE EXTERNAL TABLE needs the file scans, not ported yet "
-                "(ROADMAP.md queue 1 item 4)")
+            return self._create_external_table(stmt)
         if isinstance(stmt, ast.ShowTables):
             import pyarrow as pa
 
@@ -168,6 +167,18 @@ class BallistaContext:
             self.register_table(name, t)
             return self.sql(f"select column_name, data_type from {name}")
         return BallistaDataFrame(self, SqlToRel(self.catalog).plan(stmt))
+
+    def _create_external_table(self, stmt: "ast.CreateExternalTable") -> BallistaDataFrame:
+        if stmt.file_format == "csv":
+            raise NotImplementedError(
+                "csv tables are not ported yet; parquet only (ROADMAP.md queue 1 item 4)")
+        if stmt.file_format != "parquet":
+            raise PlanningError(f"unsupported format {stmt.file_format}")
+        schema = None
+        if stmt.columns:
+            schema = Schema(Field(n, parse_type_name(t)) for n, t in stmt.columns)
+        self.register_parquet(stmt.name, stmt.location, schema)
+        return self._static_df(None)
 
     def _static_df(self, frame) -> BallistaDataFrame:
         import pandas as pd

@@ -5,13 +5,19 @@
 // with grouped_sums_i64 (l.455) and grouped_minmax_i64 (l.529) as the dense
 // path uses them: the grouped aggregate of HashAggregateExec
 // ("agg.grouped", operators.py:885).  The fused row-major key over the
-// declared (lo, hi) ranges is the slot id.  Per slot and aggregate: int64
-// sum / count (wrapping mod 2^64, order-free, so bit-exact), int64 min /
-// max (empty slots keep INT64_MAX / INT64_MIN), f64 sum (atomic order
-// varies between runs: compare at a tolerance), f64 min / max (NaN
+// declared (lo, hi) ranges is the slot id.  Per slot and aggregate, in the
+// value's own type as XLA's segment ops compute it: int64 and int32 sums
+// and counts (wrapping mod 2^64 and 2^32, order-free, so bit-exact), int64
+// and int32 min / max (empty slots keep the type's max / min), float64 and
+// float32 sums (atomic order varies between runs: compare at a tolerance,
+// or on values whose sums are exact in any order), float min / max (NaN
 // propagates), and an int32 exists count.  Rows outside the ranges add
 // nothing (the reference folds them into its scratch slot, which it then
 // drops) and raise the bad-rows flag.
+//
+// Every accumulator is one 8-byte word; a 32-bit value lives in the word's
+// low half (little endian: the first four bytes) and is updated with 32-bit
+// atomics, so int32 sums wrap as int32 and float32 sums round as float32.
 //
 // Design: one thread a row computes the slot.  When (domain) x (aggregates)
 // 8-byte accumulators and the counts fit in shared memory, each block
@@ -39,19 +45,47 @@ struct DenseSpec {
   int stride[AB_MAX_KEYS];
   int k;
   const void* val[AB_MAX_AGGS];
-  int val_kind[AB_MAX_AGGS];  // AB_KIND_I64 or AB_KIND_F64; ignored for count
+  int val_kind[AB_MAX_AGGS];  // AB_KIND_I32, _I64, _F32 or _F64; count: AB_KIND_I64
   int how[AB_MAX_AGGS];
   int m;
 };
 
 __device__ __forceinline__ unsigned long long identity_word(const DenseSpec& s, int a) {
   const int how = s.how[a];
-  const bool f64 = s.val_kind[a] == AB_KIND_F64 && how != AB_AGG_COUNT;
-  if (how == AB_AGG_MIN)
-    return f64 ? 0x7ff0000000000000ULL : 0x7fffffffffffffffULL;  // +inf, INT64_MAX
-  if (how == AB_AGG_MAX)
-    return f64 ? 0xfff0000000000000ULL : 0x8000000000000000ULL;  // -inf, INT64_MIN
+  const int kind = s.val_kind[a];
+  if (how == AB_AGG_MIN) {
+    switch (kind) {
+      case AB_KIND_F64: return 0x7ff0000000000000ULL;  // +inf
+      case AB_KIND_F32: return 0x7f800000ULL;          // +inf in the low half
+      case AB_KIND_I32: return 0x7fffffffULL;          // INT32_MAX in the low half
+      default: return 0x7fffffffffffffffULL;           // INT64_MAX
+    }
+  }
+  if (how == AB_AGG_MAX) {
+    switch (kind) {
+      case AB_KIND_F64: return 0xfff0000000000000ULL;  // -inf
+      case AB_KIND_F32: return 0xff800000ULL;
+      case AB_KIND_I32: return 0x80000000ULL;          // INT32_MIN
+      default: return 0x8000000000000000ULL;           // INT64_MIN
+    }
+  }
   return 0ULL;  // sums and counts (0.0 has all bits clear)
+}
+
+// atomic float32 min or max of the float whose bits *addr holds; NaN propagates
+__device__ __forceinline__ void f32_min_max(unsigned int* addr, float v, bool is_min) {
+  unsigned int old = *(volatile unsigned int*)addr;
+  while (true) {
+    float cur = __uint_as_float(old);
+    float next;
+    if (isnan(cur) || isnan(v)) next = isnan(cur) ? cur : v;
+    else next = is_min ? fminf(cur, v) : fmaxf(cur, v);
+    unsigned int nb = __float_as_uint(next);
+    if (nb == old) return;
+    unsigned int seen = atomicCAS(addr, old, nb);
+    if (seen == old) return;
+    old = seen;
+  }
 }
 
 __device__ __forceinline__ int key_i32(const DenseSpec& s, int j, long long i) {
@@ -80,30 +114,47 @@ __device__ __forceinline__ int row_slot(const DenseSpec& s, const uint8_t* mask,
   return fused;
 }
 
-// fold value word `x` (an int64 or the bits of a double) into accumulator `acc`
-__device__ __forceinline__ void fold(unsigned long long* acc, int how, bool f64,
+// fold value word `x` (an int64, the bits of a double, or a 32-bit value
+// in the low half) into accumulator `acc` for a value of `kind`
+__device__ __forceinline__ void fold(unsigned long long* acc, int how, int kind,
                                      unsigned long long x) {
+  unsigned int* acc32 = (unsigned int*)acc;  // the low half
+  const unsigned int x32 = (unsigned int)x;
   switch (how) {
     case AB_AGG_COUNT:
       atomicAdd(acc, x);
       break;
     case AB_AGG_SUM:
-      if (f64) atomicAdd((double*)acc, __longlong_as_double((long long)x));
-      else atomicAdd(acc, x);
+      switch (kind) {
+        case AB_KIND_F64: atomicAdd((double*)acc, __longlong_as_double((long long)x)); break;
+        case AB_KIND_F32: atomicAdd((float*)acc32, __uint_as_float(x32)); break;
+        case AB_KIND_I32: atomicAdd(acc32, x32); break;  // wraps mod 2^32
+        default: atomicAdd(acc, x);
+      }
       break;
     case AB_AGG_MIN:
-      if (f64) ab_f64_min_max(acc, __longlong_as_double((long long)x), true);
-      else atomicMin((long long*)acc, (long long)x);
+    case AB_AGG_MAX: {
+      const bool is_min = how == AB_AGG_MIN;
+      switch (kind) {
+        case AB_KIND_F64: ab_f64_min_max(acc, __longlong_as_double((long long)x), is_min); break;
+        case AB_KIND_F32: f32_min_max(acc32, __uint_as_float(x32), is_min); break;
+        case AB_KIND_I32:
+          if (is_min) atomicMin((int*)acc32, (int)x32);
+          else atomicMax((int*)acc32, (int)x32);
+          break;
+        default:
+          if (is_min) atomicMin((long long*)acc, (long long)x);
+          else atomicMax((long long*)acc, (long long)x);
+      }
       break;
-    default:  // AB_AGG_MAX
-      if (f64) ab_f64_min_max(acc, __longlong_as_double((long long)x), false);
-      else atomicMax((long long*)acc, (long long)x);
-      break;
+    }
   }
 }
 
 __device__ __forceinline__ unsigned long long row_word(const DenseSpec& s, int a, long long i) {
   if (s.how[a] == AB_AGG_COUNT) return 1ULL;
+  if (s.val_kind[a] == AB_KIND_I32 || s.val_kind[a] == AB_KIND_F32)
+    return ((const unsigned int*)s.val[a])[i];  // int32 or float bits in the low half
   return ((const unsigned long long*)s.val[a])[i];  // int64 or double bits
 }
 
@@ -128,10 +179,8 @@ __global__ void dense_global(DenseSpec s, const uint8_t* __restrict__ mask, long
     int slot = row_slot(s, mask, i, &saw_bad);
     if (slot < 0) continue;
     atomicAdd(&exists[slot], 1);
-    for (int a = 0; a < s.m; ++a) {
-      bool f64 = s.val_kind[a] == AB_KIND_F64;
-      fold(&acc[(long long)a * domain + slot], s.how[a], f64, row_word(s, a, i));
-    }
+    for (int a = 0; a < s.m; ++a)
+      fold(&acc[(long long)a * domain + slot], s.how[a], s.val_kind[a], row_word(s, a, i));
   }
   if (saw_bad) *bad = 1;
 }
@@ -154,10 +203,8 @@ __global__ void dense_shared(DenseSpec s, const uint8_t* __restrict__ mask, long
     int slot = row_slot(s, mask, i, &saw_bad);
     if (slot < 0) continue;
     atomicAdd(&sexists[slot], 1);
-    for (int a = 0; a < s.m; ++a) {
-      bool f64 = s.val_kind[a] == AB_KIND_F64;
-      fold(&sacc[a * domain + slot], s.how[a], f64, row_word(s, a, i));
-    }
+    for (int a = 0; a < s.m; ++a)
+      fold(&sacc[a * domain + slot], s.how[a], s.val_kind[a], row_word(s, a, i));
   }
   if (saw_bad) *bad = 1;
   __syncthreads();
@@ -167,9 +214,8 @@ __global__ void dense_shared(DenseSpec s, const uint8_t* __restrict__ mask, long
     if (c == 0) continue;
     atomicAdd(&exists[slot], c);
     for (int a = 0; a < s.m; ++a) {
-      bool f64 = s.val_kind[a] == AB_KIND_F64;
       int how = s.how[a] == AB_AGG_COUNT ? AB_AGG_SUM : s.how[a];  // counts merge by adding
-      fold(&acc[(long long)a * domain + slot], how, f64, sacc[a * domain + slot]);
+      fold(&acc[(long long)a * domain + slot], how, s.val_kind[a], sacc[a * domain + slot]);
     }
   }
 }
@@ -184,7 +230,9 @@ AB_EXPORT int ab_dense_group_states(const DenseSpec* spec, const void* mask, lon
     return (int)cudaErrorInvalidValue;
   for (int a = 0; a < s.m; ++a) {
     if (s.how[a] < AB_AGG_SUM || s.how[a] > AB_AGG_MAX) return (int)cudaErrorInvalidValue;
-    if (s.how[a] != AB_AGG_COUNT && s.val_kind[a] != AB_KIND_I64 && s.val_kind[a] != AB_KIND_F64)
+    const int kind = s.val_kind[a];
+    if (s.how[a] != AB_AGG_COUNT && kind != AB_KIND_I64 && kind != AB_KIND_F64 &&
+        kind != AB_KIND_I32 && kind != AB_KIND_F32)
       return (int)cudaErrorInvalidValue;
     if (s.how[a] == AB_AGG_COUNT) s.val_kind[a] = AB_KIND_I64;
   }

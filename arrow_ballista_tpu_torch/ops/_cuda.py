@@ -65,6 +65,11 @@ SIGNATURES = {
         "ab_seg_scratch_bytes": ([_LL], _LL),
         "ab_grouped_on_order": ([_P, _P, _LL, _LL, _P, _P, _P, _P], _I),
     },
+    "clustered": {
+        "ab_presorted_disorder": ([_P, _I, _P, _LL, _P, _P], _I),
+        "ab_key_range_check": ([_P, _I, _P, _LL, _I, _LL, _LL, _LL, _P, _P], _I),
+        "ab_clustered_keep": ([_P, _I, _P, _P, _LL, _P, _P, _I, _P, _P, _P], _I),
+    },
 }
 
 

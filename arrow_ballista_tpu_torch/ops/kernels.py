@@ -1,4 +1,4 @@
-"""Device kernels of the port: eight hand-written CUDA kernels, each beside
+"""Device kernels of the port: eleven hand-written CUDA kernels, each beside
 its plain PyTorch twin.
 
 | kernel | source | replaces (arrow_ballista_tpu/ops/kernels.py) |
@@ -11,6 +11,9 @@ its plain PyTorch twin.
 | K6 ``probe_join`` / ``probe_counts`` | ``csrc/probe.cu`` | ``probe_join`` l.739 |
 | K7 ``segment_any`` | ``csrc/segment.cu`` | ``segment_any`` l.772 |
 | K8 ``grouped_on_order`` | ``csrc/seg_agg.cu`` | ``_grouped_aggregate_on_order`` l.314 |
+| K9 ``presorted_disorder`` | ``csrc/clustered.cu`` | ``grouped_aggregate_presorted`` l.237 |
+| K10 ``key_range_check`` | ``csrc/clustered.cu`` | operators.py:632-654 "sort.range_check" |
+| K11 ``clustered_keep`` | ``csrc/clustered.cu`` | operators.py:672-697 "agg.clustered_keep" |
 
 A wrapper takes the twin only for a tensor that lies on the CPU (the
 tests); for a CUDA tensor it launches its kernel or raises.  ``LAUNCHES``
@@ -39,7 +42,9 @@ from . import _cuda
 
 LAUNCHES: Dict[str, int] = {"dense_group_states": 0, "compaction_order": 0,
                             "hash64": 0, "sort_order": 0, "build_side_sort": 0,
-                            "probe_join": 0, "segment_any": 0, "grouped_on_order": 0}
+                            "probe_join": 0, "segment_any": 0, "grouped_on_order": 0,
+                            "presorted_disorder": 0, "key_range_check": 0,
+                            "clustered_keep": 0}
 
 
 def reset_launch_counts() -> None:
@@ -504,10 +509,8 @@ def _dense_launch(key_cols, val_cols, mask, key_ranges, domain):
             spec.val_kind[a] = _KIND[torch.int64]
             out_dtypes.append(torch.int64)
             continue
-        if arr.dtype not in (torch.int64, torch.float64):
-            raise NotImplementedError(
-                f"dense {how} over {arr.dtype} has no kernel yet (int64 and float64 "
-                "only; ROADMAP.md queue 2 item 5)")
+        if arr.dtype not in (torch.int32, torch.int64, torch.float32, torch.float64):
+            raise TypeError(f"dense {how} over {arr.dtype} has no kernel")
         c = _flat(arr)
         keep.append(c)
         spec.val[a] = c.data_ptr()
@@ -528,8 +531,8 @@ def _dense_launch(key_cols, val_cols, mask, key_ranges, domain):
     _cuda.check(err, "dense_group_states")
     LAUNCHES["dense_group_states"] += 1
     accs = acc.view(max(m, 1), domain)
-    dense_vals = [accs[a] if dt == torch.int64 else accs[a].view(dt)
-                  for a, dt in enumerate(out_dtypes)]
+    # one 8-byte word a slot; a 32-bit value is the word's low half
+    dense_vals = [accs[a].view(dt)[::8 // dt.itemsize] for a, dt in enumerate(out_dtypes)]
     return dense_vals, exists, bad[0] != 0
 
 
@@ -743,6 +746,127 @@ def grouped_on_order(keys_s, val_cols, mask_s, out_capacity: int, n: int):
     LAUNCHES["grouped_on_order"] += 1
     overflow = (num_groups[0] > cap) if cap < n else None
     return out_keys, out_vals, out_mask, overflow
+
+
+# --------------------------------------------------------------------------
+# K9-K11: the clustered (presorted) partial aggregate
+# --------------------------------------------------------------------------
+
+
+def _key_kind(k: torch.Tensor, mask: torch.Tensor) -> int:
+    """The kernel kind of a clustered key column, which must match the mask."""
+    if k.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"clustered keys must be int32 or int64, got {k.dtype}")
+    if k.shape != mask.shape or k.dim() != 1:
+        raise ValueError(f"keys {tuple(k.shape)} and mask {tuple(mask.shape)} must be one 1-D "
+                         "length")
+    return _KIND[k.dtype]
+
+
+def presorted_disorder_plain(keys_s: torch.Tensor, mask_s: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K9: any adjacent live pair whose key decreases."""
+    return (mask_s[1:] & mask_s[:-1] & (keys_s[1:] < keys_s[:-1])).any()
+
+
+def presorted_disorder(keys_s: torch.Tensor, mask_s: torch.Tensor) -> torch.Tensor:
+    """0-d bool on the device: True when live keys are NOT non-decreasing
+    in row order."""
+    if _is_cpu(mask_s):
+        return presorted_disorder_plain(keys_s, mask_s)
+    _require_cuda(keys_s, mask_s)
+    k, m = _flat(keys_s), _flat(mask_s)
+    flag = torch.empty(1, dtype=torch.bool, device=m.device)
+    lib = _cuda.LIBRARIES.get("clustered")
+    _cuda.check(lib.ab_presorted_disorder(_ptr(k), _key_kind(keys_s, mask_s), _ptr(m), m.shape[0],
+                                          _ptr(_flat(flag)), _stream(m.device)),
+                "presorted_disorder")
+    LAUNCHES["presorted_disorder"] += 1
+    return flag[0]
+
+
+def grouped_aggregate_presorted(key_cols, val_cols, mask, out_capacity: int):
+    """Sort-free grouping for input already ordered by its single group key
+    (clustered scans): K2's compaction order replaces the sort, K9 flags
+    disorder, K8 groups.  Returns (out_keys, out_vals, out_mask, overflow,
+    disorder); on disorder the caller discards the result and re-runs the
+    sort path (split runs of one key would emit duplicate partial states,
+    which break early-HAVING filters)."""
+    if len(key_cols) != 1:
+        raise ValueError("presorted grouping takes exactly one key")
+    idx = compaction_order(mask).long()
+    mask_s = mask[idx]
+    k = key_cols[0][idx]
+    disorder = presorted_disorder(k, mask_s)
+    out_keys, out_vals, out_mask, overflow = grouped_on_order(
+        [k], [(v[idx], how) for v, how in val_cols], mask_s, out_capacity, mask.shape[0])
+    return out_keys, out_vals, out_mask, overflow, disorder
+
+
+def key_range_check_plain(keys: torch.Tensor, mask: torch.Tensor, lo: int, hi: int,
+                          sentinel: Optional[int] = None) -> torch.Tensor:
+    """Plain twin of K10 (the reference's "sort.range_check")."""
+    k = keys.to(torch.int64)
+    live = mask if sentinel is None else mask & (k != sentinel)
+    big, small = torch.iinfo(torch.int64).max, torch.iinfo(torch.int64).min
+    kmin = torch.where(live, k, torch.full((), big, dtype=torch.int64, device=k.device)).min()
+    kmax = torch.where(live, k, torch.full((), small, dtype=torch.int64, device=k.device)).max()
+    return live.any() & ((kmin < lo) | (kmax > hi))
+
+
+def key_range_check(keys: torch.Tensor, mask: torch.Tensor, lo: int, hi: int,
+                    sentinel: Optional[int] = None) -> torch.Tensor:
+    """0-d bool on the device: True when a live key (NULL sentinel keys
+    excluded) lies outside the declared [lo, hi]."""
+    if _is_cpu(mask):
+        return key_range_check_plain(keys, mask, lo, hi, sentinel)
+    _require_cuda(keys, mask)
+    k, m = _flat(keys), _flat(mask)
+    flag = torch.empty(1, dtype=torch.bool, device=m.device)
+    lib = _cuda.LIBRARIES.get("clustered")
+    _cuda.check(lib.ab_key_range_check(_ptr(k), _key_kind(keys, mask), _ptr(m), m.shape[0],
+                                       int(sentinel is not None),
+                                       0 if sentinel is None else int(sentinel), int(lo),
+                                       int(hi), _ptr(_flat(flag)), _stream(m.device)),
+                "key_range_check")
+    LAUNCHES["key_range_check"] += 1
+    return flag[0]
+
+
+def clustered_keep_plain(keys, mask, pred, los, his):
+    """Plain twin of K11 (the reference's "agg.clustered_keep"), over row
+    chunks so the rows x intervals compare stays small."""
+    k = keys.to(torch.int64)
+    step = max(1, (1 << 24) // max(1, los.shape[0]))
+    shared = torch.cat([((c[:, None] >= los[None, :]) & (c[:, None] <= his[None, :])).any(dim=1)
+                        for c in k.split(step)]) if k.shape[0] else torch.zeros_like(mask)
+    keep = mask & (shared | pred)
+    return keep, keep.sum()
+
+
+def clustered_keep(keys: torch.Tensor, mask: torch.Tensor, pred: torch.Tensor,
+                   los: torch.Tensor, his: torch.Tensor):
+    """Early-HAVING keep mask of a clustered partial aggregate: live rows
+    whose key lies in an overlap interval [los[j], his[j]] or that pass the
+    HAVING predicate.  Returns (keep, live count as a 0-d int64 on the
+    device).  Empty intervals (lo > hi) pad ``los`` / ``his``."""
+    if _is_cpu(mask):
+        return clustered_keep_plain(keys, mask, pred, los, his)
+    _require_cuda(keys, mask, pred, los, his)
+    if los.dtype != torch.int64 or his.dtype != torch.int64 or los.shape != his.shape:
+        raise TypeError("interval bounds must be two int64 tensors of one shape")
+    k, m, p = _flat(keys), _flat(mask), _flat(pred)
+    lo, hi = _flat(los), _flat(his)
+    n = m.shape[0]
+    if p.shape[0] != n:
+        raise ValueError("keys, mask and predicate must have one length")
+    keep = torch.empty(n, dtype=torch.bool, device=m.device)
+    live = torch.empty(1, dtype=torch.int64, device=m.device)
+    lib = _cuda.LIBRARIES.get("clustered")
+    _cuda.check(lib.ab_clustered_keep(_ptr(k), _key_kind(keys, mask), _ptr(m), _ptr(p), n, _ptr(lo),
+                                      _ptr(hi), lo.shape[0], _ptr(_flat(keep)), _ptr(live),
+                                      _stream(m.device)), "clustered_keep")
+    LAUNCHES["clustered_keep"] += 1
+    return keep, live[0]
 
 
 # --------------------------------------------------------------------------

@@ -3,11 +3,12 @@ aggregate, join, sort, limit, coalesce.
 
 Mirrors arrow_ballista_tpu/ops/operators.py.  Each operator works on
 fixed-capacity batches with liveness masks.  The grouped aggregate runs K1
-(ops/kernels.dense_group_states) on a dense key domain and K4 + K8 (the
-sort path) otherwise; the join K3 + K5 (build), K3 + K6 (probe) and K7
-(semi/anti/outer verdicts); the sort K4; compaction K2.  The spilled join
-build needs the memory governor, which is not ported (ROADMAP.md queue 1
-item 11).
+(ops/kernels.dense_group_states) on a dense key domain, K2 + K9 + K8 (the
+presorted path) on a key-clustered parquet scan, with K10 and K11 for the
+early HAVING, and K4 + K8 (the sort path) otherwise; the join K3 + K5
+(build), K3 + K6 (probe) and K7 (semi/anti/outer verdicts); the sort K4;
+compaction K2.  The spilled join build needs the memory governor, which is
+not ported (ROADMAP.md queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from ..models.schema import BOOL, DataType, Field, INT64, Schema
 from ..utils.config import JOIN_MAX_CAPACITY, resolve_task_budget
 from ..utils.errors import CapacityError, InternalError
 from . import kernels as K
+from .kernels import to_host
 from .expressions import Compiled, ExprCompiler
 from .physical import (ExecutionPlan, Partitioning, TaskContext, exprs_sig,
                        has_scalar_subquery, schema_sig, shared_program)
@@ -314,11 +316,18 @@ class AggSpec:
 
 
 class HashAggregateExec(ExecutionPlan):
-    """Grouped aggregation with static group capacity (dense path, K1).
+    """Grouped aggregation with static group capacity.
 
     ``mode``: 'partial' (per input partition, emits group states),
     'final' (merges states after a hash repartition on the group keys) or
-    'single' (both in one)."""
+    'single' (both in one).
+
+    ``clustered`` is set by the planner on a partial aggregate over a
+    key-clustered parquet scan (scheduler/physical_planner.py
+    _clustered_having_pushdown): (HAVING predicate or None, overlap
+    intervals, the declared (min, max) key range of each partition).  Such
+    a partial groups without a sort, and with a predicate applies the
+    HAVING in the task to every key outside the intervals."""
 
     MERGE = {"sum": "sum", "count": "sum", "min": "min", "max": "max"}
 
@@ -338,6 +347,10 @@ class HashAggregateExec(ExecutionPlan):
                                 self._agg_nullable(a, in_schema)))
         self._schema = Schema(fields)
         self._compiled = None
+        self.clustered = None
+        self._no_presort = False  # latched when the input turns out unordered
+        self._stale_ranges = False  # latched when the declared ranges are wrong
+        self._cl_compiled = None
 
     def _agg_nullable(self, a: AggSpec, in_schema: Schema) -> bool:
         """SQL: sum/min/max yield NULL for an all-NULL group (nullable
@@ -382,7 +395,117 @@ class HashAggregateExec(ExecutionPlan):
         with self.build_lock():
             if self._compiled is None:
                 self._compiled = self._make_compiled(ctx, in_schema)
-        return [self._execute_device(big, ctx.device)]
+        out, disorder = self._execute_device(big, ctx.device)
+        if self.mode != "partial" or self.clustered is None:
+            return [out]
+        if self.clustered[0] is None:
+            # presorted-only: no early filter, but disorder (and a declared
+            # range the data left) still sends the partition down the sort
+            # path
+            if disorder is not None:
+                mismatch = self._declared_range_mismatch(big, partition)
+                if mismatch is not None:
+                    dis_v, mis_v = to_host(torch.stack([disorder, mismatch])).tolist()
+                    if mis_v:
+                        self.metrics().add("clustered_range_mismatches", 1)
+                    bad = dis_v or mis_v
+                else:
+                    bad = bool(disorder)
+                if bad:
+                    out = self._latch_sorted_fallback(big, ctx.device)
+            return [out]
+        if self._stale_ranges:
+            # the statistics lied earlier in this stage: the overlap windows
+            # are untrustworthy, so full partials ship (the HAVING still
+            # applies after the final aggregate)
+            return [out]
+        mismatch = (self._declared_range_mismatch(big, partition)
+                    if disorder is not None else None)
+        filtered = self._apply_clustered_filter(ctx, out, disorder, mismatch)
+        if filtered is None:
+            out = self._latch_sorted_fallback(big, ctx.device)
+            if self._stale_ranges:
+                return [out]
+            filtered = self._apply_clustered_filter(ctx, out, None, None)
+        return [filtered]
+
+    def _presorted(self) -> bool:
+        """A clustered single-key partial groups without sorting (its input
+        is in key order by construction: kernels.grouped_aggregate_presorted)
+        until a disorder detection latches it off."""
+        return (self.mode == "partial" and self.clustered is not None
+                and len(self.group_exprs) == 1 and not self._no_presort)
+
+    def _latch_sorted_fallback(self, big: ColumnBatch, device) -> ColumnBatch:
+        """The row groups lied about their order: latch the presorted
+        grouping off and re-run on the sort path (query semantics, not a
+        fallback of a kernel: both paths run on the device)."""
+        self.metrics().add("presort_fallbacks", 1)
+        with self.build_lock():
+            self._no_presort = True
+        out, _ = self._execute_device(big, device)
+        return out
+
+    def _declared_range_mismatch(self, big: ColumnBatch, partition: int):
+        """Stale-statistics guard (K10): is a live key of this partition
+        outside the (min, max) the planner declared from row-group
+        statistics?  A 0-d bool on the device, or None when no declared
+        range applies to the partition."""
+        ranges = self.clustered[2]
+        if not 0 <= partition < len(ranges):
+            return None
+        comp, group_c = self._compiled[0], self._compiled[1]
+        kc, key_name = group_c[0]
+        field = self._schema.field(key_name)
+        # NULL keys ride an in-band sentinel that the statistics exclude
+        sent = int(field.dtype.null_sentinel) if field.nullable else None
+        k = _full_column(kc.fn(big.columns, comp.aux_arrays(big.dicts)), big.capacity)
+        lo, hi = ranges[partition]
+        return K.key_range_check(k, big.mask, int(lo), int(hi), sent)
+
+    def _apply_clustered_filter(self, ctx, result: ColumnBatch, disorder, mismatch):
+        """Early HAVING (K11): this partition's partial state is final for
+        every key outside the overlap windows, so only survivors of the
+        HAVING predicate and window keys ship.  One small device->host copy
+        fetches the live count with the disorder and mismatch flags.
+        Returns the shrunk batch, or None when the caller must re-run the
+        sort path (disorder, or stale declared ranges)."""
+        pred_expr, intervals = self.clustered[0], self.clustered[1]
+        with self.build_lock():
+            if self._cl_compiled is None:
+                comp = ExprCompiler(self._schema, "device", ctx.device)
+                pred = comp.compile_pred(_substitute_scalars(pred_expr, ctx.scalars))
+                # padded to a power of two with empty (1, 0) pairs, as in the
+                # reference
+                padn = round_capacity(max(1, len(intervals)), 4)
+                los = np.full(padn, 1, dtype=np.int64)
+                his = np.full(padn, 0, dtype=np.int64)
+                for i, (lo, hi) in enumerate(intervals):
+                    los[i], his[i] = lo, hi
+                self._cl_compiled = (comp, pred, *upload([los, his], ctx.device))
+        comp, pred, los, his = self._cl_compiled
+        aux = comp.aux_arrays(result.dicts)
+        p = _full_column(pred.fn(result.columns, aux), result.capacity)
+        keep, live = K.clustered_keep(result.columns[self.group_exprs[0][1]], result.mask, p,
+                                      los, his)
+        if disorder is not None:
+            no = torch.zeros((), dtype=torch.bool, device=live.device)
+            flags = torch.stack([live, disorder.to(torch.int64),
+                                 (mismatch if mismatch is not None else no).to(torch.int64)])
+            live_v, dis_v, mis_v = to_host(flags).tolist()
+            if mis_v:
+                # the declared ranges are wrong (stale statistics): the
+                # early filter itself is invalid; latch it off
+                self.metrics().add("clustered_range_mismatches", 1)
+                self._stale_ranges = True
+                return None
+            if dis_v:
+                return None
+        else:
+            live_v = int(live)
+        self.metrics().add("clustered_early_filters", 1)
+        return ColumnBatch(result.schema, result.columns, keep, result.dicts,
+                           num_rows=live_v).shrink()
 
     def _make_compiled(self, ctx, in_schema):
         all_exprs = [e for e, _ in self.group_exprs] + [a.operand for a in self.aggs]
@@ -464,21 +587,27 @@ class HashAggregateExec(ExecutionPlan):
                 key_ranges.append(None)
         return tuple(key_ranges)
 
-    def _execute_device(self, big: ColumnBatch, device) -> ColumnBatch:
+    def _execute_device(self, big: ColumnBatch, device):
+        """Returns (result batch, disorder flag on the device or None)."""
         comp, group_c, agg_c, tracked = self._compiled
         key_ranges = self._key_ranges(group_c, big.dicts)
         # the group count is bounded by the dense key domain when the ranges
-        # are static, else by the input capacity (the sort path): out_cap
-        # provably holds every group and the overflow flag is None
+        # are static, else by the input capacity (the sort and presorted
+        # paths): out_cap provably holds every group and overflow is None
         out_cap = big.capacity
         domain = K.dense_domain(key_ranges)
         if domain is not None:
             out_cap = min(out_cap, domain)
+        disorder = None
         with self.metrics().timer("agg_time"):
             aux = comp.aux_arrays(big.dicts)
             keys, vals = self._agg_inputs(big.columns, big.mask, aux)
-            out_keys, out_vals, out_mask, overflow = K.grouped_aggregate(
-                keys, vals, big.mask, out_cap, key_ranges=key_ranges)
+            if self._presorted():
+                out_keys, out_vals, out_mask, overflow, disorder = \
+                    K.grouped_aggregate_presorted(keys, vals, big.mask, big.capacity)
+            else:
+                out_keys, out_vals, out_mask, overflow = K.grouped_aggregate(
+                    keys, vals, big.mask, out_cap, key_ranges=key_ranges)
             if overflow is not None and bool(overflow):
                 raise CapacityError(
                     f"aggregation overflowed {out_cap} groups with "
@@ -510,7 +639,7 @@ class HashAggregateExec(ExecutionPlan):
                 fill = f.dtype.null_sentinel if f.nullable else 0
                 data[a.name] = np.asarray([fill], dtype=f.dtype.np_dtype)
             result = ColumnBatch.from_numpy(self._schema, data, dicts={}, device=device)
-        return result
+        return result, disorder
 
     def _label(self):
         g = ", ".join(n for _, n in self.group_exprs)

@@ -1,10 +1,12 @@
 """Physical plan base + scan operators.
 
 Mirrors arrow_ballista_tpu/ops/physical.py: ``execute(partition)`` returns
-a list of fixed-capacity ColumnBatches on the task's device.  This slice
-ports the in-memory scan; parquet, csv, json and avro scans and the
-device-resident scan cache are still to be ported (ROADMAP.md queue 1
-item 4), so every query uploads its tables again.
+a list of fixed-capacity ColumnBatches on the task's device.  The scans
+are the in-memory scan and the row-group-granular parquet scan (statistics
+pruning, the double-buffered cold read, the clustered-key probe); parquet
+scans keep their converted batches in the device-resident scan cache
+(utils/table_cache.py).  csv, json and avro scans are still to be ported
+(ROADMAP.md queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import collections
 import dataclasses
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -20,7 +22,7 @@ import torch
 from ..models import expr as E
 from ..models.batch import ColumnBatch
 from ..models.ipc import int64_decimal_storage_scale
-from ..models.schema import Schema
+from ..models.schema import DataType, Schema
 from ..utils.config import BallistaConfig
 from ..utils.errors import CancelledError, ExecutionError
 from .expressions import ExprCompiler
@@ -379,20 +381,46 @@ class ScanExec(ExecutionPlan):
     def _read_partition(self, partition: int):  # -> pyarrow table
         raise NotImplementedError
 
+    def _cache_key(self, partition: int, capacity: int):
+        """Key for the device-resident scan cache, or None when this scan
+        cannot be cached (a volatile source).  Must embed source
+        versioning (file mtime and size) so stale data is never served."""
+        return None
+
     def output_partition_count(self) -> int:
         raise NotImplementedError
+
+    def _produce_batches(self, partition: int, ctx: TaskContext,
+                         capacity: int) -> List[ColumnBatch]:
+        """Read and convert one partition to device batches (pre-filter)."""
+        with self.metrics().timer("scan_read_time"):
+            table = self._read_partition(partition)
+        ctx.check_cancelled()
+        with self.metrics().timer("scan_convert_time"):
+            return table_to_batches(table, self._schema, capacity, ctx.device)
 
     def execute(self, partition: int, ctx: TaskContext) -> List[ColumnBatch]:
         with ctx.op_span(self):
             return self._execute(partition, ctx)
 
     def _execute(self, partition: int, ctx: TaskContext) -> List[ColumnBatch]:
+        from ..utils import table_cache
+        from ..utils.config import SCAN_CACHE_BYTES
+
         ctx.check_cancelled()
-        with self.metrics().timer("scan_read_time"):
-            table = self._read_partition(partition)
-        ctx.check_cancelled()
-        with self.metrics().timer("scan_convert_time"):
-            batches = table_to_batches(table, self._schema, ctx.config.batch_size, ctx.device)
+        capacity = ctx.config.batch_size
+        budget = table_cache.resolve_budget(ctx.config.get(SCAN_CACHE_BYTES), ctx.device)
+        key = self._cache_key(partition, capacity) if budget else None
+        if key is not None:
+            key = (str(ctx.device),) + key  # a CPU and a card context never share
+        batches = table_cache.CACHE.get(key) if key is not None else None
+        if batches is None:
+            batches = self._produce_batches(partition, ctx, capacity)
+            if key is not None:
+                table_cache.CACHE.set_budget(budget)
+                table_cache.CACHE.put(key, batches)
+        else:
+            self.metrics().add("scan_cache_hits", 1)
         self.metrics().add("output_rows", sum(b.num_rows for b in batches))
         if not self.filters:
             return batches
@@ -409,6 +437,7 @@ class ScanExec(ExecutionPlan):
         out = []
         with self.metrics().timer("scan_filter_time"):
             for b in batches:
+                # a new mask on top: cached batches are never written
                 aux = comp.aux_arrays(b.dicts)
                 new_mask = b.mask & pred.fn(b.columns, aux)
                 out.append(ColumnBatch(b.schema, b.columns, new_mask, b.dicts))
@@ -435,3 +464,337 @@ class MemoryScanExec(ScanExec):
 
     def _label(self):
         return f"MemoryScanExec: {self.table.num_rows} rows, {self.partitions} partitions"
+
+
+def _simple_predicates(filters: Sequence[E.Expr], schema: Schema):
+    """``column <op> literal`` conjuncts usable against parquet row-group
+    statistics: [(col_name, op, value, dtype)] with the literal in the
+    column's physical domain (dates as epoch days, decimals as scaled ints,
+    by the rounding of ExprCompiler._lit_physical) — the domain the
+    executed predicate compares in, so pruning never disagrees with
+    execution."""
+    from .expressions import fold_constants
+
+    conv = ExprCompiler(schema, "host")
+    out = []
+    for f in filters:
+        for c in E.conjuncts(f):
+            c = fold_constants(c)
+            if not (isinstance(c, E.BinOp) and c.op in ("=", "<", "<=", ">", ">=")):
+                continue
+            col, lit, op = None, None, c.op
+            if isinstance(c.left, E.Column) and isinstance(c.right, E.Lit):
+                col, lit = c.left, c.right
+            elif isinstance(c.right, E.Column) and isinstance(c.left, E.Lit):
+                col, lit = c.right, c.left
+                op = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "=": "="}[op]
+            if col is None or col.name not in schema:
+                continue
+            v = lit.value
+            if isinstance(v, bool) or v is None:
+                continue
+            dt = schema.field(col.name).dtype
+            if not isinstance(v, str):
+                try:
+                    v = conv._lit_physical(lit, dt)
+                except Exception:  # noqa: BLE001 — a literal the column can't take: no pruning
+                    continue
+            out.append((col.name, op, v, dt))
+    return out
+
+
+def _stats_refute(stats, op: str, value, dt: DataType,
+                  stats_scale: Optional[int] = None) -> bool:
+    """True iff row-group statistics prove no row can satisfy
+    ``col op value``.  ``value`` is in the column's physical domain;
+    min/max are converted into it before comparing.  ``stats_scale``: the
+    storage scale of an int64-stored decimal column, whose integer
+    statistics are already scaled by 10^stats_scale and must not be scaled
+    again (double scaling would wrongly refute matching row groups)."""
+    if stats is None or not stats.has_min_max:
+        return False
+    lo, hi = stats.min, stats.max
+    try:
+        if isinstance(value, str):
+            if not isinstance(lo, (str, bytes)):
+                return False
+            if isinstance(lo, bytes):
+                lo, hi = lo.decode("utf-8", "replace"), hi.decode("utf-8", "replace")
+        else:
+            import datetime
+            import decimal as pydec
+
+            def phys(x):
+                # datetime.datetime before datetime.date (a subclass): both
+                # map to epoch days
+                if isinstance(x, datetime.datetime):
+                    return (x.date() - datetime.date(1970, 1, 1)).days
+                if isinstance(x, datetime.date):
+                    return (x - datetime.date(1970, 1, 1)).days
+                if dt.is_decimal:
+                    if stats_scale is not None and isinstance(x, int):
+                        # exact; floor division as in the row conversion
+                        if dt.scale >= stats_scale:
+                            return x * (10 ** (dt.scale - stats_scale))
+                        return x // (10 ** (stats_scale - dt.scale))
+                    if isinstance(x, pydec.Decimal):
+                        return int(x.scaleb(dt.scale))
+                    return float(x) * (10 ** dt.scale)
+                if isinstance(x, (int, float, pydec.Decimal)):
+                    return float(x)
+                raise TypeError(f"unusable stats value {x!r}")
+
+            lo, hi = phys(lo), phys(hi)
+        if op == "=":
+            return value < lo or value > hi
+        if op == "<":
+            return lo >= value
+        if op == "<=":
+            return lo > value
+        if op == ">":
+            return hi <= value
+        if op == ">=":
+            return hi < value
+    except (TypeError, ValueError, ArithmeticError):
+        return False
+    return False
+
+
+Unit = Tuple[str, int, int]  # (file, row group, rows)
+
+
+class ParquetScanExec(ScanExec):
+    """Parquet scan at row-group granularity: the partition unit is a
+    (file, row group) pair, balanced across ``target_partitions`` by row
+    count, so a single large file still scans in parallel.
+
+    Pushdown: simple ``col <op> literal`` conjuncts are checked against
+    row-group min/max statistics at plan time, and refuted row groups are
+    never read.  Every predicate is applied again on the device (pruning
+    only over-approximates)."""
+
+    def __init__(self, schema: Schema, paths: List[str], target_partitions: int,
+                 filters: Sequence[E.Expr] = (), table_schema: Optional[Schema] = None):
+        super().__init__(schema, filters)
+        from ..utils import local_files
+
+        self.table_schema = table_schema or schema
+        files = []
+        for p in paths:
+            files.extend(local_files.list_files(p, (".parquet",)))
+        if not files:
+            raise ExecutionError(f"no parquet files found in {paths}")
+        self.files = files
+
+        preds = _simple_predicates(self.filters, self.table_schema)
+        units: List[Unit] = []
+        self.pruned_row_groups = 0
+        for f in files:
+            with local_files.parquet_file(f) as pf:
+                meta = pf.metadata
+                # int64-stored decimals: integer statistics in the
+                # storage-scaled domain
+                stats_scales = {}
+                for af in pf.schema_arrow:
+                    s = int64_decimal_storage_scale(af)
+                    if s is not None:
+                        stats_scales[af.name] = s
+            name_to_idx = {meta.schema.column(i).name: i for i in range(meta.num_columns)}
+            for rg in range(meta.num_row_groups):
+                g = meta.row_group(rg)
+                refuted = False
+                for col, op, v, dt in preds:
+                    ci = name_to_idx.get(col)
+                    if ci is None:
+                        continue
+                    if _stats_refute(g.column(ci).statistics, op, v, dt,
+                                     stats_scale=stats_scales.get(col)):
+                        refuted = True
+                        break
+                if refuted:
+                    self.pruned_row_groups += 1
+                else:
+                    units.append((f, rg, g.num_rows))
+        self._total_rows = sum(u[2] for u in units)
+        if not units:  # everything pruned: one empty partition
+            self.groups: List[List[Unit]] = [[]]
+        else:
+            import heapq
+
+            # greedy row-count balancing into k partitions
+            k = max(1, min(target_partitions, len(units)))
+            heap = [(0, i) for i in range(k)]
+            groups: List[List[Unit]] = [[] for _ in range(k)]
+            heapq.heapify(heap)
+            for u in sorted(units, key=lambda u: -u[2]):
+                rows, i = heapq.heappop(heap)
+                groups[i].append(u)
+                heapq.heappush(heap, (rows + u[2], i))
+            self.groups = [g for g in groups if g]
+
+    def output_partition_count(self) -> int:
+        return len(self.groups)
+
+    def _cache_key(self, partition: int, capacity: int):
+        """(file, row group, mtime, size) units + projection + capacity."""
+        import os
+
+        units = self.groups[partition]
+        if not units:
+            return None
+        versioned = []
+        for f, rg, _rows in units:
+            try:
+                st = os.stat(f)
+            except OSError:
+                return None
+            versioned.append((f, rg, st.st_mtime_ns, st.st_size))
+        return ("parquet", tuple(versioned), tuple(self._schema.names()), capacity)
+
+    def _read_units(self, units: Sequence[Unit]):
+        """Arrow table of ``units``.  Runs on the scan's reader thread:
+        it touches files and arrow only, never the device."""
+        import pyarrow as pa
+
+        from ..utils import local_files
+
+        if not units:
+            return self._schema.to_arrow_empty()
+        by_file: Dict[str, List[int]] = {}
+        for f, rg, _ in units:
+            by_file.setdefault(f, []).append(rg)
+        cols = self._schema.names()
+        # string columns come back dictionary-coded straight from the pages
+        rd = [f.name for f in self._schema if f.dtype.is_string] or None
+        def read(item):
+            f, rgs = item
+            return local_files.read_parquet_row_groups(f, sorted(rgs), cols, read_dictionary=rd)
+
+        if len(by_file) == 1:
+            return read(next(iter(by_file.items())))
+        from concurrent.futures import ThreadPoolExecutor
+
+        # overlap the files' reads (each pyarrow read releases the GIL)
+        with ThreadPoolExecutor(max_workers=min(8, len(by_file))) as pool:
+            return pa.concat_tables(list(pool.map(read, by_file.items())))
+
+    def _read_partition(self, partition: int):
+        return self._read_units(self.groups[partition])
+
+    def _produce_batches(self, partition: int, ctx: TaskContext,
+                         capacity: int) -> List[ColumnBatch]:
+        """Double-buffered cold path: one reader thread reads chunk i+1
+        while the calling thread converts chunk i and copies it to the
+        device, so a cold scan costs about max(read, convert + H2D) and not
+        their sum.  Chunks group row-group units to at least ``capacity``
+        rows, so the batch shapes match the unpipelined path.  Chunk-local
+        string dictionaries may differ; consumers unify them on demand
+        (models/batch.py _unify_string_dicts)."""
+        units = self.groups[partition]
+        chunks: List[List[Unit]] = []
+        cur, cur_rows = [], 0
+        for u in sorted(units):
+            cur.append(u)
+            cur_rows += u[2]
+            if cur_rows >= capacity:
+                chunks.append(cur)
+                cur, cur_rows = [], 0
+        if cur:
+            chunks.append(cur)
+        if len(chunks) <= 1:
+            return super()._produce_batches(partition, ctx, capacity)
+        from concurrent.futures import ThreadPoolExecutor
+
+        batches: List[ColumnBatch] = []
+        pool = ThreadPoolExecutor(max_workers=1)
+        try:
+            fut = pool.submit(self._read_units, chunks[0])
+            for i in range(len(chunks)):
+                ctx.check_cancelled()
+                # time blocked on the read; overlapped reads hide behind
+                # the previous chunk's conversion
+                with self.metrics().timer("scan_read_time"):
+                    table = fut.result()
+                if i + 1 < len(chunks):
+                    fut = pool.submit(self._read_units, chunks[i + 1])
+                with self.metrics().timer("scan_convert_time"):
+                    batches.extend(table_to_batches(table, self._schema, capacity, ctx.device))
+        finally:
+            pool.shutdown(wait=False, cancel_futures=True)
+        return batches
+
+    def row_count_estimate(self) -> int:
+        return self._total_rows
+
+    def clustered_ranges(self, col_name: str):
+        """If the data is clustered on ``col_name`` (per-row-group min/max
+        statistics non-decreasing in row order), a regroup of this scan's
+        row groups into contiguous runs at the same partition count:
+        ``(groups, ranges)`` with each new partition's (min, max) key range;
+        else None.
+
+        Side-effect free: the planner commits ``groups`` only when it
+        accepts the annotation.  Memoized per column (the planner probes
+        twice: the presorted-only form, then the early-HAVING upgrade)."""
+        cache = getattr(self, "_clustered_cache", None)
+        if cache is None:
+            self._clustered_cache = cache = {}
+        if col_name not in cache:
+            cache[col_name] = self._clustered_ranges_impl(col_name)
+        return cache[col_name]
+
+    def _clustered_ranges_impl(self, col_name: str):
+        from ..utils import local_files
+
+        units = sorted(u for g in self.groups for u in g)
+        if len(units) <= 1:
+            return None
+        metas = {}
+        stats_per_unit = []
+        for f, rg, _rows in units:
+            meta = metas.get(f)
+            if meta is None:
+                with local_files.parquet_file(f) as pf:
+                    meta = metas[f] = pf.metadata
+            idx = None
+            for i in range(meta.num_columns):
+                if meta.schema.column(i).name == col_name:
+                    idx = i
+                    break
+            if idx is None:
+                return None
+            st = meta.row_group(rg).column(idx).statistics
+            if st is None or not st.has_min_max:
+                return None
+            if not isinstance(st.min, int) or not isinstance(st.max, int):
+                return None  # int keys only (exact, order-stable)
+            stats_per_unit.append((st.min, st.max))
+        # clustered iff unit ranges are non-decreasing in row order
+        for (_lo_a, hi_a), (lo_b, _hi_b) in zip(stats_per_unit, stats_per_unit[1:]):
+            if hi_a > lo_b:
+                return None
+        # contiguous regroup at the same partition count, row-balanced
+        k = len(self.groups)
+        total = sum(u[2] for u in units)
+        per = max(1, -(-total // k))
+        new_groups, new_ranges = [], []
+        cur, cur_rows, cur_lo, cur_hi = [], 0, None, None
+        for u, (lo, hi) in zip(units, stats_per_unit):
+            cur.append(u)
+            cur_rows += u[2]
+            cur_lo = lo if cur_lo is None else min(cur_lo, lo)
+            cur_hi = hi if cur_hi is None else max(cur_hi, hi)
+            if cur_rows >= per and len(new_groups) < k - 1:
+                new_groups.append(cur)
+                new_ranges.append((cur_lo, cur_hi))
+                cur, cur_rows, cur_lo, cur_hi = [], 0, None, None
+        if cur:
+            new_groups.append(cur)
+            new_ranges.append((cur_lo, cur_hi))
+        return new_groups, new_ranges
+
+    def _label(self):
+        pruned = f", {self.pruned_row_groups} row-groups pruned" if self.pruned_row_groups else ""
+        n_units = sum(len(g) for g in self.groups)
+        return (f"ParquetScanExec: {len(self.files)} files, {n_units} row-groups, "
+                f"{len(self.groups)} partitions{pruned}")

@@ -1,14 +1,14 @@
 """Logical plan -> physical plan with exchange (repartition) insertion.
 
 Mirrors arrow_ballista_tpu/scheduler/physical_planner.py for the operators
-this package has: scans of in-memory tables, projection, filter, grouped
-aggregation (partial -> hash repartition -> final), joins (broadcast or
-partitioned, inner chains reordered by estimated build size), sort and
-limit.  Plans that need an operator not ported yet raise
-NotImplementedError at plan time, naming the ROADMAP.md item: the mesh
-exchange (queue 1 item 10), the clustered early-HAVING rewrite (queue 1
-item 9, it needs parquet statistics) and the distributed stage split
-behind EXPLAIN VERBOSE (queue 1 item 8).
+this package has: scans of in-memory tables and parquet files (filters
+pushed into the scan), projection, filter, grouped aggregation (partial ->
+hash repartition -> final, with the clustered early-HAVING rewrite over
+key-clustered parquet), joins (broadcast or partitioned, inner chains
+reordered by estimated build size), sort and limit.  Plans that need an
+operator not ported yet raise NotImplementedError at plan time, naming the
+ROADMAP.md item: the mesh exchange (queue 1 item 10) and the distributed
+stage split behind EXPLAIN VERBOSE (queue 1 item 8).
 
 Projections producing float64 (division) run host-side, as in the
 reference.
@@ -121,6 +121,9 @@ class PhysicalPlanner:
         self._scalars = []
         self._resolve_auto_partitions(logical)
         plan = self.create(logical)
+        self._clustered_having_pushdown(plan)
+        for _sid, sub in self._scalars:
+            self._clustered_having_pushdown(sub)
         return PlannedQuery(plan, list(self._scalars))
 
     def create(self, node: L.LogicalPlan) -> ExecutionPlan:
@@ -317,6 +320,101 @@ class PhysicalPlanner:
         lpart = RepartitionExec(left, Partitioning.hash(tuple(l for l, _ in on), p))
         rpart = RepartitionExec(right, Partitioning.hash(tuple(r for _, r in on), p))
         return O.JoinExec(lpart, rpart, on, node.join_type, filt, dist="partitioned")
+
+    def _clustered_having_pushdown(self, plan: ExecutionPlan) -> None:
+        """Clustered group-by early-HAVING rewrite.
+
+        Pattern: Filter(pred) <- HashAgg(final) <- Repartition(hash keys)
+        <- HashAgg(partial) <- Rename* <- ParquetScan, with ONE int group
+        key whose parquet row-group statistics prove the data clustered on
+        it.  A partial aggregate over a contiguous partition is then final
+        for every key outside the overlap windows of neighbouring
+        partitions, so the HAVING predicate applies in the task and the
+        exchange ships only survivors and window keys.  Without a HAVING
+        (or where it cannot be pushed) the partial still groups without a
+        sort (the presorted-only form)."""
+        from ..ops.physical import ParquetScanExec, has_scalar_subquery
+
+        def annotate(agg_p, pred) -> bool:
+            """Mark a partial aggregate clustered if eligible.  ``pred``:
+            the downstream HAVING predicate (early-filter form) or None
+            (presorted-only form)."""
+            if len(agg_p.group_exprs) != 1:
+                return False
+            ge, _gname = agg_p.group_exprs[0]
+            if not isinstance(ge, E.Column):
+                return False
+            if any(a.func not in ("sum", "count", "min", "max") for a in agg_p.aggs):
+                return False
+            if pred is not None:
+                if has_scalar_subquery(pred):
+                    return False
+                if not pred.column_refs() <= set(agg_p.schema.names()):
+                    return False
+            # resolve the group key through renames down to the scan column
+            child, col = agg_p.input, ge.name
+            while isinstance(child, O.RenameExec):
+                rev = {new: old for old, new in child._mapping}
+                if col not in rev:
+                    return False
+                col = rev[col]
+                child = child.input
+            if not isinstance(child, ParquetScanExec):
+                return False
+            if col not in child.schema or \
+                    child.schema.field(col).dtype.np_dtype.kind not in "iu":
+                return False
+            probe = child.clustered_ranges(col)
+            if probe is None:
+                return False
+            groups, ranges = probe
+            if not ranges or len(ranges) <= 1:
+                # a rejected probe leaves the scan untouched (the regroup
+                # would have collapsed its partitions)
+                return False
+            intervals = [(lo_b, hi_a)
+                         for (_lo_a, hi_a), (lo_b, _hi_b) in zip(ranges, ranges[1:])
+                         if lo_b <= hi_a]
+            field = child.schema.field(col)
+            if field.nullable:
+                # NULL keys ride the in-band sentinel, which parquet min/max
+                # statistics exclude: NULL-group partials can split across
+                # partitions, so the sentinel always ships
+                sent = int(field.dtype.null_sentinel)
+                intervals.append((sent, sent))
+            # accepted: commit the contiguous regroup, and carry the declared
+            # per-partition key ranges so the runtime can detect stale stats
+            child.groups = groups
+            agg_p.clustered = (pred, intervals, [tuple(r) for r in ranges])
+            return True
+
+        def walk(node):
+            for c in node.children():
+                walk(c)
+            if isinstance(node, O.HashAggregateExec) and node.mode == "partial" \
+                    and node.clustered is None:
+                annotate(node, None)  # presorted-only; upgraded below
+                return
+            if not isinstance(node, O.FilterExec) or node.host_mode:
+                return
+            agg_f = node.input
+            if not isinstance(agg_f, O.HashAggregateExec) or agg_f.mode != "final":
+                return
+            rep = agg_f.input
+            if not isinstance(rep, RepartitionExec):
+                return
+            agg_p = rep.input
+            if not isinstance(agg_p, O.HashAggregateExec) or agg_p.mode != "partial":
+                return
+            cl = agg_p.clustered
+            if cl is not None and cl[0] is not None:
+                return  # already carries an early-HAVING annotation
+            # upgrade a presorted-only annotation to the early-HAVING form
+            agg_p.clustered = None
+            if not annotate(agg_p, node.predicate):
+                agg_p.clustered = cl  # keep the presorted-only form if any
+
+        walk(plan)
 
     def _estimate_rows(self, node: L.LogicalPlan) -> int:
         if isinstance(node, L.TableScan):

@@ -24,6 +24,8 @@ MESH_SHUFFLE = "ballista.shuffle.mesh"
 BROADCAST_THRESHOLD = "ballista.join.broadcast_threshold"
 # ceiling on a join's candidate pairs (CapacityError above it)
 JOIN_MAX_CAPACITY = "ballista.join.max_capacity"
+# device-resident scan cache budget ('auto' | bytes | 0 = off)
+SCAN_CACHE_BYTES = "ballista.scan.cache.bytes"
 
 
 @dataclasses.dataclass
@@ -89,6 +91,10 @@ _ENTRIES: Dict[str, ConfigEntry] = {
         ConfigEntry(JOIN_MAX_CAPACITY, 1 << 26, int,
                     "ceiling on a join's candidate pairs (rows); above it the "
                     "join raises CapacityError"),
+        ConfigEntry(SCAN_CACHE_BYTES, "auto", str,
+                    "device-resident scan cache budget: 'auto' (6 GiB on the "
+                    "card, 1 GiB on the CPU), a byte count, or 0 to disable; "
+                    "see utils/table_cache.py"),
     ]
 }
 

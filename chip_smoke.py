@@ -11,11 +11,20 @@ Phases (any failure exits non-zero and prints no result line):
    0, generated once) through ``BallistaContext.local()`` -> ``sql`` ->
    ``to_pandas``: q1 (K1-K4), q3 (two broadcast inner joins and the
    sort-path aggregate: K2-K6, K8) and q4 (a semi join and a dense
-   aggregate: K1, K5-K7).  Each path runs once cold and then warm (q1 five
-   times, q3 and q4 three), with every launch counter reset just before
-   the cold run and read just after it: each path must launch its own
-   kernels, and every tensor a kernel gets must lie on the card.  The
-   inputs of each wrapper's largest call on each path are captured;
+   aggregate: K1, K5-K7) over in-memory tables; then the same three and
+   q18 over parquet files (``pq_*`` paths: the tables written once with
+   decimals in int64 storage and 2^19-row row groups at SF1, as
+   ``benchmarks/tpch.py convert`` writes them, into an ignored directory
+   removed at exit), through ``register_parquet``: the row-group scan, the
+   device-resident scan cache and, on q18's subquery, the clustered
+   presorted aggregate with its early HAVING (K2, K9, K8, K10, K11).  Each
+   path runs once cold and then warm (q1 five times, the others three),
+   with every launch counter reset just before the cold run and read just
+   after it: each path must launch its own kernels, and every tensor a
+   kernel gets must lie on the card.  Every warm parquet run must hit the
+   scan cache and read no row group again; q18 must early-filter and never
+   fall back to the sort path; no query may write into a cached tensor.
+   The inputs of each wrapper's largest call on each path are captured;
 4. each kernel held against its plain PyTorch twin on the card: on every
    path that launched it, at the inputs of that path's largest call of each
    of its wrappers (K3: bucket_of and hash64; K6: probe_join and
@@ -24,14 +33,17 @@ Phases (any failure exits non-zero and prints no result line):
    bools, NaN and dead rows; for the join build and probe duplicate keys
    with fan-out, all-dead rows, forced equal hashes and truncation at the
    pair capacity; one segment hit by every row; for the sort-path
-   aggregate empty slots, one 6M-row group, no keys and float columns).
-   Integers exact; float sums at rtol 1e-12 (atomic summation order
-   differs from the twin's);
+   aggregate empty slots, one 6M-row group, no keys and float columns;
+   for K1 int32 sums that wrap and int32 and float32 min and max; for K9
+   sorted and shuffled keys; for K10 keys out of range and NULL keys; for
+   K11 1,000 intervals).  Integers exact; float sums at rtol 1e-12 (atomic
+   summation order differs from the twin's) or exact on quarter values;
 5. results held against independent numpy computations on the same
-   generated arrays: q1 (decimal sums and counts exact, averages at rtol
-   1e-12), q3's top 10 and q3 without its LIMIT (every group, by
-   l_orderkey), both exact in scaled-decimal revenue, date and priority,
-   and q4's five counts, exact;
+   generated arrays, on both the in-memory and the parquet paths: q1
+   (decimal sums and counts exact, averages at rtol 1e-12), q3's top 10
+   and q3 without its LIMIT (every group, by l_orderkey), both exact in
+   scaled-decimal revenue, date and priority, q4's five counts, exact,
+   and q18's top 100 and every q18 row without the LIMIT, exact;
 6. times (warm): kernel, plain twin and library call at the main path's
    shapes, each as device time per call (torch.profiler: the card's own
    time for everything one call launches; where it records nothing, CUDA
@@ -42,31 +54,46 @@ Phases (any failure exits non-zero and prints no result line):
    device busy share; the device time and bytes bound of the expression
    programs, the host packing and the batch concat/shrink on q3's path
    (kernel timings at the largest call over the paths);
-   the ``entry()`` step's rows/s at 4096 and 6M rows.
+   the ``entry()`` step's rows/s at 4096 and 6M rows; per parquet query
+   the scan's read and convert times cold and warm, the scan cache's
+   resident bytes and the peak device memory.
 
 The second-to-last lines are the nvidia-smi line and a JSON object with one
 entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import atexit
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 SF = 1.0
 STRESS_ROWS = 6_000_000
-WARM_RUNS = {"q1": 5, "q3": 3, "q4": 3}
+WARM_RUNS = {"q1": 5, "q3": 3, "q4": 3, "pq_q1": 3, "pq_q3": 3, "pq_q4": 3, "pq_q18": 3}
 # kernels (launch counters of ops/kernels.py) each main path must launch
 PATH_KERNELS = {
     "q1": ("dense_group_states", "compaction_order", "hash64", "sort_order"),
     "q3": ("compaction_order", "hash64", "sort_order", "build_side_sort", "probe_join",
            "grouped_on_order"),
     "q4": ("dense_group_states", "build_side_sort", "probe_join", "segment_any"),
+    "pq_q18": ("compaction_order", "hash64", "sort_order", "build_side_sort", "probe_join",
+               "segment_any", "grouped_on_order", "presorted_disorder", "key_range_check",
+               "clustered_keep"),
 }
+for _q in ("q1", "q3", "q4"):
+    PATH_KERNELS[f"pq_{_q}"] = PATH_KERNELS[_q]
+# rows a parquet row group holds at SF1 (benchmarks/tpch.py convert's
+# default: lineitem in 12 row groups); scaled with the scale factor so a
+# rehearsal at a small one keeps the same partitions
+ROW_GROUP_ROWS = 1 << 19
+PARQUET_TABLES = ("lineitem", "orders", "customer")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -202,7 +229,8 @@ class Capture:
     # wrapper -> index of the argument whose first dimension sizes the call
     NAMES = {"dense_group_states": 2, "compaction_order": 0, "bucket_of": 0, "hash64": 0,
              "sort_order": 1, "build_side_sort": 1, "probe_join": 0, "probe_counts": 0,
-             "segment_any": 0, "grouped_on_order": 2}
+             "segment_any": 0, "grouped_on_order": 2, "presorted_disorder": 1,
+             "key_range_check": 1, "clustered_keep": 1}
 
     def __init__(self, K, device):
         self.K = K
@@ -416,6 +444,114 @@ def check_q4(ctx, sql, oracle):
     return got
 
 
+def q18_oracle(tables, having=300):
+    """q18 by numpy: the orders whose lines sum to more than ``having`` in
+    l_quantity, {o_orderkey: (c_name, c_custkey, o_orderdate days,
+    o_totalprice as scale-2 int64, sum(l_quantity) as scale-2 int64)}."""
+    import numpy as np
+
+    cust, orders, li = tables["customer"], tables["orders"], tables["lineitem"]
+    lkey = li.column("l_orderkey").to_numpy()
+    qty = np.zeros(int(lkey.max()) + 1, dtype=np.int64)
+    np.add.at(qty, lkey, _cents(li, "l_quantity"))
+    okey = orders.column("o_orderkey").to_numpy()
+    keep = qty[okey] > having * 100
+    name_of = dict(zip(cust.column("c_custkey").to_numpy().tolist(),
+                       cust.column("c_name").cast("string").to_pylist()))
+    ocust = orders.column("o_custkey").to_numpy()[keep]
+    odate = orders.column("o_orderdate").cast("int32").to_numpy()[keep]
+    price = _cents(orders, "o_totalprice")[keep]
+    return {int(k): (name_of[int(c)], int(c), int(d), int(p), int(qty[k]))
+            for k, c, d, p in zip(okey[keep], ocust, odate, price)}
+
+
+def q18_rows(ctx, sql):
+    """The engine's q18 rows in its physical units, in result order."""
+    rows = []
+    for b in ctx.sql(sql).collect():
+        if b.device.type != ctx.device.type:
+            fail(f"q18 result batch on {b.device}")
+        names = [f.name for f in b.schema]
+        for f in (b.schema.fields[4], b.schema.fields[5]):
+            if f.dtype.scale != 2:
+                fail(f"q18 {f.name} has scale {f.dtype.scale}, the oracle computes scale 2")
+        d = b.compacted_numpy()
+        cname = b.dicts[names[0]][d[names[0]]].tolist() if len(d[names[0]]) else []
+        rows.extend(zip(d[names[2]].tolist(), cname, d[names[1]].tolist(),
+                        d[names[3]].tolist(), d[names[4]].tolist(), d[names[5]].tolist()))
+    return rows
+
+
+def check_q18(ctx, sql, oracle):
+    """Top 100 (o_totalprice desc, o_orderdate asc) and every row without
+    the LIMIT (ordered by o_orderkey), exact."""
+    top = q18_rows(ctx, sql)
+    want_top = sorted(oracle.items(), key=lambda kv: (-kv[1][3], kv[1][2], kv[0]))[:100]
+    # rows tied in (price, date) may come in either order: compare the order
+    # of the sort keys and the set of rows
+    if [(r[4], r[3]) for r in top] != [(v[3], v[2]) for _, v in want_top] or \
+            sorted(top) != sorted((k, *v) for k, v in want_top):
+        fail(f"q18 top 100 differs from the numpy oracle:\n{top[:5]}\n{want_top[:5]}")
+    every = q18_rows(ctx, sql.split("order by")[0] + " order by o_orderkey")
+    want = [(k, *oracle[k]) for k in sorted(oracle)]
+    if every != want:
+        fail(f"q18 rows differ from the numpy oracle: {len(every)} vs {len(want)} rows")
+    return len(top), len(every)
+
+
+def write_parquet(tables, sf, directory):
+    """The tables as ``benchmarks/tpch.py convert`` writes them: one file a
+    table, decimals in int64 storage, zstd, 2^19-row row groups at SF1."""
+    import pyarrow.parquet as pq
+
+    from benchmarks.tpch import decimal_to_int64_storage
+
+    rows = max(1024, int(ROW_GROUP_ROWS * sf))
+    paths = {}
+    for name in PARQUET_TABLES:
+        paths[name] = os.path.join(directory, f"{name}.parquet")
+        pq.write_table(decimal_to_int64_storage(tables[name]), paths[name],
+                       compression="zstd", row_group_size=rows)
+    return paths, rows
+
+
+def scan_metrics(plan):
+    """Summed metrics of the plan's parquet scans."""
+    out = {}
+    if type(plan).__name__ == "ParquetScanExec":
+        out.update(plan.metrics().to_dict())
+    for c in plan.children():
+        for k, v in scan_metrics(c).items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def plan_metric(plan, name):
+    return plan.metrics().to_dict().get(name, 0) + sum(plan_metric(c, name)
+                                                       for c in plan.children())
+
+
+def check_clustered(plan, label):
+    """q18's subquery went through the clustered aggregate: it early-filtered
+    and never fell back to the sort path."""
+    got = {k: plan_metric(plan, k) for k in ("clustered_early_filters", "presort_fallbacks",
+                                              "clustered_range_mismatches")}
+    if not got["clustered_early_filters"] or got["presort_fallbacks"]:
+        fail(f"q18 over parquet ({label}): {got}")
+    log(f"pq_q18 clustered aggregate ({label}): {json.dumps(got)}")
+
+
+def cache_fingerprints(table_cache):
+    """(data pointer, wrapping sum of the int64 view) of every tensor the
+    scan cache holds, keyed by (entry, batch, column)."""
+    import torch
+
+    return {(key, i, name): (t.data_ptr(), int(t.view(torch.int64).sum()))
+            for key, batches in table_cache.CACHE.entries()
+            for i, b in enumerate(batches)
+            for name, t in [*b.columns.items(), ("__mask", b.mask)]}
+
+
 def plan_breakdown(plan, indent=0):
     """Per-operator host wall times of the last query (children included
     in a parent's elapsed_time), one line per operator."""
@@ -597,6 +733,8 @@ def max_err(a, b, rtol=0.0) -> float:
 
 
 def dense_check(K, args):
+    import torch
+
     key_cols, val_cols, mask, key_ranges, domain = args
     gv, ge, gb = K.dense_group_states(key_cols, val_cols, mask, key_ranges, domain)
     pv, pe, pb = K.dense_group_states_plain(key_cols, val_cols, mask, key_ranges, domain)
@@ -604,7 +742,7 @@ def dense_check(K, args):
     if bool(gb) != bool(pb):
         raise AssertionError("bad-rows flags differ")
     for (v, how), g, p in zip(val_cols, gv, pv):
-        f64_sum = how == "sum" and v.dtype.is_floating_point
+        f64_sum = how == "sum" and v.dtype == torch.float64
         err = max(err, max_err(g, p, rtol=1e-12 if f64_sum else 0.0))
     return err
 
@@ -627,9 +765,15 @@ def stress_inputs(K, device, n, seed=1):
     wrap = t(rng.integers(2**61, 2**62, n).astype(np.int64))  # sums wrap mod 2^64
     neg = t(rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64))
     fv = t(rng.normal(size=n))
+    i32 = t(rng.integers(2**29, 2**31 - 1, n).astype(np.int32))  # int32 sums wrap mod 2^32
+    i32s = t(rng.integers(-2**31, 2**31 - 1, n).astype(np.int32))
+    # quarter values of at most 8 in magnitude: every partial sum of a slot
+    # stays exact in float32, so the atomic order cannot change a bit
+    f32 = t((rng.integers(-32, 32, n) / 4).astype(np.float32))
     dense_vals = [(wrap, "sum"), (neg, "min"), (neg, "max"),
                   (torch.zeros(n, dtype=torch.int64, device=device), "count"), (fv, "sum"),
-                  (fv, "min"), (fv, "max")]
+                  (fv, "min"), (fv, "max"), (i32, "sum"), (i32s, "min"), (i32s, "max"),
+                  (f32, "sum"), (f32, "min"), (f32, "max")]
     sort_f = rng.integers(-3, 3, n).astype(np.float64)
     sort_f[rng.random(n) < 0.01] = np.nan
     sort_f[rng.random(n) < 0.01] = -0.0
@@ -650,7 +794,54 @@ def stress_inputs(K, device, n, seed=1):
         "sort_order": [(sort_keys, mask)],
         **join_stress(K, t, rng, n),
         "grouped_on_order": seg_agg_stress(t, rng, n),
+        **clustered_stress(t, rng, n),
     }
+
+
+def clustered_stress(t, rng, n):
+    """K9-K11 inputs: sorted keys (no disorder), the same keys shuffled
+    (disorder), one decrease at a block edge only, and int32 keys; range
+    checks with a key above the range in the last row, one below, NULL
+    sentinel keys that must not count, and only dead rows outside; keep
+    masks over q18-like 16 intervals and over 1,000, with NULL keys."""
+    import numpy as np
+    import torch
+
+    i64_min = np.iinfo(np.int64).min
+    mask = t(rng.random(n) < 0.9)
+    sorted_k = np.sort(rng.integers(0, n // 4, n)).astype(np.int64)
+    edge = sorted_k.copy()
+    edge[256 * 40 - 1] = edge[256 * 40] + 1  # thread 0 of a block sees the pair
+    disorder = [(t(sorted_k), mask), (t(rng.permutation(sorted_k)), mask),
+                (t(edge), torch.ones_like(mask)), (t(sorted_k.astype(np.int32)), mask)]
+    lo, hi = int(sorted_k[0]), int(sorted_k[-1])
+    above = sorted_k.copy()
+    above[-1] = hi + 1
+    below = sorted_k.copy()
+    below[n // 3] = lo - 1
+    nulls = sorted_k.copy()
+    nulls[::9] = i64_min
+    live = torch.ones_like(mask)
+    outside_dead = np.where(rng.random(n) < 0.5, hi + 5, sorted_k)
+    ranges = [(t(sorted_k), mask, lo, hi, None), (t(above), live, lo, hi, None),
+              (t(below), live, lo, hi, None), (t(nulls), live, lo, hi, int(i64_min)),
+              (t(outside_dead), t(outside_dead == sorted_k), lo, hi, None),
+              (t(above.astype(np.int32)), live, lo, hi, None)]
+    keeps = []
+    for m in (16, 1000):
+        starts = np.sort(rng.choice(n // 4, m, replace=False)).astype(np.int64)
+        los = np.concatenate([starts, [i64_min]])
+        his = np.concatenate([starts + rng.integers(0, 3, m), [i64_min]])
+        pad = 1 << int(np.ceil(np.log2(len(los))))
+        los = np.concatenate([los, np.ones(pad - len(los), np.int64)])
+        his = np.concatenate([his, np.zeros(pad - len(his), np.int64)])
+        keys = nulls if m == 1000 else sorted_k
+        keeps.append((t(keys), mask, t(rng.random(n) < 0.01), t(los), t(his)))
+    return {"presorted_disorder": disorder, "key_range_check": ranges,
+            "clustered_keep": keeps,
+            # what K9 and K10 must report on each input above
+            "expected_flags": {"presorted_disorder": [False, True, True, False],
+                               "key_range_check": [False, True, True, False, False, True]}}
 
 
 def join_stress(K, t, rng, n):
@@ -760,6 +951,19 @@ def check_kernel(K, name, args):
         return err
     if name == "segment_any":
         return max_err(K.segment_any(*args), K.segment_any_plain(*args))
+    if name == "presorted_disorder":
+        if bool(K.presorted_disorder(*args)) != bool(K.presorted_disorder_plain(*args)):
+            raise AssertionError("disorder flags differ")
+        return 0.0
+    if name == "key_range_check":
+        if bool(K.key_range_check(*args)) != bool(K.key_range_check_plain(*args)):
+            raise AssertionError("range-check flags differ")
+        return 0.0
+    if name == "clustered_keep":
+        (gk, gl), (wk, wl) = K.clustered_keep(*args), K.clustered_keep_plain(*args)
+        if int(gl) != int(wl):
+            raise AssertionError(f"live counts differ: {int(gl)} vs {int(wl)}")
+        return max_err(gk, wk)
     if name == "grouped_on_order":
         keys, vals, mask, cap, n = args
         got, want = K.grouped_on_order(*args), K.grouped_on_order_plain(*args)
@@ -903,6 +1107,31 @@ def kernel_timings(K, name, args, device):
                     out.append(torch.zeros(cap + 1, dtype=v.dtype, device=device).scatter_reduce_(
                         0, seg, v, "amin" if how == "min" else "amax", include_self=False))
             return out
+    elif name == "presorted_disorder":
+        keys, mask = args
+        moved = nbytes(keys, mask) + 1
+        kern = lambda: K.presorted_disorder(keys, mask)  # noqa: E731
+        plain = lambda: K.presorted_disorder_plain(keys, mask)  # noqa: E731
+        library = None  # no one PyTorch call computes the flag
+    elif name == "key_range_check":
+        keys, mask, lo, hi, sent = args
+        moved = nbytes(keys, mask) + 1
+        kern = lambda: K.key_range_check(keys, mask, lo, hi, sent)  # noqa: E731
+        plain = lambda: K.key_range_check_plain(keys, mask, lo, hi, sent)  # noqa: E731
+        # the min and max of the live keys in one call (the masking and the
+        # compare with the range left out)
+        live = mask if sent is None else mask & (keys != sent)
+        masked = torch.where(live, keys.to(torch.int64), keys.to(torch.int64)[0])
+        library = lambda: torch.aminmax(masked)  # noqa: E731
+    elif name == "clustered_keep":
+        keys, mask, pred, los, his = args
+        moved = nbytes(keys, mask, pred, los, his) + mask.numel() + 8
+        kern = lambda: K.clustered_keep(keys, mask, pred, los, his)  # noqa: E731
+        plain = lambda: K.clustered_keep_plain(keys, mask, pred, los, his)  # noqa: E731
+        # the interval search in one call: bucketize of the keys into the
+        # sorted interval starts (the end compare and the keep left out)
+        starts = torch.sort(los).values
+        library = lambda: torch.bucketize(keys, starts, right=True)  # noqa: E731
     else:
         raise KeyError(name)
     times = {}
@@ -957,6 +1186,26 @@ KERNEL_META = {
                     "arrow_ballista_tpu/ops/kernels.py:772"),
     "grouped_on_order": ("arrow_ballista_tpu_torch/csrc/seg_agg.cu",
                          "arrow_ballista_tpu/ops/kernels.py:314"),
+    "presorted_disorder": ("arrow_ballista_tpu_torch/csrc/clustered.cu",
+                           "arrow_ballista_tpu/ops/kernels.py:237"),
+    "key_range_check": ("arrow_ballista_tpu_torch/csrc/clustered.cu",
+                        "arrow_ballista_tpu/ops/operators.py:632"),
+    "clustered_keep": ("arrow_ballista_tpu_torch/csrc/clustered.cu",
+                       "arrow_ballista_tpu/ops/operators.py:672"),
+}
+# the one PyTorch call each kernel's library_ms times (yardsticks only)
+LIBRARY_CALL = {
+    "dense_group_states": "index_add_ of the stacked values at precomputed slot ids",
+    "compaction_order": "argsort(~mask, stable=True)",
+    "bucket_of": None,
+    "sort_order": "sort(stable=True) of a composite word of small codes",
+    "build_side_sort": "sort(stable=True) of the sign-flipped hashes",
+    "probe_join": "searchsorted x2 + cumsum + repeat_interleave",
+    "segment_any": "scatter_reduce_(amax)",
+    "grouped_on_order": "index_add_ / scatter_reduce_ at the twin's segment ids",
+    "presorted_disorder": None,
+    "key_range_check": "aminmax of the masked keys",
+    "clustered_keep": "bucketize of the keys into the sorted interval starts",
 }
 LAUNCH_KEY = {name: name for name in KERNEL_META}
 LAUNCH_KEY["bucket_of"] = "hash64"
@@ -980,6 +1229,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         from arrow_ballista_tpu_torch import entry as port_entry
         from arrow_ballista_tpu_torch.ops import _cuda
         from arrow_ballista_tpu_torch.ops import kernels as K
+        from arrow_ballista_tpu_torch.utils import table_cache
         from benchmarks.datagen import generate_tables
         from benchmarks.queries import QUERIES
     except ImportError as e:
@@ -1009,21 +1259,41 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     ctx = BallistaContext.local(device=device)
     for name, table in tables.items():
         ctx.register_table(name, table)
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "tmp"), exist_ok=True)  # ignored by git
+    pq_dir = tempfile.mkdtemp(prefix="chip_smoke_parquet_", dir=os.path.join(ROOT, "tmp"))
+    atexit.register(shutil.rmtree, pq_dir, True)
+    pq_paths, rg_rows = write_parquet(tables, sf, pq_dir)
+    log(f"parquet: {', '.join(PARQUET_TABLES)} written with {rg_rows}-row row groups in "
+        f"{time.perf_counter() - t0:.1f} s (set-up), "
+        f"{sum(os.path.getsize(p) for p in pq_paths.values())} bytes")
+    pctx = BallistaContext.local(device=device)
+    for name, path in pq_paths.items():
+        pctx.register_parquet(name, path)
+    # no order of the small scale factors' rehearsals passes q18's 300
+    q18_having = 300 if sf >= 1 else 200
+    q18 = QUERIES[18].replace("> 300", f"> {q18_having}")
     sqls = {"q1": QUERIES[1], "q3": QUERIES[3], "q4": QUERIES[4]}
+    paths = {**{p: (ctx, q) for p, q in sqls.items()},
+             **{f"pq_{p}": (pctx, q) for p, q in sqls.items()}, "pq_q18": (pctx, q18)}
 
-    def once(sql):
+    def once(c, sql):
         t = time.perf_counter()
-        df = ctx.sql(sql).to_pandas()
+        df = c.sql(sql).to_pandas()
         if cuda:
             torch.cuda.synchronize()
         return df, time.perf_counter() - t
 
     captured = {}  # path -> wrapper -> (rows, args) of the path's largest call
     launches = {}  # path -> launch counts of its cold run
-    for path, sql in sqls.items():
+    cached = {}  # scan-cache fingerprints after each parquet path's cold run
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for path, (c, sql) in paths.items():
+        parquet = path.startswith("pq_")
         K.reset_launch_counts()
         with Capture(K, device) as cap:
-            df, cold_s = once(sql)
+            df, cold_s = once(c, sql)
         launches[path] = dict(K.LAUNCHES)
         if cap.off_device:
             fail(f"{path}: tensors off the card on the main path: {cap.off_device[:5]}")
@@ -1031,39 +1301,82 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         if missing:
             fail(f"{path}: kernels not launched on its path: {missing} ({launches[path]})")
         captured[path] = cap.calls
-        if df.empty or df.isna().any().any() or (path == "q1" and len(df) != 4):
+        if df.empty or df.isna().any().any() or (path.endswith("q1") and len(df) != 4):
             fail(f"{path} result malformed:\n{df}")
+        cold_scan = scan_metrics(c.last_plan)
+        if parquet:
+            cached.update(cache_fingerprints(table_cache))
+        if path == "pq_q18":
+            check_clustered(c.last_plan, "cold")
         warm = []
         for _ in range(WARM_RUNS[path]):
             K.reset_launch_counts()
-            _, s = once(sql)
+            misses = table_cache.CACHE.stats()["misses"]
+            _, s = once(c, sql)
             warm.append(s)
             if dict(K.LAUNCHES) != launches[path]:
                 fail(f"{path}: warm run launched {dict(K.LAUNCHES)} != cold {launches[path]}")
+            if parquet:
+                warm_scan = scan_metrics(c.last_plan)
+                if not warm_scan.get("scan_cache_hits") or warm_scan.get("scan_read_time") \
+                        or table_cache.CACHE.stats()["misses"] != misses:
+                    fail(f"{path}: a warm run missed the scan cache or read a row group "
+                         f"again: {warm_scan}")
+        if path == "pq_q18":
+            check_clustered(c.last_plan, "warm")
         warm_s = statistics.median(warm)
         rows = lineitem.num_rows
         log(f"{path} SF{sf}: cold {cold_s * 1000:.1f} ms ({rows / cold_s:.0f} lineitem rows/s), "
             f"warm median of {len(warm)} {warm_s * 1000:.1f} ms ({rows / warm_s:.0f} rows/s) "
-            f"[runs ms: {', '.join(f'{w * 1000:.1f}' for w in warm)}]; tables uploaded per "
-            "query (no scan cache)")
+            f"[runs ms: {', '.join(f'{w * 1000:.1f}' for w in warm)}]; "
+            + ("parquet through the scan cache" if parquet else "in-memory tables uploaded "
+               "per query (the scan cache holds parquet scans only)"))
+        if parquet:
+            log(f"{path} scan times ms: cold read {cold_scan.get('scan_read_time', 0) * 1000:.1f}, "
+                f"convert {cold_scan.get('scan_convert_time', 0) * 1000:.1f}; warm read "
+                f"{warm_scan.get('scan_read_time', 0) * 1000:.1f}, convert "
+                f"{warm_scan.get('scan_convert_time', 0) * 1000:.1f}, filter "
+                f"{warm_scan.get('scan_filter_time', 0) * 1000:.1f}; warm cache hits "
+                f"{warm_scan.get('scan_cache_hits')}")
+            report[f"{path}_scan"] = {"cold": cold_scan, "warm": warm_scan}
         log(f"{path} launches per query: "
             f"{json.dumps({k: v for k, v in launches[path].items() if v})}")
         log(df.head(10).to_string())
         log(f"{path} operator host times (last warm run, ms; elapsed_time includes children):")
-        for line in plan_breakdown(ctx.last_plan):
+        for line in plan_breakdown(c.last_plan):
             log("  " + line)
         report[f"{path}_cold_ms"] = cold_s * 1000
         report[f"{path}_warm_ms"] = warm_s * 1000
         if cuda:
-            report[f"{path}_profile"] = profile_query(ctx, sql, path)
+            report[f"{path}_profile"] = profile_query(c, sql, path)
+    now = cache_fingerprints(table_cache)
+    changed = [k for k, v in cached.items() if now.get(k) != v]
+    if changed:
+        fail(f"a query wrote into (or evicted) cached scan tensors: {changed[:5]}")
+    stats = table_cache.CACHE.stats()
+    log(f"scan cache: {stats['entries']} entries, {stats['bytes']} resident bytes of a "
+        f"{stats['budget']}-byte budget, {stats['hits']} hits, {stats['misses']} misses, "
+        f"{stats['evictions']} evictions; every cached tensor unchanged after all runs")
+    report["scan_cache"] = stats
+    if cuda:
+        peak = torch.cuda.max_memory_allocated()
+        log(f"peak device memory (torch.cuda.max_memory_allocated over the query paths): "
+            f"{peak} bytes")
+        report["max_memory_allocated"] = peak
 
     # phase 5: results against the numpy oracles
-    n_groups, worst = check_q1(ctx, sqls["q1"], q1_oracle(lineitem))
-    log(f"q1 vs numpy oracle: {n_groups} groups, sums and counts exact, avg max rel err {worst:.3g}")
-    n_groups = check_q3(ctx, sqls["q3"], q3_oracle(tables))
-    log(f"q3 vs numpy oracle: top 10 exact, and all {n_groups} groups without the LIMIT exact")
-    counts = check_q4(ctx, sqls["q4"], q4_oracle(tables))
-    log(f"q4 vs numpy oracle: {json.dumps(counts)} exact")
+    oracles = {"q1": q1_oracle(lineitem), "q3": q3_oracle(tables), "q4": q4_oracle(tables)}
+    for label, c in (("", ctx), ("pq_", pctx)):
+        n_groups, worst = check_q1(c, sqls["q1"], oracles["q1"])
+        log(f"{label}q1 vs numpy oracle: {n_groups} groups, sums and counts exact, avg max rel "
+            f"err {worst:.3g}")
+        n_groups = check_q3(c, sqls["q3"], oracles["q3"])
+        log(f"{label}q3 vs numpy oracle: top 10 exact, and all {n_groups} groups without the "
+            "LIMIT exact")
+        counts = check_q4(c, sqls["q4"], oracles["q4"])
+        log(f"{label}q4 vs numpy oracle: {json.dumps(counts)} exact")
+    n_top, n_all = check_q18(pctx, q18, q18_oracle(tables, q18_having))
+    log(f"pq_q18 vs numpy oracle: top {n_top} exact, and all {n_all} rows without the LIMIT exact")
 
     # table rows 5-7 on q3's path
     if cuda:
@@ -1080,10 +1393,10 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     # at the stress shapes; timings at the largest call over the paths
     stress = stress_inputs(K, device, stress_rows)
     for name in KERNEL_META:
-        per_path = {p: launches[p][LAUNCH_KEY[name]] for p in sqls}
+        per_path = {p: launches[p][LAUNCH_KEY[name]] for p in paths}
         checked = {}  # path -> wrapper -> rows and max abs err of that path's largest call
         try:
-            for path in sqls:
+            for path in paths:
                 calls = {w: captured[path][w] for w in WRAPPERS[name] if w in captured[path]}
                 if per_path[path] and not calls:
                     fail(f"{name}: launched on {path} but no call of it was captured")
@@ -1093,6 +1406,11 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             err = max(c["max_abs_err"] for w in checked.values() for c in w.values())
             for sargs in stress[name]:
                 err = max(err, check_kernel(K, name, sargs))
+            expected = stress["expected_flags"].get(name)
+            if expected is not None:
+                got = [bool(getattr(K, name)(*sargs)) for sargs in stress[name]]
+                if got != expected:
+                    fail(f"{name}: flags {got} at the stress shapes, expected {expected}")
             if name in ("build_side_sort", "probe_join"):
                 was = K._FORCE_COLLISIONS
                 K._FORCE_COLLISIONS = True
@@ -1105,7 +1423,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             fail(f"{name}: kernel disagrees with its plain twin: {e}")
         if cuda:
             torch.cuda.synchronize()
-        path = max((p for p in sqls if name in captured[p]), key=lambda p: captured[p][name][0])
+        path = max((p for p in paths if name in captured[p]), key=lambda p: captured[p][name][0])
         n, args = captured[path][name]
         times, moved = kernel_timings(K, name, args, device)
         bound_ms = moved / HBM_BYTES_PER_S * 1000
@@ -1114,7 +1432,8 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(per_path.values()), "max_abs_err": err,
             "ms": times["ms"], "plain_ms": times["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": times["library_ms"], "rows": n,
+            "bound_by": "bytes", "library_ms": times["library_ms"],
+            "library_call": LIBRARY_CALL[name], "bound_bytes": moved, "rows": n,
             "captured_on": path, "launches_per_path": per_path, "checked_per_path": checked,
             "wall_ms": times["wall_ms"], "plain_wall_ms": times["plain_wall_ms"],
             "library_wall_ms": times["library_wall_ms"],
@@ -1139,6 +1458,17 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                 f"{n} rows): " + ", ".join(
                     f"{h} slots {fmt(v)}" for h, v in sweep.items()))
 
+    # K8 at q3's own largest call, repeated: one earlier run read 0.0072 ms once
+    # and 0.0155-0.0158 ms otherwise at these 4,096 rows
+    if cuda and "grouped_on_order" in captured["q3"]:
+        n, args = captured["q3"]["grouped_on_order"]
+        clock0 = smi("clocks.sm,power.draw")
+        reps = [device_ms(lambda: K.grouped_on_order(*args))[0] for _ in range(5)]
+        log(f"kernel grouped_on_order at q3's largest call ({n} rows), device ms per call over "
+            f"5 repeats: {', '.join(f'{r:.4f}' for r in reps)}; SM clock, power before: "
+            f"{clock0}, after: {smi('clocks.sm,power.draw')}")
+        report["grouped_on_order_q3_repeats_ms"] = reps
+
     # entry(): the flagship step, held against its twins on the CPU
     for n_rows in (4096, stress_rows):
         step, (cols, mask) = port_entry.entry(n_rows, device=device)
@@ -1157,6 +1487,16 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     return report
 
 
+def smi(query: str) -> str:
+    """One nvidia-smi reading of ``query`` (e.g. ``name,power.limit``)."""
+    try:
+        return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                              capture_output=True, text=True,
+                              timeout=60).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError) as e:
+        fail(f"nvidia-smi failed: {e}")
+
+
 def main() -> None:
     try:
         import torch
@@ -1164,17 +1504,12 @@ def main() -> None:
         fail(f"torch is not importable: {e}")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
-    try:
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True, text=True,
-                             timeout=60).stdout.strip().splitlines()[0]
-    except (OSError, subprocess.SubprocessError, IndexError) as e:
-        fail(f"nvidia-smi failed: {e}")
-    log(f"card: {smi}")
+    card = smi("name,power.limit")
+    log(f"card: {card}")
     t0 = time.perf_counter()
     report = run("cuda")
     log(f"total: {time.perf_counter() - t0:.1f} s")
-    print(smi, flush=True)
+    print(card, flush=True)
     print(json.dumps({"kernels": report["kernels"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,432 @@
+"""The port's clustered (presorted) partial aggregate and its early HAVING
+against the JAX package, on the same parquet files (both local contexts on
+the CPU).
+
+Mirrors tests/test_clustered_groupby.py case by case: clustered HAVING
+equals the oracle (at 4 and 'auto' partitions), unclustered data bails,
+disorder inside row groups falls back to the sort path, NULL keys are
+never early-filtered, a single-range probe is rejected without collapsing
+the scan, and stale declared ranges turn the early filter off.  The
+planner's annotation (predicate, overlap intervals, declared ranges) and
+the contiguous regroup equal the reference's; the twins of K9 (through
+grouped_aggregate_presorted), K10 (the range check) and K11 (the keep
+mask) equal the reference's programs; TPC-H q18 at SF0.01 over parquet
+equals the reference as written, with ``> 200`` and without its LIMIT.
+"""
+import numpy as np
+import pandas as pd
+import pyarrow as pa
+import pyarrow.parquet as pq
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import arrow_ballista_tpu as jab
+import arrow_ballista_tpu_torch as tab
+from arrow_ballista_tpu.ops import kernels as JK
+from arrow_ballista_tpu.ops.physical import TaskContext as JCtx
+from arrow_ballista_tpu_torch.catalog import ParquetTable as TParquetTable
+from arrow_ballista_tpu_torch.ops import kernels as TK
+from arrow_ballista_tpu_torch.ops.physical import TaskContext as TCtx
+from benchmarks.datagen import generate_tables
+from benchmarks.queries import QUERIES
+from benchmarks.tpch import decimal_to_int64_storage
+from tests.torch_cases import PRESORTED_CASES, assert_frames_equal, presorted_case
+
+# the suite runs in parallel worker processes: one core per worker for torch
+torch.set_num_threads(1)
+
+SQL = ("select k, sum(q) as sq from t group by k "
+       "having sum(q) > 150 order by k")
+
+
+def _write_clustered(path, n_keys=5000, seed=3):
+    rng = np.random.default_rng(seed)
+    # 1-7 rows a key, rows sorted by key (lineitem-like clustering); small
+    # row groups so keys straddle row-group boundaries
+    reps = rng.integers(1, 8, n_keys)
+    keys = np.repeat(np.arange(n_keys, dtype=np.int64), reps)
+    qty = rng.integers(1, 50, len(keys)).astype(np.int64)
+    pq.write_table(pa.table({"k": keys, "q": qty}), path, row_group_size=1000)
+    return pd.DataFrame({"k": keys, "q": qty})
+
+
+def _write_null_keys(path):
+    """NULL keys scattered through clustered data: each partition's NULL
+    partial sum stays under the HAVING threshold, the merged one passes."""
+    rng = np.random.default_rng(17)
+    keys = np.repeat(np.arange(4000, dtype=np.float64), rng.integers(1, 4, 4000))
+    null_pos = np.arange(50, len(keys), len(keys) // 16)
+    keys[null_pos] = np.nan
+    qty = np.full(len(keys), 1, dtype=np.int64)
+    qty[null_pos] = 40  # 16 nulls x 40 = 640 in all, ~160 a partition
+    pa_keys = pa.array([None if np.isnan(v) else int(v) for v in keys], type=pa.int64())
+    pq.write_table(pa.table({"k": pa_keys, "q": pa.array(qty)}), path, row_group_size=1000)
+
+
+def _write_disordered(path):
+    """Disjoint row-group key ranges, rows unsorted inside each group."""
+    rng = np.random.default_rng(11)
+    parts = []
+    for lo in range(0, 5000, 1000):
+        block = np.repeat(np.arange(lo, lo + 1000, dtype=np.int64), rng.integers(1, 4, 1000))
+        rng.shuffle(block)
+        parts.append(block)
+    keys = np.concatenate(parts)
+    qty = rng.integers(1, 50, len(keys)).astype(np.int64)
+    writer = pq.ParquetWriter(path, pa.schema([("k", pa.int64()), ("q", pa.int64())]))
+    off = 0
+    for block in parts:
+        writer.write_table(pa.table({"k": keys[off:off + len(block)],
+                                     "q": qty[off:off + len(block)]}))
+        off += len(block)
+    writer.close()
+    return pd.DataFrame({"k": keys, "q": qty})
+
+
+def _oracle(df, threshold=150):
+    g = df.groupby("k").q.sum()
+    return g[g > threshold]
+
+
+def _contexts(path, partitions="4"):
+    settings = {"ballista.shuffle.partitions": partitions}
+    jctx = jab.BallistaContext.local(jab.BallistaConfig(settings))
+    tctx = tab.BallistaContext.local(tab.BallistaConfig(settings), device="cpu")
+    jctx.register_parquet("t", path)
+    tctx.register_parquet("t", path)
+    return jctx, tctx
+
+
+def _find(plan, pred):
+    if pred(plan):
+        return plan
+    for c in plan.children():
+        got = _find(c, pred)
+        if got is not None:
+            return got
+    return None
+
+
+def _clustered_agg(plan):
+    return _find(plan, lambda p: type(p).__name__ == "HashAggregateExec"
+                 and getattr(p, "clustered", None) is not None)
+
+
+def _scan(plan):
+    return _find(plan, lambda p: type(p).__name__ == "ParquetScanExec")
+
+
+def _metric(plan, name):
+    return plan.metrics().to_dict().get(name, 0) + sum(_metric(c, name)
+                                                       for c in plan.children())
+
+
+def _run_both(jctx, tctx, sql):
+    want = jctx.sql(sql).to_pandas()
+    got = tctx.sql(sql).to_pandas()
+    assert_frames_equal(got, want)
+    return got
+
+
+def _annotation(agg):
+    pred, intervals, ranges = agg.clustered
+    return (None if pred is None else str(pred), [tuple(i) for i in intervals],
+            [tuple(r) for r in ranges])
+
+
+@pytest.mark.parametrize("partitions", ["4", "auto"])
+def test_clustered_having_matches_oracle(tmp_path, partitions):
+    path = str(tmp_path / "t.parquet")
+    df = _write_clustered(path)
+    jctx, tctx = _contexts(path, partitions)
+    out = _run_both(jctx, tctx, SQL)
+    ora = _oracle(df)
+    assert out.k.tolist() == ora.index.tolist()
+    assert out.sq.tolist() == ora.values.tolist()
+    plan = tctx.last_plan
+    assert _metric(plan, "presort_fallbacks") == 0
+    if partitions == "4":  # 'auto' collapses this small table to one partition
+        assert _metric(plan, "clustered_early_filters") > 0
+        # the partial aggregates ship only survivors and window keys, not
+        # every one of the ~5000 states
+        agg = _clustered_agg(plan)
+        ctx = TCtx(device=torch.device("cpu"), config=tctx.config)
+        shipped = sum(b.num_rows for p in range(agg.output_partition_count())
+                      for b in agg.execute(p, ctx))
+        assert shipped < len(ora) + 200
+
+
+def test_unclustered_data_bails_and_stays_correct(tmp_path):
+    path = str(tmp_path / "t.parquet")
+    rng = np.random.default_rng(5)
+    keys = rng.integers(0, 5000, 20_000).astype(np.int64)  # NOT sorted
+    qty = rng.integers(1, 50, len(keys)).astype(np.int64)
+    pq.write_table(pa.table({"k": keys, "q": qty}), path, row_group_size=1000)
+    jctx, tctx = _contexts(path)
+    out = _run_both(jctx, tctx, SQL)
+    ora = _oracle(pd.DataFrame({"k": keys, "q": qty}))
+    assert out.k.tolist() == ora.index.tolist()
+    assert out.sq.tolist() == ora.values.tolist()
+    assert _clustered_agg(tctx.last_plan) is None
+    assert _metric(tctx.last_plan, "clustered_early_filters") == 0
+
+
+@pytest.mark.parametrize("data", ["clustered", "null_keys", "disordered"])
+def test_annotation_and_regroup_match_reference(tmp_path, data):
+    """The planner's (predicate, overlap intervals, declared ranges) and the
+    scan's contiguous regroup equal the reference's: they decide which
+    keys are early-filtered."""
+    path = str(tmp_path / "t.parquet")
+    {"clustered": _write_clustered, "null_keys": _write_null_keys,
+     "disordered": _write_disordered}[data](path)
+    jctx, tctx = _contexts(path)
+    sql = SQL.replace("> 150", "> 300") if data == "null_keys" else SQL
+    jp = _plan(jab, jctx, sql).plan
+    tp = _plan(tab, tctx, sql).plan
+    ja, ta = _clustered_agg(jp), _clustered_agg(tp)
+    assert ja is not None and ta is not None
+    assert _annotation(ta) == _annotation(ja)
+    assert _scan(tp).groups == _scan(jp).groups
+    if data == "null_keys":  # the NULL sentinel interval always ships
+        sent = int(np.iinfo(np.int64).min)
+        assert (sent, sent) in _annotation(ta)[1]
+
+
+def _plan(pkg, ctx, sql):
+    """The PlannedQuery of ``sql`` in ``pkg``'s planner."""
+    import importlib
+
+    def mod(name):
+        return importlib.import_module(f"{pkg.__name__}.{name}")
+
+    logical = mod("sql.optimizer").optimize(
+        mod("sql.planner").SqlToRel(ctx.catalog).plan(mod("sql.parser").parse_sql(sql)))
+    args = (ctx.catalog, ctx.config) + ((ctx.device,) if pkg is tab else ())
+    return mod("scheduler.physical_planner").PhysicalPlanner(*args).plan_query(logical)
+
+
+def test_within_rowgroup_disorder_falls_back(tmp_path):
+    """Row-group statistics prove disjoint ranges while rows inside a group
+    are unordered: the presorted grouping detects the disorder (K9) and
+    re-runs the sort path; results stay exact."""
+    path = str(tmp_path / "t.parquet")
+    df = _write_disordered(path)
+    jctx, tctx = _contexts(path)
+    out = _run_both(jctx, tctx, SQL)
+    ora = _oracle(df)
+    assert out.k.tolist() == ora.index.tolist()
+    assert out.sq.tolist() == ora.values.tolist()
+    assert _metric(tctx.last_plan, "presort_fallbacks") > 0
+
+
+def test_null_keys_never_early_filtered(tmp_path):
+    path = str(tmp_path / "t.parquet")
+    _write_null_keys(path)
+    jctx, tctx = _contexts(path)
+    out = _run_both(jctx, tctx, "select k, sum(q) as sq from t group by k "
+                                "having sum(q) > 300 order by k")
+    assert len(out) == 1 and np.isnan(out.k.iloc[0]) and out.sq.iloc[0] == 16 * 40
+    assert _metric(tctx.last_plan, "clustered_range_mismatches") == 0
+
+
+def test_single_range_probe_rejected_without_partition_collapse(tmp_path):
+    """A probe whose contiguous regroup collapses to ONE range (a huge
+    trailing row group absorbs it) is rejected, and leaves the scan's
+    partitions as they were."""
+    rng = np.random.default_rng(3)
+    keys = np.repeat(np.arange(2000, dtype=np.int64), rng.integers(1, 8, 2000))
+    qty = rng.integers(1, 50, len(keys)).astype(np.int64)
+    table = pa.table({"k": keys, "q": qty})
+    path = str(tmp_path / "t.parquet")
+    writer = pq.ParquetWriter(path, table.schema)
+    writer.write_table(table.slice(0, 10))   # a tiny row group ...
+    writer.write_table(table.slice(10))      # ... then one huge one
+    writer.close()
+    scan = TParquetTable("t", path).scan(None, [], 2)
+    before = [list(g) for g in scan.groups]
+    assert len(before) == 2
+    groups, ranges = scan.clustered_ranges("k")
+    assert len(ranges) == 1
+    assert [list(g) for g in scan.groups] == before
+    jctx, tctx = _contexts(path, partitions="2")
+    tp = _plan(tab, tctx, SQL).plan
+    assert _clustered_agg(tp) is None
+    assert len(_scan(tp).groups) == 2
+    out = _run_both(jctx, tctx, SQL)
+    ora = _oracle(pd.DataFrame({"k": keys, "q": qty}))
+    assert out.k.tolist() == ora.index.tolist()
+    assert out.sq.tolist() == ora.values.tolist()
+
+
+def test_stale_declared_ranges_disable_early_filter(tmp_path):
+    """When a partition's observed key range leaves the declared one (a
+    file rewritten after planning), K10 trips and the early filter is
+    dropped: trusting stale windows would drop boundary groups."""
+    path = str(tmp_path / "t.parquet")
+    df = _write_clustered(path)
+    _jctx, tctx = _contexts(path)
+    planned = _plan(tab, tctx, SQL)
+    agg = _clustered_agg(planned.plan)
+    pred, _intervals, ranges = agg.clustered
+    agg.clustered = (pred, [], [(lo + 10_000_000, hi + 10_000_000) for lo, hi in ranges])
+    batches = tctx._execute_local(planned)
+    out = pd.concat([b.to_pandas() for b in batches], ignore_index=True).sort_values("k")
+    ora = _oracle(df)
+    assert out.k.tolist() == ora.index.tolist()
+    assert out.sq.tolist() == ora.values.tolist()
+    assert _metric(planned.plan, "clustered_range_mismatches") > 0
+    assert _metric(planned.plan, "clustered_early_filters") == 0
+
+
+# --------------------------------------------------------------------------
+# the programs: K9 (inside grouped_aggregate_presorted), K10, K11
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", PRESORTED_CASES)
+def test_grouped_aggregate_presorted_matches_reference(case):
+    keys, vals, mask = presorted_case(case, 5003, np.random.default_rng(21))
+    jk, jv, jm, jo, jd = JK.grouped_aggregate_presorted(
+        [jnp.asarray(keys)], [(jnp.asarray(v), h) for v, h in vals], jnp.asarray(mask), 5003)
+    tk, tv, tm, to, td = TK.grouped_aggregate_presorted(
+        [torch.from_numpy(keys)], [(torch.from_numpy(v), h) for v, h in vals],
+        torch.from_numpy(mask), 5003)
+    assert bool(td) == bool(jd) == (case == "disordered")
+    assert (to is None) == (jo is None)
+    live = np.asarray(jm)
+    np.testing.assert_array_equal(tm.numpy(), live)
+    np.testing.assert_array_equal(tk[0].numpy()[live], np.asarray(jk[0])[live])
+    for g, w in zip(tv, jv):
+        np.testing.assert_array_equal(g.numpy()[live], np.asarray(w)[live])
+
+
+@pytest.fixture(scope="module")
+def planned_aggs(tmp_path_factory):
+    """The clustered partial aggregate of SQL as each package plans it,
+    over a file whose key is nullable (the NULL sentinel interval)."""
+    path = str(tmp_path_factory.mktemp("cl") / "t.parquet")
+    _write_null_keys(path)
+    jctx, tctx = _contexts(path)
+    ja = _clustered_agg(_plan(jab, jctx, SQL).plan)
+    ta = _clustered_agg(_plan(tab, tctx, SQL).plan)
+    return ja, ta
+
+
+def _batches(which, op, arrays, mask):
+    """The same batch of ``op``'s input or output schema in each package;
+    ``arrays`` in schema order."""
+    from arrow_ballista_tpu.models.batch import ColumnBatch as JB
+    from arrow_ballista_tpu_torch.models.batch import ColumnBatch as TB
+
+    schema = op.schema if which == "out" else op.input.schema
+    cols = dict(zip(schema.names(), arrays))
+    n = len(mask)
+    jb = JB.from_numpy(schema, cols, dicts={}, capacity=n)
+    jb = JB(jb.schema, jb.columns, jnp.asarray(mask), jb.dicts)
+    tb = TB.from_numpy(_tschema(schema), cols, dicts={}, capacity=n, device="cpu")
+    tb = TB(tb.schema, tb.columns, torch.from_numpy(mask), tb.dicts)
+    return jb, tb
+
+
+def _tschema(jschema):
+    from arrow_ballista_tpu_torch.models.batch import _schema_from_parts
+
+    return _schema_from_parts(list(jschema))
+
+
+@pytest.mark.parametrize("case", ["inside", "above", "below", "null_keys_only_outside",
+                                  "dead_rows_outside"])
+def test_range_check_matches_reference(planned_aggs, case):
+    """K10's twin against the reference's "sort.range_check" program, run
+    through both operators on the same batch of the partial's input."""
+    ja, ta = planned_aggs
+    lo, hi = ja.clustered[2][1]
+    rng = np.random.default_rng(5)
+    n = 2048
+    k = rng.integers(lo, hi + 1, n).astype(np.int64)
+    mask = rng.random(n) < 0.9
+    sent = np.iinfo(np.int64).min
+    if case == "above":
+        k[7], mask[7] = hi + 1, True
+    elif case == "below":
+        k[9], mask[9] = lo - 3, True
+    elif case == "null_keys_only_outside":
+        k[::5] = sent
+    elif case == "dead_rows_outside":
+        k[~mask] = hi + 1000
+    jb, tb = _batches("in", ja, [k, np.ones(n, np.int64)], mask)
+    ja._ensure_compiled(JCtx(), ja.input.schema)
+    if ta._compiled is None:
+        ta._compiled = ta._make_compiled(TCtx(device=torch.device("cpu")),
+                                         ta.input.schema)
+    want = bool(ja._declared_range_mismatch(JCtx(), jb, 1))
+    got = bool(ta._declared_range_mismatch(tb, 1))
+    assert got == want == (case in ("above", "below"))
+
+
+@pytest.mark.parametrize("case", ["mixed", "all_pass_having", "window_keys_only", "null_keys"])
+def test_clustered_keep_matches_reference(planned_aggs, case):
+    """K11's twin against the reference's "agg.clustered_keep": the same
+    partial result, filtered by both operators, keeps the same rows."""
+    ja, ta = planned_aggs
+    intervals = ja.clustered[1]
+    rng = np.random.default_rng(6)
+    n = 4096
+    k = rng.integers(0, 4000, n).astype(np.int64)
+    sq = rng.integers(0, 200, n).astype(np.int64)
+    mask = rng.random(n) < 0.8
+    if case == "all_pass_having":
+        sq[:] = 1000
+    elif case == "window_keys_only":
+        sq[:] = 0
+        k[: len(intervals)] = [lo for lo, _ in intervals]
+    elif case == "null_keys":
+        k[::7] = np.iinfo(np.int64).min
+    jb, tb = _batches("out", ja, [k, sq], mask)
+    want = ja._apply_clustered_filter(JCtx(), jb, None, None)
+    got = ta._apply_clustered_filter(TCtx(device=torch.device("cpu")),
+                                     tb, None, None)
+    wd, gd = want.compacted_numpy(), got.compacted_numpy()
+    for name in ja.schema.names():
+        assert gd[name].tolist() == wd[name].tolist()
+    assert got.num_rows == want.num_rows > 0
+
+
+# --------------------------------------------------------------------------
+# TPC-H q18 over parquet (SF0.01, lineitem in 8 row groups)
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def q18_contexts(tmp_path_factory):
+    d = tmp_path_factory.mktemp("tpch18")
+    jctx, tctx = jab.BallistaContext.local(), tab.BallistaContext.local(device="cpu")
+    for name, t in generate_tables(0.01, seed=0).items():
+        if name not in ("lineitem", "orders", "customer"):
+            continue
+        path = str(d / f"{name}.parquet")
+        pq.write_table(decimal_to_int64_storage(t), path, row_group_size=8192)
+        jctx.register_parquet(name, path)
+        tctx.register_parquet(name, path)
+    return jctx, tctx
+
+
+@pytest.mark.parametrize("variant", ["as_written", "having_200", "having_200_no_limit"])
+def test_q18_over_parquet_matches_reference(q18_contexts, variant):
+    jctx, tctx = q18_contexts
+    sql = QUERIES[18]
+    if variant != "as_written":
+        sql = sql.replace("> 300", "> 200")
+    if variant.endswith("no_limit"):
+        sql = sql.replace("limit 100", "")
+    got = _run_both(jctx, tctx, sql)
+    want_rows = {"as_written": 0, "having_200": 100}.get(variant)
+    if want_rows is not None:
+        assert len(got) == want_rows
+    else:
+        assert len(got) > 100
+    plan = tctx.last_plan
+    assert _metric(plan, "clustered_early_filters") > 0
+    assert _metric(plan, "presort_fallbacks") == 0

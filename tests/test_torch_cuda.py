@@ -11,10 +11,12 @@ import pytest
 import torch
 
 from arrow_ballista_tpu_torch.ops import kernels as TK
-from tests.torch_cases import (DENSE_CASES, JOIN_CASES, JOIN_QUERIES, SEG_AGG_CASES,
-                               SEGMENT_CASES, SETTINGS, SORT_CASES, UNORDERED,
-                               assert_frames_equal, dense_case, hash_cols, join_case,
-                               mask_case, seg_agg_case, segment_case, sort_case)
+from tests.torch_cases import (DENSE_CASES, JOIN_CASES, JOIN_QUERIES, KEEP_CASES,
+                               PRESORTED_CASES, RANGE_CASES, SEG_AGG_CASES, SEGMENT_CASES,
+                               SETTINGS, SORT_CASES, UNORDERED, assert_frames_equal,
+                               dense_case, hash_cols, join_case, keep_case, mask_case,
+                               presorted_case, range_case, seg_agg_case, segment_case,
+                               sort_case)
 
 N = 100_003
 
@@ -73,8 +75,8 @@ def test_dense_kernel_matches_twin(dev, case):
     for (v, how), g, p in zip(vals, gv, pv):
         if v.dtype.kind == "f" and how == "sum":  # atomic order differs from the twin's
             np.testing.assert_allclose(g.cpu().numpy(), p.numpy(), rtol=1e-12, atol=0)
-        else:
-            assert torch.equal(g.cpu(), p)
+        else:  # exact, NaN slots in the same places
+            np.testing.assert_array_equal(g.cpu().numpy(), p.numpy())
 
 
 @pytest.mark.cuda
@@ -150,3 +152,84 @@ def test_join_queries_on_the_card_match_the_cpu(dev, name, setting):
         frames.append(ctx.sql(JOIN_QUERIES[name]).to_pandas())
     assert len(frames[1]) > 0
     assert_frames_equal(frames[0], frames[1], ordered=name not in UNORDERED)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PRESORTED_CASES)
+def test_presorted_aggregate_kernels_match_twins(dev, case):
+    """K2 + K9 + K8: the disorder flag and the groups."""
+    keys, vals, mask = presorted_case(case, N, np.random.default_rng(8))
+    got = TK.grouped_aggregate_presorted([_t(keys).to(dev)], [(_t(v).to(dev), h) for v, h in vals],
+                                         _t(mask).to(dev), N)
+    want = TK.grouped_aggregate_presorted([_t(keys)], [(_t(v), h) for v, h in vals], _t(mask), N)
+    assert bool(got[4]) == bool(want[4]) == (case == "disordered")
+    assert torch.equal(got[2].cpu(), want[2]) and torch.equal(got[0][0].cpu(), want[0][0])
+    for (v, how), g, w in zip(vals, got[1], want[1]):
+        assert torch.equal(g.cpu(), w)  # quarter values: float sums exact in any order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RANGE_CASES)
+def test_key_range_check_kernel_matches_twin(dev, case):
+    k, mask, lo, hi, sent = range_case(case, N, np.random.default_rng(9))
+    got = TK.key_range_check(_t(k).to(dev), _t(mask).to(dev), lo, hi, sent)
+    want = TK.key_range_check_plain(_t(k), _t(mask), lo, hi, sent)
+    assert bool(got) == bool(want) == (case in ("above", "below", "int32_keys"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", KEEP_CASES)
+def test_clustered_keep_kernel_matches_twin(dev, case):
+    k, mask, pred, los, his = keep_case(case, N, np.random.default_rng(10))
+    gk, gl = TK.clustered_keep(_t(k).to(dev), _t(mask).to(dev), _t(pred).to(dev),
+                               _t(los).to(dev), _t(his).to(dev))
+    wk, wl = TK.clustered_keep_plain(_t(k), _t(mask), _t(pred), _t(los), _t(his))
+    assert torch.equal(gk.cpu(), wk) and int(gl) == int(wl) > 0
+
+
+@pytest.fixture(scope="module")
+def sf001_parquet(tmp_path_factory):
+    import pyarrow.parquet as pq
+
+    from benchmarks.tpch import decimal_to_int64_storage
+
+    d = tmp_path_factory.mktemp("tpch")
+    for name, t in _sf001_tables().items():
+        pq.write_table(decimal_to_int64_storage(t), str(d / f"{name}.parquet"),
+                       row_group_size=8192)
+    return str(d)
+
+
+def _cached_fingerprints(dev):
+    from arrow_ballista_tpu_torch.utils import table_cache
+
+    return {(key, i, name): (t.data_ptr(), int(t.view(torch.int64).sum()))
+            for key, bs in table_cache.CACHE.entries() if key[0] == str(dev)
+            for i, b in enumerate(bs) for name, t in [*b.columns.items(), ("mask", b.mask)]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["q1", "q3", "q4", "q18"])
+def test_parquet_queries_on_the_card_match_the_cpu(dev, sf001_parquet, name):
+    """The parquet scan, the scan cache and (q18) the clustered aggregate
+    on the card against the port on the CPU (which tests/test_torch_parquet.py
+    and tests/test_torch_clustered.py hold against the JAX package); the
+    warm run hits the cache and leaves the cached tensors as they were."""
+    import os
+
+    from arrow_ballista_tpu_torch import BallistaContext
+    from benchmarks.queries import QUERIES
+
+    sql = QUERIES[int(name[1:])].replace("> 300", "> 200")
+    frames = []
+    for device in (dev, "cpu"):
+        ctx = BallistaContext.local(device=device)
+        for table in ("lineitem", "orders", "customer"):
+            ctx.register_parquet(table, os.path.join(sf001_parquet, f"{table}.parquet"))
+        frames.append(ctx.sql(sql).to_pandas())
+        if device is dev:
+            before = _cached_fingerprints(dev)
+            assert_frames_equal(ctx.sql(sql).to_pandas(), frames[0])
+            assert _cached_fingerprints(dev) == before
+    assert len(frames[1]) > 0
+    assert_frames_equal(frames[0], frames[1])

@@ -18,11 +18,25 @@ import arrow_ballista_tpu_torch as abt
 from benchmarks.datagen import generate_tables
 from benchmarks.queries import QUERIES
 
+import os, tempfile
+import pyarrow.parquet as pq
+
 ctx = abt.BallistaContext.local(device="cpu")
+pctx = abt.BallistaContext.local(device="cpu")
+tmp = tempfile.mkdtemp()
 for name, table in generate_tables(0.002, seed=0).items():
     ctx.register_table(name, table)
+    path = os.path.join(tmp, name + ".parquet")
+    pq.write_table(table, path, row_group_size=2048)
+    pctx.register_parquet(name, path)
 df = ctx.sql(QUERIES[1]).to_pandas()
 assert len(df) >= 3 and not df.isna().any().any(), df
+# the parquet scan, the scan cache and the clustered aggregate
+for _ in range(2):
+    pdf = pctx.sql(QUERIES[18].replace("> 300", "> 100")).to_pandas()
+assert len(pdf) > 0, pdf
+import shutil
+shutil.rmtree(tmp)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "arrow_ballista_tpu"
              or m.startswith("arrow_ballista_tpu."))

@@ -129,7 +129,7 @@ def test_unported_paths_raise_naming_their_roadmap_item(contexts, setting, sql, 
             tctx.sql(f"set {setting} = false")
 
 
-@pytest.mark.parametrize("key", ["ballista.scan.cache.bytes",
+@pytest.mark.parametrize("key", ["ballista.shuffle.mesh.min_rows",
                                  "ballista.observability.tracing",
                                  "ballista.agg.capacity"])
 def test_set_of_a_key_the_port_does_not_read_raises(contexts, key):

@@ -83,7 +83,8 @@ def sort_case(case, n, rng):
 
 
 DENSE_CASES = ["q1_dict_codes", "sums_wrap", "empty_slots_keep_identities",
-               "bool_and_int64_keys", "float64_values", "out_of_range_rows"]
+               "bool_and_int64_keys", "float64_values", "out_of_range_rows",
+               "int32_sums_wrap", "int32_float32_values"]
 
 
 def dense_case(case, n, rng):
@@ -124,6 +125,20 @@ def dense_case(case, n, rng):
         keys = [k1]
         vals = [(rng.integers(0, 100, n).astype(np.int64), "sum"),
                 (np.zeros(n, np.int64), "count")]
+    elif case == "int32_sums_wrap":  # int32 sums stay int32 and wrap mod 2^32
+        ranges = ((-1, 15), (-1, 15))
+        keys = [k1, k2]
+        big = rng.integers(2**29, 2**31 - 1, n).astype(np.int32)
+        vals = [(big, "sum"), (rng.integers(-2**31, 2**31 - 1, n).astype(np.int32), "min"),
+                (rng.integers(-2**31, 2**31 - 1, n).astype(np.int32), "max")]
+    elif case == "int32_float32_values":  # a date max and float32 quarters (exact sums)
+        ranges = ((-1, 63),)  # empty slots keep the iinfo / finfo identities
+        keys = [k1]
+        quarter = (rng.integers(-256, 256, n) / 4).astype(np.float32)
+        quarter[rng.random(n) < 0.01] = np.nan
+        dates = rng.integers(8000, 10500, n).astype(np.int32)
+        vals = [(dates, "max"), (dates, "min"), (dates, "sum"), (quarter, "sum"),
+                (quarter, "min"), (quarter, "max"), (np.zeros(n, np.int64), "count")]
     else:
         raise KeyError(case)
     return keys, vals, mask, ranges
@@ -250,6 +265,13 @@ def seg_agg_case(case, n, rng):
 JOIN_QUERIES = {
     "q3": QUERIES[3],
     "q4": QUERIES[4],
+    # q18 as written keeps no order at SF0.01 (no sum(l_quantity) > 300)
+    "q18": QUERIES[18].replace("> 300", "> 200"),
+    # int32 sums and int32 (date) min/max on the dense path (K1)
+    "dense_int32_date_values": """
+        select o_orderpriority, sum(o_shippriority) as s, min(o_shippriority) as mn,
+               max(o_orderdate) as mx, min(o_orderdate) as first_day
+        from orders group by o_orderpriority order by o_orderpriority""",
     "q6": QUERIES[6],
     "q12": QUERIES[12],
     "q13": QUERIES[13],
@@ -291,3 +313,92 @@ def assert_frames_equal(got, want, ordered: bool = True):
                                        equal_nan=True)
         else:
             np.testing.assert_array_equal(g, w)
+
+
+# --------------------------------------------------------------------------
+# K9-K11: the clustered (presorted) partial aggregate
+# --------------------------------------------------------------------------
+
+PRESORTED_CASES = ["sorted", "disordered", "disorder_only_across_dead_rows", "int32_keys"]
+
+
+def presorted_case(case, n, rng):
+    """(keys, vals, mask) in key order, for grouped_aggregate_presorted
+    (K2 + K9 + K8); ``disordered`` swaps one adjacent live pair."""
+    mask = rng.random(n) < 0.85
+    keys = np.sort(rng.integers(-50, 400, n)).astype(np.int64)
+    if case == "disordered":
+        keys[n // 2], keys[n // 2 + 1] = keys[n // 2 + 1] + 5, keys[n // 2]
+        mask[n // 2:n // 2 + 2] = True
+    elif case == "disorder_only_across_dead_rows":  # dead rows never count
+        keys[10] = 10_000
+        mask[10] = False
+    elif case == "int32_keys":
+        keys = keys.astype(np.int32)
+    vals = [(rng.integers(-10**9, 10**9, n).astype(np.int64), "sum"),
+            (np.zeros(n, np.int64), "count"),
+            (rng.integers(-1000, 1000, n).astype(np.int32), "max"),
+            ((rng.integers(-64, 64, n) / 4).astype(np.float64), "sum")]
+    return keys, vals, mask
+
+
+RANGE_CASES = ["inside", "above", "below", "null_keys_only_outside", "dead_rows_outside",
+               "int32_keys", "all_dead"]
+
+
+def range_case(case, n, rng):
+    """(keys, mask, lo, hi, sentinel or None) for the declared-range check
+    (K10)."""
+    lo, hi = 1000, 5000
+    k = rng.integers(lo, hi + 1, n).astype(np.int64)
+    mask = rng.random(n) < 0.9
+    sent = None
+    if case == "above":
+        k[n - 1], mask[n - 1] = hi + 1, True  # the last row: a block edge of its own
+    elif case == "below":
+        k[9], mask[9] = lo - 3, True
+    elif case == "null_keys_only_outside":
+        sent = int(I64_MIN)
+        k[::5] = sent
+    elif case == "dead_rows_outside":
+        k[~mask] = hi + 1000
+    elif case == "int32_keys":
+        k = k.astype(np.int32)
+        k[n // 3], mask[n // 3] = hi + 7, True
+    elif case == "all_dead":
+        mask[:] = False
+        k[:] = hi + 1
+    return k, mask, lo, hi, sent
+
+
+KEEP_CASES = ["q18_few_intervals", "one_thousand_intervals", "three_thousand_intervals",
+              "int32_keys", "null_sentinel_interval"]
+
+
+def keep_case(case, n, rng):
+    """(keys, mask, pred, los, his) for the early-HAVING keep mask (K11):
+    sorted disjoint overlap intervals, padded to a power of two with empty
+    (1, 0) pairs as the operator pads them."""
+    counts = {"q18_few_intervals": 11, "one_thousand_intervals": 1000,
+              "three_thousand_intervals": 3000, "int32_keys": 40,
+              "null_sentinel_interval": 16}
+    m = counts[case]
+    span = 6 * n
+    starts = np.sort(rng.choice(span, m, replace=False)).astype(np.int64) * 4
+    los, his = starts, starts + rng.integers(0, 3, m)
+    k = rng.integers(0, 4 * span, n).astype(np.int64)
+    k[: n // 10] = los[rng.integers(0, m, n // 10)]  # some keys in the windows
+    if case == "null_sentinel_interval":
+        los = np.append(los, I64_MIN)
+        his = np.append(his, I64_MIN)
+        k[::7] = I64_MIN
+    if case == "int32_keys":
+        k = k.astype(np.int32)
+    pad = 1
+    while pad < len(los):
+        pad *= 2
+    los = np.concatenate([los, np.ones(pad - len(los), np.int64)])
+    his = np.concatenate([his, np.zeros(pad - len(his), np.int64)])
+    mask = rng.random(n) < 0.8
+    pred = rng.random(n) < 0.01
+    return k, mask, pred, los, his
