@@ -1,11 +1,13 @@
 """BallistaContext: the user entry point of the port.
 
-Mirrors arrow_ballista_tpu/client/context.py for the local engine: a
-single-process operator tree walk (RepartitionExec materializes exchanges
-in memory) on one device.  ``local()`` runs on the card unless the caller
-names another device; without a card it raises and never falls back to the
-CPU.  The standalone and remote engines are still to be ported (ROADMAP.md
-queue 1 items 8 and 12).
+Mirrors arrow_ballista_tpu/client/context.py for two engines on one
+device: ``local()``, a single-process operator tree walk (RepartitionExec
+materializes exchanges in memory), and ``standalone()``, the scheduler and
+its executors in process (scheduler/standalone.py: stages, task slots,
+Arrow IPC shuffle files, whole-stage fusion).  Both run on the card unless
+the caller names another device; without a card they raise and never fall
+back to the CPU.  The remote engine is still to be ported (ROADMAP.md
+queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -90,10 +92,11 @@ class BallistaDataFrame:
 
 class BallistaContext:
     def __init__(self, config: Optional[BallistaConfig] = None, device=None,
-                 work_dir: Optional[str] = None):
+                 work_dir: Optional[str] = None, engine: str = "local"):
         self.config = config or BallistaConfig()
         self.device = resolve_device(device)
-        self.engine = "local"
+        self.engine = engine
+        self._standalone = None
         self.catalog = SchemaCatalog()
         self.work_dir = work_dir or os.path.join(tempfile.gettempdir(), "ballista_torch")
         self.last_plan: Optional[ExecutionPlan] = None
@@ -116,10 +119,23 @@ class BallistaContext:
         return BallistaContext(config, device=device)
 
     @staticmethod
-    def standalone(*_args, **_kwargs) -> "BallistaContext":
-        raise NotImplementedError(
-            "the standalone engine (scheduler + executors in process) is not ported "
-            "yet (ROADMAP.md queue 1 item 8)")
+    def standalone(config: Optional[BallistaConfig] = None, concurrent_tasks: int = 4,
+                   num_executors: int = 1, device=None) -> "BallistaContext":
+        """A scheduler and ``num_executors`` executors of
+        ``concurrent_tasks`` task slots each, in this process, on
+        ``device`` (the card by default)."""
+        from ..scheduler.standalone import StandaloneCluster
+
+        ctx = BallistaContext(config, device=device, engine="standalone")
+        ctx._standalone = StandaloneCluster(ctx.config, concurrent_tasks, num_executors,
+                                            device=ctx.device)
+        return ctx
+
+    def shutdown(self) -> None:
+        """Stop a standalone context's scheduler and executors."""
+        if self._standalone is not None:
+            self._standalone.shutdown()
+            self._standalone = None
 
     @staticmethod
     def remote(*_args, **_kwargs) -> "BallistaContext":
@@ -213,6 +229,10 @@ class BallistaContext:
         planner = PhysicalPlanner(self.catalog, self.config, self.device)
         planned = planner.plan_query(optimize(logical))
         self.last_plan = planned.plan
+        if self.engine == "standalone":
+            if self._standalone is None:
+                raise PlanningError("this standalone context was shut down")
+            return self._standalone.execute(planned)
         return self._execute_local(planned)
 
     def _execute_local(self, planned: PlannedQuery) -> List[ColumnBatch]:

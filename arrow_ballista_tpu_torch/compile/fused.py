@@ -1,0 +1,412 @@
+"""FusedStageExec: one generated kernel for a whole operator chain.
+
+Mirrors arrow_ballista_tpu/compile/fused.py.  A fused chain's row steps
+(filter masks, projection columns, renames) and, for an aggregate-headed
+chain, the partial aggregate's own key and value evaluation run as one
+kernel generated for the chain (compile/codegen.py), so the intermediate
+batches of the interpreted chain never exist:
+
+- K12 ``fused_rows``: one elementwise pass writes every output column and
+  the mask (csrc/fused_rows.cuh + the generated row function);
+- K13 ``fused_agg``, dense path: the generated row function feeds K1's
+  accumulator body directly (csrc/dense_agg.cuh), so the key and value
+  columns never exist in device memory; K2 then compacts the groups;
+- K13 ``fused_agg``, sort path (no dense key domain): the generated
+  kernel writes the key and value columns in K12's form, then K4 orders
+  them and K8 aggregates, as ``kernels.grouped_aggregate`` does.
+
+``fused_rows_plain`` and ``fused_agg_plain`` are the interpreted chain:
+the same closures over TorchOps, then the K1, K2, K4 and K8 twins.  A
+wrapper takes its twin only for tensors on the CPU; on the card it
+launches the generated kernel, and a build or launch error raises.  Unlike
+the reference, no error latches the interpreted chain: the port's fused
+stage never falls back (its ``fused_fallbacks`` metric stays 0).
+
+Plan-shape contract: ``ops[0]`` is the chain head (closest to the shuffle
+writer), ``ops[-1]`` the tail, and the ops keep their ``.input`` links, so
+``self.input`` is a property over ``ops[-1].input`` and the planner walks,
+AQE grafts and rollbacks treat a fused stage like any single-input
+operator.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..models.batch import ColumnBatch, concat_batches
+from ..ops import _cuda
+from ..ops import kernels as K
+from ..ops.expressions import TorchOps
+from ..ops.operators import (FilterExec, HashAggregateExec, ProjectionExec, RenameExec,
+                             _full_column, agg_inputs)
+from ..ops.physical import ExecutionPlan, TaskContext, schema_sig, shared_program
+from ..utils.errors import CapacityError, InternalError
+from . import codegen as G
+from .chains import chain_fingerprint
+
+# the reference's adaptive-passthrough trigger (fused.py:357-384): at least
+# this many input rows reduced by less than PASSTHROUGH_RATIO
+PASSTHROUGH_MIN_ROWS = 1 << 17
+PASSTHROUGH_RATIO = 0.6
+
+
+def _row_step(op: ExecutionPlan, scalars, device, xp=None):
+    """(trace_fn, compiler or None, dict_transform) of one row operator;
+    ``trace_fn(cols, mask, aux) -> (cols, mask)``.  With ``xp`` (CudaOps)
+    the same closures trace into generated C."""
+    if isinstance(op, FilterExec):
+        comp, pred = op._compile(scalars, device, xp=xp)
+
+        def tr_filter(cols, mask, aux, pred=pred):
+            return cols, mask & pred.fn(cols, aux)
+
+        return tr_filter, comp, lambda dicts: dicts
+    if isinstance(op, ProjectionExec):
+        comp, compiled = op._compile(scalars, device, xp=xp)
+
+        def tr_proj(cols, mask, aux, compiled=compiled):
+            n = mask.shape[0]
+            return {name: _full_column(c.fn(cols, aux), n) for c, name in compiled}, mask
+
+        def dicts_proj(dicts, compiled=compiled):
+            return {n: c.dict_fn(dicts) for c, n in compiled if c.dict_fn is not None}
+
+        return tr_proj, comp, dicts_proj
+    if isinstance(op, RenameExec):
+        mapping = list(op._mapping)
+
+        def tr_rename(cols, mask, aux, mapping=mapping):
+            if xp is not None:
+                return G.RenamedColumns(cols, mapping), mask
+            return {new: cols[old] for old, new in mapping}, mask
+
+        def dicts_rename(dicts, mapping=mapping):
+            return {new: dicts[old] for old, new in mapping if old in dicts}
+
+        return tr_rename, None, dicts_rename
+    raise InternalError(f"operator {type(op).__name__} is not fusable as a row step")
+
+
+def _label_of(ops) -> str:
+    return " <- ".join(type(o).__name__ for o in ops)
+
+
+def generate(ops: List[ExecutionPlan], ctx: TaskContext) -> G.GeneratedChain:
+    """Trace a chain (head first) into its generated source."""
+    agg = ops[0] if isinstance(ops[0], HashAggregateExec) else None
+    row_ops = ops[1:] if agg is not None else ops
+    trace = G.Trace()
+    xp = G.CudaOps(trace, ctx.device)
+    cols = G.InputColumns(trace, ops[-1].input.schema)
+    mask = trace.bind("in.mask[i]", torch.bool, 1)
+    for step, op in enumerate(reversed(row_ops)):
+        tr, comp, _ = _row_step(op, ctx.scalars, ctx.device, xp)
+        cols, mask = tr(cols, mask, G.trace_aux(trace, step, comp))
+    if agg is None:
+        outputs = [(f.name, cols[f.name]) for f in ops[0].schema]
+        return G.render(trace, _label_of(ops), outputs, mask)
+    compiled = agg._build_compiled(ctx, agg.input.schema, xp=xp)
+    aux = G.trace_aux(trace, len(row_ops), compiled[0])
+    keys, vals = agg_inputs(xp, compiled, cols, mask, aux)
+    outputs = [(f"__key{j}", k) for j, k in enumerate(keys)] + \
+        [(f"__val{a}", v) for a, (v, _how) in enumerate(vals)]
+    return G.render(trace, _label_of(ops), outputs, mask, keys, vals)
+
+
+def codegen_doubt(node: ExecutionPlan) -> Optional[str]:
+    """Why the code generator cannot emit ``node`` alone (None: it can).
+    Plan time: nothing is built and nothing runs on a device."""
+    if isinstance(node, RenameExec):
+        return None
+    try:
+        generate([node], TaskContext(device=torch.device("cpu")))
+    except Exception as e:  # noqa: BLE001 — any doubt keeps the operator interpreted
+        return f"{type(e).__name__}: {e}"
+    return None
+
+
+class FusedProgram:
+    """One fused chain built for one device: the interpreted steps (the
+    twin) and the generated source of its kernel."""
+
+    def __init__(self, ops: List[ExecutionPlan], ctx: TaskContext):
+        self.ops = ops
+        self.agg = ops[0] if isinstance(ops[0], HashAggregateExec) else None
+        row_ops = ops[1:] if self.agg is not None else ops
+        self.schema = ops[0].schema
+        self.steps = [_row_step(op, ctx.scalars, ctx.device) for op in reversed(row_ops)]
+        self.agg_compiled = (self.agg._build_compiled(ctx, self.agg.input.schema)
+                             if self.agg is not None else None)
+        self.gen = generate(ops, ctx)
+        self.launch_name = "fused_agg" if self.agg is not None else "fused_rows"
+
+    def auxs_and_dicts(self, dicts: Dict[str, np.ndarray]):
+        """Per-step lookup tables and the dictionary threading the
+        interpreted chain does batch by batch, on the host, bottom-up; for
+        an aggregate the aggregate's tables come last."""
+        auxs = []
+        for _tr, comp, dict_tr in self.steps:
+            auxs.append(comp.aux_arrays(dicts) if comp is not None else {})
+            dicts = dict_tr(dicts)
+        if self.agg_compiled is not None:
+            auxs.append(self.agg_compiled[0].aux_arrays(dicts))
+        return auxs, dicts
+
+    # --- the interpreted chain (the twin) --------------------------------
+    def rows_plain(self, cols, mask, auxs):
+        for i, (tr, _comp, _dt) in enumerate(self.steps):
+            cols, mask = tr(cols, mask, auxs[i])
+        return cols, mask
+
+    # --- the generated kernel --------------------------------------------
+    def library(self) -> ctypes.CDLL:
+        return _cuda.LIBRARIES.get_generated(self.gen.source)
+
+    def _fill_in(self, cols, mask, auxs):
+        gen = self.gen
+        keep = []
+        fin = _FusedIn()
+        for k, (name, dt) in enumerate(gen.inputs):
+            t = cols[name]
+            if t.dtype != dt or t.shape[0] != mask.shape[0]:
+                raise InternalError(f"fused input {name}: {t.dtype}{tuple(t.shape)}, the "
+                                    f"generated kernel reads {dt}[{mask.shape[0]}]")
+            t = t.contiguous()
+            keep.append(t)
+            fin.col[k] = t.data_ptr()
+        m = mask.contiguous()
+        keep.append(m)
+        fin.mask = m.data_ptr()
+        for k, (step, slot, dt) in enumerate(gen.aux):
+            t = auxs[step][slot]
+            if t.dtype != dt:
+                raise InternalError(f"fused lookup table {slot}: {t.dtype}, the generated "
+                                    f"kernel reads {dt}")
+            t = t.contiguous()
+            keep.append(t)
+            fin.aux[k] = t.data_ptr()
+            fin.aux_len[k] = t.shape[0]
+        K._require_cuda(mask, *keep)
+        return fin, keep
+
+    def launch_rows(self, cols, mask, auxs):
+        """K12's form: fresh output columns and mask."""
+        n = mask.shape[0]
+        dev = mask.device
+        outs = [torch.empty(n, dtype=dt, device=dev) for _name, dt in self.gen.outputs]
+        omask = torch.empty(n, dtype=torch.bool, device=dev)
+        if n == 0:
+            return outs, omask
+        fin, keep = self._fill_in(cols, mask, auxs)
+        fout = _FusedOut()
+        for k, t in enumerate(outs):
+            fout.col[k] = t.data_ptr()
+        fout.mask = omask.data_ptr()
+        err = self.library().ab_fused_rows(ctypes.byref(fin), ctypes.byref(fout), n,
+                                           K._stream(dev))
+        _cuda.check(err, f"fused_rows ({self.launch_name})")
+        K.count_launch(self.launch_name)
+        return outs, omask
+
+    def launch_dense(self, cols, mask, auxs, key_ranges, domain):
+        """K13's dense form: K1's slot-aligned states straight from the
+        generated row function."""
+        gen = self.gen
+        fin, keep = self._fill_in(cols, mask, auxs)
+        _sizes, strides = K._dense_strides(key_ranges)
+        spec = K._DenseSpec()
+        for j, ((lo, hi), stride, dt) in enumerate(zip(key_ranges, strides, gen.key_dtypes)):
+            spec.key_kind[j] = K._KIND[dt]
+            spec.lo[j], spec.hi[j], spec.stride[j] = lo, hi, stride
+        spec.k = len(key_ranges)
+        out_dtypes = []
+        for a, (dt, how) in enumerate(gen.vals):
+            spec.how[a] = K._HOW[how]
+            spec.val_kind[a] = K._KIND[torch.int64 if how == K.AGG_COUNT else dt]
+            out_dtypes.append(torch.int64 if how == K.AGG_COUNT else dt)
+        m = len(gen.vals)
+        spec.m = m
+        dev = mask.device
+        n = mask.shape[0]
+        acc = torch.empty(max(m, 1) * domain, dtype=torch.int64, device=dev)
+        exists = torch.empty(domain, dtype=torch.int32, device=dev)
+        bad = torch.empty(1, dtype=torch.int32, device=dev)
+        err = self.library().ab_fused_dense(ctypes.byref(fin), ctypes.byref(spec), n, domain,
+                                            K._ptr(acc), K._ptr(exists), K._ptr(bad),
+                                            K._stream(dev))
+        _cuda.check(err, "fused_agg (dense)")
+        K.count_launch(self.launch_name)
+        accs = acc.view(max(m, 1), domain)
+        dense_vals = [accs[a].view(dt)[::8 // dt.itemsize] for a, dt in enumerate(out_dtypes)]
+        return dense_vals, exists, bad[0] != 0
+
+
+class _FusedIn(ctypes.Structure):
+    """csrc/fused_rows.cuh ``AbFusedIn``."""
+
+    _fields_ = [("col", ctypes.c_void_p * G.MAX_IN), ("mask", ctypes.c_void_p),
+                ("aux", ctypes.c_void_p * G.MAX_AUX), ("aux_len", ctypes.c_longlong * G.MAX_AUX)]
+
+
+class _FusedOut(ctypes.Structure):
+    """csrc/fused_rows.cuh ``AbFusedOut``."""
+
+    _fields_ = [("col", ctypes.c_void_p * G.MAX_OUT), ("mask", ctypes.c_void_p)]
+
+
+# --------------------------------------------------------------------------
+# the wrappers: K12 and K13, each beside its twin
+# --------------------------------------------------------------------------
+
+
+def fused_rows_plain(program: FusedProgram, cols, mask, auxs):
+    """The interpreted row chain: (output columns, mask)."""
+    cols, mask = program.rows_plain(cols, mask, auxs)
+    n = mask.shape[0]
+    return {f.name: _full_column(cols[f.name], n) for f in program.schema}, mask
+
+
+def fused_rows(program: FusedProgram, cols, mask, auxs):
+    """K12: the row chain as one generated kernel -> (columns, mask)."""
+    if K._is_cpu(mask):
+        return fused_rows_plain(program, cols, mask, auxs)
+    outs, omask = program.launch_rows(cols, mask, auxs)
+    return {name: t for (name, _dt), t in zip(program.gen.outputs, outs)}, omask
+
+
+def _agg_key_vals_plain(program: FusedProgram, cols, mask, auxs):
+    cols, mask = program.rows_plain(cols, mask, auxs)
+    keys, vals = agg_inputs(TorchOps(mask.device), program.agg_compiled, cols, mask,
+                            auxs[-1])
+    return keys, vals, mask
+
+
+def fused_agg_plain(program: FusedProgram, cols, mask, auxs, out_cap: int, key_ranges):
+    """The interpreted aggregate chain, then the K1/K2 or K4/K8 twins:
+    (out_keys, out_vals, out_mask, overflow or None)."""
+    keys, vals, mask = _agg_key_vals_plain(program, cols, mask, auxs)
+    return K.grouped_aggregate(keys, vals, mask, out_cap, key_ranges=key_ranges, plain=True)
+
+
+def fused_agg(program: FusedProgram, cols, mask, auxs, out_cap: int, key_ranges):
+    """K13: the aggregate chain's partial states.  Dense key domain: the
+    generated row function inside K1's accumulator body, then K2's
+    compaction; otherwise the generated kernel writes the key and value
+    columns, then K4 and K8 group them."""
+    if K._is_cpu(mask):
+        return fused_agg_plain(program, cols, mask, auxs, out_cap, key_ranges)
+    gen = program.gen
+    domain = K.dense_domain(key_ranges)
+    if domain is not None:
+        dense_vals, exists, bad = program.launch_dense(cols, mask, auxs, key_ranges, domain)
+        return K.finish_dense(gen.key_dtypes, dense_vals, exists, bad, out_cap, key_ranges,
+                              domain)
+    outs, omask = program.launch_rows(cols, mask, auxs)
+    nk = len(gen.key_dtypes)
+    vals = [(v, how) for v, (_dt, how) in zip(outs[nk:], gen.vals)]
+    return K.grouped_aggregate(outs[:nk], vals, omask, out_cap, key_ranges=key_ranges)
+
+
+# --------------------------------------------------------------------------
+# the operator
+# --------------------------------------------------------------------------
+
+
+class FusedStageExec(ExecutionPlan):
+    """A fused operator chain executing as one generated kernel.
+    ``ops``: chain operators head first, with intact ``.input`` links."""
+
+    def __init__(self, ops: List[ExecutionPlan]):
+        if len(ops) < 2:
+            raise InternalError("fused chain needs at least 2 operators")
+        for a, b in zip(ops, ops[1:]):
+            if a.input is not b:
+                raise InternalError("fused chain ops must be input-linked")
+        self.ops = list(ops)
+        self._schema = ops[0].schema
+        self._program: Optional[FusedProgram] = None
+
+    # --- plan-shape interface (single-input operator) --------------------
+    @property
+    def input(self) -> ExecutionPlan:
+        return self.ops[-1].input
+
+    @input.setter
+    def input(self, node: ExecutionPlan) -> None:
+        self.ops[-1].input = node
+
+    def children(self):
+        return [self.input]
+
+    def output_partition_count(self):
+        return self.ops[0].output_partition_count()
+
+    def output_partitioning(self):
+        return self.ops[0].output_partitioning()
+
+    def program(self, ctx: TaskContext) -> FusedProgram:
+        """The chain's program for ``ctx.device``, shared process-wide under
+        the chain's structural fingerprint (the chain is free of scalar
+        subqueries, so it does not depend on the job)."""
+        with self.build_lock():
+            if self._program is None:
+                key = ("fused", str(ctx.device), tuple(type(o).__name__ for o in self.ops),
+                       chain_fingerprint(self.ops, schema_sig(self.input.schema)))
+                self._program = shared_program(key, lambda: FusedProgram(self.ops, ctx))
+            return self._program
+
+    # --- execution -------------------------------------------------------
+    def execute(self, partition: int, ctx: TaskContext) -> List[ColumnBatch]:
+        with ctx.op_span(self):
+            prog = self.program(ctx)
+            if prog.agg is not None:
+                return self._execute_agg(prog, partition, ctx)
+            return self._execute_rows(prog, partition, ctx)
+
+    def _execute_rows(self, prog: FusedProgram, partition: int, ctx: TaskContext):
+        out = []
+        for b in self.input.execute(partition, ctx):
+            ctx.check_cancelled()
+            with self.metrics().timer("compute_time"):
+                auxs, dicts = prog.auxs_and_dicts(b.dicts)
+                cols, mask = fused_rows(prog, b.columns, b.mask, auxs)
+                out.append(ColumnBatch(self._schema, cols, mask, dicts))
+        return out
+
+    def _execute_agg(self, prog: FusedProgram, partition: int, ctx: TaskContext):
+        """HashAggregateExec._execute_device with the row chain fused in
+        front of the aggregate: the same dense-domain bound, plan-ahead
+        capacity and NULL restore."""
+        agg = prog.agg
+        batches = self.input.execute(partition, ctx)
+        ctx.check_cancelled()
+        big = concat_batches(self.input.schema, batches, device=ctx.device).shrink()
+        comp_a, group_c, agg_c, tracked = prog.agg_compiled
+        with self.metrics().timer("agg_time"):
+            auxs, dicts_in = prog.auxs_and_dicts(big.dicts)
+            key_ranges = agg._key_ranges(group_c, dicts_in)
+            # the input capacity (or the dense key domain) bounds the group
+            # count: overflow is impossible and the kernel runs once
+            out_cap = big.capacity
+            domain = K.dense_domain(key_ranges)
+            if domain is not None:
+                out_cap = min(out_cap, domain)
+            out_keys, out_vals, out_mask, overflow = fused_agg(
+                prog, big.columns, big.mask, auxs, out_cap, key_ranges)
+            if overflow is not None and bool(overflow):
+                raise CapacityError(f"fused aggregation overflowed {out_cap} groups with "
+                                    f"{big.capacity}-row input; this should be impossible")
+        result = agg._result_batch(out_keys, out_vals, out_mask, dicts_in, prog.agg_compiled)
+        # the reference's adaptive-passthrough probe: a large input that the
+        # partial barely reduces would latch per-row states there (row 12c,
+        # not ported: no path of the port meets the trigger); counted here
+        inp = big.num_rows
+        if inp >= PASSTHROUGH_MIN_ROWS and result.num_rows > PASSTHROUGH_RATIO * inp:
+            self.metrics().add("passthrough_triggers", 1)
+        return [result]
+
+    def _label(self):
+        return f"FusedStageExec[{len(self.ops)} ops, 1 kernel]: {_label_of(self.ops)}"

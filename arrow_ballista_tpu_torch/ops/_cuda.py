@@ -10,17 +10,29 @@ parallel, one ``nvcc`` each.  A build error raises; nothing falls back.
 The libraries are bound with ``ctypes``: every pointer and the stream go
 as ``c_void_p`` and every C function returns a ``cudaError_t`` that the
 wrapper in ``ops/kernels.py`` checks (``check``).
+
+Generated sources (K12 and K13, one per fused chain, compile/codegen.py)
+build the same way at first use, by source: the ``.cu`` is written into
+``_build/`` under the hash of the source, the headers and the flags, and
+built once per hash — under a per-hash lock, renamed into place when
+finished, so task threads resolving the same chain build it once and a
+file already built is loaded as it is.  They build with ``--fmad=false``:
+a contracted multiply-add would round differently from the interpreted
+chain.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 from typing import Dict
+
+log = logging.getLogger(__name__)
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -73,6 +85,14 @@ SIGNATURES = {
 }
 
 
+# the C interface of every generated source (csrc/fused_rows.cuh)
+GENERATED_SIGNATURES = {
+    "ab_fused_rows": ([_P, _P, _LL, _P], _I),
+    "ab_fused_dense": ([_P, _P, _LL, _I, _P, _P, _P, _P], _I),
+}
+GENERATED_FLAGS = NVCC_FLAGS + ["--fmad=false", "-I", str(CSRC)]
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -97,6 +117,15 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{_source_digest(name)}.so"
 
 
+def generated_path(source: str) -> Path:
+    h = hashlib.sha256(source.encode())
+    for p in sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(GENERATED_FLAGS).encode())
+    return BUILD_DIR / f"libfused-{h.hexdigest()[:16]}.so"
+
+
 class KernelLibraries:
     """The loaded kernel libraries of one process, built on first use."""
 
@@ -104,6 +133,11 @@ class KernelLibraries:
         self._lock = threading.Lock()
         self._libs: Dict[str, ctypes.CDLL] = {}
         self.build_seconds = 0.0
+        self._generated: Dict[Path, ctypes.CDLL] = {}
+        self._by_source: Dict[str, ctypes.CDLL] = {}
+        self._generated_locks: Dict[Path, threading.Lock] = {}
+        # (library file name, nvcc seconds) of each generated source built
+        self.generated_builds = []
 
     def build_all(self) -> Dict[str, Path]:
         """Compile every library that is missing, all ``nvcc`` processes
@@ -152,6 +186,56 @@ class KernelLibraries:
                     f.restype = restype
                 self._libs[lname] = loaded
             return self._libs[name]
+
+
+    def get_generated(self, source: str) -> ctypes.CDLL:
+        """The library of one generated source, built at first use."""
+        import time
+
+        lib = self._by_source.get(source)  # the launch path: one dict lookup
+        if lib is not None:
+            return lib
+        path = generated_path(source)
+        with self._lock:
+            lib = self._generated.get(path)
+            if lib is not None:
+                self._by_source[source] = lib
+                return lib
+            lock = self._generated_locks.setdefault(path, threading.Lock())
+        with lock:
+            with self._lock:
+                lib = self._generated.get(path)
+            if lib is not None:
+                return lib
+            if not path.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                cu = path.with_suffix(".cu")
+                tmp_cu = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.cu")
+                tmp_cu.write_text(source)
+                os.replace(tmp_cu, cu)
+                tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+                t0 = time.perf_counter()
+                proc = subprocess.run([nvcc_path(), *GENERATED_FLAGS, "-o", str(tmp), str(cu)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True)
+                seconds = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on the generated source {cu} "
+                                       f"(exit {proc.returncode}):\n{proc.stdout}")
+                os.replace(tmp, path)
+                with self._lock:
+                    self.generated_builds.append((path.name, seconds))
+                log.info("built generated kernel %s in %.2f s", path.name, seconds)
+            loaded = ctypes.CDLL(str(path))
+            for fn, (argtypes, restype) in GENERATED_SIGNATURES.items():
+                f = getattr(loaded, fn, None)
+                if f is not None:
+                    f.argtypes = argtypes
+                    f.restype = restype
+            with self._lock:
+                self._generated[path] = loaded
+                self._by_source[source] = loaded
+            return loaded
 
 
 LIBRARIES = KernelLibraries()

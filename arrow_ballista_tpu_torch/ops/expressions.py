@@ -7,8 +7,9 @@ Two modes:
   batch's device.  String predicates (=, LIKE, IN over dictionary-encoded
   columns) are evaluated once per dictionary over the (small) host
   dictionary, producing lookup tables shipped in ``aux`` — the device does
-  a gather, never touches bytes.  A generated kernel per expression tree is
-  later work (ROADMAP.md queue 2 item 9).
+  a gather, never touches bytes.  Inside a fused stage the same closures
+  run over compile/codegen.py's ``CudaOps`` and become one generated
+  kernel (K12, K13).
 - **host**: same semantics with numpy float64 — used for tiny
   post-aggregation projections containing division.
 
@@ -71,8 +72,8 @@ class TorchOps:
     def _dtype(dtype):
         from ..models.batch import torch_dtype
 
-        if dtype is None:
-            return None
+        if dtype is None or isinstance(dtype, torch.dtype):
+            return dtype
         if dtype is bool:
             return torch.bool
         return torch_dtype(np.dtype(dtype))
@@ -264,14 +265,16 @@ class ExprCompiler:
     by the operator on dictionary identity).
     """
 
-    def __init__(self, schema: Schema, mode: str = "device", device=None):
+    def __init__(self, schema: Schema, mode: str = "device", device=None, xp=None):
         if mode not in ("device", "host"):
             raise InternalError(f"unknown expression mode {mode!r}")
         if mode == "device" and device is None:
             raise InternalError("device-mode expressions need a device")
         self.schema = schema
         self.mode = mode
-        self.xp = TorchOps(device) if mode == "device" else NumpyOps()
+        # ``xp`` replaces the device namespace: compile/codegen.py's CudaOps
+        # traces the same closures into generated C
+        self.xp = xp or (TorchOps(device) if mode == "device" else NumpyOps())
         self.aux_builders: Dict[str, Callable] = {}
         self._aux_cache: Dict = {}
         self._aux_lock = threading.Lock()

@@ -1,5 +1,6 @@
 """Device kernels of the port: eleven hand-written CUDA kernels, each beside
-its plain PyTorch twin.
+its plain PyTorch twin (K12 and K13, the kernels generated per fused chain,
+live in compile/fused.py and count their launches here).
 
 | kernel | source | replaces (arrow_ballista_tpu/ops/kernels.py) |
 | --- | --- | --- |
@@ -32,6 +33,7 @@ share freely, are never written.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,12 +46,21 @@ LAUNCHES: Dict[str, int] = {"dense_group_states": 0, "compaction_order": 0,
                             "hash64": 0, "sort_order": 0, "build_side_sort": 0,
                             "probe_join": 0, "segment_any": 0, "grouped_on_order": 0,
                             "presorted_disorder": 0, "key_range_check": 0,
-                            "clustered_keep": 0}
+                            "clustered_keep": 0, "fused_rows": 0, "fused_agg": 0}
+# the standalone engine launches from several task threads at once
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name``; wrappers call it where they launch."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCH_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 # element kinds of csrc/common.cuh
@@ -187,7 +198,7 @@ def _hash_launch(arrays: Sequence[torch.Tensor], num_buckets: Optional[int]) -> 
         err = lib.ab_bucket_of(ptrs, kinds, k, n, zero, int(num_buckets), _ptr(out),
                                _stream(dev))
     _cuda.check(err, "hash")
-    LAUNCHES["hash64"] += 1
+    count_launch("hash64")
     return out
 
 
@@ -239,7 +250,7 @@ def compaction_order(mask: torch.Tensor) -> torch.Tensor:
     scratch = torch.empty(tiles + 1, dtype=torch.int32, device=m.device)
     _cuda.check(lib.ab_compaction_order(_ptr(m), n, _ptr(perm), _ptr(scratch),
                                         _stream(m.device)), "compaction_order")
-    LAUNCHES["compaction_order"] += 1
+    count_launch("compaction_order")
     return perm
 
 
@@ -388,7 +399,7 @@ def sort_order(keys: Sequence[Tuple[torch.Tensor, bool]], mask: torch.Tensor) ->
                             _ptr(words_a), _ptr(words_b), _ptr(perm), _ptr(perm_tmp),
                             _stream(m.device))
     _cuda.check(err, "sort_order")
-    LAUNCHES["sort_order"] += 1
+    count_launch("sort_order")
     return perm
 
 
@@ -529,7 +540,7 @@ def _dense_launch(key_cols, val_cols, mask, key_ranges, domain):
     err = lib.ab_dense_group_states(ctypes.byref(spec), _ptr(mk), n, domain, _ptr(acc),
                                     _ptr(exists), _ptr(bad), _stream(dev))
     _cuda.check(err, "dense_group_states")
-    LAUNCHES["dense_group_states"] += 1
+    count_launch("dense_group_states")
     accs = acc.view(max(m, 1), domain)
     # one 8-byte word a slot; a 32-bit value is the word's low half
     dense_vals = [accs[a].view(dt)[::8 // dt.itemsize] for a, dt in enumerate(out_dtypes)]
@@ -554,12 +565,12 @@ def dense_group_states(
 
 
 def compact_dense_states(key_cols_dtypes, dense_vals, exists, out_capacity: int,
-                         key_ranges, domain: int):
+                         key_ranges, domain: int, plain: bool = False):
     """Compact slot-aligned dense states into (keys, vals, mask, overflow):
     non-empty groups first, in ascending fused-key order, padded/truncated
     to ``out_capacity``.  The stable compaction is K2 over ``exists``."""
     sizes, strides = _dense_strides(key_ranges)
-    order = compaction_order(exists)
+    order = (compaction_order_plain if plain else compaction_order)(exists)
     if domain > out_capacity:
         order = order[:out_capacity]
     num_groups = exists.sum()
@@ -582,12 +593,11 @@ def compact_dense_states(key_cols_dtypes, dense_vals, exists, out_capacity: int,
     return out_keys, out_vals, out_mask, overflow
 
 
-def _grouped_aggregate_dense(key_cols, val_cols, mask, out_capacity, key_ranges, domain):
-    dense_vals, exists_cnt, bad_rows = dense_group_states(
-        key_cols, val_cols, mask, key_ranges, domain)
+def finish_dense(key_dtypes, dense_vals, exists_cnt, bad_rows, out_capacity, key_ranges,
+                 domain, plain: bool = False):
+    """Slot-aligned dense states (K1 or K13) -> grouped_aggregate's result."""
     out_keys, out_vals, out_mask, overflow = compact_dense_states(
-        [k.dtype for k in key_cols], dense_vals, exists_cnt > 0,
-        out_capacity, key_ranges, domain)
+        key_dtypes, dense_vals, exists_cnt > 0, out_capacity, key_ranges, domain, plain=plain)
     if domain <= out_capacity:
         # overflow is impossible (num_groups <= domain) and bad rows are
         # structurally excluded for engine-built ranges
@@ -595,7 +605,16 @@ def _grouped_aggregate_dense(key_cols, val_cols, mask, out_capacity, key_ranges,
     return out_keys, out_vals, out_mask, overflow | bad_rows
 
 
-def grouped_aggregate(key_cols, val_cols, mask, out_capacity: int, key_ranges=None):
+def _grouped_aggregate_dense(key_cols, val_cols, mask, out_capacity, key_ranges, domain,
+                             plain: bool = False):
+    states = dense_group_states_plain if plain else dense_group_states
+    dense_vals, exists_cnt, bad_rows = states(key_cols, val_cols, mask, key_ranges, domain)
+    return finish_dense([k.dtype for k in key_cols], dense_vals, exists_cnt, bad_rows,
+                        out_capacity, key_ranges, domain, plain=plain)
+
+
+def grouped_aggregate(key_cols, val_cols, mask, out_capacity: int, key_ranges=None,
+                      plain: bool = False):
     """Group by ``key_cols`` and reduce ``val_cols`` (list of (array, how)).
 
     Returns (out_keys, out_vals, out_mask, overflow or None).  When every
@@ -605,20 +624,22 @@ def grouped_aggregate(key_cols, val_cols, mask, out_capacity: int, key_ranges=No
     keys), then K8 over the reordered rows.  Groups come out in ascending
     key order on both paths.  CONTRACT (as in the reference): every live
     row's key lies inside its declared range; when the domain fits
-    ``out_capacity`` out-of-range rows are dropped silently."""
+    ``out_capacity`` out-of-range rows are dropped silently.  ``plain``
+    takes every kernel's twin, whatever the device."""
     if key_cols:
         domain = dense_domain(key_ranges)
         if domain is not None:
             return _grouped_aggregate_dense(key_cols, val_cols, mask, out_capacity,
-                                            key_ranges, domain)
+                                            key_ranges, domain, plain=plain)
     n = mask.shape[0]
     if key_cols:
-        order = sort_order([(k, True) for k in key_cols], mask)
+        order = (sort_order_plain if plain else sort_order)([(k, True) for k in key_cols], mask)
     else:
-        order = compaction_order(mask)
+        order = (compaction_order_plain if plain else compaction_order)(mask)
     idx = order.long()
-    return grouped_on_order([k[idx] for k in key_cols], [(v[idx], how) for v, how in val_cols],
-                            mask[idx], out_capacity, n)
+    on_order = grouped_on_order_plain if plain else grouped_on_order
+    return on_order([k[idx] for k in key_cols], [(v[idx], how) for v, how in val_cols],
+                    mask[idx], out_capacity, n)
 
 
 # --------------------------------------------------------------------------
@@ -743,7 +764,7 @@ def grouped_on_order(keys_s, val_cols, mask_s, out_capacity: int, n: int):
                                   _ptr(_flat(out_mask)), _ptr(num_groups), _ptr(scratch),
                                   _stream(dev))
     _cuda.check(err, "grouped_on_order")
-    LAUNCHES["grouped_on_order"] += 1
+    count_launch("grouped_on_order")
     overflow = (num_groups[0] > cap) if cap < n else None
     return out_keys, out_vals, out_mask, overflow
 
@@ -780,7 +801,7 @@ def presorted_disorder(keys_s: torch.Tensor, mask_s: torch.Tensor) -> torch.Tens
     _cuda.check(lib.ab_presorted_disorder(_ptr(k), _key_kind(keys_s, mask_s), _ptr(m), m.shape[0],
                                           _ptr(_flat(flag)), _stream(m.device)),
                 "presorted_disorder")
-    LAUNCHES["presorted_disorder"] += 1
+    count_launch("presorted_disorder")
     return flag[0]
 
 
@@ -828,7 +849,7 @@ def key_range_check(keys: torch.Tensor, mask: torch.Tensor, lo: int, hi: int,
                                        0 if sentinel is None else int(sentinel), int(lo),
                                        int(hi), _ptr(_flat(flag)), _stream(m.device)),
                 "key_range_check")
-    LAUNCHES["key_range_check"] += 1
+    count_launch("key_range_check")
     return flag[0]
 
 
@@ -865,7 +886,7 @@ def clustered_keep(keys: torch.Tensor, mask: torch.Tensor, pred: torch.Tensor,
     _cuda.check(lib.ab_clustered_keep(_ptr(k), _key_kind(keys, mask), _ptr(m), _ptr(p), n, _ptr(lo),
                                       _ptr(hi), lo.shape[0], _ptr(_flat(keep)), _ptr(live),
                                       _stream(m.device)), "clustered_keep")
-    LAUNCHES["clustered_keep"] += 1
+    count_launch("clustered_keep")
     return keep, live[0]
 
 
@@ -922,7 +943,7 @@ def build_side_sort(build_keys: List[torch.Tensor], build_mask: torch.Tensor):
                                  int(force_hash_collisions()), _ptr(hash_out), _ptr(order),
                                  _ptr(n_live), _ptr(scratch), _stream(dev))
     _cuda.check(err, "build_side_sort")
-    LAUNCHES["build_side_sort"] += 1
+    count_launch("build_side_sort")
     return hash_out, order, n_live[0]
 
 
@@ -967,7 +988,7 @@ def probe_counts(probe_hash, probe_mask, build_hash_sorted):
         return probe_counts_plain(probe_hash, probe_mask, build_hash_sorted)
     _lib, lo, count, offsets, total = _probe_counts_launch(probe_hash, probe_mask,
                                                            build_hash_sorted)
-    LAUNCHES["probe_join"] += 1
+    count_launch("probe_join")
     return lo, count, offsets, total[0]
 
 
@@ -1009,7 +1030,7 @@ def probe_join(probe_hash: torch.Tensor, probe_mask: torch.Tensor,
     _cuda.check(lib.ab_probe_expand(_ptr(lo), _ptr(count), _ptr(offsets), _ptr(total), n, nb,
                                     cap, _ptr(probe_idx), _ptr(build_pos),
                                     _ptr(_flat(pair_valid)), _stream(dev)), "probe_join")
-    LAUNCHES["probe_join"] += 1
+    count_launch("probe_join")
     return probe_idx, build_pos, pair_valid, total[0]
 
 
@@ -1040,5 +1061,5 @@ def segment_any(values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) 
     _cuda.check(lib.ab_segment_any(_ptr(v), _KIND[values.dtype], _ptr(sg), v.shape[0],
                                    int(num_segments), _ptr(_flat(hit)), _stream(dev)),
                 "segment_any")
-    LAUNCHES["segment_any"] += 1
+    count_launch("segment_any")
     return hit

@@ -103,12 +103,13 @@ def null_check_of(cc, operand, in_schema: Schema):
     return "string" if cc.dtype.is_string else cc.dtype.null_sentinel
 
 
-def valid_of(v: torch.Tensor, null_check) -> torch.Tensor:
-    """Per-row validity under a ``null_check_of`` spec."""
+def valid_of(v, null_check, xp=torch):
+    """Per-row validity under a ``null_check_of`` spec (``xp``: torch, or
+    an expression namespace)."""
     if null_check == "string":
         return v >= 0
     if isinstance(null_check, float) and null_check != null_check:  # NaN
-        return ~torch.isnan(v)
+        return ~xp.isnan(v)
     return v != _py_scalar(null_check)
 
 
@@ -145,8 +146,9 @@ class ProjectionExec(ExecutionPlan):
     def output_partitioning(self):
         return self.input.output_partitioning()
 
-    def _compile(self, scalars, device):
-        comp = ExprCompiler(self.input.schema, "host" if self.host_mode else "device", device)
+    def _compile(self, scalars, device, xp=None):
+        comp = ExprCompiler(self.input.schema, "host" if self.host_mode else "device", device,
+                            xp=xp)
         xp = comp.xp
         compiled = []
         for e, n in self.exprs:
@@ -270,12 +272,7 @@ class FilterExec(ExecutionPlan):
         with self.build_lock():
             if self._compiled is None:
                 def build():
-                    comp = ExprCompiler(self.input.schema,
-                                        "host" if self.host_mode else "device", ctx.device)
-                    pred = comp.compile_pred(_substitute_scalars(self.predicate, ctx.scalars))
-                    if pred.dtype != BOOL:
-                        raise InternalError("filter predicate must be boolean")
-                    return comp, pred
+                    return self._compile(ctx.scalars, ctx.device)
 
                 if has_scalar_subquery(self.predicate):
                     self._compiled = build()
@@ -297,6 +294,14 @@ class FilterExec(ExecutionPlan):
                     mask = b.mask & pred.fn(b.columns, aux)
                 out.append(ColumnBatch(b.schema, b.columns, mask, b.dicts))
         return out
+
+    def _compile(self, scalars, device, xp=None):
+        comp = ExprCompiler(self.input.schema, "host" if self.host_mode else "device", device,
+                            xp=xp)
+        pred = comp.compile_pred(_substitute_scalars(self.predicate, scalars))
+        if pred.dtype != BOOL:
+            raise InternalError("filter predicate must be boolean")
+        return comp, pred
 
     def _label(self):
         mode = " (host)" if self.host_mode else ""
@@ -518,8 +523,8 @@ class HashAggregateExec(ExecutionPlan):
             return shared_program(key, lambda: self._build_compiled(ctx, in_schema))
         return self._build_compiled(ctx, in_schema)
 
-    def _build_compiled(self, ctx, in_schema):
-        comp = ExprCompiler(in_schema, "device", ctx.device)
+    def _build_compiled(self, ctx, in_schema, xp=None):
+        comp = ExprCompiler(in_schema, "device", ctx.device, xp=xp)
         group_c = [(comp.compile(_substitute_scalars(e, ctx.scalars)), n)
                    for e, n in self.group_exprs]
         agg_c = []
@@ -541,36 +546,10 @@ class HashAggregateExec(ExecutionPlan):
         return comp, group_c, agg_c, tracked
 
     def _agg_inputs(self, cols, mask, aux):
-        """Key columns and (value, how) pairs of one batch: the expression
-        part of the reference's "agg.grouped" program."""
-        comp, group_c, agg_c, tracked = self._compiled
-        n = mask.shape[0]
-        keys = [_full_column(c.fn(cols, aux), n) for c, _ in group_c]
-        vals = []
-        valids = {}
-        for i, (cc, how, _, null_check) in enumerate(agg_c):
-            if cc is None:  # count(*)
-                vals.append((torch.zeros(n, dtype=torch.int64, device=mask.device), K.AGG_COUNT))
-                continue
-            v = _full_column(cc.fn(cols, aux), n)
-            if null_check is not None:
-                valid = valid_of(v, null_check)
-                valids[i] = valid
-                if how == "count":
-                    vals.append((valid.to(torch.int64), K.AGG_SUM))
-                    continue
-                if how == "sum":
-                    v = torch.where(valid, v, torch.zeros((), dtype=v.dtype, device=v.device))
-                elif how == "min":
-                    v = torch.where(valid, v, torch.full((), K._max_ident(v.dtype),
-                                                         dtype=v.dtype, device=v.device))
-                elif how == "max":
-                    v = torch.where(valid, v, torch.full((), K._min_ident(v.dtype),
-                                                         dtype=v.dtype, device=v.device))
-            vals.append((v, how))
-        for i in tracked:
-            vals.append((valids[i].to(torch.int64), K.AGG_SUM))
-        return keys, vals
+        """Key columns and (value, how) pairs of one batch."""
+        from .expressions import TorchOps
+
+        return agg_inputs(TorchOps(mask.device), self._compiled, cols, mask, aux)
 
     def _key_ranges(self, group_c, dicts):
         """Static key ranges enable the dense grouping path: dictionary
@@ -613,23 +592,7 @@ class HashAggregateExec(ExecutionPlan):
                     f"aggregation overflowed {out_cap} groups with "
                     f"{big.capacity}-row input; this should be impossible")
 
-        cols: Dict[str, torch.Tensor] = {}
-        dicts: Dict[str, np.ndarray] = {}
-        for (cc, name), arr in zip(group_c, out_keys):
-            cols[name] = arr
-            if cc.dict_fn is not None:
-                dicts[name] = cc.dict_fn(big.dicts)
-        for (cc, how, name, _), arr in zip(agg_c, out_vals[: len(agg_c)]):
-            cols[name] = arr
-        # all-NULL groups: restore NULL (output sentinel) where the hidden
-        # valid count is zero
-        for i, cnt in zip(tracked, out_vals[len(agg_c):]):
-            name = agg_c[i][2]
-            f = self._schema.field(name)
-            sent = torch.full((), _py_scalar(f.dtype.null_sentinel), dtype=cols[name].dtype,
-                              device=cnt.device)
-            cols[name] = torch.where(cnt > 0, cols[name], sent)
-        result = ColumnBatch(self._schema, cols, out_mask, dicts)
+        result = self._result_batch(out_keys, out_vals, out_mask, big.dicts, self._compiled)
         # SQL: a global aggregate ('single'/'final' with no keys) over empty
         # input yields one row: count = 0, sum/min/max = NULL
         if not self.group_exprs and self.mode in ("single", "final") and result.num_rows == 0:
@@ -641,10 +604,67 @@ class HashAggregateExec(ExecutionPlan):
             result = ColumnBatch.from_numpy(self._schema, data, dicts={}, device=device)
         return result, disorder
 
+    def _result_batch(self, out_keys, out_vals, out_mask, dicts_in, compiled) -> ColumnBatch:
+        """The output batch of grouped states: key dictionaries, and NULL
+        (the output sentinel) restored in all-NULL groups, where the hidden
+        valid count is zero."""
+        _comp, group_c, agg_c, tracked = compiled
+        cols: Dict[str, torch.Tensor] = {}
+        dicts: Dict[str, np.ndarray] = {}
+        for (cc, name), arr in zip(group_c, out_keys):
+            cols[name] = arr
+            if cc.dict_fn is not None:
+                dicts[name] = cc.dict_fn(dicts_in)
+        for (cc, how, name, _), arr in zip(agg_c, out_vals[: len(agg_c)]):
+            cols[name] = arr
+        for i, cnt in zip(tracked, out_vals[len(agg_c):]):
+            name = agg_c[i][2]
+            f = self._schema.field(name)
+            sent = torch.full((), _py_scalar(f.dtype.null_sentinel), dtype=cols[name].dtype,
+                              device=cnt.device)
+            cols[name] = torch.where(cnt > 0, cols[name], sent)
+        return ColumnBatch(self._schema, cols, out_mask, dicts)
+
     def _label(self):
         g = ", ".join(n for _, n in self.group_exprs)
         a = ", ".join(f"{x.func}({x.name})" for x in self.aggs)
         return f"HashAggregateExec({self.mode}): groupBy=[{g}] aggr=[{a}]"
+
+
+def agg_inputs(xp, compiled, cols, mask, aux):
+    """Key columns and (value, how) pairs of one batch under an
+    aggregate's compiled closures: the expression part of the reference's
+    "agg.grouped" program (operators.py:847-885) — key and value
+    evaluation, NULL valid masks, identity substitution for skipped NULLs
+    and the hidden per-group valid counts.  ``xp`` is TorchOps, or the
+    CudaOps of a fused chain (compile/codegen.py), which traces the same
+    steps into K13's row function."""
+    comp, group_c, agg_c, tracked = compiled
+    n = mask.shape[0]
+    keys = [_full_column(c.fn(cols, aux), n) for c, _ in group_c]
+    vals = []
+    valids = {}
+    for i, (cc, how, _, null_check) in enumerate(agg_c):
+        if cc is None:  # count(*)
+            vals.append((xp.zeros(n, dtype=np.int64), K.AGG_COUNT))
+            continue
+        v = _full_column(cc.fn(cols, aux), n)
+        if null_check is not None:
+            valid = valid_of(v, null_check, xp)
+            valids[i] = valid
+            if how == "count":
+                vals.append((xp.astype(valid, np.int64), K.AGG_SUM))
+                continue
+            if how == "sum":
+                v = xp.where(valid, v, xp.zeros((), dtype=v.dtype))
+            elif how == "min":
+                v = xp.where(valid, v, xp.full((), K._max_ident(v.dtype), dtype=v.dtype))
+            elif how == "max":
+                v = xp.where(valid, v, xp.full((), K._min_ident(v.dtype), dtype=v.dtype))
+        vals.append((v, how))
+    for i in tracked:
+        vals.append((xp.astype(valids[i], np.int64), K.AGG_SUM))
+    return keys, vals
 
 
 # --------------------------------------------------------------------------
@@ -883,20 +903,22 @@ class JoinExec(ExecutionPlan):
         with self.metrics().timer("join_time"):
             # build-side hash + sort, computed once per broadcast build and
             # shared by every probe partition; partitioned builds prep inline
-            prep = None
             if self.dist == "broadcast":
-                pc = getattr(self, "_prep_cache", None)
-                if pc is not None and pc[0] == ctx.job_id and pc[1] is build:
-                    prep = pc[2]
-            if prep is None:
-                prep = pfn(build.columns, build.mask, raux)
-                if self.dist == "broadcast":
-                    # install only while this job's build cache is alive, so
-                    # a concurrent clear is not followed by a re-install
-                    with self.build_lock():
+                # under the lock: concurrent probe tasks of one stage prep
+                # the shared build once
+                with self.build_lock():
+                    pc = getattr(self, "_prep_cache", None)
+                    if pc is not None and pc[0] == ctx.job_id and pc[1] is build:
+                        prep = pc[2]
+                    else:
+                        prep = pfn(build.columns, build.mask, raux)
+                        # install only while this job's build cache is alive,
+                        # so a concurrent clear is not followed by a re-install
                         bc = getattr(self, "_build_cache", None)
                         if bc is not None and bc[0] == ctx.job_id:
                             self._prep_cache = (ctx.job_id, build, prep)
+            else:
+                prep = pfn(build.columns, build.mask, raux)
             bh_sorted, border = prep
             # count pass -> exact candidate total -> capacity bucket: the low
             # floor for selective joins, else a power of two of at least

@@ -142,6 +142,10 @@ class TaskContext:
     scalars: Dict[str, object] = dataclasses.field(default_factory=dict)
     work_dir: str = ""
     job_id: str = ""
+    stage_id: int = 0
+    executor_id: str = ""  # identity of the executing node (shuffle locality)
+    # shuffle partition locations: (stage_id, partition) -> [PartitionLocation]
+    shuffle_locations: Dict = dataclasses.field(default_factory=dict)
     # cooperative cancellation probe; operators call check_cancelled() at
     # batch/operator boundaries
     cancelled: Optional[Callable[[], bool]] = None

@@ -1,26 +1,261 @@
-"""Exchange operators.
+"""Exchange operators: the shuffle between stages, and the in-process
+repartition of the local engine.
 
-This slice ports the in-process ``RepartitionExec`` of
-arrow_ballista_tpu/ops/shuffle.py (l.461-518): the child runs once (all
-partitions, cached) and rows are hash-split in memory by K3
-(ops/kernels.bucket_of) into one mask per output partition.  The shuffle
-writer/reader pair and its Arrow IPC files are still to be ported
-(ROADMAP.md queue 1 item 7).
+Mirrors arrow_ballista_tpu/ops/shuffle.py:
+
+- ``ShuffleWriterExec`` (a stage's root): runs its child for one input
+  partition and writes one Arrow IPC file per output partition under
+  ``<work_dir>/<job>/<stage>/<input_partition>/data-<q>.arrow``.  For a
+  hash exchange the bucket of each row is the partition keys' compiled
+  closures followed by K3 (``kernels.bucket_of``) on the device; one
+  packed device->host copy brings back the live rows with their bucket
+  ids, and a host-side stable grouping sort hands the writer one
+  contiguous slice per output partition.
+- ``ShuffleReaderExec`` (a stage's leaf): reads one output partition's
+  files from every map task (the local path); a location on another host
+  needs the executor data plane, not ported (ROADMAP.md queue 1 item 12).
+- ``UnresolvedShuffleExec``: placeholder leaf for a producer stage that
+  has not run yet; the scheduler resolves it into a reader.
+- ``RepartitionExec``: the local engine's in-memory exchange (K3 masks).
 """
 from __future__ import annotations
 
-from typing import List, Optional
+import dataclasses
+import os
+from typing import Dict, List, Optional
 
-from ..models.batch import ColumnBatch
+import numpy as np
+
+from ..models.batch import ColumnBatch, concat_batches
+from ..models.batch import round_capacity as _round_capacity
+from ..models.ipc import crc32_file, read_ipc_files, write_ipc_file, write_ipc_rows
+from ..models.schema import Schema
+from ..utils.errors import InternalError
 from . import kernels as K
 from .expressions import ExprCompiler
-from .physical import ExecutionPlan, Partitioning, TaskContext
+from .physical import (ExecutionPlan, Partitioning, TaskContext, exprs_sig, schema_sig,
+                       shared_program)
+
+
+@dataclasses.dataclass
+class ShuffleWritePartition:
+    """Metadata of one written shuffle partition."""
+
+    output_partition: int
+    path: str
+    num_rows: int
+    num_bytes: int
+    # CRC-32 of the file bytes; -1 = not recorded
+    checksum: int = -1
+
+
+@dataclasses.dataclass
+class PartitionLocation:
+    """Where a map output lives.  ``host``/``port`` address the owning
+    executor's data plane (0 = in-process: the path is authoritative)."""
+
+    executor_id: str
+    map_partition: int
+    output_partition: int
+    path: str
+    num_rows: int = 0
+    num_bytes: int = 0
+    host: str = ""
+    port: int = 0
+    checksum: int = -1
+    grpc_port: int = 0
+    format: str = ""
+
+
+class ShuffleWriterExec(ExecutionPlan):
+    """``partitioning=None`` marks a final stage: the input partition's rows
+    are written verbatim to one file whose output_partition is the input
+    partition index."""
+
+    def __init__(self, input: ExecutionPlan, partitioning: Optional[Partitioning],
+                 stage_id: int = 0):
+        self.input = input
+        self.partitioning = partitioning
+        self.stage_id = stage_id
+        self._schema = input.schema
+        self._compiled = None
+
+    def children(self):
+        return [self.input]
+
+    def output_partition_count(self):
+        # input partition count == number of map tasks
+        return self.input.output_partition_count()
+
+    def output_partitioning(self):
+        return self.partitioning or Partitioning.unknown(self.output_partition_count())
+
+    def execute_write(self, partition: int, ctx: TaskContext) -> List[ShuffleWritePartition]:
+        with ctx.op_span(self):
+            return self._execute_write(partition, ctx)
+
+    def _execute_write(self, partition: int, ctx: TaskContext) -> List[ShuffleWritePartition]:
+        ctx.check_cancelled()
+        batches = self.input.execute(partition, ctx)
+        ctx.check_cancelled()
+        big = concat_batches(self.input.schema, batches, device=ctx.device).shrink()
+        base = os.path.join(ctx.work_dir, ctx.job_id, str(self.stage_id), str(partition))
+
+        if self.partitioning is None:
+            path = os.path.join(base, "data-0.arrow")
+            with self.metrics().timer("write_time"):
+                rows, nbytes = write_ipc_file(big, path)
+            self.metrics().add("input_rows", big.num_rows)
+            self.metrics().add("output_rows", rows)
+            return [ShuffleWritePartition(partition, path, rows, nbytes,
+                                          checksum=crc32_file(path))]
+
+        num_out = self.partitioning.count
+        if self.partitioning.kind == "hash" and num_out > 1:
+            with self.build_lock():
+                if self._compiled is None:
+                    def build():
+                        comp = ExprCompiler(self.input.schema, "device", ctx.device)
+                        return comp, [comp.compile_key(e) for e in self.partitioning.exprs]
+
+                    self._compiled = shared_program(
+                        ("bucket", num_out, str(ctx.device), schema_sig(self.input.schema),
+                         exprs_sig(self.partitioning.exprs)), build)
+            comp, keys_c = self._compiled
+            with self.metrics().timer("repart_time"):
+                aux = comp.aux_arrays(big.dicts)
+                keys = [c.fn(big.columns, aux) for c in keys_c]
+                keys = [k.expand(big.capacity) if k.dim() == 0 else k for k in keys]
+                bucket = K.bucket_of(keys, num_out)
+                # ONE packed device->host copy of the live rows, their
+                # bucket ids and the live count
+                host_cols, n = big.packed_numpy(hint=getattr(self, "_pack_hint", None),
+                                                extra32={"__bucket__": bucket})
+                self._pack_hint = _round_capacity(n)
+                buckets = host_cols.pop("__bucket__")
+                order = np.argsort(buckets, kind="stable")
+                counts = np.bincount(buckets, minlength=num_out)[:num_out]
+                host_cols = {k: v[order] for k, v in host_cols.items()}
+            offsets = np.concatenate([[0], np.cumsum(counts)])
+            out: List[ShuffleWritePartition] = []
+            with self.metrics().timer("write_time"):
+                for q in range(num_out):
+                    lo, hi = int(offsets[q]), int(offsets[q + 1])
+                    data = {k: v[lo:hi] for k, v in host_cols.items()}
+                    path = os.path.join(base, f"data-{q}.arrow")
+                    rows, nbytes = write_ipc_rows(big.schema, data, big.dicts, path)
+                    out.append(ShuffleWritePartition(q, path, rows, nbytes,
+                                                     checksum=crc32_file(path)))
+            self.metrics().add("input_rows", n)
+            self.metrics().add("output_rows", sum(p.num_rows for p in out))
+            return out
+
+        # single (or one-partition) exchange: every row to partition 0
+        out = []
+        with self.metrics().timer("write_time"):
+            for q in range(num_out):
+                pb = big if q == 0 else ColumnBatch(big.schema, big.columns,
+                                                    big.mask.new_zeros(big.mask.shape),
+                                                    big.dicts, num_rows=0)
+                path = os.path.join(base, f"data-{q}.arrow")
+                rows, nbytes = write_ipc_file(pb, path)
+                out.append(ShuffleWritePartition(q, path, rows, nbytes,
+                                                 checksum=crc32_file(path)))
+        self.metrics().add("input_rows", big.num_rows)
+        self.metrics().add("output_rows", sum(p.num_rows for p in out))
+        return out
+
+    def execute(self, partition: int, ctx: TaskContext) -> List[ColumnBatch]:
+        # as a plain operator: write, return nothing (the executor calls
+        # execute_write)
+        self.execute_write(partition, ctx)
+        return []
+
+    def _label(self):
+        part = ("final" if self.partitioning is None
+                else f"{self.partitioning.kind}[{self.partitioning.count}]")
+        return f"ShuffleWriterExec: stage={self.stage_id} {part}"
+
+
+class ShuffleReaderExec(ExecutionPlan):
+    """Reads one reduce partition's inputs from all map tasks.
+    ``locations[q]`` lists the PartitionLocations of output partition q,
+    installed by the scheduler when the producer stage completes."""
+
+    def __init__(self, stage_id: int, schema: Schema, partition_count: int,
+                 locations: Optional[Dict[int, List[PartitionLocation]]] = None):
+        self.stage_id = stage_id
+        self._schema = schema
+        self.partition_count = partition_count
+        self.locations = locations or {}
+
+    def output_partition_count(self):
+        return self.partition_count
+
+    def execute(self, partition: int, ctx: TaskContext) -> List[ColumnBatch]:
+        with ctx.op_span(self):
+            return self._execute(partition, ctx)
+
+    def _execute(self, partition: int, ctx: TaskContext) -> List[ColumnBatch]:
+        from ..utils.errors import FetchFailedError
+
+        locs = self.locations.get(partition)
+        if locs is None:
+            locs = ctx.shuffle_locations.get((self.stage_id, partition))
+        if locs is None:
+            raise InternalError(
+                f"no shuffle locations for stage {self.stage_id} partition {partition}")
+        paths = []
+        for loc in locs:
+            if loc.num_rows == 0:
+                continue  # skip empty map outputs
+            # the local path, gated on executor identity (port 0: an
+            # in-process deployment, where the path is authoritative)
+            if loc.executor_id == ctx.executor_id or loc.port == 0:
+                if not os.path.exists(loc.path):
+                    raise FetchFailedError(loc.executor_id, self.stage_id, loc.map_partition,
+                                           f"shuffle file missing: {loc.path}")
+                paths.append(loc.path)
+            else:
+                raise NotImplementedError(
+                    f"shuffle partition on another host ({loc.host}:{loc.port}): the "
+                    "remote fetch through the executor data plane (net/dataplane) is not "
+                    "ported yet (ROADMAP.md queue 1 item 12)")
+        with self.metrics().timer("fetch_time"):
+            batches = read_ipc_files(paths, self._schema, capacity=ctx.config.batch_size,
+                                     device=ctx.device)
+        self.metrics().add("output_rows", sum(b.num_rows for b in batches))
+        return batches
+
+    def _label(self):
+        return f"ShuffleReaderExec: stage={self.stage_id} partitions={self.partition_count}"
+
+
+class UnresolvedShuffleExec(ExecutionPlan):
+    def __init__(self, stage_id: int, schema: Schema, output_partition_count: int):
+        self.stage_id = stage_id
+        self._schema = schema
+        self._count = output_partition_count
+
+    def output_partition_count(self):
+        return self._count
+
+    def execute(self, partition: int, ctx: TaskContext):
+        raise InternalError(
+            f"UnresolvedShuffleExec(stage={self.stage_id}) cannot execute; "
+            "the scheduler must resolve it to a ShuffleReaderExec first")
+
+    def _label(self):
+        return f"UnresolvedShuffleExec: stage={self.stage_id}"
 
 
 class RepartitionExec(ExecutionPlan):
-    """Exchange marker, executable in-process: every output partition gets
-    every input batch with a mask of the rows that hash to it.  The buckets
-    share the input's columns (tensors are never updated in place)."""
+    """Exchange marker.  The distributed planner replaces it with a
+    ShuffleWriter/Reader stage pair; the local engine executes it
+    in-process: the child runs once (all partitions, cached) and every
+    output partition gets every input batch with a mask of the rows that
+    hash to it (K3).  The buckets share the input's columns (tensors are
+    never updated in place)."""
 
     def __init__(self, input: ExecutionPlan, partitioning: Partitioning):
         self.input = input

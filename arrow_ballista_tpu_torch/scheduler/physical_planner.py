@@ -7,8 +7,7 @@ hash repartition -> final, with the clustered early-HAVING rewrite over
 key-clustered parquet), joins (broadcast or partitioned, inner chains
 reordered by estimated build size), sort and limit.  Plans that need an
 operator not ported yet raise NotImplementedError at plan time, naming the
-ROADMAP.md item: the mesh exchange (queue 1 item 10) and the distributed
-stage split behind EXPLAIN VERBOSE (queue 1 item 8).
+ROADMAP.md item: the mesh exchange (queue 1 item 10).
 
 Projections producing float64 (division) run host-side, as in the
 reference.
@@ -48,20 +47,25 @@ class PlannedQuery:
 
 
 def explain_rows(catalog, config, statement, device, verbose: bool = False):
-    """DataFusion-shaped EXPLAIN rows (logical and physical plan)."""
+    """DataFusion-shaped EXPLAIN rows (logical and physical plan);
+    ``verbose`` adds the distributed stage decomposition (the exchange
+    boundaries the DistributedPlanner splits at)."""
     from ..sql.optimizer import optimize
     from ..sql.planner import SqlToRel
 
-    if verbose:
-        raise NotImplementedError(
-            "EXPLAIN VERBOSE needs the distributed stage planner, not ported yet "
-            "(ROADMAP.md queue 1 item 8)")
     optimized = optimize(SqlToRel(catalog).plan(statement))
     planned = PhysicalPlanner(catalog, config, device).plan_query(optimized)
-    return [
+    rows = [
         {"plan_type": "logical_plan", "plan": optimized.display()},
         {"plan_type": "physical_plan", "plan": planned.plan.display()},
     ]
+    if verbose:
+        from .planner import DistributedPlanner
+
+        stages = DistributedPlanner().plan_query_stages("explain", planned.plan)
+        text = "\n".join(f"Stage {s.stage_id}:\n{s.plan.display(1)}" for s in stages)
+        rows.append({"plan_type": "distributed_plan", "plan": text})
+    return rows
 
 
 class PhysicalPlanner:

@@ -1,0 +1,488 @@
+"""SchedulerServer: the event-driven scheduler state machine.
+
+Mirrors the core of arrow_ballista_tpu/scheduler/scheduler.py that the
+standalone engine drives:
+
+- events JobQueued -> (planning on a worker) -> JobPlanned, TaskUpdating,
+  ExecutorLost, JobCancel and Offer, all handled on one EventLoop, so
+  state transitions are single-threaded;
+- planning builds the job's ExecutionGraph, installs its AQE policy and
+  its CompilePolicy, and fuses the stages that resolved at build time;
+- push scheduling: free slots are reserved atomically, filled with
+  pending tasks of the active jobs and launched through the
+  ``TaskLauncher`` seam (the in-process launcher of standalone.py);
+- a reaper thread expires executors whose heartbeats stopped.
+
+Still to be ported (ROADMAP.md queue 1): admission control, speculative
+execution, executor quarantine and poison containment, job deadlines, the
+serving caches, plan validation (analysis/plan_checks.py), fleet leases
+and the KV backends, and the remote engine's RPC surface.
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+import random
+import string
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, List, Optional, Tuple
+
+from ..compile.fuse import CompilePolicy, fuse_resolved_stages
+from .aqe import AqePolicy
+from .cluster import DEFAULT_EXECUTOR_TIMEOUT_S, ClusterState, JobState
+from .event_loop import EventLoop
+from .execution_graph import ExecutionGraph
+from .types import (
+    ExecutorHeartbeat,
+    ExecutorMetadata,
+    ExecutorReservation,
+    JobStatus,
+    TaskDescription,
+    TaskId,
+    TaskStatus,
+)
+
+log = logging.getLogger(__name__)
+
+
+def random_job_id() -> str:
+    """7-character alphanumeric job ids."""
+    return "".join(random.choices(string.ascii_lowercase + string.digits, k=7))
+
+
+class TaskLauncher:
+    """Launch seam between the scheduler and its executors."""
+
+    def launch_tasks(self, executor_id: str, tasks: List[TaskDescription]) -> None:
+        raise NotImplementedError
+
+    def cancel_tasks(self, executor_id: str, job_id: str) -> None:
+        """Best-effort cancellation of a job's running tasks."""
+
+    def cancel_task(self, executor_id: str, task: TaskId) -> None:
+        """Best-effort cancellation of one running attempt."""
+
+    def clean_job_data(self, executor_id: str, job_id: str) -> None:
+        """Best-effort removal of a finished job's shuffle data."""
+
+    def stop(self) -> None:
+        pass
+
+
+# --- events ----------------------------------------------------------------
+@dataclasses.dataclass
+class JobQueued:
+    job_id: str
+    # plan_fn() -> (root physical plan, scalar values); planning runs on a
+    # worker thread, a failure becomes a failed JobPlanned
+    plan_fn: Callable[[], Tuple[object, Dict[str, object]]]
+
+
+@dataclasses.dataclass
+class JobPlanned:
+    job_id: str
+    graph: Optional[ExecutionGraph]
+    error: str = ""
+
+
+@dataclasses.dataclass
+class TaskUpdating:
+    executor_id: str
+    # None = drain the executor's status inbox (many reports fold into one
+    # event); a list is processed verbatim
+    statuses: Optional[List[TaskStatus]]
+
+
+@dataclasses.dataclass
+class ExecutorLost:
+    executor_id: str
+    reason: str = ""
+
+
+@dataclasses.dataclass
+class JobCancel:
+    job_id: str
+
+
+@dataclasses.dataclass
+class Offer:
+    """Try to hand out tasks."""
+
+
+class SchedulerConfig:
+    def __init__(self, executor_timeout_s: float = DEFAULT_EXECUTOR_TIMEOUT_S,
+                 reaper_interval_s: float = 15.0,
+                 event_buffer_size: int = 10000,
+                 job_data_cleanup_delay_s: float = 30.0):
+        # one timeout drives "stop offering" (less the drain grace, see
+        # cluster.alive_cutoff_s) and "declare lost" (the reaper)
+        self.executor_timeout_s = float(executor_timeout_s)
+        self.reaper_interval_s = reaper_interval_s
+        self.event_buffer_size = event_buffer_size
+        # delay before a finished job's shuffle data is removed (long
+        # enough for the client to read the final stage); < 0 disables
+        self.job_data_cleanup_delay_s = job_data_cleanup_delay_s
+
+
+class SchedulerServer:
+    def __init__(self, launcher: TaskLauncher, config: Optional[SchedulerConfig] = None):
+        self.config = config or SchedulerConfig()
+        self.cluster = ClusterState()
+        self.jobs = JobState()
+        self.launcher = launcher
+        # job_id -> the submitting session's BallistaConfig (read at planning)
+        self._meta_lock = threading.Lock()
+        self._job_configs: Dict[str, object] = {}
+        # counters of AQE rewrites and job outcomes
+        self.counters: Dict[str, int] = {}
+        # status-report coalescing: executors append under the lock; the
+        # event loop drains an executor's whole inbox in one TaskUpdating
+        self._status_lock = threading.Lock()
+        self._status_inbox: Dict[str, List[TaskStatus]] = {}
+        self._event_loop = EventLoop("scheduler-events", self._on_event,
+                                     self.config.event_buffer_size,
+                                     on_error=self._on_event_error)
+        self._launch_pool = ThreadPoolExecutor(max_workers=8, thread_name_prefix="launch")
+        self._reaper: Optional[threading.Thread] = None
+        self._stopped = threading.Event()
+        self._cleanup_timers: Dict[str, threading.Timer] = {}
+        self._cleanup_lock = threading.Lock()
+
+    def _count(self, name: str, n: int = 1) -> None:
+        with self._meta_lock:
+            self.counters[name] = self.counters.get(name, 0) + n
+
+    # --- lifecycle -------------------------------------------------------
+    def init(self, start_reaper: bool = True) -> None:
+        self._event_loop.start()
+        if start_reaper:
+            self._reaper = threading.Thread(target=self._reap_loop, name="executor-reaper",
+                                            daemon=True)
+            self._reaper.start()
+
+    def shutdown(self) -> None:
+        # stop the event loop before the launch pool, so no handler races a
+        # submit against the pool's shutdown
+        self._stopped.set()
+        if self._reaper is not None:
+            self._reaper.join(timeout=5.0)
+        with self._cleanup_lock:
+            timers = list(self._cleanup_timers.values())
+            self._cleanup_timers.clear()
+        for t in timers:
+            t.cancel()
+        self._event_loop.stop()
+        self._launch_pool.shutdown(wait=False)
+        self.launcher.stop()
+
+    def _submit_work(self, fn, *args) -> None:
+        """Submit to the launch pool, tolerating shutdown races."""
+        if self._stopped.is_set():
+            return
+        try:
+            self._launch_pool.submit(fn, *args)
+        except RuntimeError:  # the pool closed between the check and the submit
+            log.info("dropping work submitted during shutdown")
+
+    # --- public API ------------------------------------------------------
+    def register_executor(self, meta: ExecutorMetadata) -> None:
+        self.cluster.register_executor(meta)
+        self._event_loop.post(Offer())
+
+    def heartbeat(self, hb: ExecutorHeartbeat) -> None:
+        self.cluster.save_heartbeat(hb)
+
+    def executor_stopped(self, executor_id: str, reason: str = "") -> None:
+        self._event_loop.post(ExecutorLost(executor_id, reason))
+
+    def submit_job(self, job_id: str,
+                   plan_fn: Callable[[], Tuple[object, Dict[str, object]]],
+                   config: Optional[object] = None) -> None:
+        """``config``: the submitting session's BallistaConfig, read at
+        planning for ``ballista.aqe.*`` and ``ballista.compile.*`` (None =
+        defaults)."""
+        self.jobs.accept_job(job_id)
+        if config is not None:
+            with self._meta_lock:
+                self._job_configs[job_id] = config
+        self._event_loop.post(JobQueued(job_id, plan_fn))
+
+    def update_task_status(self, executor_id: str, statuses: List[TaskStatus]) -> None:
+        # post a drain event only when the inbox was empty: reports landing
+        # while one event is in flight are absorbed by that event
+        with self._status_lock:
+            box = self._status_inbox.setdefault(executor_id, [])
+            was_empty = not box
+            box.extend(statuses)
+        if was_empty:
+            self._event_loop.post(TaskUpdating(executor_id, None))
+
+    def cancel_job(self, job_id: str) -> None:
+        self._event_loop.post(JobCancel(job_id))
+
+    def get_job_status(self, job_id: str) -> Optional[JobStatus]:
+        return self.jobs.get_status(job_id)
+
+    def wait_for_job(self, job_id: str, timeout: float = 300.0) -> JobStatus:
+        return self.jobs.wait_for_completion(job_id, timeout)
+
+    def pending_task_count(self) -> int:
+        return sum(g.available_task_count() for g in self.jobs.active_graphs())
+
+    # --- event machine ---------------------------------------------------
+    def _on_event_error(self, event: object, exc: BaseException) -> None:
+        """A handler crash fails the affected jobs instead of leaving their
+        clients waiting on a forever-running status."""
+        job_ids = set()
+        jid = getattr(event, "job_id", None)
+        if jid:
+            job_ids.add(jid)
+        statuses = getattr(event, "statuses", None)
+        if statuses is None and isinstance(event, TaskUpdating):
+            with self._status_lock:
+                statuses = self._status_inbox.pop(event.executor_id, [])
+        for st in statuses or []:
+            job_ids.add(st.task.job_id)
+        for job_id in job_ids:
+            st = self.jobs.get_status(job_id)
+            if st is not None and st.state in ("successful", "failed", "cancelled"):
+                continue
+            graph = self.jobs.get_graph(job_id)
+            if graph is not None and graph.status == "running":
+                graph.status = "failed"
+            self.jobs.set_status(JobStatus(
+                job_id, "failed",
+                error=f"scheduler event handler crashed: {type(exc).__name__}: {exc}"))
+            self._count("jobs_failed")
+
+    def _on_event(self, event: object) -> None:
+        if isinstance(event, JobQueued):
+            self._on_job_queued(event)
+        elif isinstance(event, JobPlanned):
+            self._on_job_planned(event)
+        elif isinstance(event, TaskUpdating):
+            self._on_task_updating(event)
+        elif isinstance(event, ExecutorLost):
+            self._on_executor_lost(event)
+        elif isinstance(event, JobCancel):
+            self._on_job_cancel(event)
+        elif isinstance(event, Offer):
+            self._offer()
+        else:
+            log.warning("unknown scheduler event %r", event)
+
+    def _on_job_queued(self, ev: JobQueued) -> None:
+        # planning (scalar subqueries included) can take seconds: off the loop
+        def plan():
+            try:
+                with self._meta_lock:
+                    cfg = self._job_configs.pop(ev.job_id, None)
+                plan, scalars = ev.plan_fn()
+                graph = ExecutionGraph.build(ev.job_id, plan)
+                graph.aqe = AqePolicy.from_config(cfg)
+                # the policy arms revive()-time fusion of downstream stages;
+                # the leaf stages that resolved during the build fuse here,
+                # before any task launches
+                graph.compiler = CompilePolicy.from_config(cfg)
+                fuse_resolved_stages(graph)
+                graph.scalars = scalars
+                graph.addr_resolver = self._resolve_addr
+                self._event_loop.post(JobPlanned(ev.job_id, graph))
+            except Exception as e:  # noqa: BLE001 — a planning failure fails the job
+                log.exception("planning failed for job %s", ev.job_id)
+                self._event_loop.post(JobPlanned(ev.job_id, None,
+                                                 f"planning error: {type(e).__name__}: {e}"))
+
+        self._submit_work(plan)
+
+    def _on_job_planned(self, ev: JobPlanned) -> None:
+        if ev.graph is None:
+            self.jobs.set_status(JobStatus(ev.job_id, "failed", error=ev.error))
+            self._count("jobs_failed")
+            return
+        self.jobs.submit_job(ev.job_id, ev.graph)
+        self._offer()
+
+    def _on_task_updating(self, ev: TaskUpdating) -> None:
+        statuses = ev.statuses
+        if statuses is None:
+            with self._status_lock:
+                statuses = self._status_inbox.pop(ev.executor_id, [])
+        if not statuses:
+            return  # a sibling event already drained this inbox
+        self.cluster.free_slots(ev.executor_id, len(statuses))
+        by_job: Dict[str, List[TaskStatus]] = {}
+        for st in statuses:
+            by_job.setdefault(st.task.job_id, []).append(st)
+        for job_id, sts in by_job.items():
+            graph = self.jobs.get_graph(job_id)
+            if graph is None:
+                continue
+            try:
+                self._absorb_job_statuses(job_id, graph, sts)
+            except Exception as e:  # noqa: BLE001 — scope the blast radius to the job
+                log.exception("status absorption crashed for job %s", job_id)
+                st = self.jobs.get_status(job_id)
+                if st is not None and st.state in ("successful", "failed", "cancelled"):
+                    continue
+                if graph.status == "running":
+                    graph.status = "failed"
+                self.jobs.set_status(JobStatus(
+                    job_id, "failed",
+                    error=f"status absorption crashed: {type(e).__name__}: {e}"))
+                self._count("jobs_failed")
+        self._offer()
+
+    def _absorb_job_statuses(self, job_id: str, graph: ExecutionGraph,
+                             sts: List[TaskStatus]) -> None:
+        for kind, payload in graph.update_task_status(sts):
+            if kind == "cancel_task":
+                executor_id, task_id = payload
+                self._submit_work(self._cancel_one, executor_id, task_id)
+            elif kind == "job_successful":
+                self.jobs.set_status(JobStatus(job_id, "successful", locations=payload))
+                self._count("jobs_successful")
+                self._schedule_job_data_cleanup(graph)
+            elif kind == "job_failed":
+                self.jobs.set_status(JobStatus(job_id, "failed", error=str(payload)))
+                self._count("jobs_failed")
+                self._cancel_running(graph)
+                self._schedule_job_data_cleanup(graph)
+        self._drain_aqe_events(graph)
+
+    def _drain_aqe_events(self, graph: ExecutionGraph) -> None:
+        """Fold the graph's buffered AQE rewrite events into the counters."""
+        for kind, n in graph.aqe_events:
+            self._count(f"aqe_{kind}", n)
+        graph.aqe_events.clear()
+
+    def _on_executor_lost(self, ev: ExecutorLost) -> None:
+        log.info("executor %s lost: %s", ev.executor_id, ev.reason)
+        self.cluster.remove_executor(ev.executor_id)
+        for graph in self.jobs.active_graphs():
+            graph.executor_lost(ev.executor_id)
+            self._drain_aqe_events(graph)
+        self._offer()
+
+    def _on_job_cancel(self, ev: JobCancel) -> None:
+        graph = self.jobs.get_graph(ev.job_id)
+        if graph is None or graph.status != "running":
+            return
+        graph.cancel()
+        self.jobs.set_status(JobStatus(ev.job_id, "cancelled"))
+        self._count("jobs_cancelled")
+        self._cancel_running(graph)
+        self._schedule_job_data_cleanup(graph)
+
+    # --- job-data cleanup ------------------------------------------------
+    def _schedule_job_data_cleanup(self, graph: ExecutionGraph) -> None:
+        """A delayed removal of the finished job's shuffle data on every
+        executor that holds some (every executor, when the job did not
+        succeed: a late task may have written what no stage recorded)."""
+        delay = self.config.job_data_cleanup_delay_s
+        if delay < 0 or self._stopped.is_set():
+            return
+        executors = {eid for stage in graph.stages.values()
+                     for (eid, _w) in stage.outputs.values()}
+        status = self.jobs.get_status(graph.job_id)
+        if status is None or status.state != "successful":
+            executors |= {m.executor_id for m in self.cluster.executors()}
+        executors = sorted(executors)
+        if not executors:
+            return
+        job_id = graph.job_id
+
+        def fanout():
+            with self._cleanup_lock:
+                self._cleanup_timers.pop(job_id, None)
+            if self._stopped.is_set():
+                return
+            for eid in executors:
+                try:
+                    self.launcher.clean_job_data(eid, job_id)
+                except Exception:  # noqa: BLE001 — best effort
+                    log.warning("clean_job_data on %s failed", eid, exc_info=True)
+
+        timer = threading.Timer(delay, fanout)
+        timer.daemon = True
+        with self._cleanup_lock:
+            old = self._cleanup_timers.pop(job_id, None)
+            self._cleanup_timers[job_id] = timer
+        if old is not None:
+            old.cancel()
+        timer.start()
+
+    def _cancel_one(self, executor_id: str, task_id: TaskId) -> None:
+        try:
+            self.launcher.cancel_task(executor_id, task_id)
+        except Exception:  # noqa: BLE001 — best effort
+            log.warning("cancel_task on %s failed for %s", executor_id, task_id,
+                        exc_info=True)
+
+    def _cancel_running(self, graph: ExecutionGraph) -> None:
+        for eid in {eid for _, _, eid in graph.running_tasks()}:
+            try:
+                self.launcher.cancel_tasks(eid, graph.job_id)
+            except Exception:  # noqa: BLE001
+                log.exception("cancel_tasks failed for %s", eid)
+
+    def _resolve_addr(self, executor_id: str):
+        meta = self.cluster.get_executor(executor_id)
+        return (meta.host, meta.port, meta.grpc_port) if meta is not None else ("", 0, 0)
+
+    # --- push scheduling -------------------------------------------------
+    def _offer(self) -> None:
+        """Reserve free slots and fill them with pending tasks."""
+        pending = self.pending_task_count()
+        alive = set(self.cluster.alive_executors(self.config.executor_timeout_s))
+        if pending == 0 or not alive:
+            return
+        reservations = self.cluster.reserve_slots(pending, sorted(alive))
+        if not reservations:
+            return
+        assignments: Dict[str, List[TaskDescription]] = {}
+        graphs = self.jobs.active_graphs()
+
+        def fill(rs: List[ExecutorReservation]) -> List[ExecutorReservation]:
+            leftovers: List[ExecutorReservation] = []
+            for r in rs:
+                task = None
+                for graph in graphs:
+                    task = graph.pop_next_task(r.executor_id, alive=alive)
+                    if task is not None:
+                        break
+                if task is None:
+                    leftovers.append(r)
+                else:
+                    assignments.setdefault(r.executor_id, []).append(task)
+            return leftovers
+
+        unused = fill(reservations)
+        if unused:
+            # retry anti-affinity can veto every reserved executor while
+            # another alive executor could run the task: one bounded second
+            # pass over the executors the first round never tried
+            vetoed = {r.executor_id for r in unused}
+            self.cluster.cancel_reservations(unused)
+            retry_pool = sorted(alive - vetoed)
+            if retry_pool:
+                unused = fill(self.cluster.reserve_slots(len(vetoed), retry_pool))
+                if unused:
+                    self.cluster.cancel_reservations(unused)
+        for executor_id, tasks in assignments.items():
+            self._submit_work(self._launch, executor_id, tasks)
+
+    def _launch(self, executor_id: str, tasks: List[TaskDescription]) -> None:
+        try:
+            self.launcher.launch_tasks(executor_id, tasks)
+        except Exception as e:  # noqa: BLE001 — treated as an executor failure
+            log.exception("launch on %s failed", executor_id)
+            self.cluster.free_slots(executor_id, len(tasks))
+            self._event_loop.post(ExecutorLost(executor_id, f"launch failed: {e}"))
+
+    # --- failure detection ----------------------------------------------
+    def _reap_loop(self) -> None:
+        while not self._stopped.wait(self.config.reaper_interval_s):
+            for eid in self.cluster.expired_executors(self.config.executor_timeout_s):
+                self._event_loop.post(ExecutorLost(eid, "heartbeat timeout"))

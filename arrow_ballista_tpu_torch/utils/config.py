@@ -26,6 +26,23 @@ BROADCAST_THRESHOLD = "ballista.join.broadcast_threshold"
 JOIN_MAX_CAPACITY = "ballista.join.max_capacity"
 # device-resident scan cache budget ('auto' | bytes | 0 = off)
 SCAN_CACHE_BYTES = "ballista.scan.cache.bytes"
+# seconds a standalone client waits for a submitted job
+JOB_TIMEOUT_S = "ballista.job.timeout.seconds"
+# adaptive query execution at stage boundaries (scheduler/aqe.py)
+AQE_ENABLED = "ballista.aqe.enabled"
+AQE_COALESCE_ENABLED = "ballista.aqe.coalesce.enabled"
+AQE_COALESCE_TARGET_ROWS = "ballista.aqe.coalesce.target.rows"
+AQE_COALESCE_TARGET_BYTES = "ballista.aqe.coalesce.target.bytes"
+AQE_BROADCAST_ENABLED = "ballista.aqe.broadcast.enabled"
+AQE_BROADCAST_THRESHOLD_ROWS = "ballista.aqe.broadcast.threshold.rows"
+AQE_SKEW_ENABLED = "ballista.aqe.skew.enabled"
+AQE_SKEW_FACTOR = "ballista.aqe.skew.factor"
+AQE_SKEW_MIN_ROWS = "ballista.aqe.skew.min.rows"
+# whole-stage fusion (compile/)
+COMPILE_ENABLED = "ballista.compile.enabled"
+COMPILE_MIN_OPS = "ballista.compile.min.ops"
+COMPILE_OPERATORS = "ballista.compile.operators"
+COMPILE_DONATE = "ballista.compile.donate"
 
 
 @dataclasses.dataclass
@@ -95,6 +112,55 @@ _ENTRIES: Dict[str, ConfigEntry] = {
                     "device-resident scan cache budget: 'auto' (6 GiB on the "
                     "card, 1 GiB on the CPU), a byte count, or 0 to disable; "
                     "see utils/table_cache.py"),
+        ConfigEntry(JOB_TIMEOUT_S, 3600, int,
+                    "seconds a standalone client waits for a submitted job "
+                    "before giving up"),
+        ConfigEntry(AQE_ENABLED, True, _parse_bool,
+                    "adaptive query execution: re-optimize not-yet-resolved "
+                    "downstream stages from the observed shuffle statistics "
+                    "of completed producers (partition coalescing, the "
+                    "shuffle-join -> broadcast switch, skew splitting); "
+                    "results are identical either way"),
+        ConfigEntry(AQE_COALESCE_ENABLED, True, _parse_bool,
+                    "merge tiny reduce partitions of a resolving stage up "
+                    "to the coalesce targets"),
+        ConfigEntry(AQE_COALESCE_TARGET_ROWS, 8192, int,
+                    "coalesced-partition target in observed rows (0 "
+                    "disables the row target)"),
+        ConfigEntry(AQE_COALESCE_TARGET_BYTES, 1 << 20, int,
+                    "coalesced-partition target in observed shuffle bytes "
+                    "(0 disables the byte target)"),
+        ConfigEntry(AQE_BROADCAST_ENABLED, True, _parse_bool,
+                    "flip a downstream partitioned join to broadcast when "
+                    "its build stage's observed output is under the "
+                    "threshold, grafting away the probe exchange where "
+                    "the plan allows"),
+        ConfigEntry(AQE_BROADCAST_THRESHOLD_ROWS, 4_000_000, int,
+                    "observed build-side rows at or under which the "
+                    "broadcast switch fires"),
+        ConfigEntry(AQE_SKEW_ENABLED, True, _parse_bool,
+                    "split a hot reduce partition into several tasks, each "
+                    "reading a sub-range of the producer's map outputs"),
+        ConfigEntry(AQE_SKEW_FACTOR, 4.0, float,
+                    "a partition is hot when its observed rows exceed "
+                    "factor x the stage's mean partition rows"),
+        ConfigEntry(AQE_SKEW_MIN_ROWS, 1_000_000, int,
+                    "never skew-split a partition of fewer observed rows"),
+        ConfigEntry(COMPILE_ENABLED, True, _parse_bool,
+                    "whole-stage fusion: at stage resolution, replace each "
+                    "maximal chain of allowlisted operators with one "
+                    "generated kernel (compile/)"),
+        ConfigEntry(COMPILE_MIN_OPS, 2, int,
+                    "minimum operators in an allowlisted run before it "
+                    "fuses"),
+        ConfigEntry(COMPILE_OPERATORS, "FilterExec,ProjectionExec,"
+                    "RenameExec,HashAggregateExec", str,
+                    "comma-separated operator allowlist for whole-stage "
+                    "fusion"),
+        ConfigEntry(COMPILE_DONATE, True, _parse_bool,
+                    "read and recorded for parity with the reference; does "
+                    "nothing in the port: a generated kernel never writes "
+                    "its inputs, so there is no buffer to donate"),
     ]
 }
 
@@ -154,6 +220,10 @@ class BallistaConfig:
     @property
     def batch_size(self) -> int:
         return self.get(BATCH_SIZE)
+
+    @property
+    def job_timeout_s(self) -> int:
+        return self.get(JOB_TIMEOUT_S)
 
     def to_dict(self) -> Dict[str, Any]:
         d = {k: e.default for k, e in _ENTRIES.items()}

@@ -24,6 +24,15 @@ Phases (any failure exits non-zero and prints no result line):
    kernel gets must lie on the card.  Every warm parquet run must hit the
    scan cache and read no row group again; q18 must early-filter and never
    fall back to the sort path; no query may write into a cached tensor.
+   Then the standalone engine (``BallistaContext.standalone``, bench.py's
+   base config: 'auto' shuffle partitions, 2^20-row batches, four task
+   slots; stages, Arrow IPC shuffle files and whole-stage fusion) on the
+   same tables: ``sa_pq_q1`` (K13 dense on q1's partial, the writers' K3
+   and K2), ``sa_pq_q3`` and ``sa_pq_q4`` (the stage, task and shuffle
+   machinery), ``sa_pq_q18`` (K12 on the HAVING chain) over parquet, and
+   ``sa_q18`` over in-memory tables (K13's sort path, then K4 + K8); each
+   prints its stages, fused chains, ``fused_fallbacks`` (must be 0) and
+   where its time went (writer, reader, fused chains, outside the tasks).
    The inputs of each wrapper's largest call on each path are captured;
 4. each kernel held against its plain PyTorch twin on the card: on every
    path that launched it, at the inputs of that path's largest call of each
@@ -36,20 +45,26 @@ Phases (any failure exits non-zero and prints no result line):
    aggregate empty slots, one 6M-row group, no keys and float columns;
    for K1 int32 sums that wrap and int32 and float32 min and max; for K9
    sorted and shuffled keys; for K10 keys out of range and NULL keys; for
-   K11 1,000 intervals).  Integers exact; float sums at rtol 1e-12 (atomic
-   summation order differs from the twin's) or exact on quarter values;
+   K11 1,000 intervals; for K12 and K13 a row chain and a dense and a
+   sort-path aggregate chain with NULL keys and values, int64 sums and
+   products that wrap, float64 sums and a dictionary predicate).  Integers
+   exact; float sums at rtol 1e-12 (atomic summation order differs from
+   the twin's) or exact on quarter values;
 5. results held against independent numpy computations on the same
    generated arrays, on both the in-memory and the parquet paths: q1
    (decimal sums and counts exact, averages at rtol 1e-12), q3's top 10
    and q3 without its LIMIT (every group, by l_orderkey), both exact in
    scaled-decimal revenue, date and priority, q4's five counts, exact,
-   and q18's top 100 and every q18 row without the LIMIT, exact;
+   and q18's top 100 and every q18 row without the LIMIT, exact; the
+   standalone paths against the same oracles;
 6. times (warm): kernel, plain twin and library call at the main path's
    shapes, each as device time per call (torch.profiler: the card's own
    time for everything one call launches; where it records nothing, CUDA
    events around calls queued behind a spin kernel) and as wall time per
    call (CUDA events around back-to-back calls, host work included), with
-   each kernel's least time (bytes moved at 3.35 TB/s); K1's device time
+   each kernel's least time (bytes moved at 3.35 TB/s), and for K12 / K13
+   the interpreted chain's times (no one PyTorch call computes a fused
+   chain) and the nvcc seconds of their generated sources; K1's device time
    over 1 to 289 hot groups; each query's cold/warm wall time and profiled
    device busy share; the device time and bytes bound of the expression
    programs, the host packing and the batch concat/shrink on q3's path
@@ -76,7 +91,8 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 SF = 1.0
 STRESS_ROWS = 6_000_000
-WARM_RUNS = {"q1": 5, "q3": 3, "q4": 3, "pq_q1": 3, "pq_q3": 3, "pq_q4": 3, "pq_q18": 3}
+WARM_RUNS = {"q1": 5, "q3": 3, "q4": 3, "pq_q1": 3, "pq_q3": 3, "pq_q4": 3, "pq_q18": 3,
+             "sa_pq_q1": 3, "sa_pq_q3": 3, "sa_pq_q4": 3, "sa_pq_q18": 3, "sa_q18": 3}
 # kernels (launch counters of ops/kernels.py) each main path must launch
 PATH_KERNELS = {
     "q1": ("dense_group_states", "compaction_order", "hash64", "sort_order"),
@@ -89,6 +105,22 @@ PATH_KERNELS = {
 }
 for _q in ("q1", "q3", "q4"):
     PATH_KERNELS[f"pq_{_q}"] = PATH_KERNELS[_q]
+# the standalone engine: K13 on q1's partial (dense) and on q18's subquery
+# partial over in-memory tables (sort path, then K4 + K8), K12 on q18's
+# HAVING; K3 buckets and K2 compacts every shuffle writer's rows
+PATH_KERNELS.update({
+    "sa_pq_q1": ("fused_agg", "dense_group_states", "compaction_order", "hash64",
+                 "sort_order"),
+    "sa_pq_q3": PATH_KERNELS["q3"],
+    "sa_pq_q4": ("dense_group_states", "build_side_sort", "probe_join", "segment_any",
+                 "compaction_order"),
+    "sa_pq_q18": ("fused_rows", "compaction_order", "hash64", "sort_order", "build_side_sort",
+                  "probe_join", "grouped_on_order"),
+    "sa_q18": ("fused_agg", "fused_rows", "compaction_order", "hash64", "sort_order",
+               "build_side_sort", "probe_join", "grouped_on_order"),
+})
+# the form K13 must take on a path (dense key domain, or the sort path)
+K13_FORM = {"sa_pq_q1": "dense", "sa_q18": "sort"}
 # rows a parquet row group holds at SF1 (benchmarks/tpch.py convert's
 # default: lineitem in 12 row groups); scaled with the scale factor so a
 # rehearsal at a small one keeps the same partitions
@@ -208,6 +240,8 @@ def _clone(x):
         return x.clone()
     if isinstance(x, (list, tuple)):
         return type(x)(_clone(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
     return x
 
 
@@ -218,49 +252,65 @@ def _tensors(x):
         return [x]
     if isinstance(x, (list, tuple)):
         return [t for v in x for t in _tensors(v)]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _tensors(v)]
     return []
 
 
 class Capture:
-    """Wraps the kernel wrappers of ops/kernels.py to keep (clones of) the
-    arguments of the largest call each one gets, and to check that every
-    tensor handed to a kernel on the path lies on the card."""
+    """Wraps the kernel wrappers of ops/kernels.py (and K12 / K13 of
+    compile/fused.py) to keep (clones of) the arguments of the largest call
+    each one gets, and to check that every tensor handed to a kernel on the
+    path lies on the card.  The standalone engine calls them from its task
+    threads: the records are taken under a lock.  For K13 it also records
+    which form each call took (the dense key domain, or the sort path)."""
 
     # wrapper -> index of the argument whose first dimension sizes the call
     NAMES = {"dense_group_states": 2, "compaction_order": 0, "bucket_of": 0, "hash64": 0,
              "sort_order": 1, "build_side_sort": 1, "probe_join": 0, "probe_counts": 0,
              "segment_any": 0, "grouped_on_order": 2, "presorted_disorder": 1,
              "key_range_check": 1, "clustered_keep": 1}
+    FUSED = {"fused_rows": 2, "fused_agg": 2}
 
-    def __init__(self, K, device):
-        self.K = K
+    def __init__(self, K, F, device):
+        import threading
+
+        self.K, self.F = K, F
         self.device = device
         self.calls = {}
         self.orig = {}
         self.off_device = []
+        self.forms = {}  # K13 form -> calls
+        self._lock = threading.Lock()
 
     def __enter__(self):
-        for name in self.NAMES:
-            self.orig[name] = getattr(self.K, name)
-            setattr(self.K, name, self._wrap(name, self.orig[name]))
+        for mod, names in ((self.K, self.NAMES), (self.F, self.FUSED)):
+            for name in names:
+                self.orig[name] = (mod, getattr(mod, name))
+                setattr(mod, name, self._wrap(name, getattr(mod, name), {**self.NAMES,
+                                                                           **self.FUSED}))
         return self
 
-    def _wrap(self, name, fn):
+    def _wrap(self, name, fn, sizes):
         def wrapper(*args, **kwargs):
-            for t in _tensors(args):
-                if t.device.type != self.device.type:
-                    self.off_device.append((name, str(t.device)))
-            sized = args[self.NAMES[name]]
-            n = (sized[0] if isinstance(sized, (list, tuple)) else sized).shape[0]
-            if name not in self.calls or n > self.calls[name][0]:
-                self.calls[name] = (n, _clone(args))
+            with self._lock:
+                for t in _tensors(args):
+                    if t.device.type != self.device.type:
+                        self.off_device.append((name, str(t.device)))
+                sized = args[sizes[name]]
+                n = (sized[0] if isinstance(sized, (list, tuple)) else sized).shape[0]
+                if name == "fused_agg":
+                    form = "dense" if self.K.dense_domain(args[5]) is not None else "sort"
+                    self.forms[form] = self.forms.get(form, 0) + 1
+                if name not in self.calls or n > self.calls[name][0]:
+                    self.calls[name] = (n, _clone(args))
             return fn(*args, **kwargs)
 
         return wrapper
 
     def __exit__(self, *exc):
-        for name, fn in self.orig.items():
-            setattr(self.K, name, fn)
+        for name, (mod, fn) in self.orig.items():
+            setattr(mod, name, fn)
 
 
 # --------------------------------------------------------------------------
@@ -515,27 +565,45 @@ def write_parquet(tables, sf, directory):
     return paths, rows
 
 
-def scan_metrics(plan):
-    """Summed metrics of the plan's parquet scans."""
+def job_plans(ctx):
+    """The operator trees of the context's last query: the plan of a local
+    context, every stage's resolved plan of a standalone one."""
+    if getattr(ctx, "_standalone", None) is None:
+        return [ctx.last_plan]
+    graph = standalone_graph(ctx)
+    return [graph.stages[sid].resolved_plan or graph.stages[sid].plan
+            for sid in sorted(graph.stages)]
+
+
+def standalone_graph(ctx):
+    sa = ctx._standalone
+    return sa.scheduler.jobs.get_graph(sa.last_job_id)
+
+
+def scan_metrics(plans):
+    """Summed metrics of the parquet scans of a list of plans."""
     out = {}
-    if type(plan).__name__ == "ParquetScanExec":
-        out.update(plan.metrics().to_dict())
-    for c in plan.children():
-        for k, v in scan_metrics(c).items():
+    for plan in plans:
+        if type(plan).__name__ == "ParquetScanExec":
+            for k, v in plan.metrics().to_dict().items():
+                out[k] = out.get(k, 0) + v
+        for k, v in scan_metrics(plan.children()).items():
             out[k] = out.get(k, 0) + v
     return out
 
 
-def plan_metric(plan, name):
-    return plan.metrics().to_dict().get(name, 0) + sum(plan_metric(c, name)
-                                                       for c in plan.children())
+def plan_metric(plans, name):
+    if not isinstance(plans, list):
+        plans = [plans]
+    return sum(p.metrics().to_dict().get(name, 0) + plan_metric(p.children(), name)
+               for p in plans)
 
 
-def check_clustered(plan, label):
+def check_clustered(plans, label):
     """q18's subquery went through the clustered aggregate: it early-filtered
     and never fell back to the sort path."""
-    got = {k: plan_metric(plan, k) for k in ("clustered_early_filters", "presort_fallbacks",
-                                              "clustered_range_mismatches")}
+    got = {k: plan_metric(plans, k) for k in ("clustered_early_filters", "presort_fallbacks",
+                                               "clustered_range_mismatches")}
     if not got["clustered_early_filters"] or got["presort_fallbacks"]:
         fail(f"q18 over parquet ({label}): {got}")
     log(f"pq_q18 clustered aggregate ({label}): {json.dumps(got)}")
@@ -550,6 +618,75 @@ def cache_fingerprints(table_cache):
             for key, batches in table_cache.CACHE.entries()
             for i, b in enumerate(batches)
             for name, t in [*b.columns.items(), ("__mask", b.mask)]}
+
+
+def fused_labels(ctx):
+    """{stage id: labels of the stage's fused chains} of the last job."""
+    graph = standalone_graph(ctx)
+
+    def walk(p):
+        yield p
+        for c in p.children():
+            yield from walk(c)
+
+    return {sid: [n._label() for n in walk(st.resolved_plan or st.plan)
+                  if type(n).__name__ == "FusedStageExec"]
+            for sid, st in sorted(graph.stages.items())}
+
+
+def standalone_split(ctx, wall_s):
+    """Where a standalone job's wall time went: its stages and tasks, the
+    shuffle writer (bucket program, packed copy, grouping sort and file
+    writes), the reader (file reads and upload), the fused chains, the
+    task span (first launch to last end), the launch gaps (a stage's last
+    producer end to its first task's start, summed over stages) and what
+    lies outside the span (planning, scalar subqueries, the final read by
+    the client).  Task sums are host wall ms summed over tasks (four run
+    at once)."""
+    graph = standalone_graph(ctx)
+    plans = job_plans(ctx)
+    statuses = [t.status for st in graph.stages.values() for t in st.task_infos
+                if t is not None and t.status is not None]
+    launch = min(st.launch_time_ms for st in statuses)
+    end = max(st.end_time_ms for st in statuses)
+    span_ms = end - launch
+
+    def stage_times(stage):
+        sts = [t.status for t in stage.task_infos if t is not None and t.status is not None]
+        return (min(x.launch_time_ms for x in sts), max(x.end_time_ms for x in sts)) \
+            if sts else None
+
+    # scheduling: from a stage's last producer end to its first task's start
+    gaps = 0
+    for st in graph.stages.values():
+        mine = stage_times(st)
+        ends = [stage_times(graph.stages[p]) for p in st.producer_ids if p in graph.stages]
+        if mine and ends and all(ends):
+            gaps += max(0, mine[0] - max(e[1] for e in ends))
+    return {
+        "stages": len(graph.stages), "tasks": len(statuses),
+        "planned_partitions": {sid: st.planned_partitions
+                               for sid, st in sorted(graph.stages.items())},
+        "task_ms_sum": sum(st.end_time_ms - st.launch_time_ms for st in statuses),
+        "write_ms_sum": (plan_metric(plans, "write_time") + plan_metric(plans, "repart_time"))
+        * 1000,
+        "fetch_ms_sum": plan_metric(plans, "fetch_time") * 1000,
+        "fused_ms_sum": sum(n.metrics().to_dict().get("agg_time", 0)
+                            + n.metrics().to_dict().get("compute_time", 0)
+                            for p in plans for n in _walk_fused(p)) * 1000,
+        "task_span_ms": span_ms, "launch_gap_ms_sum": gaps, "wall_ms": wall_s * 1000,
+        "outside_tasks_ms": wall_s * 1000 - span_ms,
+        "fused_fallbacks": plan_metric(plans, "fused_fallbacks"),
+        "passthrough_triggers": plan_metric(plans, "passthrough_triggers"),
+        "aqe": [r["kinds"] for r in graph.aqe_log],
+    }
+
+
+def _walk_fused(plan):
+    if type(plan).__name__ == "FusedStageExec":
+        yield plan
+    for c in plan.children():
+        yield from _walk_fused(c)
 
 
 def plan_breakdown(plan, indent=0):
@@ -917,7 +1054,101 @@ def seg_agg_stress(t, rng, n):
             (keys, many[:2], mask, 100_000, n)]
 
 
+def fused_stress(device, n, seed=4):
+    """K12 and K13 at n rows, made from a seed with numpy: a row chain and
+    two aggregate chains (a dictionary-code key, which takes the dense path,
+    and an int64 key, which takes the sort path) over one table with NULL
+    keys and values, int64 values whose sums and products wrap, float64
+    values with NULLs and a dictionary predicate.  Returns {kernel:
+    [(program, cols, mask, auxs[, out_cap, key_ranges])]}."""
+    import numpy as np
+    import pyarrow as pa
+
+    from arrow_ballista_tpu_torch.catalog import MemoryTable
+    from arrow_ballista_tpu_torch.compile import fused as F
+    from arrow_ballista_tpu_torch.models import expr as E
+    from arrow_ballista_tpu_torch.models.batch import concat_batches
+    from arrow_ballista_tpu_torch.ops import kernels as K
+    from arrow_ballista_tpu_torch.ops import operators as O
+    from arrow_ballista_tpu_torch.ops.physical import TaskContext
+
+    rng = np.random.default_rng(seed)
+
+    def dict_col(words, null_share):
+        codes = rng.integers(0, len(words), n).astype(np.int32)
+        return pa.DictionaryArray.from_arrays(
+            pa.array(codes, mask=rng.random(n) < null_share), pa.array(words))
+
+    table = pa.table({
+        "s": dict_col(["apple", "apricot", "beta", "gamma", "avocado", "delta", "zeta"], 0.02),
+        "s2": dict_col(["alpha", "omega", "zeta", "kappa"], 0.0),
+        "g2": pa.array(rng.integers(0, n // 4, n).astype(np.int64), mask=rng.random(n) < 0.01),
+        "v": pa.array(rng.integers(2**61, 2**62, n).astype(np.int64),
+                      mask=rng.random(n) < 0.02),
+        "f": pa.array(rng.random(n) * 100, mask=rng.random(n) < 0.02),
+    })
+    ctx = TaskContext(device=device)
+    scan = MemoryTable("stress", table).scan(None, [], 1)
+    big = concat_batches(scan.schema, scan.execute(0, ctx), device=device).shrink()
+    rows = [O.FilterExec(scan, E.BinOp("or", E.Like(E.Column("s"), "a%"),
+                                       E.BinOp(">", E.Column("g2"), E.Lit(1000))))]
+    rows.insert(0, O.ProjectionExec(rows[0], [
+        (E.Column("s"), "s"), (E.BinOp("*", E.Column("v"), E.Lit(3)), "wrap"),
+        (E.BinOp("%", E.Column("g2"), E.Lit(-7)), "mod"),
+        (E.BinOp("-", E.Column("g2"), E.Column("v")), "diff"),
+        (E.IsNull(E.Column("g2")), "null_key"), (E.InList(E.Column("s"), ["beta", "zeta"]),
+                                                 "in_list")]))
+    out = {"fused_rows": [], "fused_agg": []}
+    prog = F.FusedStageExec(rows).program(ctx)
+    auxs, _ = prog.auxs_and_dicts(big.dicts)
+    out["fused_rows"].append((prog, big.columns, big.mask, auxs))
+    for key in ("s", "g2"):
+        filt = O.FilterExec(scan, E.BinOp("<>", E.Column("s2"), E.Lit("zeta")))
+        aggs = [O.AggSpec("sum", E.Column("v"), "sv"), O.AggSpec("sum", E.Column("f"), "sf"),
+                O.AggSpec("min", E.Column("v"), "mnv"), O.AggSpec("max", E.Column("f"), "mxf"),
+                O.AggSpec("count", E.Column("v"), "cv"), O.AggSpec("count", None, "c")]
+        agg = O.HashAggregateExec(filt, [(E.Column(key), key)], aggs, "partial")
+        prog = F.FusedStageExec([agg, filt]).program(ctx)
+        auxs, dicts = prog.auxs_and_dicts(big.dicts)
+        ranges = agg._key_ranges(prog.agg_compiled[1], dicts)
+        cap = big.capacity
+        domain = K.dense_domain(ranges)
+        if (domain is not None) != (key == "s"):
+            fail(f"fused stress: the {key} chain took the wrong K13 form")
+        out["fused_agg"].append((prog, big.columns, big.mask, auxs,
+                                 min(cap, domain) if domain else cap, ranges))
+    return out
+
+
+def fused_check(F, name, args):
+    """K12 or K13 against its twin on the same inputs: every column and the
+    mask (K12, NaN where the twin has NaN), every group (K13; float sums at
+    rtol 1e-12, the atomic order differs)."""
+    if name == "fused_rows":
+        (got_cols, got_mask), (want_cols, want_mask) = F.fused_rows(*args), \
+            F.fused_rows_plain(*args)
+        err = max_err(got_mask, want_mask)
+        for col, t in want_cols.items():
+            err = max(err, max_err(got_cols[col], t.expand(got_mask.shape[0]).contiguous()))
+        return err
+    got, want = F.fused_agg(*args), F.fused_agg_plain(*args)
+    if (got[3] is None) != (want[3] is None) or (got[3] is not None and
+                                                  bool(got[3]) != bool(want[3])):
+        raise AssertionError("overflow flags differ")
+    err = max_err(got[2], want[2])
+    for g, w in zip(got[0], want[0]):
+        err = max(err, max_err(g, w))
+    for (_dt, how), g, w in zip(args[0].gen.vals, got[1], want[1]):
+        err = max(err, max_err(g, w, rtol=1e-12 if how == "sum" and w.dtype.is_floating_point
+                               else 0.0))
+    return err
+
+
 def check_kernel(K, name, args):
+    if name in ("fused_rows", "fused_agg"):
+        from arrow_ballista_tpu_torch.compile import fused as F
+
+        return fused_check(F, name, args)
     if name == "dense_group_states":
         return dense_check(K, args)
     if name == "compaction_order":
@@ -985,11 +1216,49 @@ def check_kernel(K, name, args):
 # --------------------------------------------------------------------------
 
 
+def fused_bytes(prog, cols, mask, out_rows):
+    """Bytes a fused chain must move: each input column it reads and the
+    mask once, its lookup tables, and its output once — K12's columns and
+    mask; K13's groups (``out_rows`` of keys, values and mask)."""
+    n = mask.shape[0]
+    read = sum(cols[name].element_size() * n for name, _dt in prog.gen.inputs) + n
+    if prog.agg is None:
+        written = sum(dt.itemsize * n for _name, dt in prog.gen.outputs) + n
+    else:
+        written = out_rows * (sum(dt.itemsize for dt in prog.gen.key_dtypes)
+                              + sum(8 if how == "count" else dt.itemsize
+                                    for dt, how in prog.gen.vals) + 1)
+    return read + written
+
+
 def kernel_timings(K, name, args, device):
-    """(kernel_ms, plain_ms, library_ms or None, bytes moved)."""
+    """(times, bytes moved); times: kernel, plain twin and library call (or
+    for K12 / K13 the interpreted chain: the same closures on TorchOps, then
+    the K1/K2 or K4/K8 kernels) as device ms and wall ms."""
     import torch
 
-    if name == "dense_group_states":
+    extra = {}
+    if name in ("fused_rows", "fused_agg"):
+        from arrow_ballista_tpu_torch.compile import fused as F
+
+        prog, cols, mask, auxs = args[:4]
+        if name == "fused_rows":
+            moved = fused_bytes(prog, cols, mask, 0)
+            kern = lambda: F.fused_rows(*args)  # noqa: E731
+            plain = lambda: F.fused_rows_plain(*args)  # noqa: E731
+            interpreted = plain  # no kernel runs in an interpreted row chain
+        else:
+            out_cap, ranges = args[4], args[5]
+            moved = fused_bytes(prog, cols, mask, out_cap)
+            kern = lambda: F.fused_agg(*args)  # noqa: E731
+            plain = lambda: F.fused_agg_plain(*args)  # noqa: E731
+
+            def interpreted():
+                keys, vals, m = F._agg_key_vals_plain(prog, cols, mask, auxs)
+                return K.grouped_aggregate(keys, vals, m, out_cap, key_ranges=ranges)
+        library = None  # no one PyTorch call computes a fused chain
+        extra["interpreted_"] = interpreted
+    elif name == "dense_group_states":
         key_cols, val_cols, mask, key_ranges, domain = args
         read_vals = [v for v, how in val_cols if how != "count"]
         moved = nbytes(*key_cols, mask, *read_vals) + len(val_cols) * domain * 8 + domain * 4 + 1
@@ -1135,7 +1404,8 @@ def kernel_timings(K, name, args, device):
     else:
         raise KeyError(name)
     times = {}
-    for label, fn in (("", kern), ("plain_", plain), ("library_", library)):
+    for label, fn in (("", kern), ("plain_", plain), ("library_", library),
+                      *extra.items()):
         if fn is None:
             times[label + "ms"] = times[label + "wall_ms"] = times[label + "ms_source"] = None
             continue
@@ -1170,6 +1440,10 @@ def dense_hot_slot_sweep(K, args, device, slots=(1, 4, 64, 289)):
 
 
 KERNEL_META = {
+    "fused_rows": ("arrow_ballista_tpu_torch/csrc/fused_rows.cuh",
+                   "arrow_ballista_tpu/compile/fused.py:188"),
+    "fused_agg": ("arrow_ballista_tpu_torch/csrc/fused_rows.cuh",
+                  "arrow_ballista_tpu/compile/fused.py:204"),
     "dense_group_states": ("arrow_ballista_tpu_torch/csrc/dense_agg.cu",
                            "arrow_ballista_tpu/ops/kernels.py:564"),
     "compaction_order": ("arrow_ballista_tpu_torch/csrc/compact.cu",
@@ -1195,6 +1469,8 @@ KERNEL_META = {
 }
 # the one PyTorch call each kernel's library_ms times (yardsticks only)
 LIBRARY_CALL = {
+    "fused_rows": None,
+    "fused_agg": None,
     "dense_group_states": "index_add_ of the stacked values at precomputed slot ids",
     "compaction_order": "argsort(~mask, stable=True)",
     "bucket_of": None,
@@ -1220,13 +1496,18 @@ WRAPPERS["probe_join"] = ("probe_join", "probe_counts")
 # --------------------------------------------------------------------------
 
 
-def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROWS) -> dict:
+def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROWS,
+        sa_partitions: str = "auto") -> dict:
+    """The whole check.  ``sa_partitions``: the standalone engine's shuffle
+    partitions ('auto' as bench.py runs it; a CPU rehearsal at a small scale
+    factor passes a count, as 'auto' then plans one stage and fuses nothing)."""
     import torch
 
     sys.path.insert(0, ROOT)
     try:
-        from arrow_ballista_tpu_torch import BallistaContext
+        from arrow_ballista_tpu_torch import BallistaConfig, BallistaContext
         from arrow_ballista_tpu_torch import entry as port_entry
+        from arrow_ballista_tpu_torch.compile import fused as F
         from arrow_ballista_tpu_torch.ops import _cuda
         from arrow_ballista_tpu_torch.ops import kernels as K
         from arrow_ballista_tpu_torch.utils import table_cache
@@ -1274,8 +1555,24 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     q18_having = 300 if sf >= 1 else 200
     q18 = QUERIES[18].replace("> 300", f"> {q18_having}")
     sqls = {"q1": QUERIES[1], "q3": QUERIES[3], "q4": QUERIES[4]}
+    # the standalone engine with bench.py's base config: 'auto' shuffle
+    # partitions, 2^20-row batches, four task slots
+    sa_cfg = {"ballista.shuffle.partitions": sa_partitions,
+              "ballista.batch.size": str(1 << 20)}
+    sa_pq = BallistaContext.standalone(BallistaConfig(sa_cfg), concurrent_tasks=4,
+                                       device=device)
+    sa_mem = BallistaContext.standalone(BallistaConfig(sa_cfg), concurrent_tasks=4,
+                                        device=device)
+    atexit.register(sa_pq.shutdown)
+    atexit.register(sa_mem.shutdown)
+    for name, path in pq_paths.items():
+        sa_pq.register_parquet(name, path)
+    for name, table in tables.items():
+        sa_mem.register_table(name, table)
     paths = {**{p: (ctx, q) for p, q in sqls.items()},
-             **{f"pq_{p}": (pctx, q) for p, q in sqls.items()}, "pq_q18": (pctx, q18)}
+             **{f"pq_{p}": (pctx, q) for p, q in sqls.items()}, "pq_q18": (pctx, q18),
+             **{f"sa_pq_{p}": (sa_pq, q) for p, q in sqls.items()}, "sa_pq_q18": (sa_pq, q18),
+             "sa_q18": (sa_mem, q18)}
 
     def once(c, sql):
         t = time.perf_counter()
@@ -1289,10 +1586,12 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     cached = {}  # scan-cache fingerprints after each parquet path's cold run
     if cuda:
         torch.cuda.reset_peak_memory_stats()
+    k13_forms = {}  # path -> K13 form -> calls
     for path, (c, sql) in paths.items():
-        parquet = path.startswith("pq_")
+        parquet = "pq_" in path
+        standalone = path.startswith("sa_")
         K.reset_launch_counts()
-        with Capture(K, device) as cap:
+        with Capture(K, F, device) as cap:
             df, cold_s = once(c, sql)
         launches[path] = dict(K.LAUNCHES)
         if cap.off_device:
@@ -1301,13 +1600,28 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         if missing:
             fail(f"{path}: kernels not launched on its path: {missing} ({launches[path]})")
         captured[path] = cap.calls
+        k13_forms[path] = dict(cap.forms)
+        want_form = K13_FORM.get(path)
+        if want_form is not None and not k13_forms[path].get(want_form):
+            fail(f"{path}: K13 never took its {want_form} form ({k13_forms[path]})")
         if df.empty or df.isna().any().any() or (path.endswith("q1") and len(df) != 4):
             fail(f"{path} result malformed:\n{df}")
-        cold_scan = scan_metrics(c.last_plan)
+        cold_scan = scan_metrics(job_plans(c))
         if parquet:
             cached.update(cache_fingerprints(table_cache))
         if path == "pq_q18":
-            check_clustered(c.last_plan, "cold")
+            check_clustered(job_plans(c), "cold")
+        if standalone:
+            split = standalone_split(c, cold_s)
+            labels = fused_labels(c)
+            log(f"{path} cold: {split['stages']} stages, planned partitions "
+                f"{json.dumps(split['planned_partitions'])}, fused chains {json.dumps(labels)}, "
+                f"K13 forms {json.dumps(k13_forms[path])}")
+            if split["fused_fallbacks"] or split["passthrough_triggers"]:
+                fail(f"{path}: fused_fallbacks {split['fused_fallbacks']}, passthrough "
+                     f"triggers {split['passthrough_triggers']}")
+            report[f"{path}_fused_chains"] = labels
+            report[f"{path}_cold_split"] = split
         warm = []
         for _ in range(WARM_RUNS[path]):
             K.reset_launch_counts()
@@ -1315,15 +1629,32 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             _, s = once(c, sql)
             warm.append(s)
             if dict(K.LAUNCHES) != launches[path]:
-                fail(f"{path}: warm run launched {dict(K.LAUNCHES)} != cold {launches[path]}")
+                # the standalone engine's task threads share a join's
+                # capacity hint (ops/operators.py _out_cap_hint): whether a
+                # sibling task finds it set decides one count pass (K3 +
+                # K6) more or less, or a rerun of the join at a larger
+                # capacity (K3, K6, K7).  Every other count must repeat.
+                varied = {k for k, v in K.LAUNCHES.items() if v != launches[path][k]}
+                if not standalone or not varied <= {"hash64", "probe_join", "segment_any"}:
+                    fail(f"{path}: warm run launched {dict(K.LAUNCHES)} != cold "
+                         f"{launches[path]}")
+                log(f"{path}: a warm run's join launches differ from the cold run's: "
+                    f"{ {k: (launches[path][k], K.LAUNCHES[k]) for k in sorted(varied)} }")
             if parquet:
-                warm_scan = scan_metrics(c.last_plan)
+                warm_scan = scan_metrics(job_plans(c))
                 if not warm_scan.get("scan_cache_hits") or warm_scan.get("scan_read_time") \
                         or table_cache.CACHE.stats()["misses"] != misses:
                     fail(f"{path}: a warm run missed the scan cache or read a row group "
                          f"again: {warm_scan}")
         if path == "pq_q18":
-            check_clustered(c.last_plan, "warm")
+            check_clustered(job_plans(c), "warm")
+        if standalone:
+            split = standalone_split(c, warm[-1])
+            if split["fused_fallbacks"] or split["passthrough_triggers"]:
+                fail(f"{path}: fused_fallbacks {split['fused_fallbacks']}")
+            log(f"{path} time split (last warm run, ms; sums over tasks): "
+                f"{json.dumps({k: v for k, v in split.items() if k != 'planned_partitions'})}")
+            report[f"{path}_warm_split"] = split
         warm_s = statistics.median(warm)
         rows = lineitem.num_rows
         log(f"{path} SF{sf}: cold {cold_s * 1000:.1f} ms ({rows / cold_s:.0f} lineitem rows/s), "
@@ -1343,8 +1674,9 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             f"{json.dumps({k: v for k, v in launches[path].items() if v})}")
         log(df.head(10).to_string())
         log(f"{path} operator host times (last warm run, ms; elapsed_time includes children):")
-        for line in plan_breakdown(c.last_plan):
-            log("  " + line)
+        for plan in job_plans(c):
+            for line in plan_breakdown(plan):
+                log("  " + line)
         report[f"{path}_cold_ms"] = cold_s * 1000
         report[f"{path}_warm_ms"] = warm_s * 1000
         if cuda:
@@ -1375,8 +1707,25 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             "LIMIT exact")
         counts = check_q4(c, sqls["q4"], oracles["q4"])
         log(f"{label}q4 vs numpy oracle: {json.dumps(counts)} exact")
-    n_top, n_all = check_q18(pctx, q18, q18_oracle(tables, q18_having))
+    q18_want = q18_oracle(tables, q18_having)
+    n_top, n_all = check_q18(pctx, q18, q18_want)
     log(f"pq_q18 vs numpy oracle: top {n_top} exact, and all {n_all} rows without the LIMIT exact")
+    n_groups, worst = check_q1(sa_pq, sqls["q1"], oracles["q1"])
+    log(f"sa_pq_q1 vs numpy oracle: {n_groups} groups, sums and counts exact, avg max rel "
+        f"err {worst:.3g}")
+    n_groups = check_q3(sa_pq, sqls["q3"], oracles["q3"])
+    log(f"sa_pq_q3 vs numpy oracle: top 10 exact, and all {n_groups} groups without the LIMIT "
+        "exact")
+    log(f"sa_pq_q4 vs numpy oracle: {json.dumps(check_q4(sa_pq, sqls['q4'], oracles['q4']))} "
+        "exact")
+    for label, c in (("sa_pq_q18", sa_pq), ("sa_q18", sa_mem)):
+        n_top, n_all = check_q18(c, q18, q18_want)
+        log(f"{label} vs numpy oracle: top {n_top} exact, and all {n_all} rows without the "
+            "LIMIT exact")
+    builds = list(_cuda.LIBRARIES.generated_builds)
+    log(f"generated kernels (K12 / K13) built with nvcc at first use: "
+        f"{json.dumps(builds)} ({sum(b[1] for b in builds):.3f} s, inside the cold walls)")
+    report["generated_builds"] = builds
 
     # table rows 5-7 on q3's path
     if cuda:
@@ -1392,6 +1741,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     # phase 4 + 6: kernels against their twins at each path's own shapes and
     # at the stress shapes; timings at the largest call over the paths
     stress = stress_inputs(K, device, stress_rows)
+    stress.update(fused_stress(device, stress_rows))
     for name in KERNEL_META:
         per_path = {p: launches[p][LAUNCH_KEY[name]] for p in paths}
         checked = {}  # path -> wrapper -> rows and max abs err of that path's largest call
@@ -1425,6 +1775,15 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             torch.cuda.synchronize()
         path = max((p for p in paths if name in captured[p]), key=lambda p: captured[p][name][0])
         n, args = captured[path][name]
+        forms = {}  # K13: form -> (path, rows, args) of its largest call
+        if name == "fused_agg":
+            for p in paths:
+                if name in captured[p]:
+                    n_p, a_p = captured[p][name]
+                    form = "dense" if K.dense_domain(a_p[5]) is not None else "sort"
+                    if form not in forms or n_p > forms[form][1]:
+                        forms[form] = (p, n_p, a_p)
+            path, n, args = forms.get("dense", (path, n, args))
         times, moved = kernel_timings(K, name, args, device)
         bound_ms = moved / HBM_BYTES_PER_S * 1000
         src, replaces = KERNEL_META[name]
@@ -1437,6 +1796,11 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             "captured_on": path, "launches_per_path": per_path, "checked_per_path": checked,
             "wall_ms": times["wall_ms"], "plain_wall_ms": times["plain_wall_ms"],
             "library_wall_ms": times["library_wall_ms"],
+            **({"interpreted_ms": times["interpreted_ms"],
+                "interpreted_wall_ms": times["interpreted_wall_ms"],
+                "generated_by": "arrow_ballista_tpu_torch/compile/codegen.py",
+                "k13_forms_per_path": {p: f for p, f in k13_forms.items() if f}}
+               if name.startswith("fused_") else {}),
             "ms_source": [times[k] for k in ("ms_source", "plain_ms_source",
                                              "library_ms_source")]})
 
@@ -1450,8 +1814,25 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             f"kernel {fmt(times['ms'])}, bound {bound_ms:.6f} ms ({moved} bytes), plain "
             f"{fmt(times['plain_ms'])}, library {fmt(times['library_ms'])}; wall per call: "
             f"kernel {fmt(times['wall_ms'])}, plain {fmt(times['plain_wall_ms'])}, library "
-            f"{fmt(times['library_wall_ms'])}; stress {stress_rows} rows ok; "
+            f"{fmt(times['library_wall_ms'])}"
+            + (f"; interpreted chain {fmt(times['interpreted_ms'])} device, "
+               f"{fmt(times['interpreted_wall_ms'])} wall" if name.startswith("fused_") else "")
+            + f"; stress {stress_rows} rows ok; "
             f"max abs err {err:.3g}; launches per query {json.dumps(per_path)}")
+        if "sort" in forms:
+            sp, sn, sargs = forms["sort"]
+            stimes, smoved = kernel_timings(K, name, sargs, device)
+            report["kernels"][-1]["sort_path"] = {
+                "captured_on": sp, "rows": sn, "ms": stimes["ms"], "wall_ms": stimes["wall_ms"],
+                "plain_ms": stimes["plain_ms"], "interpreted_ms": stimes["interpreted_ms"],
+                "interpreted_wall_ms": stimes["interpreted_wall_ms"],
+                "bound_ms": smoved / HBM_BYTES_PER_S * 1000, "bound_bytes": smoved}
+            log(f"kernel fused_agg, sort path: rows {sn} (largest call, {sp}); device time per "
+                f"call: kernel {fmt(stimes['ms'])} (the generated pass, K4 and K8), bound "
+                f"{smoved / HBM_BYTES_PER_S * 1000:.6f} ms ({smoved} bytes), plain "
+                f"{fmt(stimes['plain_ms'])}, interpreted chain {fmt(stimes['interpreted_ms'])}; "
+                f"wall per call: kernel {fmt(stimes['wall_ms'])}, interpreted chain "
+                f"{fmt(stimes['interpreted_wall_ms'])}")
         if name == "dense_group_states" and cuda:
             sweep = dense_hot_slot_sweep(K, args, device)
             log("kernel dense_group_states hot-slot sweep (device ms per call, "

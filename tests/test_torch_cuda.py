@@ -11,12 +11,13 @@ import pytest
 import torch
 
 from arrow_ballista_tpu_torch.ops import kernels as TK
-from tests.torch_cases import (DENSE_CASES, JOIN_CASES, JOIN_QUERIES, KEEP_CASES,
-                               PRESORTED_CASES, RANGE_CASES, SEG_AGG_CASES, SEGMENT_CASES,
-                               SETTINGS, SORT_CASES, UNORDERED, assert_frames_equal,
-                               dense_case, hash_cols, join_case, keep_case, mask_case,
-                               presorted_case, range_case, seg_agg_case, segment_case,
-                               sort_case)
+from tests.torch_cases import (DENSE_CASES, FUSED_CHAINS, JOIN_CASES, JOIN_QUERIES,
+                               KEEP_CASES, PRESORTED_CASES, RANGE_CASES, SEG_AGG_CASES,
+                               SEGMENT_CASES, SETTINGS, SORT_CASES, STANDALONE_SETTINGS,
+                               STANDALONE_SQL, UNORDERED, assert_frames_equal, dense_case,
+                               find_chain, hand_chain, hand_table, hash_cols, join_case,
+                               keep_case, mask_case, presorted_case, range_case, seg_agg_case,
+                               segment_case, sort_case)
 
 N = 100_003
 
@@ -232,4 +233,99 @@ def test_parquet_queries_on_the_card_match_the_cpu(dev, sf001_parquet, name):
             assert_frames_equal(ctx.sql(sql).to_pandas(), frames[0])
             assert _cached_fingerprints(dev) == before
     assert len(frames[1]) > 0
+    assert_frames_equal(frames[0], frames[1])
+
+
+# --------------------------------------------------------------------------
+# K12 / K13: the kernels generated per fused chain, and the standalone engine
+# --------------------------------------------------------------------------
+
+
+def _port_chain(name, device):
+    from arrow_ballista_tpu_torch.catalog import MemoryTable, SchemaCatalog
+    from arrow_ballista_tpu_torch.models import expr as E
+    from arrow_ballista_tpu_torch.ops import operators as O
+    from arrow_ballista_tpu_torch.scheduler.physical_planner import PhysicalPlanner
+    from arrow_ballista_tpu_torch.sql.optimizer import optimize
+    from arrow_ballista_tpu_torch.sql.parser import parse_sql
+    from arrow_ballista_tpu_torch.sql.planner import SqlToRel
+    from arrow_ballista_tpu_torch.utils.config import BallistaConfig
+
+    sql, kind = FUSED_CHAINS[name]
+    if sql is None:
+        return hand_chain(E, O, MemoryTable("t", hand_table()).scan(None, [], 2))
+    cat = SchemaCatalog()
+    for t, table in _sf001_tables().items():
+        cat.register(MemoryTable(t, table))
+    planned = PhysicalPlanner(cat, BallistaConfig(STANDALONE_SETTINGS), device).plan_query(
+        optimize(SqlToRel(cat).plan(parse_sql(sql))))
+    return find_chain(planned.plan, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FUSED_CHAINS))
+def test_fused_kernels_match_their_twins(dev, name):
+    """K12 (row chains) and K13 (aggregate chains: q1 on the dense path,
+    q18 on the sort path) against the interpreted chain on the same inputs
+    on the card: every output column and the mask (K12), every group
+    (K13); exact (no float sums in these chains)."""
+    from arrow_ballista_tpu_torch.compile import fused as F
+    from arrow_ballista_tpu_torch.ops.physical import TaskContext
+
+    ops = _port_chain(name, dev)
+    ctx = TaskContext(device=dev)
+    tf = F.FusedStageExec(ops)
+    prog = tf.program(ctx)
+    TK.reset_launch_counts()
+    for p in range(tf.output_partition_count()):
+        batches = tf.input.execute(p, ctx)
+        if prog.agg is None:
+            for b in batches:
+                auxs, _ = prog.auxs_and_dicts(b.dicts)
+                got_cols, got_mask = F.fused_rows(prog, b.columns, b.mask, auxs)
+                want_cols, want_mask = F.fused_rows_plain(prog, b.columns, b.mask, auxs)
+                assert torch.equal(got_mask, want_mask)
+                for col, t in want_cols.items():
+                    assert torch.equal(got_cols[col], t) or (
+                        t.dtype.is_floating_point and torch.equal(got_cols[col].isnan(), t.isnan())
+                        and torch.equal(got_cols[col][~t.isnan()], t[~t.isnan()])), col
+        else:
+            from arrow_ballista_tpu_torch.models.batch import concat_batches
+
+            big = concat_batches(tf.input.schema, batches, device=dev).shrink()
+            auxs, dicts = prog.auxs_and_dicts(big.dicts)
+            ranges = prog.agg._key_ranges(prog.agg_compiled[1], dicts)
+            cap = big.capacity
+            got = F.fused_agg(prog, big.columns, big.mask, auxs, cap, ranges)
+            want = F.fused_agg_plain(prog, big.columns, big.mask, auxs, cap, ranges)
+            assert torch.equal(got[2], want[2])
+            for g, w in zip(list(got[0]) + list(got[1]), list(want[0]) + list(want[1])):
+                assert torch.equal(g, w)
+    assert TK.LAUNCHES[prog.launch_name] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["mem", "pq"])
+def test_standalone_q1_on_the_card_matches_the_cpu(dev, sf001_parquet, source):
+    """The standalone engine (stages, shuffle files, K13 on q1's partial)
+    on the card against the same engine on the CPU."""
+    import os
+
+    from arrow_ballista_tpu_torch import BallistaConfig, BallistaContext
+
+    frames = []
+    for device in (dev, "cpu"):
+        ctx = BallistaContext.standalone(BallistaConfig(STANDALONE_SETTINGS), device=device)
+        try:
+            for table in ("lineitem", "orders", "customer"):
+                if source == "pq":
+                    ctx.register_parquet(table, os.path.join(sf001_parquet, f"{table}.parquet"))
+                else:
+                    ctx.register_table(table, _sf001_tables()[table])
+            TK.reset_launch_counts()
+            frames.append(ctx.sql(STANDALONE_SQL["q1"]).to_pandas())
+            if device is dev:
+                assert TK.LAUNCHES["fused_agg"] == 4
+        finally:
+            ctx.shutdown()
     assert_frames_equal(frames[0], frames[1])

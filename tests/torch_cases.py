@@ -402,3 +402,113 @@ def keep_case(case, n, rng):
     mask = rng.random(n) < 0.8
     pred = rng.random(n) < 0.01
     return k, mask, pred, los, his
+
+
+# --------------------------------------------------------------------------
+# the standalone engine (stages, shuffle files, whole-stage fusion)
+# --------------------------------------------------------------------------
+
+# four shuffle partitions: with 'auto' and one batch of input the planner
+# collapses a small query into one stage, and nothing fuses
+STANDALONE_SETTINGS = {"ballista.shuffle.partitions": "4"}
+STANDALONE_SQL = {"q1": QUERIES[1], "q3": QUERIES[3], "q4": QUERIES[4],
+                  # q18 as written keeps no order at SF0.01
+                  "q18": QUERIES[18].replace("> 300", "> 200")}
+STANDALONE_CASES = [("pq", "q1"), ("pq", "q3"), ("pq", "q4"), ("pq", "q18"),
+                    ("mem", "q1"), ("mem", "q18")]
+
+
+def fused_labels(graph):
+    """{stage id: sorted FusedStageExec labels of its resolved plan}, for a
+    graph of either package."""
+    return {sid: sorted(n._label() for n in plan_nodes(st.resolved_plan or st.plan)
+                        if type(n).__name__ == "FusedStageExec")
+            for sid, st in graph.stages.items()}
+
+
+def stage_summary(graph):
+    """{stage id: (planned partitions, partitions run, state, producers)}."""
+    return {sid: (st.planned_partitions, st.partitions, st.state, list(st.producer_ids))
+            for sid, st in graph.stages.items()}
+
+
+# --------------------------------------------------------------------------
+# whole-stage fusion: the chains K12 and K13 run
+# --------------------------------------------------------------------------
+
+
+def hand_table(n=5000, seed=3):
+    """NULL strings and integers, NaN, int64 values whose products wrap."""
+    import pyarrow as pa
+
+    rng = np.random.default_rng(seed)
+    words = np.array(["apple", "apricot", "beta", "gamma", "avocado", "delta"], dtype=object)
+    f = rng.normal(size=n)
+    f[rng.random(n) < 0.05] = np.nan
+    return pa.table({
+        "k": pa.array(rng.integers(-200, 200, n).astype(np.int64), mask=rng.random(n) < 0.05),
+        "s": pa.array(words[rng.integers(0, len(words), n)], mask=rng.random(n) < 0.05),
+        "big": pa.array(rng.integers(2**61, 2**62, n).astype(np.int64)),
+        "f": pa.array(f),
+        "d": pa.array(rng.integers(8000, 10500, n).astype(np.int32), type=pa.date32()),
+    })
+
+
+def hand_chain(E, O, scan):
+    """Filter (a LIKE on a nullable string, a comparison on a nullable int,
+    NaN in a float) then a projection of wrapping products, Python-style
+    remainders, IN / SUBSTRING / CASE / IS NULL over nullable columns."""
+    pred = E.BinOp("or", E.Like(E.Column("s"), "a%"),
+                   E.BinOp("and", E.BinOp(">", E.Column("k"), E.Lit(5)),
+                           E.Not(E.BinOp("<", E.Column("f"), E.Lit(0.25)))))
+    filt = O.FilterExec(scan, pred)
+    proj = O.ProjectionExec(filt, [
+        (E.Column("s"), "s"),
+        (E.BinOp("*", E.Column("big"), E.Lit(3)), "wrap"),
+        (E.BinOp("%", E.Column("k"), E.Lit(7)), "mod7"),
+        (E.BinOp("%", E.Column("k"), E.Lit(-7)), "mod_neg7"),
+        (E.BinOp("-", E.Column("k"), E.Column("big")), "diff"),
+        (E.BinOp("<>", E.Column("f"), E.Lit(0.5)), "f_ne"),
+        (E.InList(E.Column("s"), ["beta", "gamma"]), "s_in"),
+        (E.Substring(E.Column("s"), 2, 3), "s_sub"),
+        (E.IsNull(E.Column("k")), "k_null"),
+        (E.Case([(E.BinOp(">", E.Column("k"), E.Lit(100)), E.Column("big"))], E.Column("k")),
+         "pick"),
+        (E.BinOp("+", E.Column("d"), E.Lit(30, kind="interval_day")), "later"),
+        (E.Lit(7), "seven"),
+    ])
+    return [proj, filt]
+
+
+def plan_nodes(plan):
+    yield plan
+    for c in plan.children():
+        yield from plan_nodes(c)
+
+
+def find_chain(plan, kind):
+    """The first chain of ``kind`` in pre-order: 'agg' — a partial
+    aggregate over a RenameExec — or 'proj_filter'."""
+    for n in plan_nodes(plan):
+        name = type(n).__name__
+        child = type(getattr(n, "input", None)).__name__
+        if kind == "agg" and name == "HashAggregateExec" and n.mode == "partial" \
+                and child == "RenameExec":
+            return [n, n.input]
+        if kind == "proj_filter" and name == "ProjectionExec" and child == "FilterExec" \
+                and not n.host_mode and not n.input.host_mode:
+            return [n, n.input]
+    raise LookupError(kind)
+
+
+# chain name -> (SQL whose plan holds the chain, find_chain kind); the hand
+# chain is built by hand_chain over hand_table
+FUSED_CHAINS = {
+    "q1_dense_agg": (QUERIES[1], "agg"),
+    "q18_sort_agg": (QUERIES[18].replace("> 300", "> 200"), "agg"),
+    "q18_having_rows": (QUERIES[18].replace("> 300", "> 200"), "proj_filter"),
+    "q21_rows": (QUERIES[21], "proj_filter"),
+    "hand_rows": (None, None),
+}
+
+
