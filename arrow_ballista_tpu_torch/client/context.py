@@ -238,8 +238,11 @@ class BallistaContext:
     def _execute_local(self, planned: PlannedQuery) -> List[ColumnBatch]:
         # a fresh job id per query: the joins' broadcast build caches are
         # keyed by it, and dropped when the job ends
+        from ..memory import MemoryGovernor
+
         ctx = TaskContext(device=self.device, config=self.config, work_dir=self.work_dir,
-                          job_id=uuid.uuid4().hex[:7])
+                          job_id=uuid.uuid4().hex[:7],
+                          governor=MemoryGovernor.from_config(self.config))
         try:
             for sid, splan in planned.scalars:
                 ctx.scalars[sid] = extract_scalar(splan, ctx)

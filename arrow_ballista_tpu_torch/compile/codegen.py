@@ -17,7 +17,9 @@ The C follows torch's semantics, not C's:
   C has no result);
 - comparisons with NaN are false (``!=`` true), as IEEE and torch have it;
 - casts follow C (float to int truncates, to bool is ``!= 0``);
-- a lookup-table gather clamps its index into the table (TorchOps.take).
+- a lookup-table gather clamps its index into the table (TorchOps.take);
+- EXTRACT calls K14's row function (csrc/civil.cuh), shared with the
+  interpreted kernel.
 
 Any method or operator the tracer does not cover raises
 ``CodegenError`` when the chain is traced, at plan time: the compiler then
@@ -79,6 +81,7 @@ class Trace:
         self._n = 0
         self.inputs: List[Tuple[str, torch.dtype]] = []  # columns read, in slot order
         self._input_slot: Dict[str, int] = {}
+        self._reads: Dict[str, str] = {}  # local bound to a column read -> column
         self.aux: List[Tuple[int, str, torch.dtype]] = []  # (step, slot, dtype), in order
 
     def bind(self, expr: str, dtype: torch.dtype, rank: int) -> "CVal":
@@ -100,7 +103,13 @@ class Trace:
             slot = len(self.inputs)
             self._input_slot[name] = slot
             self.inputs.append((name, dtype))
-        return self.bind(f"((const {C_TYPES[dtype]}*)in.col[{slot}])[i]", dtype, 1)
+        v = self.bind(f"((const {C_TYPES[dtype]}*)in.col[{slot}])[i]", dtype, 1)
+        self._reads[v.expr] = name
+        return v
+
+    def column_of(self, v: "CVal") -> Optional[str]:
+        """The input column ``v`` is a plain read of (same type), or None."""
+        return self._reads.get(v.expr) if isinstance(v, CVal) else None
 
     def aux_table(self, step: int, slot: str, dtype: torch.dtype) -> "CAux":
         self.aux.append((step, slot, dtype))
@@ -418,6 +427,17 @@ class CudaOps:
                 f"[ab_clamp_idx((long long){codes.expr}, in.aux_len[{lut.index}])]")
         return self.trace.bind(expr, lut.dtype, codes.rank)
 
+    def extract_field(self, days, field: str):
+        """K14's body (csrc/civil.cuh) inline in the generated row."""
+        from ..ops.kernels import EXTRACT_FIELDS
+
+        if not isinstance(days, CVal) or days.dtype != torch.int32:
+            raise CodegenError("no generated code for EXTRACT outside an int32 day column")
+        if field not in EXTRACT_FIELDS:
+            raise CodegenError(f"no generated code for EXTRACT({field})")
+        return self.trace.bind(f"ab_civil_field({days.expr}, {EXTRACT_FIELDS[field]})",
+                               torch.int32, days.rank)
+
     def upload(self, v: np.ndarray):
         return self._device.upload(v)
 
@@ -479,11 +499,12 @@ def _word(v: CVal) -> str:
     raise CodegenError(f"no dense aggregation word for {v.dtype}")
 
 
-def render(trace: Trace, label: str, outputs: Sequence[Tuple[str, CVal]], mask: CVal,
-           keys: Optional[Sequence[CVal]] = None,
+def render(trace: Trace, label: str, outputs: Sequence[Tuple[str, CVal]],
+           mask: Optional[CVal], keys: Optional[Sequence[CVal]] = None,
            vals: Optional[Sequence[Tuple[CVal, str]]] = None) -> GeneratedChain:
-    """The source of one chain: ``rows`` writes ``outputs`` and the mask;
-    with ``keys`` and ``vals`` also ``keys_words`` for K13's dense form."""
+    """The source of one chain: ``rows`` writes ``outputs`` and, unless
+    ``mask`` is None, the mask; with ``keys`` and ``vals`` also
+    ``keys_words`` for K13's dense form."""
     if len(trace.inputs) > MAX_IN or len(outputs) > MAX_OUT or len(trace.aux) > MAX_AUX:
         raise CodegenError(f"chain exceeds the generated kernel's {MAX_IN} inputs, "
                            f"{MAX_OUT} outputs or {MAX_AUX} lookup tables")
@@ -492,7 +513,8 @@ def render(trace: Trace, label: str, outputs: Sequence[Tuple[str, CVal]], mask: 
     rows += body
     for k, (_name, v) in enumerate(outputs):
         rows.append(f"    (({C_TYPES[v.dtype]}*)out.col[{k}])[i] = {v.expr};")
-    rows.append(f"    out.mask[i] = {mask.expr};")
+    if mask is not None:
+        rows.append(f"    out.mask[i] = {mask.expr};")
     rows.append("  }")
     parts = [f"// generated by arrow_ballista_tpu_torch/compile/codegen.py: {label}",
              '#include "fused_rows.cuh"', "", "struct AbRow {", *rows]

@@ -94,6 +94,8 @@ def _op_verdict(policy: CompilePolicy, node) -> Tuple[bool, Optional[str]]:
         if node.clustered is not None:
             return False, ("clustered aggregate (early-HAVING + runtime "
                            "disorder detection run interpreted)")
+        if node._passthrough:
+            return False, "adaptive passthrough latched (per-row states)"
         all_exprs = [e for e, _ in node.group_exprs] + [a.operand for a in node.aggs]
         if has_scalar_subquery(*all_exprs):
             return False, ("scalar subquery in aggregate (job-specific "

@@ -20,7 +20,17 @@ the same closures over TorchOps, then the K1, K2, K4 and K8 twins.  A
 wrapper takes its twin only for tensors on the CPU; on the card it
 launches the generated kernel, and a build or launch error raises.  Unlike
 the reference, no error latches the interpreted chain: the port's fused
-stage never falls back (its ``fused_fallbacks`` metric stays 0).
+stage never falls back on an error (its ``fused_fallbacks`` metric stays
+0).  Two things hand a partition to the interpreted chain, as in the
+reference: the adaptive passthrough probe, which latches the aggregate's
+per-row states and the stage's interpreted path for sibling tasks
+(``fused_passthrough_fallbacks``), and a memory-governor denial, which
+delegates that one partition to the interpreted aggregate's spill path
+(``fused_spill_delegations``).
+
+K15 ``passthrough_rows`` lives here too: the per-row partial states of a
+latched aggregate (``ops/operators.py`` ``passthrough_states``), traced
+over ``CudaOps`` into a K12-form kernel generated per aggregate.
 
 Plan-shape contract: ``ops[0]`` is the chain head (closest to the shuffle
 writer), ``ops[-1]`` the tail, and the ops keep their ``.input`` links, so
@@ -31,6 +41,7 @@ operator.
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -41,16 +52,13 @@ from ..ops import _cuda
 from ..ops import kernels as K
 from ..ops.expressions import TorchOps
 from ..ops.operators import (FilterExec, HashAggregateExec, ProjectionExec, RenameExec,
-                             _full_column, agg_inputs)
-from ..ops.physical import ExecutionPlan, TaskContext, schema_sig, shared_program
+                             _full_column, _state_bytes, agg_inputs, passthrough_states,
+                             poor_reduction)
+from ..ops.physical import (ExecutionPlan, TaskContext, deferred_count, schema_sig,
+                            shared_program)
 from ..utils.errors import CapacityError, InternalError
 from . import codegen as G
 from .chains import chain_fingerprint
-
-# the reference's adaptive-passthrough trigger (fused.py:357-384): at least
-# this many input rows reduced by less than PASSTHROUGH_RATIO
-PASSTHROUGH_MIN_ROWS = 1 << 17
-PASSTHROUGH_RATIO = 0.6
 
 
 def _row_step(op: ExecutionPlan, scalars, device, xp=None):
@@ -128,7 +136,133 @@ def codegen_doubt(node: ExecutionPlan) -> Optional[str]:
     return None
 
 
-class FusedProgram:
+def generate_passthrough(agg: HashAggregateExec, ctx: TaskContext):
+    """Trace an aggregate's per-row states into K15's source -> (chain,
+    aliases).  A state or key that is a plain read of an input column of
+    its own type (a key, the sum of a non-null column of the state's type)
+    is that column: ``aliases`` maps its name to the column, and the kernel
+    writes only the states it must compute (casts, NULL sentinels, count
+    0/1 columns), in K12's form without the mask."""
+    def trace_states(names=None):
+        trace = G.Trace()
+        xp = G.CudaOps(trace, ctx.device)
+        pt = agg._build_passthrough(ctx, agg.input.schema, xp=xp)
+        cols = G.InputColumns(trace, agg.input.schema)
+        mask = G.CVal(trace, "in.mask[i]", torch.bool, 1)  # its shape only
+        return trace, passthrough_states(xp, pt, cols, mask, G.trace_aux(trace, 0, pt[0]),
+                                         names)
+
+    trace, states = trace_states()
+    aliases = {name: trace.column_of(v) for name, v in states if trace.column_of(v)}
+    trace, computed = trace_states([name for name, _v in states if name not in aliases])
+    return G.render(trace, f"passthrough {agg._label()}", computed, None), aliases
+
+
+class GeneratedProgram:
+    """What a generated kernel's launches share: the library of ``gen``'s
+    source and K12's launch form, counted under ``launch_name``."""
+
+    gen: G.GeneratedChain
+    launch_name: str
+
+    def library(self) -> ctypes.CDLL:
+        return _cuda.LIBRARIES.get_generated(self.gen.source)
+
+    def _fill_in(self, cols, mask, auxs):
+        gen = self.gen
+        keep = []
+        fin = _FusedIn()
+        for k, (name, dt) in enumerate(gen.inputs):
+            t = cols[name]
+            if t.dtype != dt or t.shape[0] != mask.shape[0]:
+                raise InternalError(f"fused input {name}: {t.dtype}{tuple(t.shape)}, the "
+                                    f"generated kernel reads {dt}[{mask.shape[0]}]")
+            t = t.contiguous()
+            keep.append(t)
+            fin.col[k] = t.data_ptr()
+        m = mask.contiguous()
+        keep.append(m)
+        fin.mask = m.data_ptr()
+        for k, (step, slot, dt) in enumerate(gen.aux):
+            t = auxs[step][slot]
+            if t.dtype != dt:
+                raise InternalError(f"fused lookup table {slot}: {t.dtype}, the generated "
+                                    f"kernel reads {dt}")
+            t = t.contiguous()
+            keep.append(t)
+            fin.aux[k] = t.data_ptr()
+            fin.aux_len[k] = t.shape[0]
+        K._require_cuda(mask, *keep)
+        return fin, keep
+
+    def launch_rows(self, cols, mask, auxs, with_mask: bool = True):
+        """K12's form: fresh output columns and (``with_mask``) mask."""
+        n = mask.shape[0]
+        dev = mask.device
+        outs = [torch.empty(n, dtype=dt, device=dev) for _name, dt in self.gen.outputs]
+        omask = torch.empty(n, dtype=torch.bool, device=dev) if with_mask else None
+        if n == 0:
+            return outs, omask
+        fin, keep = self._fill_in(cols, mask, auxs)
+        fout = _FusedOut()
+        for k, t in enumerate(outs):
+            fout.col[k] = t.data_ptr()
+        fout.mask = omask.data_ptr() if with_mask else None
+        err = self.library().ab_fused_rows(ctypes.byref(fin), ctypes.byref(fout), n,
+                                           K._stream(dev))
+        _cuda.check(err, f"fused_rows ({self.launch_name})")
+        K.count_launch(self.launch_name)
+        return outs, omask
+
+
+class PassthroughProgram(GeneratedProgram):
+    """K15 for one aggregate: the per-row state closures (the twin) and,
+    traced at the first call on the card, the generated source and the
+    states that alias an input column."""
+
+    launch_name = "passthrough_rows"
+
+    def __init__(self, agg: HashAggregateExec, ctx: TaskContext):
+        self.agg = agg
+        self._ctx = ctx
+        self.compiled = agg._build_passthrough(ctx, agg.input.schema)
+        self.names = [n for _c, n in self.compiled[1]] + [it[2] for it in self.compiled[2]]
+        self._gen: Optional[G.GeneratedChain] = None
+        self._aliases: Dict[str, str] = {}
+
+    @property
+    def gen(self) -> G.GeneratedChain:
+        if self._gen is None:
+            self._gen, self._aliases = generate_passthrough(self.agg, self._ctx)
+        return self._gen
+
+    @property
+    def aliases(self) -> Dict[str, str]:
+        """State name -> the input column it is (none computed)."""
+        _ = self.gen
+        return self._aliases
+
+
+def passthrough_rows_plain(program: PassthroughProgram, cols, mask, aux):
+    """K15's twin: the per-row states over TorchOps -> {name: column}."""
+    return dict(passthrough_states(TorchOps(mask.device), program.compiled, cols, mask, aux))
+
+
+def passthrough_rows(program: PassthroughProgram, cols, mask, aux):
+    """K15: the per-row partial states -> {name: column}.  A state that is
+    an input column is that column, as in the twin; one generated pass
+    writes the rest, and none runs when nothing is left to compute."""
+    if K._is_cpu(mask):
+        return passthrough_rows_plain(program, cols, mask, aux)
+    written = {}
+    if program.gen.outputs:
+        outs, _ = program.launch_rows(cols, mask, [aux], with_mask=False)
+        written = {name: t for (name, _dt), t in zip(program.gen.outputs, outs)}
+    return {name: written[name] if name in written else cols[program.aliases[name]]
+            for name in program.names}
+
+
+class FusedProgram(GeneratedProgram):
     """One fused chain built for one device: the interpreted steps (the
     twin) and the generated source of its kernel."""
 
@@ -162,55 +296,6 @@ class FusedProgram:
         return cols, mask
 
     # --- the generated kernel --------------------------------------------
-    def library(self) -> ctypes.CDLL:
-        return _cuda.LIBRARIES.get_generated(self.gen.source)
-
-    def _fill_in(self, cols, mask, auxs):
-        gen = self.gen
-        keep = []
-        fin = _FusedIn()
-        for k, (name, dt) in enumerate(gen.inputs):
-            t = cols[name]
-            if t.dtype != dt or t.shape[0] != mask.shape[0]:
-                raise InternalError(f"fused input {name}: {t.dtype}{tuple(t.shape)}, the "
-                                    f"generated kernel reads {dt}[{mask.shape[0]}]")
-            t = t.contiguous()
-            keep.append(t)
-            fin.col[k] = t.data_ptr()
-        m = mask.contiguous()
-        keep.append(m)
-        fin.mask = m.data_ptr()
-        for k, (step, slot, dt) in enumerate(gen.aux):
-            t = auxs[step][slot]
-            if t.dtype != dt:
-                raise InternalError(f"fused lookup table {slot}: {t.dtype}, the generated "
-                                    f"kernel reads {dt}")
-            t = t.contiguous()
-            keep.append(t)
-            fin.aux[k] = t.data_ptr()
-            fin.aux_len[k] = t.shape[0]
-        K._require_cuda(mask, *keep)
-        return fin, keep
-
-    def launch_rows(self, cols, mask, auxs):
-        """K12's form: fresh output columns and mask."""
-        n = mask.shape[0]
-        dev = mask.device
-        outs = [torch.empty(n, dtype=dt, device=dev) for _name, dt in self.gen.outputs]
-        omask = torch.empty(n, dtype=torch.bool, device=dev)
-        if n == 0:
-            return outs, omask
-        fin, keep = self._fill_in(cols, mask, auxs)
-        fout = _FusedOut()
-        for k, t in enumerate(outs):
-            fout.col[k] = t.data_ptr()
-        fout.mask = omask.data_ptr()
-        err = self.library().ab_fused_rows(ctypes.byref(fin), ctypes.byref(fout), n,
-                                           K._stream(dev))
-        _cuda.check(err, f"fused_rows ({self.launch_name})")
-        K.count_launch(self.launch_name)
-        return outs, omask
-
     def launch_dense(self, cols, mask, auxs, key_ranges, domain):
         """K13's dense form: K1's slot-aligned states straight from the
         generated row function."""
@@ -328,6 +413,9 @@ class FusedStageExec(ExecutionPlan):
         self.ops = list(ops)
         self._schema = ops[0].schema
         self._program: Optional[FusedProgram] = None
+        # latched by the adaptive passthrough probe: later partitions run
+        # the interpreted chain, whose aggregate emits per-row states
+        self._fallback = False
 
     # --- plan-shape interface (single-input operator) --------------------
     @property
@@ -361,6 +449,8 @@ class FusedStageExec(ExecutionPlan):
     # --- execution -------------------------------------------------------
     def execute(self, partition: int, ctx: TaskContext) -> List[ColumnBatch]:
         with ctx.op_span(self):
+            if self._fallback:
+                return self.ops[0].execute(partition, ctx)
             prog = self.program(ctx)
             if prog.agg is not None:
                 return self._execute_agg(prog, partition, ctx)
@@ -383,6 +473,26 @@ class FusedStageExec(ExecutionPlan):
         agg = prog.agg
         batches = self.input.execute(partition, ctx)
         ctx.check_cancelled()
+        # memory governor: the interpreted aggregate's reserve-before-
+        # materialize protocol.  A denial delegates this partition to the
+        # interpreted chain, whose aggregate is denied again and spills,
+        # without latching: the next partition may be granted and fuse.
+        gov = ctx.governor
+        reservation = None
+        if gov is not None:
+            reservation = gov.try_reserve(_state_bytes(batches, self.input.schema, agg.schema),
+                                          site="fused-agg")
+            if reservation is None:
+                self.metrics().add("fused_spill_delegations", 1)
+                return self.ops[0].execute(partition, ctx)
+        try:
+            return self._execute_agg_inmem(prog, ctx, batches)
+        finally:
+            if reservation is not None:
+                reservation.release()
+
+    def _execute_agg_inmem(self, prog: FusedProgram, ctx: TaskContext, batches):
+        agg = prog.agg
         big = concat_batches(self.input.schema, batches, device=ctx.device).shrink()
         comp_a, group_c, agg_c, tracked = prog.agg_compiled
         with self.metrics().timer("agg_time"):
@@ -400,12 +510,32 @@ class FusedStageExec(ExecutionPlan):
                 raise CapacityError(f"fused aggregation overflowed {out_cap} groups with "
                                     f"{big.capacity}-row input; this should be impossible")
         result = agg._result_batch(out_keys, out_vals, out_mask, dicts_in, prog.agg_compiled)
-        # the reference's adaptive-passthrough probe: a large input that the
-        # partial barely reduces would latch per-row states there (row 12c,
-        # not ported: no path of the port meets the trigger); counted here
-        inp = big.num_rows
-        if inp >= PASSTHROUGH_MIN_ROWS and result.num_rows > PASSTHROUGH_RATIO * inp:
-            self.metrics().add("passthrough_triggers", 1)
+        # the adaptive passthrough probe (the interpreted aggregate's
+        # thresholds), deferred to the task's metrics snapshot: poor
+        # reduction on a large input latches both the aggregate's per-row
+        # states and this stage's interpreted path, so sibling tasks emit
+        # per-row states (K15).  The latch goes on this stage's own
+        # aggregate: the program, and its ``agg``, are shared across jobs.
+        out_count = deferred_count(result)
+        self_ref, agg_ref = weakref.ref(self), weakref.ref(self.ops[0])
+        inp_rows, inp_cap = big._num_rows, big.capacity
+
+        def _finish():
+            rn = out_count()
+            if not rn:
+                return rn
+            if poor_reduction(inp_rows, inp_cap, rn):
+                me, ag = self_ref(), agg_ref()
+                if me is not None and ag is not None:
+                    ag._passthrough = True
+                    me._fallback = True
+                    me.metrics().add("fused_passthrough_fallbacks", 1)
+            return rn
+
+        if result._num_rows is not None:
+            self.metrics().add("output_rows", _finish())
+        else:
+            self.metrics().add_deferred("output_rows", _finish)
         return [result]
 
     def _label(self):

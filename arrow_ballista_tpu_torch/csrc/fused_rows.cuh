@@ -32,6 +32,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "civil.cuh"  // EXTRACT (K14's row function)
+
 #ifdef __CUDACC__
 #define AB_HD __host__ __device__ __forceinline__
 #else

@@ -4,9 +4,9 @@ their status.
 Mirrors arrow_ballista_tpu/executor/executor.py: a ThreadPoolExecutor of
 ``concurrent_tasks`` slots, cooperative job and task cancellation, and the
 mapping of a task's outcome onto the failure taxonomy.  Every task of an
-executor runs on its device's current stream.  The memory governor and
-the fault-injection points are still to be ported (ROADMAP.md queue 1
-item 11).
+executor runs on its device's current stream.  Its memory governor is
+shared by its task slots; the fault-injection points are still to be
+ported (ROADMAP.md queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..memory import MemoryGovernor
 from ..ops.physical import TaskContext
 from ..scheduler.types import (
     EXECUTION_ERROR,
@@ -64,6 +65,10 @@ class Executor:
         self.config = config or BallistaConfig()
         self.engine = engine or DefaultExecutionEngine()
         self.device = torch.device("cuda" if device is None else device)
+        # memory governor: operators holding unbounded state (join builds,
+        # aggregation groups) reserve before materializing and spill on a
+        # denial; one per executor, shared by its task slots
+        self.governor = MemoryGovernor.from_config(self.config)
         self.pool = ThreadPoolExecutor(max_workers=concurrent_tasks,
                                        thread_name_prefix=f"task-{metadata.executor_id}")
         # job-level and single-attempt cancel flags (threads cannot be
@@ -89,7 +94,8 @@ class Executor:
                               scalars=dict(task.scalars), work_dir=self.work_dir,
                               job_id=tid.job_id, stage_id=tid.stage_id,
                               executor_id=self.metadata.executor_id,
-                              cancelled=lambda: self._is_cancelled(tid))
+                              cancelled=lambda: self._is_cancelled(tid),
+                              governor=self.governor)
             start_ms = int(time.time() * 1000)
             writes = stage_exec.execute_query_stage(tid.partition, ctx)
             end_ms = int(time.time() * 1000)
@@ -108,6 +114,8 @@ class Executor:
                                                    map_partition_id=e.map_partition_id,
                                                    executor_id=e.executor_id))
         except (MemoryExhausted, ResourceExhausted) as e:
+            # a denial the operator could not degrade to spill (spill
+            # disabled): retryable back-pressure, not a task fault
             return TaskStatus(tid, self.metadata.executor_id, "failed",
                               failure=FailedReason(RESOURCE_EXHAUSTED, str(e)))
         except (OSError, IOError_) as e:

@@ -123,6 +123,26 @@ class ColumnBatch:
         self.mask = mask
         self.dicts = dicts or {}
         self._num_rows = num_rows  # computed on first use if None
+        self._count_sinks: Optional[list] = None  # see on_count
+
+    def on_count(self, sink) -> None:
+        """Call ``sink(n)`` once the live-row count is host-known (now, if
+        it is).  The deferred metrics read counts this way: the batch holds
+        the sink, the sink does not hold the batch, so a count that a
+        downstream operator makes known reaches the metrics even after the
+        batch is gone, and no device buffer is pinned."""
+        if self._num_rows is not None:
+            sink(self._num_rows)
+        elif self._count_sinks is None:
+            self._count_sinks = [sink]
+        else:
+            self._count_sinks.append(sink)
+
+    def _known(self, n: int) -> None:
+        self._num_rows = n
+        sinks, self._count_sinks = self._count_sinks, None
+        for sink in sinks or ():
+            sink(n)
 
     # --- construction ---------------------------------------------------
     @staticmethod
@@ -190,7 +210,7 @@ class ColumnBatch:
     @property
     def num_rows(self) -> int:
         if self._num_rows is None:
-            self._num_rows = int(self.mask.sum())
+            self._known(int(self.mask.sum()))
         return self._num_rows
 
     def shrink(self) -> "ColumnBatch":
@@ -248,7 +268,7 @@ class ColumnBatch:
             if out is not None:
                 break
             target = min(round_capacity(n), cap)
-        self._num_rows = n
+        self._known(n)
         return out, n
 
     def compacted_numpy(self, hint: Optional[int] = None) -> Dict[str, np.ndarray]:

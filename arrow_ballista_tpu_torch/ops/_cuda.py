@@ -11,7 +11,8 @@ The libraries are bound with ``ctypes``: every pointer and the stream go
 as ``c_void_p`` and every C function returns a ``cudaError_t`` that the
 wrapper in ``ops/kernels.py`` checks (``check``).
 
-Generated sources (K12 and K13, one per fused chain, compile/codegen.py)
+Generated sources (K12 and K13, one per fused chain, and K15, one per
+passthrough aggregate; compile/codegen.py)
 build the same way at first use, by source: the ``.cu`` is written into
 ``_build/`` under the hash of the source, the headers and the flags, and
 built once per hash — under a per-hash lock, renamed into place when
@@ -50,6 +51,7 @@ SIGNATURES = {
     "hash": {
         "ab_hash64": ([_P, _P, _I, _LL, _I, _P, _P], _I),
         "ab_bucket_of": ([_P, _P, _I, _LL, _I, _I, _P, _P], _I),
+        "ab_spill_partition": ([_P, _P, _I, _LL, _I, _I, _P, _P], _I),
     },
     "compact": {
         "ab_compact_tile": ([], _I),
@@ -81,6 +83,9 @@ SIGNATURES = {
         "ab_presorted_disorder": ([_P, _I, _P, _LL, _P, _P], _I),
         "ab_key_range_check": ([_P, _I, _P, _LL, _I, _LL, _LL, _LL, _P, _P], _I),
         "ab_clustered_keep": ([_P, _I, _P, _P, _LL, _P, _P, _I, _P, _P, _P], _I),
+    },
+    "extract": {
+        "ab_extract_field": ([_P, _LL, _I, _P, _P], _I),
     },
 }
 

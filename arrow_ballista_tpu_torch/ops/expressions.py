@@ -57,6 +57,23 @@ class NumpyOps:
         """Lookup-table gather; a code below 0 reads entry 0."""
         return lut[np.clip(codes, 0, None)]
 
+    @staticmethod
+    def extract_field(days, field: str):
+        """EXTRACT on the host: the reference's civil_from_days over numpy."""
+        z = np.asarray(days).astype(np.int64) + 719468
+        era = np.floor_divide(z, 146097)
+        doe = z - era * 146097
+        yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
+        doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
+        mp = (5 * doy + 2) // 153
+        d = doy - (153 * mp + 2) // 5 + 1
+        m = mp + np.where(mp < 10, 3, -9)
+        y = yoe + era * 400 + (m <= 2)
+        parts = {"year": y, "month": m, "day": d}
+        if field not in parts:
+            raise ValueError(f"unsupported EXTRACT field {field}")
+        return parts[field].astype(np.int32)
+
 
 class TorchOps:
     """Device-mode array namespace: torch tensors on one device.  Host
@@ -104,6 +121,13 @@ class TorchOps:
 
     def astype(self, x, dtype):
         return x.to(self._dtype(dtype))
+
+    @staticmethod
+    def extract_field(days, field: str):
+        """EXTRACT(field FROM days): K14 on the card, its twin on the CPU."""
+        from . import kernels as K
+
+        return K.extract_field(days, field)
 
     @staticmethod
     def take(lut, codes):
@@ -570,9 +594,8 @@ class ExprCompiler:
             oc = self._c(e.operand)
             if oc.dtype.kind != "date32":
                 raise PlanningError("EXTRACT requires a date operand")
-            raise NotImplementedError(
-                f"EXTRACT({e.field}) is not ported yet (civil_from_days / "
-                "extract_field, ROADMAP.md queue 2 item 9)")
+            field = e.field
+            return Compiled(lambda c, a: xp.extract_field(oc.fn(c, a), field), INT32)
 
         if isinstance(e, E.Udf):
             from ..udf import GLOBAL_UDFS

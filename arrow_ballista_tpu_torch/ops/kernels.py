@@ -1,6 +1,7 @@
-"""Device kernels of the port: eleven hand-written CUDA kernels, each beside
-its plain PyTorch twin (K12 and K13, the kernels generated per fused chain,
-live in compile/fused.py and count their launches here).
+"""Device kernels of the port: thirteen hand-written CUDA kernels, each
+beside its plain PyTorch twin (K12 and K13, the kernels generated per fused
+chain, and K15, generated per passthrough aggregate, live in
+compile/fused.py and count their launches here).
 
 | kernel | source | replaces (arrow_ballista_tpu/ops/kernels.py) |
 | --- | --- | --- |
@@ -15,6 +16,8 @@ live in compile/fused.py and count their launches here).
 | K9 ``presorted_disorder`` | ``csrc/clustered.cu`` | ``grouped_aggregate_presorted`` l.237 |
 | K10 ``key_range_check`` | ``csrc/clustered.cu`` | operators.py:632-654 "sort.range_check" |
 | K11 ``clustered_keep`` | ``csrc/clustered.cu`` | operators.py:672-697 "agg.clustered_keep" |
+| K14 ``extract_field`` | ``csrc/extract.cu`` + ``civil.cuh`` | ``extract_field`` l.800, ``civil_from_days`` l.782 |
+| K16 ``spill_partition`` | ``csrc/hash.cu`` | operators.py:1512 "join.spill_part" |
 
 A wrapper takes the twin only for a tensor that lies on the CPU (the
 tests); for a CUDA tensor it launches its kernel or raises.  ``LAUNCHES``
@@ -46,7 +49,9 @@ LAUNCHES: Dict[str, int] = {"dense_group_states": 0, "compaction_order": 0,
                             "hash64": 0, "sort_order": 0, "build_side_sort": 0,
                             "probe_join": 0, "segment_any": 0, "grouped_on_order": 0,
                             "presorted_disorder": 0, "key_range_check": 0,
-                            "clustered_keep": 0, "fused_rows": 0, "fused_agg": 0}
+                            "clustered_keep": 0, "fused_rows": 0, "fused_agg": 0,
+                            "extract_field": 0, "passthrough_rows": 0,
+                            "spill_partition": 0}
 # the standalone engine launches from several task threads at once
 _LAUNCH_LOCK = threading.Lock()
 
@@ -214,6 +219,43 @@ def bucket_of(key_arrays: Sequence[torch.Tensor], num_buckets: int) -> torch.Ten
     if _is_cpu(key_arrays[0]):
         return bucket_of_plain(key_arrays, num_buckets)
     return _hash_launch(key_arrays, num_buckets)
+
+
+# --------------------------------------------------------------------------
+# K16: the spilled join's build partitions
+# --------------------------------------------------------------------------
+
+
+def _spill_bits(num_parts: int) -> int:
+    if num_parts < 2 or num_parts & (num_parts - 1) or num_parts > (1 << 30):
+        raise ValueError(f"spill partitions must be a power of two >= 2, got {num_parts}")
+    return (num_parts - 1).bit_length()
+
+
+def spill_partition_plain(key_arrays: Sequence[torch.Tensor], num_parts: int) -> torch.Tensor:
+    """Plain twin of K16: the top bits of hash64, as int32."""
+    bits = _spill_bits(num_parts)
+    return (_shr(hash64_plain(key_arrays), 64 - bits) & (num_parts - 1)).to(torch.int32)
+
+
+def spill_partition(key_arrays: Sequence[torch.Tensor], num_parts: int) -> torch.Tensor:
+    """Build partition (int32 in [0, num_parts)) of each row: the top
+    log2(num_parts) bits of the rows' hash64."""
+    if _is_cpu(key_arrays[0]):
+        return spill_partition_plain(key_arrays, num_parts)
+    bits = _spill_bits(num_parts)
+    _require_cuda(*key_arrays)
+    cols, ptrs, kinds = _hash_columns(key_arrays)
+    n = cols[0].shape[0]
+    dev = cols[0].device
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    lib = _cuda.LIBRARIES.get("hash")
+    _cuda.check(lib.ab_spill_partition(ptrs, kinds, len(cols), n, int(force_hash_collisions()),
+                                       bits, _ptr(out), _stream(dev)), "spill_partition")
+    count_launch("spill_partition")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1063,3 +1105,61 @@ def segment_any(values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) 
                 "segment_any")
     count_launch("segment_any")
     return hit
+
+
+# --------------------------------------------------------------------------
+# K14: EXTRACT (civil from days)
+# --------------------------------------------------------------------------
+
+EXTRACT_FIELDS = {"year": 0, "month": 1, "day": 2}  # csrc/civil.cuh AB_EXTRACT_*
+
+
+def _field_code(field: str) -> int:
+    code = EXTRACT_FIELDS.get(field)
+    if code is None:
+        raise ValueError(f"unsupported EXTRACT field {field}")
+    return code
+
+
+def civil_from_days_plain(days: torch.Tensor):
+    """Epoch days -> (year, month, day) as int32, Howard Hinnant's integer
+    algorithm as the reference writes it; the era floors (a NULL date, the
+    int32 minimum, has a negative z)."""
+    z = days.to(torch.int64) + 719468
+    era = torch.div(z, 146097, rounding_mode="floor")
+    doe = z - era * 146097
+    yoe = torch.div(doe - torch.div(doe, 1460, rounding_mode="floor")
+                    + torch.div(doe, 36524, rounding_mode="floor")
+                    - torch.div(doe, 146096, rounding_mode="floor"), 365, rounding_mode="floor")
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + torch.div(yoe, 4, rounding_mode="floor")
+                 - torch.div(yoe, 100, rounding_mode="floor"))
+    mp = torch.div(5 * doy + 2, 153, rounding_mode="floor")
+    d = doy - torch.div(153 * mp + 2, 5, rounding_mode="floor") + 1
+    m = mp + torch.where(mp < 10, 3, -9)
+    y = y + (m <= 2).to(torch.int64)
+    return y.to(torch.int32), m.to(torch.int32), d.to(torch.int32)
+
+
+def extract_field_plain(days: torch.Tensor, field: str) -> torch.Tensor:
+    """Plain twin of K14."""
+    return civil_from_days_plain(days)[_field_code(field)]
+
+
+def extract_field(days: torch.Tensor, field: str) -> torch.Tensor:
+    """EXTRACT(field FROM date32 days) -> int32, same shape."""
+    if _is_cpu(days):
+        return extract_field_plain(days, field)
+    code = _field_code(field)
+    _require_cuda(days)
+    if days.dtype != torch.int32:
+        raise TypeError(f"extract_field takes int32 epoch days, got {days.dtype}")
+    d = days.reshape(-1).contiguous()
+    out = torch.empty(d.shape[0], dtype=torch.int32, device=d.device)
+    if d.shape[0] == 0:
+        return out.reshape(days.shape)
+    lib = _cuda.LIBRARIES.get("extract")
+    _cuda.check(lib.ab_extract_field(_ptr(d), d.shape[0], code, _ptr(out), _stream(d.device)),
+                "extract_field")
+    count_launch("extract_field")
+    return out.reshape(days.shape)

@@ -7,8 +7,12 @@ fixed-capacity batches with liveness masks.  The grouped aggregate runs K1
 presorted path) on a key-clustered parquet scan, with K10 and K11 for the
 early HAVING, and K4 + K8 (the sort path) otherwise; the join K3 + K5
 (build), K3 + K6 (probe) and K7 (semi/anti/outer verdicts); the sort K4;
-compaction K2.  The spilled join build needs the memory governor, which is
-not ported (ROADMAP.md queue 1 item 11).
+compaction K2.  A partial aggregate that barely reduces a large input
+latches the adaptive passthrough: sibling tasks emit per-row states through
+K15, a kernel generated per aggregate (compile/fused.py).  Under the memory
+governor (memory/) an aggregate or a partitioned inner/semi/anti join whose
+reservation is denied spills to Arrow IPC runs on disk; the spilled join
+splits its build side by K16's hash partitions.
 """
 from __future__ import annotations
 
@@ -29,8 +33,8 @@ from ..utils.errors import CapacityError, InternalError
 from . import kernels as K
 from .kernels import to_host
 from .expressions import Compiled, ExprCompiler
-from .physical import (ExecutionPlan, Partitioning, TaskContext, exprs_sig,
-                       has_scalar_subquery, schema_sig, shared_program)
+from .physical import (ExecutionPlan, Partitioning, TaskContext, deferred_count, deferred_rows,
+                       exprs_sig, has_scalar_subquery, schema_sig, shared_program)
 
 
 # job-keyed weakref registry of join operators holding a materialized
@@ -313,6 +317,42 @@ class FilterExec(ExecutionPlan):
 # --------------------------------------------------------------------------
 
 
+class _SchemaSource:
+    """Schema-only plan stub for ephemeral operators (the spill-merge
+    aggregation) whose input is never executed."""
+
+    def __init__(self, schema: Schema):
+        self.schema = schema
+
+    def output_partition_count(self):
+        return 1
+
+
+def _state_bytes(batches, *schemas: Schema) -> int:
+    """Reservation estimate for materializing ``batches`` plus the derived
+    state the given schemas describe: total capacity x physical row width
+    (4 bytes is the per-column floor, +1 for the mask), as the reference
+    counts it."""
+    cap = sum(b.capacity for b in batches)
+    width = sum(1 + sum(max(f.dtype.np_dtype.itemsize, 4) for f in s) for s in schemas)
+    return cap * width
+
+
+# the adaptive passthrough trigger (reference operators.py:990-1013): a
+# partial aggregate whose result keeps more than PASSTHROUGH_RATIO of at
+# least PASSTHROUGH_MIN_ROWS input rows latches per-row states
+PASSTHROUGH_MIN_ROWS = 1 << 17
+PASSTHROUGH_RATIO = 0.6
+
+
+def poor_reduction(in_rows: Optional[int], in_capacity: int, out_rows: int) -> bool:
+    """The passthrough trigger.  An unknown input count is bounded by the
+    input capacity, so out_rows > 0.6 x capacity still certifies it."""
+    if in_rows is not None:
+        return in_rows >= PASSTHROUGH_MIN_ROWS and out_rows > PASSTHROUGH_RATIO * in_rows
+    return in_capacity >= PASSTHROUGH_MIN_ROWS and out_rows > PASSTHROUGH_RATIO * in_capacity
+
+
 @dataclasses.dataclass
 class AggSpec:
     func: str  # sum | count | min | max
@@ -332,7 +372,12 @@ class HashAggregateExec(ExecutionPlan):
     _clustered_having_pushdown): (HAVING predicate or None, overlap
     intervals, the declared (min, max) key range of each partition).  Such
     a partial groups without a sort, and with a predicate applies the
-    HAVING in the task to every key outside the intervals."""
+    HAVING in the task to every key outside the intervals.
+
+    ``_passthrough`` latches when a task of a partial aggregate finds poor
+    reduction on a large input (the deferred probe, resolved at the
+    metrics snapshot after the task): sibling tasks then emit per-row
+    states (K15), which the final aggregate merges to the same result."""
 
     MERGE = {"sum": "sum", "count": "sum", "min": "min", "max": "max"}
 
@@ -356,6 +401,9 @@ class HashAggregateExec(ExecutionPlan):
         self._no_presort = False  # latched when the input turns out unordered
         self._stale_ranges = False  # latched when the declared ranges are wrong
         self._cl_compiled = None
+        self._passthrough = False  # latched by the adaptive passthrough probe
+        self._pt_program = None
+        self._merge = None
 
     def _agg_nullable(self, a: AggSpec, in_schema: Schema) -> bool:
         """SQL: sum/min/max yield NULL for an all-NULL group (nullable
@@ -396,10 +444,39 @@ class HashAggregateExec(ExecutionPlan):
         ctx.check_cancelled()
         in_schema = self.input.schema
         batches = self.input.execute(partition, ctx)
-        big = concat_batches(in_schema, batches, device=ctx.device).shrink()
+        # memory governor: reserve the concatenated input and group-state
+        # footprint before materializing it; a denial takes the spill path
+        # (per-batch partial runs on disk, merged by one final-mode pass).
+        # The clustered and passthrough paths are exempt, as in the
+        # reference: the early filter must see the whole partition, and
+        # per-row states hold no groups.
+        gov = ctx.governor
+        reservation = None
+        if gov is not None and self.clustered is None and not self._passthrough:
+            reservation = gov.try_reserve(_state_bytes(batches, in_schema, self._schema),
+                                          site=f"agg:{self.mode}")
+            if reservation is None:
+                return self._execute_spilled(ctx, batches, in_schema)
+        try:
+            return self._execute_inmem(partition, ctx, batches, in_schema)
+        finally:
+            if reservation is not None:
+                reservation.release()
+
+    def _ensure_compiled(self, ctx, in_schema):
         with self.build_lock():
             if self._compiled is None:
                 self._compiled = self._make_compiled(ctx, in_schema)
+
+    def _execute_inmem(self, partition: int, ctx: TaskContext, batches, in_schema):
+        big = concat_batches(in_schema, batches, device=ctx.device).shrink()
+        if self.mode == "partial" and self.group_exprs and self._passthrough \
+                and self.clustered is None:
+            # a sibling task found near-no reduction: aggregating before the
+            # shuffle buys nothing, so emit per-row states (any mix of
+            # aggregated and per-row partials merges to the same final)
+            return [self._execute_passthrough(ctx, big, in_schema)]
+        self._ensure_compiled(ctx, in_schema)
         out, disorder = self._execute_device(big, ctx.device)
         if self.mode != "partial" or self.clustered is None:
             return [out]
@@ -433,6 +510,83 @@ class HashAggregateExec(ExecutionPlan):
                 return [out]
             filtered = self._apply_clustered_filter(ctx, out, None, None)
         return [filtered]
+
+    def _execute_spilled(self, ctx: TaskContext, batches, in_schema) -> List[ColumnBatch]:
+        """Reservation denied: bound the state to one input batch at a time.
+        Each batch is aggregated on its own, its result spills to disk as an
+        Arrow IPC run, and the runs are merged on read by ONE final-mode
+        pass (the MERGE functions are the partial-state merge, NULL
+        sentinels included).
+
+        Bit-identical to the in-memory path: groups come out in ascending
+        key order from both grouping paths, dictionaries are sorted
+        everywhere (the spill read included), and the decimal columns are
+        int64, so the partial merges are exact and associative."""
+        from ..memory.spill import Spiller
+
+        self._ensure_compiled(ctx, in_schema)
+        spiller = Spiller(ctx.work_dir, ctx.job_id, tag="agg")
+        try:
+            for b in batches:
+                ctx.check_cancelled()
+                out, _ = self._execute_device(b, ctx.device)
+                spiller.write_batch(out)
+            self.metrics().add("spill_runs", len(spiller.runs))
+            self.metrics().add("spill_bytes", sum(r.num_bytes for r in spiller.runs))
+            merged = concat_batches(self._schema, spiller.read(self._schema, device=ctx.device),
+                                    device=ctx.device).shrink()
+            mop = self._merge_op()
+            mop._ensure_compiled(ctx, self._schema)
+            out, _ = mop._execute_device(merged, ctx.device)
+            deferred_rows(self.metrics(), "output_rows", out)
+            return [out]
+        finally:
+            spiller.cleanup()
+
+    def _merge_op(self) -> "HashAggregateExec":
+        """Ephemeral final-mode aggregation over this operator's own output
+        schema: merging per-run states is the same computation for every
+        mode (sum of sums, min of mins; counts merge by summing)."""
+        with self.build_lock():
+            if self._merge is None:
+                self._merge = HashAggregateExec(
+                    _SchemaSource(self._schema),
+                    [(E.Column(n), n) for _, n in self.group_exprs], self.aggs, "final")
+            return self._merge
+
+    def _build_passthrough(self, ctx, in_schema, xp=None):
+        """(compiler, group closures, per-aggregate (closure, func, name,
+        NULL check, state dtype)) of the per-row states; ``xp`` (CudaOps)
+        traces them into K15's source."""
+        comp = ExprCompiler(in_schema, "device", ctx.device, xp=xp)
+        group_c = [(comp.compile(_substitute_scalars(e, ctx.scalars)), n)
+                   for e, n in self.group_exprs]
+        agg_items = []
+        for a in self.aggs:
+            cc = (comp.compile(_substitute_scalars(a.operand, ctx.scalars))
+                  if a.operand is not None else None)
+            agg_items.append((cc, a.func, a.name, null_check_of(cc, a.operand, in_schema),
+                              self._schema.field(a.name).dtype))
+        return comp, group_c, agg_items
+
+    def _execute_passthrough(self, ctx: TaskContext, big: ColumnBatch, in_schema) -> ColumnBatch:
+        """Per-row partial states of every live row (K15): the key columns,
+        and per aggregate the value (NULL as the state dtype's sentinel)
+        for sum/min/max, or 0/1 for count."""
+        from ..compile.fused import PassthroughProgram, passthrough_rows
+
+        with self.build_lock():
+            if self._pt_program is None:
+                self._pt_program = PassthroughProgram(self, ctx)
+        prog = self._pt_program
+        comp, group_c, _items = prog.compiled
+        with self.metrics().timer("agg_time"):
+            cols = passthrough_rows(prog, big.columns, big.mask, comp.aux_arrays(big.dicts))
+        dicts = {name: cc.dict_fn(big.dicts) for cc, name in group_c if cc.dict_fn is not None}
+        result = ColumnBatch(self._schema, cols, big.mask, dicts, num_rows=big._num_rows)
+        self.metrics().add("passthrough_partials", 1)
+        deferred_rows(self.metrics(), "output_rows", result)
+        return result
 
     def _presorted(self) -> bool:
         """A clustered single-key partial groups without sorting (its input
@@ -602,7 +756,36 @@ class HashAggregateExec(ExecutionPlan):
                 fill = f.dtype.null_sentinel if f.nullable else 0
                 data[a.name] = np.asarray([fill], dtype=f.dtype.np_dtype)
             result = ColumnBatch.from_numpy(self._schema, data, dicts={}, device=device)
+        self._probe_output(result, big)
         return result, disorder
+
+    def _probe_output(self, result: ColumnBatch, big: ColumnBatch) -> None:
+        """``output_rows`` and the adaptive passthrough probe, deferred: the
+        result's count is on the device here, and the downstream shuffle
+        writer's packed copy makes it host-known for free before the task's
+        metrics snapshot resolves the probe.  The counts are read through
+        ``ColumnBatch.on_count``, so the metrics never pin device buffers.
+
+        The reference reads the count through a weakref to the result,
+        which the shuffle writer has dropped by the time of the snapshot:
+        its probe resolves to 0 and never latches in the standalone engine
+        (ROADMAP.md queue 3).  Here the count outlives the batch."""
+        out_count, in_count = deferred_count(result), deferred_count(big)
+        inp_cap = big.capacity
+
+        def _finish():
+            rn = out_count()
+            if not rn:
+                return rn  # None: not host-known yet, stays queued
+            if self.mode == "partial" and self.group_exprs:
+                if poor_reduction(in_count() or None, inp_cap, rn):
+                    self._passthrough = True
+            return rn
+
+        if result._num_rows is not None:
+            self.metrics().add("output_rows", _finish())
+        else:
+            self.metrics().add_deferred("output_rows", _finish)
 
     def _result_batch(self, out_keys, out_vals, out_mask, dicts_in, compiled) -> ColumnBatch:
         """The output batch of grouped states: key dictionaries, and NULL
@@ -629,6 +812,37 @@ class HashAggregateExec(ExecutionPlan):
         g = ", ".join(n for _, n in self.group_exprs)
         a = ", ".join(f"{x.func}({x.name})" for x in self.aggs)
         return f"HashAggregateExec({self.mode}): groupBy=[{g}] aggr=[{a}]"
+
+
+def passthrough_states(xp, pt, cols, mask, aux, names=None):
+    """The per-row partial states of the reference's "agg.passthrough"
+    program (operators.py:745): [(name, column)] for every key and state
+    column, or only those in ``names``.  ``xp`` is TorchOps (K15's twin),
+    or the CudaOps that traces the same steps into K15's generated
+    source."""
+    _comp, group_c, agg_items = pt
+    n = mask.shape[0]
+    out = [(name, _full_column(c.fn(cols, aux), n)) for c, name in group_c
+           if names is None or name in names]
+    for cc, how, name, null_check, dt in agg_items:
+        if names is not None and name not in names:
+            continue
+        np_dt = dt.np_dtype
+        if cc is None or (how == "count" and null_check is None):
+            # count(*), or of a value that is never NULL: one per row
+            out.append((name, xp.full((n,), 1, dtype=np_dt)))
+            continue
+        v = _full_column(cc.fn(cols, aux), n)
+        valid = valid_of(v, null_check, xp) if null_check is not None else None
+        if how == "count":
+            out.append((name, xp.astype(valid, np_dt)))
+            continue
+        # sum / min / max: the state is the value, NULL its sentinel
+        v = xp.astype(v, np_dt)
+        if valid is not None:
+            v = xp.where(valid, v, xp.full((), _py_scalar(dt.null_sentinel), dtype=np_dt))
+        out.append((name, v))
+    return out
 
 
 def agg_inputs(xp, compiled, cols, mask, aux):
@@ -682,6 +896,10 @@ def _mask_or(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a | b
 
 
+def _mask_and(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a & b
+
+
 def window_counts(offsets: torch.Tensor, chunk_rows: int, n_windows: int) -> torch.Tensor:
     """Candidate pairs per probe window of ``chunk_rows`` rows, from K6's
     inclusive offsets at the window edges (no second reduction)."""
@@ -702,7 +920,13 @@ class JoinExec(ExecutionPlan):
     whole by every probe partition, materialized once per job).
 
     Hash collisions cannot corrupt results: real key equality is
-    re-verified on every candidate pair."""
+    re-verified on every candidate pair.
+
+    Under the memory governor a partitioned build reserves its footprint
+    first: inner, semi and anti joins spill on a denial (``_join_spilled``),
+    left and full joins take an over-budget grant."""
+
+    _SPILL_PARTS = 8
 
     def __init__(self, left: ExecutionPlan, right: ExecutionPlan,
                  on: List[Tuple[E.Expr, E.Expr]], join_type: str = "inner",
@@ -734,6 +958,7 @@ class JoinExec(ExecutionPlan):
         else:
             self._schema = left.schema.merge(right.schema)
         self._compiled = None
+        self._spill_keys = None
 
     def children(self):
         return [self.left, self.right]
@@ -753,6 +978,8 @@ class JoinExec(ExecutionPlan):
         probe = concat_batches(self.left.schema, self.left.execute(partition, ctx),
                                device=ctx.device).shrink()
         ctx.check_cancelled()
+        lsch, rsch = self.left.schema, self.right.schema
+        reservation = None
         if self.dist == "broadcast":
             # materialize the build side once per job: every probe partition
             # shares this operator, and re-running the build subtree per
@@ -771,18 +998,30 @@ class JoinExec(ExecutionPlan):
                 build = cached[1]
         else:
             bparts = self.right.execute(partition, ctx)
-            if getattr(ctx, "governor", None) is not None:
-                # where the reference's memory governor may deny the build
-                # reservation and route to the spilled build
-                raise NotImplementedError(
-                    "the memory governor and the spilled join build are not ported yet "
-                    "(ROADMAP.md queue 1 item 11)")
-            build = concat_batches(self.right.schema, bparts, device=ctx.device).shrink()
-
-        lsch, rsch = self.left.schema, self.right.schema
-        with self.build_lock():
-            self._ensure_compiled(ctx, lsch, rsch)
-        return self._join_device(ctx, probe, build)
+            # memory governor: reserve the build side's footprint before
+            # concatenating it.  On a denial inner, semi and anti joins spill
+            # a hash-partitioned build (partitions on disk, rehydrated one at
+            # a time); left and full joins need every build row live for
+            # their unmatched-row pass, so they take an over-budget grant.
+            # Broadcast builds are exempt: their job-scoped cache outlives
+            # the task.
+            gov = ctx.governor
+            if gov is not None:
+                est = _state_bytes(bparts, rsch)
+                if self.join_type in ("inner", "semi", "anti"):
+                    reservation = gov.try_reserve(est, site=f"join:{self.join_type}")
+                    if reservation is None:
+                        return self._join_spilled(ctx, probe, bparts, lsch, rsch)
+                else:
+                    reservation = gov.force_reserve(est, site=f"join:{self.join_type}")
+            build = concat_batches(rsch, bparts, device=ctx.device).shrink()
+        try:
+            with self.build_lock():
+                self._ensure_compiled(ctx, lsch, rsch)
+            return self._join_device(ctx, probe, build)
+        finally:
+            if reservation is not None:
+                reservation.release()
 
     def _ensure_compiled(self, ctx, lsch, rsch):
         if self._compiled is None:
@@ -855,7 +1094,7 @@ class JoinExec(ExecutionPlan):
 
             if jt in ("semi", "anti"):
                 hit = K.segment_any(ok, pi, n_probe)
-                return pcols, pmask & (hit if jt == "semi" else ~hit), total
+                return pcols, pmask & (hit if jt == "semi" else ~hit), total, None
 
             # the output-column gathers are data movement (index_select)
             out_cols = {n: pcols[n][pil] for n in lnames}
@@ -875,7 +1114,10 @@ class JoinExec(ExecutionPlan):
                     (n_build,), lfill[n], dtype=v.dtype, device=v.device)])
                     for n, v in out_cols.items()}
                 out_mask = torch.cat([out_mask, bmask & ~hit_b])
-            return out_cols, out_mask, total
+            # an inner join's probe-row index per pair rides along for the
+            # spilled path's order-restoring merge (all matches of a probe
+            # row share its hash, hence one build partition)
+            return out_cols, out_mask, total, (pi if jt == "inner" else None)
 
         def count_fn(pcols, pmask, bh_sorted, laux):
             # candidate-pair total only: K3 + K6's count step, no gathers
@@ -958,7 +1200,7 @@ class JoinExec(ExecutionPlan):
             if windowed and out_cap * self._out_row_bytes() > budget:
                 return self._join_chunked(ctx, probe, build, bh_sorted, border,
                                           laux, raux, faux, budget, ceiling, out_cap)
-            out_cols, out_mask, total = jfn(probe.columns, probe.mask, build.columns,
+            out_cols, out_mask, total, _pi = jfn(probe.columns, probe.mask, build.columns,
                                             build.mask, bh_sorted, border, laux, raux, faux,
                                             out_cap)
             # out_cap >= the counted total by construction; a hinted bucket
@@ -973,7 +1215,7 @@ class JoinExec(ExecutionPlan):
                     return self._join_chunked(ctx, probe, build, bh_sorted, border,
                                               laux, raux, faux, budget, ceiling, need)
                 self.metrics().add("capacity_recompiles", 1)
-                out_cols, out_mask, total = jfn(probe.columns, probe.mask, build.columns,
+                out_cols, out_mask, total, _pi = jfn(probe.columns, probe.mask, build.columns,
                                                 build.mask, bh_sorted, border, laux, raux,
                                                 faux, need)
                 out_cap = need
@@ -988,6 +1230,152 @@ class JoinExec(ExecutionPlan):
         if self.join_type in ("inner", "left", "full"):
             dicts.update(build.dicts)
         return [ColumnBatch(self._schema, dict(out_cols), out_mask, dicts)]
+
+    def _join_spilled(self, ctx, probe: ColumnBatch, build_parts, lsch, rsch
+                      ) -> List[ColumnBatch]:
+        """Reservation denied: partitioned-build spill for inner, semi and
+        anti joins.  Build batches split by the top bits of the join-key
+        hash (K16) into ``_SPILL_PARTS`` disk partitions (IPC runs); each
+        partition then rehydrates alone and the whole probe runs against it.
+
+        Bit-identical to the single in-memory build:
+
+        - every candidate match of a probe row shares that row's key hash,
+          so all of its matches live in exactly one partition;
+        - build rows keep their relative order within a partition (batches
+          split in order, runs read in write order), and K5 breaks equal-
+          hash ties by position, so each probe row's match order equals the
+          single build's;
+        - inner outputs carry the probe-row index ``pi``: a stable host sort
+          on it re-interleaves the partitions' outputs into exactly the
+          single build's probe-major order;
+        - semi and anti are mask algebra over the probe (OR / AND of the
+          partitions' verdicts), free of order by construction.
+        """
+        from ..memory.spill import Spiller
+
+        with self.build_lock():
+            self._ensure_compiled(ctx, lsch, rsch)
+            if self._spill_keys is None:
+                rcomp = self._compiled[1]
+                self._spill_keys = [rcomp.compile_key(re_) for _, re_ in self.on]
+        lcomp, rcomp, fcomp, jfn, cfn, pfn, _ = self._compiled
+        nparts = self._SPILL_PARTS
+        spiller = Spiller(ctx.work_dir, ctx.job_id, tag="join")
+        runs: List[list] = [[] for _ in range(nparts)]
+        try:
+            with self.metrics().timer("join_time"):
+                for b in build_parts:
+                    ctx.check_cancelled()
+                    raux = rcomp.aux_arrays(b.dicts)
+                    keys = [_full_column(c.fn(b.columns, raux), b.capacity)
+                            for c in self._spill_keys]
+                    cols, _n = b.packed_numpy(
+                        extra32={"__part": K.spill_partition(keys, nparts)})
+                    pids = cols.pop("__part")
+                    for p in range(nparts):
+                        sel = pids == p
+                        if not sel.any():
+                            continue
+                        runs[p].append(spiller.write_run(
+                            rsch, {f.name: cols[f.name][sel] for f in rsch}, b.dicts))
+                self.metrics().add("spill_runs", len(spiller.runs))
+                self.metrics().add("spill_bytes", sum(r.num_bytes for r in spiller.runs))
+
+                laux = lcomp.aux_arrays(probe.dicts)
+                ceiling = ctx.config.get(JOIN_MAX_CAPACITY)
+                low_floor = max(64, probe.capacity // 64)
+                grand_total = 0
+                inner_parts = []  # (host columns with __pi, the partition's dicts)
+                mask_acc = None
+                for p in range(nparts):
+                    if not runs[p]:
+                        # no build row hashes here: inner and semi add
+                        # nothing, anti keeps the probe mask (AND identity)
+                        continue
+                    ctx.check_cancelled()
+                    build_p = concat_batches(
+                        rsch, spiller.read(rsch, runs=runs[p], device=ctx.device),
+                        device=ctx.device).shrink()
+                    raux = rcomp.aux_arrays(build_p.dicts)
+                    faux = (fcomp.aux_arrays({**probe.dicts, **build_p.dicts})
+                            if fcomp is not None else {})
+                    bh_sorted, border = pfn(build_p.columns, build_p.mask, raux)
+                    # the exact candidate count of this partition sizes the
+                    # output; the cross-join guard sees the partitions' sum
+                    total_est = int(cfn(probe.columns, probe.mask, bh_sorted, laux))
+                    grand_total += total_est
+                    if grand_total > ceiling:
+                        raise CapacityError(
+                            f"join produced {grand_total}+ candidate pairs, above the "
+                            f"{ceiling}-row ceiling; likely an accidental near-cross join "
+                            f"— check join keys, or raise {JOIN_MAX_CAPACITY}")
+                    out_cap = max(low_floor, 1 << max(0, total_est - 1).bit_length())
+                    out_cols, out_mask, _total, pi = jfn(
+                        probe.columns, probe.mask, build_p.columns, build_p.mask, bh_sorted,
+                        border, laux, raux, faux, out_cap)
+                    if self.join_type in ("semi", "anti"):
+                        if mask_acc is None:
+                            mask_acc = out_mask
+                        elif self.join_type == "semi":
+                            mask_acc = _mask_or(mask_acc, out_mask)
+                        else:
+                            mask_acc = _mask_and(mask_acc, out_mask)
+                        continue
+                    pb = ColumnBatch(self._schema, dict(out_cols), out_mask,
+                                     {**probe.dicts, **build_p.dicts})
+                    cols, _n = pb.packed_numpy(extra32={"__pi": pi.to(torch.int32)})
+                    inner_parts.append((cols, build_p.dicts))
+            if self.join_type in ("semi", "anti"):
+                if mask_acc is None:  # an empty build side
+                    mask_acc = probe.mask if self.join_type == "anti" \
+                        else torch.zeros_like(probe.mask)
+                out = ColumnBatch(self._schema, dict(probe.columns), mask_acc, dict(probe.dicts))
+                deferred_rows(self.metrics(), "output_rows", out)
+                return [out]
+            return [self._merge_spilled_inner(probe, inner_parts, rsch, ctx.device)]
+        finally:
+            spiller.cleanup()
+
+    def _merge_spilled_inner(self, probe: ColumnBatch, inner_parts, rsch, device) -> ColumnBatch:
+        """Order-restoring merge of the partitions' inner outputs: remap each
+        partition's build-side dictionary codes onto the sorted union
+        dictionary, concatenate, stable-sort by probe-row index."""
+        rstr = [f.name for f in rsch if f.dtype.is_string]
+        union: Dict[str, np.ndarray] = {}
+        for n in rstr:
+            vals = [d.get(n) for _c, d in inner_parts
+                    if d.get(n) is not None and len(d.get(n))]
+            union[n] = np.unique(np.concatenate(vals)) if vals else np.array([], dtype=object)
+        cols: Dict[str, list] = {f.name: [] for f in self._schema}
+        pis = []
+        for cols_np, dicts_p in inner_parts:
+            for n in rstr:
+                dic = dicts_p.get(n)
+                codes = cols_np[n]
+                if dic is not None and len(dic):
+                    idx = np.searchsorted(union[n], dic).astype(np.int32)
+                    live = codes >= 0
+                    codes = codes.copy()
+                    codes[live] = idx[codes[live]]
+                    cols_np[n] = codes
+            for f in self._schema:
+                cols[f.name].append(cols_np[f.name])
+            pis.append(cols_np["__pi"])
+        pi = np.concatenate(pis) if pis else np.array([], dtype=np.int32)
+        if pi.size == 0:
+            self.metrics().add("output_rows", 0)
+            return ColumnBatch.empty(self._schema, 64, device=device)
+        order = np.argsort(pi, kind="stable")
+        data = {n: np.concatenate(v)[order] for n, v in cols.items()}
+        dicts = {}
+        for f in self._schema:
+            if f.dtype.is_string:
+                d = union[f.name] if f.name in union else probe.dicts.get(f.name)
+                if d is not None:
+                    dicts[f.name] = d
+        self.metrics().add("output_rows", int(pi.size))
+        return ColumnBatch.from_numpy(self._schema, data, dicts=dicts, device=device)
 
     def _join_chunked(self, ctx, probe, build, bh_sorted, border, laux, raux, faux,
                       budget: int, ceiling: int, planned_cap: int) -> List[ColumnBatch]:
@@ -1032,7 +1420,7 @@ class JoinExec(ExecutionPlan):
             out_cap = max(64, 1 << max(0, total_c - 1).bit_length(), bucket_floor)
             if out_cap > ceiling:
                 out_cap = max(total_c, 64)
-            out_cols, out_mask, total = jfn(probe.columns, pmask_c, build.columns, build.mask,
+            out_cols, out_mask, total, _pi = jfn(probe.columns, pmask_c, build.columns, build.mask,
                                             bh_sorted, border, laux, raux, faux, out_cap)
             if int(total) > out_cap:
                 need = 1 << (int(total) - 1).bit_length()
@@ -1041,7 +1429,7 @@ class JoinExec(ExecutionPlan):
                         f"join window produced {int(total)} candidate pairs, above the "
                         f"{ceiling}-row ceiling; raise {JOIN_MAX_CAPACITY}")
                 self.metrics().add("capacity_recompiles", 1)
-                out_cols, out_mask, total = jfn(probe.columns, pmask_c, build.columns,
+                out_cols, out_mask, total, _pi = jfn(probe.columns, pmask_c, build.columns,
                                                 build.mask, bh_sorted, border, laux, raux,
                                                 faux, need)
             if self.join_type in ("semi", "anti"):

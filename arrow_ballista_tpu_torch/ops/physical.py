@@ -38,18 +38,61 @@ class MetricsSet:
 
     def __init__(self):
         self.values: Dict[str, float] = {}
-        self._lock = threading.Lock()
+        # RLock: deferred resolvers run under the lock in to_dict and may
+        # record metrics themselves (the fused aggregate's passthrough latch)
+        self._lock = threading.RLock()
+        self._deferred = []  # [(name, fn)], resolved in to_dict
 
     def add(self, name: str, v: float):
         with self._lock:
             self.values[name] = self.values.get(name, 0) + v
+
+    def add_deferred(self, name: str, fn):
+        """A metric whose value would cost a device->host sync now: ``fn()``
+        returns it, or None while it is not host-known yet (it then stays
+        queued for the next snapshot).  The shuffle writer's packed copy
+        normally makes the value free before any snapshot."""
+        with self._lock:
+            self._deferred.append((name, fn))
 
     def timer(self, name: str):
         return _Timer(self, name)
 
     def to_dict(self):
         with self._lock:
+            pending = []
+            for name, fn in self._deferred:
+                v = fn()
+                if v is None:
+                    pending.append((name, fn))
+                else:
+                    self.values[name] = self.values.get(name, 0) + v
+            self._deferred = pending
             return dict(self.values)
+
+
+def deferred_count(batch):
+    """A resolver of ``batch``'s live-row count for a deferred metric:
+    the count once it is host-known (``ColumnBatch.on_count``), None while
+    the batch lives uncounted, 0 for a batch collected uncounted.  Holds
+    the batch only weakly, so no device buffer is pinned."""
+    import weakref
+
+    counted = []
+    batch.on_count(counted.append)
+    ref = weakref.ref(batch)
+
+    def count():
+        if counted:
+            return counted[0]
+        return None if ref() is not None else 0
+
+    return count
+
+
+def deferred_rows(ms: MetricsSet, name: str, batch) -> None:
+    """Record ``batch``'s row count as a deferred metric."""
+    ms.add_deferred(name, deferred_count(batch))
 
 
 class _Timer:
@@ -149,6 +192,10 @@ class TaskContext:
     # cooperative cancellation probe; operators call check_cancelled() at
     # batch/operator boundaries
     cancelled: Optional[Callable[[], bool]] = None
+    # memory governor (memory/governor.py): operators holding unbounded
+    # state reserve before materializing it and spill on a denial; None
+    # means no accounting
+    governor: Optional[object] = None
 
     def check_cancelled(self) -> None:
         if self.cancelled is not None and self.cancelled():

@@ -17,6 +17,12 @@ SHUFFLE_PARTITIONS = "ballista.shuffle.partitions"
 BATCH_SIZE = "ballista.batch.size"
 # per-task device working-set bound ('auto' | bytes | 0=unlimited)
 MEM_TASK_BUDGET = "ballista.memory.task.budget.bytes"
+# memory governor (memory/): reserve -> grant -> release accounting over a
+# host budget; operators that hold unbounded state reserve before
+# materializing and spill on denial.  The reference's device budget waits
+# for the admission controller that reads it (ROADMAP.md queue 1 item 12)
+MEM_HOST_BUDGET = "ballista.memory.host.budget.bytes"
+MEM_SPILL_ENABLED = "ballista.memory.spill.enabled"
 # ICI all-to-all exchange in the reference; the planner raises when it is on
 # (ROADMAP.md queue 1 item 10)
 MESH_SHUFFLE = "ballista.shuffle.mesh"
@@ -99,6 +105,20 @@ _ENTRIES: Dict[str, ConfigEntry] = {
                     "shuffle partition counts scale to keep task state "
                     "under it.  'auto' = 4 GiB on the card, unlimited on "
                     "the CPU; 0 = unlimited"),
+        ConfigEntry(MEM_HOST_BUDGET, "0", str,
+                    "memory governor: host pool budget in bytes for "
+                    "operator state (join build sides, aggregation "
+                    "groups).  Reservations beyond the budget are denied "
+                    "and the operator spills its state to disk as Arrow "
+                    "IPC runs (bit-identical results).  'auto' = 16 GiB; "
+                    "0 = unlimited (governor grants everything, spill "
+                    "never triggers)"),
+        ConfigEntry(MEM_SPILL_ENABLED, True, _parse_bool,
+                    "degrade to disk spill when the governor denies a "
+                    "reservation (aggs: partial runs + sort-merge "
+                    "finalize; joins: partitioned build rehydrate).  "
+                    "False = a denial raises retryable MemoryExhausted "
+                    "instead of spilling"),
         ConfigEntry(MESH_SHUFFLE, False, _parse_bool,
                     "mesh all-to-all exchange; not ported, planning raises "
                     "when it is on"),
@@ -174,6 +194,16 @@ def resolve_task_budget(cfg: "BallistaConfig", accelerator: bool) -> int:
     if isinstance(v, str):
         if v.strip().lower() == "auto":
             return (4 << 30) if accelerator else 0
+        v = int(v)
+    return int(v)
+
+
+def resolve_pool_budget(cfg: "BallistaConfig", key: str) -> int:
+    """MEM_HOST_BUDGET -> bytes (0 = unlimited; 'auto' = 16 GiB)."""
+    v = cfg.get(key)
+    if isinstance(v, str):
+        if v.strip().lower() == "auto":
+            return 16 << 30
         v = int(v)
     return int(v)
 

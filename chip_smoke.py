@@ -33,6 +33,32 @@ Phases (any failure exits non-zero and prints no result line):
    ``sa_q18`` over in-memory tables (K13's sort path, then K4 + K8); each
    prints its stages, fused chains, ``fused_fallbacks`` (must be 0) and
    where its time went (writer, reader, fused chains, outside the tasks).
+   Then, one warm run each: ``pq_q7``, ``pq_q8``, ``pq_q9`` (EXTRACT
+   through K14 in the local engine over parquet); ``sa_q7``, ``sa_q8``,
+   ``sa_q9`` (standalone over in-memory tables: EXTRACT traced into the
+   generated K13 sources, checked on the sources); ``sa_q20`` (q20's
+   lineitem partial barely reduces its ~159k rows a partition at SF1: the
+   first task's metrics snapshot latches the adaptive passthrough, and the
+   later tasks emit per-row states, which are all input columns there, so
+   K15 has nothing to write); ``sa_pt`` (a GROUP BY on lineitem's key,
+   which never reduces: the later tasks' per-row states include a computed
+   sum and count(*), which K15 writes; both paths must latch on every
+   run); ``spill_q3``, ``spill_q4``,
+   ``spill_q9``, ``spill_q18``, ``spill_q21`` (the local engine over parquet
+   with every join partitioned, under a 1 MiB host budget: aggregates and
+   the inner and semi joins spill to
+   Arrow IPC runs, the joins' build sides split by K16; each result equals
+   its unlimited run bit for bit, both operators spill, and no reservation
+   is left); ``memsweep`` (the JAX package's tools/memory_sweep.py leg: the
+   22 queries through the local engine over parquet with 2^20-row batches,
+   the scan cache off, under the 1 MiB budget, each equal bit for bit to
+   the same settings with no budget; denials and spill runs, no
+   reservation left); and
+   ``tpch22``: all 22 TPC-H queries through the standalone
+   engine over parquet, cold and warm, held against the port on the CPU
+   (a child process running the plain twins over the same files beside the
+   card's later paths), as are the q7-q9, q20 and sa_pt paths; at SF0.01 the 22
+   queries also run on the card in both engines against a sqlite3 oracle.
    The inputs of each wrapper's largest call on each path are captured;
 4. each kernel held against its plain PyTorch twin on the card: on every
    path that launched it, at the inputs of that path's largest call of each
@@ -47,7 +73,10 @@ Phases (any failure exits non-zero and prints no result line):
    sorted and shuffled keys; for K10 keys out of range and NULL keys; for
    K11 1,000 intervals; for K12 and K13 a row chain and a dense and a
    sort-path aggregate chain with NULL keys and values, int64 sums and
-   products that wrap, float64 sums and a dictionary predicate).  Integers
+   products that wrap, float64 sums and a dictionary predicate; for K14
+   days over 1900-2100, the leap days of 1900 / 2000 / 2100, negative days
+   and the NULL sentinel; for K15 NULL keys and values; for K16 forced
+   collisions and the values dead rows may carry).  Integers
    exact; float sums at rtol 1e-12 (atomic summation order differs from
    the twin's) or exact on quarter values;
 5. results held against independent numpy computations on the same
@@ -93,6 +122,27 @@ SF = 1.0
 STRESS_ROWS = 6_000_000
 WARM_RUNS = {"q1": 5, "q3": 3, "q4": 3, "pq_q1": 3, "pq_q3": 3, "pq_q4": 3, "pq_q18": 3,
              "sa_pq_q1": 3, "sa_pq_q3": 3, "sa_pq_q4": 3, "sa_pq_q18": 3, "sa_q18": 3}
+# the paths of EXTRACT, the passthrough partial and the spill (one warm run
+# each), and the 22 TPC-H queries
+EXTRACT_QUERIES = (7, 8, 9)
+SPILL_QUERIES = (3, 4, 9, 18, 21)
+# the spill paths: every join partitioned (at SF1 the default 4M-row
+# threshold broadcasts every join of these five queries, and a broadcast
+# build is exempt from the governor, as in the reference), under a 1 MiB
+# host budget; each held against the same settings with no budget
+SPILL_SETTINGS = {"ballista.join.broadcast_threshold": "0"}
+SPILL_BUDGET = {"ballista.memory.host.budget.bytes": str(1 << 20)}
+# the memory sweep (the JAX package's tools/memory_sweep.py leg): the 22
+# queries through the local engine over parquet with its settings, 2^20-row
+# batches, under SPILL_BUDGET, each held bit for bit against no budget.
+# Both legs read the files (scan cache off): batches of 2^20 rows would
+# be new cache entries and evict those the other paths' check holds
+MEMSWEEP_SETTINGS = {"ballista.batch.size": str(1 << 20), "ballista.scan.cache.bytes": "0"}
+for _q in EXTRACT_QUERIES:
+    WARM_RUNS[f"pq_q{_q}"] = WARM_RUNS[f"sa_q{_q}"] = 1
+WARM_RUNS["sa_q20"] = WARM_RUNS["sa_pt"] = 1
+for _q in SPILL_QUERIES:
+    WARM_RUNS[f"spill_q{_q}"] = 1
 # kernels (launch counters of ops/kernels.py) each main path must launch
 PATH_KERNELS = {
     "q1": ("dense_group_states", "compaction_order", "hash64", "sort_order"),
@@ -119,13 +169,40 @@ PATH_KERNELS.update({
     "sa_q18": ("fused_agg", "fused_rows", "compaction_order", "hash64", "sort_order",
                "build_side_sort", "probe_join", "grouped_on_order"),
 })
+# EXTRACT: K14 in the local engine; in the standalone engine it is traced
+# into the generated K13 source (checked on the source), so K13 must launch
+for _q in EXTRACT_QUERIES:
+    PATH_KERNELS[f"pq_q{_q}"] = ("extract_field", "build_side_sort", "probe_join")
+    PATH_KERNELS[f"sa_q{_q}"] = ("fused_agg", "hash64", "compaction_order")
+# q20's lineitem partial barely reduces (SF1, six partitions): the first
+# task latches, the later tasks emit per-row states; every state of q20's
+# partial is an input column (two int64 keys, the sum of a non-null
+# int64), so K15 has nothing to write and does not launch there
+PATH_KERNELS["sa_q20"] = ("fused_agg", "hash64")
+# a GROUP BY on lineitem's key (l_orderkey, l_linenumber) never reduces:
+# the later tasks' per-row states include a computed sum and count(*),
+# which K15 writes
+PT_QUERY = """select count(*) as groups, sum(rev) as rev, sum(n) as n, min(first_ship) as first_ship
+from (select l_orderkey, l_linenumber, sum(l_extendedprice * (1 - l_discount)) as rev,
+             count(*) as n, min(l_shipdate) as first_ship
+      from lineitem group by l_orderkey, l_linenumber) as per_line"""
+PATH_KERNELS["sa_pt"] = ("fused_agg", "passthrough_rows", "hash64")
+PASSTHROUGH_PATHS = ("sa_q20", "sa_pt")
+for _q in SPILL_QUERIES:
+    PATH_KERNELS[f"spill_q{_q}"] = ("compaction_order",)
+# the spilled joins' partitions (K16) must launch on at least one spill path
+SPILL_KERNELS = ("spill_partition",)
+PATH_KERNELS["memsweep"] = ("compaction_order",)
+PATH_KERNELS["tpch22"] = ("fused_agg", "fused_rows", "hash64", "compaction_order",
+                          "sort_order", "build_side_sort", "probe_join", "segment_any")
 # the form K13 must take on a path (dense key domain, or the sort path)
 K13_FORM = {"sa_pq_q1": "dense", "sa_q18": "sort"}
 # rows a parquet row group holds at SF1 (benchmarks/tpch.py convert's
 # default: lineitem in 12 row groups); scaled with the scale factor so a
 # rehearsal at a small one keeps the same partitions
 ROW_GROUP_ROWS = 1 << 19
-PARQUET_TABLES = ("lineitem", "orders", "customer")
+PARQUET_TABLES = ("lineitem", "orders", "customer", "part", "partsupp", "supplier", "nation",
+                  "region")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -269,8 +346,9 @@ class Capture:
     NAMES = {"dense_group_states": 2, "compaction_order": 0, "bucket_of": 0, "hash64": 0,
              "sort_order": 1, "build_side_sort": 1, "probe_join": 0, "probe_counts": 0,
              "segment_any": 0, "grouped_on_order": 2, "presorted_disorder": 1,
-             "key_range_check": 1, "clustered_keep": 1}
-    FUSED = {"fused_rows": 2, "fused_agg": 2}
+             "key_range_check": 1, "clustered_keep": 1, "extract_field": 0,
+             "spill_partition": 0}
+    FUSED = {"fused_rows": 2, "fused_agg": 2, "passthrough_rows": 2}
 
     def __init__(self, K, F, device):
         import threading
@@ -299,10 +377,12 @@ class Capture:
                         self.off_device.append((name, str(t.device)))
                 sized = args[sizes[name]]
                 n = (sized[0] if isinstance(sized, (list, tuple)) else sized).shape[0]
+                if name == "passthrough_rows" and not args[0].gen.outputs:
+                    n = -1  # every state is an input column: no launch to check
                 if name == "fused_agg":
                     form = "dense" if self.K.dense_domain(args[5]) is not None else "sort"
                     self.forms[form] = self.forms.get(form, 0) + 1
-                if name not in self.calls or n > self.calls[name][0]:
+                if n >= 0 and (name not in self.calls or n > self.calls[name][0]):
                     self.calls[name] = (n, _clone(args))
             return fn(*args, **kwargs)
 
@@ -634,6 +714,20 @@ def fused_labels(ctx):
             for sid, st in sorted(graph.stages.items())}
 
 
+def check_passthrough(K, ctx, path: str, run: str) -> dict:
+    """A passthrough path's latch, on every run: the run counted a
+    passthrough partial, the fused stage fell back to its interpreted form
+    for it, and where the path needs K15, K15 launched."""
+    pt = op_metrics(job_plans(ctx), ("passthrough_partials", "fused_passthrough_fallbacks"))
+    pt["passthrough_rows_launches"] = K.LAUNCHES["passthrough_rows"]
+    need = [k for k in pt if k != "passthrough_rows_launches"
+            or "passthrough_rows" in PATH_KERNELS[path]]
+    if not all(pt[k] for k in need):
+        fail(f"{path} ({run}): the passthrough partial did not latch: {pt}")
+    log(f"{path} passthrough ({run}): {json.dumps(pt)}")
+    return pt
+
+
 def standalone_split(ctx, wall_s):
     """Where a standalone job's wall time went: its stages and tasks, the
     shuffle writer (bucket program, packed copy, grouping sort and file
@@ -677,7 +771,8 @@ def standalone_split(ctx, wall_s):
         "task_span_ms": span_ms, "launch_gap_ms_sum": gaps, "wall_ms": wall_s * 1000,
         "outside_tasks_ms": wall_s * 1000 - span_ms,
         "fused_fallbacks": plan_metric(plans, "fused_fallbacks"),
-        "passthrough_triggers": plan_metric(plans, "passthrough_triggers"),
+        **{k: sum(v.values()) for k, v in op_metrics(
+            plans, ("passthrough_partials", "fused_passthrough_fallbacks")).items()},
         "aqe": [r["kinds"] for r in graph.aqe_log],
     }
 
@@ -1027,7 +1122,8 @@ def forced_collision_inputs(K, device, n, seed=2):
     pmask = torch.from_numpy(rng.random(4096) < 0.8).to(device)
     bh = K.build_side_sort_plain(bkeys, bmask)[0]
     return {"build_side_sort": (bkeys, bmask),
-            "probe_join": (K.hash64_plain(pkeys), pmask, bh, 1 << 20)}
+            "probe_join": (K.hash64_plain(pkeys), pmask, bh, 1 << 20),
+            "spill_partition": (bkeys, 8)}
 
 
 def seg_agg_stress(t, rng, n):
@@ -1052,6 +1148,65 @@ def seg_agg_stress(t, rng, n):
             (one, [(wrap, "sum"), (count, "count"), (pos, "sum"), (i64, "min")], mask, n, n),
             ([], [(wrap, "sum"), (count, "count"), (pos, "max"), (i32, "min")], mask, n, n),
             (keys, many[:2], mask, 100_000, n)]
+
+
+def new_kernel_stress(device, n, seed=5):
+    """K14-K16 at n rows, made from a seed with numpy: K14 over days
+    spanning 1900-2100 with the leap days of 1900 / 2000 / 2100, negative
+    days and the NULL sentinel, for each field; K15 over an aggregate of
+    NULL keys and values (count(*), count, sum, min, max); K16 over int32
+    keys with NULL codes and int64 extremes, where dead rows carry any
+    value (the kernel hashes every row), into 8 partitions.  Forced
+    collisions for K16 are checked by the caller."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    from arrow_ballista_tpu_torch.compile import fused as F
+    from arrow_ballista_tpu_torch.models import expr as E
+    from arrow_ballista_tpu_torch.models.schema import FLOAT64, INT32, INT64, Field, Schema
+    from arrow_ballista_tpu_torch.ops import operators as O
+    from arrow_ballista_tpu_torch.ops.physical import MemoryScanExec, TaskContext
+    from tests.torch_cases import edge_days
+
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    edges = edge_days()
+    days = rng.integers(-25567, 47482, n).astype(np.int32)  # 1900-01-01 .. 2099-12-31
+    days[rng.random(n) < 0.02] = np.iinfo(np.int32).min  # NULL dates
+    neg = rng.random(n) < 0.01  # any negative day
+    days[neg] = rng.integers(-2**31 + 1, 0, int(neg.sum()))
+    days[: len(edges)] = edges
+    day_t = t(days)
+
+    def nullable(values, typ, share=0.1):
+        return pa.array(np.where(rng.random(n) < share, None, values), type=typ)
+
+    table = pa.table({"k": nullable(rng.integers(-5, 2**40, n), pa.int64()),
+                      "k2": nullable(rng.integers(0, 9, n).astype(np.int32), pa.int32()),
+                      "v": nullable(rng.integers(-2**62, 2**62, n), pa.int64()),
+                      "x": nullable(rng.normal(size=n), pa.float64())})
+    schema = Schema([Field("k", INT64, True), Field("k2", INT32, True), Field("v", INT64, True),
+                     Field("x", FLOAT64, True)])
+    agg = O.HashAggregateExec(
+        MemoryScanExec(schema, table, partitions=1),
+        [(E.Column("k"), "k"), (E.Column("k2"), "k2")],
+        [O.AggSpec("count", None, "n"), O.AggSpec("count", E.Column("v"), "nv"),
+         O.AggSpec("sum", E.Column("v"), "s"), O.AggSpec("min", E.Column("x"), "lo"),
+         O.AggSpec("max", E.Column("k2"), "hi")], "partial")
+    ctx = TaskContext(device=device)
+    prog = F.PassthroughProgram(agg, ctx)
+    batch = agg.input.execute(0, ctx)[0]
+    aux = prog.compiled[0].aux_arrays(batch.dicts)
+    keys = [t(rng.integers(-1, 50, n).astype(np.int32)),
+            t(np.where(rng.random(n) < 0.05, np.iinfo(np.int64).min,
+                       rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64)))]
+    return {"extract_field": [(day_t, f) for f in ("year", "month", "day")],
+            "passthrough_rows": [(prog, batch.columns, batch.mask, aux)],
+            "spill_partition": [(keys, 8)]}
 
 
 def fused_stress(device, n, seed=4):
@@ -1149,6 +1304,18 @@ def check_kernel(K, name, args):
         from arrow_ballista_tpu_torch.compile import fused as F
 
         return fused_check(F, name, args)
+    if name == "passthrough_rows":  # every key and state column, exact
+        from arrow_ballista_tpu_torch.compile import fused as F
+
+        got, want = F.passthrough_rows(*args), F.passthrough_rows_plain(*args)
+        n = args[2].shape[0]
+        if list(got) != list(want):
+            raise AssertionError(f"state columns differ: {list(got)} vs {list(want)}")
+        return max(max_err(got[c], w.expand(n).contiguous()) for c, w in want.items())
+    if name == "extract_field":
+        return max_err(K.extract_field(*args), K.extract_field_plain(*args))
+    if name == "spill_partition":
+        return max_err(K.spill_partition(*args), K.spill_partition_plain(*args))
     if name == "dense_group_states":
         return dense_check(K, args)
     if name == "compaction_order":
@@ -1238,7 +1405,34 @@ def kernel_timings(K, name, args, device):
     import torch
 
     extra = {}
-    if name in ("fused_rows", "fused_agg"):
+    if name == "passthrough_rows":
+        from arrow_ballista_tpu_torch.compile import fused as F
+
+        prog, cols, mask, aux = args
+        n = mask.shape[0]
+        # each input column the computed states read and the lookup tables
+        # once; each computed state written once (the keys and the states
+        # that are an input column alias it and move no byte)
+        moved = (sum(cols[c].element_size() * n for c, _dt in prog.gen.inputs)
+                 + sum(aux[slot].numel() * aux[slot].element_size()
+                       for _step, slot, _dt in prog.gen.aux)
+                 + sum(dt.itemsize * n for _c, dt in prog.gen.outputs))
+        kern = lambda: F.passthrough_rows(*args)  # noqa: E731
+        plain = lambda: F.passthrough_rows_plain(*args)  # noqa: E731
+        library = None  # no one PyTorch call computes the per-row states
+    elif name == "extract_field":
+        days, field = args
+        moved = nbytes(days) * 2  # int32 days in, int32 fields out
+        kern = lambda: K.extract_field(days, field)  # noqa: E731
+        plain = lambda: K.extract_field_plain(days, field)  # noqa: E731
+        library = None  # PyTorch has no calendar arithmetic on integer days
+    elif name == "spill_partition":
+        keys, parts = args
+        moved = nbytes(*keys) + keys[0].shape[0] * 4
+        kern = lambda: K.spill_partition(keys, parts)  # noqa: E731
+        plain = lambda: K.spill_partition_plain(keys, parts)  # noqa: E731
+        library = None  # no PyTorch call computes this hash
+    elif name in ("fused_rows", "fused_agg"):
         from arrow_ballista_tpu_torch.compile import fused as F
 
         prog, cols, mask, auxs = args[:4]
@@ -1466,6 +1660,12 @@ KERNEL_META = {
                         "arrow_ballista_tpu/ops/operators.py:632"),
     "clustered_keep": ("arrow_ballista_tpu_torch/csrc/clustered.cu",
                        "arrow_ballista_tpu/ops/operators.py:672"),
+    "extract_field": ("arrow_ballista_tpu_torch/csrc/extract.cu",
+                      "arrow_ballista_tpu/ops/kernels.py:800"),
+    "passthrough_rows": ("arrow_ballista_tpu_torch/csrc/fused_rows.cuh",
+                         "arrow_ballista_tpu/ops/operators.py:745"),
+    "spill_partition": ("arrow_ballista_tpu_torch/csrc/hash.cu",
+                        "arrow_ballista_tpu/ops/operators.py:1512"),
 }
 # the one PyTorch call each kernel's library_ms times (yardsticks only)
 LIBRARY_CALL = {
@@ -1482,6 +1682,9 @@ LIBRARY_CALL = {
     "presorted_disorder": None,
     "key_range_check": "aminmax of the masked keys",
     "clustered_keep": "bucketize of the keys into the sorted interval starts",
+    "extract_field": None,
+    "passthrough_rows": None,
+    "spill_partition": None,
 }
 LAUNCH_KEY = {name: name for name in KERNEL_META}
 LAUNCH_KEY["bucket_of"] = "hash64"
@@ -1508,11 +1711,15 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         from arrow_ballista_tpu_torch import BallistaConfig, BallistaContext
         from arrow_ballista_tpu_torch import entry as port_entry
         from arrow_ballista_tpu_torch.compile import fused as F
+        from arrow_ballista_tpu_torch.memory import STATS as MEMORY_STATS
         from arrow_ballista_tpu_torch.ops import _cuda
         from arrow_ballista_tpu_torch.ops import kernels as K
+        from arrow_ballista_tpu_torch.ops.physical import TaskContext
         from arrow_ballista_tpu_torch.utils import table_cache
         from benchmarks.datagen import generate_tables
         from benchmarks.queries import QUERIES
+        from tests.torch_cases import (assert_frames_equal, check_against_sqlite,
+                                       check_ordering, sqlite_answer, sqlite_oracle)
     except ImportError as e:
         fail(f"cannot import the port from {ROOT}: {e}")
     if any(m == "jax" or m.startswith("jax.") or m.startswith("arrow_ballista_tpu.")
@@ -1573,6 +1780,50 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
              **{f"pq_{p}": (pctx, q) for p, q in sqls.items()}, "pq_q18": (pctx, q18),
              **{f"sa_pq_{p}": (sa_pq, q) for p, q in sqls.items()}, "sa_pq_q18": (sa_pq, q18),
              "sa_q18": (sa_mem, q18)}
+    base_paths = set(paths)
+    # EXTRACT (local over parquet: K14; standalone in memory: inside K13),
+    # the passthrough partial (q20's lineitem partial, standalone in
+    # memory), and the spill paths: the local engine over parquet under a
+    # 1 MiB host budget, each held bit for bit against its unlimited run
+    spctx = BallistaContext.local(BallistaConfig({**SPILL_SETTINGS, **SPILL_BUDGET}),
+                                  device=device)
+    unlimited = BallistaContext.local(BallistaConfig(SPILL_SETTINGS), device=device)
+    for name, path in pq_paths.items():
+        spctx.register_parquet(name, path)
+        unlimited.register_parquet(name, path)
+    paths.update({f"pq_q{q}": (pctx, QUERIES[q]) for q in EXTRACT_QUERIES})
+    paths.update({f"sa_q{q}": (sa_mem, QUERIES[q]) for q in EXTRACT_QUERIES})
+    paths["sa_q20"] = (sa_mem, QUERIES[20])
+    paths["sa_pt"] = (sa_mem, PT_QUERY)
+    paths.update({f"spill_q{q}": (spctx, q18 if q == 18 else QUERIES[q]) for q in SPILL_QUERIES})
+    # the 22 queries on the port's CPU path, in a child process beside the
+    # card's later paths (started after the first twelve, whose times stay
+    # clean): the reference answers of the tpch22 path
+    answers_path = os.path.join(pq_dir, "cpu_answers.pkl")
+    cpu_proc = None
+
+    def start_cpu_answers():
+        with open(os.path.join(pq_dir, "cpu_answers.log"), "w") as log_fh:
+            proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                     "--cpu-answers", pq_dir, answers_path], cwd=ROOT,
+                                    stdout=log_fh, stderr=subprocess.STDOUT)
+        atexit.register(lambda: proc.poll() is None and proc.kill())
+        return proc
+
+    def cpu_answer_frames():
+        import pickle
+
+        t0 = time.perf_counter()
+        rc = cpu_proc.wait(timeout=900)
+        if rc != 0:
+            with open(os.path.join(pq_dir, "cpu_answers.log")) as fh:
+                fail(f"the CPU answers failed (exit {rc}):\n{fh.read()[-3000:]}")
+        log(f"CPU answers: waited {time.perf_counter() - t0:.1f} s for the child process")
+        with open(answers_path, "rb") as fh:
+            return pickle.load(fh)
+
+    path_frames = {}  # path -> its cold run's frame
+    spill_tags = {}  # spill path -> {operator: spill runs} of its cold run
 
     def once(c, sql):
         t = time.perf_counter()
@@ -1590,6 +1841,8 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     for path, (c, sql) in paths.items():
         parquet = "pq_" in path
         standalone = path.startswith("sa_")
+        if path not in base_paths and cpu_proc is None:
+            cpu_proc = start_cpu_answers()
         K.reset_launch_counts()
         with Capture(K, F, device) as cap:
             df, cold_s = once(c, sql)
@@ -1604,8 +1857,31 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         want_form = K13_FORM.get(path)
         if want_form is not None and not k13_forms[path].get(want_form):
             fail(f"{path}: K13 never took its {want_form} form ({k13_forms[path]})")
-        if df.empty or df.isna().any().any() or (path.endswith("q1") and len(df) != 4):
+        if df.empty or (path in base_paths and df.isna().any().any()) \
+                or (path.endswith("q1") and len(df) != 4):
             fail(f"{path} result malformed:\n{df}")
+        path_frames[path] = df
+        if path.startswith("spill_"):
+            spill_tags[path] = op_metrics(job_plans(c), ("spill_runs",))["spill_runs"]
+            want, unlimited_s = once(unlimited, sql)
+            try:
+                assert_frames_equal(df, want, exact=True)
+            except AssertionError as e:
+                fail(f"{path}: the spilled run differs from the unlimited run: {e}")
+            log(f"{path}: equals its unlimited run bit for bit ({len(df)} rows; the unlimited "
+                f"run took {unlimited_s * 1000:.1f} ms, first on its context); spill runs by "
+                f"operator {json.dumps(spill_tags[path])}")
+            report[f"{path}_unlimited_ms"] = unlimited_s * 1000
+        if path in {f"sa_q{q}" for q in EXTRACT_QUERIES}:
+            plans = job_plans(c)
+            sources = [n.program(TaskContext(device=device)).gen.source
+                       for p in plans for n in _walk_fused(p)]
+            if not any("ab_civil_field(" in s for s in sources):
+                fail(f"{path}: EXTRACT is in no generated source ({len(sources)} fused chains)")
+            log(f"{path}: EXTRACT traced into {sum('ab_civil_field(' in s for s in sources)} "
+                f"of {len(sources)} generated sources")
+        if path in PASSTHROUGH_PATHS:
+            report[f"{path}_passthrough"] = {"cold": check_passthrough(K, c, path, "cold")}
         cold_scan = scan_metrics(job_plans(c))
         if parquet:
             cached.update(cache_fingerprints(table_cache))
@@ -1617,9 +1893,8 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             log(f"{path} cold: {split['stages']} stages, planned partitions "
                 f"{json.dumps(split['planned_partitions'])}, fused chains {json.dumps(labels)}, "
                 f"K13 forms {json.dumps(k13_forms[path])}")
-            if split["fused_fallbacks"] or split["passthrough_triggers"]:
-                fail(f"{path}: fused_fallbacks {split['fused_fallbacks']}, passthrough "
-                     f"triggers {split['passthrough_triggers']}")
+            if split["fused_fallbacks"]:
+                fail(f"{path}: fused_fallbacks {split['fused_fallbacks']}")
             report[f"{path}_fused_chains"] = labels
             report[f"{path}_cold_split"] = split
         warm = []
@@ -1634,12 +1909,23 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                 # sibling task finds it set decides one count pass (K3 +
                 # K6) more or less, or a rerun of the join at a larger
                 # capacity (K3, K6, K7).  Every other count must repeat.
+                # On the passthrough paths the tasks that start after the
+                # first one ends emit per-row states: how many do varies
+                # with the timing.
                 varied = {k for k, v in K.LAUNCHES.items() if v != launches[path][k]}
-                if not standalone or not varied <= {"hash64", "probe_join", "segment_any"}:
+                allowed = {"hash64", "probe_join", "segment_any"}
+                if path in PASSTHROUGH_PATHS:
+                    allowed |= {"fused_agg", "passthrough_rows", "sort_order",
+                                "grouped_on_order", "compaction_order"}
+                if not standalone or not varied <= allowed:
                     fail(f"{path}: warm run launched {dict(K.LAUNCHES)} != cold "
                          f"{launches[path]}")
                 log(f"{path}: a warm run's join launches differ from the cold run's: "
                     f"{ {k: (launches[path][k], K.LAUNCHES[k]) for k in sorted(varied)} }")
+            if path in PASSTHROUGH_PATHS:
+                # the split may vary, the latch may not: every run emits
+                # per-row states
+                report[f"{path}_passthrough"]["warm"] = check_passthrough(K, c, path, "warm")
             if parquet:
                 warm_scan = scan_metrics(job_plans(c))
                 if not warm_scan.get("scan_cache_hits") or warm_scan.get("scan_read_time") \
@@ -1650,7 +1936,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             check_clustered(job_plans(c), "warm")
         if standalone:
             split = standalone_split(c, warm[-1])
-            if split["fused_fallbacks"] or split["passthrough_triggers"]:
+            if split["fused_fallbacks"]:
                 fail(f"{path}: fused_fallbacks {split['fused_fallbacks']}")
             log(f"{path} time split (last warm run, ms; sums over tasks): "
                 f"{json.dumps({k: v for k, v in split.items() if k != 'planned_partitions'})}")
@@ -1679,8 +1965,128 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                 log("  " + line)
         report[f"{path}_cold_ms"] = cold_s * 1000
         report[f"{path}_warm_ms"] = warm_s * 1000
-        if cuda:
+        if cuda and not path.startswith("spill_"):
             report[f"{path}_profile"] = profile_query(c, sql, path)
+    # the spill paths together: denials, both operators spilled, K16
+    # launched, and no reservation left behind
+    mem = MEMORY_STATS.snapshot()
+    spilled = {op: sum(t.get(op, 0) for t in spill_tags.values())
+               for op in ("HashAggregateExec", "JoinExec")}
+    k16 = {p: launches[p]["spill_partition"] for p in spill_tags}
+    log(f"spill paths: memory stats {json.dumps(mem)}; spill runs by operator "
+        f"{json.dumps(spilled)}; K16 launches per path {json.dumps(k16)}")
+    if not mem.get("reserve_denied_total") or not all(spilled.values()) \
+            or not any(k16.values()) or mem["reserved_bytes.host"]:
+        fail(f"spill paths: {mem}, {spilled}, {k16}")
+    report["spill"] = {"memory_stats": mem, "spill_runs": spilled, "k16_launches": k16}
+
+    # memsweep: the 22 queries through the local engine over parquet with
+    # the reference sweep's settings under the 1 MiB budget, each bit for
+    # bit against the same settings with no budget; denials and spill
+    # runs, and no reservation left
+    msweep = BallistaContext.local(BallistaConfig({**MEMSWEEP_SETTINGS, **SPILL_BUDGET}),
+                                   device=device)
+    mfree = BallistaContext.local(BallistaConfig(MEMSWEEP_SETTINGS), device=device)
+    for name, path in pq_paths.items():
+        msweep.register_parquet(name, path)
+        mfree.register_parquet(name, path)
+    MEMORY_STATS.reset()
+    sweep = {}
+    K.reset_launch_counts()
+    with Capture(K, F, device) as cap:
+        for q in sorted(QUERIES):
+            df, s = once(msweep, QUERIES[q])
+            sweep[q] = {"frame": df, "budget_ms": s * 1000,
+                        "spill_runs": op_metrics(job_plans(msweep), ("spill_runs",))["spill_runs"]}
+    launches["memsweep"] = dict(K.LAUNCHES)
+    captured["memsweep"] = cap.calls
+    if cap.off_device:
+        fail(f"memsweep: tensors off the card: {cap.off_device[:5]}")
+    missing = [k for k in PATH_KERNELS["memsweep"] if launches["memsweep"][k] == 0]
+    if missing:
+        fail(f"memsweep: kernels not launched: {missing} ({launches['memsweep']})")
+    mem = MEMORY_STATS.snapshot()
+    for q in sorted(QUERIES):
+        want, s = once(mfree, QUERIES[q])
+        try:
+            assert_frames_equal(sweep[q]["frame"], want, exact=True)
+        except AssertionError as e:
+            fail(f"memsweep q{q}: the budgeted run differs from the unlimited run: {e}")
+        log(f"memsweep q{q}: {len(want)} rows, bit for bit; budget {sweep[q]['budget_ms']:.1f} ms, "
+            f"unlimited {s * 1000:.1f} ms; spill runs {json.dumps(sweep[q]['spill_runs'])}")
+        sweep[q]["unlimited_ms"] = s * 1000
+    log(f"memsweep: 22 of 22 equal their unlimited runs bit for bit under "
+        f"{SPILL_BUDGET}; memory stats {json.dumps(mem)}")
+    if not mem.get("reserve_denied_total") or not mem.get("spill_runs_total") \
+            or mem["reserved_bytes.host"]:
+        fail(f"memsweep: nothing denied or spilled, or a reservation was left: {mem}")
+    report["memsweep"] = {"memory_stats": mem, **{
+        q: {k: v for k, v in r.items() if k != "frame"} for q, r in sweep.items()}}
+    paths["memsweep"] = (msweep, None)
+
+    # tpch22: the 22 queries through the standalone engine over parquet,
+    # cold then warm, held against the port on the CPU (the child's answers)
+    tp = {}
+    K.reset_launch_counts()
+    with Capture(K, F, device) as cap:
+        for q in sorted(QUERIES):
+            df, s = once(sa_pq, QUERIES[q])
+            tp[q] = {"frame": df, "cold_ms": s * 1000}
+    launches["tpch22"] = dict(K.LAUNCHES)
+    captured["tpch22"] = cap.calls
+    if cap.off_device:
+        fail(f"tpch22: tensors off the card: {cap.off_device[:5]}")
+    missing = [k for k in PATH_KERNELS["tpch22"] if launches["tpch22"][k] == 0]
+    if missing:
+        fail(f"tpch22: kernels not launched: {missing} ({launches['tpch22']})")
+    for q in sorted(QUERIES):
+        _, s = once(sa_pq, QUERIES[q])
+        tp[q]["warm_ms"] = s * 1000
+    answers = cpu_answer_frames()
+    checks = [(f"tpch22 q{q}", tp[q]["frame"], q) for q in sorted(QUERIES)]
+    checks += [(p, path_frames[p], q) for q in EXTRACT_QUERIES for p in (f"pq_q{q}", f"sa_q{q}")]
+    checks += [("sa_q20", path_frames["sa_q20"], 20), ("sa_pt", path_frames["sa_pt"], "pt")]
+    for label, df, q in checks:
+        try:
+            assert_frames_equal(df, answers[q][0], ordered=False)
+            check_ordering(QUERIES.get(q, PT_QUERY), df)
+        except AssertionError as e:
+            fail(f"{label} differs from the port on the CPU: {e}")
+    for q in sorted(QUERIES):
+        log(f"tpch22 q{q}: {len(tp[q]['frame'])} rows, cold {tp[q]['cold_ms']:.1f} ms, warm "
+            f"{tp[q]['warm_ms']:.1f} ms (CPU port {answers[q][1] * 1000:.1f} ms)")
+    log("tpch22: all 22 standalone results, and pq_q7-9, sa_q7-9, sa_q20 and sa_pt, equal the "
+        "port on "
+        "the CPU (exact; floats at rtol 1e-12; as multisets, with the ORDER BY checked)")
+    log(f"tpch22 launches: {json.dumps({k: v for k, v in launches['tpch22'].items() if v})}")
+    report["tpch22"] = {q: {"rows": len(v["frame"]), "cold_ms": v["cold_ms"],
+                            "warm_ms": v["warm_ms"], "cpu_ms": answers[q][1] * 1000}
+                        for q, v in tp.items()}
+    paths["tpch22"] = (sa_pq, None)
+
+    # SF0.01: the 22 queries on the card, both engines, against sqlite3
+    small = generate_tables(0.01, seed=1)
+    conn = sqlite_oracle(small)
+    small_cfg = BallistaConfig({"ballista.shuffle.partitions": "4"})
+    small_ctx = {"local": BallistaContext.local(small_cfg, device=device),
+                 "standalone": BallistaContext.standalone(small_cfg, concurrent_tasks=4,
+                                                          device=device)}
+    try:
+        for c in small_ctx.values():
+            for name, table in small.items():
+                c.register_table(name, table)
+        for q in sorted(QUERIES):
+            want = sqlite_answer(conn, QUERIES[q])
+            for engine, c in small_ctx.items():
+                try:
+                    check_against_sqlite(want, QUERIES[q], c.sql(QUERIES[q]).to_pandas())
+                except AssertionError as e:
+                    fail(f"SF0.01 q{q} ({engine}) differs from sqlite: {e}")
+    finally:
+        small_ctx["standalone"].shutdown()
+        conn.close()
+    log("SF0.01: all 22 queries equal the sqlite3 oracle on the card, local and standalone")
+
     now = cache_fingerprints(table_cache)
     changed = [k for k, v in cached.items() if now.get(k) != v]
     if changed:
@@ -1742,6 +2148,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     # at the stress shapes; timings at the largest call over the paths
     stress = stress_inputs(K, device, stress_rows)
     stress.update(fused_stress(device, stress_rows))
+    stress.update(new_kernel_stress(device, stress_rows))
     for name in KERNEL_META:
         per_path = {p: launches[p][LAUNCH_KEY[name]] for p in paths}
         checked = {}  # path -> wrapper -> rows and max abs err of that path's largest call
@@ -1761,7 +2168,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                 got = [bool(getattr(K, name)(*sargs)) for sargs in stress[name]]
                 if got != expected:
                     fail(f"{name}: flags {got} at the stress shapes, expected {expected}")
-            if name in ("build_side_sort", "probe_join"):
+            if name in ("build_side_sort", "probe_join", "spill_partition"):
                 was = K._FORCE_COLLISIONS
                 K._FORCE_COLLISIONS = True
                 try:
@@ -1868,6 +2275,57 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     return report
 
 
+# --------------------------------------------------------------------------
+# the 22 TPC-H queries: the port on the CPU as the reference answers
+# --------------------------------------------------------------------------
+
+
+def cpu_answers(pq_dir: str, out_path: str, threads: int = 4) -> None:
+    """``chip_smoke.py --cpu-answers DIR OUT``: the 22 queries and PT_QUERY
+    (key "pt") through the port's local engine on the CPU (the plain twins)
+    over the parquet files in DIR, pickled to OUT as {query: frame}.  Run as a child process
+    by the card's run, beside its own work."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from arrow_ballista_tpu_torch import BallistaContext
+    from benchmarks.queries import QUERIES
+
+    torch.set_num_threads(threads)
+    ctx = BallistaContext.local(device="cpu")
+    for name in PARQUET_TABLES:
+        ctx.register_parquet(name, os.path.join(pq_dir, f"{name}.parquet"))
+    out = {}
+    for q, sql in [*sorted(QUERIES.items()), ("pt", PT_QUERY)]:
+        t0 = time.perf_counter()
+        out[q] = (ctx.sql(sql).to_pandas(), time.perf_counter() - t0)
+    with open(out_path + ".tmp", "wb") as fh:
+        pickle.dump(out, fh)
+    os.replace(out_path + ".tmp", out_path)
+
+
+def op_metrics(plans, names):
+    """Sums of the metrics ``names`` over the operators of ``plans``,
+    the operators inside fused chains included, keyed by metric and then
+    by operator class."""
+    out = {n: {} for n in names}
+
+    def walk(p):
+        for op in [p, *getattr(p, "ops", [])]:
+            m = op.metrics().to_dict()
+            for n in names:
+                if m.get(n):
+                    out[n][type(op).__name__] = out[n].get(type(op).__name__, 0) + m[n]
+        for c in p.children():
+            walk(c)
+
+    for plan in plans:
+        walk(plan)
+    return out
+
+
 def smi(query: str) -> str:
     """One nvidia-smi reading of ``query`` (e.g. ``name,power.limit``)."""
     try:
@@ -1879,6 +2337,9 @@ def smi(query: str) -> str:
 
 
 def main() -> None:
+    if len(sys.argv) == 4 and sys.argv[1] == "--cpu-answers":
+        cpu_answers(sys.argv[2], sys.argv[3])
+        return
     try:
         import torch
     except ImportError as e:

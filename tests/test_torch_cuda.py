@@ -11,11 +11,11 @@ import pytest
 import torch
 
 from arrow_ballista_tpu_torch.ops import kernels as TK
-from tests.torch_cases import (DENSE_CASES, FUSED_CHAINS, JOIN_CASES, JOIN_QUERIES,
+from tests.torch_cases import (DENSE_CASES, FUSED_CHAINS, HASH_CASES, JOIN_CASES, JOIN_QUERIES,
                                KEEP_CASES, PRESORTED_CASES, RANGE_CASES, SEG_AGG_CASES,
                                SEGMENT_CASES, SETTINGS, SORT_CASES, STANDALONE_SETTINGS,
                                STANDALONE_SQL, UNORDERED, assert_frames_equal, dense_case,
-                               find_chain, hand_chain, hand_table, hash_cols, join_case,
+                               edge_days, find_chain, hand_chain, hand_table, hash_cols, join_case,
                                keep_case, mask_case, presorted_case, range_case, seg_agg_case,
                                segment_case, sort_case)
 
@@ -328,4 +328,109 @@ def test_standalone_q1_on_the_card_matches_the_cpu(dev, sf001_parquet, source):
                 assert TK.LAUNCHES["fused_agg"] == 4
         finally:
             ctx.shutdown()
+    assert_frames_equal(frames[0], frames[1])
+
+
+# --------------------------------------------------------------------------
+# K14 EXTRACT, K15 passthrough states, K16 spill partitions
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", ["year", "month", "day"])
+def test_extract_kernel_matches_twin(dev, field):
+    rng = np.random.default_rng(14)
+    days = np.concatenate([edge_days(), rng.integers(-2 ** 31, 2 ** 31 - 1, N)]).astype(np.int32)
+    TK.reset_launch_counts()
+    got = TK.extract_field(_t(days).to(dev), field)
+    assert TK.LAUNCHES["extract_field"] == 1 and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), TK.extract_field_plain(_t(days), field))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forced", [False, True])
+@pytest.mark.parametrize("case", HASH_CASES)
+def test_spill_partition_kernel_matches_twin(dev, case, forced):
+    cols = hash_cols(case, N, np.random.default_rng(16))
+    was = TK._FORCE_COLLISIONS
+    TK._FORCE_COLLISIONS = forced
+    try:
+        got = TK.spill_partition([_t(c).to(dev) for c in cols], 8)
+        want = TK.spill_partition_plain([_t(c) for c in cols], 8)
+    finally:
+        TK._FORCE_COLLISIONS = was
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nulls", [False, True], ids=["plain", "nulls"])
+def test_passthrough_kernel_matches_twin(dev, nulls):
+    """K15, generated for an aggregate with count(*), count, sum, min and
+    max over NULL keys and values, against its twin on the same batch."""
+    import pyarrow as pa
+
+    from arrow_ballista_tpu_torch.compile import fused as F
+    from arrow_ballista_tpu_torch.models import expr as E
+    from arrow_ballista_tpu_torch.models.schema import FLOAT64, INT32, INT64, Field, Schema
+    from arrow_ballista_tpu_torch.ops import operators as O
+    from arrow_ballista_tpu_torch.ops.physical import MemoryScanExec, TaskContext
+
+    rng = np.random.default_rng(15)
+    n = 200_000
+
+    def col(values, typ):
+        return pa.array(np.where(rng.random(n) < 0.1, None, values) if nulls else values,
+                        type=typ)
+
+    table = pa.table({"k": col(rng.integers(-5, 2 ** 40, n), pa.int64()),
+                      "k2": col(rng.integers(0, 9, n).astype(np.int32), pa.int32()),
+                      "v": col(rng.integers(-100, 100, n), pa.int64()),
+                      "x": col(rng.normal(size=n), pa.float64())})
+    schema = Schema([Field("k", INT64, nulls), Field("k2", INT32, nulls),
+                     Field("v", INT64, nulls), Field("x", FLOAT64, nulls)])
+    agg = O.HashAggregateExec(
+        MemoryScanExec(schema, table, partitions=1), [(E.Column("k"), "k"), (E.Column("k2"), "k2")],
+        [O.AggSpec("count", None, "n"), O.AggSpec("count", E.Column("v"), "nv"),
+         O.AggSpec("sum", E.Column("v"), "s"), O.AggSpec("min", E.Column("x"), "lo"),
+         O.AggSpec("max", E.Column("k2"), "hi")], mode="partial")
+    ctx = TaskContext(device=dev)
+    prog = F.PassthroughProgram(agg, ctx)
+    batch = agg.input.execute(0, ctx)[0]
+    aux = prog.compiled[0].aux_arrays(batch.dicts)
+    TK.reset_launch_counts()
+    got = F.passthrough_rows(prog, batch.columns, batch.mask, aux)
+    want = F.passthrough_rows_plain(prog, batch.columns, batch.mask, aux)
+    assert TK.LAUNCHES["passthrough_rows"] == 1
+    assert list(got) == list(want)
+    for name, column in prog.aliases.items():  # the keys, and states that are a column
+        assert got[name] is batch.columns[column] and want[name] is got[name], name
+    for name, w in want.items():
+        np.testing.assert_array_equal(got[name].cpu().numpy(),
+                                      w.expand(batch.capacity).cpu().numpy(), err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [3, 18, 21])
+def test_spilled_queries_on_the_card_match_the_cpu(dev, q):
+    """A 1 MiB host budget with partitioned joins: the aggregates and the
+    joins spill (K16 on the joins' build sides) on the card and equal the
+    unlimited run on the CPU."""
+    from arrow_ballista_tpu_torch import BallistaConfig, BallistaContext
+    from arrow_ballista_tpu_torch.memory import STATS
+    from benchmarks.queries import QUERIES
+
+    conf = {"ballista.shuffle.partitions": "4", "ballista.join.broadcast_threshold": "0"}
+    frames = []
+    for device, budget in ((dev, "1048576"), ("cpu", "0")):
+        ctx = BallistaContext.local(BallistaConfig({**conf, "ballista.memory.host.budget.bytes":
+                                                    budget}), device=device)
+        for name, table in _sf001_tables().items():
+            ctx.register_table(name, table)
+        STATS.reset()
+        TK.reset_launch_counts()
+        frames.append(ctx.sql(QUERIES[q]).to_pandas())
+        if device is dev:
+            snap = STATS.snapshot()
+            assert snap.get("spill_runs_total", 0) > 0 and snap["reserved_bytes.host"] == 0
+            assert TK.LAUNCHES["spill_partition"] > 0
     assert_frames_equal(frames[0], frames[1])

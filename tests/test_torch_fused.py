@@ -154,7 +154,9 @@ def test_an_operator_without_generated_code_stays_interpreted(tables):
     scan = TMemoryTable("t", tables["t"]).scan(None, [], 1)
     udf_like = TO.FilterExec(scan, TE.BinOp(">", TE.Column("f"), TE.Column("f")))
     assert _op_verdict(CompilePolicy(), udf_like) == (True, None)
-    bad = TO.FilterExec(scan, TE.Extract("year", TE.Column("d")))
+    # the tracer emits no negation of a bool (EXTRACT, the earlier example,
+    # now traces into K14's row function)
+    bad = TO.FilterExec(scan, TE.BinOp("=", TE.Negate(TE.IsNull(TE.Column("k"))), TE.Lit(True)))
     ok, reason = _op_verdict(CompilePolicy(), bad)
     assert not ok and reason.startswith("no generated code for FilterExec")
 

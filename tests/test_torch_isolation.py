@@ -43,6 +43,15 @@ for name, path in [(n, os.path.join(tmp, n + ".parquet")) for n in ("lineitem", 
 sdf = sa.sql(QUERIES[1]).to_pandas()
 assert sdf.equals(pctx.sql(QUERIES[1]).to_pandas()), sdf
 sa.shutdown()
+# the memory governor and the spill paths (memory/), and EXTRACT
+spill = abt.BallistaContext.local(abt.BallistaConfig({{
+    "ballista.memory.host.budget.bytes": "4096", "ballista.join.broadcast_threshold": "0"}}),
+    device="cpu")
+for name, table in generate_tables(0.002, seed=0).items():
+    spill.register_table(name, table)
+from arrow_ballista_tpu_torch.memory import STATS
+assert spill.sql(QUERIES[9]).to_pandas().equals(ctx.sql(QUERIES[9]).to_pandas())
+assert STATS.snapshot().get("spill_runs_total", 0) > 0
 import shutil
 shutil.rmtree(tmp)
 bad = sorted(m for m in sys.modules
@@ -83,7 +92,8 @@ def test_no_port_file_imports_jax_or_the_reference():
     rel = {os.path.relpath(f, PORT) for f in files}
     assert {"compile/codegen.py", "compile/fused.py", "compile/fuse.py", "compile/chains.py",
             "scheduler/scheduler.py", "scheduler/standalone.py", "scheduler/aqe.py",
-            "executor/executor.py", "models/ipc.py", "ops/shuffle.py"} <= rel
+            "executor/executor.py", "models/ipc.py", "ops/shuffle.py",
+            "memory/__init__.py", "memory/governor.py", "memory/spill.py"} <= rel
     bad = []
     for path in files:
         for mod in _imports(path):

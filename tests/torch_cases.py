@@ -299,20 +299,24 @@ SETTINGS = {
 }
 
 
-def assert_frames_equal(got, want, ordered: bool = True):
-    assert list(got.columns) == list(want.columns)
-    assert len(got) == len(want)
+def assert_frames_equal(got, want, ordered: bool = True, exact: bool = False):
+    """Exact on integer, decimal, date and string columns, rtol 1e-12 on
+    floats (bit for bit with ``exact``); with ``ordered`` False as
+    multisets (ties of an ORDER BY may break either way between two
+    engines)."""
+    assert list(got.columns) == list(want.columns) and len(got) == len(want), \
+        f"shape/columns differ: {list(got.columns)} {len(got)} vs {list(want.columns)} {len(want)}"
     if not ordered:
         cols = list(want.columns)
-        got = got.sort_values(cols).reset_index(drop=True)
-        want = want.sort_values(cols).reset_index(drop=True)
+        got = got.sort_values(cols, kind="mergesort").reset_index(drop=True)
+        want = want.sort_values(cols, kind="mergesort").reset_index(drop=True)
     for c in want.columns:
         g, w = got[c].to_numpy(), want[c].to_numpy()
-        if w.dtype.kind == "f":
+        if w.dtype.kind == "f" and not exact:
             np.testing.assert_allclose(g.astype(float), w.astype(float), rtol=1e-12,
-                                       equal_nan=True)
+                                       equal_nan=True, err_msg=c)
         else:
-            np.testing.assert_array_equal(g, w)
+            np.testing.assert_array_equal(g, w, err_msg=c)
 
 
 # --------------------------------------------------------------------------
@@ -512,3 +516,200 @@ FUSED_CHAINS = {
 }
 
 
+
+
+# --------------------------------------------------------------------------
+# K14: EXTRACT
+# --------------------------------------------------------------------------
+
+
+def edge_days():
+    """Epoch days: 1900-2100 every 7th day, the days around the leap days
+    of 1900 (none), 2000 and 2100 (none), negative and extreme days, and
+    the NULL sentinel (the int32 minimum)."""
+    import datetime
+
+    def days(*isos):
+        return [(datetime.date.fromisoformat(s) - datetime.date(1970, 1, 1)).days
+                for s in isos]
+
+    span = np.arange(days("1900-01-01")[0], days("2100-12-31")[0] + 1, 7)
+    edges = days("1900-02-28", "1900-03-01", "2000-02-28", "2000-02-29", "2000-03-01",
+                 "2100-02-28", "2100-03-01", "1969-12-31", "1970-01-01", "1600-03-01",
+                 "0001-01-01", "9999-12-31")
+    extremes = [-(2 ** 31), -(2 ** 31) + 1, 2 ** 31 - 1, -719468, -719469, -1, 0, 1]
+    return np.concatenate([span, edges, extremes]).astype(np.int32)
+
+
+# --------------------------------------------------------------------------
+# TPC-H against a sqlite3 oracle (the comparators of tests/test_tpch.py,
+# with the port's parser: no JAX, so chip_smoke.py uses them on the card)
+# --------------------------------------------------------------------------
+
+_EPOCH = __import__("datetime").date(1970, 1, 1)
+_DATE_ARITH = __import__("re").compile(
+    r"date\s+'(\d{4})-(\d{2})-(\d{2})'"
+    r"(?:\s*([+-])\s*interval\s+'(\d+)'\s+(day|month|year))?",
+    __import__("re").IGNORECASE)
+
+
+def _add_interval(d, sign: str, n: int, unit: str):
+    import datetime
+
+    n = n if sign == "+" else -n
+    if unit == "day":
+        return d + datetime.timedelta(days=n)
+    if unit == "month":
+        m = d.month - 1 + n
+        return d.replace(year=d.year + m // 12, month=m % 12 + 1)
+    return d.replace(year=d.year + n)
+
+
+def to_sqlite(sql: str) -> str:
+    """The query in sqlite's dialect: date literals as epoch days, EXTRACT
+    through strftime, SUBSTRING as substr."""
+    import datetime
+    import re
+
+    def date_repl(m):
+        d = datetime.date(int(m.group(1)), int(m.group(2)), int(m.group(3)))
+        if m.group(4):
+            d = _add_interval(d, m.group(4), int(m.group(5)), m.group(6).lower())
+        return str((d - _EPOCH).days)
+
+    sql = _DATE_ARITH.sub(date_repl, sql)
+    sql = re.sub(r"extract\s*\(\s*year\s+from\s+([A-Za-z0-9_.]+)\s*\)",
+                 r"CAST(strftime('%Y', (\1)*86400.0, 'unixepoch') AS INTEGER)",
+                 sql, flags=re.IGNORECASE)
+    sql = re.sub(r"substring\s*\(\s*([A-Za-z0-9_.]+)\s+from\s+(\d+)\s+for\s+(\d+)\s*\)",
+                 r"substr(\1, \2, \3)", sql, flags=re.IGNORECASE)
+    return sql
+
+
+def _arrow_to_oracle_df(table):
+    import pandas as pd
+    import pyarrow as pa
+
+    cols = {}
+    for name, col in zip(table.column_names, table.columns):
+        t = col.type
+        meta = table.schema.field(name).metadata or {}
+        if pa.types.is_decimal(t):
+            cols[name] = np.asarray(col.cast(pa.float64()))
+        elif pa.types.is_integer(t) and meta.get(b"kind") == b"decimal":
+            scale = int(meta.get(b"scale", b"0"))
+            cols[name] = np.asarray(col.cast(pa.int64())).astype(np.float64) / (10 ** scale)
+        elif pa.types.is_date32(t):
+            cols[name] = np.asarray(col.cast(pa.int32()))
+        else:
+            cols[name] = col.to_pandas()
+    return pd.DataFrame(cols)
+
+
+# join-key indexes (benchmarks/sf1_correctness.py's): without them sqlite
+# nested-loops q21's correlated subqueries for minutes even at SF0.01
+_ORACLE_INDEXES = [("lineitem", "l_orderkey"), ("lineitem", "l_partkey"),
+                   ("lineitem", "l_suppkey"), ("orders", "o_orderkey"), ("orders", "o_custkey"),
+                   ("customer", "c_custkey"), ("customer", "c_nationkey"),
+                   ("supplier", "s_suppkey"), ("supplier", "s_nationkey"),
+                   ("part", "p_partkey"), ("partsupp", "ps_partkey"),
+                   ("partsupp", "ps_suppkey"), ("nation", "n_nationkey"),
+                   ("nation", "n_regionkey"), ("region", "r_regionkey")]
+
+
+def sqlite_oracle(tables):
+    """An in-memory sqlite3 database of the tables (case-sensitive LIKE),
+    with join-key indexes."""
+    import sqlite3
+
+    conn = sqlite3.connect(":memory:", check_same_thread=False)
+    conn.execute("PRAGMA case_sensitive_like = ON")
+    for name, table in tables.items():
+        _arrow_to_oracle_df(table).to_sql(name, conn, index=False)
+    for i, (table, col) in enumerate(_ORACLE_INDEXES):
+        if table in tables:
+            conn.execute(f"CREATE INDEX ix{i} ON {table}({col})")
+    conn.commit()
+    return conn
+
+
+def normalize(df):
+    import datetime
+
+    import pandas as pd
+
+    out = {}
+    for i, col in enumerate(df.columns):
+        s = df[col]
+        if pd.api.types.is_datetime64_any_dtype(s):
+            s = (s - pd.Timestamp(_EPOCH)).dt.days
+        elif s.dtype == object and len(s) and isinstance(
+                s.dropna().iloc[0] if len(s.dropna()) else None, datetime.date):
+            s = s.map(lambda d: (d - _EPOCH).days if d is not None else None)
+        out[f"c{i}"] = s.reset_index(drop=True)
+    return pd.DataFrame(out)
+
+
+def compare_content(got, want):
+    """Multiset equality (both frames fully sorted; ORDER BY ties may break
+    either way, so ``check_ordering`` checks the order)."""
+    import pandas as pd
+
+    g, w = normalize(got), normalize(want)
+    assert g.shape == w.shape, f"shape {g.shape} != {w.shape}\n{g}\n{w}"
+    cols = list(g.columns)
+    g = g.sort_values(cols, kind="mergesort").reset_index(drop=True)
+    w = w.sort_values(cols, kind="mergesort").reset_index(drop=True)
+    for col in cols:
+        gc, wc = g[col], w[col]
+        if pd.api.types.is_numeric_dtype(gc) and pd.api.types.is_numeric_dtype(wc):
+            np.testing.assert_allclose(gc.to_numpy(dtype=np.float64), wc.to_numpy(dtype=np.float64),
+                                       rtol=1e-6, atol=1e-6, err_msg=f"column {col}")
+        else:
+            assert gc.astype(str).tolist() == wc.astype(str).tolist(), \
+                f"column {col}:\n{gc}\n{wc}"
+
+
+def check_ordering(sql: str, got):
+    """Rows monotone in every ORDER BY key that is an output column."""
+    from arrow_ballista_tpu_torch.sql import ast as qast
+    from arrow_ballista_tpu_torch.sql.parser import parse_sql
+
+    stmt = parse_sql(sql)
+    if not isinstance(stmt, qast.Select) or not stmt.order_by or len(got) < 2:
+        return
+    keys = []
+    for item in stmt.order_by:
+        e = item.expr
+        if isinstance(e, qast.ColumnRef) and e.table is None and e.name in got.columns:
+            keys.append((e.name, item.ascending))
+        else:
+            return  # expression keys: content check only
+    g = normalize(got[[k for k, _ in keys]])
+    g.columns = [k for k, _ in keys]
+
+    def le(r1, r2):
+        for k, asc in keys:
+            v1, v2 = r1[k], r2[k]
+            if v1 == v2:
+                continue
+            return (v1 < v2) if asc else (v1 > v2)
+        return True
+
+    recs = g.to_dict("records")
+    for i in range(len(recs) - 1):
+        assert le(recs[i], recs[i + 1]), \
+            f"ORDER BY violated at row {i}: {recs[i]} !<= {recs[i + 1]} for {keys}"
+
+
+def sqlite_answer(conn, sql: str):
+    """The oracle's frame of ``sql``."""
+    import pandas as pd
+
+    return pd.read_sql_query(to_sqlite(sql), conn)
+
+
+def check_against_sqlite(want, sql: str, got):
+    """``got`` (the engine's frame of ``sql``) against the oracle's ``want``."""
+    compare_content(got.copy(), want.copy())
+    check_ordering(sql, got)
