@@ -15,7 +15,14 @@ Quick start::
 """
 from __future__ import annotations
 
+__version__ = "0.1.0"
+
 from .client.context import BallistaContext, BallistaDataFrame
+from .models.batch import ColumnBatch, concat_batches
+from .models.schema import (BOOL, DATE32, FLOAT32, FLOAT64, INT32, INT64, STRING, DataType, Field,
+                            Schema, decimal)
 from .utils.config import BallistaConfig
 
-__all__ = ["BallistaConfig", "BallistaContext", "BallistaDataFrame"]
+__all__ = ["BOOL", "DATE32", "FLOAT32", "FLOAT64", "INT32", "INT64", "STRING", "BallistaConfig",
+           "BallistaContext", "BallistaDataFrame", "ColumnBatch", "DataType", "Field", "Schema",
+           "concat_batches", "decimal", "__version__"]

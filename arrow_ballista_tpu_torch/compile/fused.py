@@ -30,7 +30,9 @@ delegates that one partition to the interpreted aggregate's spill path
 
 K15 ``passthrough_rows`` lives here too: the per-row partial states of a
 latched aggregate (``ops/operators.py`` ``passthrough_states``), traced
-over ``CudaOps`` into a K12-form kernel generated per aggregate.
+over ``CudaOps`` into a K12-form kernel generated per aggregate.  So does
+``mesh_derive``: the mesh aggregate's key and value columns
+(``ops/mesh_exec.py`` ``derive_columns``), generated the same way.
 
 Plan-shape contract: ``ops[0]`` is the chain head (closest to the shuffle
 writer), ``ops[-1]`` the tail, and the ops keep their ``.input`` links, so
@@ -136,6 +138,17 @@ def codegen_doubt(node: ExecutionPlan) -> Optional[str]:
     return None
 
 
+def _generate_aliased(trace_states, label: str):
+    """Trace ``trace_states(names) -> (trace, [(name, value)])`` twice:
+    once to find the outputs that are a plain read of an input column of
+    their own type (they alias it), then only the rest.  Returns (chain in
+    K12's form without the mask, aliases, every output's name)."""
+    trace, states = trace_states(None)
+    aliases = {name: trace.column_of(v) for name, v in states if trace.column_of(v)}
+    trace, computed = trace_states([name for name, _v in states if name not in aliases])
+    return G.render(trace, label, computed, None), aliases, [name for name, _v in states]
+
+
 def generate_passthrough(agg: HashAggregateExec, ctx: TaskContext):
     """Trace an aggregate's per-row states into K15's source -> (chain,
     aliases).  A state or key that is a plain read of an input column of
@@ -152,10 +165,8 @@ def generate_passthrough(agg: HashAggregateExec, ctx: TaskContext):
         return trace, passthrough_states(xp, pt, cols, mask, G.trace_aux(trace, 0, pt[0]),
                                          names)
 
-    trace, states = trace_states()
-    aliases = {name: trace.column_of(v) for name, v in states if trace.column_of(v)}
-    trace, computed = trace_states([name for name, _v in states if name not in aliases])
-    return G.render(trace, f"passthrough {agg._label()}", computed, None), aliases
+    gen, aliases, _names = _generate_aliased(trace_states, f"passthrough {agg._label()}")
+    return gen, aliases
 
 
 class GeneratedProgram:
@@ -254,6 +265,56 @@ def passthrough_rows(program: PassthroughProgram, cols, mask, aux):
     writes the rest, and none runs when nothing is left to compute."""
     if K._is_cpu(mask):
         return passthrough_rows_plain(program, cols, mask, aux)
+    written = {}
+    if program.gen.outputs:
+        outs, _ = program.launch_rows(cols, mask, [aux], with_mask=False)
+        written = {name: t for (name, _dt), t in zip(program.gen.outputs, outs)}
+    return {name: written[name] if name in written else cols[program.aliases[name]]
+            for name in program.names}
+
+
+class MeshDeriveProgram(GeneratedProgram):
+    """The mesh aggregate's derive (ops/mesh_exec.py ``derive_columns``:
+    key and value expressions over columns and lookup tables, NULL rows
+    neutralized per aggregate, hidden valid counts) as one kernel in K12's
+    form without the mask, generated per aggregate.  It is traced when the
+    operator is planned, so a chain the tracer does not cover raises
+    ``CodegenError`` there.  An output that is a plain input column of its
+    own type is that column (``aliases``); the kernel writes the rest."""
+
+    launch_name = "mesh_derive"
+
+    def __init__(self, in_schema, group_exprs, aggs, label: str):
+        from ..ops.mesh_exec import compile_agg_exprs, derive_columns
+
+        def trace_states(names=None):
+            trace = G.Trace()
+            xp = G.CudaOps(trace)
+            comp, key_c, val_c = compile_agg_exprs(in_schema, group_exprs, aggs, "cpu", xp=xp)
+            cols = G.InputColumns(trace, in_schema)
+            mask = G.CVal(trace, "in.mask[i]", torch.bool, 1)  # its shape only
+            return trace, derive_columns(xp, key_c, val_c, cols, mask,
+                                         G.trace_aux(trace, 0, comp), names)
+
+        self.gen, self.aliases, self.names = _generate_aliased(trace_states,
+                                                               f"mesh derive {label}")
+
+
+def mesh_derive_plain(program: MeshDeriveProgram, compiled, cols, mask, aux):
+    """The mesh derive's twin: the interpreted closures over TorchOps ->
+    {name: column}."""
+    from ..ops.mesh_exec import derive_columns
+
+    _comp, key_c, val_c = compiled
+    return dict(derive_columns(TorchOps(mask.device), key_c, val_c, cols, mask, aux))
+
+
+def mesh_derive(program: MeshDeriveProgram, compiled, cols, mask, aux):
+    """The mesh aggregate's derived key and value columns of one rank batch
+    -> {name: column}: one generated pass writes the computed ones (none
+    runs when every output is an input column)."""
+    if K._is_cpu(mask):
+        return mesh_derive_plain(program, compiled, cols, mask, aux)
     written = {}
     if program.gen.outputs:
         outs, _ = program.launch_rows(cols, mask, [aux], with_mask=False)

@@ -11,8 +11,9 @@ The libraries are bound with ``ctypes``: every pointer and the stream go
 as ``c_void_p`` and every C function returns a ``cudaError_t`` that the
 wrapper in ``ops/kernels.py`` checks (``check``).
 
-Generated sources (K12 and K13, one per fused chain, and K15, one per
-passthrough aggregate; compile/codegen.py)
+Generated sources (K12 and K13, one per fused chain, K15, one per
+passthrough aggregate, and the mesh derive, one per mesh aggregate;
+compile/codegen.py)
 build the same way at first use, by source: the ``.cu`` is written into
 ``_build/`` under the hash of the source, the headers and the flags, and
 built once per hash — under a per-hash lock, renamed into place when
@@ -86,6 +87,13 @@ SIGNATURES = {
     },
     "extract": {
         "ab_extract_field": ([_P, _LL, _I, _P, _P], _I),
+    },
+    "dispatch": {
+        "ab_dispatch_scratch_ints": ([_LL, _I], _LL),
+        "ab_dispatch_to_buckets": ([_P, _P, _LL, _I, _LL, _P, _P, _P, _P, _P, _P], _I),
+    },
+    "rank_merge": {
+        "ab_merge_rank_states": ([_P, _I, _LL, _I, _I, _P, _P], _I),
     },
 }
 

@@ -1,7 +1,8 @@
-"""Device kernels of the port: thirteen hand-written CUDA kernels, each
+"""Device kernels of the port: fifteen hand-written CUDA kernels, each
 beside its plain PyTorch twin (K12 and K13, the kernels generated per fused
-chain, and K15, generated per passthrough aggregate, live in
-compile/fused.py and count their launches here).
+chain, K15, generated per passthrough aggregate, and the mesh derive,
+generated per mesh aggregate, live in compile/fused.py and count their
+launches here).
 
 | kernel | source | replaces (arrow_ballista_tpu/ops/kernels.py) |
 | --- | --- | --- |
@@ -18,6 +19,8 @@ compile/fused.py and count their launches here).
 | K11 ``clustered_keep`` | ``csrc/clustered.cu`` | operators.py:672-697 "agg.clustered_keep" |
 | K14 ``extract_field`` | ``csrc/extract.cu`` + ``civil.cuh`` | ``extract_field`` l.800, ``civil_from_days`` l.782 |
 | K16 ``spill_partition`` | ``csrc/hash.cu`` | operators.py:1512 "join.spill_part" |
+| K17 ``dispatch_to_buckets`` | ``csrc/dispatch.cu`` | parallel/ici_shuffle.py:33 |
+| K18 ``merge_rank_states`` | ``csrc/rank_merge.cu`` | parallel/distributed.py:136-145 psum/pmin/pmax |
 
 A wrapper takes the twin only for a tensor that lies on the CPU (the
 tests); for a CUDA tensor it launches its kernel or raises.  ``LAUNCHES``
@@ -51,7 +54,8 @@ LAUNCHES: Dict[str, int] = {"dense_group_states": 0, "compaction_order": 0,
                             "presorted_disorder": 0, "key_range_check": 0,
                             "clustered_keep": 0, "fused_rows": 0, "fused_agg": 0,
                             "extract_field": 0, "passthrough_rows": 0,
-                            "spill_partition": 0}
+                            "spill_partition": 0, "dispatch_to_buckets": 0,
+                            "merge_rank_states": 0, "mesh_derive": 0}
 # the standalone engine launches from several task threads at once
 _LAUNCH_LOCK = threading.Lock()
 
@@ -1163,3 +1167,175 @@ def extract_field(days: torch.Tensor, field: str) -> torch.Tensor:
                 "extract_field")
     count_launch("extract_field")
     return out.reshape(days.shape)
+
+
+# --------------------------------------------------------------------------
+# K17: the mesh exchange's send buffers
+# --------------------------------------------------------------------------
+
+DISPATCH_MAX_DEST = 64  # csrc/dispatch.cu AB_DISPATCH_MAX_DEST
+_DISPATCH_MAX_COLS = 32
+
+
+def dispatch_to_buckets_plain(cols: Dict[str, torch.Tensor], dest: torch.Tensor,
+                              mask: torch.Tensor, num_dest: int, capacity: int):
+    """Plain twin of K17, the reference's formulation: one cumsum per
+    destination ranks the rows, one scatter per column.  Returns
+    (send_cols of [num_dest, capacity], send_mask, overflow, counts)."""
+    dev = mask.device
+    dkey = torch.where(mask, dest.to(torch.int32), num_dest)
+    rank = torch.zeros(mask.shape, dtype=torch.int64, device=dev)
+    counts = []
+    for b in range(num_dest):
+        is_b = dkey == b
+        within = torch.cumsum(is_b.to(torch.int64), 0)
+        rank = torch.where(is_b, within - 1, rank)
+        counts.append(within[-1] if within.numel() else torch.zeros((), dtype=torch.int64,
+                                                                      device=dev))
+    counts = torch.stack(counts).to(torch.int32)
+    slot_ok = (dkey >= 0) & (dkey < num_dest) & (rank < capacity)
+    size = num_dest * capacity
+    flat = torch.where(slot_ok, dkey.to(torch.int64) * capacity + rank, size)
+    send_cols = {}
+    for name, col in cols.items():
+        buf = torch.zeros(size + 1, dtype=col.dtype, device=dev)
+        buf[flat] = col  # only the dump slot sees more than one row
+        send_cols[name] = buf[:-1].reshape(num_dest, capacity)
+    mbuf = torch.zeros(size + 1, dtype=torch.bool, device=dev)
+    mbuf[flat] = slot_ok
+    overflow = (counts > capacity).any()
+    return send_cols, mbuf[:-1].reshape(num_dest, capacity), overflow, counts
+
+
+class _DispatchCols(ctypes.Structure):
+    """csrc/dispatch.cu ``DispatchCols`` (AB_DISPATCH_MAX_COLS 32)."""
+
+    _fields_ = [("in8", ctypes.c_void_p * 32), ("out8", ctypes.c_void_p * 32),
+                ("n8", ctypes.c_int),
+                ("in4", ctypes.c_void_p * 32), ("out4", ctypes.c_void_p * 32),
+                ("n4", ctypes.c_int),
+                ("in1", ctypes.c_void_p * 32), ("out1", ctypes.c_void_p * 32),
+                ("n1", ctypes.c_int)]
+
+
+def _dispatch_groups(cols: Dict[str, torch.Tensor]) -> List[List[str]]:
+    """The columns of a dispatch split into launches of at most
+    ``_DISPATCH_MAX_COLS`` columns of each element width, in column order;
+    always at least one launch (the mask and counts need one)."""
+    groups: List[List[str]] = [[]]
+    seen: Dict[int, int] = {}
+    for name, col in cols.items():
+        w = col.dtype.itemsize
+        g = seen.get(w, 0) // _DISPATCH_MAX_COLS
+        seen[w] = seen.get(w, 0) + 1
+        while len(groups) <= g:
+            groups.append([])
+        groups[g].append(name)
+    return groups
+
+
+def dispatch_to_buckets(cols: Dict[str, torch.Tensor], dest: torch.Tensor,
+                        mask: torch.Tensor, num_dest: int, capacity: int):
+    """Scatter the live rows into a ``[num_dest, capacity]`` send buffer per
+    column: a row's slot is its bucket ``dest`` times ``capacity`` plus its
+    rank among the earlier rows of that bucket; rows ranked past
+    ``capacity`` are dropped and flag ``overflow``.  Returns (send_cols,
+    send_mask, overflow: 0-d bool, counts: int32[num_dest]).
+
+    One launch takes up to ``_DISPATCH_MAX_COLS`` columns of each width;
+    more go through further launches, each of which ranks the rows anew
+    (the rank is deterministic, so every launch fills the same slots and
+    writes the same mask, counts and flag)."""
+    if _is_cpu(mask):
+        return dispatch_to_buckets_plain(cols, dest, mask, num_dest, capacity)
+    _require_cuda(mask, dest, *cols.values())
+    if dest.dtype != torch.int32 or mask.dtype != torch.bool:
+        raise TypeError(f"dispatch takes int32 destinations and a bool mask, got {dest.dtype}, "
+                        f"{mask.dtype}")
+    if not 1 <= num_dest <= DISPATCH_MAX_DEST or capacity < 1:
+        raise ValueError(f"dispatch takes 1-{DISPATCH_MAX_DEST} destinations and a positive "
+                         f"capacity, got {num_dest}, {capacity}")
+    m, d = _flat(mask), _flat(dest)
+    n = m.shape[0]
+    dev = m.device
+    size = int(num_dest) * int(capacity)
+    flat_cols = {}  # contiguous inputs whose pointers the launches read
+    send_cols = {}
+    for name, col in cols.items():
+        if col.dtype not in (torch.int64, torch.float64, torch.int32, torch.float32, torch.bool):
+            raise TypeError(f"dispatch column {name}: no kernel for {col.dtype}")
+        if col.shape != mask.shape:
+            raise ValueError(f"dispatch column {name}: shape {tuple(col.shape)}, mask "
+                             f"{tuple(mask.shape)}")
+        flat_cols[name] = _flat(col)
+        send_cols[name] = torch.empty(size, dtype=col.dtype, device=dev).view(num_dest,
+                                                                              capacity)
+    send_mask = torch.empty(size, dtype=torch.bool, device=dev)
+    counts = torch.empty(num_dest, dtype=torch.int32, device=dev)
+    overflow = torch.empty(1, dtype=torch.bool, device=dev)
+    lib = _cuda.LIBRARIES.get("dispatch")
+    scratch = torch.empty(max(1, lib.ab_dispatch_scratch_ints(n, num_dest)), dtype=torch.int32,
+                          device=dev)
+    widths = {8: ("in8", "out8", "n8"), 4: ("in4", "out4", "n4"), 1: ("in1", "out1", "n1")}
+    for group in _dispatch_groups(flat_cols):
+        spec = _DispatchCols()
+        for name in group:
+            fin, fout, fn = widths[flat_cols[name].dtype.itemsize]
+            k = getattr(spec, fn)
+            getattr(spec, fin)[k] = flat_cols[name].data_ptr()
+            getattr(spec, fout)[k] = send_cols[name].data_ptr()
+            setattr(spec, fn, k + 1)
+        err = lib.ab_dispatch_to_buckets(_ptr(d), _ptr(m), n, int(num_dest), int(capacity),
+                                         ctypes.byref(spec), _ptr(_flat(send_mask)),
+                                         _ptr(counts), _ptr(_flat(overflow)), _ptr(scratch),
+                                         _stream(dev))
+        _cuda.check(err, "dispatch_to_buckets")
+        count_launch("dispatch_to_buckets")
+    return send_cols, send_mask.view(num_dest, capacity), overflow[0], counts
+
+
+# --------------------------------------------------------------------------
+# K18: the mesh ranks' slot-aligned states, merged
+# --------------------------------------------------------------------------
+
+MERGE_MAX_RANKS = 64  # csrc/rank_merge.cu AB_MERGE_MAX_RANKS
+_MERGE_HOW = {AGG_SUM: 0, AGG_COUNT: 0, AGG_MIN: 2, AGG_MAX: 3, "or": 3}
+
+
+def merge_rank_states_plain(xs: Sequence[torch.Tensor], how: str) -> torch.Tensor:
+    """Plain twin of K18: ``torch.stack(xs)`` summed, or its min or max
+    (a bool array merges by OR), over the ranks."""
+    s = torch.stack(list(xs))
+    if s.dtype == torch.bool:
+        return s.any(0)
+    if how in (AGG_SUM, AGG_COUNT):
+        return s.sum(0, dtype=s.dtype)
+    return s.amin(0) if how == AGG_MIN else s.amax(0)
+
+
+def merge_rank_states(xs: Sequence[torch.Tensor], how: str) -> torch.Tensor:
+    """Element-wise sum (``how`` sum or count), min or max of the ranks'
+    slot-aligned arrays, which lie on one device; bool arrays merge by OR.
+    Integer sums wrap."""
+    xs = list(xs)
+    if _is_cpu(xs[0]):
+        return merge_rank_states_plain(xs, how)
+    _require_cuda(*xs)
+    dt = xs[0].dtype
+    if dt not in _KIND or any(x.dtype != dt or x.shape != xs[0].shape for x in xs):
+        raise TypeError("rank states must share one dtype and shape")
+    if how not in _MERGE_HOW or (dt == torch.bool and how not in (AGG_MAX, "or")):
+        raise ValueError(f"no rank merge {how!r} over {dt}")
+    if not 1 <= len(xs) <= MERGE_MAX_RANKS:
+        raise ValueError(f"a rank merge takes 1-{MERGE_MAX_RANKS} ranks, got {len(xs)}")
+    flat = [_flat(x) for x in xs]
+    dev = flat[0].device
+    out = torch.empty(xs[0].shape, dtype=dt, device=dev)
+    ptrs = (ctypes.c_void_p * len(flat))(*[f.data_ptr() for f in flat])
+    lib = _cuda.LIBRARIES.get("rank_merge")
+    err = lib.ab_merge_rank_states(ctypes.cast(ptrs, ctypes.c_void_p), len(flat),
+                                   flat[0].numel(), _KIND[dt], _MERGE_HOW[how],
+                                   _ptr(_flat(out)), _stream(dev))
+    _cuda.check(err, "merge_rank_states")
+    count_launch("merge_rank_states")
+    return out

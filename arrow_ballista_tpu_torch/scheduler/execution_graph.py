@@ -98,6 +98,44 @@ class ExecutionStage:
         self.task_attempts[partition] = attempt + 1
         return TaskInfo(partition, executor_id, "running", attempt=attempt)
 
+    # --- metrics ---------------------------------------------------------
+    def operator_metrics(self) -> Dict[str, Dict[str, float]]:
+        """Completed tasks' per-operator metrics folded per operator, keyed
+        by the ``collect_plan_metrics`` path key (``'0.1:HashAggregateExec'``).
+
+        A stage's tasks in one executor share its operator instances, so a
+        task's status holds the counters' cumulative snapshot at its end:
+        the stage total is the LAST snapshot per plan instance (the largest
+        value of each counter, the counters being monotone), summed across
+        instances (executors).  Only the recorded winner's own status
+        counts: a status carrying another task attempt adds nothing."""
+        per_exec: Dict[str, Dict[Tuple[str, str], float]] = {}
+        for t in self.task_infos:
+            st = getattr(t, "status", None)
+            if st is None:
+                continue
+            st_att = getattr(getattr(st, "task", None), "task_attempt", None)
+            if st_att is not None and st_att != getattr(t, "attempt", st_att):
+                continue
+            dst = per_exec.setdefault(
+                getattr(st, "process_id", "") or getattr(t, "executor_id", ""), {})
+            for op, mm in (st.metrics or {}).items():
+                for k, v in mm.items():
+                    if v > dst.get((op, k), float("-inf")):
+                        dst[(op, k)] = v
+        agg: Dict[str, Dict[str, float]] = {}
+        for mm in per_exec.values():
+            for (op, k), v in mm.items():
+                d = agg.setdefault(op, {})
+                d[k] = d.get(k, 0.0) + v
+        return agg
+
+    def aggregate_metrics(self) -> Dict[str, float]:
+        """``operator_metrics`` flattened to '<op>.<metric>' -> total."""
+        return {f"{op}.{k}": v
+                for op, mm in self.operator_metrics().items()
+                for k, v in mm.items()}
+
     # --- queries ---------------------------------------------------------
     @property
     def planned_partitions(self) -> int:

@@ -5,9 +5,9 @@ this package has: scans of in-memory tables and parquet files (filters
 pushed into the scan), projection, filter, grouped aggregation (partial ->
 hash repartition -> final, with the clustered early-HAVING rewrite over
 key-clustered parquet), joins (broadcast or partitioned, inner chains
-reordered by estimated build size), sort and limit.  Plans that need an
-operator not ported yet raise NotImplementedError at plan time, naming the
-ROADMAP.md item: the mesh exchange (queue 1 item 10).
+reordered by estimated build size), sort and limit; with
+``ballista.shuffle.mesh`` on, aggregate and join stage pairs fused over the
+rank mesh (ops/mesh_exec.py).
 
 Projections producing float64 (division) run host-side, as in the
 reference.
@@ -23,8 +23,8 @@ from ..models import logical as L
 from ..ops import operators as O
 from ..ops.physical import ExecutionPlan, Partitioning
 from ..ops.shuffle import RepartitionExec
-from ..utils.config import (BROADCAST_THRESHOLD, MESH_SHUFFLE, BallistaConfig,
-                            resolve_task_budget)
+from ..utils.config import (BROADCAST_THRESHOLD, MESH_HYBRID, MESH_MIN_ROWS, MESH_SHUFFLE,
+                            BallistaConfig, resolve_task_budget)
 from ..utils.errors import PlanningError
 
 
@@ -46,7 +46,7 @@ class PlannedQuery:
     scalars: List[Tuple[str, ExecutionPlan]]
 
 
-def explain_rows(catalog, config, statement, device, verbose: bool = False):
+def explain_rows(catalog, config, statement, device=None, verbose: bool = False):
     """DataFusion-shaped EXPLAIN rows (logical and physical plan);
     ``verbose`` adds the distributed stage decomposition (the exchange
     boundaries the DistributedPlanner splits at)."""
@@ -69,12 +69,15 @@ def explain_rows(catalog, config, statement, device, verbose: bool = False):
 
 
 class PhysicalPlanner:
-    def __init__(self, catalog: SchemaCatalog, config: BallistaConfig, device):
+    def __init__(self, catalog: SchemaCatalog, config: BallistaConfig, device=None):
         import torch
+
+        from ..client.context import resolve_device
 
         self.catalog = catalog
         self.config = config
-        self.device = torch.device(device)
+        # None: the card (raises without one); a named device is taken as is
+        self.device = resolve_device() if device is None else torch.device(device)
         self._scalars: List[Tuple[str, ExecutionPlan]] = []
         self._scalar_seq = 0
         self._partitions: Optional[int] = None
@@ -119,9 +122,6 @@ class PhysicalPlanner:
 
     # --- entry ----------------------------------------------------------
     def plan_query(self, logical: L.LogicalPlan) -> PlannedQuery:
-        if self.config.get(MESH_SHUFFLE):
-            raise NotImplementedError(
-                "the mesh exchange is not ported yet (ROADMAP.md queue 1 item 10)")
         self._scalars = []
         self._resolve_auto_partitions(logical)
         plan = self.create(logical)
@@ -218,6 +218,27 @@ class PhysicalPlanner:
 
         if child.output_partition_count() <= 1:
             return O.HashAggregateExec(child, groups, specs, mode="single")
+
+        # the mesh path: partial agg -> exchange -> final agg fused over the
+        # ranks of the mesh (ops/mesh_exec.py) instead of a file-shuffle
+        # stage pair.  Hybrid mode keeps the stage pair and meshes only the
+        # per-task partial.  Small exchanges stay on the file path unless
+        # min_rows is 0, gated on the estimates the broadcast decision uses
+        if self.config.get(MESH_SHUFFLE) and (
+                self.config.get(MESH_HYBRID)
+                or self._mesh_worthwhile(self._estimate_rows(node.input))):
+            from ..ops.mesh_exec import MeshAggregateExec, MeshPartialAggregateExec
+
+            if MeshAggregateExec.eligible(groups, specs, child.schema):
+                if self.config.get(MESH_HYBRID):
+                    # eligible() guarantees non-empty groups here
+                    partial = MeshPartialAggregateExec(child, groups, specs)
+                    key_exprs = tuple(E.Column(n) for _, n in groups)
+                    exchange = RepartitionExec(partial,
+                                               Partitioning.hash(key_exprs, self.partitions))
+                    final_groups = [(E.Column(n), n) for _, n in groups]
+                    return O.HashAggregateExec(exchange, final_groups, specs, mode="final")
+                return MeshAggregateExec(child, groups, specs)
 
         partial = O.HashAggregateExec(child, groups, specs, mode="partial")
         if groups:
@@ -320,9 +341,25 @@ class PhysicalPlanner:
             right_bc = self._to_single_partition(right)
             return O.JoinExec(left, right_bc, on, node.join_type, filt, dist="broadcast")
 
+        # the mesh path: both hash repartitions and the join fused over the
+        # ranks of the mesh (ops/mesh_exec.py MeshJoinExec); hybrid mode
+        # keeps the partitioned stage structure and meshes only the
+        # per-task join
+        if self.config.get(MESH_SHUFFLE) and not self.config.get(MESH_HYBRID) \
+                and self._mesh_worthwhile(left_est + right_est):
+            from ..ops.mesh_exec import MeshJoinExec
+
+            if MeshJoinExec.eligible(on, node.join_type, filt, left.schema, right.schema):
+                return MeshJoinExec(left, right, on, node.join_type)
+
         p = self.partitions
         lpart = RepartitionExec(left, Partitioning.hash(tuple(l for l, _ in on), p))
         rpart = RepartitionExec(right, Partitioning.hash(tuple(r for _, r in on), p))
+        if self.config.get(MESH_SHUFFLE) and self.config.get(MESH_HYBRID):
+            from ..ops.mesh_exec import MeshTaskJoinExec
+
+            if MeshTaskJoinExec.eligible(on, node.join_type, filt, left.schema, right.schema):
+                return MeshTaskJoinExec(lpart, rpart, on, node.join_type)
         return O.JoinExec(lpart, rpart, on, node.join_type, filt, dist="partitioned")
 
     def _clustered_having_pushdown(self, plan: ExecutionPlan) -> None:
@@ -419,6 +456,13 @@ class PhysicalPlanner:
                 agg_p.clustered = cl  # keep the presorted-only form if any
 
         walk(plan)
+
+    def _mesh_worthwhile(self, est_rows: int) -> bool:
+        """The adaptive transport choice per exchange: the mesh only for an
+        estimated input of at least ``ballista.shuffle.mesh.min_rows`` rows
+        (0 disables the gate: always the mesh)."""
+        floor = self.config.get(MESH_MIN_ROWS)
+        return floor <= 0 or est_rows >= floor
 
     def _estimate_rows(self, node: L.LogicalPlan) -> int:
         if isinstance(node, L.TableScan):

@@ -23,9 +23,14 @@ MEM_TASK_BUDGET = "ballista.memory.task.budget.bytes"
 # for the admission controller that reads it (ROADMAP.md queue 1 item 12)
 MEM_HOST_BUDGET = "ballista.memory.host.budget.bytes"
 MEM_SPILL_ENABLED = "ballista.memory.spill.enabled"
-# ICI all-to-all exchange in the reference; the planner raises when it is on
-# (ROADMAP.md queue 1 item 10)
+# the mesh (parallel/, ops/mesh_exec.py): stage pairs fused over the ranks
+# of an in-process mesh, the exchange a copy between the ranks' tensors
 MESH_SHUFFLE = "ballista.shuffle.mesh"
+MESH_HYBRID = "ballista.shuffle.mesh.hybrid"  # mesh within a task, file shuffle across tasks
+MESH_BROADCAST_ROWS = "ballista.shuffle.mesh.broadcast_rows"  # build rows <= this: all_gather
+MESH_MIN_ROWS = "ballista.shuffle.mesh.min_rows"  # mesh only exchanges of at least this many rows
+AGG_CAPACITY = "ballista.agg.capacity"  # static max distinct groups of a mesh aggregate
+JOIN_OUTPUT_FACTOR = "ballista.join.output_factor"  # mesh joins: out_cap = factor * rank probe rows
 # rows; join build sides estimated at or under it are broadcast (no shuffle)
 BROADCAST_THRESHOLD = "ballista.join.broadcast_threshold"
 # ceiling on a join's candidate pairs (CapacityError above it)
@@ -120,8 +125,26 @@ _ENTRIES: Dict[str, ConfigEntry] = {
                     "False = a denial raises retryable MemoryExhausted "
                     "instead of spilling"),
         ConfigEntry(MESH_SHUFFLE, False, _parse_bool,
-                    "mesh all-to-all exchange; not ported, planning raises "
-                    "when it is on"),
+                    "fuse eligible aggregate and join stage pairs over the "
+                    "in-process rank mesh (parallel/mesh.py): the exchange "
+                    "is a copy between the ranks' tensors"),
+        ConfigEntry(MESH_HYBRID, False, _parse_bool,
+                    "hybrid exchange: mesh-fused partials and joins within "
+                    "a task, file shuffle between tasks"),
+        ConfigEntry(MESH_BROADCAST_ROWS, 1 << 18, int,
+                    "mesh joins all_gather the build side instead of "
+                    "all_to_all-ing both sides when its live rows fit here "
+                    "(CollectLeft analog)"),
+        ConfigEntry(MESH_MIN_ROWS, 8_000_000, int,
+                    "adaptive transport: mesh-fuse an exchange only when "
+                    "its estimated input rows reach this; 0 forces the "
+                    "mesh for every eligible exchange"),
+        ConfigEntry(AGG_CAPACITY, 1 << 16, int,
+                    "static max distinct groups of a mesh aggregate (per "
+                    "rank for the partial, in all for the final)"),
+        ConfigEntry(JOIN_OUTPUT_FACTOR, 2, int,
+                    "mesh-join output capacity = factor * per-rank probe "
+                    "rows (plain joins size outputs by a count pass)"),
         ConfigEntry(BROADCAST_THRESHOLD, 4_000_000, int,
                     "broadcast join build sides with at most this many "
                     "estimated rows (no shuffle of either side)"),

@@ -109,14 +109,17 @@ class DeviceTableCache:
 CACHE = DeviceTableCache()
 
 
-def resolve_budget(value, device) -> int:
+def resolve_budget(value, device=None) -> int:
     """Config value -> bytes.  '0'/0 disables the cache.  'auto' is keyed
-    on the torch device the scan runs on: the card gets the large default,
-    the CPU the small one."""
+    on the torch device the scan runs on (None: the card): the card gets
+    the large default, the CPU the small one."""
     import torch
+
+    from ..client.context import resolve_device
 
     if isinstance(value, str):
         if value.strip().lower() == "auto":
-            return DEFAULT_BUDGET if torch.device(device).type == "cuda" else DEFAULT_BUDGET_CPU
+            dev = resolve_device() if device is None else torch.device(device)
+            return DEFAULT_BUDGET if dev.type == "cuda" else DEFAULT_BUDGET_CPU
         value = int(value)
     return int(value)

@@ -59,6 +59,16 @@ Phases (any failure exits non-zero and prints no result line):
    (a child process running the plain twins over the same files beside the
    card's later paths), as are the q7-q9, q20 and sa_pt paths; at SF0.01 the 22
    queries also run on the card in both engines against a sqlite3 oracle.
+   The mesh paths (``ballista.shuffle.mesh`` with no row floor, over
+   parquet): ``mesh_q1`` on the default mesh (every card: one), the dense
+   reduce (the generated derive, K1, K18); ``mesh4_q1``, ``mesh4_q3``
+   (orders all_gathered, lineitem partitioned: K17), ``mesh4_q3_part``
+   (every join partitioned), ``mesh4_q18`` (the hashed mesh aggregate over
+   1.5M groups, K17) and ``sa_hybrid_q3`` (the standalone engine's hybrid
+   mode: the mesh inside each task) on four ranks over ``cuda:0``; each
+   prints its mesh metrics and the bytes its exchange copied, and the two
+   q3 runs together must show a broadcast and a partitioned mesh join.
+   ``dryrun_multichip(4)`` runs on the card.
    The inputs of each wrapper's largest call on each path are captured;
 4. each kernel held against its plain PyTorch twin on the card: on every
    path that launched it, at the inputs of that path's largest call of each
@@ -71,7 +81,10 @@ Phases (any failure exits non-zero and prints no result line):
    aggregate empty slots, one 6M-row group, no keys and float columns;
    for K1 int32 sums that wrap and int32 and float32 min and max; for K9
    sorted and shuffled keys; for K10 keys out of range and NULL keys; for
-   K11 1,000 intervals; for K12 and K13 a row chain and a dense and a
+   K11 1,000 intervals; for K17 2, 4 and 8 destinations with capacities
+   that fit and that overflow, and 40 int64 columns (two launches); for K18 2, 4 and 8 rank arrays (int64 sums
+   that wrap, float64 sums); for the mesh derive NULL keys and values;
+   for K12 and K13 a row chain and a dense and a
    sort-path aggregate chain with NULL keys and values, int64 sums and
    products that wrap, float64 sums and a dictionary predicate; for K14
    days over 1900-2100, the leap days of 1900 / 2000 / 2100, negative days
@@ -93,8 +106,12 @@ Phases (any failure exits non-zero and prints no result line):
    call (CUDA events around back-to-back calls, host work included), with
    each kernel's least time (bytes moved at 3.35 TB/s), and for K12 / K13
    the interpreted chain's times (no one PyTorch call computes a fused
-   chain) and the nvcc seconds of their generated sources; K1's device time
-   over 1 to 289 hot groups; each query's cold/warm wall time and profiled
+   chain) and the nvcc seconds of their generated sources; K7, K15, K17,
+   K18 and the mesh derive timed over copies of their inputs that rotate
+   through more than the 50 MB L2; the exchange copies' bytes and times
+   (over rotating copies, beside one ``copy_`` of the same bytes, from the
+   profiler and from queued events);
+   K1's device time over 1 to 289 hot groups; each query's cold/warm wall time and profiled
    device busy share; the device time and bytes bound of the expression
    programs, the host packing and the batch concat/shrink on q3's path
    (kernel timings at the largest call over the paths);
@@ -108,6 +125,7 @@ entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import json
 import os
 import shutil
@@ -139,8 +157,10 @@ SPILL_BUDGET = {"ballista.memory.host.budget.bytes": str(1 << 20)}
 # be new cache entries and evict those the other paths' check holds
 MEMSWEEP_SETTINGS = {"ballista.batch.size": str(1 << 20), "ballista.scan.cache.bytes": "0"}
 for _q in EXTRACT_QUERIES:
-    WARM_RUNS[f"pq_q{_q}"] = WARM_RUNS[f"sa_q{_q}"] = 1
-WARM_RUNS["sa_q20"] = WARM_RUNS["sa_pt"] = 1
+    WARM_RUNS[f"pq_q{_q}"] = WARM_RUNS[f"sa_q{_q}"] = 3
+WARM_RUNS["sa_q20"] = WARM_RUNS["sa_pt"] = 3
+# the spill paths keep one warm run (17-30 s each at SF1): three would add
+# about 250 s to a script whose limit is 1200 s
 for _q in SPILL_QUERIES:
     WARM_RUNS[f"spill_q{_q}"] = 1
 # kernels (launch counters of ops/kernels.py) each main path must launch
@@ -195,6 +215,42 @@ SPILL_KERNELS = ("spill_partition",)
 PATH_KERNELS["memsweep"] = ("compaction_order",)
 PATH_KERNELS["tpch22"] = ("fused_agg", "fused_rows", "hash64", "compaction_order",
                           "sort_order", "build_side_sort", "probe_join", "segment_any")
+# the mesh (ballista.shuffle.mesh with no row floor, over parquet): on the
+# default mesh (every card; the machine has one) and on MESH_RANKS ranks
+# over cuda:0, which measures the exchange's overhead and no speed-up
+# across cards.  q1 takes the dense reduce (K1 per rank, K18 merges); q3
+# with every join on the mesh, once with the default broadcast_rows (small
+# build sides all_gathered) and once with 0 (every join partitioned, K17 on
+# both sides); q18's GROUP BY l_orderkey (1.5M groups at SF1) the hashed
+# path (K17), with agg.capacity raised as the reference needs; and the
+# standalone engine's hybrid mode (the mesh inside each task: the partial
+# aggregate and the partitioned joins)
+MESH_SETTINGS = {"ballista.shuffle.mesh": "true", "ballista.shuffle.mesh.min_rows": "0"}
+MESH_JOINS = {**MESH_SETTINGS, "ballista.join.broadcast_threshold": "0"}
+# q3's first mesh run: with the broadcast threshold at 0 no join swaps its
+# sides, so q3's build sides are orders (~727k rows after the date filter
+# at SF1) and lineitem (~3.2M): at the default broadcast_rows (2^18) both
+# are partitioned; at 2^20 orders is all_gathered and lineitem partitioned
+# (scaled with the scale factor, so a rehearsal at a small one keeps both)
+MESH_Q3_BROADCAST_ROWS = 1 << 20
+MESH_RANKS = 4
+MESH_PARQUET = ("mesh_q1", "mesh4_q1", "mesh4_q3", "mesh4_q3_part", "mesh4_q18", "sa_hybrid_q3")
+MESH4_PATHS = ("mesh4_q1", "mesh4_q3", "mesh4_q3_part", "mesh4_q18", "sa_hybrid_q3")
+MESH_METRICS = ("mesh_devices", "dense_reduce_collective", "broadcast_joins",
+                "partitioned_joins", "capacity_recompiles")
+_MESH_Q1 = ("mesh_derive", "dense_group_states", "merge_rank_states", "compaction_order",
+            "sort_order")
+PATH_KERNELS.update({
+    "mesh_q1": _MESH_Q1, "mesh4_q1": _MESH_Q1,
+    "mesh4_q3": ("dispatch_to_buckets", "hash64", "build_side_sort", "probe_join", "sort_order",
+                 "grouped_on_order"),
+    "mesh4_q3_part": ("dispatch_to_buckets", "hash64", "build_side_sort", "probe_join"),
+    "mesh4_q18": ("dispatch_to_buckets", "sort_order", "grouped_on_order", "build_side_sort",
+                  "probe_join", "segment_any"),
+    "sa_hybrid_q3": ("mesh_derive", "hash64", "build_side_sort", "probe_join"),
+})
+for _p in ("mesh_q1", *MESH4_PATHS):
+    WARM_RUNS[_p] = 3
 # the form K13 must take on a path (dense key domain, or the sort path)
 K13_FORM = {"sa_pq_q1": "dense", "sa_q18": "sort"}
 # rows a parquet row group holds at SF1 (benchmarks/tpch.py convert's
@@ -287,6 +343,18 @@ def device_ms(fn, iters: int = 20):
     total = sum(r[0] for r in device_rows(prof))
     if total:
         return total / iters, "profiler"
+    ms = queued_events_ms(fn, iters)
+    return (ms, "queued_events") if ms is not None else (None, None)
+
+
+def queued_events_ms(fn, iters: int = 20):
+    """Device time per call from CUDA events around ``iters`` calls queued
+    behind a spin kernel, or None when the host could not enqueue them all
+    before the spin ended (the card would then have idled between calls)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(50_000_000)  # ~25 ms of spinning at 2 GHz
@@ -296,9 +364,7 @@ def device_ms(fn, iters: int = 20):
     end.record()
     queued = not start.query()  # the card was still spinning: no gaps
     end.synchronize()
-    if queued:
-        return start.elapsed_time(end) / iters, "queued_events"
-    return None, None
+    return start.elapsed_time(end) / iters if queued else None
 
 
 def nbytes(*tensors) -> int:
@@ -347,13 +413,17 @@ class Capture:
              "sort_order": 1, "build_side_sort": 1, "probe_join": 0, "probe_counts": 0,
              "segment_any": 0, "grouped_on_order": 2, "presorted_disorder": 1,
              "key_range_check": 1, "clustered_keep": 1, "extract_field": 0,
-             "spill_partition": 0}
-    FUSED = {"fused_rows": 2, "fused_agg": 2, "passthrough_rows": 2}
+             "spill_partition": 0, "dispatch_to_buckets": 2, "merge_rank_states": 0}
+    FUSED = {"fused_rows": 2, "fused_agg": 2, "passthrough_rows": 2, "mesh_derive": 3}
+    # the mesh exchange's copies (parallel/collectives.py), sized by bytes
+    COLLECTIVES = {"all_to_all": 0}
 
     def __init__(self, K, F, device):
         import threading
 
-        self.K, self.F = K, F
+        from arrow_ballista_tpu_torch.parallel import collectives as C
+
+        self.K, self.F, self.C = K, F, C
         self.device = device
         self.calls = {}
         self.orig = {}
@@ -362,11 +432,12 @@ class Capture:
         self._lock = threading.Lock()
 
     def __enter__(self):
-        for mod, names in ((self.K, self.NAMES), (self.F, self.FUSED)):
+        sizes = {**self.NAMES, **self.FUSED, **self.COLLECTIVES}
+        for mod, names in ((self.K, self.NAMES), (self.F, self.FUSED),
+                           (self.C, self.COLLECTIVES)):
             for name in names:
                 self.orig[name] = (mod, getattr(mod, name))
-                setattr(mod, name, self._wrap(name, getattr(mod, name), {**self.NAMES,
-                                                                           **self.FUSED}))
+                setattr(mod, name, self._wrap(name, getattr(mod, name), sizes))
         return self
 
     def _wrap(self, name, fn, sizes):
@@ -377,8 +448,10 @@ class Capture:
                         self.off_device.append((name, str(t.device)))
                 sized = args[sizes[name]]
                 n = (sized[0] if isinstance(sized, (list, tuple)) else sized).shape[0]
-                if name == "passthrough_rows" and not args[0].gen.outputs:
-                    n = -1  # every state is an input column: no launch to check
+                if name == "all_to_all":
+                    n = nbytes(*sized)
+                if name in ("passthrough_rows", "mesh_derive") and not args[0].gen.outputs:
+                    n = -1  # every output is an input column: no launch to check
                 if name == "fused_agg":
                     form = "dense" if self.K.dense_domain(args[5]) is not None else "sort"
                     self.forms[form] = self.forms.get(form, 0) + 1
@@ -842,7 +915,19 @@ def profile_programs(ctx, sql, device):
              "concat": "ab.row7.concat_shrink"}
     moved = {k: 0 for k in names}
     calls = {k: 0 for k in names}
+    wall = {k: 0.0 for k in names}  # host ms of the calls, each synchronized, third run
     active = [False]
+    timing = [False]
+
+    def timed(row, fn):
+        if not timing[0]:
+            return fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall[row] += (time.perf_counter() - t0) * 1000
+        return out
 
     def cuda_bytes(ts):
         return sum(nbytes(t) for t in ts if isinstance(t, torch.Tensor) and t.is_cuda)
@@ -857,7 +942,7 @@ def profile_programs(ctx, sql, device):
 
         def run(cols, aux):
             with record_function(names["expr"]):
-                out = fn(cols, aux)
+                out = timed("expr", lambda: fn(cols, aux))
             if isinstance(out, torch.Tensor) and out.is_cuda:
                 account("expr", nbytes(out) + cuda_bytes([cols[n] for n in refs if n in cols]))
             return out
@@ -875,7 +960,8 @@ def profile_programs(ctx, sql, device):
 
     def pack(cols, mask, target, namesi64, namesf64, names32):
         with record_function(names["pack"]):
-            buf, fbuf = orig["pack"](cols, mask, target, namesi64, namesf64, names32)
+            buf, fbuf = timed("pack", lambda: orig["pack"](cols, mask, target, namesi64,
+                                                           namesf64, names32))
         read = sum(cols[k].element_size() * min(target, cols[k].shape[0])
                    for k in (*namesi64, *namesf64, *names32))
         account("pack", nbytes(mask) + read + cuda_bytes([buf, fbuf]))
@@ -884,14 +970,15 @@ def profile_programs(ctx, sql, device):
     def concat(schema, batches, capacity=None, device=None):
         batches = list(batches)
         with record_function(names["concat"]):
-            out = orig["concat"](schema, batches, capacity=capacity, device=device)
+            out = timed("concat", lambda: orig["concat"](schema, batches, capacity=capacity,
+                                                         device=device))
         if len(batches) > 1:
             account("concat", 2 * cuda_bytes([*out.columns.values(), out.mask]))
         return out
 
     def shrink(self):
         with record_function(names["concat"]):
-            out = orig["shrink"](self)
+            out = timed("concat", lambda: orig["shrink"](self))
         if out is not self:
             account("concat", nbytes(self.mask) + 2 * cuda_bytes(out.columns.values()))
         return out
@@ -907,16 +994,19 @@ def profile_programs(ctx, sql, device):
             ctx.sql(sql).to_pandas()
             torch.cuda.synchronize()
         active[0] = False
+        timing[0] = True
+        ctx.sql(sql).to_pandas()
+        timing[0] = False
     finally:
         X.ExprCompiler.compile, X.ExprCompiler.compile_pred = orig["compile"], orig["compile_pred"]
         K.pack_for_host, O.concat_batches, B.ColumnBatch.shrink = \
             orig["pack"], orig["concat"], orig["shrink"]
         P._program_cache.clear()
-    out = {row: (range_device_ms(prof, label), moved[row], calls[row])
+    out = {row: (range_device_ms(prof, label), moved[row], calls[row], wall[row])
            for row, label in names.items()}
     # the ranges' own device-timeline rows are spans, not work: left out
     out["whole query"] = (sum(r[0] for r in device_rows(prof) if r[2] not in names.values()),
-                          0, 1)
+                          0, 1, None)
     return out
 
 
@@ -1209,6 +1299,76 @@ def new_kernel_stress(device, n, seed=5):
             "spill_partition": [(keys, 8)]}
 
 
+def mesh_stress(device, n, seed=6):
+    """K17, K18 and the mesh derive at n rows, made from a seed with numpy:
+    K17 with 2, 4 and 8 destinations, the capacities fitting (10% over the
+    even share) and overflowing (10% under it), over int64, float64,
+    int32, float32 and bool columns with dead rows, and 40 int64 columns
+    at n / 8 rows (past one launch's 32 of a width); K18 over 2, 4 and 8
+    rank arrays of n slots (int64 sums that wrap, int64 min, int32 sums,
+    float64 sums and max, bool OR); the derive of an aggregate with NULL
+    keys and values (count(*), count, sum, min, max)."""
+    import math
+
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    from arrow_ballista_tpu_torch.compile import fused as F
+    from arrow_ballista_tpu_torch.models import expr as E
+    from arrow_ballista_tpu_torch.models.schema import INT32, INT64, Field, Schema
+    from arrow_ballista_tpu_torch.ops import mesh_exec as M
+    from arrow_ballista_tpu_torch.ops import operators as O
+    from arrow_ballista_tpu_torch.ops.physical import MemoryScanExec, TaskContext
+
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    mask = t(rng.random(n) < 0.9)
+    cols = {"i64": t(rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64)),
+            "f64": t(rng.normal(size=n)), "i32": t(rng.integers(-9, 9, n).astype(np.int32)),
+            "f32": t(rng.random(n).astype(np.float32)), "b": t(rng.random(n) < 0.5)}
+    dispatch = []
+    for n_dest in (2, 4, 8):
+        dest = t(rng.integers(0, n_dest, n).astype(np.int32))
+        share = n * 0.9 / n_dest
+        for factor in (1.1, 0.9):
+            dispatch.append((cols, dest, mask, n_dest, math.ceil(share * factor)))
+    # 40 int64 columns: past one launch's 32 of a width, so two launches
+    n_wide = n // 8
+    wide = {f"w{i}": t(rng.integers(-2**62, 2**62, n_wide)) for i in range(40)}
+    dispatch.append((wide, t(rng.integers(0, 4, n_wide).astype(np.int32)), mask[:n_wide], 4,
+                     math.ceil(n_wide * 0.9 / 4 * 1.1)))
+    merge = []
+    for ranks in (2, 4, 8):
+        wrap = [t(rng.integers(2**62, 2**63 - 1, n, dtype=np.int64)) for _ in range(ranks)]
+        merge += [(wrap, "sum"), (wrap, "min"),
+                  ([t(rng.integers(0, 1000, n).astype(np.int32)) for _ in range(ranks)], "sum"),
+                  ([t(rng.normal(size=n) * 1e6) for _ in range(ranks)], "sum"),
+                  ([t(rng.normal(size=n)) for _ in range(ranks)], "max"),
+                  ([t(rng.random(n) < 0.01) for _ in range(ranks)], "or")]
+
+    def nullable(values, typ, share=0.1):
+        return pa.array(np.where(rng.random(n) < share, None, values), type=typ)
+
+    table = pa.table({"k": nullable(rng.integers(0, 9, n).astype(np.int32), pa.int32()),
+                      "v": nullable(rng.integers(-2**62, 2**62, n), pa.int64())})
+    schema = Schema([Field("k", INT32, True), Field("v", INT64, True)])
+    groups = [(E.Column("k"), "k")]
+    aggs = [O.AggSpec("count", None, "n"), O.AggSpec("count", E.Column("v"), "nv"),
+            O.AggSpec("sum", E.Column("v"), "s"), O.AggSpec("min", E.Column("v"), "lo"),
+            O.AggSpec("max", E.Column("k"), "hi")]
+    ctx = TaskContext(device=device)
+    batch = MemoryScanExec(schema, table, partitions=1).execute(0, ctx)[0]
+    prog = F.MeshDeriveProgram(schema, groups, aggs, "stress")
+    compiled = M.compile_agg_exprs(schema, groups, aggs, device)
+    aux = compiled[0].aux_arrays(batch.dicts)
+    return {"dispatch_to_buckets": dispatch, "merge_rank_states": merge,
+            "mesh_derive": [(prog, compiled, batch.columns, batch.mask, aux)]}
+
+
 def fused_stress(device, n, seed=4):
     """K12 and K13 at n rows, made from a seed with numpy: a row chain and
     two aggregate chains (a dictionary-code key, which takes the dense path,
@@ -1300,6 +1460,35 @@ def fused_check(F, name, args):
 
 
 def check_kernel(K, name, args):
+    if name == "dispatch_to_buckets":  # every buffer slot, the mask, the counts, the flag
+        (gc, gm, go, gn), (wc, wm, wo, wn) = (K.dispatch_to_buckets(*args),
+                                              K.dispatch_to_buckets_plain(*args))
+        if bool(go) != bool(wo):
+            raise AssertionError("overflow flags differ")
+        err = max(max_err(gm, wm), max_err(gn, wn))
+        return max(err, max(max_err(gc[c], w) for c, w in wc.items()))
+    if name == "merge_rank_states":
+        import torch
+
+        xs, how = args
+        got, want = K.merge_rank_states(*args), K.merge_rank_states_plain(*args)
+        if how in ("sum", "count") and xs[0].dtype.is_floating_point:
+            # the twin adds in its own order; a float sum's rounding scales
+            # with its terms, not with its result, which may cancel to ~0
+            diff = (got - want).abs()
+            scale = torch.stack([x.abs() for x in xs]).sum(0)
+            if not bool((diff <= 1e-12 * scale).all()):
+                raise AssertionError(f"float sums differ beyond 1e-12 of the terms' "
+                                     f"magnitude: {float(diff.max())}")
+            return float(diff.max())
+        return max_err(got, want)
+    if name == "mesh_derive":  # every derived column, exact
+        from arrow_ballista_tpu_torch.compile import fused as F
+
+        got, want = F.mesh_derive(*args), F.mesh_derive_plain(*args)
+        if list(got) != list(want):
+            raise AssertionError(f"derived columns differ: {list(got)} vs {list(want)}")
+        return max(max_err(got[c], w) for c, w in want.items())
     if name in ("fused_rows", "fused_agg"):
         from arrow_ballista_tpu_torch.compile import fused as F
 
@@ -1398,6 +1587,16 @@ def fused_bytes(prog, cols, mask, out_rows):
     return read + written
 
 
+def rotating(args, moved, span=64 << 20, most=64):
+    """A function returning ``args`` and clones of them in turn: enough
+    copies (at most ``most``) that back-to-back calls move more than the
+    50 MB L2, so a timing loop reads device memory, not the cache."""
+    import itertools
+
+    copies = [args] + [_clone(args) for _ in range(min(most, span // max(moved, 1)))]
+    return itertools.cycle(copies).__next__
+
+
 def kernel_timings(K, name, args, device):
     """(times, bytes moved); times: kernel, plain twin and library call (or
     for K12 / K13 the interpreted chain: the same closures on TorchOps, then
@@ -1405,7 +1604,43 @@ def kernel_timings(K, name, args, device):
     import torch
 
     extra = {}
-    if name == "passthrough_rows":
+    if name == "dispatch_to_buckets":
+        cols, dest, mask, n_dest, cap = args
+        # dest and mask read once, each column's live rows once (a dead row
+        # goes nowhere); every slot of every send buffer and of the send
+        # mask written once, and the counts
+        live = int(mask.sum())
+        moved = nbytes(dest, mask) + live * sum(c.element_size() for c in cols.values()) \
+            + n_dest * cap * (sum(c.element_size() for c in cols.values()) + 1) + n_dest * 4 + 1
+        nxt = rotating(args, moved)
+        kern = lambda: K.dispatch_to_buckets(*nxt())  # noqa: E731
+        plain = lambda: K.dispatch_to_buckets_plain(*nxt())  # noqa: E731
+        library = None  # no one PyTorch call ranks rows within their bucket
+    elif name == "merge_rank_states":
+        xs, how = args
+        moved = nbytes(*xs) + nbytes(xs[0])
+        nxt = rotating(args, moved)
+        kern = lambda: K.merge_rank_states(*nxt())  # noqa: E731
+        plain = lambda: K.merge_rank_states_plain(*nxt())  # noqa: E731
+        library = None  # the twin's stack + reduce is two calls
+    elif name == "mesh_derive":
+        from arrow_ballista_tpu_torch.compile import fused as F
+
+        prog, compiled, cols, mask, aux = args
+        n = mask.shape[0]
+        # the input columns the computed outputs read and the lookup tables
+        # once, each computed output written once (an output that is an
+        # input column aliases it)
+        moved = (sum(cols[c].element_size() * n for c, _dt in prog.gen.inputs)
+                 + sum(aux[slot].numel() * aux[slot].element_size()
+                       for _step, slot, _dt in prog.gen.aux)
+                 + sum(dt.itemsize * n for _c, dt in prog.gen.outputs))
+        nxt = rotating(args, moved)
+        kern = lambda: F.mesh_derive(*nxt())  # noqa: E731
+        plain = lambda: F.mesh_derive_plain(*nxt())  # noqa: E731
+        library = None  # no one PyTorch call computes a derive
+        extra["interpreted_"] = plain
+    elif name == "passthrough_rows":
         from arrow_ballista_tpu_torch.compile import fused as F
 
         prog, cols, mask, aux = args
@@ -1417,8 +1652,9 @@ def kernel_timings(K, name, args, device):
                  + sum(aux[slot].numel() * aux[slot].element_size()
                        for _step, slot, _dt in prog.gen.aux)
                  + sum(dt.itemsize * n for _c, dt in prog.gen.outputs))
-        kern = lambda: F.passthrough_rows(*args)  # noqa: E731
-        plain = lambda: F.passthrough_rows_plain(*args)  # noqa: E731
+        nxt = rotating(args, moved)
+        kern = lambda: F.passthrough_rows(*nxt())  # noqa: E731
+        plain = lambda: F.passthrough_rows_plain(*nxt())  # noqa: E731
         library = None  # no one PyTorch call computes the per-row states
     elif name == "extract_field":
         days, field = args
@@ -1532,9 +1768,12 @@ def kernel_timings(K, name, args, device):
                                                                     output_size=total)
     elif name == "segment_any":
         v, seg, ns = args
-        moved = nbytes(v, seg) + ns
-        kern = lambda: K.segment_any(v, seg, ns)  # noqa: E731
-        plain = lambda: K.segment_any_plain(v, seg, ns)  # noqa: E731
+        # the values read once, the segment id of each true value, the
+        # verdicts written once
+        moved = nbytes(v) + int((v > 0).sum()) * seg.element_size() + ns
+        nxt = rotating(args, moved)
+        kern = lambda: K.segment_any(*nxt())  # noqa: E731
+        plain = lambda: K.segment_any_plain(*nxt())  # noqa: E731
         v32 = v.to(torch.int32)
         seg64 = torch.where((seg >= 0) & (seg < ns), seg, ns).long()
         library = lambda: torch.zeros(ns + 1, dtype=torch.int32, device=device).scatter_reduce_(  # noqa: E731
@@ -1572,15 +1811,19 @@ def kernel_timings(K, name, args, device):
             return out
     elif name == "presorted_disorder":
         keys, mask = args
-        moved = nbytes(keys, mask) + 1
-        kern = lambda: K.presorted_disorder(keys, mask)  # noqa: E731
-        plain = lambda: K.presorted_disorder_plain(keys, mask)  # noqa: E731
+        # the mask read once and the keys of the live rows (a dead row's key
+        # decides nothing)
+        moved = nbytes(mask) + int(mask.sum()) * keys.element_size() + 1
+        nxt = rotating(args, moved)
+        kern = lambda: K.presorted_disorder(*nxt())  # noqa: E731
+        plain = lambda: K.presorted_disorder_plain(*nxt())  # noqa: E731
         library = None  # no one PyTorch call computes the flag
     elif name == "key_range_check":
         keys, mask, lo, hi, sent = args
-        moved = nbytes(keys, mask) + 1
-        kern = lambda: K.key_range_check(keys, mask, lo, hi, sent)  # noqa: E731
-        plain = lambda: K.key_range_check_plain(keys, mask, lo, hi, sent)  # noqa: E731
+        moved = nbytes(mask) + int(mask.sum()) * keys.element_size() + 1
+        nxt = rotating(args, moved)
+        kern = lambda: K.key_range_check(*nxt())  # noqa: E731
+        plain = lambda: K.key_range_check_plain(*nxt())  # noqa: E731
         # the min and max of the live keys in one call (the masking and the
         # compare with the range left out)
         live = mask if sent is None else mask & (keys != sent)
@@ -1588,9 +1831,13 @@ def kernel_timings(K, name, args, device):
         library = lambda: torch.aminmax(masked)  # noqa: E731
     elif name == "clustered_keep":
         keys, mask, pred, los, his = args
-        moved = nbytes(keys, mask, pred, los, his) + mask.numel() + 8
-        kern = lambda: K.clustered_keep(keys, mask, pred, los, his)  # noqa: E731
-        plain = lambda: K.clustered_keep_plain(keys, mask, pred, los, his)  # noqa: E731
+        # mask and predicate read once, the live rows' keys, the intervals,
+        # the keep bytes written once
+        moved = nbytes(mask, pred, los, his) + int(mask.sum()) * keys.element_size() \
+            + mask.numel() + 8
+        nxt = rotating(args, moved)
+        kern = lambda: K.clustered_keep(*nxt())  # noqa: E731
+        plain = lambda: K.clustered_keep_plain(*nxt())  # noqa: E731
         # the interval search in one call: bucketize of the keys into the
         # sorted interval starts (the end compare and the keep left out)
         starts = torch.sort(los).values
@@ -1666,6 +1913,12 @@ KERNEL_META = {
                          "arrow_ballista_tpu/ops/operators.py:745"),
     "spill_partition": ("arrow_ballista_tpu_torch/csrc/hash.cu",
                         "arrow_ballista_tpu/ops/operators.py:1512"),
+    "dispatch_to_buckets": ("arrow_ballista_tpu_torch/csrc/dispatch.cu",
+                            "arrow_ballista_tpu/parallel/ici_shuffle.py:33"),
+    "merge_rank_states": ("arrow_ballista_tpu_torch/csrc/rank_merge.cu",
+                          "arrow_ballista_tpu/parallel/distributed.py:136"),
+    "mesh_derive": ("arrow_ballista_tpu_torch/csrc/fused_rows.cuh",
+                    "arrow_ballista_tpu/ops/mesh_exec.py:98"),
 }
 # the one PyTorch call each kernel's library_ms times (yardsticks only)
 LIBRARY_CALL = {
@@ -1685,6 +1938,9 @@ LIBRARY_CALL = {
     "extract_field": None,
     "passthrough_rows": None,
     "spill_partition": None,
+    "dispatch_to_buckets": None,
+    "merge_rank_states": None,
+    "mesh_derive": None,
 }
 LAUNCH_KEY = {name: name for name in KERNEL_META}
 LAUNCH_KEY["bucket_of"] = "hash64"
@@ -1715,6 +1971,8 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         from arrow_ballista_tpu_torch.ops import _cuda
         from arrow_ballista_tpu_torch.ops import kernels as K
         from arrow_ballista_tpu_torch.ops.physical import TaskContext
+        from arrow_ballista_tpu_torch.parallel import collectives as C
+        from arrow_ballista_tpu_torch.parallel import use_local_devices
         from arrow_ballista_tpu_torch.utils import table_cache
         from benchmarks.datagen import generate_tables
         from benchmarks.queries import QUERIES
@@ -1780,6 +2038,43 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
              **{f"pq_{p}": (pctx, q) for p, q in sqls.items()}, "pq_q18": (pctx, q18),
              **{f"sa_pq_{p}": (sa_pq, q) for p, q in sqls.items()}, "sa_pq_q18": (sa_pq, q18),
              "sa_q18": (sa_mem, q18)}
+
+    # the mesh paths, over the parquet files
+    def mesh_context(settings, standalone=False):
+        if standalone:
+            c = BallistaContext.standalone(BallistaConfig({**sa_cfg, **settings}),
+                                           concurrent_tasks=4, device=device)
+            atexit.register(c.shutdown)
+        else:
+            c = BallistaContext.local(BallistaConfig(settings), device=device)
+        for name, path in pq_paths.items():
+            c.register_parquet(name, path)
+        return c
+
+    def mesh_scope(path):
+        """The ranks a mesh path runs on: MESH_RANKS over the first card,
+        or the default mesh (every card; on a CPU rehearsal, the CPU)."""
+        if path in MESH4_PATHS:
+            rank = torch.device("cuda", 0) if cuda else device
+            return use_local_devices([rank] * MESH_RANKS)
+        if path.startswith("mesh") and not cuda:
+            return use_local_devices([device])
+        return contextlib.nullcontext()
+
+    mesh_ctx = mesh_context(MESH_SETTINGS)
+    paths.update({
+        "mesh_q1": (mesh_ctx, sqls["q1"]), "mesh4_q1": (mesh_ctx, sqls["q1"]),
+        "mesh4_q3": (mesh_context({**MESH_JOINS, "ballista.shuffle.mesh.broadcast_rows":
+                                   str(round(MESH_Q3_BROADCAST_ROWS * sf))}), sqls["q3"]),
+        "mesh4_q3_part": (mesh_context({**MESH_JOINS,
+                                        "ballista.shuffle.mesh.broadcast_rows": "0"}),
+                          sqls["q3"]),
+        "mesh4_q18": (mesh_context({**MESH_SETTINGS, "ballista.agg.capacity": str(1 << 21)}),
+                      q18),
+        "sa_hybrid_q3": (mesh_context({**MESH_JOINS, "ballista.shuffle.mesh.hybrid": "true"},
+                                      standalone=True), sqls["q3"]),
+    })
+    mesh_report = {}  # mesh path -> its cold run's mesh metrics and exchange bytes
     base_paths = set(paths)
     # EXTRACT (local over parquet: K14; standalone in memory: inside K13),
     # the passthrough partial (q20's lineitem partial, standalone in
@@ -1839,14 +2134,30 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         torch.cuda.reset_peak_memory_stats()
     k13_forms = {}  # path -> K13 form -> calls
     for path, (c, sql) in paths.items():
-        parquet = "pq_" in path
+        scope = contextlib.ExitStack()
+        scope.enter_context(mesh_scope(path))
+        parquet = "pq_" in path or path in MESH_PARQUET
         standalone = path.startswith("sa_")
         if path not in base_paths and cpu_proc is None:
             cpu_proc = start_cpu_answers()
+        if path == "mesh4_q3_part" and cuda:
+            peak_before = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        C.reset_bytes()
         K.reset_launch_counts()
         with Capture(K, F, device) as cap:
             df, cold_s = once(c, sql)
         launches[path] = dict(K.LAUNCHES)
+        if path.startswith("mesh") or path == "sa_hybrid_q3":
+            mesh_report[path] = {
+                **{k: sum(v.values()) for k, v in op_metrics(job_plans(c), MESH_METRICS).items()},
+                "exchange_bytes": dict(C.BYTES)}
+            log(f"{path} mesh (cold run): {json.dumps(mesh_report[path])}")
+            if not mesh_report[path]["mesh_devices"]:
+                fail(f"{path}: no operator ran on the mesh")
+            if path == "mesh4_q3_part" and cuda:
+                mesh_report[path]["peak_bytes"] = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
         if cap.off_device:
             fail(f"{path}: tensors off the card on the main path: {cap.off_device[:5]}")
         missing = [k for k in PATH_KERNELS[path] if launches[path][k] == 0]
@@ -1967,6 +2278,33 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         report[f"{path}_warm_ms"] = warm_s * 1000
         if cuda and not path.startswith("spill_"):
             report[f"{path}_profile"] = profile_query(c, sql, path)
+        scope.close()
+    # the mesh paths together: the dense reduce on q1's paths, and across
+    # the two q3 runs at least one broadcast and one partitioned mesh join
+    for path in ("mesh_q1", "mesh4_q1"):
+        if not mesh_report[path]["dense_reduce_collective"]:
+            fail(f"{path}: q1 did not take the dense reduce ({mesh_report[path]})")
+    q3_joins = {k: sum(mesh_report[p][k] for p in ("mesh4_q3", "mesh4_q3_part"))
+                for k in ("broadcast_joins", "partitioned_joins")}
+    log(f"mesh q3 joins: broadcast_rows 2^20 "
+        f"{json.dumps({k: mesh_report['mesh4_q3'][k] for k in q3_joins})}, broadcast_rows 0 "
+        f"{json.dumps({k: mesh_report['mesh4_q3_part'][k] for k in q3_joins})}")
+    if not all(q3_joins.values()):
+        fail(f"the q3 mesh runs lack a broadcast or a partitioned join: {q3_joins}")
+    if cuda:
+        # the partitioned q3 join's send buffers, reckoned from its largest
+        # dispatch: every rank's [n_dest, capacity] buffers of every column
+        # and the mask, alive together, and as many receive buffers
+        dcols, _dest, _dmask, n_dest, cap = captured["mesh4_q3_part"]["dispatch_to_buckets"][1]
+        per_rank = n_dest * cap * (sum(t.element_size() for t in dcols.values()) + 1)
+        reckoned = 2 * MESH_RANKS * per_rank
+        mesh_report["mesh4_q3_part"]["send_buffers_reckoned_bytes"] = reckoned
+        log(f"mesh4_q3_part peak device memory (cold run): "
+            f"{mesh_report['mesh4_q3_part']['peak_bytes']} bytes; the largest dispatch's "
+            f"send and receive buffers reckoned at {reckoned} bytes ({MESH_RANKS} ranks x "
+            f"[{n_dest}, {cap}] x {len(dcols)} columns and the mask, twice)")
+        peak_carry = max(peak_before, mesh_report["mesh4_q3_part"]["peak_bytes"])
+    report["mesh"] = mesh_report
     # the spill paths together: denials, both operators spilled, K16
     # launched, and no reservation left behind
     mem = MEMORY_STATS.snapshot()
@@ -2097,7 +2435,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         f"{stats['evictions']} evictions; every cached tensor unchanged after all runs")
     report["scan_cache"] = stats
     if cuda:
-        peak = torch.cuda.max_memory_allocated()
+        peak = max(peak_carry, torch.cuda.max_memory_allocated())
         log(f"peak device memory (torch.cuda.max_memory_allocated over the query paths): "
             f"{peak} bytes")
         report["max_memory_allocated"] = peak
@@ -2128,6 +2466,22 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         n_top, n_all = check_q18(c, q18, q18_want)
         log(f"{label} vs numpy oracle: top {n_top} exact, and all {n_all} rows without the "
             "LIMIT exact")
+    for path, check in (("mesh_q1", "q1"), ("mesh4_q1", "q1"), ("mesh4_q3", "q3"),
+                        ("mesh4_q3_part", "q3"), ("mesh4_q18", "q18"), ("sa_hybrid_q3", "q3")):
+        c = paths[path][0]
+        with mesh_scope(path):
+            if check == "q1":
+                n_groups, worst = check_q1(c, sqls["q1"], oracles["q1"])
+                log(f"{path} vs numpy oracle: {n_groups} groups, sums and counts exact, avg "
+                    f"max rel err {worst:.3g}")
+            elif check == "q3":
+                n_groups = check_q3(c, sqls["q3"], oracles["q3"])
+                log(f"{path} vs numpy oracle: top 10 exact, and all {n_groups} groups without "
+                    "the LIMIT exact")
+            else:
+                n_top, n_all = check_q18(c, q18, q18_want)
+                log(f"{path} vs numpy oracle: top {n_top} exact, and all {n_all} rows without "
+                    "the LIMIT exact")
     builds = list(_cuda.LIBRARIES.generated_builds)
     log(f"generated kernels (K12 / K13) built with nvcc at first use: "
         f"{json.dumps(builds)} ({sum(b[1] for b in builds):.3f} s, inside the cold walls)")
@@ -2136,11 +2490,13 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     # table rows 5-7 on q3's path
     if cuda:
         programs = profile_programs(ctx, sqls["q3"], device)
-        for row, (dev_ms, moved, calls) in programs.items():
+        for row, (dev_ms, moved, calls, wall_ms) in programs.items():
             bound = moved / HBM_BYTES_PER_S * 1000
             log(f"q3 programs {row}: device {'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}"
-                f" per query over {calls} calls, bound {bound:.6f} ms ({moved} bytes)")
-        report["q3_programs"] = {row: {"ms": v[0], "bytes": v[1], "calls": v[2],
+                f" per query over {calls} calls, bound {bound:.6f} ms ({moved} bytes), wall "
+                f"{'not measured' if wall_ms is None else f'{wall_ms:.4f} ms'} per query "
+                "(each call synchronized)")
+        report["q3_programs"] = {row: {"ms": v[0], "bytes": v[1], "calls": v[2], "wall_ms": v[3],
                                        "bound_ms": v[1] / HBM_BYTES_PER_S * 1000}
                                  for row, v in programs.items()}
 
@@ -2149,6 +2505,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     stress = stress_inputs(K, device, stress_rows)
     stress.update(fused_stress(device, stress_rows))
     stress.update(new_kernel_stress(device, stress_rows))
+    stress.update(mesh_stress(device, stress_rows))
     for name in KERNEL_META:
         per_path = {p: launches[p][LAUNCH_KEY[name]] for p in paths}
         checked = {}  # path -> wrapper -> rows and max abs err of that path's largest call
@@ -2208,6 +2565,8 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                 "generated_by": "arrow_ballista_tpu_torch/compile/codegen.py",
                 "k13_forms_per_path": {p: f for p, f in k13_forms.items() if f}}
                if name.startswith("fused_") else {}),
+            **({"generated_by": "arrow_ballista_tpu_torch/compile/codegen.py"}
+               if name == "mesh_derive" else {}),
             "ms_source": [times[k] for k in ("ms_source", "plain_ms_source",
                                              "library_ms_source")]})
 
@@ -2245,6 +2604,47 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             log("kernel dense_group_states hot-slot sweep (device ms per call, "
                 f"{n} rows): " + ", ".join(
                     f"{h} slots {fmt(v)}" for h, v in sweep.items()))
+
+    # the mesh exchange's copies at the largest all_to_all of the mesh paths,
+    # over rotating copies of the blocks (as the kernels are timed), beside
+    # one copy_ of the same bytes; device time from the profiler and from
+    # queued CUDA events, so that a reading past the HBM peak shows which
+    # source gave it
+    a2a = [(captured[p]["all_to_all"], p) for p in paths if "all_to_all" in captured.get(p, {})]
+    if a2a:
+        (n_bytes, (blocks, mesh)), a2a_path = max(a2a, key=lambda x: x[0][0])
+        moved = 2 * n_bytes  # every block read once, every received byte written once
+        nxt = rotating((blocks, mesh), moved)
+        exchange = lambda: C.all_to_all(*nxt())  # noqa: E731
+        flat = torch.cat([b.reshape(-1) for b in blocks])
+        nxt_one = rotating((flat, torch.empty_like(flat)), moved)
+        one_copy = lambda: (lambda src, dst: dst.copy_(src))(*nxt_one())  # noqa: E731
+        ex = {"path": a2a_path, "bytes": n_bytes, "bound_ms": moved / HBM_BYTES_PER_S * 1000,
+              "wall_ms": time_ms(exchange, device), "one_copy_wall_ms": time_ms(one_copy, device)}
+        if cuda:
+            ex["ms"], ex["ms_source"] = device_ms(exchange)
+            ex["events_ms"] = queued_events_ms(exchange)
+            ex["one_copy_ms"], ex["one_copy_ms_source"] = device_ms(one_copy)
+            ex["one_copy_events_ms"] = queued_events_ms(one_copy)
+        del flat, nxt_one, one_copy
+        ex["bytes_per_path"] = {p: r["exchange_bytes"] for p, r in mesh_report.items()}
+        report["exchange"] = ex
+
+        def shown(key):
+            v = ex.get(key)
+            return "not measured" if v is None else f"{v:.4f} ms"
+
+        log(f"mesh exchange copies: largest all_to_all ({a2a_path}, {len(blocks)} ranks on one "
+            f"card) {n_bytes} bytes over rotating copies; device {shown('ms')} "
+            f"({ex.get('ms_source')}), {shown('events_ms')} (queued events), "
+            f"wall {shown('wall_ms')}; "
+            f"one copy_ of the same bytes: device {shown('one_copy_ms')} "
+            f"({ex.get('one_copy_ms_source')}), {shown('one_copy_events_ms')} (queued events), "
+            f"wall {shown('one_copy_wall_ms')}; bound {ex['bound_ms']:.6f} ms (read and written "
+            f"once); bytes copied per mesh path {json.dumps(ex['bytes_per_path'])}")
+    dryrun = port_entry.dryrun_multichip(MESH_RANKS, device=device)
+    log(f"dryrun_multichip({MESH_RANKS}) on {device}: {json.dumps(dryrun)}")
+    report["dryrun_multichip"] = dryrun
 
     # K8 at q3's own largest call, repeated: one earlier run read 0.0072 ms once
     # and 0.0155-0.0158 ms otherwise at these 4,096 rows

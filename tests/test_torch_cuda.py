@@ -4,6 +4,7 @@ Imports no JAX (the machine with the card has none); run there with
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.  Skips
 where torch sees no card: a CUDA kernel has no CPU mode.
 """
+import contextlib
 import functools
 
 import numpy as np
@@ -434,3 +435,158 @@ def test_spilled_queries_on_the_card_match_the_cpu(dev, q):
             assert snap.get("spill_runs_total", 0) > 0 and snap["reserved_bytes.host"] == 0
             assert TK.LAUNCHES["spill_partition"] > 0
     assert_frames_equal(frames[0], frames[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overflow", [False, True], ids=["fits", "overflows"])
+@pytest.mark.parametrize("n_dest", [1, 2, 3, 8, 64])
+def test_dispatch_kernel_matches_twin(dev, n_dest, overflow):
+    """K17: send buffers, masks, counts and the overflow flag bit for bit."""
+    rng = np.random.default_rng(n_dest)
+    n = 300_007
+    dest = rng.integers(0, n_dest, n).astype(np.int32)
+    mask = rng.random(n) < 0.8
+    cols = {"i64": rng.integers(-2**62, 2**62, n), "f64": rng.random(n),
+            "i32": rng.integers(-9, 9, n).astype(np.int32), "b": rng.random(n) < 0.5,
+            "f32": rng.random(n).astype(np.float32)}
+    counts = np.bincount(dest[mask], minlength=n_dest)
+    cap = int(counts.max()) - 5 if overflow else int(counts.max()) + 11
+    got = TK.dispatch_to_buckets({k: _t(v).to(dev) for k, v in cols.items()}, _t(dest).to(dev),
+                                 _t(mask).to(dev), n_dest, cap)
+    want = TK.dispatch_to_buckets_plain({k: _t(v) for k, v in cols.items()}, _t(dest), _t(mask),
+                                        n_dest, cap)
+    for k in cols:
+        assert torch.equal(got[0][k].cpu(), want[0][k]), k
+    assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[3].cpu(), want[3])
+    assert bool(got[2]) == bool(want[2]) == overflow
+
+
+@pytest.mark.cuda
+def test_dispatch_kernel_takes_more_than_32_columns_of_a_width(dev):
+    """K17 past 32 columns of a width: one launch per group of 32, the
+    same slots as the twin's."""
+    rng = np.random.default_rng(5)
+    n, n_dest = 100_003, 4
+    dest = rng.integers(0, n_dest, n).astype(np.int32)
+    mask = rng.random(n) < 0.7
+    cols = {f"i{i}": rng.integers(-2**62, 2**62, n) for i in range(70)}
+    cols.update({f"h{i}": rng.integers(-9, 9, n).astype(np.int32) for i in range(33)})
+    cols["b"] = rng.random(n) < 0.5
+    cap = int(np.bincount(dest[mask], minlength=n_dest).max()) - 3
+    TK.reset_launch_counts()
+    got = TK.dispatch_to_buckets({k: _t(v).to(dev) for k, v in cols.items()}, _t(dest).to(dev),
+                                 _t(mask).to(dev), n_dest, cap)
+    assert TK.LAUNCHES["dispatch_to_buckets"] == 3
+    want = TK.dispatch_to_buckets_plain({k: _t(v) for k, v in cols.items()}, _t(dest), _t(mask),
+                                        n_dest, cap)
+    for k in cols:
+        assert torch.equal(got[0][k].cpu(), want[0][k]), k
+    assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[3].cpu(), want[3])
+    assert bool(got[2]) and bool(want[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4, 8])
+@pytest.mark.parametrize("dtype, how", [(torch.int64, "sum"), (torch.int64, "min"),
+                                        (torch.int32, "sum"), (torch.float64, "sum"),
+                                        (torch.float64, "max"), (torch.bool, "or")])
+def test_rank_merge_kernel_matches_twin(dev, n, dtype, how):
+    """K18: integers exact (wrapping sums); float64 sums within 1e-12 of
+    the terms' summed magnitude (the twin adds in its own order, and a sum
+    of normals may cancel to near 0)."""
+    rng = np.random.default_rng(n)
+    domain = 65_537
+    if dtype == torch.int64:
+        xs = [_t(rng.integers(2**62, 2**63 - 1, domain) * rng.choice([-1, 1], domain))
+              for _ in range(n)]
+    elif dtype == torch.bool:
+        xs = [_t(rng.random(domain) < 0.01) for _ in range(n)]
+    else:
+        xs = [_t(rng.normal(size=domain) * 1e6).to(dtype) for _ in range(n)]
+    got = TK.merge_rank_states([x.to(dev) for x in xs], how).cpu()
+    want = TK.merge_rank_states_plain(xs, how)
+    if dtype == torch.float64 and how == "sum":
+        scale = torch.stack([x.abs() for x in xs]).sum(0)
+        assert bool(((got - want).abs() <= 1e-12 * scale).all())
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks", [None, 4])
+@pytest.mark.parametrize("q, broadcast_rows", [(1, None), (3, None), (3, "0"), (18, None)])
+def test_mesh_queries_on_the_card_match_the_cpu(dev, ranks, q, broadcast_rows):
+    """The mesh on the default mesh (every card) and on four ranks over
+    cuda:0, against the port's plain path on the CPU at SF0.01; K17 or
+    K18 and the generated derive launch where the path has them."""
+    from arrow_ballista_tpu_torch import BallistaConfig, BallistaContext
+    from arrow_ballista_tpu_torch.parallel import use_local_devices
+    from benchmarks.queries import QUERIES
+
+    conf = {"ballista.shuffle.mesh": "true", "ballista.shuffle.mesh.min_rows": "0",
+            "ballista.join.broadcast_threshold": "0", "ballista.agg.capacity": "2097152"}
+    if broadcast_rows is not None:
+        conf["ballista.shuffle.mesh.broadcast_rows"] = broadcast_rows
+    sql = QUERIES[q].replace("> 300", "> 200")
+    ctx = BallistaContext.local(BallistaConfig(conf), device=dev)
+    cpu = BallistaContext.local(device="cpu")
+    for name, table in _sf001_tables().items():
+        ctx.register_table(name, table)
+        cpu.register_table(name, table)
+    TK.reset_launch_counts()
+    with (use_local_devices([torch.device("cuda", 0)] * ranks) if ranks
+          else contextlib.nullcontext()):
+        got = ctx.sql(sql).to_pandas()
+    want = cpu.sql(sql).to_pandas()
+    assert len(want) > 0
+    assert_frames_equal(got, want)
+    if q == 1:
+        assert TK.LAUNCHES["merge_rank_states"] > 0 and TK.LAUNCHES["mesh_derive"] > 0
+    if q == 18 or (ranks and broadcast_rows == "0"):  # one rank's join exchange is skipped
+        assert TK.LAUNCHES["dispatch_to_buckets"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["q1", "q18", "nullable"])
+def test_mesh_derive_kernel_matches_twin(dev, case):
+    """The mesh aggregate's generated derive (keys, values, NULL
+    neutralization, hidden valid counts) against its interpreted twin."""
+    import pyarrow as pa
+
+    from arrow_ballista_tpu_torch import BallistaConfig, BallistaContext
+    from arrow_ballista_tpu_torch.compile.fused import mesh_derive, mesh_derive_plain
+    from arrow_ballista_tpu_torch.models.batch import concat_batches
+    from arrow_ballista_tpu_torch.ops import mesh_exec as TM
+    from arrow_ballista_tpu_torch.ops.physical import TaskContext
+    from arrow_ballista_tpu_torch.scheduler.planner import collect_nodes
+    from benchmarks.queries import QUERIES
+
+    ctx = BallistaContext.local(BallistaConfig({"ballista.shuffle.mesh": "true",
+                                                "ballista.shuffle.mesh.min_rows": "0"}),
+                                device=dev)
+    if case == "nullable":
+        rng = np.random.default_rng(7)
+        n = 20_000
+        null_at = rng.random(n) < 0.3
+        ctx.register_table("t", pa.table({
+            "g": pa.array(rng.integers(0, 20, n)),
+            "v": pa.array([None if m else int(x) for m, x in
+                           zip(null_at, rng.integers(-50, 100, n))], type=pa.int64())}))
+        sql = "select g, sum(v), count(v), min(v), max(v), count(*) from t group by g"
+    else:
+        for name, table in _sf001_tables().items():
+            ctx.register_table(name, table)
+        sql = QUERIES[int(case[1:])]
+    ctx.sql(sql).to_pandas()
+    node = collect_nodes(ctx.last_plan, TM.MeshAggregateExec)[0]
+    tctx = TaskContext(device=dev, config=ctx.config)
+    big = concat_batches(node.input.schema, TM._gather_input(node.input, tctx), device=dev)
+    compiled = node._compile(tctx)
+    aux = compiled[0].aux_arrays(big.dicts)
+    TK.reset_launch_counts()
+    got = mesh_derive(node._derive, compiled, big.columns, big.mask, aux)
+    assert TK.LAUNCHES["mesh_derive"] == (1 if node._derive.gen.outputs else 0)
+    want = mesh_derive_plain(node._derive, compiled, big.columns, big.mask, aux)
+    assert list(got) == list(want)
+    for name, w in want.items():
+        np.testing.assert_array_equal(got[name].cpu().numpy(), w.cpu().numpy(), err_msg=name)

@@ -134,3 +134,64 @@ def test_kernel_wrappers_refuse_mixed_devices():
 
     with pytest.raises(ValueError, match="CUDA device"):
         K._require_cuda(torch.zeros(4))
+
+
+_MESH_CHILD = r"""
+import sys
+sys.path.insert(0, {repo!r})
+import torch
+import arrow_ballista_tpu_torch as abt
+from arrow_ballista_tpu_torch import entry
+from arrow_ballista_tpu_torch.parallel import use_local_devices
+from benchmarks.datagen import generate_tables
+from benchmarks.queries import QUERIES
+
+tables = generate_tables(0.002, seed=0)
+plain = abt.BallistaContext.local(device="cpu")
+mesh = abt.BallistaContext.local(abt.BallistaConfig({{
+    "ballista.shuffle.mesh": "true", "ballista.shuffle.mesh.min_rows": "0",
+    "ballista.join.broadcast_threshold": "0"}}), device="cpu")
+for name, table in tables.items():
+    plain.register_table(name, table)
+    mesh.register_table(name, table)
+with use_local_devices([torch.device("cpu")] * 4):
+    for q in (1, 3):
+        assert mesh.sql(QUERIES[q]).to_pandas().equals(plain.sql(QUERIES[q]).to_pandas()), q
+    assert "Mesh" in mesh.last_plan.display(), mesh.last_plan.display()
+assert entry.dryrun_multichip(2, device="cpu")["ok"]
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "arrow_ballista_tpu"
+             or m.startswith("arrow_ballista_tpu."))
+assert not bad, bad
+print("MESH ISOLATED")
+"""
+
+
+def test_the_mesh_runs_without_importing_jax_or_the_reference():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _MESH_CHILD.format(repo=REPO)], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    assert "MESH ISOLATED" in proc.stdout
+
+
+def test_the_mesh_modules_are_covered_by_the_import_check():
+    rel = {os.path.relpath(f, PORT) for f in _port_files()}
+    assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/collectives.py",
+            "parallel/ici_shuffle.py", "parallel/distributed.py", "ops/mesh_exec.py"} <= rel
+    for path in _port_files():
+        if os.path.relpath(path, PORT).startswith("parallel") or path.endswith("mesh_exec.py"):
+            assert not [m for m in _imports(path)
+                        if m.split(".")[0] in ("jax", "jaxlib", "arrow_ballista_tpu")], path
+
+
+def test_the_default_mesh_is_the_cards_and_raises_without_one():
+    from arrow_ballista_tpu_torch.parallel import make_mesh, use_local_devices
+
+    if torch.cuda.is_available():
+        assert all(d.type == "cuda" for d in make_mesh().devices)
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_mesh()
+    with use_local_devices([torch.device("cpu")] * 3):
+        assert make_mesh().devices == (torch.device("cpu"),) * 3
