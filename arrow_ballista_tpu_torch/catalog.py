@@ -1,9 +1,10 @@
 """Table providers: named datasets resolvable to schemas and scans.
 
 Providers serve both the SQL planner (schemas) and the physical planner
-(scans, row-count estimates).  This package has in-memory tables and
-local parquet files; csv, json and avro providers and object-store paths
-are still to be ported (ROADMAP.md, queue 1 item 4).
+(scans, row-count estimates): in-memory tables, and parquet, csv (``.tbl``
+too), newline-delimited json and avro files, each a path or an
+object-store URL (utils/object_store.py), as the JAX package's catalog has
+them.
 """
 from __future__ import annotations
 
@@ -100,25 +101,26 @@ class MemoryTable(TableProvider):
 
 class ParquetTable(TableProvider):
     """Parquet files (a file, a directory of ``*.parquet`` or a list of
-    either), schema from the first file's footer.  Nullability comes from
+    either; paths or object-store URLs), schema from the first file's
+    footer.  Nullability comes from
     the row-group statistics of every file: a column with no statistics,
     or with NULLs anywhere, is nullable."""
 
     def __init__(self, name: str, paths, schema: Optional[Schema] = None):
-        from .utils import local_files
+        from .utils import object_store
 
         self.name = name
         self.paths = [paths] if isinstance(paths, str) else list(paths)
         if schema is None:
             files = []
             for p in self.paths:
-                files.extend(local_files.list_files(p, (".parquet",)))
+                files.extend(object_store.list_files(p, (".parquet",)))
             if not files:
                 raise PlanningError(f"no parquet files in {self.paths}")
             nullable: Dict[str, bool] = {}
             arrow_schema = None
             for fpath in files:
-                with local_files.parquet_file(fpath) as pf:
+                with object_store.parquet_file(fpath) as pf:
                     meta = pf.metadata
                     if arrow_schema is None:
                         arrow_schema = pf.schema_arrow
@@ -152,6 +154,112 @@ class ParquetTable(TableProvider):
             self._rows = ParquetScanExec(self.schema, self.paths, 1,
                                          table_schema=self.schema).row_count_estimate()
         return self._rows
+
+
+class CsvTable(TableProvider):
+    """CSV files (``.csv``, or TPC-H ``.tbl`` with its trailing
+    delimiter).  Without a schema the first file is read and its types
+    inferred; nullability comes from that file's NULL counts when it is the
+    only file, else every column is nullable."""
+
+    def __init__(self, name: str, paths, schema: Optional[Schema] = None,
+                 delimiter: str = ",", has_header: bool = True):
+        self.name = name
+        self.paths = [paths] if isinstance(paths, str) else list(paths)
+        self.delimiter = delimiter
+        self.has_header = has_header
+        if schema is None:
+            import pyarrow.csv as pacsv
+
+            from .utils import object_store as obs
+
+            samples = obs.list_files(self.paths[0], (".csv", ".tbl"))
+            if not samples:
+                raise PlanningError(f"no csv files in {self.paths[0]}")
+            sample = samples[0]
+            with obs.open_input(sample) as fh:
+                table = pacsv.read_csv(
+                    fh, parse_options=pacsv.ParseOptions(delimiter=delimiter),
+                )
+
+            multi = len(self.paths) > 1 or obs.is_dir(self.paths[0])
+            if multi:
+                # only the first file was sampled; other files may hold
+                # NULLs, so be conservative
+                nulls = {name: True for name in table.column_names}
+            else:
+                nulls = _table_null_stats(table)
+            schema = arrow_schema_to_engine(table.schema, nulls)
+        self.schema = schema
+
+    def scan(self, projection, filters, target_partitions):
+        from .ops.physical import CsvScanExec
+
+        schema = self.schema if projection is None else self.schema.project(projection)
+        return CsvScanExec(schema, self.paths, target_partitions, filters,
+                           table_schema=self.schema, delimiter=self.delimiter,
+                           has_header=self.has_header)
+
+
+class JsonTable(TableProvider):
+    """Newline-delimited JSON (reference register_json, context.rs:358-530)."""
+
+    def __init__(self, name: str, paths, schema: Optional[Schema] = None):
+        from .utils import object_store as obs
+
+        self.name = name
+        self.paths = [paths] if isinstance(paths, str) else list(paths)
+        if schema is None:
+            import pyarrow.json as pajson
+
+            files = obs.list_files(self.paths[0], (".json", ".jsonl", ".ndjson"))
+            if not files:
+                raise PlanningError(f"no json files in {self.paths[0]}")
+            with obs.open_input(files[0]) as fh:
+                sample = pajson.read_json(fh)
+            multi = len(files) > 1 or len(self.paths) > 1
+            nulls = ({n: True for n in sample.column_names} if multi
+                     else _table_null_stats(sample))
+            schema = arrow_schema_to_engine(sample.schema, nulls)
+        self.schema = schema
+
+    def scan(self, projection, filters, target_partitions):
+        from .ops.physical import JsonScanExec
+
+        schema = self.schema if projection is None else self.schema.project(projection)
+        return JsonScanExec(schema, self.paths, target_partitions, filters,
+                            table_schema=self.schema)
+
+
+class AvroTable(TableProvider):
+    """Avro object container files (reference register_avro; codec in
+    utils/avro.py since no avro library ships in this image)."""
+
+    def __init__(self, name: str, paths, schema: Optional[Schema] = None):
+        from .utils import object_store as obs
+
+        self.name = name
+        self.paths = [paths] if isinstance(paths, str) else list(paths)
+        if schema is None:
+            from .utils.avro import avro_arrow_schema, read_avro_schema
+
+            files = obs.list_files(self.paths[0], (".avro",))
+            if not files:
+                raise PlanningError(f"no avro files in {self.paths[0]}")
+            # header-only: the writer schema (and union nullability) lives
+            # in the container metadata — never decode the file to infer
+            with obs.open_input(files[0]) as fh:
+                avro_schema = read_avro_schema(fh)
+            pa_schema, nulls = avro_arrow_schema(avro_schema)
+            schema = arrow_schema_to_engine(pa_schema, nulls)
+        self.schema = schema
+
+    def scan(self, projection, filters, target_partitions):
+        from .ops.physical import AvroScanExec
+
+        schema = self.schema if projection is None else self.schema.project(projection)
+        return AvroScanExec(schema, self.paths, target_partitions, filters,
+                            table_schema=self.schema)
 
 
 class SchemaCatalog(Catalog):

@@ -19,7 +19,8 @@ from typing import Dict, List, Optional
 
 import torch
 
-from ..catalog import MemoryTable, ParquetTable, SchemaCatalog
+from ..catalog import AvroTable, CsvTable, JsonTable, MemoryTable, ParquetTable, SchemaCatalog
+from ..compile import programs
 from ..models import logical as L
 from ..models.batch import ColumnBatch
 from ..models.schema import Field, Schema
@@ -147,9 +148,23 @@ class BallistaContext:
         self.catalog.register(MemoryTable(name, table))
 
     def register_parquet(self, name: str, path, schema: Optional[Schema] = None) -> None:
-        """A parquet file, a directory of them, or a list of either (local
-        paths; object-store URLs raise)."""
+        """A parquet file, a directory of them, or a list of either: paths
+        or object-store URLs (utils/object_store.py)."""
         self.catalog.register(ParquetTable(name, path, schema))
+
+    def register_csv(self, name: str, path, schema: Optional[Schema] = None,
+                     delimiter: str = ",", has_header: bool = True) -> None:
+        """CSV files (``.csv``, or ``.tbl`` with a trailing delimiter); the
+        schema is inferred from the first file when none is given."""
+        self.catalog.register(CsvTable(name, path, schema, delimiter, has_header))
+
+    def register_json(self, name: str, path, schema: Optional[Schema] = None) -> None:
+        """Newline-delimited JSON files."""
+        self.catalog.register(JsonTable(name, path, schema))
+
+    def register_avro(self, name: str, path, schema: Optional[Schema] = None) -> None:
+        """Avro object container files (null or deflate codec)."""
+        self.catalog.register(AvroTable(name, path, schema))
 
     def deregister_table(self, name: str) -> None:
         self.catalog.deregister(name)
@@ -185,15 +200,20 @@ class BallistaContext:
         return BallistaDataFrame(self, SqlToRel(self.catalog).plan(stmt))
 
     def _create_external_table(self, stmt: "ast.CreateExternalTable") -> BallistaDataFrame:
-        if stmt.file_format == "csv":
-            raise NotImplementedError(
-                "csv tables are not ported yet; parquet only (ROADMAP.md queue 1 item 4)")
-        if stmt.file_format != "parquet":
-            raise PlanningError(f"unsupported format {stmt.file_format}")
         schema = None
         if stmt.columns:
             schema = Schema(Field(n, parse_type_name(t)) for n, t in stmt.columns)
-        self.register_parquet(stmt.name, stmt.location, schema)
+        if stmt.file_format == "parquet":
+            self.register_parquet(stmt.name, stmt.location, schema)
+        elif stmt.file_format == "csv":
+            self.register_csv(stmt.name, stmt.location, schema,
+                              delimiter=stmt.delimiter, has_header=stmt.has_header)
+        elif stmt.file_format == "json":
+            self.register_json(stmt.name, stmt.location, schema)
+        elif stmt.file_format == "avro":
+            self.register_avro(stmt.name, stmt.location, schema)
+        else:
+            raise PlanningError(f"unsupported format {stmt.file_format}")
         return self._static_df(None)
 
     def _static_df(self, frame) -> BallistaDataFrame:
@@ -244,8 +264,13 @@ class BallistaContext:
                           job_id=uuid.uuid4().hex[:7],
                           governor=MemoryGovernor.from_config(self.config))
         try:
+            # each plan's generated programs are traced and built before its
+            # first batch; a scalar subquery's value is part of the programs
+            # that read it, so the main plan is prepared after the scalars
             for sid, splan in planned.scalars:
+                programs.prepare(splan, ctx)
                 ctx.scalars[sid] = extract_scalar(splan, ctx)
+            programs.prepare(planned.plan, ctx)
             out: List[ColumnBatch] = []
             for p in range(planned.plan.output_partition_count()):
                 out.extend(planned.plan.execute(p, ctx))

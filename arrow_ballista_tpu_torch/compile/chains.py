@@ -24,6 +24,9 @@ UNFUSABLE = {
 STATIC_REASONS = {
     "ParquetScanExec": "scan (IO-bound input producer feeds the fused kernel)",
     "MemoryScanExec": "scan (IO-bound input producer feeds the fused kernel)",
+    "CsvScanExec": "scan (IO-bound input producer feeds the fused kernel)",
+    "JsonScanExec": "scan (IO-bound input producer feeds the fused kernel)",
+    "AvroScanExec": "scan (IO-bound input producer feeds the fused kernel)",
     "SortExec": "sort (data-dependent ordering)",
     "LimitExec": "limit (cross-batch row budget is host-side state)",
     "CoalescePartitionsExec": "coalesce (multi-partition gather)",

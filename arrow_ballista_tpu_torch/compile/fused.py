@@ -61,6 +61,7 @@ from ..ops.physical import (ExecutionPlan, TaskContext, deferred_count, schema_s
 from ..utils.errors import CapacityError, InternalError
 from . import codegen as G
 from .chains import chain_fingerprint
+from .programs import GeneratedProgram, _FusedIn, _FusedOut, generate_aliased  # noqa: F401
 
 
 def _row_step(op: ExecutionPlan, scalars, device, xp=None):
@@ -138,17 +139,6 @@ def codegen_doubt(node: ExecutionPlan) -> Optional[str]:
     return None
 
 
-def _generate_aliased(trace_states, label: str):
-    """Trace ``trace_states(names) -> (trace, [(name, value)])`` twice:
-    once to find the outputs that are a plain read of an input column of
-    their own type (they alias it), then only the rest.  Returns (chain in
-    K12's form without the mask, aliases, every output's name)."""
-    trace, states = trace_states(None)
-    aliases = {name: trace.column_of(v) for name, v in states if trace.column_of(v)}
-    trace, computed = trace_states([name for name, _v in states if name not in aliases])
-    return G.render(trace, label, computed, None), aliases, [name for name, _v in states]
-
-
 def generate_passthrough(agg: HashAggregateExec, ctx: TaskContext):
     """Trace an aggregate's per-row states into K15's source -> (chain,
     aliases).  A state or key that is a plain read of an input column of
@@ -165,65 +155,8 @@ def generate_passthrough(agg: HashAggregateExec, ctx: TaskContext):
         return trace, passthrough_states(xp, pt, cols, mask, G.trace_aux(trace, 0, pt[0]),
                                          names)
 
-    gen, aliases, _names = _generate_aliased(trace_states, f"passthrough {agg._label()}")
+    gen, aliases, _names = generate_aliased(trace_states, f"passthrough {agg._label()}")
     return gen, aliases
-
-
-class GeneratedProgram:
-    """What a generated kernel's launches share: the library of ``gen``'s
-    source and K12's launch form, counted under ``launch_name``."""
-
-    gen: G.GeneratedChain
-    launch_name: str
-
-    def library(self) -> ctypes.CDLL:
-        return _cuda.LIBRARIES.get_generated(self.gen.source)
-
-    def _fill_in(self, cols, mask, auxs):
-        gen = self.gen
-        keep = []
-        fin = _FusedIn()
-        for k, (name, dt) in enumerate(gen.inputs):
-            t = cols[name]
-            if t.dtype != dt or t.shape[0] != mask.shape[0]:
-                raise InternalError(f"fused input {name}: {t.dtype}{tuple(t.shape)}, the "
-                                    f"generated kernel reads {dt}[{mask.shape[0]}]")
-            t = t.contiguous()
-            keep.append(t)
-            fin.col[k] = t.data_ptr()
-        m = mask.contiguous()
-        keep.append(m)
-        fin.mask = m.data_ptr()
-        for k, (step, slot, dt) in enumerate(gen.aux):
-            t = auxs[step][slot]
-            if t.dtype != dt:
-                raise InternalError(f"fused lookup table {slot}: {t.dtype}, the generated "
-                                    f"kernel reads {dt}")
-            t = t.contiguous()
-            keep.append(t)
-            fin.aux[k] = t.data_ptr()
-            fin.aux_len[k] = t.shape[0]
-        K._require_cuda(mask, *keep)
-        return fin, keep
-
-    def launch_rows(self, cols, mask, auxs, with_mask: bool = True):
-        """K12's form: fresh output columns and (``with_mask``) mask."""
-        n = mask.shape[0]
-        dev = mask.device
-        outs = [torch.empty(n, dtype=dt, device=dev) for _name, dt in self.gen.outputs]
-        omask = torch.empty(n, dtype=torch.bool, device=dev) if with_mask else None
-        if n == 0:
-            return outs, omask
-        fin, keep = self._fill_in(cols, mask, auxs)
-        fout = _FusedOut()
-        for k, t in enumerate(outs):
-            fout.col[k] = t.data_ptr()
-        fout.mask = omask.data_ptr() if with_mask else None
-        err = self.library().ab_fused_rows(ctypes.byref(fin), ctypes.byref(fout), n,
-                                           K._stream(dev))
-        _cuda.check(err, f"fused_rows ({self.launch_name})")
-        K.count_launch(self.launch_name)
-        return outs, omask
 
 
 class PassthroughProgram(GeneratedProgram):
@@ -296,7 +229,7 @@ class MeshDeriveProgram(GeneratedProgram):
             return trace, derive_columns(xp, key_c, val_c, cols, mask,
                                          G.trace_aux(trace, 0, comp), names)
 
-        self.gen, self.aliases, self.names = _generate_aliased(trace_states,
+        self.gen, self.aliases, self.names = generate_aliased(trace_states,
                                                                f"mesh derive {label}")
 
 
@@ -388,19 +321,6 @@ class FusedProgram(GeneratedProgram):
         accs = acc.view(max(m, 1), domain)
         dense_vals = [accs[a].view(dt)[::8 // dt.itemsize] for a, dt in enumerate(out_dtypes)]
         return dense_vals, exists, bad[0] != 0
-
-
-class _FusedIn(ctypes.Structure):
-    """csrc/fused_rows.cuh ``AbFusedIn``."""
-
-    _fields_ = [("col", ctypes.c_void_p * G.MAX_IN), ("mask", ctypes.c_void_p),
-                ("aux", ctypes.c_void_p * G.MAX_AUX), ("aux_len", ctypes.c_longlong * G.MAX_AUX)]
-
-
-class _FusedOut(ctypes.Structure):
-    """csrc/fused_rows.cuh ``AbFusedOut``."""
-
-    _fields_ = [("col", ctypes.c_void_p * G.MAX_OUT), ("mask", ctypes.c_void_p)]
 
 
 # --------------------------------------------------------------------------
@@ -506,6 +426,9 @@ class FusedStageExec(ExecutionPlan):
                        chain_fingerprint(self.ops, schema_sig(self.input.schema)))
                 self._program = shared_program(key, lambda: FusedProgram(self.ops, ctx))
             return self._program
+
+    def device_programs(self, ctx: TaskContext):
+        return [] if self._fallback else [self.program(ctx)]
 
     # --- execution -------------------------------------------------------
     def execute(self, partition: int, ctx: TaskContext) -> List[ColumnBatch]:

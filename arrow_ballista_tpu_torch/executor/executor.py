@@ -23,6 +23,7 @@ from typing import Callable, Optional
 import torch
 
 from ..memory import MemoryGovernor
+from ..compile import programs
 from ..ops.physical import TaskContext
 from ..scheduler.types import (
     EXECUTION_ERROR,
@@ -96,6 +97,9 @@ class Executor:
                               executor_id=self.metadata.executor_id,
                               cancelled=lambda: self._is_cancelled(tid),
                               governor=self.governor)
+            # the stage's generated programs, traced and built before its
+            # first batch (a no-op on the CPU and once built)
+            programs.prepare(task.plan, ctx)
             start_ms = int(time.time() * 1000)
             writes = stage_exec.execute_query_stage(tid.partition, ctx)
             end_ms = int(time.time() * 1000)

@@ -10,7 +10,8 @@ As in the reference (arrow_ballista_tpu/models/batch.py), a batch is
 Every tensor of a batch lies on one device, which the caller names.
 Host->device copies go through one pinned staging buffer per batch;
 device->host copies through one packed buffer (ops/kernels.pack_for_host)
-into pinned memory.  Tensors are never updated in place: batches share
+into pinned memory.  Concatenation runs on K20 and compaction on K2 with
+K21 (csrc/gather.cu).  Tensors are never updated in place: batches share
 columns and masks freely (a repartition hands the same columns to every
 bucket).
 """
@@ -214,17 +215,19 @@ class ColumnBatch:
         return self._num_rows
 
     def shrink(self) -> "ColumnBatch":
-        """Compact live rows to the front (K2) and drop to the smallest
-        power-of-two capacity.  Syncs on num_rows."""
-        from ..ops.kernels import compaction_order
+        """Compact live rows to the front (K2's order, every column and the
+        mask gathered by K21) and drop to the smallest power-of-two
+        capacity.  Syncs on num_rows."""
+        from ..ops.kernels import compaction_order, gather_columns
 
         n = self.num_rows
         target = round_capacity(n)
         if target >= self.capacity:
             return self
-        order = compaction_order(self.mask)[:target].long()
-        cols = {k: v[order] for k, v in self.columns.items()}
-        return ColumnBatch(self.schema, cols, self.mask[order], self.dicts, num_rows=n)
+        order = compaction_order(self.mask)[:target]
+        out = gather_columns(order, {**self.columns, "__mask": self.mask})
+        mask = out.pop("__mask")
+        return ColumnBatch(self.schema, out, mask, self.dicts, num_rows=n)
 
     # --- host materialization ------------------------------------------
     def _pack_layout(self, extra32: Sequence[str] = ()):
@@ -395,9 +398,9 @@ def _unify_string_dicts(schema: Schema, batches: "list[ColumnBatch]") -> "list[C
 
 def concat_batches(schema: Schema, batches: Sequence[ColumnBatch],
                    capacity: Optional[int] = None, device=None) -> ColumnBatch:
-    """Concatenate batches (padded concat via torch.cat), unifying string
-    dictionaries across inputs when they differ.  ``device`` is needed
-    only when there are no batches."""
+    """Concatenate batches (a padded concat: K20, one launch for every
+    column and the mask), unifying string dictionaries across inputs when
+    they differ.  ``device`` is needed only when there are no batches."""
     batches = list(batches)
     if not batches:
         if device is None:
@@ -412,17 +415,10 @@ def concat_batches(schema: Schema, batches: Sequence[ColumnBatch],
             f"requested capacity {capacity} < combined batch capacity {total_cap}; "
             "compact batches before concatenating to a smaller shape")
     pad = (capacity - total_cap) if capacity is not None else 0
-    dev = batches[0].device
-    cols = {}
-    for f in schema:
-        parts = [b.columns[f.name] for b in batches]
-        if pad:
-            parts.append(torch.zeros(pad, dtype=parts[0].dtype, device=dev))
-        cols[f.name] = torch.cat(parts)
-    mparts = [b.mask for b in batches]
-    if pad:
-        mparts.append(torch.zeros(pad, dtype=torch.bool, device=dev))
-    mask = torch.cat(mparts)
+    from ..ops.kernels import concat_columns
+
+    cols, mask = concat_columns([{f.name: b.columns[f.name] for f in schema} for b in batches],
+                                [b.mask for b in batches], pad)
     dicts = {}
     for b in batches:
         dicts.update(b.dicts)

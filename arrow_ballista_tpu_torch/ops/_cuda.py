@@ -12,9 +12,11 @@ as ``c_void_p`` and every C function returns a ``cudaError_t`` that the
 wrapper in ``ops/kernels.py`` checks (``check``).
 
 Generated sources (K12 and K13, one per fused chain, K15, one per
-passthrough aggregate, and the mesh derive, one per mesh aggregate;
-compile/codegen.py)
-build the same way at first use, by source: the ``.cu`` is written into
+passthrough aggregate, K19, one per operator program, and the mesh derive,
+one per mesh aggregate; compile/codegen.py) build the same way, by source:
+a plan's K19 programs together before its first batch (``build_generated``,
+one ``nvcc`` each, all started together), any other at first use.  The
+``.cu`` is written into
 ``_build/`` under the hash of the source, the headers and the flags, and
 built once per hash — under a per-hash lock, renamed into place when
 finished, so task threads resolving the same chain build it once and a
@@ -94,6 +96,12 @@ SIGNATURES = {
     },
     "rank_merge": {
         "ab_merge_rank_states": ([_P, _I, _LL, _I, _I, _P, _P], _I),
+    },
+    "gather": {
+        "ab_concat_spec_bytes": ([_I], _I),
+        "ab_concat_columns": ([_P, _I, _P], _I),
+        "ab_gather_columns": ([_P, _LL, _P, _P], _I),
+        "ab_mask_ops": ([_I, _P, _P, _LL, _LL, _LL, _P, _P], _I),
     },
 }
 
@@ -201,10 +209,73 @@ class KernelLibraries:
             return self._libs[name]
 
 
-    def get_generated(self, source: str) -> ctypes.CDLL:
-        """The library of one generated source, built at first use."""
+    def _write_source(self, source: str, path: Path) -> Path:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        cu = path.with_suffix(".cu")
+        tmp_cu = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.cu")
+        tmp_cu.write_text(source)
+        os.replace(tmp_cu, cu)
+        return cu
+
+    def _start_nvcc(self, source: str, path: Path):
         import time
 
+        cu = self._write_source(source, path)
+        tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        proc = subprocess.Popen([nvcc_path(), *GENERATED_FLAGS, "-o", str(tmp), str(cu)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return proc, tmp, cu, time.perf_counter()
+
+    def _finish_nvcc(self, job, path: Path) -> None:
+        import time
+
+        proc, tmp, cu, t0 = job
+        out, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the generated source {cu} "
+                               f"(exit {proc.returncode}):\n{out}")
+        os.replace(tmp, path)
+        with self._lock:
+            self.generated_builds.append((path.name, seconds))
+        log.info("built generated kernel %s in %.2f s", path.name, seconds)
+
+    def build_generated(self, sources) -> None:
+        """Build every generated source not built yet, all ``nvcc``
+        processes started together (a plan's K19 programs, before its
+        first batch).  A source already on disk or loaded builds nothing."""
+        todo = {}
+        for source in sources:
+            if source in self._by_source:
+                continue
+            path = generated_path(source)
+            if not path.exists():
+                todo[path] = source
+        if not todo:
+            return
+        locks = []
+        with self._lock:
+            for path in todo:
+                locks.append(self._generated_locks.setdefault(path, threading.Lock()))
+        for lock in locks:
+            lock.acquire()
+        try:
+            jobs = {path: self._start_nvcc(source, path) for path, source in todo.items()
+                    if not path.exists()}
+            failures = []
+            for path, job in jobs.items():
+                try:
+                    self._finish_nvcc(job, path)
+                except RuntimeError as e:
+                    failures.append(str(e))
+            if failures:
+                raise RuntimeError("\n".join(failures))
+        finally:
+            for lock in locks:
+                lock.release()
+
+    def get_generated(self, source: str) -> ctypes.CDLL:
+        """The library of one generated source, built at first use."""
         lib = self._by_source.get(source)  # the launch path: one dict lookup
         if lib is not None:
             return lib
@@ -221,24 +292,7 @@ class KernelLibraries:
             if lib is not None:
                 return lib
             if not path.exists():
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                cu = path.with_suffix(".cu")
-                tmp_cu = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.cu")
-                tmp_cu.write_text(source)
-                os.replace(tmp_cu, cu)
-                tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-                t0 = time.perf_counter()
-                proc = subprocess.run([nvcc_path(), *GENERATED_FLAGS, "-o", str(tmp), str(cu)],
-                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                      text=True)
-                seconds = time.perf_counter() - t0
-                if proc.returncode != 0:
-                    raise RuntimeError(f"nvcc failed on the generated source {cu} "
-                                       f"(exit {proc.returncode}):\n{proc.stdout}")
-                os.replace(tmp, path)
-                with self._lock:
-                    self.generated_builds.append((path.name, seconds))
-                log.info("built generated kernel %s in %.2f s", path.name, seconds)
+                self._finish_nvcc(self._start_nvcc(source, path), path)
             loaded = ctypes.CDLL(str(path))
             for fn, (argtypes, restype) in GENERATED_SIGNATURES.items():
                 f = getattr(loaded, fn, None)

@@ -124,10 +124,12 @@ class TorchOps:
 
     @staticmethod
     def extract_field(days, field: str):
-        """EXTRACT(field FROM days): K14 on the card, its twin on the CPU."""
+        """EXTRACT(field FROM days) in plain torch (K14's twin), on either
+        device: on the card EXTRACT runs inside the generated programs, and
+        these closures are their plain twins."""
         from . import kernels as K
 
-        return K.extract_field(days, field)
+        return K.extract_field_plain(days, field)
 
     @staticmethod
     def take(lut, codes):

@@ -1,8 +1,8 @@
-"""Device kernels of the port: fifteen hand-written CUDA kernels, each
+"""Device kernels of the port: eighteen hand-written CUDA kernels, each
 beside its plain PyTorch twin (K12 and K13, the kernels generated per fused
-chain, K15, generated per passthrough aggregate, and the mesh derive,
-generated per mesh aggregate, live in compile/fused.py and count their
-launches here).
+chain, K15, generated per passthrough aggregate, K19, generated per
+operator program, and the mesh derive, generated per mesh aggregate, live
+in compile/fused.py and count their launches here).
 
 | kernel | source | replaces (arrow_ballista_tpu/ops/kernels.py) |
 | --- | --- | --- |
@@ -21,6 +21,9 @@ launches here).
 | K16 ``spill_partition`` | ``csrc/hash.cu`` | operators.py:1512 "join.spill_part" |
 | K17 ``dispatch_to_buckets`` | ``csrc/dispatch.cu`` | parallel/ici_shuffle.py:33 |
 | K18 ``merge_rank_states`` | ``csrc/rank_merge.cu`` | parallel/distributed.py:136-145 psum/pmin/pmax |
+| K20 ``concat_columns`` | ``csrc/gather.cu`` | models/batch.py:435 "batch.concat" |
+| K21 ``gather_columns`` | ``csrc/gather.cu`` | models/batch.py:439 "batch.shrink", ``pack_for_host`` l.122 |
+| K22 ``window_mask`` / ``mask_or`` / ``mask_and`` | ``csrc/gather.cu`` | operators.py:1029-1040 "join.window_mask", "join.mask_or", "join.mask_and" |
 
 A wrapper takes the twin only for a tensor that lies on the CPU (the
 tests); for a CUDA tensor it launches its kernel or raises.  ``LAUNCHES``
@@ -39,6 +42,7 @@ share freely, are never written.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -55,7 +59,9 @@ LAUNCHES: Dict[str, int] = {"dense_group_states": 0, "compaction_order": 0,
                             "clustered_keep": 0, "fused_rows": 0, "fused_agg": 0,
                             "extract_field": 0, "passthrough_rows": 0,
                             "spill_partition": 0, "dispatch_to_buckets": 0,
-                            "merge_rank_states": 0, "mesh_derive": 0}
+                            "merge_rank_states": 0, "mesh_derive": 0,
+                            "operator_program": 0, "concat_columns": 0,
+                            "gather_columns": 0, "mask_ops": 0}
 # the standalone engine launches from several task threads at once
 _LAUNCH_LOCK = threading.Lock()
 
@@ -89,7 +95,13 @@ def _require_cuda(*tensors: torch.Tensor) -> None:
 
 
 def _stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """The device's current CUDA stream.  The raw getter skips the Stream
+    object that ``torch.cuda.current_stream`` builds on every launch."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return ctypes.c_void_p(raw(index))
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -279,10 +291,13 @@ def compaction_order_plain(mask: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def compaction_order(mask: torch.Tensor) -> torch.Tensor:
-    """Stable permutation (int32) moving live rows to the front."""
+def compaction_order(mask: torch.Tensor, with_count: bool = False):
+    """Stable permutation (int32) moving live rows to the front; with
+    ``with_count`` also the live-row count as an int32 tensor of one
+    element (K2 computes it anyway: the last word of its scratch)."""
     if _is_cpu(mask):
-        return compaction_order_plain(mask)
+        perm = compaction_order_plain(mask)
+        return (perm, mask.sum().to(torch.int32).reshape(1)) if with_count else perm
     _require_cuda(mask)
     if mask.dtype != torch.bool:
         raise TypeError(f"mask must be bool, got {mask.dtype}")
@@ -290,19 +305,299 @@ def compaction_order(mask: torch.Tensor) -> torch.Tensor:
     n = m.shape[0]
     perm = torch.empty(n, dtype=torch.int32, device=m.device)
     if n == 0:
-        return perm
+        zero = torch.zeros(1, dtype=torch.int32, device=m.device)
+        return (perm, zero) if with_count else perm
     lib = _cuda.LIBRARIES.get("compact")
     tiles = -(-n // lib.ab_compact_tile())
     scratch = torch.empty(tiles + 1, dtype=torch.int32, device=m.device)
     _cuda.check(lib.ab_compaction_order(_ptr(m), n, _ptr(perm), _ptr(scratch),
                                         _stream(m.device)), "compaction_order")
     count_launch("compaction_order")
-    return perm
+    return (perm, scratch[tiles:]) if with_count else perm
 
 
-def compact_columns(cols: Dict[str, torch.Tensor], mask: torch.Tensor):
-    order = compaction_order(mask).long()
-    return {k: v[order] for k, v in cols.items()}, mask[order]
+# --------------------------------------------------------------------------
+# K20 and K21: the batches' data movement (csrc/gather.cu)
+# --------------------------------------------------------------------------
+
+GATHER_MAX_COLS = 64  # csrc/gather.cu AB_GATHER_MAX_COLS
+
+
+def _cat_spec(max_src: int, max_cols: int):
+    """csrc/gather.cu ``CatSpecT<max_src, max_cols>``."""
+
+    class Spec(ctypes.Structure):
+        _fields_ = [("off", ctypes.c_longlong * (max_src + 1)), ("end", ctypes.c_longlong),
+                    ("n_src", ctypes.c_int), ("n_cols", ctypes.c_int),
+                    ("width", ctypes.c_int * max_cols), ("dst", ctypes.c_void_p * max_cols),
+                    ("src", ctypes.c_void_p * (max_src * max_cols))]
+
+    return Spec
+
+
+# csrc/gather.cu CatSpec0-2 as (sources, columns, struct): the first form
+# that holds a launch carries it; the last bounds one launch
+_CAT_FORMS = [(ns, nc, _cat_spec(ns, nc)) for ns, nc in ((16, 16), (64, 8), (64, 48))]
+CAT_MAX_SRC, CAT_MAX_COLS = _CAT_FORMS[-1][:2]
+_GATHER_CHECKED = None  # the gather library whose structs were checked
+
+
+class _GatherSpec(ctypes.Structure):
+    """csrc/gather.cu ``GatherSpec``."""
+
+    _fields_ = [("n_cols", ctypes.c_int), ("width", ctypes.c_int * GATHER_MAX_COLS),
+                ("widen", ctypes.c_int * GATHER_MAX_COLS),
+                ("src", ctypes.c_void_p * GATHER_MAX_COLS),
+                ("dst", ctypes.c_void_p * GATHER_MAX_COLS),
+                ("count_src", ctypes.c_void_p), ("count_dst", ctypes.c_void_p),
+                ("zero_dst", ctypes.c_void_p)]
+
+
+def _gather_lib():
+    global _GATHER_CHECKED
+    lib = _cuda.LIBRARIES.get("gather")
+    if lib is not _GATHER_CHECKED:
+        for form, (_ns, _nc, spec) in enumerate(_CAT_FORMS):
+            if lib.ab_concat_spec_bytes(form) != ctypes.sizeof(spec):
+                raise RuntimeError("csrc/gather.cu CatSpecT and ops/kernels.py _cat_spec differ")
+        _GATHER_CHECKED = lib
+    return lib
+
+
+def _width(t: torch.Tensor, what: str) -> int:
+    w = t.dtype.itemsize
+    if w not in (1, 4, 8):
+        raise TypeError(f"{what}: no kernel moves {t.dtype}")
+    return w
+
+
+def concat_columns_plain(cols_list: Sequence[Dict[str, torch.Tensor]],
+                         masks: Sequence[torch.Tensor], pad: int):
+    """Plain twin of K20, the reference's ``_concat_impl``: each column and
+    the mask concatenated, then ``pad`` zero rows."""
+    dev = masks[0].device
+    cols = {}
+    for k in cols_list[0]:
+        parts = [c[k] for c in cols_list]
+        if pad:
+            parts.append(torch.zeros(pad, dtype=parts[0].dtype, device=dev))
+        cols[k] = torch.cat(parts)
+    mparts = list(masks)
+    if pad:
+        mparts.append(torch.zeros(pad, dtype=torch.bool, device=dev))
+    return cols, torch.cat(mparts)
+
+
+def concat_columns(cols_list: Sequence[Dict[str, torch.Tensor]],
+                   masks: Sequence[torch.Tensor], pad: int):
+    """K20: N batches' columns (``cols_list``, the same names in each) and
+    masks concatenated into fresh tensors of sum(capacities) + ``pad`` rows,
+    the pad zero -> (cols, mask).  One launch per group of up to
+    ``CAT_MAX_SRC`` sources and ``CAT_MAX_COLS`` columns (the mask counts
+    as a column), each in the smallest parameter struct that holds it."""
+    if _is_cpu(masks[0]):
+        return concat_columns_plain(cols_list, masks, pad)
+    names = list(cols_list[0])
+    # a column whose batches differ in dtype (an int32 sum beside its int64
+    # per-row states) takes the promoted one, as torch.cat does
+    dtypes = []
+    for k in names:
+        dt = cols_list[0][k].dtype
+        for cols in cols_list[1:]:
+            if cols[k].dtype != dt:
+                dt = torch.promote_types(dt, cols[k].dtype)
+        dtypes.append(dt)
+    dtypes.append(torch.bool)
+    _require_cuda(masks[0])
+    dev = masks[0].device
+    caps = [m.shape[0] for m in masks]
+    off = [0, *itertools.accumulate(caps)]
+    total = off[-1] + int(pad)
+    outs = [torch.empty(total, dtype=dt, device=dev) for dt in dtypes]
+    srcs = []  # [source][column], held until the launches are queued
+    for s, (cols, m) in enumerate(zip(cols_list, masks)):
+        row = [cols[k] if cols[k].dtype == dt else cols[k].to(dt)
+               for k, dt in zip(names, dtypes)] + [m]
+        for c, t in enumerate(row):
+            if t.device != dev or t.dtype != dtypes[c] or t.shape != (caps[s],):
+                raise ValueError(f"concat source {s}: column {c} is {t.dtype}{tuple(t.shape)} "
+                                 f"on {t.device}, expected {dtypes[c]}[{caps[s]}] on {dev}")
+        srcs.append([t if t.is_contiguous() else t.contiguous() for t in row])
+    if total:
+        lib = _gather_lib()
+        flat_out = [_flat(o) for o in outs]
+        widths = [_width(o, "concat") for o in flat_out]
+        n_cols = len(outs)
+        for c0 in range(0, n_cols, CAT_MAX_COLS):
+            cs = list(range(c0, min(n_cols, c0 + CAT_MAX_COLS)))
+            groups = list(range(0, len(srcs), CAT_MAX_SRC)) or [0]
+            for g, s0 in enumerate(groups):
+                ss = list(range(s0, min(len(srcs), s0 + CAT_MAX_SRC)))
+                form = next(f for f, (ns, nc, _s) in enumerate(_CAT_FORMS)
+                            if len(ss) <= ns and len(cs) <= nc)
+                spec = _CAT_FORMS[form][2]()
+                spec.n_src, spec.n_cols = len(ss), len(cs)
+                spec.off[:len(ss) + 1] = off[ss[0]:ss[-1] + 2]
+                spec.end = total if g == len(groups) - 1 else off[ss[-1] + 1]
+                spec.width[:len(cs)] = [widths[c] for c in cs]
+                spec.dst[:len(cs)] = [flat_out[c].data_ptr() for c in cs]
+                # [source * n_cols + column], whole slices: a per-element
+                # fill of this struct costs more than the launch
+                ptrs = [srcs[s][c].data_ptr() for s in ss for c in cs]
+                spec.src[:len(ptrs)] = ptrs
+                _cuda.check(lib.ab_concat_columns(ctypes.byref(spec), form, _stream(dev)),
+                            "concat_columns")
+                count_launch("concat_columns")
+    return dict(zip(names, outs[:-1])), outs[-1]
+
+
+def gather_columns_plain(idx: torch.Tensor, cols: Dict[str, torch.Tensor]):
+    """Plain twin of K21: ``v[idx]`` per column."""
+    i = idx.long()
+    return {k: v[i] for k, v in cols.items()}
+
+
+def _gather_launch(idx: torch.Tensor, pairs, count=None, zero=None) -> None:
+    """One K21 pass: ``pairs`` is [(source, destination)] with the
+    destination holding ``len(idx)`` elements of the source's width, or
+    int32 for a 1-byte source, or int64 for an int32 one; ``count`` (int32[1] source, int64[1]
+    destination) and ``zero`` (an int32[1] destination) ride the first
+    launch."""
+    idx = idx.contiguous()
+    if idx.dtype != torch.int32:
+        raise TypeError(f"gather index must be int32, got {idx.dtype}")
+    m = idx.shape[0]
+    dev = idx.device
+    flat = []
+    for src, dst in pairs:
+        s, d = _flat(src), dst.view(torch.uint8) if dst.dtype == torch.bool else dst
+        if not d.is_contiguous() or d.shape[0] != m:
+            raise ValueError(f"gather destination must hold {m} contiguous elements")
+        w = _width(s, "gather")
+        if w == 1 and d.dtype.itemsize == 4:
+            widen = 1  # bool -> int32
+        elif s.dtype == torch.int32 and d.dtype == torch.int64:
+            widen = 2  # sign-extended, as torch.cat promotes it
+        elif d.dtype.itemsize == w:
+            widen = 0
+        else:
+            raise TypeError(f"gather: {src.dtype} source into a {dst.dtype} destination")
+        flat.append((s, d, w, widen))
+    _require_cuda(idx, *[t for s, d, _w, _x in flat for t in (s, d)])
+    if m == 0 and count is None and zero is None:
+        return
+    lib = _gather_lib()
+    groups = [flat[i:i + GATHER_MAX_COLS] for i in range(0, len(flat), GATHER_MAX_COLS)] or [[]]
+    for g, group in enumerate(groups):
+        spec = _GatherSpec()
+        k = spec.n_cols = len(group)
+        spec.width[:k] = [w for _s, _d, w, _x in group]
+        spec.widen[:k] = [x for _s, _d, _w, x in group]
+        spec.src[:k] = [s.data_ptr() for s, _d, _w, _x in group]
+        spec.dst[:k] = [d.data_ptr() for _s, d, _w, _x in group]
+        if g == 0 and count is not None:
+            spec.count_src, spec.count_dst = count[0].data_ptr(), count[1].data_ptr()
+        if g == 0 and zero is not None:
+            spec.zero_dst = zero.data_ptr()
+        _cuda.check(lib.ab_gather_columns(_ptr(idx), m, ctypes.byref(spec), _stream(dev)),
+                    "gather_columns")
+        count_launch("gather_columns")
+
+
+def gather_columns(idx: torch.Tensor, cols: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """K21: every column gathered by one int32 index (from K2, K4 or K6)
+    into fresh tensors, in one launch per ``GATHER_MAX_COLS`` columns."""
+    if _is_cpu(idx):
+        return gather_columns_plain(idx, cols)
+    m = idx.shape[0]
+    out = {k: torch.empty(m, dtype=v.dtype, device=idx.device) for k, v in cols.items()}
+    if cols:
+        _gather_launch(idx, [(cols[k], out[k]) for k in cols])
+    return out
+
+
+# --------------------------------------------------------------------------
+# K22: the join's mask glue (csrc/gather.cu)
+# --------------------------------------------------------------------------
+
+_MASK_OPS = {"window": 0, "or": 1, "and": 2, "andnot": 3, "bucket": 4}  # csrc/gather.cu AB_MASK_*
+
+
+def window_mask_plain(mask: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Plain twin of K22's window: live AND row index in [lo, hi)."""
+    idx = torch.arange(mask.shape[0], device=mask.device)
+    return mask & (idx >= lo) & (idx < hi)
+
+
+def mask_or_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a | b
+
+
+def mask_and_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a & b
+
+
+def mask_andnot_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a & ~b
+
+
+def bucket_mask_plain(mask: torch.Tensor, bucket: torch.Tensor, q: int) -> torch.Tensor:
+    return mask & (bucket == q)
+
+
+def _mask_launch(op: str, a: torch.Tensor, b: Optional[torch.Tensor], lo: int = 0,
+                 hi: int = 0) -> torch.Tensor:
+    _require_cuda(a, *([b] if b is not None else []))
+    bdt = torch.int32 if op == "bucket" else torch.bool
+    if a.dtype != torch.bool or (b is not None and (b.dtype != bdt or b.shape != a.shape)):
+        raise TypeError("mask ops take bool masks (and int32 buckets) of one shape")
+    fa = _flat(a)
+    fb = _flat(b) if b is not None else fa
+    out = torch.empty(a.shape, dtype=torch.bool, device=a.device)
+    n = fa.shape[0]
+    if n == 0:
+        return out
+    lib = _gather_lib()
+    _cuda.check(lib.ab_mask_ops(_MASK_OPS[op], _ptr(fa), _ptr(fb), n, int(lo), int(hi),
+                                _ptr(_flat(out)), _stream(a.device)), "mask_ops")
+    count_launch("mask_ops")
+    return out
+
+
+def window_mask(mask: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """K22: the probe window's liveness, ``mask`` AND lo <= row < hi."""
+    if _is_cpu(mask):
+        return window_mask_plain(mask, lo, hi)
+    return _mask_launch("window", mask, None, lo, hi)
+
+
+def mask_or(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K22: ``a | b`` of two masks (a spilled semi join's verdicts)."""
+    if _is_cpu(a):
+        return mask_or_plain(a, b)
+    return _mask_launch("or", a, b)
+
+
+def mask_and(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K22: ``a & b`` of two masks (a spilled anti join's verdicts)."""
+    if _is_cpu(a):
+        return mask_and_plain(a, b)
+    return _mask_launch("and", a, b)
+
+
+def mask_andnot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K22: ``a & ~b`` (an anti join's or an outer join's unmatched rows)."""
+    if _is_cpu(a):
+        return mask_andnot_plain(a, b)
+    return _mask_launch("andnot", a, b)
+
+
+def bucket_mask(mask: torch.Tensor, bucket: torch.Tensor, q: int) -> torch.Tensor:
+    """K22: ``mask & (bucket == q)``, one output partition of a local
+    repartition."""
+    if _is_cpu(mask):
+        return bucket_mask_plain(mask, bucket, q)
+    return _mask_launch("bucket", mask, bucket, q)
 
 
 # --------------------------------------------------------------------------
@@ -310,13 +605,9 @@ def compact_columns(cols: Dict[str, torch.Tensor], mask: torch.Tensor):
 # --------------------------------------------------------------------------
 
 
-def pack_for_host(cols, mask, target: int, namesi64, namesf64, names32):
-    """Compact live rows to the front and pack columns + live-row count.
-
-    Same layout as the reference (arrow_ballista_tpu/ops/kernels.py:122):
-    ``buf`` is one int64 buffer [count:1][each int64 column:target][all
-    32-bit columns, bit-paired into int64]; ``fbuf`` stacks float64 columns
-    (or None).  K2 plus gathers; no kernel of its own."""
+def pack_for_host_plain(cols, mask, target: int, namesi64, namesf64, names32):
+    """Plain twin of pack_for_host: K2's twin, gathers, ``torch.cat`` and
+    ``torch.stack``, as the reference writes it."""
     order = compaction_order(mask)[:target].long()
     parts = [mask.sum().to(torch.int64).reshape(1)]
     for k in namesi64:
@@ -336,6 +627,42 @@ def pack_for_host(cols, mask, target: int, namesi64, namesf64, names32):
         parts.append(w.view(torch.int64))
     buf = torch.cat(parts)
     fbuf = torch.stack([cols[k][order] for k in namesf64]) if namesf64 else None
+    return buf, fbuf
+
+
+def pack_for_host(cols, mask, target: int, namesi64, namesf64, names32):
+    """Compact live rows to the front and pack columns + live-row count.
+
+    Same layout as the reference (arrow_ballista_tpu/ops/kernels.py:122):
+    ``buf`` is one int64 buffer [count:1][each int64 column:target][all
+    32-bit columns, bit-paired into int64]; ``fbuf`` stacks float64 columns
+    (or None).  K2 orders the rows and counts them; one K21 pass gathers
+    every column straight into its slice of ``buf`` or its row of ``fbuf``
+    (bools widened to int32) and writes the count."""
+    if _is_cpu(mask):
+        return pack_for_host_plain(cols, mask, target, namesi64, namesf64, names32)
+    order, count = compaction_order(mask, with_count=True)
+    idx = order[:target]
+    dev = mask.device
+    n32 = len(names32) * target
+    buf = torch.empty(1 + len(namesi64) * target + (n32 + 1) // 2, dtype=torch.int64,
+                      device=dev)
+    fbuf = (torch.empty((len(namesf64), target), dtype=torch.float64, device=dev)
+            if namesf64 else None)
+    pairs = []
+    for j, k in enumerate(namesi64):
+        pairs.append((cols[k], buf[1 + j * target:1 + (j + 1) * target]))
+    w = buf[1 + len(namesi64) * target:].view(torch.int32)
+    for j, k in enumerate(names32):
+        v = cols[k]
+        if v.dtype == torch.float32:
+            v = v.view(torch.int32)
+        elif v.dtype not in (torch.int32, torch.bool):
+            v = v.to(torch.int32)
+        pairs.append((v, w[j * target:(j + 1) * target]))
+    for j, k in enumerate(namesf64):
+        pairs.append((cols[k], fbuf[j]))
+    _gather_launch(idx, pairs, count=(count, buf[:1]), zero=w[n32:] if n32 % 2 else None)
     return buf, fbuf
 
 

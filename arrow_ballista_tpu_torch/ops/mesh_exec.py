@@ -485,6 +485,58 @@ class MeshJoinExec(ExecutionPlan):
     def output_partitioning(self):
         return Partitioning.single()
 
+    def _programs(self, ctx: TaskContext):
+        """K19: each side's join keys (``__jk<i>``, string keys as value
+        hashes) as a column program, and each side's key validity (NULL
+        numeric keys never match) as a mask program, None where no key
+        column is nullable.  Shared across a stage's tasks (MeshTaskJoinExec
+        runs one task per partition)."""
+        from ..compile.programs import OperatorProgram
+
+        def keys(sch, exprs, label):
+            def build(xp, dev):
+                comp = ExprCompiler(sch, "device", dev, xp=xp)
+                ks = [comp.compile_key(e) for e in exprs]
+
+                def body(_xp, cols, mask, auxs):
+                    return [(f"__jk{i}", _full_column(kc.fn(cols, auxs[0]), mask.shape[0]))
+                            for i, kc in enumerate(ks)]
+
+                return [comp], body, [kc.dtype.is_string for kc in ks]
+
+            return OperatorProgram("columns", label, sch, build, ctx.device)
+
+        def valid(sch, exprs, label):
+            if not any(ExprCompiler(sch, "device", ctx.device).nullable_refs(e) for e in exprs):
+                return None
+
+            def build(xp, dev):
+                comp = ExprCompiler(sch, "device", dev, xp=xp)
+                fns = [f for f in (comp.validity_fn(comp.nullable_refs(e)) for e in exprs)
+                       if f is not None]
+
+                def body(_xp, cols, mask, auxs):
+                    for f in fns:
+                        mask = mask & f(cols, auxs[0])
+                    return mask
+
+                return [comp], body, None
+
+            return OperatorProgram("mask", label, sch, build, ctx.device)
+
+        with self.build_lock():
+            if self._compiled is None:
+                lsch, rsch = self.left.schema, self.right.schema
+                lex, rex = [le for le, _ in self.on], [re_ for _, re_ in self.on]
+                self._compiled = (keys(lsch, lex, "mesh join probe keys"),
+                                  keys(rsch, rex, "mesh join build keys"),
+                                  valid(lsch, lex, "mesh join probe key validity"),
+                                  valid(rsch, rex, "mesh join build key validity"))
+            return self._compiled
+
+    def device_programs(self, ctx: TaskContext):
+        return [p for p in self._programs(ctx) if p is not None]
+
     def execute(self, partition: int, ctx: TaskContext) -> List[ColumnBatch]:
         with ctx.op_span(self):
             return self._execute(partition, ctx)
@@ -505,47 +557,32 @@ class MeshJoinExec(ExecutionPlan):
         mesh = make_mesh()
         n_dev = mesh_axis_size(mesh)
 
-        # the compiled keys and the runs are shared across a stage's tasks
-        # (MeshTaskJoinExec runs one task per partition)
-        with self.build_lock():
-            if self._compiled is None:
-                lcomp = ExprCompiler(lsch, "device", ctx.device)
-                rcomp = ExprCompiler(rsch, "device", ctx.device)
-                lkeys = [lcomp.compile_key(le) for le, _ in self.on]
-                rkeys = [rcomp.compile_key(re_) for _, re_ in self.on]
-                self._compiled = (lcomp, rcomp, lkeys, rkeys)
-        lcomp, rcomp, lkeys, rkeys = self._compiled
-        laux = lcomp.aux_arrays(probe.dicts)
-        raux = rcomp.aux_arrays(build.dicts)
+        from ..compile.programs import operator_program
 
-        sflags = [c.dtype.is_string for c in lkeys]
+        lkeys, rkeys, lvalid, rvalid = self._programs(ctx)
+        sflags = list(lkeys.extra)
 
-        def with_keys(cols, mask, keys_c, aux):
-            out = dict(cols)
-            for i, kc in enumerate(keys_c):
-                out[f"__jk{i}"] = _full_column(kc.fn(cols, aux), mask.shape[0])
-            return out
+        def with_keys(batch, prog):
+            return {**batch.columns, **operator_program(prog, batch.columns, batch.mask,
+                                                        prog.aux_arrays(batch.dicts))}
 
-        pcols = with_keys(probe.columns, probe.mask, lkeys, laux)
-        bcols = with_keys(build.columns, build.mask, rkeys, raux)
+        pcols = with_keys(probe, lkeys)
+        bcols = with_keys(build, rkeys)
 
         # NULL join keys never match (SQL): drop NULL-key build rows always;
         # drop NULL-key probe rows too for inner/semi (left/anti keep them:
         # they surface as unmatched).  String-key NULLs are excluded in the
         # join through the NULL_KEY_SENTINEL; this covers nullable numerics.
-        def key_valid(comp, exprs, cols, mask, aux):
-            m = mask
-            for e in exprs:
-                vf = comp.validity_fn(comp.nullable_refs(e))
-                if vf is not None:
-                    m = m & vf(cols, aux)
-            return m
+        def key_valid(prog, batch):
+            if prog is None:  # no nullable key column
+                return batch.mask
+            return operator_program(prog, batch.columns, batch.mask,
+                                    prog.aux_arrays(batch.dicts))
 
-        bmask_in = key_valid(rcomp, [re_ for _, re_ in self.on], build.columns, build.mask, raux)
+        bmask_in = key_valid(rvalid, build)
         pmask_in = probe.mask
         if self.join_type in ("inner", "semi"):
-            pmask_in = key_valid(lcomp, [le for le, _ in self.on], probe.columns, probe.mask,
-                                 laux)
+            pmask_in = key_valid(lvalid, probe)
 
         dp, dpm, p_rows = _shard_batch(pcols, pmask_in, mesh, n_dev)
         db, dbm, b_rows = _shard_batch(bcols, bmask_in, mesh, n_dev)

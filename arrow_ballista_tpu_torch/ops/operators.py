@@ -176,28 +176,54 @@ class ProjectionExec(ExecutionPlan):
         with ctx.op_span(self):
             return self._execute(partition, ctx)
 
-    def _execute(self, partition: int, ctx: TaskContext) -> List[ColumnBatch]:
+    def _program(self, ctx: TaskContext):
+        """(compiler, closures) in host mode; on the device the projection's
+        K19 column program."""
+        from ..compile.programs import OperatorProgram
+
+        if self.host_mode:
+            return self._compile(ctx.scalars, ctx.device)
+
+        def build(xp, dev):
+            comp, compiled = self._compile(ctx.scalars, dev, xp=xp)
+
+            def body(_xp, cols, mask, auxs):
+                n = mask.shape[0]
+                return [(name, _full_column(c.fn(cols, auxs[0]), n)) for c, name in compiled]
+
+            return [comp], body, compiled
+
+        return OperatorProgram("columns", "projection", self.input.schema, build, ctx.device)
+
+    def _prepared(self, ctx: TaskContext):
         with self.build_lock():
             if self._compiled is None:
                 if has_scalar_subquery(*[e for e, _ in self.exprs]):
-                    self._compiled = self._compile(ctx.scalars, ctx.device)
+                    self._compiled = self._program(ctx)
                 else:
                     self._compiled = shared_program(
                         ("proj", self.host_mode, str(ctx.device),
                          schema_sig(self.input.schema),
                          tuple(n for _, n in self.exprs),
                          exprs_sig([e for e, _ in self.exprs])),
-                        lambda: self._compile(ctx.scalars, ctx.device))
-        comp, compiled = self._compiled
+                        lambda: self._program(ctx))
+            return self._compiled
+
+    def device_programs(self, ctx: TaskContext):
+        return [] if self.host_mode else [self._prepared(ctx)]
+
+    def _execute(self, partition: int, ctx: TaskContext) -> List[ColumnBatch]:
+        from ..compile.programs import operator_program
+
+        prog = self._prepared(ctx)
         out = []
         for b in self.input.execute(partition, ctx):
             with self.metrics().timer("compute_time"):
-                dicts = {}
-                for c, n in compiled:
-                    if c.dict_fn is not None:
-                        dicts[n] = c.dict_fn(b.dicts)
-                aux = comp.aux_arrays(b.dicts)
                 if self.host_mode:
+                    comp, compiled = prog
+                    dicts = {n: c.dict_fn(b.dicts) for c, n in compiled
+                             if c.dict_fn is not None}
+                    aux = comp.aux_arrays(b.dicts)
                     cols_np = {k: K.to_host(v) for k, v in b.columns.items()}
                     with np.errstate(divide="ignore", invalid="ignore"):
                         new_np = [np.broadcast_to(np.asarray(c.fn(cols_np, aux)), (b.capacity,))
@@ -205,8 +231,10 @@ class ProjectionExec(ExecutionPlan):
                     tensors = upload(new_np, b.device)
                     new_cols = {n: t for (_, n), t in zip(compiled, tensors)}
                 else:
-                    new_cols = {n: _full_column(c.fn(b.columns, aux), b.capacity)
-                                for c, n in compiled}
+                    dicts = {n: c.dict_fn(b.dicts) for c, n in prog.extra
+                             if c.dict_fn is not None}
+                    new_cols = operator_program(prog, b.columns, b.mask,
+                                                prog.aux_arrays(b.dicts))
                 out.append(ColumnBatch(self._schema, new_cols, b.mask, dicts))
         return out
 
@@ -272,30 +300,47 @@ class FilterExec(ExecutionPlan):
         with ctx.op_span(self):
             return self._execute(partition, ctx)
 
-    def _execute(self, partition: int, ctx: TaskContext) -> List[ColumnBatch]:
+    def _program(self, ctx: TaskContext):
+        """(compiler, predicate) in host mode; on the device the filter's
+        K19 mask program."""
+        from ..compile.programs import mask_program
+
+        if self.host_mode:
+            return self._compile(ctx.scalars, ctx.device)
+        return mask_program("filter", self.input.schema,
+                            lambda xp, dev: self._compile(ctx.scalars, dev, xp=xp), ctx.device)
+
+    def _prepared(self, ctx: TaskContext):
         with self.build_lock():
             if self._compiled is None:
-                def build():
-                    return self._compile(ctx.scalars, ctx.device)
-
                 if has_scalar_subquery(self.predicate):
-                    self._compiled = build()
+                    self._compiled = self._program(ctx)
                 else:
                     self._compiled = shared_program(
                         ("filter", self.host_mode, str(ctx.device),
-                         schema_sig(self.input.schema), exprs_sig([self.predicate])), build)
-        comp, pred = self._compiled
+                         schema_sig(self.input.schema), exprs_sig([self.predicate])),
+                        lambda: self._program(ctx))
+            return self._compiled
+
+    def device_programs(self, ctx: TaskContext):
+        return [] if self.host_mode else [self._prepared(ctx)]
+
+    def _execute(self, partition: int, ctx: TaskContext) -> List[ColumnBatch]:
+        from ..compile.programs import operator_program
+
+        prog = self._prepared(ctx)
         out = []
         for b in self.input.execute(partition, ctx):
             with self.metrics().timer("compute_time"):
-                aux = comp.aux_arrays(b.dicts)
                 if self.host_mode:
+                    comp, pred = prog
+                    aux = comp.aux_arrays(b.dicts)
                     cols_np = {k: K.to_host(v) for k, v in b.columns.items()}
                     with np.errstate(divide="ignore", invalid="ignore"):
                         keep = np.broadcast_to(np.asarray(pred.fn(cols_np, aux)), (b.capacity,))
                     mask = b.mask & upload([np.ascontiguousarray(keep)], b.device)[0]
                 else:
-                    mask = b.mask & pred.fn(b.columns, aux)
+                    mask = operator_program(prog, b.columns, b.mask, prog.aux_arrays(b.dicts))
                 out.append(ColumnBatch(b.schema, b.columns, mask, b.dicts))
         return out
 
@@ -404,6 +449,7 @@ class HashAggregateExec(ExecutionPlan):
         self._passthrough = False  # latched by the adaptive passthrough probe
         self._pt_program = None
         self._merge = None
+        self._program = None  # K19: the key and value operands
 
     def _agg_nullable(self, a: AggSpec, in_schema: Schema) -> bool:
         """SQL: sum/min/max yield NULL for an all-NULL group (nullable
@@ -467,6 +513,14 @@ class HashAggregateExec(ExecutionPlan):
         with self.build_lock():
             if self._compiled is None:
                 self._compiled = self._make_compiled(ctx, in_schema)
+                self._program = self._make_compiled(ctx, in_schema, program=True)
+
+    def device_programs(self, ctx: TaskContext):
+        self._ensure_compiled(ctx, self.input.schema)
+        progs = [self._program]
+        if self.clustered is not None and self.clustered[0] is not None:
+            progs.append(self._having_program(ctx)[0])
+        return progs
 
     def _execute_inmem(self, partition: int, ctx: TaskContext, batches, in_schema):
         big = concat_batches(in_schema, batches, device=ctx.device).shrink()
@@ -613,14 +667,44 @@ class HashAggregateExec(ExecutionPlan):
         ranges = self.clustered[2]
         if not 0 <= partition < len(ranges):
             return None
-        comp, group_c = self._compiled[0], self._compiled[1]
-        kc, key_name = group_c[0]
+        key_name = self.group_exprs[0][1]
         field = self._schema.field(key_name)
         # NULL keys ride an in-band sentinel that the statistics exclude
         sent = int(field.dtype.null_sentinel) if field.nullable else None
-        k = _full_column(kc.fn(big.columns, comp.aux_arrays(big.dicts)), big.capacity)
+        k = self._agg_inputs(big.columns, big.mask, big.dicts)[0][0]
         lo, hi = ranges[partition]
         return K.key_range_check(k, big.mask, int(lo), int(hi), sent)
+
+    def _having_program(self, ctx):
+        """The early HAVING's predicate over the partial states as a K19
+        column program (one bool column, ``__having``, which K11 reads),
+        and the overlap intervals on the device."""
+        from ..compile.programs import OperatorProgram
+
+        pred_expr, intervals = self.clustered[0], self.clustered[1]
+        with self.build_lock():
+            if self._cl_compiled is None:
+                def build(xp, dev):
+                    comp = ExprCompiler(self._schema, "device", dev, xp=xp)
+                    pred = comp.compile_pred(_substitute_scalars(pred_expr, ctx.scalars))
+
+                    def body(_xp, cols, mask, auxs):
+                        return [("__having", _full_column(pred.fn(cols, auxs[0]),
+                                                          mask.shape[0]))]
+
+                    return [comp], body, pred
+
+                prog = OperatorProgram("columns", "early having", self._schema, build,
+                                       ctx.device)
+                # padded to a power of two with empty (1, 0) pairs, as in the
+                # reference
+                padn = round_capacity(max(1, len(intervals)), 4)
+                los = np.full(padn, 1, dtype=np.int64)
+                his = np.full(padn, 0, dtype=np.int64)
+                for i, (lo, hi) in enumerate(intervals):
+                    los[i], his[i] = lo, hi
+                self._cl_compiled = (prog, *upload([los, his], ctx.device))
+            return self._cl_compiled
 
     def _apply_clustered_filter(self, ctx, result: ColumnBatch, disorder, mismatch):
         """Early HAVING (K11): this partition's partial state is final for
@@ -629,22 +713,11 @@ class HashAggregateExec(ExecutionPlan):
         fetches the live count with the disorder and mismatch flags.
         Returns the shrunk batch, or None when the caller must re-run the
         sort path (disorder, or stale declared ranges)."""
-        pred_expr, intervals = self.clustered[0], self.clustered[1]
-        with self.build_lock():
-            if self._cl_compiled is None:
-                comp = ExprCompiler(self._schema, "device", ctx.device)
-                pred = comp.compile_pred(_substitute_scalars(pred_expr, ctx.scalars))
-                # padded to a power of two with empty (1, 0) pairs, as in the
-                # reference
-                padn = round_capacity(max(1, len(intervals)), 4)
-                los = np.full(padn, 1, dtype=np.int64)
-                his = np.full(padn, 0, dtype=np.int64)
-                for i, (lo, hi) in enumerate(intervals):
-                    los[i], his[i] = lo, hi
-                self._cl_compiled = (comp, pred, *upload([los, his], ctx.device))
-        comp, pred, los, his = self._cl_compiled
-        aux = comp.aux_arrays(result.dicts)
-        p = _full_column(pred.fn(result.columns, aux), result.capacity)
+        from ..compile.programs import operator_program
+
+        prog, los, his = self._having_program(ctx)
+        p = operator_program(prog, result.columns, result.mask,
+                             prog.aux_arrays(result.dicts))["__having"]
         keep, live = K.clustered_keep(result.columns[self.group_exprs[0][1]], result.mask, p,
                                       los, his)
         if disorder is not None:
@@ -666,16 +739,40 @@ class HashAggregateExec(ExecutionPlan):
         return ColumnBatch(result.schema, result.columns, keep, result.dicts,
                            num_rows=live_v).shrink()
 
-    def _make_compiled(self, ctx, in_schema):
+    def _make_compiled(self, ctx, in_schema, program: bool = False):
+        """The compiled closures, or (``program``) the K19 column program
+        of the key and value operands; shared across jobs by signature."""
+        build = ((lambda: self._operand_program(ctx, in_schema)) if program
+                 else (lambda: self._build_compiled(ctx, in_schema)))
         all_exprs = [e for e, _ in self.group_exprs] + [a.operand for a in self.aggs]
         if not has_scalar_subquery(*all_exprs):
             key = ("agg", self.mode, str(ctx.device), schema_sig(in_schema),
                    exprs_sig([e for e, _ in self.group_exprs]),
                    tuple(n for _, n in self.group_exprs),
                    tuple((a.func, a.name) for a in self.aggs),
-                   exprs_sig([a.operand for a in self.aggs]))
-            return shared_program(key, lambda: self._build_compiled(ctx, in_schema))
-        return self._build_compiled(ctx, in_schema)
+                   exprs_sig([a.operand for a in self.aggs]), program)
+            return shared_program(key, build)
+        return build()
+
+    def _operand_program(self, ctx, in_schema):
+        """K19: the expression part of the reference's "agg.grouped"
+        program (``agg_inputs``) as one column program: the key columns
+        ``__key<j>`` and the value columns ``__val<a>``."""
+        from ..compile.programs import OperatorProgram
+
+        def build(xp, dev):
+            compiled = self._build_compiled(dataclasses.replace(ctx, device=dev), in_schema,
+                                            xp=xp)
+
+            def body(xp_, cols, mask, auxs):
+                keys, vals = agg_inputs(xp_, compiled, cols, mask, auxs[0])
+                return ([(f"__key{j}", k) for j, k in enumerate(keys)]
+                        + [(f"__val{a}", v) for a, (v, _how) in enumerate(vals)])
+
+            return [compiled[0]], body, agg_value_hows(compiled)
+
+        return OperatorProgram("columns", f"aggregate operands ({self.mode})", in_schema,
+                               build, ctx.device)
 
     def _build_compiled(self, ctx, in_schema, xp=None):
         comp = ExprCompiler(in_schema, "device", ctx.device, xp=xp)
@@ -699,11 +796,19 @@ class HashAggregateExec(ExecutionPlan):
                    if nc is not None and how in ("sum", "min", "max")]
         return comp, group_c, agg_c, tracked
 
-    def _agg_inputs(self, cols, mask, aux):
-        """Key columns and (value, how) pairs of one batch."""
-        from .expressions import TorchOps
+    def _agg_inputs(self, cols, mask, dicts):
+        """Key columns and (value, how) pairs of one batch (K19)."""
+        from ..compile.programs import operator_program
 
-        return agg_inputs(TorchOps(mask.device), self._compiled, cols, mask, aux)
+        if self._program is None:  # the closures were compiled alone
+            with self.build_lock():
+                self._program = self._make_compiled(TaskContext(device=mask.device),
+                                                    self.input.schema, program=True)
+        prog = self._program
+        out = operator_program(prog, cols, mask, prog.aux_arrays(dicts))
+        keys = [out[f"__key{j}"] for j in range(len(self.group_exprs))]
+        vals = [(out[f"__val{a}"], how) for a, how in enumerate(prog.extra)]
+        return keys, vals
 
     def _key_ranges(self, group_c, dicts):
         """Static key ranges enable the dense grouping path: dictionary
@@ -733,8 +838,7 @@ class HashAggregateExec(ExecutionPlan):
             out_cap = min(out_cap, domain)
         disorder = None
         with self.metrics().timer("agg_time"):
-            aux = comp.aux_arrays(big.dicts)
-            keys, vals = self._agg_inputs(big.columns, big.mask, aux)
+            keys, vals = self._agg_inputs(big.columns, big.mask, big.dicts)
             if self._presorted():
                 out_keys, out_vals, out_mask, overflow, disorder = \
                     K.grouped_aggregate_presorted(keys, vals, big.mask, big.capacity)
@@ -845,6 +949,21 @@ def passthrough_states(xp, pt, cols, mask, aux, names=None):
     return out
 
 
+def agg_value_hows(compiled):
+    """The aggregation of each value column ``agg_inputs`` returns, in
+    order (known from the compiled closures alone)."""
+    _comp, _group_c, agg_c, tracked = compiled
+    hows = []
+    for cc, how, _name, null_check in agg_c:
+        if cc is None:
+            hows.append(K.AGG_COUNT)
+        elif null_check is not None and how == "count":
+            hows.append(K.AGG_SUM)
+        else:
+            hows.append(how)
+    return hows + [K.AGG_SUM] * len(tracked)
+
+
 def agg_inputs(xp, compiled, cols, mask, aux):
     """Key columns and (value, how) pairs of one batch under an
     aggregate's compiled closures: the expression part of the reference's
@@ -884,20 +1003,6 @@ def agg_inputs(xp, compiled, cols, mask, aux):
 # --------------------------------------------------------------------------
 # join
 # --------------------------------------------------------------------------
-
-
-def _window_mask(mask: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
-    """Probe-window liveness: live AND row index in [lo, hi)."""
-    idx = torch.arange(mask.shape[0], device=mask.device)
-    return mask & (idx >= lo) & (idx < hi)
-
-
-def _mask_or(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return a | b
-
-
-def _mask_and(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return a & b
 
 
 def window_counts(offsets: torch.Tensor, chunk_rows: int, n_windows: int) -> torch.Tensor:
@@ -958,7 +1063,6 @@ class JoinExec(ExecutionPlan):
         else:
             self._schema = left.schema.merge(right.schema)
         self._compiled = None
-        self._spill_keys = None
 
     def children(self):
         return [self.left, self.right]
@@ -1036,20 +1140,14 @@ class JoinExec(ExecutionPlan):
                 self._compiled = self._build_join(ctx, lsch, rsch)
 
     def _build_join(self, ctx, lsch, rsch):
-        dev = ctx.device
-        lcomp = ExprCompiler(lsch, "device", dev)
-        rcomp = ExprCompiler(rsch, "device", dev)
-        lkeys = [lcomp.compile_key(le) for le, _ in self.on]
-        rkeys = [rcomp.compile_key(re_) for _, re_ in self.on]
-        # NULL join keys never match (string keys through NULL_KEY_SENTINEL,
-        # numeric nullable keys through their validity)
-        lkey_valid = [lcomp.validity_fn(lcomp.nullable_refs(le)) for le, _ in self.on]
-        rkey_valid = [rcomp.validity_fn(rcomp.nullable_refs(re_)) for _, re_ in self.on]
-        fcomp = fpred = None
-        if self.filter is not None:
-            fcomp = ExprCompiler(lsch.merge(rsch), "device", dev)
-            fpred = fcomp.compile_pred(_substitute_scalars(self.filter, ctx.scalars))
+        """The join's programs and closures: K19 column programs of each
+        side's keys and key validity, K19's mask program verifying each
+        candidate pair (real key equality behind the hashes, build
+        liveness, NULL keys) with the residual filter, and the closures
+        composing them with K3, K5-K7, K21 and K22."""
+        from ..compile.programs import OperatorProgram, operator_program
 
+        dev = ctx.device
         jt = self.join_type
         lnames = [f.name for f in lsch]
         rnames = [f.name for f in rsch]
@@ -1058,62 +1156,151 @@ class JoinExec(ExecutionPlan):
         # the pair filter gathers only the columns it references
         fnames = self.filter.column_refs() if self.filter is not None else set()
         null_key = K._s64(int(ExprCompiler.NULL_KEY_SENTINEL))
+        nk = len(self.on)
 
-        def key_arrays(compiled, cols, aux, n):
-            return [_full_column(c.fn(cols, aux), n) for c in compiled]
+        def side_program(sch, exprs, label):
+            # NULL join keys never match (string keys through
+            # NULL_KEY_SENTINEL, numeric nullable keys through their validity)
+            def build(xp, d):
+                comp = ExprCompiler(sch, "device", d, xp=xp)
+                keys = [comp.compile_key(e) for e in exprs]
+                valid = [comp.validity_fn(comp.nullable_refs(e)) for e in exprs]
+
+                def body(_xp, cols, mask, auxs):
+                    n = mask.shape[0]
+                    out = [(f"__k{i}", _full_column(c.fn(cols, auxs[0]), n))
+                           for i, c in enumerate(keys)]
+                    out += [(f"__v{i}", _full_column(v(cols, auxs[0]), n))
+                            for i, v in enumerate(valid) if v is not None]
+                    return out
+
+                return [comp], body, (keys, [v is not None for v in valid])
+
+            return OperatorProgram("columns", label, sch, build, dev)
+
+        lprog = side_program(lsch, [le for le, _ in self.on], "join probe keys")
+        rprog = side_program(rsch, [re_ for _, re_ in self.on], "join build keys")
+        lkeys, lvalid = lprog.extra
+        _rkeys, rvalid = rprog.extra
+
+        # the pair schema the verification reads: both sides' gathered keys
+        # and validities, the build mask, and the filter's columns
+        def key_field(name, c, t):
+            kind = {torch.int32: "int32", torch.int64: "int64", torch.float32: "float32",
+                    torch.float64: "float64", torch.bool: "bool"}[t]
+            return Field(name, DataType(kind))
+
+        merged = lsch.merge(rsch) if self.filter is not None else None
+        pair_fields = [f for f in (merged or []) if f.name in fnames]
+        from ..models.batch import torch_dtype
+
+        def phys(c):
+            return torch.int64 if c.dtype.is_string else torch_dtype(c.dtype.np_dtype)
+
+        for i, c in enumerate(lkeys):
+            pair_fields.append(key_field(f"__pk{i}", c, phys(c)))
+            pair_fields.append(key_field(f"__bk{i}", c, phys(_rkeys[i])))
+            if lvalid[i]:
+                pair_fields.append(Field(f"__pv{i}", BOOL))
+            if rvalid[i]:
+                pair_fields.append(Field(f"__bv{i}", BOOL))
+        pair_fields.append(Field("__bmask", BOOL))
+        pair_schema = Schema(pair_fields)
+
+        def verify_build(xp, d):
+            comps, fpred = [], None
+            if self.filter is not None:
+                fcomp = ExprCompiler(pair_schema, "device", d, xp=xp)
+                fpred = fcomp.compile_pred(_substitute_scalars(self.filter, ctx.scalars))
+                comps = [fcomp]
+
+            def body(_xp, cols, mask, auxs):
+                ok = mask & cols["__bmask"]
+                for i in range(nk):
+                    a, b = cols[f"__pk{i}"], cols[f"__bk{i}"]
+                    ok = ok & (a == b)
+                    if lkeys[i].dtype.is_string:
+                        ok = ok & (a != null_key)
+                    if lvalid[i]:
+                        ok = ok & cols[f"__pv{i}"]
+                    if rvalid[i]:
+                        ok = ok & cols[f"__bv{i}"]
+                if fpred is not None:
+                    ok = ok & _full_column(fpred.fn(cols, auxs[0]), mask.shape[0])
+                return ok
+
+            return comps, body, None
+
+        vprog = OperatorProgram("mask", "join pair verification", pair_schema, verify_build,
+                                dev)
+
+        def side_keys(prog, cols, mask, aux):
+            out = operator_program(prog, cols, mask, aux)
+            return [out[f"__k{i}"] for i in range(nk)], out
+
+        def gather(idx, named):
+            # one K21 launch per side; a column gathered under two names
+            # (a key that is also an output column) is gathered once
+            uniq, alias = {}, {}
+            for k, t in named.items():
+                alias[k] = uniq.setdefault(id(t), k)
+            g = K.gather_columns(idx, {k: named[k] for k in uniq.values()})
+            return {k: g[alias[k]] for k in named}
 
         def prep_fn(bcols, bmask, raux):
             # build-side hash + sort, once per broadcast build (cached)
-            bk = key_arrays(rkeys, bcols, raux, bmask.shape[0])
+            bk, _ = side_keys(rprog, bcols, bmask, raux)
             bh_sorted, border, _ = K.build_side_sort(bk, bmask)
             return bh_sorted, border
 
         def join_fn(pcols, pmask, bcols, bmask, bh_sorted, border, laux, raux, faux, out_cap):
             n_probe, n_build = pmask.shape[0], bmask.shape[0]
-            pk = key_arrays(lkeys, pcols, laux, n_probe)
-            bk = key_arrays(rkeys, bcols, raux, n_build)
+            pk, pside = side_keys(lprog, pcols, pmask, laux)
+            _bk, bside = side_keys(rprog, bcols, bmask, raux)
             ph = K.hash64(pk)
             pi, bp, pair_valid, total = K.probe_join(ph, pmask, bh_sorted, out_cap)
-            bidx = border[bp.long()]
-            pil, bil = pi.long(), bidx.long()
-            # verify real key equality (hash collisions) + build liveness;
-            # string keys are value hashes: the NULL sentinel never matches
-            ok = pair_valid & bmask[bil]
-            for i, (a, b) in enumerate(zip(pk, bk)):
-                ok = ok & (a[pil] == b[bil])
-                if lkeys[i].dtype.is_string:
-                    ok = ok & (a[pil] != null_key)
-                if lkey_valid[i] is not None:
-                    ok = ok & lkey_valid[i](pcols, laux)[pil]
-                if rkey_valid[i] is not None:
-                    ok = ok & rkey_valid[i](bcols, raux)[bil]
-            if fpred is not None:
-                pair_cols = {n: pcols[n][pil] for n in lnames if n in fnames}
-                pair_cols.update({n: bcols[n][bil] for n in rnames if n in fnames})
-                ok = ok & _full_column(fpred.fn(pair_cols, faux), out_cap)
+            bidx = K.gather_columns(bp, {"b": border})["b"]
+            # the output-column gathers are data movement (K21)
+            out_l = lnames if jt in ("inner", "left", "full") else []
+            out_r = rnames if jt in ("inner", "left", "full") else []
+            pnamed = {n: pcols[n] for n in lnames if n in out_l or n in fnames}
+            bnamed = {n: bcols[n] for n in rnames if n in out_r or n in fnames}
+            for i in range(nk):
+                pnamed[f"__pk{i}"], bnamed[f"__bk{i}"] = pside[f"__k{i}"], bside[f"__k{i}"]
+                if lvalid[i]:
+                    pnamed[f"__pv{i}"] = pside[f"__v{i}"]
+                if rvalid[i]:
+                    bnamed[f"__bv{i}"] = bside[f"__v{i}"]
+            bnamed["__bmask"] = bmask
+            pg, bg = gather(pi, pnamed), gather(bidx, bnamed)
+            # verify real key equality (hash collisions), build liveness and
+            # NULL keys, then the residual filter: one mask program
+            ok = operator_program(vprog, {**pg, **bg}, pair_valid, faux)
 
             if jt in ("semi", "anti"):
                 hit = K.segment_any(ok, pi, n_probe)
-                return pcols, pmask & (hit if jt == "semi" else ~hit), total, None
+                mask = K.mask_and(pmask, hit) if jt == "semi" else K.mask_andnot(pmask, hit)
+                return pcols, mask, total, None
 
-            # the output-column gathers are data movement (index_select)
-            out_cols = {n: pcols[n][pil] for n in lnames}
-            out_cols.update({n: bcols[n][bil] for n in rnames})
+            out_cols = {n: pg[n] for n in lnames}
+            out_cols.update({n: bg[n] for n in rnames})
             out_mask = ok
             if jt in ("left", "full"):
                 # unmatched probe rows, build side NULL-filled
                 hit = K.segment_any(ok, pi, n_probe)
-                out_cols = {n: torch.cat([v, pcols[n] if n in lnames else torch.full(
-                    (n_probe,), rfill[n], dtype=v.dtype, device=v.device)])
+                tail = {n: pcols[n] if n in lnames else torch.full(
+                    (n_probe,), rfill[n], dtype=v.dtype, device=v.device)
                     for n, v in out_cols.items()}
-                out_mask = torch.cat([out_mask, pmask & ~hit])
+                out_cols, out_mask = K.concat_columns(
+                    [out_cols, tail], [out_mask, K.mask_andnot(pmask, hit)], 0)
             if jt == "full":
                 # unmatched build rows, probe side NULL-filled
                 hit_b = K.segment_any(ok, bidx, n_build)
-                out_cols = {n: torch.cat([v, bcols[n] if n in rnames else torch.full(
-                    (n_build,), lfill[n], dtype=v.dtype, device=v.device)])
+                tail = {n: bcols[n] if n in rnames else torch.full(
+                    (n_build,), lfill[n], dtype=v.dtype, device=v.device)
                     for n, v in out_cols.items()}
-                out_mask = torch.cat([out_mask, bmask & ~hit_b])
+                out_cols, out_mask = K.concat_columns(
+                    [out_cols, tail], [out_mask, K.mask_andnot(bmask, hit_b)], 0)
             # an inner join's probe-row index per pair rides along for the
             # spilled path's order-restoring merge (all matches of a probe
             # row share its hash, hence one build partition)
@@ -1121,26 +1308,31 @@ class JoinExec(ExecutionPlan):
 
         def count_fn(pcols, pmask, bh_sorted, laux):
             # candidate-pair total only: K3 + K6's count step, no gathers
-            ph = K.hash64(key_arrays(lkeys, pcols, laux, pmask.shape[0]))
+            ph = K.hash64(side_keys(lprog, pcols, pmask, laux)[0])
             return K.probe_counts(ph, pmask, bh_sorted)[3]
 
         def wcount_fn(pcols, pmask, bh_sorted, laux, chunk_rows, n_windows):
             # per-window candidate counts for the budget-windowed probe, in
             # one pass and one host transfer
-            ph = K.hash64(key_arrays(lkeys, pcols, laux, pmask.shape[0]))
+            ph = K.hash64(side_keys(lprog, pcols, pmask, laux)[0])
             offsets = K.probe_counts(ph, pmask, bh_sorted)[2]
             return window_counts(offsets, chunk_rows, n_windows)
 
-        return lcomp, rcomp, fcomp, join_fn, count_fn, prep_fn, wcount_fn
+        return lprog, rprog, vprog, join_fn, count_fn, prep_fn, wcount_fn
+
+    def device_programs(self, ctx: TaskContext):
+        with self.build_lock():
+            self._ensure_compiled(ctx, self.left.schema, self.right.schema)
+        return list(self._compiled[:3])
 
     def _out_row_bytes(self) -> int:
         return self._schema.row_byte_width()
 
     def _join_device(self, ctx, probe: ColumnBatch, build: ColumnBatch) -> List[ColumnBatch]:
-        lcomp, rcomp, fcomp, jfn, cfn, pfn, _ = self._compiled
-        laux = lcomp.aux_arrays(probe.dicts)
-        raux = rcomp.aux_arrays(build.dicts)
-        faux = fcomp.aux_arrays({**probe.dicts, **build.dicts}) if fcomp is not None else {}
+        lprog, rprog, vprog, jfn, cfn, pfn, _ = self._compiled
+        laux = lprog.aux_arrays(probe.dicts)
+        raux = rprog.aux_arrays(build.dicts)
+        faux = vprog.aux_arrays({**probe.dicts, **build.dicts})
 
         with self.metrics().timer("join_time"):
             # build-side hash + sort, computed once per broadcast build and
@@ -1254,12 +1446,11 @@ class JoinExec(ExecutionPlan):
         """
         from ..memory.spill import Spiller
 
+        from ..compile.programs import operator_program
+
         with self.build_lock():
             self._ensure_compiled(ctx, lsch, rsch)
-            if self._spill_keys is None:
-                rcomp = self._compiled[1]
-                self._spill_keys = [rcomp.compile_key(re_) for _, re_ in self.on]
-        lcomp, rcomp, fcomp, jfn, cfn, pfn, _ = self._compiled
+        lprog, rprog, vprog, jfn, cfn, pfn, _ = self._compiled
         nparts = self._SPILL_PARTS
         spiller = Spiller(ctx.work_dir, ctx.job_id, tag="join")
         runs: List[list] = [[] for _ in range(nparts)]
@@ -1267,9 +1458,9 @@ class JoinExec(ExecutionPlan):
             with self.metrics().timer("join_time"):
                 for b in build_parts:
                     ctx.check_cancelled()
-                    raux = rcomp.aux_arrays(b.dicts)
-                    keys = [_full_column(c.fn(b.columns, raux), b.capacity)
-                            for c in self._spill_keys]
+                    side = operator_program(rprog, b.columns, b.mask,
+                                            rprog.aux_arrays(b.dicts))
+                    keys = [side[f"__k{i}"] for i in range(len(self.on))]
                     cols, _n = b.packed_numpy(
                         extra32={"__part": K.spill_partition(keys, nparts)})
                     pids = cols.pop("__part")
@@ -1282,7 +1473,7 @@ class JoinExec(ExecutionPlan):
                 self.metrics().add("spill_runs", len(spiller.runs))
                 self.metrics().add("spill_bytes", sum(r.num_bytes for r in spiller.runs))
 
-                laux = lcomp.aux_arrays(probe.dicts)
+                laux = lprog.aux_arrays(probe.dicts)
                 ceiling = ctx.config.get(JOIN_MAX_CAPACITY)
                 low_floor = max(64, probe.capacity // 64)
                 grand_total = 0
@@ -1297,9 +1488,8 @@ class JoinExec(ExecutionPlan):
                     build_p = concat_batches(
                         rsch, spiller.read(rsch, runs=runs[p], device=ctx.device),
                         device=ctx.device).shrink()
-                    raux = rcomp.aux_arrays(build_p.dicts)
-                    faux = (fcomp.aux_arrays({**probe.dicts, **build_p.dicts})
-                            if fcomp is not None else {})
+                    raux = rprog.aux_arrays(build_p.dicts)
+                    faux = vprog.aux_arrays({**probe.dicts, **build_p.dicts})
                     bh_sorted, border = pfn(build_p.columns, build_p.mask, raux)
                     # the exact candidate count of this partition sizes the
                     # output; the cross-join guard sees the partitions' sum
@@ -1318,9 +1508,9 @@ class JoinExec(ExecutionPlan):
                         if mask_acc is None:
                             mask_acc = out_mask
                         elif self.join_type == "semi":
-                            mask_acc = _mask_or(mask_acc, out_mask)
+                            mask_acc = K.mask_or(mask_acc, out_mask)
                         else:
-                            mask_acc = _mask_and(mask_acc, out_mask)
+                            mask_acc = K.mask_and(mask_acc, out_mask)
                         continue
                     pb = ColumnBatch(self._schema, dict(out_cols), out_mask,
                                      {**probe.dicts, **build_p.dicts})
@@ -1384,7 +1574,7 @@ class JoinExec(ExecutionPlan):
         for inner/semi/anti: a probe row's matches depend only on that row
         and the build side.  Semi/anti windows OR their verdict masks into
         one output batch; inner windows each emit a batch."""
-        lcomp, rcomp, fcomp, jfn, cfn, pfn, wcfn = self._compiled
+        _lprog, _rprog, _vprog, jfn, cfn, pfn, wcfn = self._compiled
         cap = probe.capacity
         width = self._out_row_bytes()
         want = max(1, -(-planned_cap * width // budget))
@@ -1409,7 +1599,7 @@ class JoinExec(ExecutionPlan):
         grand_total = 0  # the cross-join guard sees the sum of the windows
         for i in range(chunks):
             ctx.check_cancelled()
-            pmask_c = _window_mask(probe.mask, i * chunk_rows, min((i + 1) * chunk_rows, cap))
+            pmask_c = K.window_mask(probe.mask, i * chunk_rows, min((i + 1) * chunk_rows, cap))
             total_c = int(window_counts_h[i])
             grand_total += total_c
             if grand_total > ceiling:
@@ -1433,7 +1623,7 @@ class JoinExec(ExecutionPlan):
                                                 build.mask, bh_sorted, border, laux, raux,
                                                 faux, need)
             if self.join_type in ("semi", "anti"):
-                mask_acc = out_mask if mask_acc is None else _mask_or(mask_acc, out_mask)
+                mask_acc = out_mask if mask_acc is None else K.mask_or(mask_acc, out_mask)
             else:
                 out_batches.append(ColumnBatch(self._schema, dict(out_cols), out_mask, dicts))
         if self.join_type in ("semi", "anti"):
@@ -1482,37 +1672,52 @@ class SortExec(ExecutionPlan):
             ctx.check_cancelled()
             parts.extend(self.input.execute(p, ctx))
         big = concat_batches(self.input.schema, parts, device=ctx.device).shrink()
+        from ..compile.programs import operator_program
+
+        prog = self._prepared(ctx)
+        with self.metrics().timer("sort_time"):
+            keys = operator_program(prog, big.columns, big.mask, prog.aux_arrays(big.dicts))
+            key_arrays = [(keys[f"__k{j}"], asc) for j, (_e, asc) in enumerate(self.keys)]
+            order = K.sort_order(key_arrays, big.mask)
+            if self.fetch is not None and self.fetch < big.capacity:
+                order = order[:max(self.fetch, 1)]
+            out = K.gather_columns(order, {**big.columns, "__mask": big.mask})
+            mask = out.pop("__mask")
+            if self.fetch is not None and self.fetch < big.capacity:
+                mask = K.window_mask(mask, 0, self.fetch)
+        return [ColumnBatch(self._schema, out, mask, big.dicts)]
+
+    def _prepared(self, ctx: TaskContext):
+        """The sort keys as one K19 column program (``__k<j>``)."""
+        from ..compile.programs import OperatorProgram
+
+        def program():
+            def build(xp, dev):
+                comp = ExprCompiler(self.input.schema, "device", dev, xp=xp)
+                keys_c = [comp.compile(_substitute_scalars(e, ctx.scalars)) for e, _ in self.keys]
+
+                def body(_xp, cols, mask, auxs):
+                    n = mask.shape[0]
+                    return [(f"__k{j}", _full_column(c.fn(cols, auxs[0]), n))
+                            for j, c in enumerate(keys_c)]
+
+                return [comp], body, None
+
+            return OperatorProgram("columns", "sort keys", self.input.schema, build, ctx.device)
 
         with self.build_lock():
             if self._compiled is None:
-                def build():
-                    comp = ExprCompiler(self.input.schema, "device", ctx.device)
-                    keys_c = [(comp.compile(_substitute_scalars(e, ctx.scalars)), asc)
-                              for e, asc in self.keys]
-                    return comp, keys_c
-
                 if has_scalar_subquery(*[e for e, _ in self.keys]):
-                    self._compiled = build()
+                    self._compiled = program()
                 else:
                     self._compiled = shared_program(
                         ("sort", str(ctx.device), schema_sig(self.input.schema),
                          tuple(asc for _, asc in self.keys),
-                         exprs_sig([e for e, _ in self.keys])), build)
-        comp, keys_c = self._compiled
-        with self.metrics().timer("sort_time"):
-            aux = comp.aux_arrays(big.dicts)
-            key_arrays = [(_full_column(c.fn(big.columns, aux), big.capacity), asc)
-                          for c, asc in keys_c]
-            order = K.sort_order(key_arrays, big.mask).long()
-            cols = {k: v[order] for k, v in big.columns.items()}
-            mask = big.mask[order]
-        b = ColumnBatch(self._schema, cols, mask, big.dicts)
-        if self.fetch is not None and self.fetch < b.capacity:
-            keep = max(self.fetch, 1)
-            cols = {k: v[:keep] for k, v in cols.items()}
-            mask = mask[:keep] & (torch.arange(keep, device=mask.device) < self.fetch)
-            b = ColumnBatch(self._schema, cols, mask, big.dicts)
-        return [b]
+                         exprs_sig([e for e, _ in self.keys])), program)
+            return self._compiled
+
+    def device_programs(self, ctx: TaskContext):
+        return [self._prepared(ctx)]
 
     def _label(self):
         k = ", ".join(f"{e} {'ASC' if asc else 'DESC'}" for e, asc in self.keys)
@@ -1538,10 +1743,9 @@ class LimitExec(ExecutionPlan):
             for p in range(self.input.output_partition_count()):
                 parts.extend(self.input.execute(p, ctx))
             big = concat_batches(self.input.schema, parts, device=ctx.device)
-            cols, mask = K.compact_columns(big.columns, big.mask)
-            keep = max(self.n, 1)
-            cols = {k: v[:keep] for k, v in cols.items()}
-            mask = mask[:keep] & (torch.arange(keep, device=mask.device) < self.n)
+            order = K.compaction_order(big.mask)[:max(self.n, 1)]
+            cols = K.gather_columns(order, {**big.columns, "__mask": big.mask})
+            mask = K.window_mask(cols.pop("__mask"), 0, self.n)
             return [ColumnBatch(self._schema, cols, mask, big.dicts)]
 
     def _label(self):

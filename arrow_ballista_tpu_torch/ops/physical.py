@@ -2,11 +2,13 @@
 
 Mirrors arrow_ballista_tpu/ops/physical.py: ``execute(partition)`` returns
 a list of fixed-capacity ColumnBatches on the task's device.  The scans
-are the in-memory scan and the row-group-granular parquet scan (statistics
-pruning, the double-buffered cold read, the clustered-key probe); parquet
-scans keep their converted batches in the device-resident scan cache
-(utils/table_cache.py).  csv, json and avro scans are still to be ported
-(ROADMAP.md queue 1 item 4).
+are the in-memory scan, the row-group-granular parquet scan (statistics
+pruning, the double-buffered cold read, the clustered-key probe) and the
+whole-file csv (``.tbl`` too), newline-delimited json and avro scans; every
+path resolves through the object-store registry (utils/object_store.py).
+Parquet scans keep their converted batches in the device-resident scan
+cache (utils/table_cache.py).  A scan's pushed-down filters run as one K19
+mask program (compile/programs.py).
 """
 from __future__ import annotations
 
@@ -475,24 +477,36 @@ class ScanExec(ExecutionPlan):
         self.metrics().add("output_rows", sum(b.num_rows for b in batches))
         if not self.filters:
             return batches
-        with self.build_lock():
-            if self._compiled is None:
-                def build():
-                    comp = ExprCompiler(self._schema, "device", ctx.device)
-                    return comp, comp.compile_pred(E.and_all(self.filters))
+        from ..compile.programs import operator_program
 
-                self._compiled = shared_program(
-                    ("scanfilter", str(ctx.device), schema_sig(self._schema),
-                     exprs_sig(self.filters)), build)
-        comp, pred = self._compiled
+        prog = self._filter_program(ctx)
         out = []
         with self.metrics().timer("scan_filter_time"):
             for b in batches:
                 # a new mask on top: cached batches are never written
-                aux = comp.aux_arrays(b.dicts)
-                new_mask = b.mask & pred.fn(b.columns, aux)
+                new_mask = operator_program(prog, b.columns, b.mask, prog.aux_arrays(b.dicts))
                 out.append(ColumnBatch(b.schema, b.columns, new_mask, b.dicts))
         return out
+
+    def _filter_program(self, ctx: TaskContext):
+        """The pushed-down filters as one K19 mask program, shared across
+        jobs by signature."""
+        from ..compile.programs import mask_program
+
+        with self.build_lock():
+            if self._compiled is None:
+                def compile_pred(xp, dev):
+                    comp = ExprCompiler(self._schema, "device", dev, xp=xp)
+                    return comp, comp.compile_pred(E.and_all(self.filters))
+
+                self._compiled = shared_program(
+                    ("scanfilter", str(ctx.device), schema_sig(self._schema),
+                     exprs_sig(self.filters)),
+                    lambda: mask_program("scan filter", self._schema, compile_pred, ctx.device))
+            return self._compiled
+
+    def device_programs(self, ctx: TaskContext):
+        return [self._filter_program(ctx)] if self.filters else []
 
 
 class MemoryScanExec(ScanExec):
@@ -627,12 +641,12 @@ class ParquetScanExec(ScanExec):
     def __init__(self, schema: Schema, paths: List[str], target_partitions: int,
                  filters: Sequence[E.Expr] = (), table_schema: Optional[Schema] = None):
         super().__init__(schema, filters)
-        from ..utils import local_files
+        from ..utils import object_store
 
         self.table_schema = table_schema or schema
         files = []
         for p in paths:
-            files.extend(local_files.list_files(p, (".parquet",)))
+            files.extend(object_store.list_files(p, (".parquet",)))
         if not files:
             raise ExecutionError(f"no parquet files found in {paths}")
         self.files = files
@@ -641,7 +655,7 @@ class ParquetScanExec(ScanExec):
         units: List[Unit] = []
         self.pruned_row_groups = 0
         for f in files:
-            with local_files.parquet_file(f) as pf:
+            with object_store.parquet_file(f) as pf:
                 meta = pf.metadata
                 # int64-stored decimals: integer statistics in the
                 # storage-scaled domain
@@ -707,7 +721,7 @@ class ParquetScanExec(ScanExec):
         it touches files and arrow only, never the device."""
         import pyarrow as pa
 
-        from ..utils import local_files
+        from ..utils import object_store
 
         if not units:
             return self._schema.to_arrow_empty()
@@ -719,7 +733,7 @@ class ParquetScanExec(ScanExec):
         rd = [f.name for f in self._schema if f.dtype.is_string] or None
         def read(item):
             f, rgs = item
-            return local_files.read_parquet_row_groups(f, sorted(rgs), cols, read_dictionary=rd)
+            return object_store.read_parquet_row_groups(f, sorted(rgs), cols, read_dictionary=rd)
 
         if len(by_file) == 1:
             return read(next(iter(by_file.items())))
@@ -795,7 +809,7 @@ class ParquetScanExec(ScanExec):
         return cache[col_name]
 
     def _clustered_ranges_impl(self, col_name: str):
-        from ..utils import local_files
+        from ..utils import object_store
 
         units = sorted(u for g in self.groups for u in g)
         if len(units) <= 1:
@@ -805,7 +819,7 @@ class ParquetScanExec(ScanExec):
         for f, rg, _rows in units:
             meta = metas.get(f)
             if meta is None:
-                with local_files.parquet_file(f) as pf:
+                with object_store.parquet_file(f) as pf:
                     meta = metas[f] = pf.metadata
             idx = None
             for i in range(meta.num_columns):
@@ -849,3 +863,144 @@ class ParquetScanExec(ScanExec):
         n_units = sum(len(g) for g in self.groups)
         return (f"ParquetScanExec: {len(self.files)} files, {n_units} row-groups, "
                 f"{len(self.groups)} partitions{pruned}")
+
+
+def _arrow_type_of(dt: DataType):
+    """Engine dtype -> the arrow type file readers should parse into."""
+    import pyarrow as pa
+
+    return {
+        "int32": pa.int32(), "int64": pa.int64(), "float32": pa.float32(),
+        "float64": pa.float64(), "bool": pa.bool_(), "date32": pa.date32(),
+        "decimal": pa.float64(), "string": pa.string(),
+    }[dt.kind]
+
+
+class FileListScanExec(ScanExec):
+    """Shared scaffolding for whole-file scans (csv/json/avro): object-store
+    listing, round-robin file grouping into partitions, per-file read on
+    the host with pyarrow + concat.  The batches convert as the parquet
+    scan's do (``table_to_batches``) and take the inherited scan filter
+    (K19).  Parquet scans stay separate (row-group granularity)."""
+
+    SUFFIXES: Tuple[str, ...] = ()
+    FORMAT = "file"
+
+    def __init__(self, schema: Schema, paths: List[str], target_partitions: int,
+                 filters: Sequence[E.Expr] = (), table_schema: Optional[Schema] = None):
+        super().__init__(schema, filters)
+        from ..utils import object_store as obs
+
+        self.table_schema = table_schema or schema
+        files = []
+        for p in paths:
+            files.extend(obs.list_files(p, self.SUFFIXES))
+        if not files:
+            raise ExecutionError(f"no {self.FORMAT} files found in {paths}")
+        self.files = files
+        k = max(1, min(target_partitions, len(files)))
+        self.groups = [files[i::k] for i in range(k)]
+
+    def output_partition_count(self) -> int:
+        return len(self.groups)
+
+    def _read_one(self, path: str):
+        raise NotImplementedError
+
+    def _read_partition(self, partition: int):
+        import pyarrow as pa
+
+        tables = [self._read_one(f) for f in self.groups[partition]]
+        return pa.concat_tables(tables) if len(tables) > 1 else tables[0]
+
+    def _label(self):
+        return (f"{type(self).__name__}: {len(self.files)} files, "
+                f"{len(self.groups)} partitions")
+
+
+class CsvScanExec(FileListScanExec):
+    """CSV scan (including TPC-H ``.tbl`` pipe-delimited files)."""
+
+    SUFFIXES = (".csv", ".tbl")
+    FORMAT = "csv"
+
+    def __init__(self, schema: Schema, paths: List[str], target_partitions: int,
+                 filters: Sequence[E.Expr] = (), table_schema: Optional[Schema] = None,
+                 delimiter: str = ",", has_header: bool = True):
+        super().__init__(schema, paths, target_partitions, filters, table_schema)
+        self.delimiter = delimiter
+        self.has_header = has_header
+
+    def _read_one(self, path: str):
+        import pyarrow.csv as pacsv
+
+        from ..utils import object_store as obs
+
+        names = self.table_schema.names()
+        column_types = {f.name: _arrow_type_of(f.dtype) for f in self.table_schema}
+        trailing = _has_trailing_delimiter(path, self.delimiter)
+        read_names = None if self.has_header else names + (["__trail"] if trailing else [])
+        ropts = pacsv.ReadOptions(column_names=read_names)
+        popts = pacsv.ParseOptions(delimiter=self.delimiter)
+        copts = pacsv.ConvertOptions(
+            column_types=column_types, include_columns=self._schema.names()
+        )
+        with obs.open_input(path) as fh:
+            return pacsv.read_csv(fh, read_options=ropts, parse_options=popts,
+                                  convert_options=copts)
+
+
+class JsonScanExec(FileListScanExec):
+    """Newline-delimited JSON scan (reference reads json via DataFusion's
+    NdJson reader, client context.rs register_json).  Parsing uses the
+    TABLE schema explicitly — per-file type inference would let two files
+    of one table disagree (int vs null vs double) and break the concat."""
+
+    SUFFIXES = (".json", ".jsonl", ".ndjson")
+    FORMAT = "json"
+
+    def _read_one(self, path: str):
+        import pyarrow as pa
+        import pyarrow.json as pajson
+
+        from ..utils import object_store as obs
+
+        explicit = pa.schema([
+            pa.field(f.name, _arrow_type_of(f.dtype))
+            for f in self.table_schema])
+        popts = pajson.ParseOptions(explicit_schema=explicit)
+        with obs.open_input(path) as fh:
+            table = pajson.read_json(fh, parse_options=popts)
+        return table.select(self._schema.names())
+
+
+class AvroScanExec(FileListScanExec):
+    """Avro object-container-file scan (reference reads avro via DataFusion;
+    the container codec lives in utils/avro.py — no external avro library
+    exists in this image)."""
+
+    SUFFIXES = (".avro",)
+    FORMAT = "avro"
+
+    def _read_one(self, path: str):
+        from ..utils import object_store as obs
+        from ..utils.avro import avro_to_arrow
+
+        with obs.open_input(path) as fh:
+            return avro_to_arrow(fh).select(self._schema.names())
+
+
+def _has_trailing_delimiter(path: str, delim: str) -> bool:
+    from ..utils import object_store as obs
+
+    buf = b""
+    with obs.open_input(path) as fh:
+        # read until the first newline (or EOF) — never misjudge a first
+        # line longer than one chunk
+        while b"\n" not in buf:
+            chunk = fh.read(1 << 16)
+            if not chunk:
+                break
+            buf += chunk
+    line = buf.split(b"\n", 1)[0].rstrip(b"\r")
+    return line.endswith(delim.encode())

@@ -16,7 +16,11 @@ Mirrors arrow_ballista_tpu/ops/shuffle.py:
   needs the executor data plane, not ported (ROADMAP.md queue 1 item 12).
 - ``UnresolvedShuffleExec``: placeholder leaf for a producer stage that
   has not run yet; the scheduler resolves it into a reader.
-- ``RepartitionExec``: the local engine's in-memory exchange (K3 masks).
+- ``RepartitionExec``: the local engine's in-memory exchange (K3, then
+  one K22 mask per output partition).
+
+The partition keys of both are one K19 column program
+(compile/programs.py) ahead of K3.
 """
 from __future__ import annotations
 
@@ -32,9 +36,23 @@ from ..models.ipc import crc32_file, read_ipc_files, write_ipc_file, write_ipc_r
 from ..models.schema import Schema
 from ..utils.errors import InternalError
 from . import kernels as K
-from .expressions import ExprCompiler
 from .physical import (ExecutionPlan, Partitioning, TaskContext, exprs_sig, schema_sig,
                        shared_program)
+
+
+def _key_program(op, ctx: TaskContext, label: str):
+    """An exchange's partition keys as one K19 column program (``__k0``,
+    ...) ahead of K3, shared across jobs by signature."""
+    from ..compile.programs import key_program
+
+    with op.build_lock():
+        if op._compiled is None:
+            op._compiled = shared_program(
+                (label, str(ctx.device), schema_sig(op.input.schema),
+                 exprs_sig(op.partitioning.exprs)),
+                lambda: key_program(label, op.input.schema, op.partitioning.exprs,
+                                    ctx.device))
+        return op._compiled
 
 
 @dataclasses.dataclass
@@ -90,6 +108,12 @@ class ShuffleWriterExec(ExecutionPlan):
     def output_partitioning(self):
         return self.partitioning or Partitioning.unknown(self.output_partition_count())
 
+    def device_programs(self, ctx: TaskContext):
+        if self.partitioning is not None and self.partitioning.kind == "hash" \
+                and self.partitioning.count > 1:
+            return [_key_program(self, ctx, "shuffle keys")]
+        return []
+
     def execute_write(self, partition: int, ctx: TaskContext) -> List[ShuffleWritePartition]:
         with ctx.op_span(self):
             return self._execute_write(partition, ctx)
@@ -112,21 +136,12 @@ class ShuffleWriterExec(ExecutionPlan):
 
         num_out = self.partitioning.count
         if self.partitioning.kind == "hash" and num_out > 1:
-            with self.build_lock():
-                if self._compiled is None:
-                    def build():
-                        comp = ExprCompiler(self.input.schema, "device", ctx.device)
-                        return comp, [comp.compile_key(e) for e in self.partitioning.exprs]
+            from ..compile.programs import operator_program
 
-                    self._compiled = shared_program(
-                        ("bucket", num_out, str(ctx.device), schema_sig(self.input.schema),
-                         exprs_sig(self.partitioning.exprs)), build)
-            comp, keys_c = self._compiled
+            prog = _key_program(self, ctx, "shuffle keys")
             with self.metrics().timer("repart_time"):
-                aux = comp.aux_arrays(big.dicts)
-                keys = [c.fn(big.columns, aux) for c in keys_c]
-                keys = [k.expand(big.capacity) if k.dim() == 0 else k for k in keys]
-                bucket = K.bucket_of(keys, num_out)
+                keys = operator_program(prog, big.columns, big.mask, prog.aux_arrays(big.dicts))
+                bucket = K.bucket_of(list(keys.values()), num_out)
                 # ONE packed device->host copy of the live rows, their
                 # bucket ids and the live count
                 host_cols, n = big.packed_numpy(hint=getattr(self, "_pack_hint", None),
@@ -262,6 +277,13 @@ class RepartitionExec(ExecutionPlan):
         self.partitioning = partitioning
         self._schema = input.schema
         self._cache: Optional[List[List[ColumnBatch]]] = None
+        self._compiled = None
+
+
+    def device_programs(self, ctx: TaskContext):
+        if self.partitioning.kind == "hash" and self.partitioning.count > 1:
+            return [_key_program(self, ctx, "repartition keys")]
+        return []
 
     def children(self):
         return [self.input]
@@ -276,18 +298,19 @@ class RepartitionExec(ExecutionPlan):
         num_out = self.partitioning.count
         parts: List[List[ColumnBatch]] = [[] for _ in range(num_out)]
         if self.partitioning.kind == "hash" and num_out > 1:
-            comp = ExprCompiler(self.input.schema, "device", ctx.device)
-            keys_c = [comp.compile_key(e) for e in self.partitioning.exprs]
+            from ..compile.programs import operator_program
+
+            prog = _key_program(self, ctx, "repartition keys")
             for p in range(self.input.output_partition_count()):
                 for b in self.input.execute(p, ctx):
                     with self.metrics().timer("repartition_time"):
-                        aux = comp.aux_arrays(b.dicts)
-                        keys = [c.fn(b.columns, aux) for c in keys_c]
-                        keys = [k.expand(b.capacity) if k.dim() == 0 else k for k in keys]
-                        bucket = K.bucket_of(keys, num_out)
+                        keys = operator_program(prog, b.columns, b.mask,
+                                                prog.aux_arrays(b.dicts))
+                        bucket = K.bucket_of(list(keys.values()), num_out)
                         for q in range(num_out):
                             parts[q].append(ColumnBatch(b.schema, b.columns,
-                                                        b.mask & (bucket == q), b.dicts))
+                                                        K.bucket_mask(b.mask, bucket, q),
+                                                        b.dicts))
         else:
             for p in range(self.input.output_partition_count()):
                 parts[0].extend(self.input.execute(p, ctx))

@@ -69,6 +69,17 @@ Phases (any failure exits non-zero and prints no result line):
    prints its mesh metrics and the bytes its exchange copied, and the two
    q3 runs together must show a broadcast and a partitioned mesh join.
    ``dryrun_multichip(4)`` runs on the card.
+   The scans of csv, json and avro: ``csv_q1`` and ``csv_q3`` (the local
+   engine over SF1 csv files of lineitem, orders and customer registered
+   under the TPC-H schema, one file one scan partition, read on every
+   query) and ``sa_csv_q1`` (the standalone engine), each bit for bit
+   against its parquet path and the numpy oracles; ``json_q1`` and
+   ``avro_q1`` (SF0.01 lineitem, the avro codec being pure Python) against
+   the port on the CPU.  On every local path the operator programs run as
+   generated kernels (K19), concat on K20, shrink, pack and the sort and
+   join gathers on K2 + K21, the join and repartition masks on K22; no
+   warm run may build a generated source, and at SF0.01 the 22 queries'
+   programs must all trace (``tpch22_local``: no ``CodegenError``).
    The inputs of each wrapper's largest call on each path are captured;
 4. each kernel held against its plain PyTorch twin on the card: on every
    path that launched it, at the inputs of that path's largest call of each
@@ -89,7 +100,12 @@ Phases (any failure exits non-zero and prints no result line):
    products that wrap, float64 sums and a dictionary predicate; for K14
    days over 1900-2100, the leap days of 1900 / 2000 / 2100, negative days
    and the NULL sentinel; for K15 NULL keys and values; for K16 forced
-   collisions and the values dead rows may carry).  Integers
+   collisions and the values dead rows may carry; for K19 a filter, a
+   projection and computed sort keys over NULL strings and integers, NaN
+   and products that wrap; for K20 40 columns of every dtype and 70
+   sources; for K21 a random index with repeats and a packed copy; for K22
+   each of its five ops).  K19 is also held against its twin at the
+   largest call of each program kind.  Integers
    exact; float sums at rtol 1e-12 (atomic summation order differs from
    the twin's) or exact on quarter values;
 5. results held against independent numpy computations on the same
@@ -115,6 +131,8 @@ Phases (any failure exits non-zero and prints no result line):
    device busy share; the device time and bytes bound of the expression
    programs, the host packing and the batch concat/shrink on q3's path
    (kernel timings at the largest call over the paths);
+   the device time per q3 query of K19, K20, K21, K2 and K22 (by kernel
+   name); ``topk_order`` against ``torch.topk`` at 6M keys (no caller);
    the ``entry()`` step's rows/s at 4096 and 6M rows; per parquet query
    the scan's read and convert times cold and warm, the scan cache's
    resident bytes and the peak device memory.
@@ -189,10 +207,13 @@ PATH_KERNELS.update({
     "sa_q18": ("fused_agg", "fused_rows", "compaction_order", "hash64", "sort_order",
                "build_side_sort", "probe_join", "grouped_on_order"),
 })
-# EXTRACT: K14 in the local engine; in the standalone engine it is traced
-# into the generated K13 source (checked on the source), so K13 must launch
+# EXTRACT: in the standalone engine it is traced into the generated K13
+# source (checked on the source), so K13 must launch;
+# in the local engine it is traced into K19's generated programs,
+# checked on the sources, as K14's row function; K14 itself then launches
+# on no path and is held against its twin at its stress shapes
 for _q in EXTRACT_QUERIES:
-    PATH_KERNELS[f"pq_q{_q}"] = ("extract_field", "build_side_sort", "probe_join")
+    PATH_KERNELS[f"pq_q{_q}"] = ("build_side_sort", "probe_join")
     PATH_KERNELS[f"sa_q{_q}"] = ("fused_agg", "hash64", "compaction_order")
 # q20's lineitem partial barely reduces (SF1, six partitions): the first
 # task latches, the later tasks emit per-row states; every state of q20's
@@ -213,6 +234,33 @@ for _q in SPILL_QUERIES:
 # the spilled joins' partitions (K16) must launch on at least one spill path
 SPILL_KERNELS = ("spill_partition",)
 PATH_KERNELS["memsweep"] = ("compaction_order",)
+# K19-K22 on every path of the local engine: the scan filters, projections,
+# aggregate operands, join verification and repartition keys as generated
+# programs (K19), concat (K20), shrink / pack / sort and join gathers (K21)
+# and the repartition's bucket masks (K22); the standalone writers pack
+# through K21
+_LOCAL_NEW = ("operator_program", "concat_columns", "gather_columns", "mask_ops")
+for _p in ("q1", "q3", "q4", "pq_q1", "pq_q3", "pq_q4", "pq_q18"):
+    PATH_KERNELS[_p] = PATH_KERNELS[_p] + _LOCAL_NEW
+# q7-q9 repartition nothing over parquet at these partitions (no K22)
+for _q in EXTRACT_QUERIES:
+    PATH_KERNELS[f"pq_q{_q}"] = PATH_KERNELS[f"pq_q{_q}"] + _LOCAL_NEW[:3]
+for _p in ("sa_pq_q1", "sa_pq_q3", "sa_pq_q4", "sa_pq_q18", "sa_q18"):
+    PATH_KERNELS[_p] = PATH_KERNELS[_p] + ("gather_columns",)
+# csv (SF1, the TPC-H schema given), json and avro (SF0.01, pure-Python
+# avro): the local engine over the new scans; the standalone engine over csv
+CSV_TABLES = ("lineitem", "orders", "customer")
+# One csv file is one scan partition (as in the JAX package: a partition a
+# file), so q1 over csv plans no repartition (no K3 or K22) and q3 none on
+# lineitem's side
+PATH_KERNELS.update({
+    "csv_q1": ("dense_group_states", "compaction_order", "sort_order", "operator_program",
+               "gather_columns"),
+    "csv_q3": ("compaction_order", "hash64", "sort_order", "build_side_sort", "probe_join",
+               "grouped_on_order", "operator_program", "gather_columns"),
+    "sa_csv_q1": ("compaction_order", "sort_order")})
+WARM_RUNS.update({"csv_q1": 3, "csv_q3": 3, "sa_csv_q1": 3})
+SCAN_TYPES = ("ParquetScanExec", "CsvScanExec", "JsonScanExec", "AvroScanExec")
 PATH_KERNELS["tpch22"] = ("fused_agg", "fused_rows", "hash64", "compaction_order",
                           "sort_order", "build_side_sort", "probe_join", "segment_any")
 # the mesh (ballista.shuffle.mesh with no row floor, over parquet): on the
@@ -413,17 +461,22 @@ class Capture:
              "sort_order": 1, "build_side_sort": 1, "probe_join": 0, "probe_counts": 0,
              "segment_any": 0, "grouped_on_order": 2, "presorted_disorder": 1,
              "key_range_check": 1, "clustered_keep": 1, "extract_field": 0,
-             "spill_partition": 0, "dispatch_to_buckets": 2, "merge_rank_states": 0}
+             "spill_partition": 0, "dispatch_to_buckets": 2, "merge_rank_states": 0,
+             "concat_columns": 1, "gather_columns": 0, "pack_for_host": 1, "window_mask": 0,
+             "mask_or": 0, "mask_and": 0, "mask_andnot": 0, "bucket_mask": 0}
     FUSED = {"fused_rows": 2, "fused_agg": 2, "passthrough_rows": 2, "mesh_derive": 3}
+    # K19: recorded once overall and once per program (its label)
+    PROGRAMS = {"operator_program": 2}
     # the mesh exchange's copies (parallel/collectives.py), sized by bytes
     COLLECTIVES = {"all_to_all": 0}
 
     def __init__(self, K, F, device):
         import threading
 
+        from arrow_ballista_tpu_torch.compile import programs as P
         from arrow_ballista_tpu_torch.parallel import collectives as C
 
-        self.K, self.F, self.C = K, F, C
+        self.K, self.F, self.C, self.P = K, F, C, P
         self.device = device
         self.calls = {}
         self.orig = {}
@@ -432,9 +485,9 @@ class Capture:
         self._lock = threading.Lock()
 
     def __enter__(self):
-        sizes = {**self.NAMES, **self.FUSED, **self.COLLECTIVES}
+        sizes = {**self.NAMES, **self.FUSED, **self.COLLECTIVES, **self.PROGRAMS}
         for mod, names in ((self.K, self.NAMES), (self.F, self.FUSED),
-                           (self.C, self.COLLECTIVES)):
+                           (self.C, self.COLLECTIVES), (self.P, self.PROGRAMS)):
             for name in names:
                 self.orig[name] = (mod, getattr(mod, name))
                 setattr(mod, name, self._wrap(name, getattr(mod, name), sizes))
@@ -450,6 +503,14 @@ class Capture:
                 n = (sized[0] if isinstance(sized, (list, tuple)) else sized).shape[0]
                 if name == "all_to_all":
                     n = nbytes(*sized)
+                if name == "concat_columns":  # every source's rows and the pad
+                    n = sum(m.shape[0] for m in sized) + args[2]
+                if name == "operator_program":
+                    if args[0].kind == "columns" and not args[0].gen.outputs:
+                        n = -1  # every output is an input column: no launch to check
+                    key = f"operator_program:{args[0].label}"
+                    if n >= 0 and (key not in self.calls or n > self.calls[key][0]):
+                        self.calls[key] = (n, _clone(args))
                 if name in ("passthrough_rows", "mesh_derive") and not args[0].gen.outputs:
                     n = -1  # every output is an input column: no launch to check
                 if name == "fused_agg":
@@ -718,6 +779,99 @@ def write_parquet(tables, sf, directory):
     return paths, rows
 
 
+def write_csv(tables, names, directory):
+    """``names``' tables as csv with a header, as ``benchmarks/tpch.py
+    convert --format csv`` writes them -> {table: path}."""
+    import pyarrow.csv as pacsv
+
+    out = {}
+    for name in names:
+        out[name] = os.path.join(directory, f"{name}.csv")
+        pacsv.write_csv(tables[name], out[name])
+    return out
+
+
+def json_avro_paths(device, directory):
+    """``json_q1`` and ``avro_q1``: TPC-H q1 at SF0.01 over lineitem as
+    newline-delimited json and as an avro container (deflate; the codec is
+    pure Python, so the scale stays small), registered under the TPC-H
+    schema, on the card against the port on the CPU over the same file.
+    Cold and warm walls, the scan's read and convert times, and K19-K21
+    launched."""
+    import json as _json
+
+    import pyarrow as pa
+    import torch
+
+    from arrow_ballista_tpu_torch import BallistaContext
+    from arrow_ballista_tpu_torch.catalog import arrow_schema_to_engine
+    from arrow_ballista_tpu_torch.ops import kernels as K
+    from arrow_ballista_tpu_torch.utils import avro
+    from benchmarks.datagen import generate_tables
+    from benchmarks.queries import QUERIES
+    from tests.torch_cases import assert_frames_equal
+
+    li = generate_tables(0.01, seed=0)["lineitem"]
+    schema = arrow_schema_to_engine(li.schema)
+    # decimals as doubles, dates as day numbers (the json reader's date32)
+    plain = li.cast(pa.schema([pa.field(f.name, pa.float64() if pa.types.is_decimal(f.type)
+                                        else pa.int32() if pa.types.is_date32(f.type)
+                                        else f.type) for f in li.schema]))
+    rows = plain.to_pylist()
+    files = {"json": os.path.join(directory, "lineitem.json"),
+             "avro": os.path.join(directory, "lineitem.avro")}
+    with open(files["json"], "w") as fh:
+        for r in rows:
+            fh.write(_json.dumps(r) + "\n")
+    kinds = {"int64": "long", "int32": "int", "double": "double", "string": "string",
+             "bool": "boolean"}
+    avro.write_avro(files["avro"], {"type": "record", "name": "lineitem", "fields": [
+        {"name": f.name, "type": kinds[str(f.type)]} for f in plain.schema]}, rows,
+        codec="deflate")
+    out = {}
+    for fmt, path in files.items():
+        label = f"{fmt}_q1"
+        frames = {}
+        for side, dev in (("cpu", "cpu"), ("card", device)):
+            c = BallistaContext.local(device=dev)
+            getattr(c, f"register_{fmt}")("lineitem", path, schema=schema)
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            frames[side] = c.sql(QUERIES[1]).to_pandas()
+            if side == "card":
+                sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+                sync()
+                cold = time.perf_counter() - t0
+                launches = {k: v for k, v in K.LAUNCHES.items() if v}
+                warm = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    c.sql(QUERIES[1]).to_pandas()
+                    sync()
+                    warm.append(time.perf_counter() - t0)
+                scan = scan_metrics(job_plans(c))
+        # one file is one partition and, at SF0.01, one batch: no concat
+        missing = [k for k in ("operator_program", "gather_columns", "dense_group_states")
+                   if not launches.get(k)]
+        if missing:
+            fail(f"{label}: kernels not launched: {missing} ({launches})")
+        try:
+            assert_frames_equal(frames["card"], frames["cpu"], exact=True)
+        except AssertionError as e:
+            fail(f"{label} differs from the port on the CPU: {e}")
+        out[label] = {"rows": li.num_rows, "cold_ms": cold * 1000,
+                      "warm_ms": statistics.median(warm) * 1000,
+                      "scan_read_ms": scan.get("scan_read_time", 0) * 1000,
+                      "scan_convert_ms": scan.get("scan_convert_time", 0) * 1000,
+                      "launches": launches}
+        log(f"{label} SF0.01 ({li.num_rows} lineitem rows): equals the port on the CPU "
+            f"bit for bit; cold {cold * 1000:.1f} ms, warm median of 3 "
+            f"{statistics.median(warm) * 1000:.1f} ms; last warm scan read "
+            f"{out[label]['scan_read_ms']:.1f} ms, convert {out[label]['scan_convert_ms']:.1f} "
+            f"ms; launches {json.dumps(launches)}")
+    return out
+
+
 def job_plans(ctx):
     """The operator trees of the context's last query: the plan of a local
     context, every stage's resolved plan of a standalone one."""
@@ -734,10 +888,11 @@ def standalone_graph(ctx):
 
 
 def scan_metrics(plans):
-    """Summed metrics of the parquet scans of a list of plans."""
+    """Summed metrics of the file scans (parquet, csv, json, avro) of a list
+    of plans."""
     out = {}
     for plan in plans:
-        if type(plan).__name__ == "ParquetScanExec":
+        if type(plan).__name__ in SCAN_TYPES:
             for k, v in plan.metrics().to_dict().items():
                 out[k] = out.get(k, 0) + v
         for k, v in scan_metrics(plan.children()).items():
@@ -893,25 +1048,25 @@ def profile_query(ctx, sql, label):
 
 def profile_programs(ctx, sql, device):
     """Rows 5-7 of the kernel table on one warm run of ``sql``: the
-    expression programs (every compiled expression's fn), the host packing
-    (kernels.pack_for_host) and the batch concat and shrink, each inside a
-    torch.profiler range.  Returns {row: (device ms per query, bytes the
-    calls must move, calls)}; device ms is None where the profiler gives
-    none.  Bytes: expressions read their referenced columns and write
-    their result; the packing reads the mask and ``target`` rows of each
-    column and writes its buffers; a concat of several batches reads and
-    writes its output once each; a shrink reads the mask and moves the
-    kept rows."""
+    operator programs (K19, ``programs.operator_program``), the host packing
+    (``kernels.pack_for_host``: K2 + K21) and the batch concat and shrink
+    (K20; K2 + K21), each inside a torch.profiler range.  Returns {row:
+    (device ms per query, bytes the calls must move, calls, wall ms)};
+    device ms is None where the profiler gives none.  Bytes: a program
+    reads its input columns (and the mask, a mask program) and writes its
+    computed columns or mask (``program_bytes``); the packing reads the
+    mask and ``target`` rows of each column and writes its buffers; a
+    concat of several batches reads and writes its output once each; a
+    shrink reads the mask and moves the kept rows."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from arrow_ballista_tpu_torch.compile import programs as PR
     from arrow_ballista_tpu_torch.models import batch as B
-    from arrow_ballista_tpu_torch.ops import expressions as X
     from arrow_ballista_tpu_torch.ops import kernels as K
     from arrow_ballista_tpu_torch.ops import operators as O
-    from arrow_ballista_tpu_torch.ops import physical as P
 
-    names = {"expr": "ab.row5.expressions", "pack": "ab.row6.pack_for_host",
+    names = {"expr": "ab.row5.operator_programs", "pack": "ab.row6.pack_for_host",
              "concat": "ab.row7.concat_shrink"}
     moved = {k: 0 for k in names}
     calls = {k: 0 for k in names}
@@ -937,26 +1092,15 @@ def profile_programs(ctx, sql, device):
             moved[row] += b
             calls[row] += 1
 
-    def wrap_compiled(c, refs):
-        fn = c.fn
+    orig = {"program": PR.operator_program, "pack": K.pack_for_host,
+            "concat": O.concat_batches, "shrink": B.ColumnBatch.shrink}
 
-        def run(cols, aux):
-            with record_function(names["expr"]):
-                out = timed("expr", lambda: fn(cols, aux))
-            if isinstance(out, torch.Tensor) and out.is_cuda:
-                account("expr", nbytes(out) + cuda_bytes([cols[n] for n in refs if n in cols]))
-            return out
-
-        return X.Compiled(run, c.dtype, c.dict_fn, c.lit_value)
-
-    orig = {"compile": X.ExprCompiler.compile, "compile_pred": X.ExprCompiler.compile_pred,
-            "pack": K.pack_for_host, "concat": O.concat_batches, "shrink": B.ColumnBatch.shrink}
-
-    def compile_(self, expr):
-        return wrap_compiled(orig["compile"](self, expr), expr.column_refs())
-
-    def compile_pred(self, expr):
-        return wrap_compiled(orig["compile_pred"](self, expr), expr.column_refs())
+    def program(prog, cols, mask, auxs):
+        with record_function(names["expr"]):
+            out = timed("expr", lambda: orig["program"](prog, cols, mask, auxs))
+        if prog.launches():
+            account("expr", program_bytes(prog, cols, mask, auxs))
+        return out
 
     def pack(cols, mask, target, namesi64, namesf64, names32):
         with record_function(names["pack"]):
@@ -983,10 +1127,9 @@ def profile_programs(ctx, sql, device):
             account("concat", nbytes(self.mask) + 2 * cuda_bytes(out.columns.values()))
         return out
 
-    X.ExprCompiler.compile, X.ExprCompiler.compile_pred = compile_, compile_pred
+    PR.operator_program = program
     K.pack_for_host, O.concat_batches, B.ColumnBatch.shrink = pack, concat, shrink
     try:
-        P._program_cache.clear()  # rebuild the shared closures through the wrappers
         ctx.sql(sql).to_pandas()
         torch.cuda.synchronize()
         active[0] = True
@@ -998,16 +1141,32 @@ def profile_programs(ctx, sql, device):
         ctx.sql(sql).to_pandas()
         timing[0] = False
     finally:
-        X.ExprCompiler.compile, X.ExprCompiler.compile_pred = orig["compile"], orig["compile_pred"]
+        PR.operator_program = orig["program"]
         K.pack_for_host, O.concat_batches, B.ColumnBatch.shrink = \
             orig["pack"], orig["concat"], orig["shrink"]
-        P._program_cache.clear()
     out = {row: (range_device_ms(prof, label), moved[row], calls[row], wall[row])
            for row, label in names.items()}
     # the ranges' own device-timeline rows are spans, not work: left out
-    out["whole query"] = (sum(r[0] for r in device_rows(prof) if r[2] not in names.values()),
-                          0, 1, None)
+    rows = [r for r in device_rows(prof) if r[2] not in names.values()]
+    out["whole query"] = (sum(r[0] for r in rows), 0, 1, None)
+    # the profiler attributes no device time to the ranges of kernels that
+    # ctypes launches (K19-K22, K2), so their device time per query is read
+    # by kernel name: (ms, launches)
+    for label, prefixes in KERNEL_NAMES.items():
+        hit = [r for r in rows if r[2].startswith(prefixes)]
+        out[label] = (sum(r[0] for r in hit), 0, sum(r[1] for r in hit), None)
     return out
+
+
+# the device kernels of rows 5-7 in the profiler's rows, by name prefix
+KERNEL_NAMES = {
+    "K19 operator programs": ("ab_fused_rows_kernel",),
+    "K20 concat": ("concat_kernel", "void concat_kernel<"),
+    "K21 gathers (shrink, pack, sort, join pairs)": ("gather_kernel",),
+    "K2 compaction order": ("tile_scatter", "void ab_scan_tile_sums<unsigned char",
+                            "void ab_scan_tile_offsets<int>"),
+    "K22 mask ops": ("mask_kernel", "void mask_kernel<"),
+}
 
 
 def range_device_ms(prof, label):
@@ -1240,6 +1399,78 @@ def seg_agg_stress(t, rng, n):
             (keys, many[:2], mask, 100_000, n)]
 
 
+class Wrapped:
+    """A stress input of one of a kernel's wrappers (K21: pack_for_host;
+    K22: each mask op), checked through that wrapper."""
+
+    def __init__(self, wrapper, args):
+        self.wrapper, self.args = wrapper, args
+
+
+def k19_k22_stress(device, n, seed=7):
+    """6M-row stress inputs of K19-K22, made from a seed with numpy: K19's
+    mask and column programs of a filter, a projection and computed sort
+    keys over a table with NULL strings and integers, NaN and int64
+    products that wrap (the projection: %, CASE, IN, SUBSTRING, IS NULL,
+    dates and a literal); K20
+    over 40 columns of every dtype in 3 sources with a pad, and over 70
+    sources (two launches); K21 over 10 columns at a random index with
+    repeats and the packed copy with an odd count of 32-bit words; K22's
+    five mask ops."""
+    import numpy as np
+    import torch
+
+    from arrow_ballista_tpu_torch.catalog import MemoryTable
+    from arrow_ballista_tpu_torch.models import expr as E
+    from arrow_ballista_tpu_torch.ops import operators as O
+    from arrow_ballista_tpu_torch.ops.physical import TaskContext, table_to_batches
+    from tests.torch_cases import hand_chain, hand_table, move_column
+
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    table = hand_table(n, seed)
+    scan = MemoryTable("t", table).scan(None, [], 1)
+    proj, filt = hand_chain(E, O, scan)
+    tctx = TaskContext(device=device)
+    (batch,) = table_to_batches(table, scan.schema, 1 << 23, device)
+    # and sort keys that are computed (TPC-H's sort keys are all columns,
+    # which alias and launch nothing)
+    sort = O.SortExec(scan, [(E.BinOp("%", E.Column("k"), E.Lit(5)), False),
+                             (E.BinOp("*", E.Column("big"), E.Lit(3)), True)])
+    programs = []
+    for op in (filt, proj, sort):
+        prog = op._prepared(tctx)
+        programs.append((prog, batch.columns, batch.mask, prog.aux_arrays(batch.dicts)))
+    dts = [np.int32, np.int64, np.float32, np.float64, np.bool_]
+
+    def sources(ncols, caps):
+        cols = [{f"c{c}": t(move_column(dts[c % 5], cap, rng)) for c in range(ncols)}
+                for cap in caps]
+        return cols, [t(rng.random(cap) < 0.6) for cap in caps]
+
+    wide, wmasks = sources(40, [1 << 21] * 3)
+    many, mmasks = sources(3, [n // 70] * 70)
+    gcols = {f"g{c}": t(move_column(dts[c % 5], n, rng)) for c in range(10)}
+    mask = t(rng.random(n) < 0.4)
+    pack_cols = {"a": gcols["g1"], "f": gcols["g3"], "i": gcols["g0"], "g": gcols["g2"],
+                 "k": gcols["g4"]}
+    a, b = t(rng.random(n) < 0.5), t(rng.random(n) < 0.5)
+    bucket = t(rng.integers(0, 16, n).astype(np.int32))
+    return {
+        "operator_program": programs,
+        "concat_columns": [(wide, wmasks, 1000), (many, mmasks, 64)],
+        "gather_columns": [(t(rng.integers(0, n, n).astype(np.int32)), gcols),
+                           Wrapped("pack_for_host", (pack_cols, mask, 1 << 22, ("a",), ("f",),
+                                                     ("i", "g", "k")))],
+        "mask_ops": [Wrapped("window_mask", (a, n // 5, n // 2)), Wrapped("mask_or", (a, b)),
+                     Wrapped("mask_and", (a, b)), Wrapped("mask_andnot", (a, b)),
+                     Wrapped("bucket_mask", (a, bucket, 3))],
+    }
+
+
 def new_kernel_stress(device, n, seed=5):
     """K14-K16 at n rows, made from a seed with numpy: K14 over days
     spanning 1900-2100 with the leap days of 1900 / 2000 / 2100, negative
@@ -1460,6 +1691,27 @@ def fused_check(F, name, args):
 
 
 def check_kernel(K, name, args):
+    if name.startswith("operator_program"):  # K19: the new mask, or every column, exact
+        from arrow_ballista_tpu_torch.compile import programs as P
+
+        got, want = P.operator_program(*args), P.operator_program_plain(*args)
+        n = args[2].shape[0]
+        if args[0].kind == "mask":
+            return max_err(got, want.expand(n).contiguous())
+        if list(got) != list(want):
+            raise AssertionError(f"program columns differ: {list(got)} vs {list(want)}")
+        return max(max_err(got[c], w.expand(n).contiguous()) for c, w in want.items())
+    if name == "concat_columns":
+        (gc, gm), (wc, wm) = K.concat_columns(*args), K.concat_columns_plain(*args)
+        return max([max_err(gm, wm)] + [max_err(gc[c], w) for c, w in wc.items()])
+    if name == "gather_columns":
+        got, want = K.gather_columns(*args), K.gather_columns_plain(*args)
+        return max([0.0] + [max_err(got[c], w) for c, w in want.items()])
+    if name == "pack_for_host":
+        (gb, gf), (wb, wf) = K.pack_for_host(*args), K.pack_for_host_plain(*args)
+        return max(max_err(gb, wb), max_err(gf, wf) if wf is not None else 0.0)
+    if name in ("window_mask", "mask_or", "mask_and", "mask_andnot", "bucket_mask"):
+        return max_err(getattr(K, name)(*args), getattr(K, f"{name}_plain")(*args))
     if name == "dispatch_to_buckets":  # every buffer slot, the mask, the counts, the flag
         (gc, gm, go, gn), (wc, wm, wo, wn) = (K.dispatch_to_buckets(*args),
                                               K.dispatch_to_buckets_plain(*args))
@@ -1587,6 +1839,20 @@ def fused_bytes(prog, cols, mask, out_rows):
     return read + written
 
 
+def program_bytes(prog, cols, mask, auxs) -> int:
+    """Bytes a K19 program must move: each input column it reads, the mask
+    where it is read (a mask program), the lookup tables, each computed
+    column or the new mask written once (an output that is an input column
+    aliases it and moves nothing)."""
+    n = mask.shape[0]
+    gen = prog.gen
+    return (sum(cols[c].element_size() * n for c, _dt in gen.inputs)
+            + sum(auxs[step][slot].numel() * auxs[step][slot].element_size()
+                  for step, slot, _dt in gen.aux)
+            + sum(dt.itemsize * n for _c, dt in gen.outputs)
+            + (2 * n if prog.kind == "mask" else 0))
+
+
 def rotating(args, moved, span=64 << 20, most=64):
     """A function returning ``args`` and clones of them in turn: enough
     copies (at most ``most``) that back-to-back calls move more than the
@@ -1604,7 +1870,60 @@ def kernel_timings(K, name, args, device):
     import torch
 
     extra = {}
-    if name == "dispatch_to_buckets":
+    if name == "operator_program":
+        from arrow_ballista_tpu_torch.compile import programs as P
+
+        moved = program_bytes(*args)
+        nxt = rotating(args, moved)
+        kern = lambda: P.operator_program(*nxt())  # noqa: E731
+        plain = lambda: P.operator_program_plain(*nxt())  # noqa: E731
+        library = None  # no one PyTorch call computes an expression tree
+        extra["interpreted_"] = plain  # the twin is the interpreted closures
+    elif name == "concat_columns":
+        cols_list, masks, pad = args
+        out_rows = sum(m.shape[0] for m in masks) + pad
+        row_bytes = sum(c.element_size() for c in cols_list[0].values()) + 1
+        # every source element read once, every destination element (the
+        # pad too) written once
+        moved = (out_rows - pad) * row_bytes + out_rows * row_bytes
+        nxt = rotating(args, moved)
+        kern = lambda: K.concat_columns(*nxt())  # noqa: E731
+        plain = lambda: K.concat_columns_plain(*nxt())  # noqa: E731
+        names = list(cols_list[0])
+
+        def library():  # torch.cat of each column and of the masks
+            c, m, _p = nxt()
+            return [torch.cat([x[k] for x in c]) for k in names], torch.cat(list(m))
+    elif name in ("gather_columns", "pack_for_host"):
+        if name == "pack_for_host":
+            cols, mask, target, n64, nf64, n32 = args
+            idx = K.compaction_order(mask)[:target]
+            sel = {k: cols[k] for k in (*n64, *nf64, *n32)}
+            args = (idx, sel)
+        idx, sel = args
+        m = idx.shape[0]
+        # the index read once, each gathered element read and written once
+        moved = nbytes(idx) + 2 * m * sum(c.element_size() for c in sel.values())
+        nxt = rotating(args, moved)
+        kern = lambda: K.gather_columns(*nxt())  # noqa: E731
+        plain = lambda: K.gather_columns_plain(*nxt())  # noqa: E731
+
+        def library():  # index_select of each column at the int64 index
+            i, c = nxt()
+            li = i.long()
+            return [v.index_select(0, li) for v in c.values()]
+    elif name in ("window_mask", "mask_or", "mask_and", "mask_andnot", "bucket_mask"):
+        a, b = args[0], args[1] if name != "window_mask" else None
+        moved = 2 * nbytes(a) + (nbytes(b) if b is not None else 0)
+        nxt = rotating(args, moved)
+        kern = lambda: getattr(K, name)(*nxt())  # noqa: E731
+        plain = lambda: getattr(K, f"{name}_plain")(*nxt())  # noqa: E731
+        # one PyTorch call for each two-mask op (a & ~b is a > b on bools);
+        # none for the window and the bucket mask
+        library = {"mask_or": lambda: torch.bitwise_or(*nxt()),
+                   "mask_and": lambda: torch.bitwise_and(*nxt()),
+                   "mask_andnot": lambda: torch.gt(*nxt())}.get(name)
+    elif name == "dispatch_to_buckets":
         cols, dest, mask, n_dest, cap = args
         # dest and mask read once, each column's live rows once (a dead row
         # goes nowhere); every slot of every send buffer and of the send
@@ -1739,6 +2058,11 @@ def kernel_timings(K, name, args, device):
                 w = k.to(torch.int64) + 1
                 word = word * (1 << 20) + (w if asc else (1 << 20) - 1 - w)
             library = lambda: torch.sort(word, stable=True)  # noqa: E731
+        elif len(keys) == 1:
+            # one key: one stable sort of its order words with the dead rows
+            # last (the word computation left out)
+            word1 = torch.where(mask, K.sort_words(*keys[0]), torch.iinfo(torch.int64).max)
+            library = lambda: torch.sort(word1, stable=True)  # noqa: E731
         else:
             library = None
     elif name == "build_side_sort":
@@ -1851,11 +2175,44 @@ def kernel_timings(K, name, args, device):
             times[label + "ms"] = times[label + "wall_ms"] = times[label + "ms_source"] = None
             continue
         times[label + "wall_ms"] = time_ms(fn, device)
-        ms, source = device_ms(fn) if device.type == "cuda" else (None, None)
+        ms, source = None, None
+        if device.type == "cuda" and times.get("ms_source") == "queued_events":
+            # the kernel's time came from queued events (the profiler saw
+            # none of its launches): its yardsticks are read the same way,
+            # launch gaps included on both sides
+            ms = queued_events_ms(fn)
+            source = "queued_events" if ms is not None else None
+        if ms is None and device.type == "cuda":
+            ms, source = device_ms(fn)
         if ms is None:
             ms, source = times[label + "wall_ms"], "wall"
         times[label + "ms"], times[label + "ms_source"] = ms, source
     return times, moved
+
+
+def topk_timings(K, device, n, k=100, seed=8):
+    """Row 9 of the kernel table, ``kernels.topk_order`` (K4 and a slice;
+    no caller in either package), at a synthetic shape: ``n`` int64 keys,
+    a 0.9 live mask, the first ``k`` positions; beside ``torch.topk`` of the
+    masked keys, and the bound (keys and mask read once, ``k`` int32
+    positions written)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    keys = torch.from_numpy(rng.integers(-2**40, 2**40, n)).to(device)
+    mask = torch.from_numpy(rng.random(n) < 0.9).to(device)
+    masked = torch.where(mask, keys, torch.iinfo(torch.int64).max)
+    moved = nbytes(keys, mask) + 4 * k
+    out = {"rows": n, "k": k, "bound_ms": moved / HBM_BYTES_PER_S * 1000, "bound_bytes": moved}
+    for label, fn in (("", lambda: K.topk_order([(keys, True)], mask, k)),
+                      ("library_", lambda: torch.topk(masked, k, largest=False, sorted=True))):
+        out[label + "wall_ms"] = time_ms(fn, device)
+        out[label + "ms"], out[label + "ms_source"] = device_ms(fn)
+    log(f"topk_order (K4 + slice) at {n} int64 keys, k={k}: device {out['ms']} ms, wall "
+        f"{out['wall_ms']:.4f} ms; torch.topk device {out['library_ms']} ms, wall "
+        f"{out['library_wall_ms']:.4f} ms; bound {out['bound_ms']:.6f} ms ({moved} bytes)")
+    return out
 
 
 def dense_hot_slot_sweep(K, args, device, slots=(1, 4, 64, 289)):
@@ -1919,6 +2276,32 @@ KERNEL_META = {
                           "arrow_ballista_tpu/parallel/distributed.py:136"),
     "mesh_derive": ("arrow_ballista_tpu_torch/csrc/fused_rows.cuh",
                     "arrow_ballista_tpu/ops/mesh_exec.py:98"),
+    "operator_program": ("arrow_ballista_tpu_torch/csrc/fused_rows.cuh",
+                         "arrow_ballista_tpu/ops/physical.py:630"),
+    "concat_columns": ("arrow_ballista_tpu_torch/csrc/gather.cu",
+                       "arrow_ballista_tpu/models/batch.py:435"),
+    "gather_columns": ("arrow_ballista_tpu_torch/csrc/gather.cu",
+                       "arrow_ballista_tpu/models/batch.py:439"),
+    "mask_ops": ("arrow_ballista_tpu_torch/csrc/gather.cu",
+                 "arrow_ballista_tpu/ops/operators.py:1029"),
+}
+# K19 replaces one program at each of these sites (KERNEL_META names the
+# first); K21 also replaces pack_for_host's gathers, K22 all three mask
+# programs
+REPLACES_ALL = {
+    "operator_program": ["arrow_ballista_tpu/ops/physical.py:630",
+                         "arrow_ballista_tpu/ops/operators.py:183",
+                         "arrow_ballista_tpu/ops/operators.py:317",
+                         "arrow_ballista_tpu/ops/operators.py:885",
+                         "arrow_ballista_tpu/ops/operators.py:1319",
+                         "arrow_ballista_tpu/ops/operators.py:1794",
+                         "arrow_ballista_tpu/ops/shuffle.py:157",
+                         "arrow_ballista_tpu/ops/shuffle.py:499"],
+    "gather_columns": ["arrow_ballista_tpu/models/batch.py:439",
+                       "arrow_ballista_tpu/ops/kernels.py:122"],
+    "mask_ops": ["arrow_ballista_tpu/ops/operators.py:1029",
+                 "arrow_ballista_tpu/ops/operators.py:1037",
+                 "arrow_ballista_tpu/ops/operators.py:1040"],
 }
 # the one PyTorch call each kernel's library_ms times (yardsticks only)
 LIBRARY_CALL = {
@@ -1927,7 +2310,8 @@ LIBRARY_CALL = {
     "dense_group_states": "index_add_ of the stacked values at precomputed slot ids",
     "compaction_order": "argsort(~mask, stable=True)",
     "bucket_of": None,
-    "sort_order": "sort(stable=True) of a composite word of small codes",
+    "sort_order": "sort(stable=True) of a composite word of small codes, or of a single "
+                  "key's words",
     "build_side_sort": "sort(stable=True) of the sign-flipped hashes",
     "probe_join": "searchsorted x2 + cumsum + repeat_interleave",
     "segment_any": "scatter_reduce_(amax)",
@@ -1941,6 +2325,11 @@ LIBRARY_CALL = {
     "dispatch_to_buckets": None,
     "merge_rank_states": None,
     "mesh_derive": None,
+    "operator_program": None,
+    "concat_columns": "torch.cat of each column and of the masks",
+    "gather_columns": "index_select of each column at the int64 index",
+    "mask_ops": "per op: a | b (mask_or), a & b (mask_and), a > b (mask_andnot: a & ~b on "
+                "bools); none for the window and the bucket mask",
 }
 LAUNCH_KEY = {name: name for name in KERNEL_META}
 LAUNCH_KEY["bucket_of"] = "hash64"
@@ -1948,6 +2337,8 @@ LAUNCH_KEY["bucket_of"] = "hash64"
 WRAPPERS = {name: (name,) for name in KERNEL_META}
 WRAPPERS["bucket_of"] = ("bucket_of", "hash64")
 WRAPPERS["probe_join"] = ("probe_join", "probe_counts")
+WRAPPERS["gather_columns"] = ("gather_columns", "pack_for_host")
+WRAPPERS["mask_ops"] = ("window_mask", "mask_or", "mask_and", "mask_andnot", "bucket_mask")
 
 
 # --------------------------------------------------------------------------
@@ -2076,6 +2467,25 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     })
     mesh_report = {}  # mesh path -> its cold run's mesh metrics and exchange bytes
     base_paths = set(paths)
+    # csv at the scale factor under the TPC-H schema (the arrow types of the
+    # generated tables, as the parquet registration infers them), so its
+    # rows equal the parquet paths' bit for bit; the local engine and the
+    # standalone one
+    from arrow_ballista_tpu_torch.catalog import arrow_schema_to_engine
+
+    t0 = time.perf_counter()
+    csv_paths = write_csv(tables, CSV_TABLES, pq_dir)
+    log(f"csv: {', '.join(CSV_TABLES)} written in {time.perf_counter() - t0:.1f} s (set-up), "
+        f"{sum(os.path.getsize(p) for p in csv_paths.values())} bytes")
+    csv_ctx = BallistaContext.local(device=device)
+    sa_csv = BallistaContext.standalone(BallistaConfig(sa_cfg), concurrent_tasks=4,
+                                        device=device)
+    atexit.register(sa_csv.shutdown)
+    for c in (csv_ctx, sa_csv):
+        for name, path in csv_paths.items():
+            c.register_csv(name, path, schema=arrow_schema_to_engine(tables[name].schema))
+    paths.update({"csv_q1": (csv_ctx, sqls["q1"]), "csv_q3": (csv_ctx, sqls["q3"]),
+                  "sa_csv_q1": (sa_csv, sqls["q1"])})
     # EXTRACT (local over parquet: K14; standalone in memory: inside K13),
     # the passthrough partial (q20's lineitem partial, standalone in
     # memory), and the spill paths: the local engine over parquet under a
@@ -2145,9 +2555,11 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             torch.cuda.reset_peak_memory_stats()
         C.reset_bytes()
         K.reset_launch_counts()
+        builds0 = len(_cuda.LIBRARIES.generated_builds)
         with Capture(K, F, device) as cap:
             df, cold_s = once(c, sql)
         launches[path] = dict(K.LAUNCHES)
+        cold_builds = len(_cuda.LIBRARIES.generated_builds) - builds0
         if path.startswith("mesh") or path == "sa_hybrid_q3":
             mesh_report[path] = {
                 **{k: sum(v.values()) for k, v in op_metrics(job_plans(c), MESH_METRICS).items()},
@@ -2183,6 +2595,15 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                 f"run took {unlimited_s * 1000:.1f} ms, first on its context); spill runs by "
                 f"operator {json.dumps(spill_tags[path])}")
             report[f"{path}_unlimited_ms"] = unlimited_s * 1000
+        if path in {f"pq_q{q}" for q in EXTRACT_QUERIES}:
+            from arrow_ballista_tpu_torch.compile import programs as PR
+
+            sources = [p.gen.source for p in PR.trace(job_plans(c)[0], TaskContext(device=device))
+                       if p.launches()]
+            if not any("ab_civil_field(" in s for s in sources):
+                fail(f"{path}: EXTRACT is in no generated program ({len(sources)} programs)")
+            log(f"{path}: EXTRACT traced into {sum('ab_civil_field(' in s for s in sources)} "
+                f"of {len(sources)} generated K19 programs")
         if path in {f"sa_q{q}" for q in EXTRACT_QUERIES}:
             plans = job_plans(c)
             sources = [n.program(TaskContext(device=device)).gen.source
@@ -2218,13 +2639,16 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                 # the standalone engine's task threads share a join's
                 # capacity hint (ops/operators.py _out_cap_hint): whether a
                 # sibling task finds it set decides one count pass (K3 +
-                # K6) more or less, or a rerun of the join at a larger
-                # capacity (K3, K6, K7).  Every other count must repeat.
+                # K6, and K19 where the join keys are computed) more or
+                # less, or a rerun of the join at a larger capacity (K3,
+                # K6, K7, the pair gathers K21, the verification K19 and a
+                # semi or anti verdict K22).  Every other count must repeat.
                 # On the passthrough paths the tasks that start after the
                 # first one ends emit per-row states: how many do varies
                 # with the timing.
                 varied = {k for k, v in K.LAUNCHES.items() if v != launches[path][k]}
-                allowed = {"hash64", "probe_join", "segment_any"}
+                allowed = {"hash64", "probe_join", "segment_any", "operator_program",
+                           "gather_columns", "mask_ops"}
                 if path in PASSTHROUGH_PATHS:
                     allowed |= {"fused_agg", "passthrough_rows", "sort_order",
                                 "grouped_on_order", "compaction_order"}
@@ -2243,6 +2667,12 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                         or table_cache.CACHE.stats()["misses"] != misses:
                     fail(f"{path}: a warm run missed the scan cache or read a row group "
                          f"again: {warm_scan}")
+        warm_builds = len(_cuda.LIBRARIES.generated_builds) - builds0 - cold_builds
+        log(f"{path} generated sources built with nvcc: cold run {cold_builds}, warm runs "
+            f"{warm_builds}")
+        report[f"{path}_generated_builds"] = {"cold": cold_builds, "warm": warm_builds}
+        if warm_builds:
+            fail(f"{path}: a warm run built {warm_builds} generated sources")
         if path == "pq_q18":
             check_clustered(job_plans(c), "warm")
         if standalone:
@@ -2259,7 +2689,9 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             f"[runs ms: {', '.join(f'{w * 1000:.1f}' for w in warm)}]; "
             + ("parquet through the scan cache" if parquet else "in-memory tables uploaded "
                "per query (the scan cache holds parquet scans only)"))
-        if parquet:
+        if parquet or "csv" in path:
+            if not parquet:
+                warm_scan = scan_metrics(job_plans(c))
             log(f"{path} scan times ms: cold read {cold_scan.get('scan_read_time', 0) * 1000:.1f}, "
                 f"convert {cold_scan.get('scan_convert_time', 0) * 1000:.1f}; warm read "
                 f"{warm_scan.get('scan_read_time', 0) * 1000:.1f}, convert "
@@ -2279,6 +2711,15 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         if cuda and not path.startswith("spill_"):
             report[f"{path}_profile"] = profile_query(c, sql, path)
         scope.close()
+    # csv: the same rows as the parquet paths, bit for bit
+    for a, b in (("csv_q1", "pq_q1"), ("csv_q3", "pq_q3"), ("sa_csv_q1", "sa_pq_q1")):
+        try:
+            assert_frames_equal(path_frames[a], path_frames[b], exact=True)
+        except AssertionError as e:
+            fail(f"{a} differs from {b}: {e}")
+    log("csv_q1, csv_q3 and sa_csv_q1 equal pq_q1, pq_q3 and sa_pq_q1 bit for bit")
+    report["json_avro"] = json_avro_paths(device, pq_dir)
+
     # the mesh paths together: the dense reduce on q1's paths, and across
     # the two q3 runs at least one broadcast and one partitioned mesh join
     for path in ("mesh_q1", "mesh4_q1"):
@@ -2413,16 +2854,39 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         for c in small_ctx.values():
             for name, table in small.items():
                 c.register_table(name, table)
+        # tpch22_local: the local engine's operator programs are all
+        # generated kernels (K19): no CodegenError, and their count
+        from arrow_ballista_tpu_torch.compile.codegen import CodegenError
+
+        programs_per_query, codegen_errors = {}, []
+        K.reset_launch_counts()
         for q in sorted(QUERIES):
             want = sqlite_answer(conn, QUERIES[q])
             for engine, c in small_ctx.items():
                 try:
-                    check_against_sqlite(want, QUERIES[q], c.sql(QUERIES[q]).to_pandas())
+                    got = c.sql(QUERIES[q]).to_pandas()
+                except CodegenError as e:
+                    codegen_errors.append((q, engine, str(e)))
+                    continue
+                try:
+                    check_against_sqlite(want, QUERIES[q], got)
                 except AssertionError as e:
                     fail(f"SF0.01 q{q} ({engine}) differs from sqlite: {e}")
+                if engine == "local":
+                    programs_per_query[q] = sum(op_metrics(
+                        job_plans(c), ("generated_programs",))["generated_programs"].values())
     finally:
         small_ctx["standalone"].shutdown()
         conn.close()
+    if codegen_errors:
+        fail(f"tpch22_local: CodegenError on {codegen_errors}")
+    log(f"tpch22_local: generated programs per query {json.dumps(programs_per_query)}, "
+        f"{sum(programs_per_query.values())} in all, CodegenError count 0; K19 launches over "
+        f"both engines {K.LAUNCHES['operator_program']}")
+    if cuda and not all(programs_per_query.values()):  # the CPU traces nothing
+        fail(f"tpch22_local: a query ran no generated program: {programs_per_query}")
+    report["tpch22_local"] = {"generated_programs": programs_per_query,
+                              "codegen_errors": 0}
     log("SF0.01: all 22 queries equal the sqlite3 oracle on the card, local and standalone")
 
     now = cache_fingerprints(table_cache)
@@ -2442,15 +2906,16 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
 
     # phase 5: results against the numpy oracles
     oracles = {"q1": q1_oracle(lineitem), "q3": q3_oracle(tables), "q4": q4_oracle(tables)}
-    for label, c in (("", ctx), ("pq_", pctx)):
+    for label, c in (("", ctx), ("pq_", pctx), ("csv_", csv_ctx)):
         n_groups, worst = check_q1(c, sqls["q1"], oracles["q1"])
         log(f"{label}q1 vs numpy oracle: {n_groups} groups, sums and counts exact, avg max rel "
             f"err {worst:.3g}")
         n_groups = check_q3(c, sqls["q3"], oracles["q3"])
         log(f"{label}q3 vs numpy oracle: top 10 exact, and all {n_groups} groups without the "
             "LIMIT exact")
-        counts = check_q4(c, sqls["q4"], oracles["q4"])
-        log(f"{label}q4 vs numpy oracle: {json.dumps(counts)} exact")
+        if label != "csv_":  # csv holds lineitem, orders and customer only
+            counts = check_q4(c, sqls["q4"], oracles["q4"])
+            log(f"{label}q4 vs numpy oracle: {json.dumps(counts)} exact")
     q18_want = q18_oracle(tables, q18_having)
     n_top, n_all = check_q18(pctx, q18, q18_want)
     log(f"pq_q18 vs numpy oracle: top {n_top} exact, and all {n_all} rows without the LIMIT exact")
@@ -2506,6 +2971,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     stress.update(fused_stress(device, stress_rows))
     stress.update(new_kernel_stress(device, stress_rows))
     stress.update(mesh_stress(device, stress_rows))
+    stress.update(k19_k22_stress(device, stress_rows))
     for name in KERNEL_META:
         per_path = {p: launches[p][LAUNCH_KEY[name]] for p in paths}
         checked = {}  # path -> wrapper -> rows and max abs err of that path's largest call
@@ -2517,9 +2983,19 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                 if calls:
                     checked[path] = {w: {"rows": n, "max_abs_err": check_kernel(K, w, args)}
                                      for w, (n, args) in calls.items()}
-            err = max(c["max_abs_err"] for w in checked.values() for c in w.values())
+            if name == "operator_program":  # K19: every program at its largest call per path
+                for path in paths:
+                    for key, (n, args) in captured[path].items():
+                        if key.startswith("operator_program:"):
+                            checked.setdefault(path, {})[key] = {
+                                "rows": n, "max_abs_err": check_kernel(K, key, args)}
+            err = max((c["max_abs_err"] for w in checked.values() for c in w.values()),
+                      default=0.0)
             for sargs in stress[name]:
-                err = max(err, check_kernel(K, name, sargs))
+                if isinstance(sargs, Wrapped):
+                    err = max(err, check_kernel(K, sargs.wrapper, sargs.args))
+                else:
+                    err = max(err, check_kernel(K, name, sargs))
             expected = stress["expected_flags"].get(name)
             if expected is not None:
                 got = [bool(getattr(K, name)(*sargs)) for sargs in stress[name]]
@@ -2537,8 +3013,21 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             fail(f"{name}: kernel disagrees with its plain twin: {e}")
         if cuda:
             torch.cuda.synchronize()
-        path = max((p for p in paths if name in captured[p]), key=lambda p: captured[p][name][0])
-        n, args = captured[path][name]
+        # the largest call of the kernel's own wrapper, or of any of its
+        # wrappers where it has none of its own name (K22)
+        wrappers = [w for p in paths for w in WRAPPERS[name] if w in captured[p]]
+        if not wrappers:
+            # launched on no path (K14: EXTRACT runs inside the generated
+            # programs): timed at its first stress input
+            timed, path, args = name, "stress", stress[name][0]
+            n = args[0].shape[0]
+        else:
+            timed = name if name in wrappers else max(
+                wrappers, key=lambda w: max(captured[p][w][0] for p in paths
+                                            if w in captured[p]))
+            path = max((p for p in paths if timed in captured[p]),
+                       key=lambda p: captured[p][timed][0])
+            n, args = captured[path][timed]
         forms = {}  # K13: form -> (path, rows, args) of its largest call
         if name == "fused_agg":
             for p in paths:
@@ -2548,7 +3037,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                     if form not in forms or n_p > forms[form][1]:
                         forms[form] = (p, n_p, a_p)
             path, n, args = forms.get("dense", (path, n, args))
-        times, moved = kernel_timings(K, name, args, device)
+        times, moved = kernel_timings(K, timed, args, device)
         bound_ms = moved / HBM_BYTES_PER_S * 1000
         src, replaces = KERNEL_META[name]
         report["kernels"].append({
@@ -2566,7 +3055,12 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                 "k13_forms_per_path": {p: f for p, f in k13_forms.items() if f}}
                if name.startswith("fused_") else {}),
             **({"generated_by": "arrow_ballista_tpu_torch/compile/codegen.py"}
-               if name == "mesh_derive" else {}),
+               if name in ("mesh_derive", "operator_program") else {}),
+            **({"interpreted_ms": times["interpreted_ms"],
+                "interpreted_wall_ms": times["interpreted_wall_ms"]}
+               if name == "operator_program" else {}),
+            **({"timed_wrapper": timed} if timed != name else {}),
+            **({"replaces_all": REPLACES_ALL[name]} if name in REPLACES_ALL else {}),
             "ms_source": [times[k] for k in ("ms_source", "plain_ms_source",
                                              "library_ms_source")]})
 
@@ -2585,6 +3079,23 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                f"{fmt(times['interpreted_wall_ms'])} wall" if name.startswith("fused_") else "")
             + f"; stress {stress_rows} rows ok; "
             f"max abs err {err:.3g}; launches per query {json.dumps(per_path)}")
+        if name == "mask_ops":  # K22: every op at its own largest call
+            per_op = {}
+            for w in WRAPPERS[name]:
+                seen = [p for p in paths if w in captured[p]]
+                if not seen:
+                    continue
+                wp = max(seen, key=lambda p: captured[p][w][0])
+                wn, wargs = captured[wp][w]
+                wt, wmoved = (times, moved) if w == timed else kernel_timings(K, w, wargs, device)
+                per_op[w] = {"captured_on": wp, "rows": wn, "ms": wt["ms"],
+                             "wall_ms": wt["wall_ms"], "plain_ms": wt["plain_ms"],
+                             "library_ms": wt["library_ms"],
+                             "bound_ms": wmoved / HBM_BYTES_PER_S * 1000}
+                log(f"kernel {name} {w}: rows {wn} ({wp}); device kernel {fmt(wt['ms'])}, "
+                    f"plain {fmt(wt['plain_ms'])}, library {fmt(wt['library_ms'])}, bound "
+                    f"{per_op[w]['bound_ms']:.6f} ms; wall kernel {fmt(wt['wall_ms'])}")
+            report["kernels"][-1]["per_op"] = per_op
         if "sort" in forms:
             sp, sn, sargs = forms["sort"]
             stimes, smoved = kernel_timings(K, name, sargs, device)
@@ -2599,6 +3110,30 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                 f"{fmt(stimes['plain_ms'])}, interpreted chain {fmt(stimes['interpreted_ms'])}; "
                 f"wall per call: kernel {fmt(stimes['wall_ms'])}, interpreted chain "
                 f"{fmt(stimes['interpreted_wall_ms'])}")
+        if name == "operator_program":
+            # each program at its largest call over the paths: device and
+            # wall ms, the interpreted closures' beside it, and its bound
+            per_prog = {}
+            for key in sorted({k for p in paths for k in captured[p]
+                               if k.startswith("operator_program:")}):
+                pp = max((p for p in paths if key in captured[p]),
+                         key=lambda p: captured[p][key][0])
+                pn, pargs = captured[pp][key]
+                ptimes, pmoved = kernel_timings(K, "operator_program", pargs, device)
+                per_prog[key.split(":", 1)[1]] = {
+                    "captured_on": pp, "rows": pn, "ms": ptimes["ms"],
+                    "wall_ms": ptimes["wall_ms"], "interpreted_ms": ptimes["interpreted_ms"],
+                    "interpreted_wall_ms": ptimes["interpreted_wall_ms"],
+                    "bound_ms": pmoved / HBM_BYTES_PER_S * 1000, "bound_bytes": pmoved,
+                    "kind": pargs[0].kind}
+                log(f"kernel operator_program [{key.split(':', 1)[1]}] ({pargs[0].kind}): rows "
+                    f"{pn} ({pp}); device {fmt(ptimes['ms'])}, wall {fmt(ptimes['wall_ms'])}, "
+                    f"interpreted {fmt(ptimes['interpreted_ms'])} device, "
+                    f"{fmt(ptimes['interpreted_wall_ms'])} wall, bound "
+                    f"{pmoved / HBM_BYTES_PER_S * 1000:.6f} ms ({pmoved} bytes)")
+            report["kernels"][-1]["per_program"] = per_prog
+        if name == "sort_order" and cuda:
+            report["topk"] = topk_timings(K, device, stress_rows)
         if name == "dense_group_states" and cuda:
             sweep = dense_hot_slot_sweep(K, args, device)
             log("kernel dense_group_states hot-slot sweep (device ms per call, "

@@ -12,13 +12,15 @@ import pytest
 import torch
 
 from arrow_ballista_tpu_torch.ops import kernels as TK
-from tests.torch_cases import (DENSE_CASES, FUSED_CHAINS, HASH_CASES, JOIN_CASES, JOIN_QUERIES,
-                               KEEP_CASES, PRESORTED_CASES, RANGE_CASES, SEG_AGG_CASES,
+from tests.torch_cases import (CONCAT_CASES, DENSE_CASES, FUSED_CHAINS, GATHER_CASES,
+                               HASH_CASES, JOIN_CASES, JOIN_QUERIES, KEEP_CASES, MASK_OPS_CASES,
+                               PACK_CASES, PRESORTED_CASES, RANGE_CASES, SEG_AGG_CASES,
                                SEGMENT_CASES, SETTINGS, SORT_CASES, STANDALONE_SETTINGS,
                                STANDALONE_SQL, UNORDERED, assert_frames_equal, dense_case,
                                edge_days, find_chain, hand_chain, hand_table, hash_cols, join_case,
                                keep_case, mask_case, presorted_case, range_case, seg_agg_case,
-                               segment_case, sort_case)
+                               segment_case, sort_case, concat_case, gather_case, pack_case,
+                               mask_ops_case)
 
 N = 100_003
 
@@ -590,3 +592,213 @@ def test_mesh_derive_kernel_matches_twin(dev, case):
     assert list(got) == list(want)
     for name, w in want.items():
         np.testing.assert_array_equal(got[name].cpu().numpy(), w.cpu().numpy(), err_msg=name)
+
+
+# --------------------------------------------------------------------------
+# K19 operator programs, K20 concat, K21 gather, K22 mask ops
+# --------------------------------------------------------------------------
+
+
+def _bits(t):
+    """Each value's bits, so NaN and -0.0 compare exactly."""
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t
+
+
+def _same(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(_bits(got.contiguous()), _bits(want.contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CONCAT_CASES))
+def test_concat_kernel_matches_twin(dev, case):
+    cols_list, masks, pad = concat_case(case, np.random.default_rng(7))
+    tc = [{k: _t(v).to(dev) for k, v in c.items()} for c in cols_list]
+    tm = [_t(m).to(dev) for m in masks]
+    before = TK.LAUNCHES["concat_columns"]
+    got, gm = TK.concat_columns(tc, tm, pad)
+    want, wm = TK.concat_columns_plain(tc, tm, pad)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["concat_columns"] > before
+    assert list(got) == list(want)
+    for k in want:
+        _same(got[k], want[k])
+    _same(gm, wm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GATHER_CASES))
+def test_gather_kernel_matches_twin(dev, case):
+    cols, _mask, idx = gather_case(case, np.random.default_rng(8))
+    tcols = {k: _t(v).to(dev) for k, v in cols.items()}
+    tidx = _t(idx).to(dev)
+    before = TK.LAUNCHES["gather_columns"]
+    got = TK.gather_columns(tidx, tcols)
+    want = TK.gather_columns_plain(tidx, tcols)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["gather_columns"] == before + -(-len(cols) // TK.GATHER_MAX_COLS)
+    for k in want:
+        _same(got[k], want[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(PACK_CASES))
+def test_pack_for_host_kernel_matches_twin(dev, case):
+    cols, mask, target, i64, f64, n32 = pack_case(case, np.random.default_rng(9))
+    tcols = {k: _t(v).to(dev) for k, v in cols.items()}
+    tmask = _t(mask).to(dev)
+    buf, fbuf = TK.pack_for_host(tcols, tmask, target, i64, f64, n32)
+    wbuf, wfbuf = TK.pack_for_host_plain(tcols, tmask, target, i64, f64, n32)
+    torch.cuda.synchronize()
+    _same(buf, wbuf)
+    if f64:
+        _same(fbuf, wfbuf)
+    else:
+        assert fbuf is None and wfbuf is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MASK_OPS_CASES)
+def test_mask_ops_kernel_matches_twin(dev, case):
+    op, a, b, lo, hi = mask_ops_case(case, np.random.default_rng(10))
+    ta = _t(a).to(dev)
+    tb = _t(b).to(dev) if b is not None else None
+    kernel, plain = {"window": (TK.window_mask, TK.window_mask_plain),
+                     "or": (TK.mask_or, TK.mask_or_plain),
+                     "and": (TK.mask_and, TK.mask_and_plain),
+                     "andnot": (TK.mask_andnot, TK.mask_andnot_plain),
+                     "bucket": (TK.bucket_mask, TK.bucket_mask_plain)}[op]
+    args = (ta, lo, hi) if op == "window" else (ta, tb, lo) if op == "bucket" else (ta, tb)
+    before = TK.LAUNCHES["mask_ops"]
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["mask_ops"] == before + 1
+    _same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["window_middle", "or", "and", "andnot", "bucket"])
+def test_mask_ops_kernel_takes_unaligned_views(dev, case):
+    """Views three rows in are not 16-byte aligned: K22 goes row by row."""
+    op, a, b, lo, hi = mask_ops_case(case, np.random.default_rng(12))
+    ta = _t(a).to(dev)[3:]
+    tb = _t(b).to(dev)[3:] if b is not None else None
+    kernel, plain = {"window": (TK.window_mask, TK.window_mask_plain),
+                     "or": (TK.mask_or, TK.mask_or_plain),
+                     "and": (TK.mask_and, TK.mask_and_plain),
+                     "andnot": (TK.mask_andnot, TK.mask_andnot_plain),
+                     "bucket": (TK.bucket_mask, TK.bucket_mask_plain)}[op]
+    args = (ta, lo, hi) if op == "window" else (ta, tb, lo) if op == "bucket" else (ta, tb)
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    _same(got, want)
+
+
+@contextlib.contextmanager
+def _programs_held_against_twins(calls):
+    """Every K19 call also runs its twin on the same inputs and must equal
+    it bit for bit; ``calls`` counts them by program label."""
+    from arrow_ballista_tpu_torch.compile import programs as P
+
+    kernel = P.operator_program
+
+    def checked(program, cols, mask, auxs):
+        got = kernel(program, cols, mask, auxs)
+        want = P.operator_program_plain(program, cols, mask, auxs)
+        if program.kind == "mask":
+            _same(got, want.expand(mask.shape[0]) if want.dim() == 0 else want)
+        else:
+            assert list(got) == list(want)
+            for k in want:
+                _same(got[k], want[k].expand(mask.shape[0]))
+        calls[program.label] = calls.get(program.label, 0) + 1
+        return got
+
+    P.operator_program = checked
+    try:
+        yield
+    finally:
+        P.operator_program = kernel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", range(1, 23))
+def test_tpch_on_the_card_runs_its_programs_through_k19(dev, q):
+    """Each of the 22 queries at SF0.01 in the local engine on the card:
+    every operator program is a generated kernel (K19) equal to its twin,
+    concat, shrink, pack and the gathers run on K20 and K21, and the rows
+    equal the port on the CPU (which tests/test_torch_tpch.py holds against
+    sqlite)."""
+    from arrow_ballista_tpu_torch import BallistaContext
+    from benchmarks.queries import QUERIES
+
+    frames, calls = [], {}
+    for device in ("cpu", dev):
+        ctx = BallistaContext.local(device=device)
+        for table, data in _sf001_tables().items():
+            ctx.register_table(table, data)
+        if device == "cpu":
+            frames.append(ctx.sql(QUERIES[q]).to_pandas())
+            continue
+        TK.reset_launch_counts()
+        with _programs_held_against_twins(calls):
+            frames.append(ctx.sql(QUERIES[q]).to_pandas())
+        torch.cuda.synchronize()
+    assert TK.LAUNCHES["operator_program"] > 0 and calls
+    assert TK.LAUNCHES["gather_columns"] > 0 and TK.LAUNCHES["concat_columns"] > 0
+    assert_frames_equal(frames[1], frames[0], ordered="order by" in QUERIES[q].lower())
+
+
+@pytest.mark.cuda
+def test_an_untraceable_expression_raises_when_the_plan_is_prepared(dev):
+    from arrow_ballista_tpu_torch import BallistaContext
+    from arrow_ballista_tpu_torch.compile.codegen import CodegenError
+    from arrow_ballista_tpu_torch.models.schema import INT64
+    from arrow_ballista_tpu_torch.udf import GLOBAL_UDFS, register_udf
+
+    # a UDF's torch call has no generated code, and the card no fallback
+    register_udf("plus_one_card", lambda x: torch.neg(x), INT64)
+    try:
+        ctx = BallistaContext.local(device=dev)
+        ctx.register_table("t", __import__("pyarrow").table({"x": np.arange(10)}))
+        with pytest.raises(CodegenError):
+            ctx.sql("select plus_one_card(x) as y from t").to_pandas()
+    finally:
+        GLOBAL_UDFS.deregister("plus_one_card")
+
+
+@pytest.mark.cuda
+def test_concat_kernel_promotes_mixed_dtypes_as_torch_cat(dev):
+    """An int32 sum's batches beside int64 ones (per-row states) concat to
+    int64, as torch.cat promotes them."""
+    rng = np.random.default_rng(11)
+    a = {"s": _t(rng.integers(-9, 9, 1024).astype(np.int32)).to(dev)}
+    b = {"s": _t(rng.integers(-2**40, 2**40, 2048)).to(dev)}
+    masks = [_t(rng.random(1024) < 0.5).to(dev), _t(rng.random(2048) < 0.5).to(dev)]
+    got, gm = TK.concat_columns([a, b], masks, 64)
+    want, wm = TK.concat_columns_plain([a, b], masks, 64)
+    torch.cuda.synchronize()
+    _same(got["s"], want["s"])
+    _same(gm, wm)
+
+
+@pytest.mark.cuda
+def test_a_program_over_an_int32_sum_matches_the_cpu(dev):
+    """A projection over sum(int32), whose column is int32 under an int64
+    schema field: K19 reads it sign-extended."""
+    from arrow_ballista_tpu_torch import BallistaContext
+
+    sql = ("select o_orderpriority, sum(o_shippriority) * 3 + 1 as s3 from orders "
+           "group by o_orderpriority order by o_orderpriority")
+    frames = []
+    for device in (dev, "cpu"):
+        ctx = BallistaContext.local(device=device)
+        ctx.register_table("orders", _sf001_tables()["orders"])
+        frames.append(ctx.sql(sql).to_pandas())
+    assert_frames_equal(frames[0], frames[1])

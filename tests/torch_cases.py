@@ -713,3 +713,122 @@ def check_against_sqlite(want, sql: str, got):
     """``got`` (the engine's frame of ``sql``) against the oracle's ``want``."""
     compare_content(got.copy(), want.copy())
     check_ordering(sql, got)
+
+
+# --------------------------------------------------------------------------
+# K20 concat, K21 gather / pack, K22 mask ops
+# --------------------------------------------------------------------------
+
+_MOVE_DTYPES = [np.int32, np.int64, np.float32, np.float64, np.bool_]
+
+
+def move_column(dt, n, rng):
+    """A column of ``dt`` with its edge values: int extremes, NaN, -0.0."""
+    if dt == np.bool_:
+        return rng.random(n) < 0.5
+    if np.dtype(dt).kind == "f":
+        a = rng.standard_normal(n).astype(dt) * 1e6
+        a[::97] = np.nan
+        a[1::89] = -0.0
+        return a
+    info = np.iinfo(dt)
+    a = rng.integers(info.min, info.max, n, dtype=dt)
+    a[:2] = [info.min, info.max][:min(2, n)]
+    return a
+
+
+# (columns, sources, capacities or None for random powers of two, pad)
+CONCAT_CASES = {
+    "mixed_capacities": (5, [1024, 4096, 64, 2048], 0),
+    "pad": (5, [1024, 1024, 2048], 1000),
+    "one_source_padded": (3, [4096], 4096),
+    "forty_columns": (40, [2048, 1024, 1024], 0),
+    "seventy_sources": (3, [64] * 35 + [128] * 35, 64),
+    "wider_than_a_launch": (60, [1024, 2048], 16),
+}
+
+
+def concat_case(case, rng):
+    """(per-source {name: array}, per-source masks, pad): every dtype in
+    turn across the columns."""
+    ncols, caps, pad = CONCAT_CASES[case]
+    dts = [_MOVE_DTYPES[c % len(_MOVE_DTYPES)] for c in range(ncols)]
+    cols_list, masks = [], []
+    for cap in caps:
+        cols_list.append({f"c{c}": move_column(dt, cap, rng) for c, dt in enumerate(dts)})
+        masks.append(rng.random(cap) < 0.6)
+    return cols_list, masks, pad
+
+
+# (columns, rows, index kind)
+GATHER_CASES = {
+    "compaction_order": (5, 100_003, "compact"),
+    "reverse": (5, 65_536, "reverse"),
+    "random_with_repeats": (10, 50_000, "random"),
+    "seventy_columns": (70, 8192, "random"),
+    "prefix": (5, 100_003, "prefix"),
+}
+
+
+def gather_case(case, rng):
+    """({name: array}, mask, int32 index)."""
+    ncols, n, kind = GATHER_CASES[case]
+    cols = {f"c{c}": move_column(_MOVE_DTYPES[c % len(_MOVE_DTYPES)], n, rng)
+            for c in range(ncols)}
+    mask = rng.random(n) < 0.4
+    if kind == "compact":
+        idx = np.concatenate([np.flatnonzero(mask), np.flatnonzero(~mask)])
+    elif kind == "reverse":
+        idx = np.arange(n)[::-1]
+    elif kind == "random":
+        idx = rng.integers(0, n, n)
+    else:  # the live prefix of a compaction, as shrink and pack take it
+        idx = np.flatnonzero(mask)[: n // 3]
+    return cols, mask, np.ascontiguousarray(idx.astype(np.int32))
+
+
+# (int64 names, float64 names, 32-bit names, target): pack_for_host layouts
+PACK_CASES = {
+    "all_kinds_even": (["a", "b"], ["f"], ["i", "g", "x", "k"], 65_536),
+    "odd_32_bit_words": (["a"], [], ["i", "g", "x"], 40_000),
+    "no_32_bit": (["a", "b"], ["f", "h"], [], 2048),
+    "only_bool": ([], [], ["k"], 1024),
+    "target_below_count": (["a"], ["f"], ["i"], 1024),
+    # an int32 column in an int64 slot (an int32 sum whose schema says
+    # int64): the concatenation promotes it, K21 sign-extends it
+    "int32_in_an_int64_slot": (["a", "i"], [], ["g"], 4096),
+}
+
+
+def pack_case(case, rng):
+    """(cols, mask, target, namesi64, namesf64, names32) with int64 ``a``,
+    ``b``, float64 ``f``, ``h``, int32 ``i``, float32 ``g``, bool ``k`` and
+    an extra int32 ``x``."""
+    i64, f64, n32, target = PACK_CASES[case]
+    n = 100_000
+    cols = {"a": move_column(np.int64, n, rng), "b": move_column(np.int64, n, rng),
+            "f": move_column(np.float64, n, rng), "h": move_column(np.float64, n, rng),
+            "i": move_column(np.int32, n, rng), "g": move_column(np.float32, n, rng),
+            "k": move_column(np.bool_, n, rng), "x": move_column(np.int32, n, rng)}
+    mask = rng.random(n) < 0.3
+    return cols, mask, target, tuple(i64), tuple(f64), tuple(n32)
+
+
+MASK_OPS_CASES = ["window_middle", "window_past_end", "window_empty", "or", "and", "andnot",
+                  "bucket"]
+
+
+def mask_ops_case(case, rng, n=100_003):
+    """(op, a, b or None, lo, hi): ``bucket`` takes int32 ids in b and q as
+    lo."""
+    a = rng.random(n) < 0.5
+    b = rng.random(n) < 0.5
+    if case == "window_middle":
+        return "window", a, None, n // 5, n // 2
+    if case == "window_past_end":
+        return "window", a, None, n - 100, n + 5000
+    if case == "window_empty":
+        return "window", a, None, 70, 70
+    if case == "bucket":
+        return "bucket", a, rng.integers(0, 7, n).astype(np.int32), 3, 0
+    return case, a, b, 0, 0
