@@ -61,12 +61,18 @@ SIGNATURES = {
         "ab_compaction_order": ([_P, _LL, _P, _P, _P], _I),
     },
     "sort": {
-        "ab_sort_order": ([_P, _P, _P, _I, _P, _LL, _P, _P, _P, _P, _P], _I),
+        "ab_sort_minmax_blocks": ([_LL], _I),
+        "ab_sort_minmax": ([_P, _P, _P, _I, _P, _LL, _P, _P], _I),
+        "ab_sort_scratch_bytes": ([_LL, _I], _LL),
+        "ab_sort_order": ([_P, _P, _P, _I, _P, _LL, _P, _P, _P, _I, _P, _P, _P], _I),
+        "ab_sort_block_bytes": ([_LL, _I], _LL),
+        "ab_sort_order_block": ([_P, _P, _P, _I, _P, _LL, _I, _P, _P, _P], _I),
     },
     "dense_agg": {
         "ab_dense_group_states": ([_P, _P, _LL, _I, _P, _P, _P, _P], _I),
     },
     "join_build": {
+        "ab_build_is_block": ([_LL], _I),
         "ab_build_scratch_bytes": ([_LL], _LL),
         "ab_build_side_sort": ([_P, _P, _I, _P, _LL, _I, _P, _P, _P, _P, _P], _I),
     },

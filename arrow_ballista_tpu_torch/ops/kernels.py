@@ -743,6 +743,74 @@ def sort_order_plain(keys: Sequence[Tuple[torch.Tensor, bool]],
     return order.to(torch.int32)
 
 
+_RADIX_DIGIT_BITS = 8  # csrc/radix.cuh RX_BITS
+_MASK64 = (1 << 64) - 1
+# widest span of one sort word of each key dtype, in bits (sort_words)
+_WORD_BITS = {torch.int32: 32, torch.int64: 64, torch.bool: 1, torch.float32: 64,
+              torch.float64: 64}
+# K4's and K5's form, composite bits, layout and passes of this thread's
+# last call of each (for reports and checks; a single-block K4 call's
+# layout is a device tensor)
+_PLANS = threading.local()
+
+
+def sort_layout(mins: Sequence[int], maxs: Sequence[int]):
+    """K4's composite key layout from each sort word's min and max (the
+    dead flag first, then the keys' ``sort_words``): a word keeps the bit
+    length of its span ``max - min`` taken as uint64 (0 for a constant
+    word, which drops out); the words are packed MSB-first, as ``word -
+    min`` unsigned, into one unsigned integer of ``total`` bits, held in
+    ``ceil(total / 64)`` uint64 limbs (limb 0 least significant; a field
+    may straddle two limbs).  Returns (widths, offsets, total, limbs):
+    field j occupies bits [offsets[j], offsets[j] + widths[j])."""
+    widths = [((int(hi) - int(lo)) & _MASK64).bit_length() for lo, hi in zip(mins, maxs)]
+    total = sum(widths)
+    offsets, off = [], total
+    for w in widths:
+        off -= w
+        offsets.append(off)
+    return widths, offsets, total, (total + 63) // 64
+
+
+def sort_layout_of(keys: Sequence[Tuple[torch.Tensor, bool]], mask: torch.Tensor) -> dict:
+    """``sort_layout`` of these keys' sort words over all rows, the dead
+    flag first, as ``radix_plan`` reports K4's layout: {"lo", "widths",
+    "offsets", "bits"}.  K4's single-block form computes it on the device;
+    the card tests hold the two together."""
+    words = [(~mask.reshape(-1)).to(torch.int64)] + [sort_words(a.reshape(-1), asc)
+                                                     for a, asc in keys]
+    mins = [int(w.min()) for w in words]
+    widths, offsets, total, _limbs = sort_layout(mins, [int(w.max()) for w in words])
+    return {"lo": mins, "widths": widths, "offsets": offsets, "bits": total}
+
+
+def _bitonic_steps(n: int) -> int:
+    """Compare-exchange steps of the single-block form's bitonic network
+    over the power of two >= n (csrc/radix.cuh rx_block_sort)."""
+    log = max(n - 1, 0).bit_length()
+    return log * (log + 1) // 2
+
+
+def radix_plan(name: str, read_device: bool = True) -> dict:
+    """This thread's last call's plan of K4 (``sort_order``) or K5
+    (``build_side_sort``): form ("single_block", "onesweep" or "identity"),
+    rows, composite bits, radix passes (0 in the single-block form, which
+    takes "steps" of a bitonic network) and launches; K4's also its layout
+    (``sort_layout_of``'s keys).  A K4 single-block call's layout and
+    bits are read back from the card, or left as None without
+    ``read_device``."""
+    plan = dict(getattr(_PLANS, name, {}))
+    dev_layout = plan.pop("device_layout", None)
+    if dev_layout is not None:
+        plan["layout"] = plan["bits"] = None
+        if read_device:
+            v, f = dev_layout.tolist(), (dev_layout.numel() - 1) // 3
+            plan["layout"] = {"lo": v[:f], "widths": v[f:2 * f], "offsets": v[2 * f:3 * f],
+                              "bits": v[3 * f]}
+            plan["bits"] = v[3 * f]
+    return plan
+
+
 def sort_order(keys: Sequence[Tuple[torch.Tensor, bool]], mask: torch.Tensor) -> torch.Tensor:
     """Permutation (int32) sorting live rows by (k1, k2, ...) with per-key
     ascending flags; dead rows sort to the end; stable."""
@@ -750,29 +818,54 @@ def sort_order(keys: Sequence[Tuple[torch.Tensor, bool]], mask: torch.Tensor) ->
         return sort_order_plain(keys, mask)
     _require_cuda(mask, *[a for a, _ in keys])
     k = len(keys)
+    if k > 8:
+        raise ValueError(f"sort_order takes at most 8 keys, got {k}")
     cols = [_flat(a) for a, _ in keys]
     m = _flat(mask)
     n = m.shape[0]
-    perm = torch.empty(n, dtype=torch.int32, device=m.device)
+    dev = m.device
+    perm = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return perm
     for a, _ in keys:
         if a.dtype not in _KIND:
             raise TypeError(f"unsupported sort key dtype {a.dtype}")
-    words_a = torch.empty((k + 1) * n, dtype=torch.int64, device=m.device)
-    words_b = torch.empty_like(words_a)
-    perm_tmp = torch.empty_like(perm)
     ptrs = (ctypes.c_void_p * max(k, 1))(*[c.data_ptr() for c in cols])
     kinds = (ctypes.c_int * max(k, 1))(*[_KIND[a.dtype] for a, _ in keys])
     desc = (ctypes.c_int * max(k, 1))(*[0 if asc else 1 for _, asc in keys])
+    args = (ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(kinds, ctypes.c_void_p),
+            ctypes.cast(desc, ctypes.c_void_p), k, _ptr(m), n)
     lib = _cuda.LIBRARIES.get("sort")
-    err = lib.ab_sort_order(ctypes.cast(ptrs, ctypes.c_void_p),
-                            ctypes.cast(kinds, ctypes.c_void_p),
-                            ctypes.cast(desc, ctypes.c_void_p), k, _ptr(m), n,
-                            _ptr(words_a), _ptr(words_b), _ptr(perm), _ptr(perm_tmp),
-                            _stream(m.device))
-    _cuda.check(err, "sort_order")
+    # the single-block form where the widest composite these dtypes allow fits
+    wmax = (1 + sum(_WORD_BITS[a.dtype] for a, _ in keys) + 63) // 64
+    if lib.ab_sort_block_bytes(n, wmax) > 0:
+        layout = torch.empty(3 * (k + 1) + 1, dtype=torch.int64, device=dev)
+        _cuda.check(lib.ab_sort_order_block(*args, wmax, _ptr(perm), _ptr(layout), _stream(dev)),
+                    "sort_order")
+        count_launch("sort_order")
+        _PLANS.sort_order = {"form": "single_block", "rows": n, "device_layout": layout,
+                             "passes": 0, "steps": _bitonic_steps(n), "launches": 1}
+        return perm
+    # each sort word's min and max over all rows, read back for the layout
+    partial = torch.empty((lib.ab_sort_minmax_blocks(n), k + 1, 2), dtype=torch.int64, device=dev)
+    _cuda.check(lib.ab_sort_minmax(*args, _ptr(partial), _stream(dev)), "sort_order")
+    host = partial.cpu().numpy()
+    mins = host[:, :, 0].min(0).tolist()
+    widths, offsets, total, _limbs = sort_layout(mins, host[:, :, 1].max(0).tolist())
+    scratch = torch.empty(lib.ab_sort_scratch_bytes(n, total), dtype=torch.uint8, device=dev)
+    lo = (ctypes.c_longlong * (k + 1))(*mins)
+    bits = (ctypes.c_int * (k + 1))(*widths)
+    offs = (ctypes.c_int * (k + 1))(*offsets)
+    _cuda.check(lib.ab_sort_order(*args, ctypes.cast(lo, ctypes.c_void_p),
+                                  ctypes.cast(bits, ctypes.c_void_p),
+                                  ctypes.cast(offs, ctypes.c_void_p), total, _ptr(scratch),
+                                  _ptr(perm), _stream(dev)), "sort_order")
     count_launch("sort_order")
+    passes = -(-total // _RADIX_DIGIT_BITS)
+    _PLANS.sort_order = {"form": "onesweep" if passes else "identity", "rows": n, "bits": total,
+                         "layout": {"lo": mins, "widths": widths, "offsets": offsets,
+                                    "bits": total},
+                         "passes": passes, "launches": 3 + passes if passes else 2}
     return perm
 
 
@@ -1317,6 +1410,13 @@ def build_side_sort(build_keys: List[torch.Tensor], build_mask: torch.Tensor):
                                  _ptr(n_live), _ptr(scratch), _stream(dev))
     _cuda.check(err, "build_side_sort")
     count_launch("build_side_sort")
+    if lib.ab_build_is_block(n):
+        _PLANS.build_side_sort = {"form": "single_block", "rows": n, "bits": 64, "passes": 0,
+                                  "steps": _bitonic_steps(n), "launches": 1}
+    else:
+        passes = 64 // _RADIX_DIGIT_BITS
+        _PLANS.build_side_sort = {"form": "onesweep", "rows": n, "bits": 64, "passes": passes,
+                                  "launches": 2 + passes}
     return hash_out, order, n_live[0]
 
 

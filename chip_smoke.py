@@ -86,9 +86,10 @@ Phases (any failure exits non-zero and prints no result line):
    of its wrappers (K3: bucket_of and hash64; K6: probe_join and
    probe_counts), and at stress shapes of 6M rows (sums that
    wrap, negative and NULL-sentinel keys; for the sort ties, desc keys,
-   bools, NaN and dead rows; for the join build and probe duplicate keys
-   with fan-out, all-dead rows, forced equal hashes and truncation at the
-   pair capacity; one segment hit by every row; for the sort-path
+   bools, NaN and dead rows, one full-range int64 key and eight keys over
+   64 bits; for the join build and probe duplicate keys with fan-out,
+   all-dead rows, forced equal hashes and truncation at the pair capacity,
+   and K5 at 2^23 rows in both hash modes; one segment hit by every row; for the sort-path
    aggregate empty slots, one 6M-row group, no keys and float columns;
    for K1 int32 sums that wrap and int32 and float32 min and max; for K9
    sorted and shuffled keys; for K10 keys out of range and NULL keys; for
@@ -133,6 +134,10 @@ Phases (any failure exits non-zero and prints no result line):
    (kernel timings at the largest call over the paths);
    the device time per q3 query of K19, K20, K21, K2 and K22 (by kernel
    name); ``topk_order`` against ``torch.topk`` at 6M keys (no caller);
+   K4 and K5 (the radix core) at their stress shapes and at a 131,072-row
+   K4 call beside ``torch.sort``, each call's plan (single block or
+   onesweep, composite bits, passes) on every path and at every check, and
+   their kernels' device ms per profiled query;
    the ``entry()`` step's rows/s at 4096 and 6M rows; per parquet query
    the scan's read and convert times cold and warm, the scan cache's
    resident bytes and the peak device memory.
@@ -319,6 +324,23 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# K4 and K5, on the shared radix core (csrc/radix.cuh): their wrappers'
+# CUDA kernels by name (the k4_radix / k5_radix namespaces of radix.cuh),
+# so that a profile gives each one's device time, and the names of the
+# kernels this core replaced (K4's merge sort; K5's LSD radix sort, whose
+# scans are the ab_scan kernels of <int, int> arguments, which nothing
+# else launches), so that tools/torch_wall_compare.py reads an older tree
+# too; their plans (form, composite bits, passes) are recorded
+RADIX_PLANS = []  # every call held against its twin: its plan
+RADIX_KERNELS = {
+    "sort_order": ("sort_minmax", "sort_pack", "sort_block", "sort_identity", "k4_radix::",
+                   "sort_prepare", "merge_pass"),
+    "build_side_sort": ("build_upfront", "build_block", "k5_radix::", "build_hash_kernel",
+                        "radix_histogram", "radix_scatter", "zero_u64",
+                        "ab_scan_tile_sums<int, int>", "ab_scan_tile_apply<int, int, int>"),
+}
+
+
 # --------------------------------------------------------------------------
 # timing
 # --------------------------------------------------------------------------
@@ -482,6 +504,7 @@ class Capture:
         self.orig = {}
         self.off_device = []
         self.forms = {}  # K13 form -> calls
+        self.radix = {}  # K4 / K5 -> "form bits/passes" -> calls
         self._lock = threading.Lock()
 
     def __enter__(self):
@@ -518,7 +541,15 @@ class Capture:
                     self.forms[form] = self.forms.get(form, 0) + 1
                 if n >= 0 and (name not in self.calls or n > self.calls[name][0]):
                     self.calls[name] = (n, _clone(args))
-            return fn(*args, **kwargs)
+            out = fn(*args, **kwargs)
+            plan = self.K.radix_plan(name, read_device=False) if name in RADIX_KERNELS else {}
+            if plan:  # this thread's call (none on the CPU); no device read
+                form = f"{plan['form']} {plan['steps']} steps" if "steps" in plan else \
+                    f"{plan['form']} {plan['bits']} bits / {plan['passes']} passes"
+                with self._lock:
+                    seen = self.radix.setdefault(name, {})
+                    seen[form] = seen.get(form, 0) + 1
+            return out
 
         return wrapper
 
@@ -1024,8 +1055,9 @@ def plan_breakdown(plan, indent=0):
 
 
 def profile_query(ctx, sql, label):
-    """One warm query under torch.profiler: device time by kernel name and
-    the device's busy share of the wall time."""
+    """One warm query under torch.profiler: device time by kernel name, the
+    device's busy share of the wall time, and the device time and launches
+    of K4's and K5's kernels (RADIX_KERNELS)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1035,6 +1067,9 @@ def profile_query(ctx, sql, label):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1000
     rows = device_rows(prof)
+    radix = {name: {"ms": sum(r[0] for r in rows if any(p in r[2] for p in parts)),
+                    "launches": sum(r[1] for r in rows if any(p in r[2] for p in parts))}
+             for name, parts in RADIX_KERNELS.items()}
     busy_ms = sum(r[0] for r in rows)
     if not rows:
         log(f"profile {label}: no device time recorded (device busy share not measured)")
@@ -1043,7 +1078,9 @@ def profile_query(ctx, sql, label):
         f"= {busy_ms / wall_ms:.4f} of wall (idle share {1 - busy_ms / wall_ms:.4f})")
     for dev_ms, count, key in rows[:15]:
         log(f"  device {dev_ms:9.3f} ms  x{count:<5d} {key[:100]}")
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "busy_share": busy_ms / wall_ms}
+    log(f"  K4 sort_order / K5 build_side_sort kernels per query: {json.dumps(radix)}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+            "radix_ms": radix}
 
 
 def profile_programs(ctx, sql, device):
@@ -1266,13 +1303,35 @@ def stress_inputs(K, device, n, seed=1):
     hash_keys = [t(rng.integers(-3, 20, n).astype(np.int32)),
                  t(rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64)),
                  t(rng.random(n) < 0.5)]
+    # K4's radix form at its widest: one full-range int64 key (65 composite
+    # bits with the dead flag), and eight keys over 64 bits (251 bits, fields
+    # straddling limbs, NaN and -0.0 under desc)
+    full = rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64)
+    full[:2] = [np.iinfo(np.int64).min, np.iinfo(np.int64).max]
+    wide_f = rng.normal(size=n)
+    wide_f[rng.random(n) < 0.05] = np.nan
+    wide_f[rng.random(n) < 0.05] = -0.0
+    wide_keys = [(t(rng.integers(0, 5, n).astype(np.int32)), True),
+                 (t(rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64)), False),
+                 (t(rng.random(n) < 0.5), False), (t(wide_f), True),
+                 (t(wide_f.astype(np.float32)), False),
+                 (t(rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)), True),
+                 (t(rng.integers(-2**19, 2**19, n).astype(np.int64)), False),
+                 (t(rng.integers(-1, 3, n).astype(np.int32)), True)]
+    # the sort path's group keys at the sizes the local engine sorts them:
+    # five over 1,024 rows (q18's, one block) and seven over 262,144
+    # (sa_q10's, two limbs)
+    group_keys = [([(t(rng.integers(0, 1 << (40 - 4 * j), rows, dtype=np.int64)), j % 2 == 0)
+                    for j in range(nkeys)], t(rng.random(rows) < 0.9))
+                  for rows, nkeys in ((1024, 5), (262_144, 7))]
     return {
         # the q1 domain (shared-memory form) and one too wide for shared memory
         "dense_group_states": [([k1, k2], dense_vals, mask, r, dense_domain(r))
                                for r in (((-1, 15), (-1, 15)), ((-1, 127), (-1, 255)))],
         "compaction_order": [(mask,)],
         "bucket_of": [(hash_keys, 16), (hash_keys, 7)],
-        "sort_order": [(sort_keys, mask)],
+        "sort_order": [(sort_keys, mask), ([(t(full), True)], mask), (wide_keys, mask),
+                       *group_keys],
         **join_stress(K, t, rng, n),
         "grouped_on_order": seg_agg_stress(t, rng, n),
         **clustered_stress(t, rng, n),
@@ -1354,6 +1413,18 @@ def join_stress(K, t, rng, n):
                         (t(rng.integers(-3, 3, n).astype(np.int32)),
                          t(rng.integers(-5, ns + 5, n).astype(np.int32)), ns)],
     }
+
+
+def radix_build_stress(device, n=1 << 23, seed=9):
+    """K5 at 2^23 rows (mesh4_q3's largest build), held against its twin in
+    both hash modes: duplicate keys with fan-out and a 0.9 live mask."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    keys = [torch.from_numpy(rng.integers(0, n // 6, n).astype(np.int64)).to(device),
+            torch.from_numpy(rng.integers(0, 2, n).astype(np.int32)).to(device)]
+    return keys, torch.from_numpy(rng.random(n) < 0.9).to(device)
 
 
 def forced_collision_inputs(K, device, n, seed=2):
@@ -1768,9 +1839,17 @@ def check_kernel(K, name, args):
     if name == "hash64":
         return max_err(K.hash64(*args), K.hash64_plain(*args))
     if name == "sort_order":
-        return max_err(K.sort_order(*args), K.sort_order_plain(*args))
+        got = K.sort_order(*args)
+        plan = K.radix_plan(name)
+        RADIX_PLANS.append({"kernel": name, **{k: v for k, v in plan.items() if k != "layout"}})
+        if plan and plan["layout"] != K.sort_layout_of(*args):  # the device's, in one block
+            raise AssertionError(f"sort_order's {plan['form']} layout {plan['layout']} is not "
+                                 f"sort_layout's {K.sort_layout_of(*args)}")
+        return max_err(got, K.sort_order_plain(*args))
     if name == "build_side_sort":
         got, want = K.build_side_sort(*args), K.build_side_sort_plain(*args)
+        RADIX_PLANS.append({"kernel": name, "forced_collisions": bool(K._FORCE_COLLISIONS),
+                            **K.radix_plan(name)})
         err = max_err(got[0], want[0]) + max_err(got[1], want[1])
         if int(got[2]) != int(want[2]):
             raise AssertionError("live build row counts differ")
@@ -2215,6 +2294,68 @@ def topk_timings(K, device, n, k=100, seed=8):
     return out
 
 
+def radix_stress_timings(K, device, sort_inputs, build_inputs):
+    """K4 and K5 at their stress shapes beside their yardsticks: K4 at 6M
+    rows of one full-range int64 key and of eight keys over 64 bits, at
+    five group keys over 1,024 rows and seven over 262,144, and at 131,072
+    rows of one key (the local engine's batch: wall against device time is
+    the host's share, the read-back of the layout included); K5 at 2^23
+    rows in both hash modes.  Device and wall ms of the kernel, its twin and
+    (one key, K5) one torch.sort, the bound, and the call's plan."""
+    import numpy as np
+    import torch
+
+    out = {}
+
+    def timed(label, kern, plain, library, moved, plan_of):
+        kern()
+        rec = {"plan": K.radix_plan(plan_of), "bound_ms": moved / HBM_BYTES_PER_S * 1000,
+               "bound_bytes": moved}
+        for key, fn in (("", kern), ("plain_", plain), ("library_", library)):
+            if fn is None:
+                rec[key + "ms"] = rec[key + "wall_ms"] = None
+                continue
+            rec[key + "wall_ms"] = time_ms(fn, device)
+            rec[key + "ms"], rec[key + "ms_source"] = device_ms(fn)
+        out[label] = rec
+        log(f"radix stress {label}: plan {json.dumps(rec['plan'])}; device kernel "
+            f"{rec['ms']} ms, plain {rec['plain_ms']}, library {rec['library_ms']}; wall kernel "
+            f"{rec['wall_ms']:.4f} ms; bound {rec['bound_ms']:.6f} ms ({moved} bytes)")
+
+    for label, (keys, mask) in zip(("k4_full_range_6m", "k4_eight_keys_6m", "k4_five_keys_1024",
+                                    "k4_seven_keys_262144"), sort_inputs):
+        moved = nbytes(mask, *[k for k, _ in keys]) + mask.numel() * 4
+        word = None
+        if len(keys) == 1:  # one stable sort of the key's words, dead rows last
+            word = torch.where(mask, K.sort_words(*keys[0]), torch.iinfo(torch.int64).max)
+        timed(label, lambda: K.sort_order(keys, mask), lambda: K.sort_order_plain(keys, mask),
+              (lambda: torch.sort(word, stable=True)) if word is not None else None, moved,
+              "sort_order")
+    rng = np.random.default_rng(10)
+    small = torch.from_numpy(rng.integers(1, 6_000_000, 1 << 17)).to(device)
+    smask = torch.from_numpy(rng.random(1 << 17) < 0.9).to(device)
+    sword = torch.where(smask, K.sort_words(small, True), torch.iinfo(torch.int64).max)
+    timed("k4_one_key_131072", lambda: K.sort_order([(small, True)], smask),
+          lambda: K.sort_order_plain([(small, True)], smask),
+          lambda: torch.sort(sword, stable=True), nbytes(small, smask) + smask.numel() * 4,
+          "sort_order")
+    keys, mask = build_inputs
+    n = mask.shape[0]
+    moved = nbytes(*keys, mask) + n * 8 + n * 4 + 8
+    flipped = torch.where(mask, K.hash64(keys), -1) ^ K._SIGN
+    timed("k5_2p23", lambda: K.build_side_sort(keys, mask),
+          lambda: K.build_side_sort_plain(keys, mask), lambda: torch.sort(flipped, stable=True),
+          moved, "build_side_sort")
+    was = K._FORCE_COLLISIONS
+    K._FORCE_COLLISIONS = True
+    try:
+        timed("k5_2p23_forced_collisions", lambda: K.build_side_sort(keys, mask),
+              lambda: K.build_side_sort_plain(keys, mask), None, moved, "build_side_sort")
+    finally:
+        K._FORCE_COLLISIONS = was
+    return out
+
+
 def dense_hot_slot_sweep(K, args, device, slots=(1, 4, 64, 289)):
     """K1's device time on the main path's largest call with its live rows
     spread evenly over ``slots`` groups instead of q1's four: a test of
@@ -2577,6 +2718,9 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             fail(f"{path}: kernels not launched on its path: {missing} ({launches[path]})")
         captured[path] = cap.calls
         k13_forms[path] = dict(cap.forms)
+        if cap.radix:
+            report.setdefault("radix_forms", {})[path] = cap.radix
+            log(f"{path} (cold run) K4 / K5 calls by form: {json.dumps(cap.radix)}")
         want_form = K13_FORM.get(path)
         if want_form is not None and not k13_forms[path].get(want_form):
             fail(f"{path}: K13 never took its {want_form} form ({k13_forms[path]})")
@@ -2779,6 +2923,8 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                         "spill_runs": op_metrics(job_plans(msweep), ("spill_runs",))["spill_runs"]}
     launches["memsweep"] = dict(K.LAUNCHES)
     captured["memsweep"] = cap.calls
+    if cap.radix:
+        report.setdefault("radix_forms", {})["memsweep"] = cap.radix
     if cap.off_device:
         fail(f"memsweep: tensors off the card: {cap.off_device[:5]}")
     missing = [k for k in PATH_KERNELS["memsweep"] if launches["memsweep"][k] == 0]
@@ -2813,6 +2959,9 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             tp[q] = {"frame": df, "cold_ms": s * 1000}
     launches["tpch22"] = dict(K.LAUNCHES)
     captured["tpch22"] = cap.calls
+    if cap.radix:
+        report.setdefault("radix_forms", {})["tpch22"] = cap.radix
+        log(f"tpch22 (cold runs) K4 / K5 calls by form: {json.dumps(cap.radix)}")
     if cap.off_device:
         fail(f"tpch22: tensors off the card: {cap.off_device[:5]}")
     missing = [k for k in PATH_KERNELS["tpch22"] if launches["tpch22"][k] == 0]
@@ -2972,7 +3121,9 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     stress.update(new_kernel_stress(device, stress_rows))
     stress.update(mesh_stress(device, stress_rows))
     stress.update(k19_k22_stress(device, stress_rows))
+    radix_build = radix_build_stress(device)
     for name in KERNEL_META:
+        t_kernel = time.perf_counter()
         per_path = {p: launches[p][LAUNCH_KEY[name]] for p in paths}
         checked = {}  # path -> wrapper -> rows and max abs err of that path's largest call
         try:
@@ -3001,12 +3152,16 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                 got = [bool(getattr(K, name)(*sargs)) for sargs in stress[name]]
                 if got != expected:
                     fail(f"{name}: flags {got} at the stress shapes, expected {expected}")
+            if name == "build_side_sort":  # 2^23 rows, then again with every hash 0
+                err = max(err, check_kernel(K, name, radix_build))
             if name in ("build_side_sort", "probe_join", "spill_partition"):
                 was = K._FORCE_COLLISIONS
                 K._FORCE_COLLISIONS = True
                 try:
                     forced = forced_collision_inputs(K, device, stress_rows)
                     err = max(err, check_kernel(K, name, forced[name]))
+                    if name == "build_side_sort":
+                        err = max(err, check_kernel(K, name, radix_build))
                 finally:
                     K._FORCE_COLLISIONS = was
         except AssertionError as e:
@@ -3134,11 +3289,24 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             report["kernels"][-1]["per_program"] = per_prog
         if name == "sort_order" and cuda:
             report["topk"] = topk_timings(K, device, stress_rows)
+        if name == "build_side_sort" and cuda:  # K4 and K5 at their stress shapes
+            t_radix = time.perf_counter()
+            report["radix_stress"] = radix_stress_timings(K, device, stress["sort_order"][1:],
+                                                          radix_build)
+            report["radix_stress"]["seconds"] = time.perf_counter() - t_radix
+            log(f"radix stress timings: {report['radix_stress']['seconds']:.1f} s")
+        report.setdefault("kernel_check_s", {})[name] = time.perf_counter() - t_kernel
+        if name in RADIX_KERNELS:
+            log(f"kernel {name}: checks and timings took {report['kernel_check_s'][name]:.1f} s")
         if name == "dense_group_states" and cuda:
             sweep = dense_hot_slot_sweep(K, args, device)
             log("kernel dense_group_states hot-slot sweep (device ms per call, "
                 f"{n} rows): " + ", ".join(
                     f"{h} slots {fmt(v)}" for h, v in sweep.items()))
+
+    log("radix plans (K4 sort_order / K5 build_side_sort: form, composite bits, passes, "
+        f"launches) of every call held against its twin: {json.dumps(RADIX_PLANS)}")
+    report["radix_plans"] = list(RADIX_PLANS)
 
     # the mesh exchange's copies at the largest all_to_all of the mesh paths,
     # over rotating copies of the blocks (as the kernels are timed), beside

@@ -14,11 +14,13 @@ import torch
 from arrow_ballista_tpu_torch.ops import kernels as TK
 from tests.torch_cases import (CONCAT_CASES, DENSE_CASES, FUSED_CHAINS, GATHER_CASES,
                                HASH_CASES, JOIN_CASES, JOIN_QUERIES, KEEP_CASES, MASK_OPS_CASES,
-                               PACK_CASES, PRESORTED_CASES, RANGE_CASES, SEG_AGG_CASES,
+                               PACK_CASES, PRESORTED_CASES, RADIX_CASES, RANGE_CASES,
+                               SEG_AGG_CASES,
                                SEGMENT_CASES, SETTINGS, SORT_CASES, STANDALONE_SETTINGS,
                                STANDALONE_SQL, UNORDERED, assert_frames_equal, dense_case,
                                edge_days, find_chain, hand_chain, hand_table, hash_cols, join_case,
-                               keep_case, mask_case, presorted_case, range_case, seg_agg_case,
+                               keep_case, mask_case, presorted_case, radix_case, range_case,
+                               seg_agg_case,
                                segment_case, sort_case, concat_case, gather_case, pack_case,
                                mask_ops_case)
 
@@ -63,6 +65,59 @@ def test_sort_kernel_matches_twin(dev, case):
     keys, mask = sort_case(case, N, np.random.default_rng(3))
     got = TK.sort_order([(_t(a).to(dev), asc) for a, asc in keys], _t(mask).to(dev))
     assert torch.equal(got.cpu(), TK.sort_order_plain([(_t(a), asc) for a, asc in keys], _t(mask)))
+
+
+# K4 and K5 sizes: 1, 2, half a block, the single-block form's limit and
+# an 8,192-row onesweep tile +-1, two and three tiles +-1, and 2^20 past
+RADIX_SIZES = [1, 2, 4095, 4097, 8191, 8192, 8193, 2 * 8192 - 1, 2 * 8192 + 1,
+               3 * 8192 + 1, 100_003, 1_000_003]
+
+
+def _sort_on_card(dev, keys, mask):
+    """K4 against its twin; the layout it used (computed on the device in
+    the single-block form) against sort_layout's."""
+    got = TK.sort_order([(_t(a).to(dev), asc) for a, asc in keys], _t(mask).to(dev))
+    want = TK.sort_order_plain([(_t(a), asc) for a, asc in keys], _t(mask))
+    assert torch.equal(got.cpu(), want)
+    plan = TK.radix_plan("sort_order")
+    assert plan["layout"] == TK.sort_layout_of([(_t(a), asc) for a, asc in keys], _t(mask))
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", RADIX_SIZES)
+def test_sort_kernel_matches_twin_at_every_size(dev, n):
+    for case in ("q18_orderkey", "straddle_64"):
+        keys, mask, _ = radix_case(case, n, np.random.default_rng(n))
+        plan = _sort_on_card(dev, keys, mask)
+        assert plan["form"] == ("single_block" if n <= 8192 else "onesweep")
+        assert plan["launches"] <= (1 if n <= 8192 else 3 + plan["passes"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5000, N])
+@pytest.mark.parametrize("case", RADIX_CASES)
+def test_sort_kernel_matches_twin_on_wide_and_degenerate_keys(dev, case, n):
+    keys, mask, n = radix_case(case, n, np.random.default_rng(11))
+    plan = _sort_on_card(dev, keys, mask)
+    if case == "all_rows_equal":
+        assert plan["bits"] == 0 and plan["passes"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", RADIX_SIZES)
+@pytest.mark.parametrize("mode", ["random", "forced_collisions", "all_dead"])
+def test_build_sort_kernel_matches_twin_at_every_size(dev, monkeypatch, mode, n):
+    monkeypatch.setattr(TK, "_FORCE_COLLISIONS", mode == "forced_collisions")
+    rng = np.random.default_rng(n)
+    keys = [rng.integers(0, max(2, n // 3), n).astype(np.int64),
+            rng.integers(-1, 3, n).astype(np.int32)]
+    mask = rng.random(n) < (0.0 if mode == "all_dead" else 0.85)
+    gh, go, gn = TK.build_side_sort([_t(k).to(dev) for k in keys], _t(mask).to(dev))
+    ph, po, pn = TK.build_side_sort_plain([_t(k) for k in keys], _t(mask))
+    assert torch.equal(gh.cpu(), ph) and torch.equal(go.cpu(), po) and int(gn) == int(pn)
+    plan = TK.radix_plan("build_side_sort")
+    assert plan["launches"] <= (1 if n <= 8192 else 2 + plan["passes"])
 
 
 @pytest.mark.cuda

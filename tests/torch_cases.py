@@ -82,6 +82,65 @@ def sort_case(case, n, rng):
     raise KeyError(case)
 
 
+# K4's radix form: composites wider than one limb, fields that straddle bit
+# 64, spans past 2^63, constant words and degenerate sizes
+RADIX_CASES = ["straddle_64", "eight_keys", "constant_keys_random_mask", "all_rows_equal",
+               "full_range_int64", "nan_signed_zero_desc", "int64_min_desc_small",
+               "nan_against_negative", "one_row", "all_dead", "q18_orderkey"]
+
+
+def radix_case(case, n, rng):
+    """(keys, mask, n) for K4's radix form; ``n`` may be overridden."""
+    mask = rng.random(n) < 0.8
+    if case == "straddle_64":  # dead 1 + 41 + 32 bits: the 41-bit field crosses bit 64
+        return [(rng.integers(0, 2**41, n).astype(np.int64), True),
+                (rng.integers(-2**31, 2**31, n).astype(np.int32), False)], mask, n
+    if case == "eight_keys":  # 1 + 3 + 64 + 1 + 64 + 64 + 32 + 20 + 2 bits: four limbs
+        f = rng.normal(size=n)
+        f[rng.random(n) < 0.05] = np.nan
+        return [(rng.integers(0, 5, n).astype(np.int32), True),
+                (rng.integers(I64_MIN, I64_MAX, n, dtype=np.int64), False),
+                (rng.random(n) < 0.5, False),
+                (f, True),
+                (f.astype(np.float32), False),
+                (rng.integers(-2**31, 2**31, n).astype(np.int32), True),
+                (rng.integers(-2**19, 2**19, n).astype(np.int64), False),
+                (rng.integers(-1, 3, n).astype(np.int32), True)], mask, n
+    if case == "constant_keys_random_mask":  # only the dead flag is left: one bit
+        return [(np.full(n, 7, np.int32), True), (np.full(n, -3.5), False)], mask, n
+    if case == "all_rows_equal":  # every word constant: the identity
+        return [(np.full(n, 11, np.int64), False), (np.zeros(n, bool), True)], \
+            np.ones(n, bool), n
+    if case == "full_range_int64":  # the span is 2^64 - 1
+        a = rng.integers(I64_MIN, I64_MAX, n, dtype=np.int64)
+        a[:2] = [I64_MIN, I64_MAX]
+        a[rng.random(n) < 0.1] = 0
+        return [(a, True)], mask, n
+    if case == "nan_signed_zero_desc":
+        f = rng.integers(-2, 3, n).astype(np.float64)
+        f[rng.random(n) < 0.1] = np.nan
+        f[rng.random(n) < 0.1] = -0.0
+        f[rng.random(n) < 0.05] = -np.inf
+        f[rng.random(n) < 0.05] = np.inf
+        return [(f, False), (f.astype(np.float32), False)], mask, n
+    if case == "int64_min_desc_small":  # INT64_MIN stays put under desc: span past 2^63
+        a = rng.integers(-3, 4, n).astype(np.int64)
+        a[rng.random(n) < 0.05] = I64_MIN
+        return [(a, False)], mask, n
+    if case == "nan_against_negative":  # the NaN word against negative floats
+        f = -rng.random(n) * 1e300
+        f[rng.random(n) < 0.2] = np.nan
+        return [(f, True)], mask, n
+    if case == "one_row":
+        return [(rng.integers(-5, 5, 1).astype(np.int64), True)], rng.random(1) < 0.5, 1
+    if case == "all_dead":  # dead rows still order by their keys
+        return [(rng.integers(-3, 3, n).astype(np.int32), True),
+                (rng.integers(0, 1000, n).astype(np.int64), False)], np.zeros(n, bool), n
+    if case == "q18_orderkey":  # about 23 bits and the dead flag: one limb, 3 passes
+        return [(rng.integers(1, 6_000_000, n).astype(np.int64), True)], mask, n
+    raise KeyError(case)
+
+
 DENSE_CASES = ["q1_dict_codes", "sums_wrap", "empty_slots_keep_identities",
                "bool_and_int64_keys", "float64_values", "out_of_range_rows",
                "int32_sums_wrap", "int32_float32_values"]
