@@ -12,25 +12,49 @@
 // (arrow_ballista_tpu/ops/operators.py:632-654):
 //   live = mask & (k != NULL sentinel, when the key is nullable);
 //   mismatch = any(live) & (min(k over live) < lo | max(k over live) > hi).
-//   Each block reduces its live min and max with warp shuffles and stores
-//   the flag when its own extremes leave [lo, hi]; the OR over blocks of
-//   that test is the test on the global extremes.
+//   That is the OR over rows of live & (k < lo | k > hi): a live row
+//   outside [lo, hi] is a live minimum below lo or maximum above hi, and
+//   conversely.  So K10 folds one predicated bool a row, __syncthreads_or
+//   folds a block, and no min or max is kept.
 // K11 clustered_keep replaces "agg.clustered_keep" (operators.py:672-697):
 //   keep = mask & (any_j(lo_j <= k <= hi_j) | pred); live = sum(keep).
-//   The intervals sit in shared memory (tiles of 1024 pairs); each thread
-//   writes one keep byte a row, and each block adds its live count with one
-//   64-bit atomic.
+//   The wrapper hands the kernel the sorted, disjoint union of the
+//   non-empty intervals (ops/kernels.py KeepIntervals, merged on the host
+//   once per operator): the same set, so the same keep mask.  A row's key
+//   is in the union when it is at or below the end of the last interval
+//   starting at or below it.  A lane finds that interval for the lowest
+//   and the highest of its keys that need the test (live, HAVING false)
+//   by binary search over the merged starts; a clustered partial's keys,
+//   in key order, mostly share it, and then each row needs one compare.
+//   Else each row searches only the starts between the two (ab_in_union).
+//   Up to AB_KEEP_SMEM_PAIRS pairs sit in shared memory; more are searched
+//   in device memory through L1 (the same code, another pointer).  K11
+//   reads a word of keys only where a row of it needs the test: a padded
+//   partial's dead tail (most of the main path's rows) reads none.
+// Both kernels: a block takes a tile of AB_CL_TILE rows, a lane 8 of them
+// as 16-byte words of keys (2 int64 or 4 int32 rows a word) and the
+// matching 2- or 4-byte integers of mask, pred and keep, laid out so that
+// every load and store of a warp is contiguous (ab_load_lane); a lane's
+// 8 interval searches run interleaved.  The grid covers the rows once.
+// The last, partial warp tile, and inputs not so aligned (views at a byte
+// offset), go row by row in the same layout.  One launch a call and no
+// memset: each block folds its partial (K10 the flag, K11 the count) into
+// a per-stream accumulator, and the block that draws the last ticket
+// (ab_last_block, common.cuh) writes the result and resets the
+// accumulator; a call with no rows launches one block that does just that.
 // Keys are int32 (widened, as the reference's astype(int64)) or int64.
-// The flag and the count are zeroed by cudaMemsetAsync on the stream
-// before the launch; nothing synchronises.
 // Bound: bytes (keys, mask and predicate read once, the keep bytes written
-// once).  K11 also does n x intervals compares: at the main path's at most
-// 17 intervals that stays far under the card's integer rate.
+// once).  K11 also does at most n x (log2 m + 1) compares: far under the
+// card's integer rate at the main path's at most a few thousand intervals.
+// K9 still zeroes its flag by cudaMemsetAsync before its launch.
 #include <limits.h>
 
 #include "common.cuh"
 
-#define AB_KEEP_TILE 1024
+#define AB_CL_THREADS 256
+#define AB_CL_ROWS 8  // rows a lane
+#define AB_CL_TILE (AB_CL_THREADS * AB_CL_ROWS)
+#define AB_KEEP_SMEM_PAIRS 2048  // merged intervals in shared memory (32 KB)
 
 template <typename T>
 __global__ void presorted_disorder(const T* __restrict__ k, const uint8_t* __restrict__ mask,
@@ -42,99 +66,237 @@ __global__ void presorted_disorder(const T* __restrict__ k, const uint8_t* __res
   if (__syncthreads_or(bad) && threadIdx.x == 0) *flag = 1;
 }
 
+// A lane takes AB_CL_ROWS rows as AB_CL_ROWS / R 16-byte words of keys, R
+// rows a word (R = 2 for int64, 4 for int32): word j of lane l of warp w
+// holds rows tile + w * AB_CL_WARP_ROWS + (j * 32 + l) * R .. + R - 1, so
+// each load of a warp reads 512 contiguous bytes of keys and 32 R
+// contiguous bytes of mask (of pred), one R-byte integer a lane, and each
+// store writes 32 R contiguous bytes of keep.
+#define AB_CL_WARP_ROWS (32 * AB_CL_ROWS)
+
+template <int R> struct ClBytes;  // R bool bytes as one unsigned integer
+template <> struct ClBytes<2> { using U = unsigned short; };
+template <> struct ClBytes<4> { using U = unsigned int; };
+
+// key q of a 16-byte word of R = 16 / sizeof(T) keys, widened
 template <typename T>
-__global__ void key_range_check(const T* __restrict__ k, const uint8_t* __restrict__ mask,
-                                long long n, int has_sentinel, long long sentinel, long long lo,
-                                long long hi, uint8_t* __restrict__ flag) {
-  __shared__ long long wmin[32], wmax[32];
-  __shared__ int wany[32];
-  long long kmin = LLONG_MAX, kmax = LLONG_MIN;
-  int any = 0;
-  long long step = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step) {
-    if (!mask[i]) continue;
-    long long v = (long long)k[i];
-    if (has_sentinel && v == sentinel) continue;  // NULL keys: outside every stats range
-    any = 1;
-    kmin = v < kmin ? v : kmin;
-    kmax = v > kmax ? v : kmax;
-  }
+__device__ __forceinline__ long long ab_word_key(const uint4& w, int q) {
+  if constexpr (sizeof(T) == 8)
+    return q == 0 ? (long long)(((unsigned long long)w.y << 32) | w.x)
+                  : (long long)(((unsigned long long)w.w << 32) | w.z);
+  else
+    return (long long)(int)(q == 0 ? w.x : q == 1 ? w.y : q == 2 ? w.z : w.w);
+}
+
+__device__ __forceinline__ bool ab_aligned(const void* p, unsigned bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+// A lane's rows, from 16-byte words where the warp's whole tile is in range
+// and every pointer aligned: v the widened keys, bit r of *live / *pred
+// row r's mask / predicate (pred may be null).  SPARSE reads a word of
+// keys only where a row of it is live with its predicate false (bool
+// bytes: mask & ~pred is 0 exactly where no row is); v is 0 elsewhere.
+template <typename T, bool SPARSE>
+__device__ __forceinline__ void ab_load_lane(const T* __restrict__ k,
+                                             const uint8_t* __restrict__ mask,
+                                             const uint8_t* __restrict__ pred, long long wbase,
+                                             int lane, long long (&v)[AB_CL_ROWS],
+                                             unsigned* live, unsigned* predbits) {
+  constexpr int R = 16 / sizeof(T), W = AB_CL_ROWS / R;
+  using U = typename ClBytes<R>::U;
+  uint4 kw[W];
+  U mw[W], pw[W];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    long long a = __shfl_down_sync(0xffffffffu, kmin, o);
-    long long b = __shfl_down_sync(0xffffffffu, kmax, o);
-    kmin = a < kmin ? a : kmin;
-    kmax = b > kmax ? b : kmax;
-    any |= __shfl_down_sync(0xffffffffu, any, o);
+  for (int j = 0; j < W; ++j) {
+    const long long r0 = wbase + (long long)(j * 32 + lane) * R;
+    mw[j] = __ldg(reinterpret_cast<const U*>(mask + r0));
+    pw[j] = pred ? __ldg(reinterpret_cast<const U*>(pred + r0)) : (U)0;
+    if (!SPARSE) kw[j] = __ldg(reinterpret_cast<const uint4*>(k + r0));
   }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    wmin[warp] = kmin;
-    wmax[warp] = kmax;
-    wany[warp] = any;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) {
-      kmin = wmin[w] < kmin ? wmin[w] : kmin;
-      kmax = wmax[w] > kmax ? wmax[w] : kmax;
-      any |= wany[w];
+  if (SPARSE) {
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const long long r0 = wbase + (long long)(j * 32 + lane) * R;
+      kw[j] = (mw[j] & ~pw[j]) ? __ldg(reinterpret_cast<const uint4*>(k + r0))
+                               : make_uint4(0, 0, 0, 0);
     }
-    if (any && (kmin < lo || kmax > hi)) *flag = 1;
   }
+  unsigned lb = 0, pb = 0;
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      v[j * R + q] = ab_word_key<T>(kw[j], q);
+      lb |= (unsigned)(((mw[j] >> (8 * q)) & 0xffu) != 0) << (j * R + q);
+      pb |= (unsigned)(((pw[j] >> (8 * q)) & 0xffu) != 0) << (j * R + q);
+    }
+  }
+  *live = lb;
+  *predbits = pb;
+}
+
+// row r of a lane (0 <= r < AB_CL_ROWS), as ab_load_lane lays them out
+template <typename T>
+__device__ __forceinline__ long long ab_lane_row(long long wbase, int lane, int r) {
+  constexpr int R = 16 / sizeof(T);
+  return wbase + (long long)((r / R) * 32 + lane) * R + r % R;
 }
 
 template <typename T>
-__global__ void clustered_keep(const T* __restrict__ k, const uint8_t* __restrict__ mask,
-                               const uint8_t* __restrict__ pred, long long n,
-                               const long long* __restrict__ los,
-                               const long long* __restrict__ his, int m,
-                               uint8_t* __restrict__ keep, unsigned long long* __restrict__ live) {
-  __shared__ long long s_lo[AB_KEEP_TILE], s_hi[AB_KEEP_TILE];
-  __shared__ unsigned long long wsum[32];
-  unsigned long long count = 0;
-  const bool one_tile = m <= AB_KEEP_TILE;
-  if (one_tile) {
-    for (int j = threadIdx.x; j < m; j += blockDim.x) {
-      s_lo[j] = los[j];
-      s_hi[j] = his[j];
+__global__ void __launch_bounds__(AB_CL_THREADS)
+    key_range_check(const T* __restrict__ k, const uint8_t* __restrict__ mask, long long n,
+                    int has_sentinel, long long sentinel, long long lo, long long hi,
+                    uint8_t* __restrict__ flag, unsigned long long* __restrict__ acc) {
+  constexpr int R = 16 / sizeof(T);
+  const int lane = threadIdx.x & 31;
+  const long long wbase = (long long)blockIdx.x * AB_CL_TILE + (threadIdx.x >> 5) * AB_CL_WARP_ROWS;
+  bool bad = false;
+  if (ab_aligned(k, 16) && ab_aligned(mask, R) && wbase + AB_CL_WARP_ROWS <= n) {
+    long long v[AB_CL_ROWS];
+    unsigned live, unused;
+    ab_load_lane<T, false>(k, mask, nullptr, wbase, lane, v, &live, &unused);
+#pragma unroll
+    for (int r = 0; r < AB_CL_ROWS; ++r) {
+      const bool lv = ((live >> r) & 1u) && !(has_sentinel && v[r] == sentinel);
+      bad |= lv & ((v[r] < lo) | (v[r] > hi));
+    }
+  } else {  // the last warp tile, or an input at a byte offset: row by row
+    for (int r = 0; r < AB_CL_ROWS; ++r) {
+      const long long i = ab_lane_row<T>(wbase, lane, r);
+      if (i >= n) continue;
+      const long long x = (long long)k[i];
+      const bool lv = mask[i] != 0 && !(has_sentinel && x == sentinel);
+      bad |= lv & ((x < lo) | (x > hi));
+    }
+  }
+  bad = __syncthreads_or(bad);
+  if (threadIdx.x == 0) {
+    if (bad) atomicOr(acc, 1ULL);
+    if (ab_last_block(acc + 1)) {
+      *flag = atomicExch(acc, 0ULL) != 0;
+      acc[1] = 0;
+    }
+  }
+}
+
+// Bit r set where row r's key v[r] (a row with bit r of need) lies in the
+// sorted, disjoint union of [s[j], e[j]], j < m.  A key's interval is the
+// last one starting at or below it: pos(k) = how many starts are <= k.
+// First pos of the lowest and the highest needed key, a and b, by steps of
+// top, top/2, .., 1 (top the largest power of two <= m); every needed key's
+// pos lies in [a, b].  When a == b (a clustered partial's keys in key
+// order: a lane's rows lie within 256 neighbours, mostly between two
+// windows) each row needs one compare with e[a - 1].  Else each row
+// searches only the starts in (a, b], the rows' steps interleaved.
+template <int ROWS>
+__device__ __forceinline__ unsigned ab_in_union(const long long* s, const long long* e, int m,
+                                                int top, const long long (&v)[ROWS],
+                                                unsigned need) {
+  long long lo = LLONG_MAX, hi = LLONG_MIN;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const bool x = (need >> r) & 1u;
+    lo = x && v[r] < lo ? v[r] : lo;
+    hi = x && v[r] > hi ? v[r] : hi;
+  }
+  int a = 0, b = 0;
+  for (int step = top; step > 0; step >>= 1) {
+    const int na = a + step, nb = b + step;
+    if (na <= m && s[na - 1] <= lo) a = na;
+    if (nb <= m && s[nb - 1] <= hi) b = nb;
+  }
+  unsigned hit = 0;
+  if (a == b) {
+    if (a == 0) return 0u;  // no window starts at or below any needed key
+    const long long end = e[a - 1];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) hit |= (unsigned)(v[r] <= end) << r;
+    return hit & need;
+  }
+  int pos[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) pos[r] = a;
+  for (int step = 1 << (31 - __clz(b - a)); step > 0; step >>= 1) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const int nxt = pos[r] + step;
+      if (nxt <= b && s[nxt - 1] <= v[r]) pos[r] = nxt;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) hit |= (unsigned)(pos[r] > 0 && v[r] <= e[pos[r] - 1]) << r;
+  return hit & need;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(AB_CL_THREADS)
+    clustered_keep(const T* __restrict__ k, const uint8_t* __restrict__ mask,
+                   const uint8_t* __restrict__ pred, long long n,
+                   const long long* __restrict__ starts, const long long* __restrict__ ends,
+                   int m, uint8_t* __restrict__ keep, long long* __restrict__ live,
+                   unsigned long long* __restrict__ acc) {
+  constexpr int R = 16 / sizeof(T), W = AB_CL_ROWS / R;
+  using U = typename ClBytes<R>::U;
+  extern __shared__ long long s_iv[];  // the merged starts, then their ends
+  __shared__ unsigned warp_live[AB_CL_THREADS / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long wbase = (long long)blockIdx.x * AB_CL_TILE + warp * AB_CL_WARP_ROWS;
+  const bool vec = ab_aligned(k, 16) && ab_aligned(mask, R) && ab_aligned(pred, R) &&
+                   ab_aligned(keep, R) && wbase + AB_CL_WARP_ROWS <= n;
+  // the lane's loads are issued before the block waits on the intervals
+  long long v[AB_CL_ROWS];
+  unsigned lb = 0, pb = 0;
+  if (vec) ab_load_lane<T, true>(k, mask, pred, wbase, lane, v, &lb, &pb);
+  const long long* s = starts;
+  const long long* e = ends;
+  if (m <= AB_KEEP_SMEM_PAIRS) {
+    for (int j = threadIdx.x; j < m; j += AB_CL_THREADS) {
+      s_iv[j] = starts[j];
+      s_iv[m + j] = ends[j];
     }
     __syncthreads();
+    s = s_iv;
+    e = s_iv + m;
   }
-  long long step = (long long)gridDim.x * blockDim.x;
-  // the loop bound is the same for every thread of a block, so the tiled
-  // form below may synchronise inside it
-  for (long long base = (long long)blockIdx.x * blockDim.x; base < n; base += step) {
-    const long long i = base + threadIdx.x;
-    const bool row = i < n;
-    const long long v = row ? (long long)k[i] : 0;
-    bool shared = false;
-    for (int t0 = 0; t0 < m; t0 += AB_KEEP_TILE) {
-      const int cnt = m - t0 < AB_KEEP_TILE ? m - t0 : AB_KEEP_TILE;
-      if (!one_tile) {
-        __syncthreads();
-        for (int j = threadIdx.x; j < cnt; j += blockDim.x) {
-          s_lo[j] = los[t0 + j];
-          s_hi[j] = his[t0 + j];
-        }
-        __syncthreads();
-      }
-      for (int j = 0; j < cnt && !shared; ++j) shared = s_lo[j] <= v && v <= s_hi[j];
+  const int top = m > 0 ? 1 << (31 - __clz(m)) : 0;
+  unsigned count = 0;
+  if (vec) {
+    // live rows whose predicate fails need the search; a padded partial's
+    // dead tail needs none
+    const unsigned need = lb & ~pb;
+    const unsigned hit = need ? ab_in_union<AB_CL_ROWS>(s, e, m, top, v, need) : 0u;
+    const unsigned kp = lb & (pb | hit);
+    count = __popc(kp);
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      U out = 0;
+#pragma unroll
+      for (int q = 0; q < R; ++q) out |= (U)(((kp >> (j * R + q)) & 1u) << (8 * q));
+      *reinterpret_cast<U*>(keep + wbase + (long long)(j * 32 + lane) * R) = out;
     }
-    if (row) {
-      const bool kp = mask[i] && (shared || pred[i]);
+  } else {  // the last warp tile, or an input at a byte offset: row by row
+    for (int r = 0; r < AB_CL_ROWS; ++r) {
+      const long long i = ab_lane_row<T>(wbase, lane, r);
+      if (i >= n) continue;
+      const long long x[1] = {(long long)k[i]};
+      const bool kp = mask[i] != 0 && (pred[i] != 0 || ab_in_union<1>(s, e, m, top, x, 1u));
       keep[i] = kp;
       count += kp;
     }
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) count += __shfl_down_sync(0xffffffffu, count, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) wsum[warp] = count;
+  count = __reduce_add_sync(0xffffffffu, count);
+  if (lane == 0) warp_live[warp] = count;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) count += wsum[w];
-    if (count) atomicAdd(live, count);
+  if (warp == 0) {
+    count = __reduce_add_sync(0xffffffffu, lane < AB_CL_THREADS / 32 ? warp_live[lane] : 0u);
+    if (lane == 0) {
+      if (count) atomicAdd(acc, (unsigned long long)count);
+      if (ab_last_block(acc + 1)) {
+        *live = (long long)atomicExch(acc, 0ULL);
+        acc[1] = 0;
+      }
+    }
   }
 }
 
@@ -157,42 +319,55 @@ AB_EXPORT int ab_presorted_disorder(const void* k, int kind, const void* mask, l
   return ab_last_error();
 }
 
-// flag: bool[1]; sentinel ignored unless has_sentinel
+static inline int ab_cl_grid(long long n, unsigned* grid) {
+  const long long tiles = (n + AB_CL_TILE - 1) / AB_CL_TILE;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  *grid = tiles > 0 ? (unsigned)tiles : 1u;  // no rows: one block writes the result
+  return 0;
+}
+
+// flag: bool[1]; sentinel ignored unless has_sentinel; acc: uint64[2], the
+// stream's accumulator and ticket, zero between launches
 AB_EXPORT int ab_key_range_check(const void* k, int kind, const void* mask, long long n,
                                  int has_sentinel, long long sentinel, long long lo,
-                                 long long hi, void* flag, void* stream) {
-  if (n < 0 || !key_kind_ok(kind)) return (int)cudaErrorInvalidValue;
+                                 long long hi, void* flag, void* acc, void* stream) {
+  if (n < 0 || !key_kind_ok(kind) || acc == nullptr) return (int)cudaErrorInvalidValue;
+  unsigned grid;
+  int err = ab_cl_grid(n, &grid);
+  if (err) return err;
   cudaStream_t s = (cudaStream_t)stream;
-  int err = (int)cudaMemsetAsync(flag, 0, 1, s);
-  if (err || n == 0) return err;
-  const int threads = 256, grid = ab_grid(n, threads, 132 * 8);
   if (kind == AB_KIND_I32)
-    key_range_check<int32_t><<<grid, threads, 0, s>>>((const int32_t*)k, (const uint8_t*)mask,
-                                                      n, has_sentinel, sentinel, lo, hi,
-                                                      (uint8_t*)flag);
+    key_range_check<int32_t><<<grid, AB_CL_THREADS, 0, s>>>(
+        (const int32_t*)k, (const uint8_t*)mask, n, has_sentinel, sentinel, lo, hi,
+        (uint8_t*)flag, (unsigned long long*)acc);
   else
-    key_range_check<int64_t><<<grid, threads, 0, s>>>((const int64_t*)k, (const uint8_t*)mask,
-                                                      n, has_sentinel, sentinel, lo, hi,
-                                                      (uint8_t*)flag);
+    key_range_check<int64_t><<<grid, AB_CL_THREADS, 0, s>>>(
+        (const int64_t*)k, (const uint8_t*)mask, n, has_sentinel, sentinel, lo, hi,
+        (uint8_t*)flag, (unsigned long long*)acc);
   return ab_last_error();
 }
 
-// pred, keep: bool[n]; los, his: int64[m]; live: int64[1]
+// pred, keep: bool[n]; starts, ends: int64[m], sorted disjoint intervals;
+// live: int64[1]; acc: as for ab_key_range_check
 AB_EXPORT int ab_clustered_keep(const void* k, int kind, const void* mask, const void* pred,
-                                long long n, const void* los, const void* his, int m,
-                                void* keep, void* live, void* stream) {
-  if (n < 0 || m < 0 || !key_kind_ok(kind)) return (int)cudaErrorInvalidValue;
+                                long long n, const void* starts, const void* ends, int m,
+                                void* keep, void* live, void* acc, void* stream) {
+  if (n < 0 || m < 0 || !key_kind_ok(kind) || acc == nullptr) return (int)cudaErrorInvalidValue;
+  unsigned grid;
+  int err = ab_cl_grid(n, &grid);
+  if (err) return err;
   cudaStream_t s = (cudaStream_t)stream;
-  int err = (int)cudaMemsetAsync(live, 0, 8, s);
-  if (err || n == 0) return err;
-  const int threads = 256, grid = ab_grid(n, threads, 132 * 8);
+  const size_t smem = m <= AB_KEEP_SMEM_PAIRS ? (size_t)m * 2 * sizeof(long long) : 0;
   if (kind == AB_KIND_I32)
-    clustered_keep<int32_t><<<grid, threads, 0, s>>>(
-        (const int32_t*)k, (const uint8_t*)mask, (const uint8_t*)pred, n, (const long long*)los,
-        (const long long*)his, m, (uint8_t*)keep, (unsigned long long*)live);
+    clustered_keep<int32_t><<<grid, AB_CL_THREADS, smem, s>>>(
+        (const int32_t*)k, (const uint8_t*)mask, (const uint8_t*)pred, n,
+        (const long long*)starts, (const long long*)ends, m, (uint8_t*)keep, (long long*)live,
+        (unsigned long long*)acc);
   else
-    clustered_keep<int64_t><<<grid, threads, 0, s>>>(
-        (const int64_t*)k, (const uint8_t*)mask, (const uint8_t*)pred, n, (const long long*)los,
-        (const long long*)his, m, (uint8_t*)keep, (unsigned long long*)live);
+    clustered_keep<int64_t><<<grid, AB_CL_THREADS, smem, s>>>(
+        (const int64_t*)k, (const uint8_t*)mask, (const uint8_t*)pred, n,
+        (const long long*)starts, (const long long*)ends, m, (uint8_t*)keep, (long long*)live,
+        (unsigned long long*)acc);
   return ab_last_error();
 }
+

@@ -30,6 +30,20 @@ static inline int ab_last_error() { return (int)cudaGetLastError(); }
 // scratch carving: each part of a scratch buffer starts 16-byte aligned
 static inline long long ab_align16(long long bytes) { return (bytes + 15) & ~15LL; }
 
+// The last-block-done step of a one-launch reduction across blocks: a
+// block's thread 0 calls it after folding its partial into an accumulator
+// with atomics, and it returns true in the one block that draws the last
+// ticket, which then sees every block's partial.  That block reads the
+// accumulator, writes the result and puts the accumulator and *ticket
+// back to their identities, so the next launch on the same stream (the
+// wrappers keep one accumulator per device and stream) needs no memset.
+__device__ __forceinline__ bool ab_last_block(unsigned long long* ticket) {
+  __threadfence();  // this block's partial before its ticket
+  const bool last = atomicAdd(ticket, 1ULL) == (unsigned long long)gridDim.x - 1;
+  if (last) __threadfence();  // every other block's partial before the reads
+  return last;
+}
+
 // atomic float64 min or max of the double whose bits *addr holds; NaN
 // propagates (as XLA's min and max do), so a NaN slot stays NaN
 __device__ __forceinline__ void ab_f64_min_max(unsigned long long* addr, double v, bool is_min) {

@@ -90,8 +90,8 @@ SIGNATURES = {
     },
     "clustered": {
         "ab_presorted_disorder": ([_P, _I, _P, _LL, _P, _P], _I),
-        "ab_key_range_check": ([_P, _I, _P, _LL, _I, _LL, _LL, _LL, _P, _P], _I),
-        "ab_clustered_keep": ([_P, _I, _P, _P, _LL, _P, _P, _I, _P, _P, _P], _I),
+        "ab_key_range_check": ([_P, _I, _P, _LL, _I, _LL, _LL, _LL, _P, _P, _P], _I),
+        "ab_clustered_keep": ([_P, _I, _P, _P, _LL, _P, _P, _I, _P, _P, _P, _P], _I),
     },
     "extract": {
         "ab_extract_field": ([_P, _LL, _I, _P, _P], _I),

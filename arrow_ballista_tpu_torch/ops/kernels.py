@@ -1293,11 +1293,33 @@ def key_range_check_plain(keys: torch.Tensor, mask: torch.Tensor, lo: int, hi: i
                           sentinel: Optional[int] = None) -> torch.Tensor:
     """Plain twin of K10 (the reference's "sort.range_check")."""
     k = keys.to(torch.int64)
+    if k.shape[0] == 0:  # no rows: no live key (torch has no min of nothing)
+        return torch.zeros((), dtype=torch.bool, device=k.device)
     live = mask if sentinel is None else mask & (k != sentinel)
     big, small = torch.iinfo(torch.int64).max, torch.iinfo(torch.int64).min
     kmin = torch.where(live, k, torch.full((), big, dtype=torch.int64, device=k.device)).min()
     kmax = torch.where(live, k, torch.full((), small, dtype=torch.int64, device=k.device)).max()
     return live.any() & ((kmin < lo) | (kmax > hi))
+
+
+# One accumulator per (device, stream) for the one-launch reductions of K10
+# and K11: uint64[2], a block partial and a ticket (csrc/common.cuh
+# ab_last_block).  Zeroed once here, on the stream that will use it, and put
+# back to zero by the last block of every launch, so a call queues no
+# memset.  Launches on one stream run in order, so back-to-back calls and
+# task threads that share a stream share it safely; two streams never do.
+_ACCUMULATORS: Dict[Tuple[int, int], torch.Tensor] = {}
+_ACCUMULATORS_LOCK = threading.Lock()
+
+
+def _accumulator(device: torch.device, stream: ctypes.c_void_p) -> torch.Tensor:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, stream.value or 0)
+    with _ACCUMULATORS_LOCK:
+        acc = _ACCUMULATORS.get(key)
+        if acc is None:
+            acc = _ACCUMULATORS[key] = torch.zeros(2, dtype=torch.int64, device=device)
+    return acc
 
 
 def key_range_check(keys: torch.Tensor, mask: torch.Tensor, lo: int, hi: int,
@@ -1309,19 +1331,58 @@ def key_range_check(keys: torch.Tensor, mask: torch.Tensor, lo: int, hi: int,
     _require_cuda(keys, mask)
     k, m = _flat(keys), _flat(mask)
     flag = torch.empty(1, dtype=torch.bool, device=m.device)
+    stream = _stream(m.device)
     lib = _cuda.LIBRARIES.get("clustered")
     _cuda.check(lib.ab_key_range_check(_ptr(k), _key_kind(keys, mask), _ptr(m), m.shape[0],
                                        int(sentinel is not None),
                                        0 if sentinel is None else int(sentinel), int(lo),
-                                       int(hi), _ptr(_flat(flag)), _stream(m.device)),
+                                       int(hi), _ptr(_flat(flag)),
+                                       _ptr(_accumulator(m.device, stream)), stream),
                 "key_range_check")
     count_launch("key_range_check")
     return flag[0]
 
 
-def clustered_keep_plain(keys, mask, pred, los, his):
-    """Plain twin of K11 (the reference's "agg.clustered_keep"), over row
-    chunks so the rows x intervals compare stays small."""
+def merge_intervals(los, his) -> Tuple[np.ndarray, np.ndarray]:
+    """The sorted, disjoint union of the non-empty closed integer intervals
+    [los[j], his[j]]: empty pairs (lo > hi) dropped, overlapping and
+    touching ones (hi_a + 1 >= lo_b, in Python ints: no overflow at int64
+    max) merged.  Returns (starts, ends) as int64 arrays."""
+    pairs = sorted((a, b) for a, b in zip(np.asarray(los, dtype=np.int64).tolist(),
+                                          np.asarray(his, dtype=np.int64).tolist()) if a <= b)
+    starts: List[int] = []
+    ends: List[int] = []
+    for a, b in pairs:
+        if ends and ends[-1] + 1 >= a:
+            ends[-1] = max(ends[-1], b)
+        else:
+            starts.append(a)
+            ends.append(b)
+    return np.asarray(starts, dtype=np.int64), np.asarray(ends, dtype=np.int64)
+
+
+class KeepIntervals:
+    """K11's overlap intervals, prepared once per operator on one device:
+    ``los`` / ``his``, the pairs as the reference holds them (padded to a
+    power of two with empty (1, 0) pairs; the twin's input), and ``starts``
+    / ``ends``, their sorted, merged union (``merge_intervals``; the
+    kernel's input: the same set of keys)."""
+
+    def __init__(self, los, his, device):
+        from ..models.batch import upload
+
+        los = np.asarray(los, dtype=np.int64)
+        his = np.asarray(his, dtype=np.int64)
+        if los.ndim != 1 or los.shape != his.shape:
+            raise ValueError("interval bounds must be two 1-D arrays of one length")
+        starts, ends = merge_intervals(los, his)
+        self.los, self.his, self.starts, self.ends = upload([los, his, starts, ends], device)
+
+
+def clustered_keep_plain(keys, mask, pred, intervals: KeepIntervals):
+    """Plain twin of K11 (the reference's "agg.clustered_keep") over the
+    padded pairs, in row chunks so the rows x intervals compare stays small."""
+    los, his = intervals.los, intervals.his
     k = keys.to(torch.int64)
     step = max(1, (1 << 24) // max(1, los.shape[0]))
     shared = torch.cat([((c[:, None] >= los[None, :]) & (c[:, None] <= his[None, :])).any(dim=1)
@@ -1331,27 +1392,27 @@ def clustered_keep_plain(keys, mask, pred, los, his):
 
 
 def clustered_keep(keys: torch.Tensor, mask: torch.Tensor, pred: torch.Tensor,
-                   los: torch.Tensor, his: torch.Tensor):
+                   intervals: KeepIntervals):
     """Early-HAVING keep mask of a clustered partial aggregate: live rows
-    whose key lies in an overlap interval [los[j], his[j]] or that pass the
-    HAVING predicate.  Returns (keep, live count as a 0-d int64 on the
-    device).  Empty intervals (lo > hi) pad ``los`` / ``his``."""
+    whose key lies in an overlap interval or that pass the HAVING
+    predicate.  Returns (keep, live count as a 0-d int64 on the device)."""
     if _is_cpu(mask):
-        return clustered_keep_plain(keys, mask, pred, los, his)
-    _require_cuda(keys, mask, pred, los, his)
-    if los.dtype != torch.int64 or his.dtype != torch.int64 or los.shape != his.shape:
-        raise TypeError("interval bounds must be two int64 tensors of one shape")
+        return clustered_keep_plain(keys, mask, pred, intervals)
+    starts, ends = intervals.starts, intervals.ends
+    _require_cuda(keys, mask, pred, starts, ends)
     k, m, p = _flat(keys), _flat(mask), _flat(pred)
-    lo, hi = _flat(los), _flat(his)
     n = m.shape[0]
     if p.shape[0] != n:
         raise ValueError("keys, mask and predicate must have one length")
     keep = torch.empty(n, dtype=torch.bool, device=m.device)
     live = torch.empty(1, dtype=torch.int64, device=m.device)
+    stream = _stream(m.device)
     lib = _cuda.LIBRARIES.get("clustered")
-    _cuda.check(lib.ab_clustered_keep(_ptr(k), _key_kind(keys, mask), _ptr(m), _ptr(p), n, _ptr(lo),
-                                      _ptr(hi), lo.shape[0], _ptr(_flat(keep)), _ptr(live),
-                                      _stream(m.device)), "clustered_keep")
+    _cuda.check(lib.ab_clustered_keep(_ptr(k), _key_kind(keys, mask), _ptr(m), _ptr(p), n,
+                                      _ptr(starts), _ptr(ends), starts.shape[0],
+                                      _ptr(_flat(keep)), _ptr(live),
+                                      _ptr(_accumulator(m.device, stream)), stream),
+                "clustered_keep")
     count_launch("clustered_keep")
     return keep, live[0]
 

@@ -678,7 +678,8 @@ class HashAggregateExec(ExecutionPlan):
     def _having_program(self, ctx):
         """The early HAVING's predicate over the partial states as a K19
         column program (one bool column, ``__having``, which K11 reads),
-        and the overlap intervals on the device."""
+        and the overlap intervals on the device (``kernels.KeepIntervals``:
+        the padded pairs and their merged union)."""
         from ..compile.programs import OperatorProgram
 
         pred_expr, intervals = self.clustered[0], self.clustered[1]
@@ -703,7 +704,7 @@ class HashAggregateExec(ExecutionPlan):
                 his = np.full(padn, 0, dtype=np.int64)
                 for i, (lo, hi) in enumerate(intervals):
                     los[i], his[i] = lo, hi
-                self._cl_compiled = (prog, *upload([los, his], ctx.device))
+                self._cl_compiled = (prog, K.KeepIntervals(los, his, ctx.device))
             return self._cl_compiled
 
     def _apply_clustered_filter(self, ctx, result: ColumnBatch, disorder, mismatch):
@@ -715,11 +716,11 @@ class HashAggregateExec(ExecutionPlan):
         sort path (disorder, or stale declared ranges)."""
         from ..compile.programs import operator_program
 
-        prog, los, his = self._having_program(ctx)
+        prog, intervals = self._having_program(ctx)
         p = operator_program(prog, result.columns, result.mask,
                              prog.aux_arrays(result.dicts))["__having"]
         keep, live = K.clustered_keep(result.columns[self.group_exprs[0][1]], result.mask, p,
-                                      los, his)
+                                      intervals)
         if disorder is not None:
             no = torch.zeros((), dtype=torch.bool, device=live.device)
             flags = torch.stack([live, disorder.to(torch.int64),

@@ -29,7 +29,8 @@ Phases (any failure exits non-zero and prints no result line):
    slots; stages, Arrow IPC shuffle files and whole-stage fusion) on the
    same tables: ``sa_pq_q1`` (K13 dense on q1's partial, the writers' K3
    and K2), ``sa_pq_q3`` and ``sa_pq_q4`` (the stage, task and shuffle
-   machinery), ``sa_pq_q18`` (K12 on the HAVING chain) over parquet, and
+   machinery), ``sa_pq_q18`` (K12 on the HAVING chain, K9-K11 in the clustered
+   partial) over parquet, and
    ``sa_q18`` over in-memory tables (K13's sort path, then K4 + K8); each
    prints its stages, fused chains, ``fused_fallbacks`` (must be 0) and
    where its time went (writer, reader, fused chains, outside the tasks).
@@ -93,7 +94,11 @@ Phases (any failure exits non-zero and prints no result line):
    aggregate empty slots, one 6M-row group, no keys and float columns;
    for K1 int32 sums that wrap and int32 and float32 min and max; for K9
    sorted and shuffled keys; for K10 keys out of range and NULL keys; for
-   K11 1,000 intervals; for K17 2, 4 and 8 destinations with capacities
+   K11 1,000 intervals and 5,000 merged ones; for K10 and K11 0, 1, 15, 17,
+   255, 257, 2,047, 2,049 and 2^20 + 5 rows of int32 and int64 keys at their
+   extremes, all rows dead, inputs viewed at byte offsets 1-15, 100 calls
+   back to back on one stream and calls from four threads at once, on one
+   stream and on a stream each; for K17 2, 4 and 8 destinations with capacities
    that fit and that overflow, and 40 int64 columns (two launches); for K18 2, 4 and 8 rank arrays (int64 sums
    that wrap, float64 sums); for the mesh derive NULL keys and values;
    for K12 and K13 a row chain and a dense and a
@@ -137,7 +142,9 @@ Phases (any failure exits non-zero and prints no result line):
    K4 and K5 (the radix core) at their stress shapes and at a 131,072-row
    K4 call beside ``torch.sort``, each call's plan (single block or
    onesweep, composite bits, passes) on every path and at every check, and
-   their kernels' device ms per profiled query;
+   their kernels' device ms per profiled query; K10's and K11's kernels,
+   launches and the memsets before them per profiled query (on pq_q18 one
+   kernel a call and no memset, or the run fails);
    the ``entry()`` step's rows/s at 4096 and 6M rows; per parquet query
    the scan's read and convert times cold and warm, the scan cache's
    resident bytes and the peak device memory.
@@ -208,7 +215,8 @@ PATH_KERNELS.update({
     "sa_pq_q4": ("dense_group_states", "build_side_sort", "probe_join", "segment_any",
                  "compaction_order"),
     "sa_pq_q18": ("fused_rows", "compaction_order", "hash64", "sort_order", "build_side_sort",
-                  "probe_join", "grouped_on_order"),
+                  "probe_join", "grouped_on_order", "presorted_disorder", "key_range_check",
+                  "clustered_keep"),
     "sa_q18": ("fused_agg", "fused_rows", "compaction_order", "hash64", "sort_order",
                "build_side_sort", "probe_join", "grouped_on_order"),
 })
@@ -339,6 +347,40 @@ RADIX_KERNELS = {
                         "radix_histogram", "radix_scatter", "zero_u64",
                         "ab_scan_tile_sums<int, int>", "ab_scan_tile_apply<int, int, int>"),
 }
+
+
+# K10 and K11 by CUDA kernel name (the same in the parent of their
+# redesign), for their launches and device ms per profiled query and the
+# memsets queued right before them on their stream: since the redesign a
+# call is one kernel and no memset
+CLUSTERED_KERNELS = {"key_range_check": "key_range_check<", "clustered_keep": "clustered_keep<"}
+
+
+def clustered_trace(prof) -> dict:
+    """K10's and K11's kernels in a torch.profiler trace: per kernel its
+    launches, their device ms, and the memsets (count and device ms) that
+    sit on the same stream right before one of them."""
+    import torch
+
+    streams = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            streams.setdefault(ev.device_resource_id, []).append(ev)
+    out = {name: {"launches": 0, "ms": 0.0, "memsets": 0, "memset_ms": 0.0}
+           for name in CLUSTERED_KERNELS}
+    for evs in streams.values():
+        evs.sort(key=lambda e: e.time_range.start)
+        for prev, ev in zip([None] + evs[:-1], evs):
+            for name, part in CLUSTERED_KERNELS.items():
+                if part not in ev.name:
+                    continue
+                rec = out[name]
+                rec["launches"] += 1
+                rec["ms"] += ev.time_range.elapsed_us() / 1000
+                if prev is not None and "memset" in prev.name.lower():
+                    rec["memsets"] += 1
+                    rec["memset_ms"] += prev.time_range.elapsed_us() / 1000
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1054,13 +1096,16 @@ def plan_breakdown(plan, indent=0):
     return lines
 
 
-def profile_query(ctx, sql, label):
+def profile_query(ctx, sql, label, K=None):
     """One warm query under torch.profiler: device time by kernel name, the
-    device's busy share of the wall time, and the device time and launches
-    of K4's and K5's kernels (RADIX_KERNELS)."""
+    device's busy share of the wall time, the device time and launches of
+    K4's and K5's kernels (RADIX_KERNELS), and K10's and K11's
+    (``clustered_trace``; with ``K``, their launch counters over the query
+    beside the trace's kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    before = dict(K.LAUNCHES) if K is not None else None
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         ctx.sql(sql).to_pandas()
@@ -1070,6 +1115,10 @@ def profile_query(ctx, sql, label):
     radix = {name: {"ms": sum(r[0] for r in rows if any(p in r[2] for p in parts)),
                     "launches": sum(r[1] for r in rows if any(p in r[2] for p in parts))}
              for name, parts in RADIX_KERNELS.items()}
+    clustered = clustered_trace(prof)
+    if before is not None:
+        for name, rec in clustered.items():
+            rec["wrapper_calls"] = K.LAUNCHES[name] - before[name]
     busy_ms = sum(r[0] for r in rows)
     if not rows:
         log(f"profile {label}: no device time recorded (device busy share not measured)")
@@ -1079,8 +1128,10 @@ def profile_query(ctx, sql, label):
     for dev_ms, count, key in rows[:15]:
         log(f"  device {dev_ms:9.3f} ms  x{count:<5d} {key[:100]}")
     log(f"  K4 sort_order / K5 build_side_sort kernels per query: {json.dumps(radix)}")
+    log(f"  K10 key_range_check / K11 clustered_keep kernels per query (memsets right before "
+        f"them on their stream): {json.dumps(clustered)}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
-            "radix_ms": radix}
+            "radix_ms": radix, "clustered": clustered}
 
 
 def profile_programs(ctx, sql, device):
@@ -1343,10 +1394,18 @@ def clustered_stress(t, rng, n):
     (disorder), one decrease at a block edge only, and int32 keys; range
     checks with a key above the range in the last row, one below, NULL
     sentinel keys that must not count, and only dead rows outside; keep
-    masks over q18-like 16 intervals and over 1,000, with NULL keys."""
+    masks over q18-like 16 intervals, over 1,000 with NULL keys and over
+    5,000 merged ones (searched in device memory).  Then K10 and K11 at the
+    sizes around a 256-row warp tile and a 2,048-row block tile (0, 1, 15,
+    17, 255, 257, 2,047, 2,049, 2^20 + 5) over int32 and int64 keys at their extremes, with
+    every row dead, and on masks, predicates and keys viewed at byte
+    offsets 1-15 (the row-by-row path)."""
     import numpy as np
     import torch
 
+    from arrow_ballista_tpu_torch.ops.kernels import KeepIntervals
+
+    device = t(np.zeros(1)).device
     i64_min = np.iinfo(np.int64).min
     mask = t(rng.random(n) < 0.9)
     sorted_k = np.sort(rng.integers(0, n // 4, n)).astype(np.int64)
@@ -1367,21 +1426,136 @@ def clustered_stress(t, rng, n):
               (t(below), live, lo, hi, None), (t(nulls), live, lo, hi, int(i64_min)),
               (t(outside_dead), t(outside_dead == sorted_k), lo, hi, None),
               (t(above.astype(np.int32)), live, lo, hi, None)]
+    flags = [False, True, True, False, False, True]
     keeps = []
-    for m in (16, 1000):
+    for m in (16, 1000, 5000):
         starts = np.sort(rng.choice(n // 4, m, replace=False)).astype(np.int64)
+        if m == 5000:  # apart: 5,000 merged pairs, past the 2,048 in shared memory
+            starts = np.sort(rng.choice(max(n // 32, m), m, replace=False)).astype(np.int64) * 8
         los = np.concatenate([starts, [i64_min]])
         his = np.concatenate([starts + rng.integers(0, 3, m), [i64_min]])
         pad = 1 << int(np.ceil(np.log2(len(los))))
         los = np.concatenate([los, np.ones(pad - len(los), np.int64)])
         his = np.concatenate([his, np.zeros(pad - len(his), np.int64)])
         keys = nulls if m == 1000 else sorted_k
-        keeps.append((t(keys), mask, t(rng.random(n) < 0.01), t(los), t(his)))
+        keeps.append((t(keys), mask, t(rng.random(n) < 0.01), KeepIntervals(los, his, device)))
+
+    def view_at(a, offset):
+        """``a`` on the card, ``offset`` bytes past a 16-byte boundary."""
+        size = a.dtype.itemsize
+        big = torch.zeros(a.shape[0] + 16 // size + 1, dtype=t(a[:0]).dtype, device=device)
+        view = big[offset // size:offset // size + a.shape[0]]
+        view.copy_(t(a))
+        return view
+
+    def add(k, m, p, lo, hi, sent, iv, kv=None, mv=None, pv=None):
+        ranges.append((t(k) if kv is None else kv, t(m) if mv is None else mv, lo, hi, sent))
+        lv = m if sent is None else m & (k != sent)
+        flags.append(bool((lv & ((k < lo) | (k > hi))).any()))
+        keeps.append((t(k) if kv is None else kv, t(m) if mv is None else mv,
+                      t(p) if pv is None else pv, iv))
+
+    for dtype in (np.int32, np.int64):
+        info = np.iinfo(dtype)
+        for rows in (0, 1, 15, 17, 255, 257, 2047, 2049, (1 << 20) + 5):
+            k = rng.integers(info.min, info.max, rows, dtype=dtype, endpoint=True)
+            k[:min(rows, 2)] = [info.min, info.max][:min(rows, 2)]
+            m = rng.random(rows) < 0.7
+            p = rng.random(rows) < 0.05
+            picks = rng.choice(k, 16).astype(np.int64) if rows else np.zeros(16, np.int64)
+            iv = KeepIntervals(np.append(picks, i64_min), np.append(picks, i64_min), device)
+            add(k, m, p, int(info.min) + 1, int(info.max), None, iv)
+            add(k, np.zeros(rows, dtype=bool), p, 0, 0, None, iv)  # every row dead
+        rows = 100_003
+        k = rng.integers(info.min, info.max, rows, dtype=dtype, endpoint=True)
+        m, p = rng.random(rows) < 0.7, rng.random(rows) < 0.05
+        k[rows // 2], m[rows // 2] = info.max, True  # above the range below
+        picks = rng.choice(k, 16).astype(np.int64)
+        iv = KeepIntervals(picks, picks + 3, device)
+        for offset in range(1, 16):
+            add(k, m, p, int(info.min), int(info.max) - 1, None, iv,
+                kv=view_at(k, (offset * np.dtype(dtype).itemsize) % 16),
+                mv=view_at(m, offset), pv=view_at(p, 15 - offset))
     return {"presorted_disorder": disorder, "key_range_check": ranges,
             "clustered_keep": keeps,
             # what K9 and K10 must report on each input above
             "expected_flags": {"presorted_disorder": [False, True, True, False],
-                               "key_range_check": [False, True, True, False, False, True]}}
+                               "key_range_check": flags}}
+
+
+def clustered_reset_check(K, device, calls=100, seed=13):
+    """K10 and K11 without a memset: ``calls`` calls of each queued back to
+    back on one stream, then 25 from each of four threads at once on the
+    stream they share, then on a stream each; flags alternate and counts
+    differ from call to call, so a stale accumulator or ticket would show.
+    Every result against the twin; returns the calls checked."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    i64 = np.iinfo(np.int64)
+
+    def inputs(count):
+        out = []
+        for i in range(count):
+            rows = int(rng.integers(0, 200_000))
+            k = rng.integers(i64.min, i64.max, rows, dtype=np.int64)
+            m = rng.random(rows) < rng.random()
+            p = rng.random(rows) < 0.05
+            picks = rng.choice(k, 16) if rows else np.zeros(16, np.int64)
+            lo, hi = (int(i64.min), int(i64.max)) if i % 2 else (int(i64.min) + 1, int(i64.max) - 1)
+            if rows:
+                k[int(rng.integers(0, rows))] = i64.max
+            out.append((k, m, p, picks, lo, hi))
+        return out
+
+    def launch(batch):
+        staged = [(torch.from_numpy(k).to(device), torch.from_numpy(m).to(device),
+                   torch.from_numpy(p).to(device), K.KeepIntervals(picks, picks + 2, device), lo, hi)
+                  for k, m, p, picks, lo, hi in batch]
+        return [(K.key_range_check(kd, md, lo, hi), *K.clustered_keep(kd, md, pd_, iv))
+                for kd, md, pd_, iv, lo, hi in staged]
+
+    def check(batch, results):
+        for (k, m, p, picks, lo, hi), (flag, keep, live) in zip(batch, results):
+            want_flag = bool((m & ((k < lo) | (k > hi))).any())
+            wk, wl = K.clustered_keep_plain(*(torch.from_numpy(a) for a in (k, m, p)),
+                                            K.KeepIntervals(picks, picks + 2, "cpu"))
+            if bool(flag) != want_flag:
+                raise AssertionError("key_range_check: a flag differs after back-to-back calls")
+            if not torch.equal(keep.cpu(), wk) or int(live) != int(wl):
+                raise AssertionError("clustered_keep: a result differs after back-to-back calls")
+
+    batch = inputs(calls)
+    results = launch(batch)
+    torch.cuda.synchronize()
+    check(batch, results)
+    checked = calls
+    for own_streams in (False, True):
+        batches = [inputs(25) for _ in range(4)]
+        out = [None] * 4
+        start = threading.Barrier(4)
+
+        def work(i):
+            scope = (torch.cuda.stream(torch.cuda.Stream(device)) if own_streams
+                     else contextlib.nullcontext())
+            with scope:
+                start.wait()
+                out[i] = launch(batches[i])
+                torch.cuda.current_stream(device).synchronize()
+
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        torch.cuda.synchronize()
+        for b, r in zip(batches, out):
+            check(b, r)
+            checked += len(b)
+    return checked
 
 
 def join_stress(K, t, rng, n):
@@ -2233,17 +2407,18 @@ def kernel_timings(K, name, args, device):
         masked = torch.where(live, keys.to(torch.int64), keys.to(torch.int64)[0])
         library = lambda: torch.aminmax(masked)  # noqa: E731
     elif name == "clustered_keep":
-        keys, mask, pred, los, his = args
-        # mask and predicate read once, the live rows' keys, the intervals,
-        # the keep bytes written once
-        moved = nbytes(mask, pred, los, his) + int(mask.sum()) * keys.element_size() \
+        keys, mask, pred, iv = args
+        # mask and predicate read once, the live rows' keys, the merged
+        # intervals, the keep bytes written once
+        moved = nbytes(mask, pred, iv.starts, iv.ends) + int(mask.sum()) * keys.element_size() \
             + mask.numel() + 8
         nxt = rotating(args, moved)
         kern = lambda: K.clustered_keep(*nxt())  # noqa: E731
         plain = lambda: K.clustered_keep_plain(*nxt())  # noqa: E731
         # the interval search in one call: bucketize of the keys into the
-        # sorted interval starts (the end compare and the keep left out)
-        starts = torch.sort(los).values
+        # sorted interval starts (the padded ones, as before the merge; the
+        # end compare and the keep left out)
+        starts = torch.sort(iv.los).values
         library = lambda: torch.bucketize(keys, starts, right=True)  # noqa: E731
     else:
         raise KeyError(name)
@@ -2853,7 +3028,16 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         report[f"{path}_cold_ms"] = cold_s * 1000
         report[f"{path}_warm_ms"] = warm_s * 1000
         if cuda and not path.startswith("spill_"):
-            report[f"{path}_profile"] = profile_query(c, sql, path)
+            prof_q = report[f"{path}_profile"] = profile_query(c, sql, path, K)
+            if path == "pq_q18" and prof_q is None:
+                fail("pq_q18's profiled query recorded no device time: K10 and K11 unchecked")
+            if path == "pq_q18":  # K10 and K11: one kernel a call, no memset before it
+                for kname, rec in prof_q["clustered"].items():
+                    if not rec["launches"] or rec["launches"] != rec["wrapper_calls"] \
+                            or rec["memsets"]:
+                        fail(f"pq_q18's profiled query: {kname} ran {rec['launches']} kernels "
+                             f"for {rec['wrapper_calls']} calls with {rec['memsets']} memsets "
+                             "right before them (one kernel a call and no memset expected)")
         scope.close()
     # csv: the same rows as the parquet paths, bit for bit
     for a, b in (("csv_q1", "pq_q1"), ("csv_q3", "pq_q3"), ("sa_csv_q1", "sa_pq_q1")):
@@ -3154,6 +3338,10 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                     fail(f"{name}: flags {got} at the stress shapes, expected {expected}")
             if name == "build_side_sort":  # 2^23 rows, then again with every hash 0
                 err = max(err, check_kernel(K, name, radix_build))
+            if name == "clustered_keep" and cuda:  # K10 and K11 with no memset between calls
+                report["clustered_reset_calls"] = clustered_reset_check(K, device)
+                log(f"K10 / K11 back to back on one stream and from four threads: "
+                    f"{report['clustered_reset_calls']} calls of each equal their twins")
             if name in ("build_side_sort", "probe_join", "spill_partition"):
                 was = K._FORCE_COLLISIONS
                 K._FORCE_COLLISIONS = True

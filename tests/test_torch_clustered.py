@@ -10,9 +10,13 @@ the scan, and stale declared ranges turn the early filter off.  The
 planner's annotation (predicate, overlap intervals, declared ranges) and
 the contiguous regroup equal the reference's; the twins of K9 (through
 grouped_aggregate_presorted), K10 (the range check) and K11 (the keep
-mask) equal the reference's programs; TPC-H q18 at SF0.01 over parquet
+mask) equal the reference's programs, and so do K10's row fold and K11's
+merged intervals and search (numpy, step for step) at extreme keys and
+over interval sets that overlap, touch, nest and reach int64's bounds; TPC-H q18 at SF0.01 over parquet
 equals the reference as written, with ``> 200`` and without its LIMIT.
 """
+import copy
+
 import numpy as np
 import pandas as pd
 import pyarrow as pa
@@ -32,7 +36,9 @@ from arrow_ballista_tpu_torch.ops.physical import TaskContext as TCtx
 from benchmarks.datagen import generate_tables
 from benchmarks.queries import QUERIES
 from benchmarks.tpch import decimal_to_int64_storage
-from tests.torch_cases import PRESORTED_CASES, assert_frames_equal, presorted_case
+from tests.torch_cases import (I64_MAX, I64_MIN, INTERVAL_CASES, PRESORTED_CASES,
+                               assert_frames_equal, interval_case, interval_keys, pad_intervals,
+                               presorted_case)
 
 # the suite runs in parallel worker processes: one core per worker for torch
 torch.set_num_threads(1)
@@ -392,6 +398,176 @@ def test_clustered_keep_matches_reference(planned_aggs, case):
     for name in ja.schema.names():
         assert gd[name].tolist() == wd[name].tolist()
     assert got.num_rows == want.num_rows > 0
+
+
+# --------------------------------------------------------------------------
+# K10's fold and K11's merged intervals (the Hopper kernels' arithmetic,
+# step for step in numpy, against the reference)
+# --------------------------------------------------------------------------
+
+# the merged union of each fixed case (K11's input)
+MERGED = {"overlapping": [(0, 30), (100, 110)], "touching": [(-5, 20), (22, 30)],
+          "nested": [(0, 100), (200, 300)], "pads_only": [],
+          "null_sentinel_pair": [(int(I64_MIN), int(I64_MIN) + 1), (5, 12)],
+          "at_int64_max": [(0, 3), (int(I64_MAX) - 10, int(I64_MAX))]}
+
+
+def _reference_shared(keys, los, his, chunk=2048):
+    """The reference's interval test (the body of "agg.clustered_keep")
+    over the padded pairs, in key chunks."""
+    jl, jh = jnp.asarray(los)[None, :], jnp.asarray(his)[None, :]
+    out = []
+    for i in range(0, len(keys), chunk):
+        k = jnp.asarray(keys[i:i + chunk])[:, None]
+        out.append(np.asarray(jnp.any((k >= jl) & (k <= jh), axis=1)))
+    return np.concatenate(out)
+
+
+def _search_like_k11(starts, ends, keys, group):
+    """K11's membership test (csrc/clustered.cu ab_in_union), step for
+    step, for a lane of ``group`` rows at a time: how many merged starts lie
+    at or below the lane's lowest and highest key (a, b) by steps of top,
+    top/2, .., 1; then one compare with ends[a - 1] when a == b, else a
+    search of each key over the starts in (a, b]."""
+    s, e = starts.tolist(), ends.tolist()
+    m = len(s)
+    top = 1 << (m.bit_length() - 1) if m else 0
+    out = np.zeros(len(keys), dtype=bool)
+    for g in range(0, len(keys), group):
+        v = keys[g:g + group].tolist()
+        lo, hi = min(v), max(v)
+        a = b = 0
+        step = top
+        while step:
+            if a + step <= m and s[a + step - 1] <= lo:
+                a += step
+            if b + step <= m and s[b + step - 1] <= hi:
+                b += step
+            step >>= 1
+        if a == b:
+            out[g:g + len(v)] = [a > 0 and x <= e[a - 1] for x in v]
+            continue
+        for i, x in enumerate(v):
+            pos, step = a, 1 << ((b - a).bit_length() - 1)
+            while step:
+                if pos + step <= b and s[pos + step - 1] <= x:
+                    pos += step
+                step >>= 1
+            out[g + i] = pos > 0 and x <= e[pos - 1]
+    return out
+
+
+@pytest.mark.parametrize("case", INTERVAL_CASES)
+def test_merged_intervals_select_the_reference_keys(case):
+    """KeepIntervals' merged union selects exactly the keys that the
+    reference's formula selects over the padded pairs, searched as K11
+    searches it; the wrapper's CPU route (the twin, over the padded pairs)
+    keeps the same rows."""
+    rng = np.random.default_rng(23)
+    pairs = interval_case(case, rng)
+    los, his = pad_intervals(pairs)
+    keys = interval_keys(pairs, 4096, rng)
+    want = _reference_shared(keys, los, his)
+    iv = TK.KeepIntervals(los, his, "cpu")
+    assert torch.equal(iv.los, torch.from_numpy(los)) and torch.equal(iv.his, torch.from_numpy(his))
+    starts, ends = iv.starts.numpy(), iv.ends.numpy()
+    merged = list(zip(starts.tolist(), ends.tolist()))
+    if case in MERGED:
+        assert merged == MERGED[case]
+    if case == "random_5000":
+        assert len(merged) == 5000
+    # sorted, disjoint and apart: no two pairs would merge further
+    assert all(a <= b for a, b in merged)
+    assert all(b + 1 < a for (_, b), (a, _) in zip(merged, merged[1:]))
+    for group in (1, 8):  # a row alone (the row-by-row path) and a lane's 8
+        np.testing.assert_array_equal(_search_like_k11(starts, ends, keys, group), want)
+    # in key order a lane's keys mostly share their interval (a == b)
+    order = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(_search_like_k11(starts, ends, keys[order], 8), want[order])
+    assert want.any() == bool(pairs and case != "pads_only")
+    n = len(keys)
+    mask = rng.random(n) < 0.8
+    pred = rng.random(n) < 0.05
+    keep, live = TK.clustered_keep(torch.from_numpy(keys), torch.from_numpy(mask),
+                                   torch.from_numpy(pred), iv)
+    np.testing.assert_array_equal(keep.numpy(), mask & (want | pred))
+    assert int(live) == int((mask & (want | pred)).sum())
+
+
+@pytest.mark.parametrize("case", INTERVAL_CASES)
+def test_clustered_filter_over_interval_sets_matches_reference(planned_aggs, case):
+    """Both operators' early HAVING with each interval set in place of the
+    planner's: the same rows survive."""
+    ja, ta = planned_aggs
+    rng = np.random.default_rng(24)
+    pairs = interval_case(case, rng)
+    jop, top = copy.copy(ja), copy.copy(ta)
+    for op in (jop, top):
+        op.clustered = (op.clustered[0], pairs, *op.clustered[2:])
+        op._cl_compiled = None
+    keys = interval_keys(pairs, 4096, rng)[:4096]
+    n = len(keys)
+    sq = rng.integers(0, 200, n).astype(np.int64)
+    mask = rng.random(n) < 0.8
+    jb, tb = _batches("out", ja, [keys, sq], mask)
+    want = jop._apply_clustered_filter(JCtx(), jb, None, None)
+    got = top._apply_clustered_filter(TCtx(device=torch.device("cpu")), tb, None, None)
+    wd, gd = want.compacted_numpy(), got.compacted_numpy()
+    for name in ja.schema.names():
+        assert gd[name].tolist() == wd[name].tolist()
+    assert got.num_rows == want.num_rows > 0
+
+
+RANGE_EXTREMES = ["int64_bounds_inside", "int64_max_above", "int64_min_below",
+                  "sentinel_only_outside", "all_dead", "one_row_above", "int32_extremes"]
+
+
+@pytest.mark.parametrize("case", RANGE_EXTREMES)
+def test_range_check_fold_matches_reference(planned_aggs, case):
+    """K10 folds live & (k < lo | k > hi) over the rows instead of a live
+    min and max: the same flag as the reference's "sort.range_check" (run
+    through the JAX operator) and as the port's operator on the CPU."""
+    ja, ta = planned_aggs
+    rng = np.random.default_rng(25)
+    n = 4096
+    lo, hi = int(I64_MIN) + 1, int(I64_MAX)
+    k = rng.integers(I64_MIN, I64_MAX, n, dtype=np.int64)
+    k[k == I64_MIN] = 0
+    mask = rng.random(n) < 0.9
+    if case == "int64_max_above":
+        hi = int(I64_MAX) - 1
+        k[11], mask[11] = I64_MAX, True
+    elif case == "int64_min_below":
+        lo = int(I64_MIN) + 2
+        k[13], mask[13] = I64_MIN + 1, True
+    elif case == "sentinel_only_outside":  # NULL keys (the sentinel) never count
+        lo = int(I64_MIN) + 2
+        k[::3] = I64_MIN
+    elif case == "all_dead":
+        lo, hi = 0, 0
+        mask[:] = False
+    elif case == "one_row_above":
+        lo, hi = -5, 5
+        k[:] = 3
+        k[n - 1], mask[n - 1] = 6, True
+    elif case == "int32_extremes":  # int32 keys reach the kernel widened
+        lo, hi = int(np.iinfo(np.int32).min), int(np.iinfo(np.int32).max) - 1
+        k = rng.integers(lo, hi, n).astype(np.int64)
+        k[17], mask[17] = hi + 1, True
+    sent = int(I64_MIN)  # the key is nullable
+    live = mask & (k != sent)
+    fold = bool((live & ((k < lo) | (k > hi))).any())
+    jb, tb = _batches("in", ja, [k, np.ones(n, np.int64)], mask)
+    ja._ensure_compiled(JCtx(), ja.input.schema)
+    if ta._compiled is None:
+        ta._compiled = ta._make_compiled(TCtx(device=torch.device("cpu")), ta.input.schema)
+    jop, top = copy.copy(ja), copy.copy(ta)
+    for op in (jop, top):
+        op.clustered = (*op.clustered[:2], [(lo, hi), (lo, hi)])
+    want = bool(jop._declared_range_mismatch(JCtx(), jb, 1))
+    got = bool(top._declared_range_mismatch(tb, 1))
+    assert fold == want == got == (case in ("int64_max_above", "int64_min_below",
+                                            "one_row_above", "int32_extremes"))
 
 
 # --------------------------------------------------------------------------

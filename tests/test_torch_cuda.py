@@ -13,13 +13,15 @@ import torch
 
 from arrow_ballista_tpu_torch.ops import kernels as TK
 from tests.torch_cases import (CONCAT_CASES, DENSE_CASES, FUSED_CHAINS, GATHER_CASES,
-                               HASH_CASES, JOIN_CASES, JOIN_QUERIES, KEEP_CASES, MASK_OPS_CASES,
+                               HASH_CASES, I64_MAX, I64_MIN, INTERVAL_CASES, JOIN_CASES,
+                               JOIN_QUERIES, KEEP_CASES, MASK_OPS_CASES,
                                PACK_CASES, PRESORTED_CASES, RADIX_CASES, RANGE_CASES,
                                SEG_AGG_CASES,
                                SEGMENT_CASES, SETTINGS, SORT_CASES, STANDALONE_SETTINGS,
                                STANDALONE_SQL, UNORDERED, assert_frames_equal, dense_case,
-                               edge_days, find_chain, hand_chain, hand_table, hash_cols, join_case,
-                               keep_case, mask_case, presorted_case, radix_case, range_case,
+                               edge_days, find_chain, hand_chain, hand_table, hash_cols,
+                               interval_case, interval_keys, join_case, keep_case, mask_case,
+                               pad_intervals, presorted_case, radix_case, range_case,
                                seg_agg_case,
                                segment_case, sort_case, concat_case, gather_case, pack_case,
                                mask_ops_case)
@@ -241,9 +243,175 @@ def test_key_range_check_kernel_matches_twin(dev, case):
 def test_clustered_keep_kernel_matches_twin(dev, case):
     k, mask, pred, los, his = keep_case(case, N, np.random.default_rng(10))
     gk, gl = TK.clustered_keep(_t(k).to(dev), _t(mask).to(dev), _t(pred).to(dev),
-                               _t(los).to(dev), _t(his).to(dev))
-    wk, wl = TK.clustered_keep_plain(_t(k), _t(mask), _t(pred), _t(los), _t(his))
+                               TK.KeepIntervals(los, his, dev))
+    wk, wl = TK.clustered_keep_plain(_t(k), _t(mask), _t(pred), TK.KeepIntervals(los, his, "cpu"))
     assert torch.equal(gk.cpu(), wk) and int(gl) == int(wl) > 0
+
+
+# K10 and K11: no rows, less than a lane's 8 rows, a 256-row warp tile -+1
+# and a 2,048-row block tile -+1 (the tail row by row), and 2^20 + 5
+CLUSTERED_SIZES = [0, 1, 15, 17, 255, 257, 2047, 2049, (1 << 20) + 5]
+
+
+def _clustered_inputs(n, dtype, rng, live_share=0.7):
+    """Keys at their dtype's extremes, a mask, a HAVING predicate and 17
+    windows around live keys (with the NULL-sentinel pair), padded."""
+    info = np.iinfo(dtype)
+    k = rng.integers(info.min, info.max, n, dtype=dtype, endpoint=True)
+    k[: min(n, 2)] = [info.min, info.max][: min(n, 2)]
+    mask = rng.random(n) < live_share
+    pred = rng.random(n) < 0.05
+    picks = rng.choice(k, 17).tolist() if n else [0]
+    pairs = [(int(a), min(int(a) + 3, int(I64_MAX))) for a in picks] + [(int(I64_MIN),) * 2]
+    return k, mask, pred, pad_intervals(pairs)
+
+
+def _k10_k11_on_card(dev, k, mask, pred, los, his, lo, hi, sent=None, views=None):
+    """K10 and K11 on the card (on ``views`` of the inputs when given) and
+    their twins on the CPU: ((flag, twin flag), (keep, twin keep), (live,
+    twin live))."""
+    kd, md, pd_ = views if views is not None else (_t(k).to(dev), _t(mask).to(dev),
+                                                    _t(pred).to(dev))
+    flag = TK.key_range_check(kd, md, lo, hi, sent)
+    keep, live = TK.clustered_keep(kd, md, pd_, TK.KeepIntervals(los, his, dev))
+    wflag = TK.key_range_check_plain(_t(k), _t(mask), lo, hi, sent)
+    wkeep, wlive = TK.clustered_keep_plain(_t(k), _t(mask), _t(pred),
+                                           TK.KeepIntervals(los, his, "cpu"))
+    return (bool(flag), bool(wflag)), (keep.cpu(), wkeep), (int(live), int(wlive))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("n", CLUSTERED_SIZES)
+def test_clustered_kernels_at_edge_sizes(dev, n, dtype):
+    rng = np.random.default_rng(n + 7)
+    k, mask, pred, (los, his) = _clustered_inputs(n, dtype, rng)
+    info = np.iinfo(dtype)
+    live_keys = k[mask]
+    for lo, hi in ((int(info.min), int(info.max)), (int(info.min) + 1, int(info.max)),
+                   (int(info.min), int(info.max) - 1), (0, 0)):
+        (f, wf), (g, w), (c, wc) = _k10_k11_on_card(dev, k, mask, pred, los, his, lo, hi)
+        assert f == wf == bool(((live_keys < lo) | (live_keys > hi)).any())
+        assert torch.equal(g, w) and c == wc
+    dead = np.zeros(n, dtype=bool)  # every row dead: no flag, nothing kept
+    (f, wf), (g, w), (c, wc) = _k10_k11_on_card(dev, k, dead, pred, los, his, 0, 0)
+    assert f == wf is False and torch.equal(g, w) and c == wc == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", range(1, 16))
+def test_clustered_kernels_on_views_at_byte_offsets(dev, offset):
+    """Mask and predicate at byte offsets 1-15 and keys 4 or 8 bytes off a
+    16-byte boundary (the row-by-row path), against the twins."""
+    n = 100_003
+    for dtype in (np.int32, np.int64):
+        rng = np.random.default_rng(offset)
+        k, mask, pred, (los, his) = _clustered_inputs(n, dtype, rng)
+        kshift = offset % (16 // np.dtype(dtype).itemsize)
+
+        def view(a, shift):
+            big = torch.zeros(a.shape[0] + 16, dtype=_t(a).dtype, device=dev)
+            big[shift:shift + a.shape[0]] = _t(a).to(dev)
+            return big[shift:shift + a.shape[0]]
+
+        views = (view(k, kshift), view(mask, offset), view(pred, 15 - offset))
+        assert views[1].data_ptr() % 16 == offset
+        info = np.iinfo(dtype)
+        for lo, hi in ((int(info.min), int(info.max)), (int(info.min), int(info.max) - 1)):
+            (f, wf), (g, w), (c, wc) = _k10_k11_on_card(dev, k, mask, pred, los, his, lo, hi,
+                                                        views=views)
+            assert f == wf and torch.equal(g, w) and c == wc > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", INTERVAL_CASES)
+def test_clustered_keep_kernel_over_interval_sets(dev, case):
+    """Overlapping, touching and nested windows, the pads only, the NULL
+    pair, int64's top, and 5,000 merged windows (searched in device memory,
+    past the 2,048 in shared memory)."""
+    rng = np.random.default_rng(12)
+    pairs = interval_case(case, rng)
+    los, his = pad_intervals(pairs)
+    k = interval_keys(pairs, N, rng)
+    n = k.shape[0]
+    mask, pred = rng.random(n) < 0.8, rng.random(n) < 0.01
+    iv = TK.KeepIntervals(los, his, dev)
+    if case == "random_5000":
+        assert iv.starts.shape[0] == 5000
+    gk, gl = TK.clustered_keep(_t(k).to(dev), _t(mask).to(dev), _t(pred).to(dev), iv)
+    wk, wl = TK.clustered_keep_plain(_t(k), _t(mask), _t(pred), TK.KeepIntervals(los, his, "cpu"))
+    assert torch.equal(gk.cpu(), wk) and int(gl) == int(wl)
+
+
+def _reset_inputs(rng, calls):
+    """Inputs whose results change from call to call: flags alternate and
+    counts differ, so a stale accumulator or ticket would show."""
+    out = []
+    for i in range(calls):
+        n = int(rng.integers(0, 200_000))
+        k, mask, pred, (los, his) = _clustered_inputs(n, np.int64, rng, live_share=rng.random())
+        lo, hi = (int(I64_MIN), int(I64_MAX)) if i % 2 else (int(I64_MIN) + 1, int(I64_MAX) - 1)
+        out.append((k, mask, pred, los, his, lo, hi))
+    return out
+
+
+def _launch_all(dev, inputs):
+    """Every call queued with no synchronisation between them."""
+    staged = [(_t(k).to(dev), _t(m).to(dev), _t(p).to(dev), TK.KeepIntervals(los, his, dev),
+               lo, hi) for k, m, p, los, his, lo, hi in inputs]
+    results = []
+    for kd, md, pd_, iv, lo, hi in staged:
+        results.append((TK.key_range_check(kd, md, lo, hi), *TK.clustered_keep(kd, md, pd_, iv)))
+    return results
+
+
+def _check_reset(inputs, results):
+    for (k, m, p, los, his, lo, hi), (flag, keep, live) in zip(inputs, results):
+        wk, wl = TK.clustered_keep_plain(_t(k), _t(m), _t(p), TK.KeepIntervals(los, his, "cpu"))
+        assert bool(flag) == bool(TK.key_range_check_plain(_t(k), _t(m), lo, hi))
+        assert torch.equal(keep.cpu(), wk) and int(live) == int(wl)
+
+
+@pytest.mark.cuda
+def test_clustered_kernels_back_to_back_on_one_stream(dev):
+    """100 calls of each, queued back to back: each launch's last block
+    puts the stream's accumulator and ticket back for the next."""
+    inputs = _reset_inputs(np.random.default_rng(31), 100)
+    results = _launch_all(dev, inputs)
+    torch.cuda.synchronize()
+    assert len({bool(r[0]) for r in results}) == 2 and len({int(r[2]) for r in results}) > 50
+    _check_reset(inputs, results)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("own_streams", [False, True])
+def test_clustered_kernels_from_four_threads(dev, own_streams):
+    """Four threads at once (as the standalone engine's task threads): on
+    the one stream they share, or each on a stream of its own (then each
+    stream has its own accumulator)."""
+    import threading
+
+    rng = np.random.default_rng(32)
+    inputs = [_reset_inputs(rng, 25) for _ in range(4)]
+    results = [None] * 4
+    start = threading.Barrier(4)
+
+    def work(i):
+        ctx = torch.cuda.stream(torch.cuda.Stream(dev)) if own_streams else \
+            contextlib.nullcontext()
+        with ctx:
+            start.wait()
+            results[i] = _launch_all(dev, inputs[i])
+            torch.cuda.current_stream(dev).synchronize()
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    for inp, res in zip(inputs, results):
+        _check_reset(inp, res)
 
 
 @pytest.fixture(scope="module")

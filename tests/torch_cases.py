@@ -467,6 +467,65 @@ def keep_case(case, n, rng):
     return k, mask, pred, los, his
 
 
+# K11's interval sets (the early HAVING's overlap windows): overlapping,
+# touching, nested, none (the empty (1, 0) pads only), the NULL-sentinel
+# pair, pairs at int64 max, and random sets of 1, 17, 1,000 and 5,000 pairs
+# (overlaps and touches among them; 5,000 merged pairs exceed the 2,048 the
+# kernel keeps in shared memory)
+INTERVAL_CASES = ["overlapping", "touching", "nested", "pads_only", "null_sentinel_pair",
+                  "at_int64_max", "random_1", "random_17", "random_1000", "random_5000"]
+
+
+def interval_case(case, rng):
+    """The overlap windows as (lo, hi) pairs of Python ints, unpadded."""
+    fixed = {
+        "overlapping": [(0, 10), (5, 20), (18, 30), (100, 110), (105, 105), (3, 2)],
+        "touching": [(0, 9), (10, 19), (20, 20), (22, 30), (-5, -1)],
+        "nested": [(0, 100), (10, 20), (50, 50), (99, 100), (200, 300), (250, 260)],
+        "pads_only": [],
+        "null_sentinel_pair": [(I64_MIN, I64_MIN), (5, 9), (7, 12), (I64_MIN + 1, I64_MIN + 1)],
+        "at_int64_max": [(I64_MAX - 5, I64_MAX), (I64_MAX - 10, I64_MAX - 6),
+                         (I64_MAX, I64_MAX), (0, 3)],
+    }
+    if case in fixed:
+        return [(int(a), int(b)) for a, b in fixed[case]]
+    m = int(case.split("_")[1])
+    if case == "random_5000":  # 5,000 pairs that stay apart: 5,000 merged
+        starts = np.sort(rng.choice(20 * m, m, replace=False)) * 8
+        return [(int(a), int(a + w)) for a, w in zip(starts, rng.integers(0, 6, m))]
+    starts = rng.integers(-4 * m, 4 * m, m)
+    return [(int(a), int(a + w)) for a, w in zip(starts, rng.integers(0, 4, m))]
+
+
+def pad_intervals(pairs, minimum=4):
+    """The pairs as the operator holds them: padded to a power of two (at
+    least ``minimum``) with empty (1, 0) pairs; (los, his) int64 arrays."""
+    pad = minimum
+    while pad < len(pairs):
+        pad *= 2
+    los, his = np.ones(pad, dtype=np.int64), np.zeros(pad, dtype=np.int64)
+    for i, (lo, hi) in enumerate(pairs):
+        los[i], his[i] = lo, hi
+    return los, his
+
+
+def interval_keys(pairs, n, rng):
+    """At least ``n`` int64 keys in random order: every bound and its
+    neighbours (within int64), int64's extremes, and random keys around
+    the pairs."""
+    edge = {int(I64_MIN), int(I64_MAX), 0}
+    for lo, hi in pairs:
+        edge.update(v for v in (lo - 1, lo, lo + 1, hi - 1, hi, hi + 1)
+                    if I64_MIN <= v <= I64_MAX)
+    edge = np.array(sorted(edge), dtype=np.int64)
+    span = 8 * max(1, len(pairs)) + 16
+    finite = [v for p in pairs for v in p if abs(v) < 2**62]
+    lo = min(finite, default=0) - span
+    hi = max(finite, default=0) + span
+    rest = rng.integers(lo, hi, max(n - len(edge), 1024), dtype=np.int64)
+    return rng.permutation(np.concatenate([edge, rest]))
+
+
 # --------------------------------------------------------------------------
 # the standalone engine (stages, shuffle files, whole-stage fusion)
 # --------------------------------------------------------------------------

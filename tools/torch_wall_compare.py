@@ -29,7 +29,10 @@ With ``--kernels`` one more warm run of each path runs under
 torch.profiler, and each path gets ``kernels``: the device ms and
 launches of K4's (``sort_order``) and K5's (``build_side_sort``) CUDA
 kernels in that query, by kernel name (``chip_smoke.RADIX_KERNELS``
-names them in this tree and in the parent of the radix redesign), and
+names them in this tree and in the parent of the radix redesign), K10's
+(``key_range_check``) and K11's (``clustered_keep``) launches and device
+ms with the memsets queued right before them (``chip_smoke.
+clustered_trace``; the parent of their redesign queued one a call), and
 the device ms of all kernels.  Run parent, change, change, parent in one
 call and compare the medians.
 
@@ -63,7 +66,7 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)  # benchmarks/ and chip_smoke
-from chip_smoke import RADIX_KERNELS  # noqa: E402
+from chip_smoke import RADIX_KERNELS, clustered_trace  # noqa: E402
 
 TABLES = ("lineitem", "orders", "customer", "part", "partsupp", "supplier", "nation",
           "region")
@@ -105,8 +108,9 @@ def _data(directory: str, sf: float):
 
 def _kernel_times(ctx, sql):
     """One more warm run under torch.profiler: the device ms of K4's and
-    K5's kernels in it (RADIX_KERNELS), their launches, and the device ms of
-    every kernel by name."""
+    K5's kernels in it (RADIX_KERNELS), their launches, K10's and K11's
+    launches, device ms and the memsets before them (``clustered_trace``),
+    and the device ms of every kernel by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -128,6 +132,9 @@ def _kernel_times(ctx, sql):
         out[name] = {"device_ms": sum(v[0] for v in rows.values()),
                      "launches": sum(v[1] for v in rows.values()),
                      "by_kernel": {k[:80]: round(v[0], 4) for k, v in rows.items()}}
+    # K10 and K11 (the same kernel names in the parent of their redesign),
+    # with the memsets queued right before them
+    out.update(clustered_trace(prof))
     out["all_device_ms"] = sum(v[0] for v in by_name.values())
     return out
 
