@@ -7,6 +7,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #define AB_EXPORT extern "C" __attribute__((visibility("default")))
 
 // element kinds a wrapper may hand a kernel (ops/kernels.py _KIND)
@@ -26,6 +28,32 @@ static inline int ab_grid(long long n, int threads, int max_blocks) {
 }
 
 static inline int ab_last_error() { return (int)cudaGetLastError(); }
+
+// A kernel's dynamic shared-memory limit, raised once a device: the bytes
+// already set on each device (zero at load).  The attribute call costs
+// host time that a call of a few microseconds of device work would pay on
+// every launch.
+#define AB_MAX_DEVICES 64
+struct AbSmemLimit {
+  std::atomic<int> bytes[AB_MAX_DEVICES];
+};
+
+// Sets kernel's limit to at least `bytes` on the current device, unless
+// `limit` says it already is.
+template <typename Kernel>
+static inline int ab_smem_limit(Kernel* kernel, int bytes, AbSmemLimit& limit) {
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  const bool kept = dev >= 0 && dev < AB_MAX_DEVICES;
+  if (kept && limit.bytes[dev].load(std::memory_order_acquire) >= bytes) return 0;
+  err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err || !kept) return err;
+  int seen = limit.bytes[dev].load(std::memory_order_relaxed);
+  while (seen < bytes && !limit.bytes[dev].compare_exchange_weak(seen, bytes)) {
+  }
+  return 0;
+}
 
 // scratch carving: each part of a scratch buffer starts 16-byte aligned
 static inline long long ab_align16(long long bytes) { return (bytes + 15) & ~15LL; }
@@ -59,6 +87,42 @@ __device__ __forceinline__ void ab_f64_min_max(unsigned long long* addr, double 
     if (seen == old) return;
     old = seen;
   }
+}
+
+// --------------------------------------------------------------------------
+// a bool mask as 16-byte words (K2, K6)
+// --------------------------------------------------------------------------
+
+// A mask of n bool bytes at any address is read as the 16-byte words of
+// its aligned base: word w holds rows 16 w - shift .. 16 w - shift + 15,
+// shift being the address's offset in its 16 bytes.  A word that holds a
+// row lies inside the row's 512-byte allocation granule.  ab_mask_word
+// returns word w with the bytes of rows outside [0, n) cleared; r is the
+// row of its first byte, n >= 1.  The load is unconditional (a word past
+// the last is read as the last, then cleared), so a thread's loads of
+// several words issue together.  Torch bools are 0 or 1, so __popc of a
+// word counts its live rows.
+__device__ __forceinline__ uint4 ab_mask_word(const uint4* __restrict__ words, long long w,
+                                              long long r, long long n) {
+  uint4 v = __ldg(words + min(w, w + ((n - 1 - r) >> 4)));
+  if (r < 0 || r + 16 > n) {
+    unsigned q[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int b = 0; b < 16; ++b)
+      if (r + b < 0 || r + b >= n) q[b >> 2] &= ~(0xffu << (8 * (b & 3)));
+    v = make_uint4(q[0], q[1], q[2], q[3]);
+  }
+  return v;
+}
+
+__device__ __forceinline__ unsigned ab_word_live(const uint4& v) {
+  return __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
+}
+
+// byte b (0..15) of a word
+__device__ __forceinline__ unsigned ab_word_byte(const uint4& v, int b) {
+  const unsigned q = b < 4 ? v.x : b < 8 ? v.y : b < 12 ? v.z : v.w;
+  return (q >> (8 * (b & 3))) & 0xffu;
 }
 
 // --------------------------------------------------------------------------

@@ -57,8 +57,9 @@ SIGNATURES = {
         "ab_spill_partition": ([_P, _P, _I, _LL, _I, _I, _P, _P], _I),
     },
     "compact": {
-        "ab_compact_tile": ([], _I),
-        "ab_compaction_order": ([_P, _LL, _P, _P, _P], _I),
+        "ab_compact_launches": ([_LL], _I),
+        "ab_compact_tiles": ([_LL], _LL),
+        "ab_compaction_order": ([_P, _LL, _P, _P, _P, _P, _P], _I),
     },
     "sort": {
         "ab_sort_minmax_blocks": ([_LL], _I),
@@ -77,9 +78,8 @@ SIGNATURES = {
         "ab_build_side_sort": ([_P, _P, _I, _P, _LL, _I, _P, _P, _P, _P, _P], _I),
     },
     "probe": {
-        "ab_probe_scratch_bytes": ([_LL], _LL),
-        "ab_probe_counts": ([_P, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P], _I),
-        "ab_probe_expand": ([_P, _P, _P, _P, _LL, _LL, _LL, _P, _P, _P, _P], _I),
+        "ab_probe_state_words": ([_LL], _LL),
+        "ab_probe_join": ([_P, _P, _LL, _P, _LL, _I, _LL, _P, _P, _P, _P, _P, _P, _P], _I),
     },
     "segment": {
         "ab_segment_any": ([_P, _I, _P, _LL, _LL, _P, _P], _I),

@@ -294,7 +294,7 @@ def compaction_order_plain(mask: torch.Tensor) -> torch.Tensor:
 def compaction_order(mask: torch.Tensor, with_count: bool = False):
     """Stable permutation (int32) moving live rows to the front; with
     ``with_count`` also the live-row count as an int32 tensor of one
-    element (K2 computes it anyway: the last word of its scratch)."""
+    element (K2 computes it anyway)."""
     if _is_cpu(mask):
         perm = compaction_order_plain(mask)
         return (perm, mask.sum().to(torch.int32).reshape(1)) if with_count else perm
@@ -303,17 +303,26 @@ def compaction_order(mask: torch.Tensor, with_count: bool = False):
         raise TypeError(f"mask must be bool, got {mask.dtype}")
     m = _flat(mask)
     n = m.shape[0]
-    perm = torch.empty(n, dtype=torch.int32, device=m.device)
+    dev = m.device
+    perm = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
-        zero = torch.zeros(1, dtype=torch.int32, device=m.device)
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
         return (perm, zero) if with_count else perm
+    count = torch.empty(1, dtype=torch.int32, device=dev)
     lib = _cuda.LIBRARIES.get("compact")
-    tiles = -(-n // lib.ab_compact_tile())
-    scratch = torch.empty(tiles + 1, dtype=torch.int32, device=m.device)
-    _cuda.check(lib.ab_compaction_order(_ptr(m), n, _ptr(perm), _ptr(scratch),
-                                        _stream(m.device)), "compaction_order")
+    launches = lib.ab_compact_launches(n)  # one up to 2^17 rows, two above
+    # the two-launch form's status words: its count pass writes every one
+    status = (torch.empty(lib.ab_compact_tiles(n), dtype=torch.int64, device=dev)
+              if launches == 2 else None)
+    stream = _stream(dev)
+    _cuda.check(lib.ab_compaction_order(_ptr(m), n, _ptr(perm), _ptr(count),
+                                        None if status is None else _ptr(status),
+                                        _ptr(_accumulator(dev, stream)), stream),
+                "compaction_order")
     count_launch("compaction_order")
-    return (perm, scratch[tiles:]) if with_count else perm
+    _PLANS.compaction_order = {"form": "one_launch" if launches == 1 else "two_launch",
+                               "rows": n, "launches": launches}
+    return (perm, count) if with_count else perm
 
 
 # --------------------------------------------------------------------------
@@ -789,6 +798,13 @@ def _bitonic_steps(n: int) -> int:
     over the power of two >= n (csrc/radix.cuh rx_block_sort)."""
     log = max(n - 1, 0).bit_length()
     return log * (log + 1) // 2
+
+
+def kernel_plan(name: str) -> dict:
+    """This thread's last call's plan of K2 (``compaction_order``: form,
+    rows, launches) or K6 (``probe_join``, either wrapper: mode, rows,
+    launches)."""
+    return dict(getattr(_PLANS, name, {}))
 
 
 def radix_plan(name: str, read_device: bool = True) -> dict:
@@ -1302,24 +1318,34 @@ def key_range_check_plain(keys: torch.Tensor, mask: torch.Tensor, lo: int, hi: i
     return live.any() & ((kmin < lo) | (kmax > hi))
 
 
-# One accumulator per (device, stream) for the one-launch reductions of K10
-# and K11: uint64[2], a block partial and a ticket (csrc/common.cuh
-# ab_last_block).  Zeroed once here, on the stream that will use it, and put
-# back to zero by the last block of every launch, so a call queues no
-# memset.  Launches on one stream run in order, so back-to-back calls and
-# task threads that share a stream share it safely; two streams never do.
+# Buffers kept per (device, stream) for the kernels that leave them as
+# they found them, so that a call queues no memset: zeroed once here, on the
+# stream that will use them, and put back to zero by the last block of
+# every launch (csrc/common.cuh ab_last_block).  Launches on one stream run
+# in order, so back-to-back calls and task threads that share a stream
+# share them safely; two streams never do.  The accumulator (uint64[2], a
+# block partial and a ticket) serves K10, K11 and K2's two-launch form;
+# K6's state (a ticket, a tile counter and a look-back status word a tile)
+# grows to the next power of two when a call has more tiles.
 _ACCUMULATORS: Dict[Tuple[int, int], torch.Tensor] = {}
+_PROBE_STATES: Dict[Tuple[int, int], torch.Tensor] = {}
 _ACCUMULATORS_LOCK = threading.Lock()
 
 
-def _accumulator(device: torch.device, stream: ctypes.c_void_p) -> torch.Tensor:
+def _stream_words(table: Dict[Tuple[int, int], torch.Tensor], device: torch.device,
+                  stream: ctypes.c_void_p, words: int) -> torch.Tensor:
     index = device.index if device.index is not None else torch.cuda.current_device()
     key = (index, stream.value or 0)
     with _ACCUMULATORS_LOCK:
-        acc = _ACCUMULATORS.get(key)
-        if acc is None:
-            acc = _ACCUMULATORS[key] = torch.zeros(2, dtype=torch.int64, device=device)
-    return acc
+        buf = table.get(key)
+        if buf is None or buf.shape[0] < words:
+            buf = table[key] = torch.zeros(1 << max(words - 1, 1).bit_length(),
+                                           dtype=torch.int64, device=device)
+    return buf
+
+
+def _accumulator(device: torch.device, stream: ctypes.c_void_p) -> torch.Tensor:
+    return _stream_words(_ACCUMULATORS, device, stream, 2)
 
 
 def key_range_check(keys: torch.Tensor, mask: torch.Tensor, lo: int, hi: int,
@@ -1481,8 +1507,8 @@ def build_side_sort(build_keys: List[torch.Tensor], build_mask: torch.Tensor):
     return hash_out, order, n_live[0]
 
 
-def probe_counts_plain(probe_hash, probe_mask, build_hash_sorted):
-    """Plain twin of K6's count step: (lo, count, inclusive offsets,
+def _probe_bounds_plain(probe_hash, probe_mask, build_hash_sorted):
+    """The reference's count arithmetic: (lo, count, inclusive offsets,
     total), lo and count as int64."""
     b = build_hash_sorted ^ _SIGN
     p = probe_hash ^ _SIGN
@@ -1493,43 +1519,69 @@ def probe_counts_plain(probe_hash, probe_mask, build_hash_sorted):
     return lo, count, offsets, offsets[-1]
 
 
-def _probe_counts_launch(probe_hash, probe_mask, build_hash_sorted):
+def probe_counts_plain(probe_hash, probe_mask, build_hash_sorted, offsets: bool = False):
+    """Plain twin of K6's count pass: (inclusive offsets (int64) with
+    ``offsets``, else None; total)."""
+    _, _, incl, total = _probe_bounds_plain(probe_hash, probe_mask, build_hash_sorted)
+    return (incl if offsets else None), total
+
+
+# csrc/probe.cu's modes: the total alone, with the inclusive offsets, or
+# the pair slots
+_PROBE_TOTAL, _PROBE_OFFSETS, _PROBE_EXPAND = 0, 1, 2
+
+
+def _probe_launch(probe_hash, probe_mask, build_hash_sorted, mode: int, cap: int = 0):
+    """K6's fused kernel (and, for pair slots, its fill): (out, offsets,
+    (probe_idx, build_pos, pair_valid)); out[0] is the total."""
     _require_cuda(probe_hash, probe_mask, build_hash_sorted)
     if probe_hash.dtype != torch.int64 or build_hash_sorted.dtype != torch.int64:
         raise TypeError("probe and build hashes travel as int64 bits")
+    if probe_mask.dtype != torch.bool or probe_mask.shape != probe_hash.shape:
+        raise ValueError("the probe mask must be bool, one flag a probe row")
     ph, pm, bh = _flat(probe_hash), _flat(probe_mask), _flat(build_hash_sorted)
-    n = ph.shape[0]
+    n, nb = ph.shape[0], bh.shape[0]
     if n == 0:
         raise ValueError("probe over an empty batch")
+    if mode == _PROBE_EXPAND and nb == 0:
+        raise ValueError("probe against an empty build side")
     dev = ph.device
-    lo = torch.empty(n, dtype=torch.int32, device=dev)
-    count = torch.empty(n, dtype=torch.int64, device=dev)
-    offsets = torch.empty(n, dtype=torch.int64, device=dev)
-    total = torch.empty(1, dtype=torch.int64, device=dev)
+    out = torch.empty(3, dtype=torch.int64, device=dev)
+    offsets = torch.empty(n, dtype=torch.int64, device=dev) if mode == _PROBE_OFFSETS else None
+    pairs = (None, None, None)
+    if mode == _PROBE_EXPAND:  # every slot is written
+        pairs = (torch.empty(cap, dtype=torch.int32, device=dev),
+                 torch.empty(cap, dtype=torch.int32, device=dev),
+                 torch.empty(cap, dtype=torch.bool, device=dev))
     lib = _cuda.LIBRARIES.get("probe")
-    scratch = torch.empty(lib.ab_probe_scratch_bytes(n), dtype=torch.uint8, device=dev)
-    _cuda.check(lib.ab_probe_counts(_ptr(ph), _ptr(pm), n, _ptr(bh), bh.shape[0], _ptr(lo),
-                                    _ptr(count), _ptr(offsets), _ptr(total), _ptr(scratch),
-                                    _stream(dev)), "probe_counts")
-    return lib, lo, count, offsets, total
-
-
-def probe_counts(probe_hash, probe_mask, build_hash_sorted):
-    """Candidate pairs per probe row against the sorted build hashes:
-    (lo, count, inclusive offsets, total).  JoinExec's count passes read
-    the total, and per-window counts from the offsets at window edges."""
-    if _is_cpu(probe_hash):
-        return probe_counts_plain(probe_hash, probe_mask, build_hash_sorted)
-    _lib, lo, count, offsets, total = _probe_counts_launch(probe_hash, probe_mask,
-                                                           build_hash_sorted)
+    stream = _stream(dev)
+    state = _stream_words(_PROBE_STATES, dev, stream, lib.ab_probe_state_words(n))
+    ptrs = [None if t is None else _ptr(_flat(t)) for t in (offsets, *pairs)]
+    _cuda.check(lib.ab_probe_join(_ptr(ph), _ptr(pm), n, _ptr(bh), nb, mode, cap, *ptrs,
+                                  _ptr(out), _ptr(state), stream), "probe_join")
     count_launch("probe_join")
-    return lo, count, offsets, total[0]
+    _PLANS.probe_join = {"mode": ("total", "offsets", "pairs")[mode], "rows": n,
+                         "launches": 2 if mode == _PROBE_EXPAND and cap > 0 else 1}
+    return out, offsets, pairs
+
+
+def probe_counts(probe_hash, probe_mask, build_hash_sorted, offsets: bool = False):
+    """Candidate pairs of the probe rows against the sorted build hashes:
+    (inclusive offsets (int64) with ``offsets``, else None; total as a 0-d
+    int64 tensor).  JoinExec's count pass reads the total; its windowed
+    count pass the per-window counts from the offsets at window edges.
+    One launch."""
+    if _is_cpu(probe_hash):
+        return probe_counts_plain(probe_hash, probe_mask, build_hash_sorted, offsets)
+    out, incl, _ = _probe_launch(probe_hash, probe_mask, build_hash_sorted,
+                                 _PROBE_OFFSETS if offsets else _PROBE_TOTAL)
+    return incl, out[0]
 
 
 def probe_join_plain(probe_hash, probe_mask, build_hash_sorted, out_capacity: int):
     """Plain twin of K6 (the reference's formulation): pair slot j belongs
     to the first probe row whose inclusive offset exceeds j."""
-    lo, count, offsets, total = probe_counts_plain(probe_hash, probe_mask, build_hash_sorted)
+    lo, count, offsets, total = _probe_bounds_plain(probe_hash, probe_mask, build_hash_sorted)
     starts = offsets - count
     j = torch.arange(out_capacity, device=probe_hash.device)
     probe_idx = torch.clamp(torch.searchsorted(offsets, j, side="right"), 0,
@@ -1548,24 +1600,12 @@ def probe_join(probe_hash: torch.Tensor, probe_mask: torch.Tensor,
     Returns (probe_idx: int32, build_pos: int32 position in the *sorted*
     build, pair_valid, total pairs).  Slots at or past the total are
     invalid.  Callers MUST verify real key equality afterwards (hash
-    collisions)."""
+    collisions).  At most two launches (csrc/probe.cu)."""
     if _is_cpu(probe_hash):
         return probe_join_plain(probe_hash, probe_mask, build_hash_sorted, out_capacity)
-    lib, lo, count, offsets, total = _probe_counts_launch(probe_hash, probe_mask,
-                                                          build_hash_sorted)
-    n, nb = probe_hash.shape[0], build_hash_sorted.shape[0]
-    if nb == 0:
-        raise ValueError("probe against an empty build side")
-    dev = lo.device
-    cap = int(out_capacity)
-    probe_idx = torch.empty(cap, dtype=torch.int32, device=dev)
-    build_pos = torch.empty(cap, dtype=torch.int32, device=dev)
-    pair_valid = torch.empty(cap, dtype=torch.bool, device=dev)  # every slot is written
-    _cuda.check(lib.ab_probe_expand(_ptr(lo), _ptr(count), _ptr(offsets), _ptr(total), n, nb,
-                                    cap, _ptr(probe_idx), _ptr(build_pos),
-                                    _ptr(_flat(pair_valid)), _stream(dev)), "probe_join")
-    count_launch("probe_join")
-    return probe_idx, build_pos, pair_valid, total[0]
+    out, _, (probe_idx, build_pos, pair_valid) = _probe_launch(
+        probe_hash, probe_mask, build_hash_sorted, _PROBE_EXPAND, int(out_capacity))
+    return probe_idx, build_pos, pair_valid, out[0]
 
 
 def segment_any_plain(values, seg_ids, num_segments: int) -> torch.Tensor:

@@ -1310,13 +1310,13 @@ class JoinExec(ExecutionPlan):
         def count_fn(pcols, pmask, bh_sorted, laux):
             # candidate-pair total only: K3 + K6's count step, no gathers
             ph = K.hash64(side_keys(lprog, pcols, pmask, laux)[0])
-            return K.probe_counts(ph, pmask, bh_sorted)[3]
+            return K.probe_counts(ph, pmask, bh_sorted)[1]
 
         def wcount_fn(pcols, pmask, bh_sorted, laux, chunk_rows, n_windows):
             # per-window candidate counts for the budget-windowed probe, in
             # one pass and one host transfer
             ph = K.hash64(side_keys(lprog, pcols, pmask, laux)[0])
-            offsets = K.probe_counts(ph, pmask, bh_sorted)[2]
+            offsets = K.probe_counts(ph, pmask, bh_sorted, True)[0]  # with the offsets
             return window_counts(offsets, chunk_rows, n_windows)
 
         return lprog, rprog, vprog, join_fn, count_fn, prep_fn, wcount_fn

@@ -90,7 +90,17 @@ Phases (any failure exits non-zero and prints no result line):
    bools, NaN and dead rows, one full-range int64 key and eight keys over
    64 bits; for the join build and probe duplicate keys with fan-out,
    all-dead rows, forced equal hashes and truncation at the pair capacity,
-   and K5 at 2^23 rows in both hash modes; one segment hit by every row; for the sort-path
+   and K5 at 2^23 rows in both hash modes; for K6 tests/torch_cases.py's
+   probe cases (one build row, an all-dead probe, live all-ones probe
+   hashes against the dead build tail, forced equal hashes past the 2^20
+   cap, row n-1 dead and live) at 1, 255, 257, 135,168 -+1 and 2^23 + 5
+   probe rows,
+   both count modes and masks viewed at byte offsets 1-15; for K2 0, 1,
+   8,191, 8,193, 2^17 -+1, 2^17 + 8,192 -+1 and 2^23 + 5 rows, all live
+   and all dead, views at byte offsets 1-15, each in the form its size
+   takes, with its live count; K6 and K2 100 calls back to back on one stream and
+   from four threads at once, on one stream and on a stream each; one
+   segment hit by every row; for the sort-path
    aggregate empty slots, one 6M-row group, no keys and float columns;
    for K1 int32 sums that wrap and int32 and float32 min and max; for K9
    sorted and shuffled keys; for K10 keys out of range and NULL keys; for
@@ -144,7 +154,12 @@ Phases (any failure exits non-zero and prints no result line):
    onesweep, composite bits, passes) on every path and at every check, and
    their kernels' device ms per profiled query; K10's and K11's kernels,
    launches and the memsets before them per profiled query (on pq_q18 one
-   kernel a call and no memset, or the run fails);
+   kernel a call and no memset, or the run fails); K6's and K2's kernels,
+   device ms and the memsets and copies before them per profiled query (on
+   q3 and pq_q18 K6's fused kernel and at most its fill a call, K2's one
+   kernel or its count and scatter, and no memset or copy, or the run
+   fails), the rows of their calls per path by power of two, and the live
+   probe share, total and cap of K6's largest call;
    the ``entry()`` step's rows/s at 4096 and 6M rows; per parquet query
    the scan's read and convert times cold and warm, the scan cache's
    resident bytes and the peak device memory.
@@ -383,6 +398,100 @@ def clustered_trace(prof) -> dict:
     return out
 
 
+# K6 and K2 by CUDA kernel name, this tree's and those of the parent of
+# their redesign (K6: probe_bounds, the <long long> scans, a D2D copy,
+# probe_expand and probe_fill; K2: two scan kernels of <unsigned char, int>
+# and <int> and tile_scatter), so that tools/torch_wall_compare.py reads
+# both trees.  "shared" kernels are K8's scan kernels too (csrc/seg_agg.cu
+# launches the same template instances): they count as K2's only right
+# before the parent's tile_scatter on its stream, in the same call.
+CALL_KERNELS = {
+    "probe_join": {"own": ("k6_probe_", "probe_bounds", "probe_expand", "probe_fill",
+                           "ab_scan_tile_sums<long long", "ab_scan_tile_offsets<long long",
+                           "ab_scan_tile_apply<long long"), "shared": (), "shared_before": ()},
+    "compaction_order": {"own": ("k2_compact_", "tile_scatter"),
+                         "shared": ("ab_scan_tile_sums<unsigned char, int>",
+                                    "ab_scan_tile_offsets<int>"),
+                         "shared_before": ("tile_scatter",)},
+}
+
+
+def call_trace(prof) -> dict:
+    """K6's and K2's kernels in a torch.profiler trace: per kernel its
+    launches and device ms (a shared scan kernel counted only right before
+    one of its own on the same stream), by kernel name, and the memsets and
+    device-to-device copies (the parent's K6 copied its total so) that sit
+    on that stream right before one of its kernels (a table's upload before
+    a query's first compaction is not the kernel's)."""
+    import torch
+
+    streams = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            streams.setdefault(ev.device_resource_id, []).append(ev)
+    out = {name: {"launches": 0, "ms": 0.0, "memsets": 0, "memset_ms": 0.0, "copies": 0,
+                  "copy_ms": 0.0, "by_kernel": {}} for name in CALL_KERNELS}
+    for evs in streams.values():
+        evs.sort(key=lambda e: e.time_range.start)
+        taken = set()
+        for i, ev in enumerate(evs):
+            for name, parts in CALL_KERNELS.items():
+                if not any(p in ev.name for p in parts["own"]):
+                    continue
+                rec = out[name]
+                group = [i]
+                j = i - 1  # the call's shared kernels run right before its own
+                shares = any(p in ev.name for p in parts["shared_before"])
+                while shares and j >= 0 and j not in taken and any(p in evs[j].name
+                                                                    for p in parts["shared"]):
+                    group.append(j)
+                    j -= 1
+                for k in group:
+                    taken.add(k)
+                    key = evs[k].name.split("(")[0][:60]
+                    ms = evs[k].time_range.elapsed_us() / 1000
+                    rec["launches"] += 1
+                    rec["ms"] += ms
+                    cnt, tot = rec["by_kernel"].get(key, (0, 0.0))
+                    rec["by_kernel"][key] = (cnt + 1, tot + ms)
+                if j >= 0 and j not in taken:
+                    lower = evs[j].name.lower()
+                    kind = ("memsets", "memset_ms") if "memset" in lower else \
+                        ("copies", "copy_ms") if "memcpy dtod" in lower else None
+                    if kind is not None:
+                        taken.add(j)
+                        rec[kind[0]] += 1
+                        rec[kind[1]] += evs[j].time_range.elapsed_us() / 1000
+    return out
+
+
+def check_call_trace(trace: dict, label: str) -> None:
+    """Fails unless each K6 call was its fused kernel and at most the fill
+    (probe_join) and each K2 call one kernel (one launch) or a count pass
+    and its scatter, with no memset or copy before them."""
+    k6, k2 = trace["probe_join"], trace["compaction_order"]
+    by6, by2 = k6["by_kernel"], k2["by_kernel"]
+
+    def launches(by, part):  # K6's fused kernel is a template: one name per tile size
+        return sum(v[0] for k, v in by.items() if part in k)
+
+    fused, fill = launches(by6, "k6_probe_fused"), launches(by6, "k6_probe_fill")
+    one = launches(by2, "k2_compact_one")
+    count, scatter = launches(by2, "k2_compact_count"), launches(by2, "k2_compact_scatter")
+    bad = []
+    if k6["launches"] != fused + fill or fused != k6.get("wrapper_calls", fused) or fill > fused:
+        bad.append(f"K6 ran {json.dumps(by6)} for {k6.get('wrapper_calls')} calls")
+    if k2["launches"] != one + count + scatter or count != scatter or \
+            one + count != k2.get("wrapper_calls", one + count):
+        bad.append(f"K2 ran {json.dumps(by2)} for {k2.get('wrapper_calls')} calls")
+    for name, rec in trace.items():
+        if rec["memsets"] or rec["copies"]:
+            bad.append(f"{name}: {rec['memsets']} memsets and {rec['copies']} copies right "
+                       "before its kernels")
+    if bad:
+        fail(f"{label}'s profiled query: " + "; ".join(bad))
+
+
 # --------------------------------------------------------------------------
 # timing
 # --------------------------------------------------------------------------
@@ -483,6 +592,19 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def probe_join_bytes(ph, pm, bh, cap) -> int:
+    """The bytes K6's ``probe_join`` must move on these inputs: the mask,
+    the hashes of the live probe rows and of row n-1 (whose lower bound the
+    slots past the total need), each build row whose hash a live probe row
+    matches, read once, 9 bytes a pair slot written, and the total."""
+    import torch
+
+    live = int(pm.sum())
+    searched = live + (0 if bool(pm[-1]) else 1)
+    matched = int(torch.isin(bh, ph[pm]).sum()) if live else 0
+    return nbytes(pm) + 8 * (searched + matched) + 9 * cap + 8
+
+
 # --------------------------------------------------------------------------
 # capture of the main path's kernel inputs
 # --------------------------------------------------------------------------
@@ -510,6 +632,18 @@ def _tensors(x):
     if isinstance(x, dict):
         return [t for v in x.values() for t in _tensors(v)]
     return []
+
+
+# the wrappers whose call sizes each path reports, by power of two: how far
+# the largest call stands for the rest
+SIZED_CALLS = ("compaction_order", "probe_join", "probe_counts")
+
+
+def log_call_sizes(report, path, cap) -> None:
+    if cap.sizes:
+        sizes = {w: dict(sorted(h.items())) for w, h in cap.sizes.items()}
+        report.setdefault("call_sizes", {})[path] = sizes
+        log(f"{path} K2 / K6 calls by rows (rounded up to a power of two): {json.dumps(sizes)}")
 
 
 class Capture:
@@ -547,6 +681,7 @@ class Capture:
         self.off_device = []
         self.forms = {}  # K13 form -> calls
         self.radix = {}  # K4 / K5 -> "form bits/passes" -> calls
+        self.sizes = {}  # K2 / K6 wrapper -> rows rounded up to a power of two -> calls
         self._lock = threading.Lock()
 
     def __enter__(self):
@@ -581,6 +716,10 @@ class Capture:
                 if name == "fused_agg":
                     form = "dense" if self.K.dense_domain(args[5]) is not None else "sort"
                     self.forms[form] = self.forms.get(form, 0) + 1
+                if name in SIZED_CALLS:
+                    seen = self.sizes.setdefault(name, {})
+                    bucket = 1 << max(n - 1, 0).bit_length()
+                    seen[bucket] = seen.get(bucket, 0) + 1
                 if n >= 0 and (name not in self.calls or n > self.calls[name][0]):
                     self.calls[name] = (n, _clone(args))
             out = fn(*args, **kwargs)
@@ -1099,9 +1238,9 @@ def plan_breakdown(plan, indent=0):
 def profile_query(ctx, sql, label, K=None):
     """One warm query under torch.profiler: device time by kernel name, the
     device's busy share of the wall time, the device time and launches of
-    K4's and K5's kernels (RADIX_KERNELS), and K10's and K11's
-    (``clustered_trace``; with ``K``, their launch counters over the query
-    beside the trace's kernels)."""
+    K4's and K5's kernels (RADIX_KERNELS), K10's and K11's
+    (``clustered_trace``) and K6's and K2's (``call_trace``; with ``K``,
+    each one's launch counter over the query beside the trace's kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1116,8 +1255,9 @@ def profile_query(ctx, sql, label, K=None):
                     "launches": sum(r[1] for r in rows if any(p in r[2] for p in parts))}
              for name, parts in RADIX_KERNELS.items()}
     clustered = clustered_trace(prof)
+    calls = call_trace(prof)
     if before is not None:
-        for name, rec in clustered.items():
+        for name, rec in (*clustered.items(), *calls.items()):
             rec["wrapper_calls"] = K.LAUNCHES[name] - before[name]
     busy_ms = sum(r[0] for r in rows)
     if not rows:
@@ -1130,8 +1270,10 @@ def profile_query(ctx, sql, label, K=None):
     log(f"  K4 sort_order / K5 build_side_sort kernels per query: {json.dumps(radix)}")
     log(f"  K10 key_range_check / K11 clustered_keep kernels per query (memsets right before "
         f"them on their stream): {json.dumps(clustered)}")
+    log(f"  K6 probe_join / K2 compaction_order kernels per query (memsets and copies right "
+        f"before them on their stream): {json.dumps(calls)}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
-            "radix_ms": radix, "clustered": clustered}
+            "radix_ms": radix, "clustered": clustered, "calls": calls}
 
 
 def profile_programs(ctx, sql, device):
@@ -1251,8 +1393,7 @@ KERNEL_NAMES = {
     "K19 operator programs": ("ab_fused_rows_kernel",),
     "K20 concat": ("concat_kernel", "void concat_kernel<"),
     "K21 gathers (shrink, pack, sort, join pairs)": ("gather_kernel",),
-    "K2 compaction order": ("tile_scatter", "void ab_scan_tile_sums<unsigned char",
-                            "void ab_scan_tile_offsets<int>"),
+    "K2 compaction order": ("k2_compact_",),
     "K22 mask ops": ("mask_kernel", "void mask_kernel<"),
 }
 
@@ -1324,6 +1465,7 @@ def stress_inputs(K, device, n, seed=1):
     from arrow_ballista_tpu_torch.ops.kernels import dense_domain
 
     rng = np.random.default_rng(seed)
+    big = (1 << 23) + 5 if n >= STRESS_ROWS else n + 5  # K2's and K6's largest shape
 
     def t(a):
         return torch.from_numpy(a).to(device)
@@ -1379,14 +1521,151 @@ def stress_inputs(K, device, n, seed=1):
         # the q1 domain (shared-memory form) and one too wide for shared memory
         "dense_group_states": [([k1, k2], dense_vals, mask, r, dense_domain(r))
                                for r in (((-1, 15), (-1, 15)), ((-1, 127), (-1, 255)))],
-        "compaction_order": [(mask,)],
+        "compaction_order": [(mask,), *compaction_stress(t, rng, big)],
         "bucket_of": [(hash_keys, 16), (hash_keys, 7)],
         "sort_order": [(sort_keys, mask), ([(t(full), True)], mask), (wide_keys, mask),
                        *group_keys],
-        **join_stress(K, t, rng, n),
+        **join_stress(K, t, rng, n, big),
         "grouped_on_order": seg_agg_stress(t, rng, n),
         **clustered_stress(t, rng, n),
     }
+
+
+def view_at(t, a, offset):
+    """A card copy of numpy array ``a`` viewed ``offset`` bytes past a 16-byte
+    boundary, inside a buffer of ones (so a kernel that reads the bytes
+    around the view would see live rows)."""
+    import numpy as np
+    import torch
+
+    x = t(np.ascontiguousarray(a))
+    big = torch.ones(x.numel() + 32, dtype=x.dtype, device=x.device)
+    big[offset:offset + x.numel()] = x
+    out = big[offset:offset + x.numel()]
+    if out.data_ptr() % 16 != offset * x.element_size() % 16:
+        fail(f"a view at byte offset {offset} is not where it should be")
+    return out
+
+
+def compaction_stress(t, rng, big):
+    """K2 at 0 and 1 rows, 8,192 rows +-1, the one-launch limit (2^17)
+    +-1 (all live and all dead there too), the first two-launch tile (8,192
+    rows) past it +-1 and 2^23 + 5 rows, and masks viewed at byte offsets
+    1-15 in both forms; check_kernel holds each and its live count."""
+    import numpy as np
+
+    one = 1 << 17  # csrc/compact.cu CP_ONE_ROWS
+    out = [(t(rng.random(n) < 0.4),) for n in (0, 1, 8191, 8193, one - 1, one, one + 1,
+                                                 one + 8191, one + 8193, big)]
+    out += [(t(np.ones((1 << 17) + 1, bool)),), (t(np.zeros((1 << 17) + 1, bool)),)]
+    out += [(view_at(t, rng.random(n) < 0.4, off),) for off in range(1, 16)
+            for n in (100_003, one + 8193)]
+    return out
+
+
+def probe_stress(K, t, rng, big):
+    """K6 over tests/torch_cases.py's probe cases (one build row, an
+    all-dead probe, live all-ones probe hashes against the dead build tail,
+    forced equal hashes, row n-1 dead and live) at 1, a 256-row tile +-1,
+    the switch to 1,024-row tiles (135,168 rows) +-1 and 2^23 + 5 probe
+    rows, caps that truncate and that run past the total
+    (at most 2^22; forced: the 2^20 cap), both count modes; masks viewed at
+    byte offsets 1-15."""
+    import numpy as np
+
+    from tests.torch_cases import PROBE_CASES, probe_case
+
+    joins, counts = [], []
+    for n in (1, 255, 257, 135_168, 135_169, big):
+        for case in PROBE_CASES:
+            ph, pm, bh = probe_case(case, n, rng)
+            args = (t(ph.view(np.int64)), t(pm), t(bh.view(np.int64)))
+            total = int(K.probe_counts_plain(*args)[1])
+            most = 1 << 22  # all-ones probe hashes against the dead tail: totals past 10^11
+            caps = [1 << 20] if case == "forced_collisions" else \
+                sorted({max(1, min(total // 2, most)), min(total + 1000, most)})
+            joins += [(*args, cap) for cap in caps]
+            counts += [Wrapped("probe_counts", (*args, True)), Wrapped("probe_counts", args)]
+    ph, pm, bh = probe_case("dup_fanout", 100_003, rng)
+    for off in range(1, 16):
+        args = (t(ph.view(np.int64)), view_at(t, pm, off), t(bh.view(np.int64)))
+        joins.append((*args, 150_000))
+        counts.append(Wrapped("probe_counts", (*args, True)))
+    return joins + counts
+
+
+def probe_compact_reset_check(K, device, calls=100, seed=14):
+    """K6 and K2 with no memset between calls: ``calls`` calls of K6's two
+    wrappers and of K2 queued back to back on one stream, then 25 from each
+    of four threads at once on the stream they share, then on a stream
+    each; sizes, totals and caps differ from call to call, so a status
+    word, tile counter or ticket left behind would show.  Every result
+    against the twin; returns the calls checked."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from tests.torch_cases import probe_case
+
+    rng = np.random.default_rng(seed)
+
+    def inputs(count):
+        out = []
+        for _ in range(count):
+            n = int(rng.integers(1, 300_000))
+            ph, pm, bh = probe_case("dup_fanout", n, rng, n_build=int(rng.integers(1, 60_000)))
+            out.append((ph.view(np.int64), pm, bh.view(np.int64), int(rng.integers(0, 3 * n))))
+        return out
+
+    def launch(batch):
+        staged = [tuple(torch.from_numpy(a).to(device) for a in (ph, pm, bh)) + (cap,)
+                  for ph, pm, bh, cap in batch]
+        return [(K.probe_join(*a), K.probe_counts(*a[:3], True),
+                 K.compaction_order(a[1], with_count=True)) for a in staged]
+
+    def check(batch, results):
+        for (ph, pm, bh, cap), (join, counts, compact) in zip(batch, results):
+            host = tuple(torch.from_numpy(a) for a in (ph, pm, bh))
+            want = K.probe_join_plain(*host, cap)
+            if any(not torch.equal(g.cpu(), w) for g, w in zip(join[:3], want[:3])) or \
+                    int(join[3]) != int(want[3]) or int(counts[1]) != int(want[3]):
+                raise AssertionError("probe_join: a result differs after back-to-back calls")
+            if not torch.equal(counts[0].cpu(), K.probe_counts_plain(*host, True)[0]):
+                raise AssertionError("probe_counts: offsets differ after back-to-back calls")
+            if not torch.equal(compact[0].cpu(), K.compaction_order_plain(host[1])) or \
+                    int(compact[1]) != int(pm.sum()):
+                raise AssertionError("compaction_order: a result differs after back-to-back "
+                                     "calls")
+
+    batch = inputs(calls)
+    results = launch(batch)
+    torch.cuda.synchronize()
+    check(batch, results)
+    checked = calls
+    for own_streams in (False, True):
+        batches = [inputs(25) for _ in range(4)]
+        out = [None] * 4
+        start = threading.Barrier(4)
+
+        def work(i):
+            scope = (torch.cuda.stream(torch.cuda.Stream(device)) if own_streams
+                     else contextlib.nullcontext())
+            with scope:
+                start.wait()
+                out[i] = launch(batches[i])
+                torch.cuda.current_stream(device).synchronize()
+
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        torch.cuda.synchronize()
+        for b, r in zip(batches, out):
+            check(b, r)
+            checked += len(b)
+    return checked
 
 
 def clustered_stress(t, rng, n):
@@ -1558,7 +1837,7 @@ def clustered_reset_check(K, device, calls=100, seed=13):
     return checked
 
 
-def join_stress(K, t, rng, n):
+def join_stress(K, t, rng, n, big):
     """K5, K6 and K7 stress inputs: duplicate keys with fan-out (about 3
     live build rows a key), all-dead build rows, and pair capacities that
     truncate the total and that leave dead slots; one segment hit by every
@@ -1575,13 +1854,13 @@ def join_stress(K, t, rng, n):
     probes = []
     for mask in (bmask, dead):
         bh = K.build_side_sort_plain(bkeys, mask)[0]
-        total = int(K.probe_counts_plain(ph, pmask, bh)[3])
+        total = int(K.probe_counts_plain(ph, pmask, bh)[1])
         for cap in sorted({max(64, total // 2), total + 1000}):
             probes.append((ph, pmask, bh, cap))
     ns = 1 << 20
     return {
         "build_side_sort": [(bkeys, bmask), (bkeys, dead)],
-        "probe_join": probes,
+        "probe_join": probes + probe_stress(K, t, rng, big),
         "segment_any": [(torch.ones(n, dtype=torch.bool, device=bmask.device),
                          torch.full((n,), ns // 2, dtype=torch.int32, device=bmask.device), ns),
                         (t(rng.integers(-3, 3, n).astype(np.int32)),
@@ -2004,8 +2283,12 @@ def check_kernel(K, name, args):
         return max_err(K.spill_partition(*args), K.spill_partition_plain(*args))
     if name == "dense_group_states":
         return dense_check(K, args)
-    if name == "compaction_order":
-        return max_err(K.compaction_order(*args), K.compaction_order_plain(*args))
+    if name == "compaction_order":  # with its live count
+        (mask,) = args
+        got, count = K.compaction_order(mask, with_count=True)
+        if int(count) != int(mask.sum()):
+            raise AssertionError("live counts differ")
+        return max_err(got, K.compaction_order_plain(mask))
     if name == "bucket_of":
         keys, n = args
         err = max_err(K.bucket_of(keys, n), K.bucket_of_plain(keys, n))
@@ -2034,13 +2317,13 @@ def check_kernel(K, name, args):
         if int(got[3]) != int(want[3]):
             raise AssertionError(f"pair totals differ: {int(got[3])} vs {int(want[3])}")
         return err
-    if name == "probe_counts":  # (lo, count, inclusive offsets, total)
+    if name == "probe_counts":  # (inclusive offsets when asked, else None; total)
         got, want = K.probe_counts(*args), K.probe_counts_plain(*args)
-        err = max_err(got[0].long(), want[0]) + max_err(got[1], want[1])
-        err += max_err(got[2], want[2])
-        if int(got[3]) != int(want[3]):
-            raise AssertionError(f"pair totals differ: {int(got[3])} vs {int(want[3])}")
-        return err
+        if (got[0] is None) != (want[0] is None):
+            raise AssertionError("offsets returned by one side only")
+        if int(got[1]) != int(want[1]):
+            raise AssertionError(f"pair totals differ: {int(got[1])} vs {int(want[1])}")
+        return 0.0 if want[0] is None else max_err(got[0], want[0])
     if name == "segment_any":
         return max_err(K.segment_any(*args), K.segment_any_plain(*args))
     if name == "presorted_disorder":
@@ -2330,12 +2613,12 @@ def kernel_timings(K, name, args, device):
         library = lambda: torch.sort(flipped, stable=True)  # noqa: E731
     elif name == "probe_join":
         ph, pm, bh, cap = args
-        moved = nbytes(ph, pm, bh) + cap * 9 + 8
+        moved = probe_join_bytes(ph, pm, bh, cap)
         kern = lambda: K.probe_join(ph, pm, bh, cap)  # noqa: E731
         plain = lambda: K.probe_join_plain(ph, pm, bh, cap)  # noqa: E731
         pf, bf = ph ^ K._SIGN, bh ^ K._SIGN
         rows = torch.arange(ph.shape[0], device=device)
-        total = int(K.probe_counts_plain(ph, pm, bh)[3])
+        total = int(K.probe_counts_plain(ph, pm, bh)[1])
 
         def library():  # searchsorted x2 + cumsum + repeat_interleave
             lo = torch.searchsorted(bf, pf, side="left")
@@ -2629,7 +2912,7 @@ LIBRARY_CALL = {
     "sort_order": "sort(stable=True) of a composite word of small codes, or of a single "
                   "key's words",
     "build_side_sort": "sort(stable=True) of the sign-flipped hashes",
-    "probe_join": "searchsorted x2 + cumsum + repeat_interleave",
+    "probe_join": "a composite, not one call: searchsorted x2 + cumsum + repeat_interleave",
     "segment_any": "scatter_reduce_(amax)",
     "grouped_on_order": "index_add_ / scatter_reduce_ at the twin's segment ids",
     "presorted_disorder": None,
@@ -2892,6 +3175,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         if missing:
             fail(f"{path}: kernels not launched on its path: {missing} ({launches[path]})")
         captured[path] = cap.calls
+        log_call_sizes(report, path, cap)
         k13_forms[path] = dict(cap.forms)
         if cap.radix:
             report.setdefault("radix_forms", {})[path] = cap.radix
@@ -3029,8 +3313,10 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         report[f"{path}_warm_ms"] = warm_s * 1000
         if cuda and not path.startswith("spill_"):
             prof_q = report[f"{path}_profile"] = profile_query(c, sql, path, K)
-            if path == "pq_q18" and prof_q is None:
-                fail("pq_q18's profiled query recorded no device time: K10 and K11 unchecked")
+            if path in ("q3", "pq_q18") and prof_q is None:
+                fail(f"{path}'s profiled query recorded no device time: its kernels unchecked")
+            if path in ("q3", "pq_q18"):  # K6 and K2: their kernels a call, no memset
+                check_call_trace(prof_q["calls"], path)
             if path == "pq_q18":  # K10 and K11: one kernel a call, no memset before it
                 for kname, rec in prof_q["clustered"].items():
                     if not rec["launches"] or rec["launches"] != rec["wrapper_calls"] \
@@ -3107,6 +3393,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                         "spill_runs": op_metrics(job_plans(msweep), ("spill_runs",))["spill_runs"]}
     launches["memsweep"] = dict(K.LAUNCHES)
     captured["memsweep"] = cap.calls
+    log_call_sizes(report, "memsweep", cap)
     if cap.radix:
         report.setdefault("radix_forms", {})["memsweep"] = cap.radix
     if cap.off_device:
@@ -3143,6 +3430,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             tp[q] = {"frame": df, "cold_ms": s * 1000}
     launches["tpch22"] = dict(K.LAUNCHES)
     captured["tpch22"] = cap.calls
+    log_call_sizes(report, "tpch22", cap)
     if cap.radix:
         report.setdefault("radix_forms", {})["tpch22"] = cap.radix
         log(f"tpch22 (cold runs) K4 / K5 calls by form: {json.dumps(cap.radix)}")
@@ -3342,6 +3630,10 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                 report["clustered_reset_calls"] = clustered_reset_check(K, device)
                 log(f"K10 / K11 back to back on one stream and from four threads: "
                     f"{report['clustered_reset_calls']} calls of each equal their twins")
+            if name == "probe_join" and cuda:  # K6 and K2 with no memset between calls
+                report["probe_compact_reset_calls"] = probe_compact_reset_check(K, device)
+                log(f"K6 / K2 back to back on one stream and from four threads: "
+                    f"{report['probe_compact_reset_calls']} calls of each equal their twins")
             if name in ("build_side_sort", "probe_join", "spill_partition"):
                 was = K._FORCE_COLLISIONS
                 K._FORCE_COLLISIONS = True
@@ -3382,6 +3674,13 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             path, n, args = forms.get("dense", (path, n, args))
         times, moved = kernel_timings(K, timed, args, device)
         bound_ms = moved / HBM_BYTES_PER_S * 1000
+        call_shape = {}
+        if timed == "probe_join":  # how selective the largest call is
+            ph, pm, bh, cap = args
+            call_shape = {"live_share": float(pm.float().mean()), "build_rows": bh.shape[0],
+                          "total": int(K.probe_counts_plain(ph, pm, bh)[1]), "cap": cap}
+            log(f"kernel probe_join: the largest call ({path}, {n} probe rows): "
+                f"{json.dumps(call_shape)}")
         src, replaces = KERNEL_META[name]
         report["kernels"].append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -3403,6 +3702,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                 "interpreted_wall_ms": times["interpreted_wall_ms"]}
                if name == "operator_program" else {}),
             **({"timed_wrapper": timed} if timed != name else {}),
+            **({"timed_call": call_shape} if call_shape else {}),
             **({"replaces_all": REPLACES_ALL[name]} if name in REPLACES_ALL else {}),
             "ms_source": [times[k] for k in ("ms_source", "plain_ms_source",
                                              "library_ms_source")]})

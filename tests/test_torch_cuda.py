@@ -15,13 +15,15 @@ from arrow_ballista_tpu_torch.ops import kernels as TK
 from tests.torch_cases import (CONCAT_CASES, DENSE_CASES, FUSED_CHAINS, GATHER_CASES,
                                HASH_CASES, I64_MAX, I64_MIN, INTERVAL_CASES, JOIN_CASES,
                                JOIN_QUERIES, KEEP_CASES, MASK_OPS_CASES,
-                               PACK_CASES, PRESORTED_CASES, RADIX_CASES, RANGE_CASES,
+                               PACK_CASES, PRESORTED_CASES, PROBE_CASES, RADIX_CASES,
+                               RANGE_CASES,
                                SEG_AGG_CASES,
                                SEGMENT_CASES, SETTINGS, SORT_CASES, STANDALONE_SETTINGS,
                                STANDALONE_SQL, UNORDERED, assert_frames_equal, dense_case,
                                edge_days, find_chain, hand_chain, hand_table, hash_cols,
                                interval_case, interval_keys, join_case, keep_case, mask_case,
-                               pad_intervals, presorted_case, radix_case, range_case,
+                               pad_intervals, presorted_case, probe_case, radix_case,
+                               range_case,
                                seg_agg_case,
                                segment_case, sort_case, concat_case, gather_case, pack_case,
                                mask_ops_case)
@@ -148,7 +150,7 @@ def test_build_sort_and_probe_kernels_match_twins(dev, case):
     ph, po, pn = TK.build_side_sort_plain([_t(k) for k in bk], _t(bmask))
     assert torch.equal(gh.cpu(), ph) and torch.equal(go.cpu(), po) and int(gn) == int(pn)
     probe_hash = TK.hash64([_t(k) for k in pk])
-    total = int(TK.probe_counts_plain(probe_hash, _t(pmask), ph)[3])
+    total = int(TK.probe_counts_plain(probe_hash, _t(pmask), ph)[1])
     for out_cap in sorted({max(1, total // 3), max(1, total), total + 37}):
         got = TK.probe_join(probe_hash.to(dev), _t(pmask).to(dev), gh, out_cap)
         want = TK.probe_join_plain(probe_hash, _t(pmask), ph, out_cap)
@@ -412,6 +414,195 @@ def test_clustered_kernels_from_four_threads(dev, own_streams):
     torch.cuda.synchronize()
     for inp, res in zip(inputs, results):
         _check_reset(inp, res)
+
+
+# K2: no rows, one, a 16-row word and 8,192 +-1 rows in one launch, the
+# one-launch limit (2^17) +-1, the first two-launch tile (8,192 rows) past
+# it +-1, 2^18 + 1 and 2^23 + 5
+COMPACT_ONE_ROWS = 1 << 17  # csrc/compact.cu CP_ONE_ROWS
+COMPACT_SIZES = [0, 1, 17, 8191, 8193, COMPACT_ONE_ROWS - 1, COMPACT_ONE_ROWS,
+                 COMPACT_ONE_ROWS + 1, COMPACT_ONE_ROWS + 8191, COMPACT_ONE_ROWS + 8193,
+                 (1 << 18) + 1, (1 << 23) + 5]
+
+
+def _compact_on_card(dev, md):
+    """K2 on a card mask (any view) against its twin on the card: the
+    permutation, with_count's count, and the call's plan."""
+    got, count = TK.compaction_order(md, with_count=True)
+    assert count.dtype == torch.int32 and count.device == md.device
+    assert torch.equal(got, TK.compaction_order_plain(md)), "permutation differs"
+    assert int(count) == int(md.sum())
+    return TK.kernel_plan("compaction_order")
+
+
+def _compact_form(n):
+    return "one_launch" if n <= COMPACT_ONE_ROWS else "two_launch"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", COMPACT_SIZES)
+def test_compaction_kernel_at_every_size(dev, n):
+    for case in ("random", "all_live", "all_dead"):
+        plan = _compact_on_card(dev, _t(mask_case(case, n, np.random.default_rng(n))).to(dev))
+        if n == 0:
+            continue
+        one = n <= COMPACT_ONE_ROWS
+        assert plan == {"form": _compact_form(n), "rows": n, "launches": 1 if one else 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", range(1, 16))
+def test_compaction_kernel_on_views_at_byte_offsets(dev, offset):
+    """Masks viewed at byte offsets 1-15 inside live bytes (the clipped
+    first and last words), in both forms."""
+    for n in (1, 100_003, COMPACT_ONE_ROWS + 8193):
+        m = np.random.default_rng(offset).random(n) < 0.4
+        big = torch.ones(n + 32, dtype=torch.bool, device=dev)
+        big[offset:offset + n] = _t(m).to(dev)
+        view = big[offset:offset + n]
+        assert view.data_ptr() % 16 == offset
+        assert _compact_on_card(dev, view)["form"] == _compact_form(n)
+
+
+def _probe_on_card(dev, ph, pm, bh, caps):
+    """K6's two wrappers on the card against their twins on the card, at
+    each cap: every slot, the total, the offsets; the launches a call."""
+    ph, pm, bh = (x.to(dev) if isinstance(x, torch.Tensor) else _t(x).to(dev)
+                  for x in (ph, pm, bh))
+    for cap in caps:
+        got = TK.probe_join(ph, pm, bh, cap)
+        assert TK.kernel_plan("probe_join")["launches"] == (2 if cap else 1)
+        want = TK.probe_join_plain(ph, pm, bh, cap)
+        for g, w in zip(got[:3], want[:3]):
+            assert torch.equal(g, w)
+        assert int(got[3]) == int(want[3])
+    offsets, total = TK.probe_counts(ph, pm, bh, offsets=True)
+    woff, wtotal = TK.probe_counts_plain(ph, pm, bh, offsets=True)
+    assert torch.equal(offsets, woff) and int(total) == int(wtotal)
+    none, only = TK.probe_counts(ph, pm, bh)
+    assert none is None and int(only) == int(wtotal)
+    assert TK.kernel_plan("probe_join")["launches"] == 1
+    return int(wtotal)
+
+
+def _caps(total):
+    return sorted({0, max(1, total // 3), total, total + 37})
+
+
+# K6: one probe row, a 256-row tile +-1, the switch to 1,024-row tiles
+# (135,168 rows) +-1, and 2^23 + 5
+PROBE_SIZES = [1, 255, 257, 135_168, 135_169, (1 << 23) + 5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", PROBE_SIZES)
+@pytest.mark.parametrize("case", PROBE_CASES)
+def test_probe_kernel_at_every_size(dev, case, n):
+    """Every edge input (one build row, an all-dead probe, live all-ones
+    probe hashes against the dead build tail, forced collisions, row n-1
+    dead and live) at each size, caps that truncate, are exact, run past
+    the total, and 0."""
+    ph, pm, bh = probe_case(case, n, np.random.default_rng(n))
+    ph, bh = ph.view(np.int64), bh.view(np.int64)
+    total = int(TK.probe_counts_plain(_t(ph).to(dev), _t(pm).to(dev), _t(bh).to(dev))[1])
+    caps = _caps(min(total, 1 << 22)) if case != "forced_collisions" else [0, 1 << 20]
+    _probe_on_card(dev, ph, pm, bh, caps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", range(1, 16))
+def test_probe_kernel_on_mask_views_at_byte_offsets(dev, offset):
+    ph, pm, bh = probe_case("dup_fanout", N, np.random.default_rng(offset))
+    big = torch.ones(N + 32, dtype=torch.bool, device=dev)
+    big[offset:offset + N] = _t(pm).to(dev)
+    view = big[offset:offset + N]
+    assert view.data_ptr() % 16 == offset
+    total = int(TK.probe_counts_plain(_t(ph.view(np.int64)), _t(pm), _t(bh.view(np.int64)))[1])
+    _probe_on_card(dev, _t(ph.view(np.int64)), view, _t(bh.view(np.int64)), _caps(total))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fanout", [5000, 1 << 20])
+def test_probe_kernel_under_forced_collisions(dev, fanout):
+    """Every live probe row matches every live build row: one row's pairs
+    outnumber its 256-row tile's rows many times over (and, with 2^20 build rows, fill the 2^20 cap
+    alone); caps past and short of the total."""
+    rng = np.random.default_rng(fanout)
+    n_probe = 300
+    pm = rng.random(n_probe) < 0.8
+    live_b = np.sort(rng.random(fanout) < 0.95)[::-1]  # live first, the dead tail
+    bh = np.where(live_b, 0, -1).astype(np.int64)
+    ph = np.zeros(n_probe, np.int64)
+    total = int(pm.sum()) * int(live_b.sum())
+    caps = [1 << 20, total + 11] if total + 11 <= 1 << 23 else [1 << 20]
+    assert _probe_on_card(dev, ph, pm, bh, caps) == total
+
+
+def _k2_k6_inputs(rng, calls):
+    """Inputs whose results change from call to call, so that a status word,
+    tile counter or ticket left behind would show."""
+    out = []
+    for _ in range(calls):
+        n = int(rng.integers(1, 200_000))
+        ph, pm, bh = probe_case("dup_fanout", n, rng, n_build=int(rng.integers(1, 50_000)))
+        out.append((ph.view(np.int64), pm, bh.view(np.int64), int(rng.integers(0, 3 * n))))
+    return out
+
+
+def _k2_k6_launch(dev, inputs):
+    staged = [(_t(a).to(dev), _t(m).to(dev), _t(b).to(dev), cap) for a, m, b, cap in inputs]
+    return [(TK.probe_join(a, m, b, cap), TK.probe_counts(a, m, b, offsets=True),
+             TK.compaction_order(m, with_count=True)) for a, m, b, cap in staged]
+
+
+def _k2_k6_check(inputs, results):
+    for (a, m, b, cap), (join, counts, compact) in zip(inputs, results):
+        want = TK.probe_join_plain(_t(a), _t(m), _t(b), cap)
+        for g, w in zip(join[:3], want[:3]):
+            assert torch.equal(g.cpu(), w)
+        assert int(join[3]) == int(want[3]) == int(counts[1])
+        assert torch.equal(counts[0].cpu(), TK.probe_counts_plain(_t(a), _t(m), _t(b), True)[0])
+        assert torch.equal(compact[0].cpu(), TK.compaction_order_plain(_t(m)))
+        assert int(compact[1]) == int(m.sum())
+
+
+@pytest.mark.cuda
+def test_probe_and_compaction_back_to_back_on_one_stream(dev):
+    """100 calls of each, queued back to back: each K6 launch's last block
+    leaves the stream's state zero for the next, K2's count pass writes
+    every status word it reads."""
+    inputs = _k2_k6_inputs(np.random.default_rng(41), 100)
+    results = _k2_k6_launch(dev, inputs)
+    torch.cuda.synchronize()
+    _k2_k6_check(inputs, results)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("own_streams", [False, True])
+def test_probe_and_compaction_from_four_threads(dev, own_streams):
+    import threading
+
+    rng = np.random.default_rng(42)
+    inputs = [_k2_k6_inputs(rng, 25) for _ in range(4)]
+    results = [None] * 4
+    start = threading.Barrier(4)
+
+    def work(i):
+        ctx = torch.cuda.stream(torch.cuda.Stream(dev)) if own_streams else \
+            contextlib.nullcontext()
+        with ctx:
+            start.wait()
+            results[i] = _k2_k6_launch(dev, inputs[i])
+            torch.cuda.current_stream(dev).synchronize()
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    for inp, res in zip(inputs, results):
+        _k2_k6_check(inp, res)
 
 
 @pytest.fixture(scope="module")

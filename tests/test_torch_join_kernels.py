@@ -16,8 +16,8 @@ import jax.numpy as jnp
 
 from arrow_ballista_tpu.ops import kernels as JK
 from arrow_ballista_tpu_torch.ops import kernels as TK
-from tests.torch_cases import (JOIN_CASES, SEG_AGG_CASES, SEGMENT_CASES, join_case,
-                               seg_agg_case, segment_case)
+from tests.torch_cases import (JOIN_CASES, PROBE_CASES, SEG_AGG_CASES, SEGMENT_CASES,
+                               join_case, probe_case, seg_agg_case, segment_case)
 
 # the suite runs in parallel worker processes: one core per worker for torch
 torch.set_num_threads(1)
@@ -90,19 +90,218 @@ def test_probe_join_matches(case, collisions):
 @pytest.mark.parametrize("case", ["dup_keys", "heavy_fanout"])
 def test_probe_counts_give_the_totals_of_the_count_passes(case):
     """count_fn's total and wcount_fn's per-window sums from the inclusive
-    offsets, against the reference's hi - lo arithmetic."""
+    offsets, against the reference's hi - lo arithmetic; without the
+    offsets, the total alone."""
     from arrow_ballista_tpu_torch.ops.operators import window_counts
 
     (jp, jm, jh), (tp, tm, th) = _probe_inputs(case, np.random.default_rng(23))
     lo = jnp.searchsorted(jh, jp, side="left")
     hi = jnp.searchsorted(jh, jp, side="right")
     per_row = _np(jnp.where(jm, hi - lo, 0)).astype(np.int64)
-    _, _, offsets, total = TK.probe_counts(tp, tm, th)
+    offsets, total = TK.probe_counts(tp, tm, th, offsets=True)
     assert int(total) == int(per_row.sum())
+    np.testing.assert_array_equal(offsets.numpy(), np.cumsum(per_row))
+    none, total_only = TK.probe_counts(tp, tm, th)
+    assert none is None and total_only.dtype == torch.int64 and int(total_only) == int(total)
     chunk_rows, windows = 400, 4  # 1600 >= 1500 rows
     want = np.bincount(np.arange(per_row.shape[0]) // chunk_rows, weights=per_row,
                        minlength=windows).astype(np.int64)
     np.testing.assert_array_equal(window_counts(offsets, chunk_rows, windows).numpy(), want)
+
+
+# --------------------------------------------------------------------------
+# K6's fused kernel (csrc/probe.cu), step for step in numpy
+# --------------------------------------------------------------------------
+
+# (tile rows, threads a block, sampled build hashes, mask address & 15): the
+# kernel's tiles for small and large calls, and small ones that give several
+# tiles, several warp runs, a strided sample and a shifted first tile at the
+# tests' sizes
+K6_PARAMS = {"kernel_256": (256, 256, 2048, 0), "kernel_1024": (1024, 256, 2048, 0),
+             "small": (128, 64, 16, 5)}
+
+
+def _top(x):
+    """pj_top: the largest power of two <= x, or 0."""
+    return 0 if x < 1 else 1 << (int(x).bit_length() - 1)
+
+
+def _lower_bounds(a, top, h, base, length):
+    """pj_lower_bound, every entry at once: halving steps from ``top`` (the
+    largest power of two <= every length); b counts the hashes below h in
+    a[base, base + length)."""
+    b = np.zeros(len(h), np.int64)
+    step = top
+    while step > 0:
+        ok = b + step <= length
+        idx = np.where(ok, base + b + step - 1, 0)
+        below = ok & (a[idx] < h) if len(a) else np.zeros(len(h), bool)
+        b = np.where(below, b + step, b)
+        step >>= 1
+    return b
+
+
+def _run_end(bh, lo, h):
+    """pj_run_end: the end of the run of h from lo, galloping, then bisecting."""
+    p, d = lo, 1
+    while p + d < len(bh) and bh[p + d] == h:
+        p, d = p + d, d * 2
+    a, b = p + 1, min(p + d, len(bh))
+    while a < b:
+        mid = (a + b) // 2
+        a, b = (mid + 1, b) if bh[mid] == h else (a, mid)
+    return a
+
+
+def _bounded_search(incl, local, lo):
+    """The expansion's search from the entry of a thread's previous slot: the
+    first list entry whose inclusive count exceeds ``local``, in [lo, end)."""
+    hi = np.full_like(lo, len(incl) - 1)
+    lo = lo.copy()
+    while (lo < hi).any():
+        go = lo < hi
+        mid = (lo + hi) >> 1
+        up = go & (incl[mid] <= local)
+        lo = np.where(up, mid + 1, lo)
+        hi = np.where(go & ~up, mid, hi)
+    return lo
+
+
+def k6_mirror(ph, pm, bh, cap, tile=4096, threads=256, sample=2048, shift=0):
+    """csrc/probe.cu on uint64 numpy inputs: (probe_idx, build_pos, valid,
+    total, inclusive offsets).  A tile lists its rows that search (live,
+    and row n-1) in row order; a search finds its stride of the build in
+    the sample, then its lower bound inside it, by fixed halving steps;
+    one compare, then a gallop on a match; the list's counts are scanned
+    over the warps' runs; a tile takes its first slot from the tiles before
+    it (the look-back's sum) and finds each slot's entry by a search over
+    the list's inclusive counts; the fill writes the slots past the total."""
+    n, nb = len(ph), len(bh)
+    stride = -(-nb // sample) if nb > sample else 1
+    m = -(-nb // stride)
+    need = pm.copy()
+    need[n - 1] = True
+    rows = np.flatnonzero(need)
+    h = ph[rows]
+    si = _lower_bounds(bh[::stride][:m], _top(m), h, np.zeros(len(h), np.int64), m)
+    lo_g = np.where(si == 0, 0, (si - 1) * stride + 1)
+    hi_g = np.where(si < m, si * stride, nb)
+    assert (hi_g - lo_g <= max(stride - 1, 0)).all()
+    lo_rows = lo_g + _lower_bounds(bh, _top(stride - 1), h, lo_g, hi_g - lo_g)
+    lo = np.zeros(n, np.int64)
+    lo[rows] = lo_rows
+    # the narrowed search finds the reference's lower bound
+    np.testing.assert_array_equal(lo_rows, np.searchsorted(bh, h, side="left"))
+    count = np.zeros(n, np.int64)
+    for i in np.flatnonzero(pm & (lo < nb)):
+        if bh[lo[i]] == ph[i]:
+            count[i] = _run_end(bh, lo[i], ph[i]) - lo[i]
+    tiles = -(-(n + shift) // tile)
+    tile_of = (rows + shift) // tile
+    totals = np.bincount(tile_of, weights=count[rows], minlength=tiles).astype(np.int64)
+    prefix = np.concatenate([[0], np.cumsum(totals)[:-1]])  # the look-back's sum
+    total = int(totals.sum())
+    probe_idx = np.zeros(cap, np.int64)
+    build_pos = np.zeros(cap, np.int64)
+    valid = np.zeros(cap, bool)
+    offsets = np.zeros(n, np.int64)
+    warps = threads // 32
+    for t in range(tiles):
+        listed = rows[tile_of == t]  # the tile's list, in row order
+        c = count[listed]
+        run = max(32, -(-len(listed) // (warps * 32)) * 32)  # a warp's run of the list
+        within = np.concatenate([np.cumsum(c[w * run:(w + 1) * run]) for w in range(warps)])
+        wsum = np.concatenate([[0], np.cumsum([c[w * run:(w + 1) * run].sum()
+                                               for w in range(warps)])[:-1]])
+        incl = wsum[np.arange(len(listed)) // run] + within[:len(listed)]
+        np.testing.assert_array_equal(incl, np.cumsum(c))
+        # the offsets: each row takes the inclusive count of the last entry at or before it
+        row_lo, row_hi = max(t * tile - shift, 0), min((t + 1) * tile - shift, n)
+        pos = np.searchsorted(listed, np.arange(row_lo, row_hi), side="right")
+        offsets[row_lo:row_hi] = prefix[t] + np.concatenate([[0], incl])[pos]
+        end = min(prefix[t] + totals[t], cap)
+        j = np.arange(prefix[t], end)
+        if not len(j):
+            continue
+        local = j - prefix[t]
+        e = np.searchsorted(incl, local, side="right")
+        # a thread's previous slot is `threads` slots back: its entry bounds the search
+        start_at = np.where(local >= threads, np.roll(e, threads), 0)
+        np.testing.assert_array_equal(_bounded_search(incl, local, start_at), e)
+        start = np.where(e == 0, 0, incl[np.maximum(e - 1, 0)])
+        probe_idx[j], build_pos[j], valid[j] = listed[e], lo[listed[e]] + (local - start), True
+    j = np.arange(max(total, 0), cap)
+    probe_idx[j] = n - 1
+    build_pos[j] = np.clip(lo[n - 1] + j - (total - count[n - 1]), 0, nb - 1)
+    return probe_idx, build_pos, valid, total, offsets
+
+
+_K6_REFERENCE = {}  # (case, hash mode, last row) -> inputs and the JAX package's slots
+
+
+def _k6_reference(case, last_row, collisions):
+    key = (case, collisions, last_row)
+    if key not in _K6_REFERENCE:
+        (jp, jm, jh), _ = _probe_inputs(case, np.random.default_rng(31))
+        pm = _np(jm).copy()
+        pm[-1] = last_row == "live"
+        ph, bh = _np(jp), _np(jh)
+        if last_row == "live" and case != "all_dead_build":  # a match in the last row
+            ph = ph.copy()
+            ph[-1] = bh[len(bh) // 3]
+        jargs = (jnp.asarray(ph), jnp.asarray(pm), jh)
+        total = int(JK.probe_join(*jargs, 1)[3])
+        caps = sorted({max(1, total // 3), total, total + 37} - {0})
+        _K6_REFERENCE[key] = (ph, pm, bh, total,
+                              {cap: [_np(x) for x in JK.probe_join(*jargs, cap)[:3]]
+                               for cap in caps})
+    return _K6_REFERENCE[key]
+
+
+@pytest.mark.parametrize("params", list(K6_PARAMS))
+@pytest.mark.parametrize("last_row", ["dead", "live"])
+@pytest.mark.parametrize("case", JOIN_CASES)
+def test_k6_fused_arithmetic_matches_reference(case, last_row, params, collisions):
+    """The fused kernel's early-exit count and tile-local expansion, mirrored
+    in numpy, against the JAX package's probe_join on every slot, with caps
+    that truncate, are exact and run past the total (and cap 0)."""
+    tile, threads, sample, shift = K6_PARAMS[params]
+    ph, pm, bh, total, slots = _k6_reference(case, last_row, collisions)
+    assert k6_mirror(ph, pm, bh, 0, tile, threads, sample, shift)[3] == total
+    for cap, want in slots.items():
+        got = k6_mirror(ph, pm, bh, cap, tile, threads, sample, shift)
+        assert got[3] == total
+        for g, w in zip(got[:3], want):
+            np.testing.assert_array_equal(g, w)
+    lo = np.searchsorted(bh, ph, side="left")
+    hi = np.searchsorted(bh, ph, side="right")
+    np.testing.assert_array_equal(got[4], np.cumsum(np.where(pm, hi - lo, 0)))
+
+
+@pytest.mark.parametrize("case", PROBE_CASES)
+def test_k6_fused_arithmetic_on_probe_cases(case):
+    """The same mirror over K6's edge inputs (one build row, an all-dead
+    probe, live all-ones probe hashes against the dead build tail, forced
+    collisions, row n-1 dead and live) and the twins on them, against the
+    JAX package; the forced case's fan-out passes a small tile's slots."""
+    ph, pm, bh = probe_case(case, 700, np.random.default_rng(32))
+    jargs = (jnp.asarray(ph), jnp.asarray(pm), jnp.asarray(bh))
+    targs = (_t(ph.view(np.int64)), _t(pm), _t(bh.view(np.int64)))
+    total = int(JK.probe_join(*jargs, 1)[3])
+    for cap in sorted({1, max(1, total // 2), total + 5}):
+        want = [_np(x) for x in JK.probe_join(*jargs, cap)]
+        for tile, threads, sample, shift in K6_PARAMS.values():
+            got = k6_mirror(ph, pm, bh, cap, tile, threads, sample, shift)
+            for g, w in zip(got[:3], want[:3]):
+                np.testing.assert_array_equal(g, w)
+            assert got[3] == total
+        tw = TK.probe_join(*targs, cap)
+        for g, w in zip(tw[:3], want[:3]):
+            np.testing.assert_array_equal(g.numpy(), w)
+        assert int(tw[3]) == total
+    offsets, t_total = TK.probe_counts(*targs, offsets=True)
+    np.testing.assert_array_equal(offsets.numpy(), got[4])
+    assert int(t_total) == total
 
 
 # --------------------------------------------------------------------------

@@ -85,6 +85,127 @@ def test_compaction_order_matches(case, n):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+# K2's forms (csrc/compact.cu), step for step in numpy.  Parameters:
+# (threads of a two-launch block, its rounds a tile, threads of a one-launch
+# block, its cluster's blocks at most, rows the one-launch form takes at
+# most): the kernel's, and small ones that give several rounds, tiles and
+# cluster blocks at test sizes.
+K2_PARAMS = {"kernel": (256, 2, 1024, 8, 1 << 17), "small": (4, 2, 8, 8, 1024)}
+
+
+def _k2_round(mask, words, r0, n, n_live, live_before, dead_before, perm):
+    """cp_round: thread t holds word t (rows r0 + 16 t ..); a block scan of
+    (valid, live) packed in one int; live rows staged first, then dead ones,
+    each in row order; written out in two runs."""
+    t = len(words)
+    rows = r0 + np.arange(t * 16)
+    valid = (rows >= 0) & (rows < n)
+    live_b = words.reshape(-1).astype(bool) & valid
+    live = live_b.reshape(t, 16).sum(1)
+    nvalid = valid.reshape(t, 16).sum(1)
+    packed = (nvalid << 16) | live
+    ex = np.concatenate([[0], np.cumsum(packed)[:-1]])
+    tot = int(packed.sum())
+    nl, nv = tot & 0xFFFF, tot >> 16
+    stage = np.full(t * 16, -1, np.int64)
+    li, di = ex & 0xFFFF, nl + (ex >> 16) - (ex & 0xFFFF)
+    for b in range(16):
+        idx = np.arange(t) * 16 + b
+        ok = valid[idx]
+        lv = ok & live_b[idx]
+        stage[li[lv]] = rows[idx][lv]
+        stage[di[ok & ~lv]] = rows[idx][ok & ~lv]
+        li, di = li + lv, di + (ok & ~lv)
+    i = np.arange(nv)
+    dest = np.where(i < nl, live_before + i, n_live + dead_before + (i - nl))
+    perm[dest] = stage[:nv]
+    return live_before + nl, dead_before + nv - nl
+
+
+def k2_mirror(mask, shift, params):
+    """csrc/compact.cu on a numpy mask whose address is ``shift`` bytes past
+    a 16-byte boundary: (perm, live count, launches)."""
+    threads, rounds, one_threads, cluster, one_rows = params
+    n = len(mask)
+    nwords = (n + shift + 15) // 16
+    words = np.zeros(nwords * 16, np.uint8)  # bytes of rows outside [0, n) clear
+    words[shift:shift + n] = mask
+    words = words.reshape(nwords, 16)
+    perm = np.full(n, -1, np.int64)
+    if n <= one_rows:  # a cluster: block counts, then each block's rounds
+        per = -(-nwords // one_threads)
+        wb = -(-per // min(cluster, per)) * one_threads
+        blocks = -(-nwords // wb)
+        assert blocks <= cluster
+        block_live = [int(words[b * wb:(b + 1) * wb].astype(bool).sum()) for b in range(blocks)]
+        n_live = sum(block_live)
+        for b in range(blocks):
+            live_before = sum(block_live[:b])
+            dead_before = max(b * wb * 16 - shift, 0) - live_before
+            for w0 in range(b * wb, min((b + 1) * wb, nwords), one_threads):
+                chunk = np.zeros((one_threads, 16), np.uint8)
+                part = words[w0:min(w0 + one_threads, nwords, (b + 1) * wb)]
+                chunk[:len(part)] = part
+                live_before, dead_before = _k2_round(chunk, chunk, w0 * 16 - shift, n, n_live,
+                                                     live_before, dead_before, perm)
+        return perm, n_live, 1
+    tile_words = threads * rounds
+    tiles = -(-nwords // tile_words)
+    padded = np.zeros((tiles * tile_words, 16), np.uint8)
+    padded[:nwords] = words
+    counts = padded.reshape(tiles, -1).astype(bool).sum(1)
+    n_live = int(counts.sum())
+    # the look-back, tiles finishing in a shuffled order: windows of
+    # `threads` words, nearest first, up to and with the nearest inclusive one
+    status = [("agg", int(c)) for c in counts]
+    for t in np.random.default_rng(tiles).permutation(tiles):
+        excl, end = 0, t
+        while end > 0:
+            window = [status[k] for k in range(end - 1, max(end - 1 - threads, -1), -1)]
+            first = next((i for i, (f, _) in enumerate(window) if f == "inc"), None)
+            excl += sum(v for _, v in window[:len(window) if first is None else first + 1])
+            if first is not None:
+                break
+            end -= threads
+        assert excl == int(counts[:t].sum())
+        status[t] = ("inc", excl + int(counts[t]))
+        row0 = t * tile_words * 16 - shift
+        live_before, dead_before = excl, max(row0, 0) - excl
+        for k in range(rounds):
+            w0 = t * tile_words + k * threads
+            chunk = padded[w0:w0 + threads]
+            live_before, dead_before = _k2_round(chunk, chunk, row0 + k * threads * 16, n,
+                                                 n_live, live_before, dead_before, perm)
+    return perm, n_live, 2
+
+
+def _k2_sizes(params):
+    """Sizes around a tile's rows, the one-launch limit and the first
+    two-launch tile past it, each +-1."""
+    threads, rounds, one_threads, cluster, one_rows = params
+    tile = threads * rounds * 16
+    return [1, tile - 1, tile, tile + 1, one_rows - 1, one_rows, one_rows + 1,
+            one_rows + tile - 1, one_rows + tile + 1]
+
+
+@pytest.mark.parametrize("shift", [0, 7, 15])
+@pytest.mark.parametrize("params", list(K2_PARAMS))
+@pytest.mark.parametrize("case", ["random", "all_live", "all_dead"])
+def test_k2_forms_match_reference(case, params, shift):
+    """Both forms, mirrored in numpy, each on its side of the one-launch
+    limit (a tile +-1 and the limit in one launch, the limit + 1 and a
+    tile past it +-1 in two), with the mask at a byte offset: the JAX
+    package's permutation and live count."""
+    p = K2_PARAMS[params]
+    for n in _k2_sizes(p):
+        m = _mask(case, n, np.random.default_rng(n + shift))
+        want = _np(JK.compaction_order(jnp.asarray(m))).astype(np.int64)
+        perm, live, launches = k2_mirror(m, shift, p)
+        np.testing.assert_array_equal(perm, want)
+        assert live == int(m.sum())
+        assert launches == (1 if n <= p[4] else 2)
+
+
 # --------------------------------------------------------------------------
 # K4: sort_order
 # --------------------------------------------------------------------------

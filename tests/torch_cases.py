@@ -239,6 +239,50 @@ def join_case(case, n_build, n_probe, rng):
     return bk, bmask, pk, pmask
 
 
+PROBE_CASES = ["dup_fanout", "selective", "all_dead_probe", "ones_probe_dead_tail",
+               "forced_collisions", "one_build_row", "last_row_dead", "last_row_live"]
+
+
+def probe_case(case, n_probe, rng, n_build=None):
+    """(probe hashes, probe mask, sorted build hashes) for K6 as numpy uint64,
+    made directly (no hash): build hashes sorted as uint64 with the dead rows'
+    all-ones at the tail, as K5 leaves them."""
+    ones = np.uint64(0xFFFFFFFFFFFFFFFF)
+    nb = n_build if n_build is not None else max(1, n_probe // 2)
+    pmask = rng.random(n_probe) < 0.75
+    if case == "one_build_row":
+        nb = 1
+    if case == "forced_collisions":  # every hash 0; dead build rows all ones
+        live_b = rng.random(nb) < 0.9
+        bh = np.where(np.sort(~live_b), ones, np.uint64(0))
+        return np.zeros(n_probe, np.uint64), pmask, bh
+    pool = rng.integers(0, 2**64, max(4, nb // 3), dtype=np.uint64)
+    if case == "selective":  # unique build keys, few probe rows match
+        build = rng.integers(0, 2**64, nb, dtype=np.uint64)
+        probe = rng.integers(0, 2**64, n_probe, dtype=np.uint64)
+        hit = rng.random(n_probe) < 0.05
+        probe[hit] = build[rng.integers(0, nb, int(hit.sum()))]
+        pmask = rng.random(n_probe) < 0.3
+    else:  # about three build rows a key; probe keys half from the pool
+        build = pool[rng.integers(0, len(pool), nb)]
+        probe = np.where(rng.random(n_probe) < 0.5, pool[rng.integers(0, len(pool), n_probe)],
+                         rng.integers(0, 2**64, n_probe, dtype=np.uint64))
+    dead_b = rng.random(nb) < 0.15
+    build = np.sort(np.where(dead_b, ones, build))
+    if case == "all_dead_probe":
+        pmask[:] = False
+    elif case == "ones_probe_dead_tail":  # live all-ones probe hashes meet the dead tail
+        probe[rng.random(n_probe) < 0.2] = ones
+        build[-max(1, nb // 10):] = ones
+    elif case == "last_row_dead":
+        pmask[-1] = False
+        probe[-1] = build[nb // 2]
+    elif case == "last_row_live":
+        pmask[-1] = True
+        probe[-1] = build[nb // 2]
+    return probe, pmask, build
+
+
 def segment_case(case, n, num_segments, rng):
     """(values, seg_ids) for segment_any."""
     if case == "bool_random":

@@ -19,11 +19,12 @@ the local engine with its defaults, and the standalone one with 'auto'
 shuffle partitions, 2^20-row batches and four task slots.  A path is
 ``q<n>`` (local, in memory), ``pq_q<n>`` (local, parquet), ``sa_q<n>``
 (standalone, in memory), ``sa_pq_q<n>`` (standalone, parquet) or
-``mesh4_q3`` / ``mesh4_q18`` (the local engine over parquet on a mesh of
-four ranks over the first card, ``chip_smoke.py``'s settings).  Prints one
-JSON line: ``{"root", "device", "paths": {path: {"cold_ms", "warm_ms",
-"median_ms", "rows"}}}``.  With ``--profile OUT`` the warm runs of each
-path also run under cProfile, and OUT gets the 30 functions with the most
+``mesh4_q3`` / ``mesh4_q3_part`` / ``mesh4_q18`` (the local engine over
+parquet on a mesh of four ranks over the first card, ``chip_smoke.py``'s
+settings).  Prints one JSON line: ``{"root", "device", "paths": {path:
+{"cold_ms", "warm_ms", "median_ms", "rows"}}}``.  With ``--profile OUT``
+the warm runs of each path also run under cProfile, and OUT gets the 30
+functions with the most
 own time, per path (host time: where the walls go when the card idles).
 With ``--kernels`` one more warm run of each path runs under
 torch.profiler, and each path gets ``kernels``: the device ms and
@@ -32,9 +33,13 @@ kernels in that query, by kernel name (``chip_smoke.RADIX_KERNELS``
 names them in this tree and in the parent of the radix redesign), K10's
 (``key_range_check``) and K11's (``clustered_keep``) launches and device
 ms with the memsets queued right before them (``chip_smoke.
-clustered_trace``; the parent of their redesign queued one a call), and
-the device ms of all kernels.  Run parent, change, change, parent in one
-call and compare the medians.
+clustered_trace``; the parent of their redesign queued one a call), K6's
+(``probe_join``) and K2's (``compaction_order``) launches, device ms by
+kernel, the memsets and copies right before them and their wrappers' calls
+(``chip_smoke.call_trace``, which names the kernels of this tree and of the
+parent of their redesign, and counts K8's shared scan kernels as K2's only
+in a K2 call), and the device ms of all kernels.  Run parent, change,
+change, parent in one call and compare the medians.
 
 ``--pair PARENT,CHANGE`` keeps one process of each tree alive (this
 script with ``--serve``: the same contexts, each query on request) and
@@ -66,7 +71,7 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)  # benchmarks/ and chip_smoke
-from chip_smoke import RADIX_KERNELS, clustered_trace  # noqa: E402
+from chip_smoke import RADIX_KERNELS, call_trace, clustered_trace  # noqa: E402
 
 TABLES = ("lineitem", "orders", "customer", "part", "partsupp", "supplier", "nation",
           "region")
@@ -110,10 +115,15 @@ def _kernel_times(ctx, sql):
     """One more warm run under torch.profiler: the device ms of K4's and
     K5's kernels in it (RADIX_KERNELS), their launches, K10's and K11's
     launches, device ms and the memsets before them (``clustered_trace``),
-    and the device ms of every kernel by name."""
+    K6's and K2's, by kernel, with the memsets and copies before them and
+    their wrappers' calls (``call_trace``), and the device ms of all
+    kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from arrow_ballista_tpu_torch.ops import kernels as K
+
+    before = dict(K.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         ctx.sql(sql).to_pandas()
         torch.cuda.synchronize()
@@ -135,6 +145,9 @@ def _kernel_times(ctx, sql):
     # K10 and K11 (the same kernel names in the parent of their redesign),
     # with the memsets queued right before them
     out.update(clustered_trace(prof))
+    for name, rec in call_trace(prof).items():
+        rec["wrapper_calls"] = K.LAUNCHES[name] - before[name]
+        out[name] = rec
     out["all_device_ms"] = sum(v[0] for v in by_name.values())
     return out
 
@@ -178,6 +191,8 @@ class Tree:
         mesh_cfg = {"mesh4_q3": {**mesh_on, "ballista.join.broadcast_threshold": "0",
                                  "ballista.shuffle.mesh.broadcast_rows":
                                      str(round((1 << 20) * self.sf))},
+                    "mesh4_q3_part": {**mesh_on, "ballista.join.broadcast_threshold": "0",
+                                      "ballista.shuffle.mesh.broadcast_rows": "0"},
                     "mesh4_q18": {**mesh_on, "ballista.agg.capacity": str(1 << 21)}}
         if engine in ("sa", "sa_pq"):
             ctx = BallistaContext.standalone(BallistaConfig(sa_cfg), concurrent_tasks=4,
@@ -197,7 +212,7 @@ class Tree:
 
     def query(self, path: str):
         """(context, sql, scope) of a path."""
-        engine, _, q = path.rpartition("_")
+        engine, _, q = path.removesuffix("_part").rpartition("_")
         ctx = self._context(engine, path)
         scope = contextlib.nullcontext()
         if engine == "mesh4":
