@@ -32,11 +32,24 @@
 // K22 replaces arrow_ballista_tpu/ops/operators.py:1029 "join.window_mask",
 // :1037 "join.mask_or" and :1040 "join.mask_and": out = a AND lo <= i < hi,
 // a OR b, a AND b over bool bytes; with the same pass, a AND NOT b (a semi
-// or anti join's verdict over the probe mask) and a AND bucket == q (one
-// output partition of ops/shuffle.py:499 "repartition.bucket", b then
-// int32 bucket ids).  The op is a template parameter; where every pointer
-// is 16-byte aligned a thread takes 16 rows in vector loads and one
-// 16-byte store.  Bound: bytes.
+// or anti join's verdict over the probe mask).  The op is a template
+// parameter; where every pointer is 16-byte aligned a thread takes 16 rows
+// in vector loads and one 16-byte store, in blocks small enough that the
+// call spreads over every SM.  Bound: bytes; at the local engine's batch
+// a call is a few microseconds, about the launch of an empty kernel.
+//
+// K22's bucket form replaces arrow_ballista_tpu/ops/shuffle.py:493-497
+// "repartition.bucket": the masks mask AND bucket == q of every output
+// partition q of a batch, in one launch (a launch a partition would read
+// the mask and the buckets again each time).  A thread
+// reads a 16-byte word of the mask and the 64 bytes of its rows' int32
+// buckets once, packs each row's bucket into a byte (0xFF for a dead row or
+// a bucket outside [0, num_out)), and writes one 16-byte word to each
+// partition's row of the [num_out, stride] output: four __vcmpeq4 a word.
+// The partitions of a thread are all of them, or a slice of them per
+// blockIdx.y (q_per_y).  Unaligned inputs and the rows past the last whole
+// word go row by row; more than 255 partitions compare ints.  Bound: bytes,
+// 5 read and num_out written a row.
 #include "common.cuh"
 
 #define AB_GATHER_MAX_COLS 64
@@ -154,21 +167,48 @@ __global__ void __launch_bounds__(256) gather_kernel(const int32_t* __restrict__
 #define AB_MASK_OR 1
 #define AB_MASK_AND 2
 #define AB_MASK_ANDNOT 3
-#define AB_MASK_BUCKET 4
 
 template <int OP>
-__device__ __forceinline__ bool ab_mask_one(bool x, long long i, uint8_t bb, int32_t bucket,
-                                            long long lo, long long hi) {
+__device__ __forceinline__ bool ab_mask_one(bool x, long long i, uint8_t bb, long long lo,
+                                            long long hi) {
   if (OP == AB_MASK_WINDOW) return x && i >= lo && i < hi;
   if (OP == AB_MASK_OR) return x || bb != 0;
   if (OP == AB_MASK_AND) return x && bb != 0;
-  if (OP == AB_MASK_ANDNOT) return x && bb == 0;
-  return x && (long long)bucket == lo;
+  return x && bb == 0;
+}
+
+// four bool bytes of a word as 0 / 1 bytes
+__device__ __forceinline__ unsigned ab_bools4(unsigned x) { return __vcmpne4(x, 0u) & 0x01010101u; }
+
+// a 16-byte word as four 32-bit lanes: or, and and and-not lane by lane on
+// the bytes' truth (four rows a lane), the window byte by byte
+template <int OP>
+__device__ __forceinline__ void ab_mask_word_op(const unsigned (&a)[4], const unsigned (&b)[4],
+                                                long long r0, long long lo, long long hi,
+                                                unsigned (&o)[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (OP == AB_MASK_OR) {
+      o[k] = ab_bools4(a[k] | b[k]);
+    } else if (OP == AB_MASK_AND) {
+      o[k] = ab_bools4(a[k]) & ab_bools4(b[k]);
+    } else if (OP == AB_MASK_ANDNOT) {
+      o[k] = ab_bools4(a[k]) & ~ab_bools4(b[k]) & 0x01010101u;
+    } else {
+      unsigned x = ab_bools4(a[k]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const long long i = r0 + 4 * k + c;
+        if (i < lo || i >= hi) x &= ~(0xffu << (8 * c));
+      }
+      o[k] = x;
+    }
+  }
 }
 
 // vec: every pointer is 16-byte aligned, so a thread takes a chunk of 16
-// rows in vector loads (16 mask bytes, or 64 bytes of int32 buckets) and
-// one 16-byte store; the rows past the last whole chunk go one by one
+// rows in one vector load of each input and one 16-byte store; the rows
+// past the last whole chunk go one by one
 template <int OP>
 __global__ void __launch_bounds__(256) mask_kernel(const uint8_t* __restrict__ a,
                                                    const uint8_t* __restrict__ b, long long n,
@@ -176,7 +216,41 @@ __global__ void __launch_bounds__(256) mask_kernel(const uint8_t* __restrict__ a
                                                    uint8_t* __restrict__ out, int vec) {
   const long long step = (long long)gridDim.x * blockDim.x;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int32_t* bucket = (const int32_t*)b;
+  long long done = 0;
+  if (vec) {
+    const long long nv = n >> 4;
+    for (long long v = t; v < nv; v += step) {
+      union {
+        uint4 q;
+        unsigned u[4];
+      } av, bv, rv;
+      av.q = ((const uint4*)a)[v];
+      if (OP != AB_MASK_WINDOW) bv.q = ((const uint4*)b)[v];
+      ab_mask_word_op<OP>(av.u, bv.u, v * 16, lo, hi, rv.u);
+      ((uint4*)out)[v] = rv.q;
+    }
+    done = nv << 4;
+  }
+  for (long long i = done + t; i < n; i += step)
+    out[i] = ab_mask_one<OP>(a[i] != 0, i, OP == AB_MASK_WINDOW ? 0 : b[i], lo, hi);
+}
+
+// the bucket form: rows [0, n) of the mask and the buckets; out: num_out
+// rows of `stride` bytes (stride a multiple of 16); this block's partitions
+// are [blockIdx.y * q_per_y, + q_per_y)
+__device__ __forceinline__ int ab_bucket_code(uint8_t live, int32_t b, int num_out) {
+  return live && b >= 0 && b < num_out ? b : -1;
+}
+
+__global__ void __launch_bounds__(256) bucket_masks_kernel(const uint8_t* __restrict__ mask,
+                                                           const int32_t* __restrict__ bucket,
+                                                           long long n, int num_out,
+                                                           long long stride, int q_per_y,
+                                                           uint8_t* __restrict__ out, int vec) {
+  const long long step = (long long)gridDim.x * blockDim.x;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int q0 = blockIdx.y * q_per_y;
+  const int q1 = min(q0 + q_per_y, num_out);
   long long done = 0;
   if (vec) {
     const long long nv = n >> 4;
@@ -184,31 +258,52 @@ __global__ void __launch_bounds__(256) mask_kernel(const uint8_t* __restrict__ a
       union {
         uint4 q;
         uint8_t c[16];
-      } av, bv, rv;
+      } mv;
       union {
         uint4 q[4];
         int32_t w[16];
       } bk;
-      av.q = ((const uint4*)a)[v];
-      if (OP == AB_MASK_OR || OP == AB_MASK_AND || OP == AB_MASK_ANDNOT)
-        bv.q = ((const uint4*)b)[v];
-      if (OP == AB_MASK_BUCKET) {
+      mv.q = __ldg((const uint4*)mask + v);
 #pragma unroll
-        for (int k = 0; k < 4; ++k) bk.q[k] = ((const uint4*)b)[4 * v + k];
+      for (int k = 0; k < 4; ++k) bk.q[k] = __ldg((const uint4*)bucket + 4 * v + k);
+      uint8_t* o = out + v * 16;
+      if (num_out <= 255) {  // a row's partition as a byte, four rows a word
+        unsigned c4[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          c4[k] = 0u;
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            c4[k] |= (unsigned)(ab_bucket_code(mv.c[4 * k + b], bk.w[4 * k + b], num_out) & 0xff)
+                     << (8 * b);
+        }
+        for (int q = q0; q < q1; ++q) {
+          const unsigned qq = (unsigned)q * 0x01010101u;
+          ((uint4*)(o + q * stride))[0] =
+              make_uint4(__vcmpeq4(c4[0], qq) & 0x01010101u, __vcmpeq4(c4[1], qq) & 0x01010101u,
+                         __vcmpeq4(c4[2], qq) & 0x01010101u, __vcmpeq4(c4[3], qq) & 0x01010101u);
+        }
+      } else {
+        int code[16];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) code[j] = ab_bucket_code(mv.c[j], bk.w[j], num_out);
+        for (int q = q0; q < q1; ++q) {
+          union {
+            uint4 q;
+            uint8_t c[16];
+          } rv;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) rv.c[j] = code[j] == q;
+          ((uint4*)(o + q * stride))[0] = rv.q;
+        }
       }
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-        rv.c[j] = ab_mask_one<OP>(av.c[j] != 0, v * 16 + j,
-                                  OP == AB_MASK_BUCKET || OP == AB_MASK_WINDOW ? 0 : bv.c[j],
-                                  OP == AB_MASK_BUCKET ? bk.w[j] : 0, lo, hi);
-      ((uint4*)out)[v] = rv.q;
     }
     done = nv << 4;
   }
-  for (long long i = done + t; i < n; i += step)
-    out[i] = ab_mask_one<OP>(a[i] != 0, i,
-                             OP == AB_MASK_BUCKET || OP == AB_MASK_WINDOW ? 0 : b[i],
-                             OP == AB_MASK_BUCKET ? bucket[i] : 0, lo, hi);
+  for (long long i = done + t; i < n; i += step) {
+    const int code = ab_bucket_code(mask[i], bucket[i], num_out);
+    for (int q = q0; q < q1; ++q) out[q * stride + i] = code == q;
+  }
 }
 
 template <int OP>
@@ -216,9 +311,14 @@ static void ab_mask_launch(const uint8_t* a, const uint8_t* b, long long n, long
                            long long hi, uint8_t* out, cudaStream_t stream) {
   const int vec = (((unsigned long long)a | (unsigned long long)b | (unsigned long long)out) &
                    15) == 0;
-  const int threads = 256;
-  mask_kernel<OP><<<ab_grid(vec ? (n + 15) / 16 : n, threads, 132 * 16), threads, 0, stream>>>(
-      a, b, n, lo, hi, out, vec);
+  // smaller blocks where 256-thread ones would leave SMs idle: at least two
+  // blocks an SM (131,072 rows are 8,192 16-byte words: 256 blocks of 32
+  // threads, not 32 of 256)
+  const long long items = vec ? (n + 15) / 16 : n;
+  int threads = 256;
+  while (threads > 32 && items / threads < 132 * 2) threads >>= 1;
+  mask_kernel<OP><<<ab_grid(items, threads, 132 * 16), threads, 0, stream>>>(a, b, n, lo, hi,
+                                                                             out, vec);
 }
 
 static bool ab_width_ok(int w) { return w == 1 || w == 4 || w == 8; }
@@ -293,8 +393,7 @@ AB_EXPORT int ab_gather_columns(const void* idx, long long m, const void* spec, 
   return ab_last_error();
 }
 
-// a, out: bool[n]; b: bool[n] (unused by the window) or, for the bucket,
-// int32[n] compared with lo; op: AB_MASK_*
+// a, out: bool[n]; b: bool[n] (unused by the window); op: AB_MASK_*
 AB_EXPORT int ab_mask_ops(int op, const void* a, const void* b, long long n, long long lo,
                           long long hi, void* out, void* stream) {
   const uint8_t* pa = (const uint8_t*)a;
@@ -315,11 +414,32 @@ AB_EXPORT int ab_mask_ops(int op, const void* a, const void* b, long long n, lon
     case AB_MASK_ANDNOT:
       ab_mask_launch<AB_MASK_ANDNOT>(pa, pb, n, lo, hi, po, st);
       break;
-    case AB_MASK_BUCKET:
-      ab_mask_launch<AB_MASK_BUCKET>(pa, pb, n, lo, hi, po, st);
-      break;
     default:
       return (int)cudaErrorInvalidValue;
   }
+  return ab_last_error();
+}
+
+// mask: bool[n]; bucket: int32[n]; out: num_out rows of `stride` bytes, a
+// multiple of 16 and at least n, of which each row's first n are written;
+// a block takes all the partitions where the rows alone give a block an
+// SM, else blockIdx.y slices them enough for that (131,072 rows give 32
+// blocks of 256 threads a word each: 16 partitions then go four a block;
+// on the H100 this slicing beat one partition a block and all of them a
+// block, PERF.md row 10f)
+AB_EXPORT int ab_bucket_masks(const void* mask, const void* bucket, long long n, int num_out,
+                              long long stride, void* out, void* stream) {
+  if (n < 1 || num_out < 1 || stride < n || (stride & 15)) return (int)cudaErrorInvalidValue;
+  const int vec = (((unsigned long long)mask | (unsigned long long)bucket |
+                    (unsigned long long)out) & 15) == 0;
+  const int threads = 256;
+  const int bx = ab_grid(vec ? (n + 15) / 16 : n, threads, 132 * 16);
+  const int want = 132;
+  const int slices = bx >= want ? 1 : min(num_out, (want + bx - 1) / bx);
+  const int q_per_y = (num_out + slices - 1) / slices;
+  dim3 grid(bx, (num_out + q_per_y - 1) / q_per_y);
+  bucket_masks_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)mask, (const int32_t*)bucket, n, num_out, stride, q_per_y, (uint8_t*)out,
+      vec);
   return ab_last_error();
 }

@@ -85,8 +85,9 @@ SIGNATURES = {
         "ab_segment_any": ([_P, _I, _P, _LL, _LL, _P, _P], _I),
     },
     "seg_agg": {
-        "ab_seg_scratch_bytes": ([_LL], _LL),
-        "ab_grouped_on_order": ([_P, _P, _LL, _LL, _P, _P, _P, _P], _I),
+        "ab_seg_state_words": ([_LL], _LL),
+        "ab_seg_payload_words": ([_LL, _I], _LL),
+        "ab_grouped_on_order": ([_P, _P, _P, _LL, _LL, _P, _P, _P, _P, _P], _I),
     },
     "clustered": {
         "ab_presorted_disorder": ([_P, _I, _P, _LL, _P, _P], _I),
@@ -108,6 +109,7 @@ SIGNATURES = {
         "ab_concat_columns": ([_P, _I, _P], _I),
         "ab_gather_columns": ([_P, _LL, _P, _P], _I),
         "ab_mask_ops": ([_I, _P, _P, _LL, _LL, _LL, _P, _P], _I),
+        "ab_bucket_masks": ([_P, _P, _LL, _I, _LL, _P, _P], _I),
     },
 }
 

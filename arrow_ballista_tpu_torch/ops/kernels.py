@@ -24,6 +24,7 @@ in compile/fused.py and count their launches here).
 | K20 ``concat_columns`` | ``csrc/gather.cu`` | models/batch.py:435 "batch.concat" |
 | K21 ``gather_columns`` | ``csrc/gather.cu`` | models/batch.py:439 "batch.shrink", ``pack_for_host`` l.122 |
 | K22 ``window_mask`` / ``mask_or`` / ``mask_and`` | ``csrc/gather.cu`` | operators.py:1029-1040 "join.window_mask", "join.mask_or", "join.mask_and" |
+| K22 ``bucket_masks`` | ``csrc/gather.cu`` | shuffle.py:493-497 "repartition.bucket" |
 
 A wrapper takes the twin only for a tensor that lies on the CPU (the
 tests); for a CUDA tensor it launches its kernel or raises.  ``LAUNCHES``
@@ -61,7 +62,7 @@ LAUNCHES: Dict[str, int] = {"dense_group_states": 0, "compaction_order": 0,
                             "spill_partition": 0, "dispatch_to_buckets": 0,
                             "merge_rank_states": 0, "mesh_derive": 0,
                             "operator_program": 0, "concat_columns": 0,
-                            "gather_columns": 0, "mask_ops": 0}
+                            "gather_columns": 0, "mask_ops": 0, "bucket_masks": 0}
 # the standalone engine launches from several task threads at once
 _LAUNCH_LOCK = threading.Lock()
 
@@ -529,7 +530,7 @@ def gather_columns(idx: torch.Tensor, cols: Dict[str, torch.Tensor]) -> Dict[str
 # K22: the join's mask glue (csrc/gather.cu)
 # --------------------------------------------------------------------------
 
-_MASK_OPS = {"window": 0, "or": 1, "and": 2, "andnot": 3, "bucket": 4}  # csrc/gather.cu AB_MASK_*
+_MASK_OPS = {"window": 0, "or": 1, "and": 2, "andnot": 3}  # csrc/gather.cu AB_MASK_*
 
 
 def window_mask_plain(mask: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
@@ -550,16 +551,11 @@ def mask_andnot_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a & ~b
 
 
-def bucket_mask_plain(mask: torch.Tensor, bucket: torch.Tensor, q: int) -> torch.Tensor:
-    return mask & (bucket == q)
-
-
 def _mask_launch(op: str, a: torch.Tensor, b: Optional[torch.Tensor], lo: int = 0,
                  hi: int = 0) -> torch.Tensor:
     _require_cuda(a, *([b] if b is not None else []))
-    bdt = torch.int32 if op == "bucket" else torch.bool
-    if a.dtype != torch.bool or (b is not None and (b.dtype != bdt or b.shape != a.shape)):
-        raise TypeError("mask ops take bool masks (and int32 buckets) of one shape")
+    if a.dtype != torch.bool or (b is not None and (b.dtype != torch.bool or b.shape != a.shape)):
+        raise TypeError("mask ops take bool masks of one shape")
     fa = _flat(a)
     fb = _flat(b) if b is not None else fa
     out = torch.empty(a.shape, dtype=torch.bool, device=a.device)
@@ -601,12 +597,39 @@ def mask_andnot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _mask_launch("andnot", a, b)
 
 
-def bucket_mask(mask: torch.Tensor, bucket: torch.Tensor, q: int) -> torch.Tensor:
-    """K22: ``mask & (bucket == q)``, one output partition of a local
-    repartition."""
+def bucket_masks_plain(mask: torch.Tensor, bucket: torch.Tensor, num_out: int) -> torch.Tensor:
+    """Plain twin of K22's bucket form (the reference's
+    ``[mask & (b == q) for q in range(num_out)]``), stacked."""
+    return torch.stack([mask & (bucket == q) for q in range(num_out)])
+
+
+def bucket_masks(mask: torch.Tensor, bucket: torch.Tensor, num_out: int) -> torch.Tensor:
+    """K22's bucket form: the masks of the ``num_out`` output partitions of
+    a local repartition, row q = ``mask & (bucket == q)``, in one launch.
+    A bucket outside [0, num_out) selects no row.  Returns a [num_out, n]
+    view of one [num_out, stride] allocation, stride = n rounded up to 16,
+    so that every row ``out[q]`` is a contiguous, 16-byte-aligned mask (the
+    full-width vector paths of K2 and K22 take it).  The rows share one
+    allocation and, like every batch tensor, are never written again."""
     if _is_cpu(mask):
-        return bucket_mask_plain(mask, bucket, q)
-    return _mask_launch("bucket", mask, bucket, q)
+        return bucket_masks_plain(mask, bucket, num_out)
+    _require_cuda(mask, bucket)
+    if mask.dtype != torch.bool or bucket.dtype != torch.int32 or mask.dim() != 1 \
+            or bucket.shape != mask.shape:
+        raise TypeError("bucket masks take a 1-D bool mask and int32 buckets of its shape")
+    if num_out < 1:
+        raise ValueError(f"bucket masks need at least one partition, got {num_out}")
+    n = mask.shape[0]
+    stride = max(16, (n + 15) // 16 * 16)
+    out = torch.empty((num_out, stride), dtype=torch.bool, device=mask.device)
+    if n == 0:
+        return out[:, :0]
+    lib = _gather_lib()
+    _cuda.check(lib.ab_bucket_masks(_ptr(_flat(mask)), _ptr(_flat(bucket)), n, int(num_out),
+                                    stride, _ptr(out), _stream(mask.device)),
+                "bucket_masks")
+    count_launch("bucket_masks")
+    return out[:, :n]
 
 
 # --------------------------------------------------------------------------
@@ -1118,10 +1141,8 @@ def grouped_aggregate(key_cols, val_cols, mask, out_capacity: int, key_ranges=No
         order = (sort_order_plain if plain else sort_order)([(k, True) for k in key_cols], mask)
     else:
         order = (compaction_order_plain if plain else compaction_order)(mask)
-    idx = order.long()
     on_order = grouped_on_order_plain if plain else grouped_on_order
-    return on_order([k[idx] for k in key_cols], [(v[idx], how) for v, how in val_cols],
-                    mask[idx], out_capacity, n)
+    return on_order(key_cols, val_cols, mask, out_capacity, n, order)
 
 
 # --------------------------------------------------------------------------
@@ -1135,15 +1156,21 @@ def overflow_flag(x):
     return torch.zeros((), dtype=torch.bool) if x is None else x
 
 
-def grouped_on_order_plain(keys_s, val_cols, mask_s, out_capacity: int, n: int):
-    """Plain twin of K8 (the reference's formulation): boundary flags ->
-    cumsum segment ids -> index_add_ / scatter_reduce_ into a dump-slotted
-    accumulator -> each group's first row scatters its keys."""
+def grouped_on_order_plain(keys_s, val_cols, mask_s, out_capacity: int, n: int, order):
+    """Plain twin of K8 (the reference's formulation): the gathers through
+    ``order``, then boundary flags -> cumsum segment ids -> index_add_ /
+    scatter_reduce_ into a dump-slotted accumulator -> each group's first
+    row scatters its keys."""
+    idx = order.long()
+    keys_s = [k[idx] for k in keys_s]
+    val_cols = [(v[idx], how) for v, how in val_cols]
+    mask_s = mask_s[idx]
+    n_rows = mask_s.shape[0]
     dev = mask_s.device
     cap = out_capacity
-    first = torch.arange(n, device=dev) == 0
+    first = torch.arange(n_rows, device=dev) == 0
     if keys_s:
-        diff = torch.zeros(n, dtype=torch.bool, device=dev)
+        diff = torch.zeros(n_rows, dtype=torch.bool, device=dev)
         for k in keys_s:
             diff = diff | (k != torch.roll(k, 1))
         boundary = mask_s & (first | diff)
@@ -1191,19 +1218,24 @@ class _SegSpec(ctypes.Structure):
                 ("m", ctypes.c_int)]
 
 
-def grouped_on_order(keys_s, val_cols, mask_s, out_capacity: int, n: int):
-    """Grouping over rows ALREADY in group order (live rows first, equal
-    keys adjacent).  Returns (out_keys, out_vals, out_mask, overflow or
+def grouped_on_order(keys_s, val_cols, mask_s, out_capacity: int, n: int, order):
+    """Grouping over rows ``order[i]`` (int32, K4's or K2's permutation,
+    which puts equal keys next to each other) of the keys, values and mask
+    as given: the kernel reads through the order, and no column is
+    gathered first.  Returns (out_keys, out_vals, out_mask, overflow or
     None); ``overflow`` is a device flag only when ``out_capacity < n``."""
     if _is_cpu(mask_s):
-        return grouped_on_order_plain(keys_s, val_cols, mask_s, out_capacity, n)
-    _require_cuda(mask_s, *keys_s, *[a for a, how in val_cols if how != AGG_COUNT])
+        return grouped_on_order_plain(keys_s, val_cols, mask_s, out_capacity, n, order)
+    _require_cuda(mask_s, order, *keys_s, *[a for a, how in val_cols if how != AGG_COUNT])
+    if order.dtype != torch.int32 or order.dim() != 1:
+        raise TypeError(f"the grouping order must be 1-D int32, got {order.dtype}")
     k, m = len(keys_s), len(val_cols)
     if k > 8 or m > 32:
         raise ValueError(f"sort-path grouping takes at most 8 keys and 32 aggregates "
                          f"(got {k}, {m})")
     mk = _flat(mask_s)
-    if mk.shape[0] == 0:
+    rows = order.shape[0]
+    if rows == 0:
         raise ValueError("grouped aggregation over an empty batch")
     dev = mk.device
     cap = int(out_capacity)
@@ -1241,10 +1273,13 @@ def grouped_on_order(keys_s, val_cols, mask_s, out_capacity: int, n: int):
     out_mask = torch.empty(cap, dtype=torch.bool, device=dev)
     num_groups = torch.empty(1, dtype=torch.int64, device=dev)
     lib = _cuda.LIBRARIES.get("seg_agg")
-    scratch = torch.empty(lib.ab_seg_scratch_bytes(mk.shape[0]), dtype=torch.uint8, device=dev)
-    err = lib.ab_grouped_on_order(ctypes.byref(spec), _ptr(mk), mk.shape[0], cap,
-                                  _ptr(_flat(out_mask)), _ptr(num_groups), _ptr(scratch),
-                                  _stream(dev))
+    stream = _stream(dev)
+    state = _stream_words(_SEG_STATES, dev, stream, lib.ab_seg_state_words(rows))
+    payload = _stream_words(_SEG_PAYLOADS, dev, stream, lib.ab_seg_payload_words(rows, m))
+    oc = order.contiguous()
+    err = lib.ab_grouped_on_order(ctypes.byref(spec), _ptr(mk), _ptr(oc), rows, cap,
+                                  _ptr(_flat(out_mask)), _ptr(num_groups), _ptr(state),
+                                  _ptr(payload), stream)
     _cuda.check(err, "grouped_on_order")
     count_launch("grouped_on_order")
     overflow = (num_groups[0] > cap) if cap < n else None
@@ -1296,12 +1331,13 @@ def grouped_aggregate_presorted(key_cols, val_cols, mask, out_capacity: int):
     which break early-HAVING filters)."""
     if len(key_cols) != 1:
         raise ValueError("presorted grouping takes exactly one key")
-    idx = compaction_order(mask).long()
+    order = compaction_order(mask)
+    idx = order.long()
     mask_s = mask[idx]
     k = key_cols[0][idx]
     disorder = presorted_disorder(k, mask_s)
     out_keys, out_vals, out_mask, overflow = grouped_on_order(
-        [k], [(v[idx], how) for v, how in val_cols], mask_s, out_capacity, mask.shape[0])
+        key_cols, val_cols, mask, out_capacity, mask.shape[0], order)
     return out_keys, out_vals, out_mask, overflow, disorder
 
 
@@ -1325,10 +1361,16 @@ def key_range_check_plain(keys: torch.Tensor, mask: torch.Tensor, lo: int, hi: i
 # in order, so back-to-back calls and task threads that share a stream
 # share them safely; two streams never do.  The accumulator (uint64[2], a
 # block partial and a ticket) serves K10, K11 and K2's two-launch form;
-# K6's state (a ticket, a tile counter and a look-back status word a tile)
-# grows to the next power of two when a call has more tiles.
+# K6's and K8's states (a ticket, a tile counter and a look-back status
+# word a tile) grow to the next power of two when a call has more tiles.
+# K8's look-back payloads (two folds a tile and aggregate) are a buffer of
+# their own, kept apart so that one call's folds never lie where a later
+# call expects a zero status word; a status word guards each fold, so
+# they need no reset.
 _ACCUMULATORS: Dict[Tuple[int, int], torch.Tensor] = {}
 _PROBE_STATES: Dict[Tuple[int, int], torch.Tensor] = {}
+_SEG_STATES: Dict[Tuple[int, int], torch.Tensor] = {}
+_SEG_PAYLOADS: Dict[Tuple[int, int], torch.Tensor] = {}
 _ACCUMULATORS_LOCK = threading.Lock()
 
 

@@ -17,7 +17,8 @@ Mirrors arrow_ballista_tpu/ops/shuffle.py:
 - ``UnresolvedShuffleExec``: placeholder leaf for a producer stage that
   has not run yet; the scheduler resolves it into a reader.
 - ``RepartitionExec``: the local engine's in-memory exchange (K3, then
-  one K22 mask per output partition).
+  K22's bucket form: every output partition's mask of a batch in one
+  launch).
 
 The partition keys of both are one K19 column program
 (compile/programs.py) ahead of K3.
@@ -307,10 +308,9 @@ class RepartitionExec(ExecutionPlan):
                         keys = operator_program(prog, b.columns, b.mask,
                                                 prog.aux_arrays(b.dicts))
                         bucket = K.bucket_of(list(keys.values()), num_out)
+                        masks = K.bucket_masks(b.mask, bucket, num_out)
                         for q in range(num_out):
-                            parts[q].append(ColumnBatch(b.schema, b.columns,
-                                                        K.bucket_mask(b.mask, bucket, q),
-                                                        b.dicts))
+                            parts[q].append(ColumnBatch(b.schema, b.columns, masks[q], b.dicts))
         else:
             for p in range(self.input.output_partition_count()):
                 parts[0].extend(self.input.execute(p, ctx))

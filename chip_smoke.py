@@ -46,12 +46,14 @@ Phases (any failure exits non-zero and prints no result line):
    sum and count(*), which K15 writes; both paths must latch on every
    run); ``spill_q3``, ``spill_q4``,
    ``spill_q9``, ``spill_q18``, ``spill_q21`` (the local engine over parquet
+   at SF0.25 (``SPILL_SF``), cold only,
    with every join partitioned, under a 1 MiB host budget: aggregates and
    the inner and semi joins spill to
    Arrow IPC runs, the joins' build sides split by K16; each result equals
    its unlimited run bit for bit, both operators spill, and no reservation
    is left); ``memsweep`` (the JAX package's tools/memory_sweep.py leg: the
-   22 queries through the local engine over parquet with 2^20-row batches,
+   22 queries through the local engine over the SF1 parquet with
+   2^20-row batches,
    the scan cache off, under the 1 MiB budget, each equal bit for bit to
    the same settings with no budget; denials and spill runs, no
    reservation left); and
@@ -78,9 +80,12 @@ Phases (any failure exits non-zero and prints no result line):
    ``avro_q1`` (SF0.01 lineitem, the avro codec being pure Python) against
    the port on the CPU.  On every local path the operator programs run as
    generated kernels (K19), concat on K20, shrink, pack and the sort and
-   join gathers on K2 + K21, the join and repartition masks on K22; no
-   warm run may build a generated source, and at SF0.01 the 22 queries'
-   programs must all trace (``tpch22_local``: no ``CodegenError``).
+   join gathers on K2 + K21, the join masks on K22 and the repartition's
+   masks on K22's bucket form, which must launch once a repartitioned
+   batch (not once a batch and partition: counted on every path, and on
+   q1 and pq_q1 it must launch); no warm run may build a generated source,
+   and at SF0.01 the 22 queries' programs must all trace
+   (``tpch22_local``: no ``CodegenError``).
    The inputs of each wrapper's largest call on each path are captured;
 4. each kernel held against its plain PyTorch twin on the card: on every
    path that launched it, at the inputs of that path's largest call of each
@@ -101,7 +106,12 @@ Phases (any failure exits non-zero and prints no result line):
    takes, with its live count; K6 and K2 100 calls back to back on one stream and
    from four threads at once, on one stream and on a stream each; one
    segment hit by every row; for the sort-path
-   aggregate empty slots, one 6M-row group, no keys and float columns;
+   aggregate (K8) empty slots, one 6M-row group (across every tile), no
+   keys and float columns, a tile -+1 rows, a group across two tiles,
+   every row its own group, dead rows inside and before the groups, a
+   capacity below the group count, the same read through an order, and
+   300 calls back to back on one stream and calls from four threads at
+   once, on one stream and on a stream each;
    for K1 int32 sums that wrap and int32 and float32 min and max; for K9
    sorted and shuffled keys; for K10 keys out of range and NULL keys; for
    K11 1,000 intervals and 5,000 merged ones; for K10 and K11 0, 1, 15, 17,
@@ -120,10 +130,13 @@ Phases (any failure exits non-zero and prints no result line):
    projection and computed sort keys over NULL strings and integers, NaN
    and products that wrap; for K20 40 columns of every dtype and 70
    sources; for K21 a random index with repeats and a packed copy; for K22
-   each of its five ops).  K19 is also held against its twin at the
+   each of its four binary ops, and its bucket form at 1, 2, 16 and 64
+   partitions over 1, 15, 16, 17 and 131,072 -+1 rows and 6M rows, views at
+   byte offsets 1-15 and buckets outside the range).  K19 is also held
+   against its twin at the
    largest call of each program kind.  Integers
-   exact; float sums at rtol 1e-12 (atomic summation order differs from
-   the twin's) or exact on quarter values;
+   exact; float sums at rtol 1e-12 (the kernels' summation order, atomic
+   or by tiles, differs from the twin's) or exact on quarter values;
 5. results held against independent numpy computations on the same
    generated arrays, on both the in-memory and the parquet paths: q1
    (decimal sums and counts exact, averages at rtol 1e-12), q3's top 10
@@ -159,13 +172,22 @@ Phases (any failure exits non-zero and prints no result line):
    q3 and pq_q18 K6's fused kernel and at most its fill a call, K2's one
    kernel or its count and scatter, and no memset or copy, or the run
    fails), the rows of their calls per path by power of two, and the live
-   probe share, total and cap of K6's largest call;
+   probe share, total and cap of K6's largest call; K8's kernels likewise
+   (on q3 and pq_q18 its fused kernel and its fill a call, no memset), and
+   at its largest call K8 read through the order beside the same call with
+   the columns gathered first and the gathers; K22's bucket form's
+   launches per profiled query;
    the ``entry()`` step's rows/s at 4096 and 6M rows; per parquet query
    the scan's read and convert times cold and warm, the scan cache's
    resident bytes and the peak device memory.
 
-The second-to-last lines are the nvidia-smi line and a JSON object with one
-entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
+Each phase's seconds are printed on a line of their own as it ends
+(``phase <name>: <s> s``: the build, the data, each group of paths, the
+memory sweep, tpch22, the sqlite check, the oracles, each kernel's checks
+and timings, and the CPU answers' child process, which runs beside the
+paths), then all of them on one line.  The last lines are the nvidia-smi
+line, a JSON object with one entry per kernel, the total seconds, and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -204,10 +226,18 @@ MEMSWEEP_SETTINGS = {"ballista.batch.size": str(1 << 20), "ballista.scan.cache.b
 for _q in EXTRACT_QUERIES:
     WARM_RUNS[f"pq_q{_q}"] = WARM_RUNS[f"sa_q{_q}"] = 3
 WARM_RUNS["sa_q20"] = WARM_RUNS["sa_pt"] = 3
-# the spill paths keep one warm run (17-30 s each at SF1): three would add
-# about 250 s to a script whose limit is 1200 s
+# the spill paths run cold only: their check is the cold run against its
+# unlimited run, bit for bit, and a warm run each cost about 112 s at SF1
+# of a script whose limit is 1200 s
 for _q in SPILL_QUERIES:
-    WARM_RUNS[f"spill_q{_q}"] = 1
+    WARM_RUNS[f"spill_q{_q}"] = 0
+# the spill paths read TPC-H at this scale factor (at most the run's): at
+# SF1 their cold runs took 27-74 s each; a quarter of the rows still spill
+# every operator they did under the 1 MiB budget, and every result is held
+# against the same query with no budget (the memory sweep stays at the
+# run's scale: at 2^20-row batches a quarter of SF1 lineitem is about two
+# batches, too few for its multi-batch spills)
+SPILL_SF = 0.25
 # kernels (launch counters of ops/kernels.py) each main path must launch
 PATH_KERNELS = {
     "q1": ("dense_group_states", "compaction_order", "hash64", "sort_order"),
@@ -267,9 +297,12 @@ PATH_KERNELS["memsweep"] = ("compaction_order",)
 # programs (K19), concat (K20), shrink / pack / sort and join gathers (K21)
 # and the repartition's bucket masks (K22); the standalone writers pack
 # through K21
-_LOCAL_NEW = ("operator_program", "concat_columns", "gather_columns", "mask_ops")
+_LOCAL_NEW = ("operator_program", "concat_columns", "gather_columns", "bucket_masks")
 for _p in ("q1", "q3", "q4", "pq_q1", "pq_q3", "pq_q4", "pq_q18"):
     PATH_KERNELS[_p] = PATH_KERNELS[_p] + _LOCAL_NEW
+# K22's binary forms: q3's and q18's LIMIT (the window), q4's semi join (and)
+for _p in ("q3", "q4", "pq_q3", "pq_q4", "pq_q18"):
+    PATH_KERNELS[_p] = PATH_KERNELS[_p] + ("mask_ops",)
 # q7-q9 repartition nothing over parquet at these partitions (no K22)
 for _q in EXTRACT_QUERIES:
     PATH_KERNELS[f"pq_q{_q}"] = PATH_KERNELS[f"pq_q{_q}"] + _LOCAL_NEW[:3]
@@ -338,6 +371,60 @@ PARQUET_TABLES = ("lineitem", "orders", "customer", "part", "partsupp", "supplie
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
+# seconds of each phase of the run, in the order they end
+PHASE_S = {}
+
+
+def phase_done(name: str, t0: float) -> float:
+    """Logs (on a line of its own) and adds up the seconds since ``t0`` of
+    the phase ``name``; returns them."""
+    secs = time.perf_counter() - t0
+    PHASE_S[name] = PHASE_S.get(name, 0.0) + secs
+    log(f"phase {name}: {secs:.1f} s")
+    return secs
+
+
+def path_group(path: str) -> str:
+    """The phase a main path's seconds count under."""
+    if path.startswith("spill_"):
+        return "paths_spill"
+    if path.startswith(("mesh", "sa_hybrid")):
+        return "paths_mesh"
+    if "csv" in path:
+        return "paths_csv"
+    if path in ("sa_q20", "sa_pt"):
+        return "paths_passthrough"
+    if path in {p for q in EXTRACT_QUERIES for p in (f"pq_q{q}", f"sa_q{q}")}:
+        return "paths_extract"
+    return "paths_standalone" if path.startswith("sa_") else "paths_local"
+
+
+class RepartitionBatches:
+    """Counts, while active, the batches each local hash repartition
+    splits and the partitions it splits them into (wrapping
+    ``RepartitionExec._materialize``): K22's bucket form must launch once a
+    batch, not once a batch and partition."""
+
+    def __enter__(self):
+        from arrow_ballista_tpu_torch.ops import shuffle
+
+        self.cls = shuffle.RepartitionExec
+        self.orig = self.cls._materialize
+        self.splits = []  # (batches, partitions) of each hash repartition
+        orig, splits = self.orig, self.splits
+
+        def materialize(op, ctx):
+            orig(op, ctx)
+            if op.partitioning.kind == "hash" and op.partitioning.count > 1:
+                splits.append((len(op._cache[0]), op.partitioning.count))
+
+        self.cls._materialize = materialize
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._materialize = self.orig
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -398,13 +485,15 @@ def clustered_trace(prof) -> dict:
     return out
 
 
-# K6 and K2 by CUDA kernel name, this tree's and those of the parent of
-# their redesign (K6: probe_bounds, the <long long> scans, a D2D copy,
-# probe_expand and probe_fill; K2: two scan kernels of <unsigned char, int>
-# and <int> and tile_scatter), so that tools/torch_wall_compare.py reads
-# both trees.  "shared" kernels are K8's scan kernels too (csrc/seg_agg.cu
-# launches the same template instances): they count as K2's only right
-# before the parent's tile_scatter on its stream, in the same call.
+# K6, K2, K8 and K22's bucket form by CUDA kernel name, this tree's and
+# those of the parent of their redesign (K6: probe_bounds, the <long long>
+# scans, a D2D copy, probe_expand and probe_fill; K2: two scan kernels of
+# <unsigned char, int> and <int> and tile_scatter; K8: seg_init,
+# seg_boundary, the same two scans and ab_scan_tile_apply, seg_accumulate
+# and seg_finish; K22's bucket form: mask_kernel<4>, one a partition), so
+# that tools/torch_wall_compare.py reads both trees.  "shared" kernels
+# count as the kernel's only right before one of its "shared_before"
+# kernels on its stream, in the same call.
 CALL_KERNELS = {
     "probe_join": {"own": ("k6_probe_", "probe_bounds", "probe_expand", "probe_fill",
                            "ab_scan_tile_sums<long long", "ab_scan_tile_offsets<long long",
@@ -413,6 +502,14 @@ CALL_KERNELS = {
                          "shared": ("ab_scan_tile_sums<unsigned char, int>",
                                     "ab_scan_tile_offsets<int>"),
                          "shared_before": ("tile_scatter",)},
+    "grouped_on_order": {"own": ("k8_seg_", "seg_init", "seg_boundary", "seg_keyless_first",
+                                 "seg_accumulate", "seg_finish",
+                                 "ab_scan_tile_apply<unsigned char, int, int>"),
+                         "shared": ("ab_scan_tile_sums<unsigned char, int>",
+                                    "ab_scan_tile_offsets<int>"),
+                         "shared_before": ("ab_scan_tile_apply<unsigned char, int, int>",)},
+    "bucket_masks": {"own": ("bucket_masks_kernel", "mask_kernel<4>"), "shared": (),
+                     "shared_before": ()},
 }
 
 
@@ -467,10 +564,11 @@ def call_trace(prof) -> dict:
 
 def check_call_trace(trace: dict, label: str) -> None:
     """Fails unless each K6 call was its fused kernel and at most the fill
-    (probe_join) and each K2 call one kernel (one launch) or a count pass
-    and its scatter, with no memset or copy before them."""
-    k6, k2 = trace["probe_join"], trace["compaction_order"]
-    by6, by2 = k6["by_kernel"], k2["by_kernel"]
+    (probe_join), each K2 call one kernel (one launch) or a count pass and
+    its scatter, and each K8 call its fused kernel and its fill, with no
+    memset or copy before them."""
+    k6, k2, k8 = trace["probe_join"], trace["compaction_order"], trace["grouped_on_order"]
+    by6, by2, by8 = k6["by_kernel"], k2["by_kernel"], k8["by_kernel"]
 
     def launches(by, part):  # K6's fused kernel is a template: one name per tile size
         return sum(v[0] for k, v in by.items() if part in k)
@@ -484,6 +582,10 @@ def check_call_trace(trace: dict, label: str) -> None:
     if k2["launches"] != one + count + scatter or count != scatter or \
             one + count != k2.get("wrapper_calls", one + count):
         bad.append(f"K2 ran {json.dumps(by2)} for {k2.get('wrapper_calls')} calls")
+    fused8, fill8 = launches(by8, "k8_seg_fused"), launches(by8, "k8_seg_fill")
+    if k8["launches"] != fused8 + fill8 or fused8 != fill8 or \
+            fused8 != k8.get("wrapper_calls", fused8):
+        bad.append(f"K8 ran {json.dumps(by8)} for {k8.get('wrapper_calls')} calls")
     for name, rec in trace.items():
         if rec["memsets"] or rec["copies"]:
             bad.append(f"{name}: {rec['memsets']} memsets and {rec['copies']} copies right "
@@ -592,6 +694,40 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def grouped_on_order_bytes(keys, vals, mask, cap, n, order) -> int:
+    """The bytes K8 must move: the order (int32) read once; through it the
+    mask of every row, the keys of the live rows and of the rows before
+    them (a live row opens a group when its key differs from the row
+    before), and the values (not the counts) of the live rows; each slot's
+    keys, values and mask bit written once, and the group count.  Read
+    through the order, a column costs the 32-byte sectors that the needed
+    rows touch, each once."""
+    import torch
+
+    rows = order.long()
+    live = mask[rows]
+    near = live.clone()
+    near[:-1] |= live[1:]
+
+    def sectors(col, needed):
+        return 32 * torch.unique(rows[needed] * col.element_size() // 32).numel()
+
+    out_w = sum(k.element_size() for k in keys) + sum(
+        8 if how == "count" else v.element_size() for v, how in vals) + 1
+    moved = nbytes(order) + sectors(mask, torch.ones_like(live)) + sum(
+        sectors(k, near) for k in keys) + sum(
+        sectors(v, live) for v, how in vals if how != "count")
+    return moved + cap * out_w + 8
+
+
+def bucket_masks_bytes(mask, num_out) -> int:
+    """The bytes K22's bucket form must move: the mask and the int32
+    buckets read once (5 bytes a row), and each partition's mask written
+    once."""
+    n = mask.shape[0]
+    return 5 * n + num_out * n
+
+
 def probe_join_bytes(ph, pm, bh, cap) -> int:
     """The bytes K6's ``probe_join`` must move on these inputs: the mask,
     the hashes of the live probe rows and of row n-1 (whose lower bound the
@@ -661,7 +797,7 @@ class Capture:
              "key_range_check": 1, "clustered_keep": 1, "extract_field": 0,
              "spill_partition": 0, "dispatch_to_buckets": 2, "merge_rank_states": 0,
              "concat_columns": 1, "gather_columns": 0, "pack_for_host": 1, "window_mask": 0,
-             "mask_or": 0, "mask_and": 0, "mask_andnot": 0, "bucket_mask": 0}
+             "mask_or": 0, "mask_and": 0, "mask_andnot": 0, "bucket_masks": 0}
     FUSED = {"fused_rows": 2, "fused_agg": 2, "passthrough_rows": 2, "mesh_derive": 3}
     # K19: recorded once overall and once per program (its label)
     PROGRAMS = {"operator_program": 2}
@@ -1394,7 +1530,7 @@ KERNEL_NAMES = {
     "K20 concat": ("concat_kernel", "void concat_kernel<"),
     "K21 gathers (shrink, pack, sort, join pairs)": ("gather_kernel",),
     "K2 compaction order": ("k2_compact_",),
-    "K22 mask ops": ("mask_kernel", "void mask_kernel<"),
+    "K22 mask ops": ("mask_kernel", "void mask_kernel<", "bucket_masks_kernel"),
 }
 
 
@@ -1668,6 +1804,81 @@ def probe_compact_reset_check(K, device, calls=100, seed=14):
     return checked
 
 
+def seg_reset_check(K, device, calls=300, seed=15):
+    """K8 with no memset between calls: ``calls`` calls queued back to back
+    on one stream, then 25 from each of four threads at once on the stream
+    they share, then on a stream each; sizes (one tile to 150 tiles), group
+    widths, keys or none, and the order form differ from call to call, so a
+    status word, tile counter or ticket left behind would show.  Every
+    result against the twin; returns the calls checked."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def inputs(count):
+        out = []
+        for i in range(count):
+            n = int(rng.choice([100, 2049, 40_000, 300_000]))
+            width = int(rng.choice([1, 3, 50, n]))
+            keys = [np.sort(rng.integers(0, max(1, n // width), n)).astype(np.int64)] \
+                if i % 5 else []
+            vals = [(rng.integers(-10**9, 10**9, n).astype(np.int64), "sum"),
+                    (np.zeros(n, np.int64), "count"),
+                    (rng.integers(-99, 99, n).astype(np.int32), "min")]
+            order = rng.permutation(n) if i % 3 == 0 else np.arange(n)
+            out.append((keys, vals, rng.random(n) < 0.7, n, order))
+        return out
+
+    def launch(batch):
+        staged = []
+        for keys, vals, mask, n, order in batch:
+            staged.append(([torch.from_numpy(k).to(device) for k in keys],
+                           [(torch.from_numpy(v).to(device), h) for v, h in vals],
+                           torch.from_numpy(mask).to(device), n, n,
+                           torch.from_numpy(order.astype(np.int32)).to(device)))
+        return staged, [K.grouped_on_order(*a) for a in staged]
+
+    def check(staged, results):
+        for a, got in zip(staged, results):
+            want = K.grouped_on_order_plain(*a)
+            if not torch.equal(got[2], want[2]) or any(
+                    not torch.equal(g, w) for g, w in zip([*got[0], *got[1]],
+                                                          [*want[0], *want[1]])):
+                raise AssertionError("grouped_on_order: a result differs after back-to-back "
+                                     "calls")
+
+    staged, results = launch(inputs(calls))
+    torch.cuda.synchronize()
+    check(staged, results)
+    checked = calls
+    for own_streams in (False, True):
+        batches = [inputs(25) for _ in range(4)]
+        out = [None] * 4
+        start = threading.Barrier(4)
+
+        def work(i):
+            scope = (torch.cuda.stream(torch.cuda.Stream(device)) if own_streams
+                     else contextlib.nullcontext())
+            with scope:
+                start.wait()
+                out[i] = launch(batches[i])
+                torch.cuda.current_stream(device).synchronize()
+
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        torch.cuda.synchronize()
+        for st, res in out:
+            check(st, res)
+            checked += len(st)
+    return checked
+
+
 def clustered_stress(t, rng, n):
     """K9-K11 inputs: sorted keys (no disorder), the same keys shuffled
     (disorder), one decrease at a block edge only, and int32 keys; range
@@ -1900,10 +2111,17 @@ def forced_collision_inputs(K, device, n, seed=2):
 
 
 def seg_agg_stress(t, rng, n):
-    """K8 inputs in group order: many small groups (sums that wrap, every
-    value type, empty slots past the groups), one n-row group, no keys, and
-    a capacity below the group count (overflow)."""
+    """K8 inputs with the columns in group order, read through the identity
+    order: many small groups (sums that wrap, every value type, empty slots
+    past the groups), one n-row group (across every tile), no keys, and a
+    capacity below the group count (overflow); a tile -+1 rows, a group
+    across two tiles, every row its own group, dead rows inside the groups
+    (a dead row of another key splits one) and before the first; and the
+    first four through a random order (the columns in another row order,
+    read at order[i])."""
     import numpy as np
+
+    from tests.torch_cases import SEG_TILE
 
     keys = [t(np.sort(rng.integers(0, n // 4, n)).astype(np.int64))]
     mask = t(rng.random(n) < 0.9)
@@ -1917,10 +2135,42 @@ def seg_agg_stress(t, rng, n):
             (i32, "min"), (i32, "max"), (pos, "sum"), (pos, "min"), (quarter, "sum"),
             (quarter, "max")]
     one = [t(np.full(n, 7, np.int64))]
-    return [(keys, many, mask, n, n),
-            (one, [(wrap, "sum"), (count, "count"), (pos, "sum"), (i64, "min")], mask, n, n),
-            ([], [(wrap, "sum"), (count, "count"), (pos, "max"), (i32, "min")], mask, n, n),
-            (keys, many[:2], mask, 100_000, n)]
+    out = [(keys, many, mask, n, n),
+           (one, [(wrap, "sum"), (count, "count"), (pos, "sum"), (i64, "min")], mask, n, n),
+           ([], [(wrap, "sum"), (count, "count"), (pos, "max"), (i32, "min")], mask, n, n),
+           (keys, many[:2], mask, 100_000, n)]
+    small = [(wrap, "sum"), (count, "count"), (quarter, "sum"), (i32, "max")]
+    for rows in (SEG_TILE - 1, SEG_TILE + 1):
+        out.append(([k[:rows] for k in keys], [(v[:rows], h) for v, h in small], mask[:rows],
+                    rows, rows))
+    across = np.sort(rng.integers(0, n // 5, n)).astype(np.int64)
+    across[SEG_TILE - 900:SEG_TILE + 1100] = across[SEG_TILE - 901]
+    across = np.maximum.accumulate(across)
+    out.append(([t(across)], small, mask, n, n))
+    own = t(np.arange(n, dtype=np.int64))
+    out.append(([own], small, t(np.ones(n, bool)), n, n))
+    inside = np.sort(rng.integers(0, n // 40, n)).astype(np.int64)
+    dead = rng.random(n) < 0.5
+    inside[dead & (rng.random(n) < 0.03)] += 10**9
+    inside[:500] = inside[500]
+    dead[:200] = True
+    out.append(([t(inside)], small, t(~dead), n, n))
+    order = t(rng.permutation(n).astype(np.int32))
+    inv = torch_argsort(order)
+    shuffled = [([k[inv] for k in ks], [(v[inv], h) for v, h in vs], m[inv], cap, rows, order)
+                for ks, vs, m, cap, rows in out[:4]]
+    ident = t(np.arange(n, dtype=np.int32))
+    return [(*a, ident[:a[4]]) for a in out] + shuffled
+
+
+def torch_argsort(order):
+    """The inverse of a permutation: a column ``c`` in group order is
+    ``c[inv]`` in the row order that ``order`` reads it from."""
+    import torch
+
+    inv = torch.empty_like(order, dtype=torch.int64)
+    inv[order.long()] = torch.arange(order.shape[0], device=order.device)
+    return inv
 
 
 class Wrapped:
@@ -1982,7 +2232,6 @@ def k19_k22_stress(device, n, seed=7):
     pack_cols = {"a": gcols["g1"], "f": gcols["g3"], "i": gcols["g0"], "g": gcols["g2"],
                  "k": gcols["g4"]}
     a, b = t(rng.random(n) < 0.5), t(rng.random(n) < 0.5)
-    bucket = t(rng.integers(0, 16, n).astype(np.int32))
     return {
         "operator_program": programs,
         "concat_columns": [(wide, wmasks, 1000), (many, mmasks, 64)],
@@ -1990,9 +2239,34 @@ def k19_k22_stress(device, n, seed=7):
                            Wrapped("pack_for_host", (pack_cols, mask, 1 << 22, ("a",), ("f",),
                                                      ("i", "g", "k")))],
         "mask_ops": [Wrapped("window_mask", (a, n // 5, n // 2)), Wrapped("mask_or", (a, b)),
-                     Wrapped("mask_and", (a, b)), Wrapped("mask_andnot", (a, b)),
-                     Wrapped("bucket_mask", (a, bucket, 3))],
+                     Wrapped("mask_and", (a, b)), Wrapped("mask_andnot", (a, b))],
+        "bucket_masks": bucket_stress(t, rng, n),
     }
+
+
+def bucket_stress(t, rng, n):
+    """K22's bucket form: 1, 2, 16 and 64 partitions at 1, 15, 16, 17 and
+    131,072 -+1 rows (ragged and whole 16-byte words), 16 partitions at n
+    rows, masks and buckets viewed at byte offsets 1-15 (the row-by-row
+    path) and buckets outside [0, num_out) (no row)."""
+    import numpy as np
+
+    out = []
+    for num_out in (1, 2, 16, 64):
+        for rows in (1, 15, 16, 17, (1 << 17) - 1, 1 << 17, (1 << 17) + 1):
+            out.append((t(rng.random(rows) < 0.7),
+                        t(rng.integers(0, num_out, rows).astype(np.int32)), num_out))
+    out.append((t(rng.random(n) < 0.7), t(rng.integers(0, 16, n).astype(np.int32)), 16))
+    for offset in range(1, 16):
+        rows = 5003 + offset
+        out.append((t(rng.random(rows) < 0.6)[offset:],
+                    t(rng.integers(0, 16, rows).astype(np.int32))[offset:], 16))
+    for num_out in (16, 64):
+        b = rng.integers(-3, num_out + 3, 100_003).astype(np.int32)
+        b[:7] = (np.iinfo(np.int32).min, -1, num_out, num_out + 1, np.iinfo(np.int32).max, 0,
+                 num_out - 1)
+        out.append((t(rng.random(100_003) < 0.7), t(b), num_out))
+    return out
 
 
 def new_kernel_stress(device, n, seed=5):
@@ -2234,7 +2508,7 @@ def check_kernel(K, name, args):
     if name == "pack_for_host":
         (gb, gf), (wb, wf) = K.pack_for_host(*args), K.pack_for_host_plain(*args)
         return max(max_err(gb, wb), max_err(gf, wf) if wf is not None else 0.0)
-    if name in ("window_mask", "mask_or", "mask_and", "mask_andnot", "bucket_mask"):
+    if name in ("window_mask", "mask_or", "mask_and", "mask_andnot", "bucket_masks"):
         return max_err(getattr(K, name)(*args), getattr(K, f"{name}_plain")(*args))
     if name == "dispatch_to_buckets":  # every buffer slot, the mask, the counts, the flag
         (gc, gm, go, gn), (wc, wm, wo, wn) = (K.dispatch_to_buckets(*args),
@@ -2340,7 +2614,7 @@ def check_kernel(K, name, args):
             raise AssertionError(f"live counts differ: {int(gl)} vs {int(wl)}")
         return max_err(gk, wk)
     if name == "grouped_on_order":
-        keys, vals, mask, cap, n = args
+        vals = args[1]
         got, want = K.grouped_on_order(*args), K.grouped_on_order_plain(*args)
         err = max_err(got[2], want[2])
         if (got[3] is None) != (want[3] is None) or \
@@ -2391,11 +2665,13 @@ def program_bytes(prog, cols, mask, auxs) -> int:
 
 def rotating(args, moved, span=64 << 20, most=64):
     """A function returning ``args`` and clones of them in turn: enough
-    copies (at most ``most``) that back-to-back calls move more than the
-    50 MB L2, so a timing loop reads device memory, not the cache."""
+    copies (at least two, at most ``most``) that back-to-back calls move
+    more than the 50 MB L2, so a timing loop reads device memory, not the
+    cache (a call that moves more than the L2 alone may still find its
+    randomly read columns there when the next call reads the same ones)."""
     import itertools
 
-    copies = [args] + [_clone(args) for _ in range(min(most, span // max(moved, 1)))]
+    copies = [args] + [_clone(args) for _ in range(max(1, min(most, span // max(moved, 1))))]
     return itertools.cycle(copies).__next__
 
 
@@ -2405,7 +2681,7 @@ def kernel_timings(K, name, args, device):
     the K1/K2 or K4/K8 kernels) as device ms and wall ms."""
     import torch
 
-    extra = {}
+    extra = {}  # more timed functions, by label
     if name == "operator_program":
         from arrow_ballista_tpu_torch.compile import programs as P
 
@@ -2448,17 +2724,28 @@ def kernel_timings(K, name, args, device):
             i, c = nxt()
             li = i.long()
             return [v.index_select(0, li) for v in c.values()]
-    elif name in ("window_mask", "mask_or", "mask_and", "mask_andnot", "bucket_mask"):
+    elif name in ("window_mask", "mask_or", "mask_and", "mask_andnot"):
         a, b = args[0], args[1] if name != "window_mask" else None
         moved = 2 * nbytes(a) + (nbytes(b) if b is not None else 0)
         nxt = rotating(args, moved)
         kern = lambda: getattr(K, name)(*nxt())  # noqa: E731
         plain = lambda: getattr(K, f"{name}_plain")(*nxt())  # noqa: E731
         # one PyTorch call for each two-mask op (a & ~b is a > b on bools);
-        # none for the window and the bucket mask
+        # none for the window
         library = {"mask_or": lambda: torch.bitwise_or(*nxt()),
                    "mask_and": lambda: torch.bitwise_and(*nxt()),
                    "mask_andnot": lambda: torch.gt(*nxt())}.get(name)
+    elif name == "bucket_masks":
+        mask, bucket, num_out = args
+        moved = bucket_masks_bytes(mask, num_out)
+        nxt = rotating(args, moved)
+        kern = lambda: K.bucket_masks(*nxt())  # noqa: E731
+        plain = lambda: K.bucket_masks_plain(*nxt())  # noqa: E731
+        parts = torch.arange(num_out, dtype=torch.int32, device=device)[:, None]
+
+        def library():  # a composite, not one call: compare and AND, broadcast
+            m, b, _q = nxt()
+            return (b[None] == parts) & m
     elif name == "dispatch_to_buckets":
         cols, dest, mask, n_dest, cap = args
         # dest and mask read once, each column's live rows once (a dead row
@@ -2639,15 +2926,16 @@ def kernel_timings(K, name, args, device):
         library = lambda: torch.zeros(ns + 1, dtype=torch.int32, device=device).scatter_reduce_(  # noqa: E731
             0, seg64, v32, "amax")
     elif name == "grouped_on_order":
-        keys, vals, mask, cap, n = args
-        read = [v for v, how in vals if how != "count"]
-        out_w = sum(k.element_size() for k in keys) + sum(
-            8 if how == "count" else v.element_size() for v, how in vals) + 1
-        moved = nbytes(mask, *keys, *read) + cap * out_w + 8
-        kern = lambda: K.grouped_on_order(keys, vals, mask, cap, n)  # noqa: E731
-        plain = lambda: K.grouped_on_order_plain(keys, vals, mask, cap, n)  # noqa: E731
+        keys, vals, mask, cap, n, order = args
+        moved = grouped_on_order_bytes(*args)
+        nxt = rotating(args, moved)
+        kern = lambda: K.grouped_on_order(*nxt())  # noqa: E731
+        plain = lambda: K.grouped_on_order_plain(*nxt())  # noqa: E731
+        # the library's calls run on the columns in group order
+        idx = order.long()
+        keys, vals, mask = [k[idx] for k in keys], [(v[idx], how) for v, how in vals], mask[idx]
         # index_add_ / scatter_reduce_ of each column at the twin's segment
-        # ids (the K4 order and the boundary scan left out)
+        # ids (the K4 order, the gathers and the boundary scan left out)
         first = torch.arange(n, device=device) == 0
         diff = torch.zeros(n, dtype=torch.bool, device=device)
         for k in keys:
@@ -2881,6 +3169,8 @@ KERNEL_META = {
                        "arrow_ballista_tpu/models/batch.py:435"),
     "gather_columns": ("arrow_ballista_tpu_torch/csrc/gather.cu",
                        "arrow_ballista_tpu/models/batch.py:439"),
+    "bucket_masks": ("arrow_ballista_tpu_torch/csrc/gather.cu",
+                     "arrow_ballista_tpu/ops/shuffle.py:493"),
     "mask_ops": ("arrow_ballista_tpu_torch/csrc/gather.cu",
                  "arrow_ballista_tpu/ops/operators.py:1029"),
 }
@@ -2928,7 +3218,8 @@ LIBRARY_CALL = {
     "concat_columns": "torch.cat of each column and of the masks",
     "gather_columns": "index_select of each column at the int64 index",
     "mask_ops": "per op: a | b (mask_or), a & b (mask_and), a > b (mask_andnot: a & ~b on "
-                "bools); none for the window and the bucket mask",
+                "bools); none for the window",
+    "bucket_masks": "a composite, not one call: (bucket[None] == arange(Q)[:, None]) & mask",
 }
 LAUNCH_KEY = {name: name for name in KERNEL_META}
 LAUNCH_KEY["bucket_of"] = "hash64"
@@ -2937,7 +3228,7 @@ WRAPPERS = {name: (name,) for name in KERNEL_META}
 WRAPPERS["bucket_of"] = ("bucket_of", "hash64")
 WRAPPERS["probe_join"] = ("probe_join", "probe_counts")
 WRAPPERS["gather_columns"] = ("gather_columns", "pack_for_host")
-WRAPPERS["mask_ops"] = ("window_mask", "mask_or", "mask_and", "mask_andnot", "bucket_mask")
+WRAPPERS["mask_ops"] = ("window_mask", "mask_or", "mask_and", "mask_andnot")
 
 
 # --------------------------------------------------------------------------
@@ -2985,6 +3276,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             _cuda.LIBRARIES.get(name)
         log(f"build: {time.perf_counter() - t0:.3f} s for {len(_cuda.SIGNATURES)} kernel "
             f"libraries (nvcc {_cuda.LIBRARIES.build_seconds:.3f} s, parallel)")
+        phase_done("build", t0)
 
     # phase 3: the main paths
     t0 = time.perf_counter()
@@ -2992,6 +3284,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     lineitem = tables["lineitem"]
     log(f"datagen: SF{sf} lineitem {lineitem.num_rows} rows in "
         f"{time.perf_counter() - t0:.1f} s (set-up)")
+    phase_done("datagen", t0)
     ctx = BallistaContext.local(device=device)
     for name, table in tables.items():
         ctx.register_table(name, table)
@@ -3003,9 +3296,20 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     log(f"parquet: {', '.join(PARQUET_TABLES)} written with {rg_rows}-row row groups in "
         f"{time.perf_counter() - t0:.1f} s (set-up), "
         f"{sum(os.path.getsize(p) for p in pq_paths.values())} bytes")
+    phase_done("parquet_write", t0)
     pctx = BallistaContext.local(device=device)
     for name, path in pq_paths.items():
         pctx.register_parquet(name, path)
+    spill_sf = min(sf, SPILL_SF)
+    spill_pq = pq_paths
+    if spill_sf < sf:  # the spill paths' own tables
+        t0 = time.perf_counter()
+        spill_dir = os.path.join(pq_dir, "spill")
+        os.makedirs(spill_dir)
+        spill_pq, spill_rg = write_parquet(generate_tables(spill_sf, seed=0), spill_sf, spill_dir)
+        log(f"parquet at SF{spill_sf} (the spill paths): "
+            f"{spill_rg}-row row groups, written in {time.perf_counter() - t0:.1f} s (set-up)")
+        phase_done("spill_data", t0)
     # no order of the small scale factors' rehearsals passes q18's 300
     q18_having = 300 if sf >= 1 else 200
     q18 = QUERIES[18].replace("> 300", f"> {q18_having}")
@@ -3076,6 +3380,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     csv_paths = write_csv(tables, CSV_TABLES, pq_dir)
     log(f"csv: {', '.join(CSV_TABLES)} written in {time.perf_counter() - t0:.1f} s (set-up), "
         f"{sum(os.path.getsize(p) for p in csv_paths.values())} bytes")
+    phase_done("csv_write", t0)
     csv_ctx = BallistaContext.local(device=device)
     sa_csv = BallistaContext.standalone(BallistaConfig(sa_cfg), concurrent_tasks=4,
                                         device=device)
@@ -3092,7 +3397,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     spctx = BallistaContext.local(BallistaConfig({**SPILL_SETTINGS, **SPILL_BUDGET}),
                                   device=device)
     unlimited = BallistaContext.local(BallistaConfig(SPILL_SETTINGS), device=device)
-    for name, path in pq_paths.items():
+    for name, path in spill_pq.items():
         spctx.register_parquet(name, path)
         unlimited.register_parquet(name, path)
     paths.update({f"pq_q{q}": (pctx, QUERIES[q]) for q in EXTRACT_QUERIES})
@@ -3124,7 +3429,11 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                 fail(f"the CPU answers failed (exit {rc}):\n{fh.read()[-3000:]}")
         log(f"CPU answers: waited {time.perf_counter() - t0:.1f} s for the child process")
         with open(answers_path, "rb") as fh:
-            return pickle.load(fh)
+            answers = pickle.load(fh)
+        # beside the card's paths: not part of the run's sequence of phases
+        log(f"phase cpu_answers_child (beside the paths, not added to the total): "
+            f"{sum(v[1] for v in answers.values()):.1f} s")
+        return answers
 
     path_frames = {}  # path -> its cold run's frame
     spill_tags = {}  # spill path -> {operator: spill runs} of its cold run
@@ -3143,6 +3452,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         torch.cuda.reset_peak_memory_stats()
     k13_forms = {}  # path -> K13 form -> calls
     for path, (c, sql) in paths.items():
+        t_path = time.perf_counter()
         scope = contextlib.ExitStack()
         scope.enter_context(mesh_scope(path))
         parquet = "pq_" in path or path in MESH_PARQUET
@@ -3155,9 +3465,20 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         C.reset_bytes()
         K.reset_launch_counts()
         builds0 = len(_cuda.LIBRARIES.generated_builds)
-        with Capture(K, F, device) as cap:
+        with Capture(K, F, device) as cap, RepartitionBatches() as split:
             df, cold_s = once(c, sql)
         launches[path] = dict(K.LAUNCHES)
+        batches = sum(b for b, _q in split.splits)
+        if launches[path]["bucket_masks"] != batches or (path in ("q1", "pq_q1")
+                                                         and not batches):
+            fail(f"{path}: K22's bucket form launched {launches[path]['bucket_masks']} times for "
+                 f"{batches} repartitioned batches ({split.splits}: (batches, partitions))")
+        if split.splits:
+            log(f"{path}: K22's bucket form launched {batches} times for {batches} batches "
+                f"split into {sorted({q for _b, q in split.splits})} partitions (the parent: "
+                f"{sum(b * q for b, q in split.splits)} launches, one a batch and partition)")
+            report.setdefault("bucket_launches", {})[path] = {
+                "launches": batches, "splits": split.splits}
         cold_builds = len(_cuda.LIBRARIES.generated_builds) - builds0
         if path.startswith("mesh") or path == "sa_hybrid_q3":
             mesh_report[path] = {
@@ -3285,14 +3606,15 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             log(f"{path} time split (last warm run, ms; sums over tasks): "
                 f"{json.dumps({k: v for k, v in split.items() if k != 'planned_partitions'})}")
             report[f"{path}_warm_split"] = split
-        warm_s = statistics.median(warm)
+        warm_s = statistics.median(warm) if warm else None
         rows = lineitem.num_rows
         log(f"{path} SF{sf}: cold {cold_s * 1000:.1f} ms ({rows / cold_s:.0f} lineitem rows/s), "
-            f"warm median of {len(warm)} {warm_s * 1000:.1f} ms ({rows / warm_s:.0f} rows/s) "
-            f"[runs ms: {', '.join(f'{w * 1000:.1f}' for w in warm)}]; "
+            + (f"warm median of {len(warm)} {warm_s * 1000:.1f} ms ({rows / warm_s:.0f} rows/s) "
+               f"[runs ms: {', '.join(f'{w * 1000:.1f}' for w in warm)}]; " if warm else
+               "no warm run; ")
             + ("parquet through the scan cache" if parquet else "in-memory tables uploaded "
                "per query (the scan cache holds parquet scans only)"))
-        if parquet or "csv" in path:
+        if warm and (parquet or "csv" in path):
             if not parquet:
                 warm_scan = scan_metrics(job_plans(c))
             log(f"{path} scan times ms: cold read {cold_scan.get('scan_read_time', 0) * 1000:.1f}, "
@@ -3305,12 +3627,13 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         log(f"{path} launches per query: "
             f"{json.dumps({k: v for k, v in launches[path].items() if v})}")
         log(df.head(10).to_string())
-        log(f"{path} operator host times (last warm run, ms; elapsed_time includes children):")
+        log(f"{path} operator host times ({'last warm' if warm else 'cold'} run, ms; "
+            "elapsed_time includes children):")
         for plan in job_plans(c):
             for line in plan_breakdown(plan):
                 log("  " + line)
         report[f"{path}_cold_ms"] = cold_s * 1000
-        report[f"{path}_warm_ms"] = warm_s * 1000
+        report[f"{path}_warm_ms"] = warm_s * 1000 if warm else None
         if cuda and not path.startswith("spill_"):
             prof_q = report[f"{path}_profile"] = profile_query(c, sql, path, K)
             if path in ("q3", "pq_q18") and prof_q is None:
@@ -3325,6 +3648,11 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                              f"for {rec['wrapper_calls']} calls with {rec['memsets']} memsets "
                              "right before them (one kernel a call and no memset expected)")
         scope.close()
+        secs = time.perf_counter() - t_path
+        PHASE_S[path_group(path)] = PHASE_S.get(path_group(path), 0.0) + secs
+        log(f"path {path}: {secs:.1f} s")
+    for group in sorted({path_group(p) for p in paths}):
+        log(f"phase {group}: {PHASE_S[group]:.1f} s")
     # csv: the same rows as the parquet paths, bit for bit
     for a, b in (("csv_q1", "pq_q1"), ("csv_q3", "pq_q3"), ("sa_csv_q1", "sa_pq_q1")):
         try:
@@ -3332,7 +3660,9 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         except AssertionError as e:
             fail(f"{a} differs from {b}: {e}")
     log("csv_q1, csv_q3 and sa_csv_q1 equal pq_q1, pq_q3 and sa_pq_q1 bit for bit")
+    t_phase = time.perf_counter()
     report["json_avro"] = json_avro_paths(device, pq_dir)
+    phase_done("paths_json_avro", t_phase)
 
     # the mesh paths together: the dense reduce on q1's paths, and across
     # the two q3 runs at least one broadcast and one partitioned mesh join
@@ -3377,6 +3707,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     # the reference sweep's settings under the 1 MiB budget, each bit for
     # bit against the same settings with no budget; denials and spill
     # runs, and no reservation left
+    t_phase = time.perf_counter()
     msweep = BallistaContext.local(BallistaConfig({**MEMSWEEP_SETTINGS, **SPILL_BUDGET}),
                                    device=device)
     mfree = BallistaContext.local(BallistaConfig(MEMSWEEP_SETTINGS), device=device)
@@ -3419,9 +3750,11 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     report["memsweep"] = {"memory_stats": mem, **{
         q: {k: v for k, v in r.items() if k != "frame"} for q, r in sweep.items()}}
     paths["memsweep"] = (msweep, None)
+    phase_done("memsweep", t_phase)
 
     # tpch22: the 22 queries through the standalone engine over parquet,
     # cold then warm, held against the port on the CPU (the child's answers)
+    t_phase = time.perf_counter()
     tp = {}
     K.reset_launch_counts()
     with Capture(K, F, device) as cap:
@@ -3463,8 +3796,10 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                             "warm_ms": v["warm_ms"], "cpu_ms": answers[q][1] * 1000}
                         for q, v in tp.items()}
     paths["tpch22"] = (sa_pq, None)
+    phase_done("tpch22", t_phase)
 
     # SF0.01: the 22 queries on the card, both engines, against sqlite3
+    t_phase = time.perf_counter()
     small = generate_tables(0.01, seed=1)
     conn = sqlite_oracle(small)
     small_cfg = BallistaConfig({"ballista.shuffle.partitions": "4"})
@@ -3524,8 +3859,10 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         log(f"peak device memory (torch.cuda.max_memory_allocated over the query paths): "
             f"{peak} bytes")
         report["max_memory_allocated"] = peak
+    phase_done("sf001_sqlite", t_phase)
 
     # phase 5: results against the numpy oracles
+    t_phase = time.perf_counter()
     oracles = {"q1": q1_oracle(lineitem), "q3": q3_oracle(tables), "q4": q4_oracle(tables)}
     for label, c in (("", ctx), ("pq_", pctx), ("csv_", csv_ctx)):
         n_groups, worst = check_q1(c, sqls["q1"], oracles["q1"])
@@ -3572,8 +3909,10 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     log(f"generated kernels (K12 / K13) built with nvcc at first use: "
         f"{json.dumps(builds)} ({sum(b[1] for b in builds):.3f} s, inside the cold walls)")
     report["generated_builds"] = builds
+    phase_done("oracles", t_phase)
 
     # table rows 5-7 on q3's path
+    t_phase = time.perf_counter()
     if cuda:
         programs = profile_programs(ctx, sqls["q3"], device)
         for row, (dev_ms, moved, calls, wall_ms) in programs.items():
@@ -3585,15 +3924,18 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         report["q3_programs"] = {row: {"ms": v[0], "bytes": v[1], "calls": v[2], "wall_ms": v[3],
                                        "bound_ms": v[1] / HBM_BYTES_PER_S * 1000}
                                  for row, v in programs.items()}
+        phase_done("q3_programs", t_phase)
 
     # phase 4 + 6: kernels against their twins at each path's own shapes and
     # at the stress shapes; timings at the largest call over the paths
+    t_phase = time.perf_counter()
     stress = stress_inputs(K, device, stress_rows)
     stress.update(fused_stress(device, stress_rows))
     stress.update(new_kernel_stress(device, stress_rows))
     stress.update(mesh_stress(device, stress_rows))
     stress.update(k19_k22_stress(device, stress_rows))
     radix_build = radix_build_stress(device)
+    phase_done("stress_inputs", t_phase)
     for name in KERNEL_META:
         t_kernel = time.perf_counter()
         per_path = {p: launches[p][LAUNCH_KEY[name]] for p in paths}
@@ -3630,6 +3972,10 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                 report["clustered_reset_calls"] = clustered_reset_check(K, device)
                 log(f"K10 / K11 back to back on one stream and from four threads: "
                     f"{report['clustered_reset_calls']} calls of each equal their twins")
+            if name == "grouped_on_order" and cuda:  # K8 with no memset between calls
+                report["seg_reset_calls"] = seg_reset_check(K, device)
+                log(f"K8 back to back on one stream and from four threads: "
+                    f"{report['seg_reset_calls']} calls equal their twins")
             if name == "probe_join" and cuda:  # K6 and K2 with no memset between calls
                 report["probe_compact_reset_calls"] = probe_compact_reset_check(K, device)
                 log(f"K6 / K2 back to back on one stream and from four threads: "
@@ -3681,6 +4027,12 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                           "total": int(K.probe_counts_plain(ph, pm, bh)[1]), "cap": cap}
             log(f"kernel probe_join: the largest call ({path}, {n} probe rows): "
                 f"{json.dumps(call_shape)}")
+        elif timed == "grouped_on_order":  # how much of the largest call is live
+            gmask, gcap, gorder = args[2], args[3], args[5]
+            call_shape = {"live_share": float(gmask[gorder.long()].float().mean()), "cap": gcap,
+                          "groups_in_cap": int(K.grouped_on_order_plain(*args)[2].sum())}
+            log(f"kernel grouped_on_order: the largest call ({path}, {n} rows): "
+                f"{json.dumps(call_shape)}")
         src, replaces = KERNEL_META[name]
         report["kernels"].append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -3722,6 +4074,18 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                f"{fmt(times['interpreted_wall_ms'])} wall" if name.startswith("fused_") else "")
             + f"; stress {stress_rows} rows ok; "
             f"max abs err {err:.3g}; launches per query {json.dumps(per_path)}")
+        if name == "bucket_masks" and "bucket_masks" in captured.get("q1", {}):
+            # q1's call (the local engine's batch into its 16 partitions)
+            qn, qargs = captured["q1"]["bucket_masks"]
+            qt, qmoved = kernel_timings(K, name, qargs, device)
+            report["kernels"][-1]["at_q1"] = {
+                "rows": qn, "partitions": qargs[2], "ms": qt["ms"], "wall_ms": qt["wall_ms"],
+                "plain_ms": qt["plain_ms"], "library_ms": qt["library_ms"],
+                "bound_ms": qmoved / HBM_BYTES_PER_S * 1000}
+            log(f"kernel {name} at q1's largest call ({qn} rows, {qargs[2]} partitions): device "
+                f"kernel {fmt(qt['ms'])}, plain {fmt(qt['plain_ms'])}, composite "
+                f"{fmt(qt['library_ms'])}, bound {qmoved / HBM_BYTES_PER_S * 1000:.6f} ms; wall "
+                f"kernel {fmt(qt['wall_ms'])}")
         if name == "mask_ops":  # K22: every op at its own largest call
             per_op = {}
             for w in WRAPPERS[name]:
@@ -3784,14 +4148,16 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             report["radix_stress"]["seconds"] = time.perf_counter() - t_radix
             log(f"radix stress timings: {report['radix_stress']['seconds']:.1f} s")
         report.setdefault("kernel_check_s", {})[name] = time.perf_counter() - t_kernel
-        if name in RADIX_KERNELS:
-            log(f"kernel {name}: checks and timings took {report['kernel_check_s'][name]:.1f} s")
         if name == "dense_group_states" and cuda:
             sweep = dense_hot_slot_sweep(K, args, device)
             log("kernel dense_group_states hot-slot sweep (device ms per call, "
                 f"{n} rows): " + ", ".join(
                     f"{h} slots {fmt(v)}" for h, v in sweep.items()))
+        phase_done(f"kernel_checks/{name}", t_kernel)
 
+    PHASE_S["kernel_checks"] = sum(v for k, v in PHASE_S.items()
+                                   if k.startswith("kernel_checks/"))
+    log(f"phase kernel_checks: {PHASE_S['kernel_checks']:.1f} s")
     log("radix plans (K4 sort_order / K5 build_side_sort: form, composite bits, passes, "
         f"launches) of every call held against its twin: {json.dumps(RADIX_PLANS)}")
     report["radix_plans"] = list(RADIX_PLANS)
@@ -3801,6 +4167,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     # one copy_ of the same bytes; device time from the profiler and from
     # queued CUDA events, so that a reading past the HBM peak shows which
     # source gave it
+    t_phase = time.perf_counter()
     a2a = [(captured[p]["all_to_all"], p) for p in paths if "all_to_all" in captured.get(p, {})]
     if a2a:
         (n_bytes, (blocks, mesh)), a2a_path = max(a2a, key=lambda x: x[0][0])
@@ -3836,17 +4203,8 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     dryrun = port_entry.dryrun_multichip(MESH_RANKS, device=device)
     log(f"dryrun_multichip({MESH_RANKS}) on {device}: {json.dumps(dryrun)}")
     report["dryrun_multichip"] = dryrun
-
-    # K8 at q3's own largest call, repeated: one earlier run read 0.0072 ms once
-    # and 0.0155-0.0158 ms otherwise at these 4,096 rows
-    if cuda and "grouped_on_order" in captured["q3"]:
-        n, args = captured["q3"]["grouped_on_order"]
-        clock0 = smi("clocks.sm,power.draw")
-        reps = [device_ms(lambda: K.grouped_on_order(*args))[0] for _ in range(5)]
-        log(f"kernel grouped_on_order at q3's largest call ({n} rows), device ms per call over "
-            f"5 repeats: {', '.join(f'{r:.4f}' for r in reps)}; SM clock, power before: "
-            f"{clock0}, after: {smi('clocks.sm,power.draw')}")
-        report["grouped_on_order_q3_repeats_ms"] = reps
+    phase_done("exchange_dryrun", t_phase)
+    t_phase = time.perf_counter()
 
     # entry(): the flagship step, held against its twins on the CPU
     for n_rows in (4096, stress_rows):
@@ -3863,6 +4221,8 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         ms = time_ms(lambda: step(cols, mask), device, iters=10, reps=5)
         log(f"entry step: {n_rows} rows in {ms:.4f} ms = {n_rows / ms * 1000:.0f} rows/s")
         report[f"entry_rows_per_s_{n_rows}"] = n_rows / ms * 1000
+    phase_done("entry", t_phase)
+    report["phase_s"] = dict(PHASE_S)
     return report
 
 
@@ -3941,9 +4301,11 @@ def main() -> None:
     log(f"card: {card}")
     t0 = time.perf_counter()
     report = run("cuda")
-    log(f"total: {time.perf_counter() - t0:.1f} s")
+    total = time.perf_counter() - t0
+    log(f"phases (s): {json.dumps({k: round(v, 1) for k, v in report['phase_s'].items()})}")
     print(card, flush=True)
     print(json.dumps({"kernels": report["kernels"]}), flush=True)
+    log(f"total: {total:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from arrow_ballista_tpu_torch.ops import kernels as TK
-from tests.torch_cases import (CONCAT_CASES, DENSE_CASES, FUSED_CHAINS, GATHER_CASES,
+from tests.torch_cases import (BUCKET_CASES, CONCAT_CASES, DENSE_CASES, FUSED_CHAINS,
+                               GATHER_CASES, SEG_CASES, SEG_TILE, bucket_case, seg_case,
                                HASH_CASES, I64_MAX, I64_MIN, INTERVAL_CASES, JOIN_CASES,
                                JOIN_QUERIES, KEEP_CASES, MASK_OPS_CASES,
                                PACK_CASES, PRESORTED_CASES, PROBE_CASES, RADIX_CASES,
@@ -1084,9 +1085,8 @@ def test_mask_ops_kernel_matches_twin(dev, case):
     kernel, plain = {"window": (TK.window_mask, TK.window_mask_plain),
                      "or": (TK.mask_or, TK.mask_or_plain),
                      "and": (TK.mask_and, TK.mask_and_plain),
-                     "andnot": (TK.mask_andnot, TK.mask_andnot_plain),
-                     "bucket": (TK.bucket_mask, TK.bucket_mask_plain)}[op]
-    args = (ta, lo, hi) if op == "window" else (ta, tb, lo) if op == "bucket" else (ta, tb)
+                     "andnot": (TK.mask_andnot, TK.mask_andnot_plain)}[op]
+    args = (ta, lo, hi) if op == "window" else (ta, tb)
     before = TK.LAUNCHES["mask_ops"]
     got = kernel(*args)
     want = plain(*args)
@@ -1096,7 +1096,7 @@ def test_mask_ops_kernel_matches_twin(dev, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["window_middle", "or", "and", "andnot", "bucket"])
+@pytest.mark.parametrize("case", ["window_middle", "or", "and", "andnot"])
 def test_mask_ops_kernel_takes_unaligned_views(dev, case):
     """Views three rows in are not 16-byte aligned: K22 goes row by row."""
     op, a, b, lo, hi = mask_ops_case(case, np.random.default_rng(12))
@@ -1105,13 +1105,198 @@ def test_mask_ops_kernel_takes_unaligned_views(dev, case):
     kernel, plain = {"window": (TK.window_mask, TK.window_mask_plain),
                      "or": (TK.mask_or, TK.mask_or_plain),
                      "and": (TK.mask_and, TK.mask_and_plain),
-                     "andnot": (TK.mask_andnot, TK.mask_andnot_plain),
-                     "bucket": (TK.bucket_mask, TK.bucket_mask_plain)}[op]
-    args = (ta, lo, hi) if op == "window" else (ta, tb, lo) if op == "bucket" else (ta, tb)
+                     "andnot": (TK.mask_andnot, TK.mask_andnot_plain)}[op]
+    args = (ta, lo, hi) if op == "window" else (ta, tb)
     got = kernel(*args)
     want = plain(*args)
     torch.cuda.synchronize()
     _same(got, want)
+
+
+# K22's bucket form: 1, 2, 16 and 64 partitions at 1, 15, 16 and 17 rows
+# (ragged and whole 16-byte words) and a batch of 131,072 -+1 rows
+BUCKET_SIZES = [1, 15, 16, 17, (1 << 17) - 1, 1 << 17, (1 << 17) + 1]
+
+
+def _bucket_on_card(dev, mask, bucket, num_out):
+    """K22's bucket form against its twin: one launch, every partition's
+    row a 16-byte-aligned view of one allocation."""
+    before = TK.LAUNCHES["bucket_masks"]
+    got = TK.bucket_masks(mask, bucket, num_out)
+    want = TK.bucket_masks_plain(mask, bucket, num_out)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["bucket_masks"] == before + 1
+    _same(got, want)
+    for q in range(num_out):
+        assert got[q].is_contiguous() and got[q].data_ptr() % 16 == 0
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", BUCKET_SIZES)
+@pytest.mark.parametrize("num_out", [1, 2, 16, 64])
+def test_bucket_masks_kernel_matches_twin(dev, num_out, n):
+    rng = np.random.default_rng(n + num_out)
+    mask = _t(rng.random(n) < 0.7).to(dev)
+    bucket = TK.bucket_of([_t(rng.integers(-10**6, 10**6, n).astype(np.int64)).to(dev)], num_out)
+    _bucket_on_card(dev, mask, bucket, num_out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BUCKET_CASES)
+def test_bucket_masks_kernel_over_the_cpu_cases(dev, case):
+    """The CPU test's cases (out-of-range buckets select no row, one bucket
+    holding every row) on the card."""
+    keys, mask, num_out, given = bucket_case(case, np.random.default_rng(8))
+    bucket = TK.bucket_of([_t(k).to(dev) for k in keys], num_out) if given is None \
+        else _t(given).to(dev)
+    _bucket_on_card(dev, _t(mask).to(dev), bucket, num_out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", range(1, 16))
+def test_bucket_masks_kernel_on_views_at_byte_offsets(dev, offset):
+    """A mask viewed at a byte offset (and its buckets at the same row) is
+    not 16-byte aligned: the rows go one by one."""
+    n = 5003 + offset
+    rng = np.random.default_rng(offset)
+    mask = _t(rng.random(n) < 0.6).to(dev)[offset:]
+    bucket = _t(rng.integers(-2, 18, n).astype(np.int32)).to(dev)[offset:]
+    _bucket_on_card(dev, mask, bucket, 16)
+
+
+# K8: the CPU model's cases, then a tile -+1, two tiles -+1 and 2^20 + 5 rows
+SEG_SIZES = [1, 2, SEG_TILE - 1, SEG_TILE, SEG_TILE + 1, 2 * SEG_TILE - 1, 2 * SEG_TILE + 1,
+             (1 << 20) + 5]
+
+
+def _seg_on_card(dev, keys, vals, mask, cap, order=None):
+    """K8 read through ``order`` (the identity when none is given: rows in
+    group order) against its twin on the same card tensors; integers
+    exact, float sums at rtol 1e-12 (the kernel adds in its tile order, the
+    twin in its own)."""
+    if order is None:
+        order = np.arange(len(mask), dtype=np.int32)
+    n = len(order)
+    args = ([_t(k).to(dev) for k in keys], [(_t(v).to(dev), h) for v, h in vals],
+            _t(mask).to(dev), cap, n, _t(order).to(dev))
+    before = TK.LAUNCHES["grouped_on_order"]
+    got = TK.grouped_on_order(*args)
+    want = TK.grouped_on_order_plain(*args)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["grouped_on_order"] == before + 1
+    assert torch.equal(got[2], want[2])
+    assert (got[3] is None) == (want[3] is None)
+    if got[3] is not None:
+        assert bool(got[3]) == bool(want[3])
+    for g, w in zip(got[0], want[0]):  # NaN keys compare equal here
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+    for (v, how), g, w in zip(vals, got[1], want[1]):
+        if v.dtype.kind == "f" and how == "sum":
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-12, atol=0)
+        else:
+            np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["in_order", "through_order"])
+@pytest.mark.parametrize("case", SEG_CASES)
+def test_k8_kernel_matches_twin_on_the_tile_cases(dev, case, form):
+    rng = np.random.default_rng(51)
+    keys, vals, mask, cap = seg_case(case, rng)
+    if form == "in_order":
+        _seg_on_card(dev, keys, vals, mask, cap)
+        return
+    order = rng.permutation(len(mask)).astype(np.int32)
+
+    def scatter(a):
+        out = np.empty_like(a)
+        out[order] = a
+        return out
+
+    _seg_on_card(dev, [scatter(k) for k in keys], [(scatter(v), h) for v, h in vals],
+                 scatter(mask), cap, order)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SEG_SIZES)
+def test_k8_kernel_at_tile_sizes(dev, n):
+    """Small groups, one group over every row, and no keys, at each size."""
+    rng = np.random.default_rng(n)
+    mask = rng.random(n) < 0.8
+    vals = [(rng.integers(2**61, 2**62, n).astype(np.int64), "sum"),
+            (np.zeros(n, np.int64), "count"), (rng.normal(size=n), "max"),
+            (rng.integers(-99, 99, n).astype(np.int32), "min")]
+    _seg_on_card(dev, [np.sort(rng.integers(0, max(1, n // 6), n)).astype(np.int64)], vals,
+                 mask, n)
+    _seg_on_card(dev, [np.full(n, 3, np.int32)], vals, mask, n)
+    _seg_on_card(dev, [], vals, mask, 1)
+
+
+def _seg_reset_inputs(rng, count):
+    """Calls of several sizes and group shapes for the state-reset checks."""
+    out = []
+    for i in range(count):
+        n = int(rng.choice([100, SEG_TILE + 3, 40_000, 300_000]))
+        keys = [np.sort(rng.integers(0, max(1, n // int(rng.choice([2, 50, n]))), n))
+                .astype(np.int64)]
+        vals = [(rng.integers(-10**9, 10**9, n).astype(np.int64), "sum"),
+                (np.zeros(n, np.int64), "count")]
+        out.append((keys if i % 5 else [], vals, rng.random(n) < 0.7, n))
+    return out
+
+
+def _seg_reset_launch(dev, inputs):
+    args = [([_t(k).to(dev) for k in keys], [(_t(v).to(dev), h) for v, h in vals],
+             _t(mask).to(dev), cap, cap, torch.arange(cap, dtype=torch.int32, device=dev))
+            for keys, vals, mask, cap in inputs]
+    return args, [TK.grouped_on_order(*a) for a in args]
+
+
+def _seg_reset_check(args, results):
+    for a, got in zip(args, results):
+        want = TK.grouped_on_order_plain(*a)
+        assert torch.equal(got[2], want[2])
+        for g, w in zip(list(got[0]) + list(got[1]), list(want[0]) + list(want[1])):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_k8_back_to_back_on_one_stream(dev):
+    """300 calls queued back to back: each launch's last block leaves the
+    stream's state words zero for the next."""
+    args, results = _seg_reset_launch(dev, _seg_reset_inputs(np.random.default_rng(52), 300))
+    torch.cuda.synchronize()
+    _seg_reset_check(args, results)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("own_streams", [False, True])
+def test_k8_from_four_threads(dev, own_streams):
+    import threading
+
+    rng = np.random.default_rng(53)
+    inputs = [_seg_reset_inputs(rng, 25) for _ in range(4)]
+    results = [None] * 4
+    start = threading.Barrier(4)
+
+    def work(i):
+        ctx = torch.cuda.stream(torch.cuda.Stream(dev)) if own_streams else \
+            contextlib.nullcontext()
+        with ctx:
+            start.wait()
+            results[i] = _seg_reset_launch(dev, inputs[i])
+            torch.cuda.current_stream(dev).synchronize()
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    for args, res in results:
+        _seg_reset_check(args, res)
 
 
 @contextlib.contextmanager

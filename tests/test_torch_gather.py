@@ -1,8 +1,10 @@
 """The twins of K20 ``concat_columns``, K21 ``gather_columns`` (shrink,
-``pack_for_host``) and K22 (the join's mask programs) against the JAX
-package's programs on the CPU: ``batch.concat`` (``_concat_impl``),
-``batch.shrink`` (``_shrink_device``), ``kernels.pack_for_host`` and
-``join.window_mask`` / ``join.mask_or`` / ``join.mask_and``.  The cases
+``pack_for_host``) and K22 (the join's mask programs and the
+repartition's bucket masks) against the JAX package's programs on the
+CPU: ``batch.concat`` (``_concat_impl``), ``batch.shrink``
+(``_shrink_device``), ``kernels.pack_for_host``, ``join.window_mask`` /
+``join.mask_or`` / ``join.mask_and`` and ``repartition.bucket`` (with the
+local repartition itself through both packages).  The cases
 cover mixed capacities, a pad, more than 32 columns (and more than one
 launch's worth), every dtype with its edge values (int extremes, NaN,
 -0.0), and more sources than one launch takes.  Exact, floats by their
@@ -18,8 +20,9 @@ from arrow_ballista_tpu.ops import kernels as JK
 from arrow_ballista_tpu.ops.operators import _mask_and, _mask_or, _window_mask
 from arrow_ballista_tpu_torch.models import batch as TB
 from arrow_ballista_tpu_torch.ops import kernels as TK
-from tests.torch_cases import (CONCAT_CASES, GATHER_CASES, MASK_OPS_CASES, PACK_CASES,
-                               concat_case, gather_case, mask_ops_case, pack_case)
+from tests.torch_cases import (BUCKET_CASES, CONCAT_CASES, GATHER_CASES, MASK_OPS_CASES,
+                               PACK_CASES, bucket_case, concat_case, gather_case, mask_ops_case,
+                               pack_case)
 
 torch.set_num_threads(1)
 
@@ -100,13 +103,71 @@ def test_mask_ops_twins_match_the_reference(case):
         got, want = TK.mask_or(ta, tb), _mask_or(jnp.asarray(a), jnp.asarray(b))
     elif op == "and":
         got, want = TK.mask_and(ta, tb), _mask_and(jnp.asarray(a), jnp.asarray(b))
-    elif op == "andnot":
+    else:
         # the anti join's verdict (reference operators.py ``pmask & ~hit``)
         got, want = TK.mask_andnot(ta, tb), jnp.asarray(a) & ~jnp.asarray(b)
-    else:
-        # one output partition of "repartition.bucket" (shuffle.py:499)
-        got, want = TK.bucket_mask(ta, tb, lo), jnp.asarray(a) & (jnp.asarray(b) == lo)
     _equal(got, want)
+
+
+@pytest.mark.parametrize("case", BUCKET_CASES)
+def test_bucket_masks_twin_matches_the_reference(case):
+    """K22's bucket form (all the partitions of a batch at once) against the
+    reference's "repartition.bucket" (shuffle.py:493-497: ``[mask & (b ==
+    q) for q in range(num_out)]``), with the buckets from both packages'
+    bucket_of on the same keys, or given (out of range: no row)."""
+    keys, mask, num_out, given = bucket_case(case, np.random.default_rng(7))
+    if given is None:
+        jb = JK.bucket_of([jnp.asarray(k) for k in keys], num_out)
+        tb = TK.bucket_of([torch.from_numpy(k) for k in keys], num_out)
+        _equal(tb, jb)
+    else:
+        jb, tb = jnp.asarray(given), torch.from_numpy(given)
+    jm = jnp.asarray(mask)
+    want = [jm & (jb == q) for q in range(num_out)]
+    got = TK.bucket_masks(torch.from_numpy(mask), tb, num_out)
+    assert got.shape == (num_out, len(mask)) and got.dtype == torch.bool
+    for q in range(num_out):
+        _equal(got[q], want[q])
+    if given is not None:  # a row whose bucket is outside [0, num_out) is in no partition
+        outside = (given < 0) | (given >= num_out)
+        assert not got.numpy()[:, outside].any()
+    assert int(got.sum()) == int(((np.asarray(jb) >= 0) & (np.asarray(jb) < num_out)
+                                  & mask).sum())
+
+
+@pytest.mark.parametrize("num_out", [2, 16])
+def test_local_repartition_matches_the_reference(num_out):
+    """RepartitionExec (the local engine's exchange) in both packages over
+    the same table, hashed on a nullable int64 and a date: every output
+    partition's batches carry the same masks over the same columns (NULL
+    string codes included, which to_arrow refuses in both packages)."""
+    from arrow_ballista_tpu import catalog as JC
+    from arrow_ballista_tpu.models import expr as JE
+    from arrow_ballista_tpu.ops import physical as JP
+    from arrow_ballista_tpu.ops.shuffle import RepartitionExec as JR
+    from arrow_ballista_tpu_torch import catalog as TC
+    from arrow_ballista_tpu_torch.models import expr as TE
+    from arrow_ballista_tpu_torch.ops import physical as TP
+    from arrow_ballista_tpu_torch.ops.shuffle import RepartitionExec as TR
+    from tests.torch_cases import hand_table
+
+    table = hand_table(7000, seed=11)
+    jrep = JR(JC.MemoryTable("t", table).scan(None, [], 3),
+              JP.Partitioning.hash([JE.Column("k"), JE.Column("d")], num_out))
+    trep = TR(TC.MemoryTable("t", table).scan(None, [], 3),
+              TP.Partitioning.hash([TE.Column("k"), TE.Column("d")], num_out))
+    jctx, tctx = JP.TaskContext(), TP.TaskContext(device=torch.device("cpu"))
+    live = 0
+    for q in range(num_out):
+        jbs, tbs = jrep.execute(q, jctx), trep.execute(q, tctx)
+        assert len(jbs) == len(tbs) == 3
+        for jb, tb in zip(jbs, tbs):
+            _equal(tb.mask, jb.mask)
+            assert sorted(tb.columns) == sorted(jb.columns)
+            for c in tb.columns:
+                _equal(tb.columns[c], jb.columns[c])
+            live += tb.num_rows
+    assert live == table.num_rows  # every row in exactly one partition
 
 
 def test_concat_batches_and_shrink_of_mixed_capacities_match_the_reference():

@@ -976,13 +976,11 @@ def pack_case(case, rng):
     return cols, mask, target, tuple(i64), tuple(f64), tuple(n32)
 
 
-MASK_OPS_CASES = ["window_middle", "window_past_end", "window_empty", "or", "and", "andnot",
-                  "bucket"]
+MASK_OPS_CASES = ["window_middle", "window_past_end", "window_empty", "or", "and", "andnot"]
 
 
 def mask_ops_case(case, rng, n=100_003):
-    """(op, a, b or None, lo, hi): ``bucket`` takes int32 ids in b and q as
-    lo."""
+    """(op, a, b or None, lo, hi)."""
     a = rng.random(n) < 0.5
     b = rng.random(n) < 0.5
     if case == "window_middle":
@@ -991,6 +989,118 @@ def mask_ops_case(case, rng, n=100_003):
         return "window", a, None, n - 100, n + 5000
     if case == "window_empty":
         return "window", a, None, 70, 70
-    if case == "bucket":
-        return "bucket", a, rng.integers(0, 7, n).astype(np.int32), 3, 0
     return case, a, b, 0, 0
+
+
+# K22's bucket form: "<partitions>x<rows>", ragged and whole 16-row words;
+# "_out_of_range": buckets past both ends, which select no row
+BUCKET_CASES = ["1x1", "2x15", "16x16", "16x17", "64x1000", "2x4099", "16x100003",
+                "16_out_of_range", "64_out_of_range", "7_seven_of_one_bucket"]
+
+
+def bucket_case(case, rng):
+    """(key columns for bucket_of, mask, num_out, buckets or None): None
+    takes the buckets from bucket_of over the keys; otherwise the int32
+    buckets given, some outside [0, num_out)."""
+    if "x" in case:
+        num_out, n = (int(v) for v in case.split("x"))
+    else:
+        num_out, n = int(case.split("_")[0]), 5003
+    keys = [rng.integers(-10**6, 10**6, n).astype(np.int64),
+            rng.integers(0, 50, n).astype(np.int32)]
+    mask = rng.random(n) < 0.7
+    if case.endswith("out_of_range"):
+        b = rng.integers(-3, num_out + 3, n).astype(np.int32)
+        b[rng.random(n) < 0.05] = np.iinfo(np.int32).min
+        b[rng.random(n) < 0.05] = np.iinfo(np.int32).max
+        return keys, mask, num_out, b
+    if case.startswith("7_seven"):  # every row in one bucket, the others empty
+        return keys, mask, num_out, np.full(n, 6, np.int32)
+    return keys, mask, num_out, None
+
+
+# --------------------------------------------------------------------------
+# K8's tile decomposition (csrc/seg_agg.cu): edge shapes at its tile size
+# --------------------------------------------------------------------------
+
+SEG_TILE = 2048  # csrc/seg_agg.cu SG_TILE
+SEG_CASES = ["tile_minus_1", "tile", "tile_plus_1", "group_across_two_tiles",
+             "group_across_every_tile", "every_row_its_own_group", "dead_rows_inside_groups",
+             "dead_rows_before_the_first_group", "cap_below_the_groups", "every_value_type",
+             "float_keys_nan", "keyless", "keyless_all_dead", "keys_only", "all_dead"]
+
+
+def seg_case(case, rng):
+    """(keys, vals, mask, cap) in group order for K8 (no sort: the rows are
+    given in the order the kernel groups them)."""
+    t = SEG_TILE
+    n = {"tile_minus_1": t - 1, "tile": t, "tile_plus_1": t + 1,
+         "group_across_two_tiles": 3 * t, "group_across_every_tile": 5 * t + 17,
+         "every_row_its_own_group": 2 * t + 5}.get(case, 3 * t + 101)
+    mask = rng.random(n) < 0.85
+
+    def grouped(width):  # sorted keys, groups of about `width` rows
+        return np.sort(rng.integers(0, max(1, n // width), n)).astype(np.int64)
+
+    quarter = (rng.integers(-256, 256, n) / 4).astype(np.float32)  # sums exact in any order
+    i64 = rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64)
+    wrap = rng.integers(2**61, 2**62, n).astype(np.int64)
+    vals = [(wrap, "sum"), (np.zeros(n, np.int64), "count"), (i64, "min"), (i64, "max")]
+    cap = n
+    keys = [grouped(7)]
+    if case == "group_across_two_tiles":
+        k = grouped(5)
+        k[t - 600:t + 700] = k[t - 601]  # one group from 600 rows before the edge to 700 past
+        keys = [np.maximum.accumulate(k)]
+    elif case == "group_across_every_tile":
+        keys = [np.full(n, 41, np.int64)]
+        vals = [(wrap, "sum"), (np.zeros(n, np.int64), "count"), (rng.normal(size=n), "sum"),
+                (quarter, "min")]
+    elif case == "every_row_its_own_group":
+        keys = [np.arange(n, dtype=np.int64)]
+        mask[:] = True
+    elif case == "dead_rows_inside_groups":
+        # dead rows with their group's key continue it; dead rows with another
+        # key between two live rows of one key split it (the reference's rule)
+        k = grouped(40)
+        mask = rng.random(n) < 0.5
+        odd = rng.random(n) < 0.03
+        k[odd & ~mask] += 1000
+        keys = [k]
+    elif case == "dead_rows_before_the_first_group":
+        k = grouped(9)
+        k[:300] = k[300]
+        mask[:150] = False  # row 0 dead: live rows up to the next key opened nowhere
+        keys = [k]
+    elif case == "cap_below_the_groups":
+        cap = max(1, len(np.unique(keys[0])) // 3)
+    elif case == "every_value_type":
+        k32 = np.sort(rng.integers(-5, 60, n)).astype(np.int32)
+        keys = [k32, (rng.random(n) < 0.5) & (k32 % 2 == 0), (k32 // 7).astype(np.float32)]
+        i32 = rng.integers(-2**31, 2**31 - 1, n, dtype=np.int64).astype(np.int32)
+        f64 = rng.normal(size=n)
+        f64[rng.random(n) < 0.01] = np.nan
+        f32 = rng.normal(size=n).astype(np.float32)
+        f32[rng.random(n) < 0.01] = np.nan
+        vals = [(i32, "sum"), (i32, "min"), (i32, "max"), (wrap, "sum"), (i64, "min"),
+                (i64, "max"), (quarter, "sum"), (f32, "min"), (f32, "max"),
+                (rng.normal(size=n) * 1e3, "sum"), (f64, "min"), (f64, "max"),
+                (np.zeros(n, np.int64), "count")]
+    elif case == "float_keys_nan":  # -0.0 groups with 0.0; every NaN row opens a group
+        f = np.sort(rng.integers(-3, 4, n)).astype(np.float64)
+        f[rng.random(n) < 0.05] = np.nan
+        f[(f == 0) & (rng.random(n) < 0.5)] = -0.0
+        keys = [f]
+    elif case == "keyless":
+        keys = []
+        vals.append((rng.normal(size=n), "max"))
+    elif case == "keyless_all_dead":
+        keys = []
+        mask[:] = False
+    elif case == "keys_only":
+        vals = []
+    elif case == "all_dead":
+        mask[:] = False
+    elif case not in ("tile_minus_1", "tile", "tile_plus_1"):
+        raise KeyError(case)
+    return keys, vals, mask, cap

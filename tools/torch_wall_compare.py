@@ -37,8 +37,10 @@ clustered_trace``; the parent of their redesign queued one a call), K6's
 (``probe_join``) and K2's (``compaction_order``) launches, device ms by
 kernel, the memsets and copies right before them and their wrappers' calls
 (``chip_smoke.call_trace``, which names the kernels of this tree and of the
-parent of their redesign, and counts K8's shared scan kernels as K2's only
-in a K2 call), and the device ms of all kernels.  Run parent, change,
+parent of their redesign, and counts the shared scan kernels as K2's only
+in a K2 call), K8's (``grouped_on_order``) and K22's bucket form
+(``bucket_masks``, one launch a partition in the parent of its redesign)
+likewise, and the device ms of all kernels.  Run parent, change,
 change, parent in one call and compare the medians.
 
 ``--pair PARENT,CHANGE`` keeps one process of each tree alive (this
@@ -146,7 +148,9 @@ def _kernel_times(ctx, sql):
     # with the memsets queued right before them
     out.update(clustered_trace(prof))
     for name, rec in call_trace(prof).items():
-        rec["wrapper_calls"] = K.LAUNCHES[name] - before[name]
+        # a tree without the wrapper (K22's bucket form before its redesign
+        # counted under mask_ops) has no count of its calls
+        rec["wrapper_calls"] = K.LAUNCHES[name] - before[name] if name in K.LAUNCHES else None
         out[name] = rec
     out["all_device_ms"] = sum(v[0] for v in by_name.values())
     return out
