@@ -486,6 +486,9 @@ class GeneratedChain:
 MAX_IN, MAX_OUT, MAX_AUX = 64, 64, 32  # csrc/fused_rows.cuh AB_FUSED_MAX_*
 
 
+_WORD_DTYPES = (torch.int32, torch.int64, torch.float32, torch.float64)
+
+
 def _word(v: CVal) -> str:
     """A value word of K1's accumulator body."""
     if v.dtype == torch.int64:
@@ -497,6 +500,17 @@ def _word(v: CVal) -> str:
     if v.dtype == torch.float32:
         return f"(unsigned long long)ab_f32_bits({v.expr})"
     raise CodegenError(f"no dense aggregation word for {v.dtype}")
+
+
+def _fold(v: CVal, how: str) -> str:
+    """A value word's compile-time fold in K13's dense form: K1's codes of
+    the aggregate and of the value's kind (a count folds as int64)."""
+    from ..ops.kernels import _HOW, _KIND
+
+    dt = torch.int64 if how == "count" else v.dtype
+    if how not in _HOW or dt not in _WORD_DTYPES:
+        raise CodegenError(f"no dense {how} over {v.dtype}")
+    return f"AbFold<{_HOW[how]}, {_KIND[dt]}>"
 
 
 def render(trace: Trace, label: str, outputs: Sequence[Tuple[str, CVal]],
@@ -537,7 +551,10 @@ def render(trace: Trace, label: str, outputs: Sequence[Tuple[str, CVal]],
         val_meta = [(v.dtype, how) for v, how in vals]
     parts += ["};", "", "AB_FUSED_ROWS_ENTRY(AbRow)"]
     if keys is not None:
-        parts.append(f"AB_FUSED_AGG_ENTRY(AbRow, {len(keys)}, {len(vals)})")
+        folds = ", ".join(_fold(v, how) for v, how in vals)
+        parts += ["", "// each value word's fold (K13's dense form)",
+                  f"using AbFoldList = AbFolds<{folds}>;",
+                  f"AB_FUSED_AGG_ENTRY(AbRow, {len(keys)}, {len(vals)})"]
     source = "\n".join(parts) + "\n"
     return GeneratedChain(source, list(trace.inputs), [(n, v.dtype) for n, v in outputs],
                           list(trace.aux), key_dtypes, val_meta)

@@ -9,8 +9,9 @@ batches of the interpreted chain never exist:
 - K12 ``fused_rows``: one elementwise pass writes every output column and
   the mask (csrc/fused_rows.cuh + the generated row function);
 - K13 ``fused_agg``, dense path: the generated row function feeds K1's
-  accumulator body directly (csrc/dense_agg.cuh), so the key and value
-  columns never exist in device memory; K2 then compacts the groups;
+  accumulator core directly (csrc/dense_agg.cuh), each aggregate's fold
+  fixed at compile time, so the key and value columns never exist in
+  device memory; the same launch compacts the groups;
 - K13 ``fused_agg``, sort path (no dense key domain): the generated
   kernel writes the key and value columns in K12's form, then K4 orders
   them and K8 aggregates, as ``kernels.grouped_aggregate`` does.
@@ -290,37 +291,20 @@ class FusedProgram(GeneratedProgram):
         return cols, mask
 
     # --- the generated kernel --------------------------------------------
-    def launch_dense(self, cols, mask, auxs, key_ranges, domain):
-        """K13's dense form: K1's slot-aligned states straight from the
-        generated row function."""
+    def launch_dense(self, cols, mask, auxs, key_ranges, domain, out_cap):
+        """K13's dense form: K1's core over the generated row function, its
+        compacted groups in the same launch -> (keys, vals, mask, overflow
+        or None)."""
         gen = self.gen
         fin, keep = self._fill_in(cols, mask, auxs)
-        _sizes, strides = K._dense_strides(key_ranges)
-        spec = K._DenseSpec()
-        for j, ((lo, hi), stride, dt) in enumerate(zip(key_ranges, strides, gen.key_dtypes)):
-            spec.key_kind[j] = K._KIND[dt]
-            spec.lo[j], spec.hi[j], spec.stride[j] = lo, hi, stride
-        spec.k = len(key_ranges)
-        out_dtypes = []
-        for a, (dt, how) in enumerate(gen.vals):
-            spec.how[a] = K._HOW[how]
-            spec.val_kind[a] = K._KIND[torch.int64 if how == K.AGG_COUNT else dt]
-            out_dtypes.append(torch.int64 if how == K.AGG_COUNT else dt)
-        m = len(gen.vals)
-        spec.m = m
-        dev = mask.device
-        n = mask.shape[0]
-        acc = torch.empty(max(m, 1) * domain, dtype=torch.int64, device=dev)
-        exists = torch.empty(domain, dtype=torch.int32, device=dev)
-        bad = torch.empty(1, dtype=torch.int32, device=dev)
-        err = self.library().ab_fused_dense(ctypes.byref(fin), ctypes.byref(spec), n, domain,
-                                            K._ptr(acc), K._ptr(exists), K._ptr(bad),
-                                            K._stream(dev))
+        spec, out_dtypes = K.dense_spec(gen.key_dtypes, key_ranges, gen.vals)
+        outs, stream, _state = K.dense_prepare(spec, gen.key_dtypes, out_dtypes, mask.device,
+                                               mask.shape[0], domain, out_cap)
+        err = self.library().ab_fused_dense(ctypes.byref(fin), ctypes.byref(spec), stream)
         _cuda.check(err, "fused_agg (dense)")
         K.count_launch(self.launch_name)
-        accs = acc.view(max(m, 1), domain)
-        dense_vals = [accs[a].view(dt)[::8 // dt.itemsize] for a, dt in enumerate(out_dtypes)]
-        return dense_vals, exists, bad[0] != 0
+        K.count_launch("fused_agg_dense")
+        return outs
 
 
 # --------------------------------------------------------------------------
@@ -359,17 +343,15 @@ def fused_agg_plain(program: FusedProgram, cols, mask, auxs, out_cap: int, key_r
 
 def fused_agg(program: FusedProgram, cols, mask, auxs, out_cap: int, key_ranges):
     """K13: the aggregate chain's partial states.  Dense key domain: the
-    generated row function inside K1's accumulator body, then K2's
-    compaction; otherwise the generated kernel writes the key and value
-    columns, then K4 and K8 group them."""
+    generated row function inside K1's accumulator core, the groups
+    compacted in the same launch; otherwise the generated kernel writes the
+    key and value columns, then K4 and K8 group them."""
     if K._is_cpu(mask):
         return fused_agg_plain(program, cols, mask, auxs, out_cap, key_ranges)
     gen = program.gen
     domain = K.dense_domain(key_ranges)
     if domain is not None:
-        dense_vals, exists, bad = program.launch_dense(cols, mask, auxs, key_ranges, domain)
-        return K.finish_dense(gen.key_dtypes, dense_vals, exists, bad, out_cap, key_ranges,
-                              domain)
+        return program.launch_dense(cols, mask, auxs, key_ranges, domain, out_cap)
     outs, omask = program.launch_rows(cols, mask, auxs)
     nk = len(gen.key_dtypes)
     vals = [(v, how) for v, (_dt, how) in zip(outs[nk:], gen.vals)]

@@ -14,10 +14,16 @@
 //   };
 //
 // then expands AB_FUSED_ROWS_ENTRY(AbRow) and, for an agg chain,
-// AB_FUSED_AGG_ENTRY(AbRow, K, M).  Under nvcc these are the kernels and
-// their plain-C launchers; under a host compiler (g++, no __CUDACC__) they
-// are host loops over the same row function, which is how the tests check
-// the generated C where no nvcc exists.
+//
+//   using AbFoldList = AbFolds<AbFold<how, kind>, ...>;  // one per value word
+//   AB_FUSED_AGG_ENTRY(AbRow, K, M)
+//
+// Under nvcc these are the kernels and their plain-C launchers (K13's
+// dense form is K1's core, csrc/dense_agg.cuh, with each aggregate's fold
+// fixed at compile time: the value words stay in registers and no per-row
+// switch is left); under a host compiler (g++, no __CUDACC__) they are
+// host loops over the same row function, which is how the tests check the
+// generated C where no nvcc exists.
 //
 // The row function is straight-line code over the chain's expression
 // closures traced symbolically: integer arithmetic wraps (it is emitted on
@@ -39,6 +45,19 @@
 #else
 #define AB_HD inline
 #endif
+
+// K13's dense form: the fold of each value word (how: csrc/dense_agg.cuh
+// AB_AGG_*, kind: common.cuh AB_KIND_*), in value-word order
+template <int HOW, int KIND>
+struct AbFold {
+  static constexpr int how = HOW;
+  static constexpr int kind = KIND;
+};
+
+template <class... F>
+struct AbFolds {
+  static constexpr int size = sizeof...(F);
+};
 
 #define AB_FUSED_MAX_IN 64
 #define AB_FUSED_MAX_OUT 64
@@ -153,21 +172,66 @@ AB_HD T ab_clamp(T x, T lo, T hi) {
     return ab_last_error();                                                               \
   }
 
+// the row source of K13's dense form: row i's keys and value words from
+// the generated row function, each word folded by its compile-time fold
+template <class ROW, int K, class... F>
+struct AbGenSource {
+  static constexpr int THREADS = 512;
+  static constexpr int ROWS = 2;
+  static constexpr int M = sizeof...(F);
+  AbFusedIn in;
+
+  template <bool SMEM, size_t... A>
+  static __device__ __forceinline__ void fold_words(const unsigned long long* words, int slot,
+                                                    const DenseGroup& g, unsigned long long* acc,
+                                                    int domain, std::index_sequence<A...>) {
+    (dense_fold<DenseFold<F::how, F::kind>, SMEM>(
+         g, slot, (typename DenseFold<F::how, F::kind>::W)words[A], acc + (long long)A * domain),
+     ...);
+  }
+
+  template <bool SMEM>
+  __device__ __forceinline__ void fold_tile(const DenseSpec& s, long long base,
+                                            const DenseAcc& acc, bool* bad) const {
+#pragma unroll
+    for (int j = 0; j < ROWS; ++j) {
+      const long long i = dense_row(base, j);
+      int keys[K];
+      unsigned long long words[M > 0 ? M : 1];
+      int slot = -1;
+      if (i < s.n && ROW::keys_words(in, i, keys, words)) {
+        unsigned fused = 0;
+        bool in_range = true;
+#pragma unroll
+        for (int k = 0; k < K; ++k) dense_key(s, k, keys[k], &fused, &in_range);
+        if (in_range) slot = (int)fused;
+        else *bad = true;
+      }
+      const DenseGroup g = dense_group(slot);
+      dense_count(g, slot, acc.exists);
+      fold_words<SMEM>(words, slot, g, acc.acc, s.domain, std::index_sequence_for<F...>{});
+    }
+  }
+};
+
+template <class ROW, int K, class... F>
+static int ab_fused_dense_run(const AbFusedIn& in, const DenseSpec& spec, AbFolds<F...>,
+                              cudaStream_t st) {
+  // the run-time plan (the finish reads it) must be the compiled one
+  const int how[] = {F::how..., 0}, kind[] = {F::kind..., 0};
+  if (spec.k != K || spec.m != (int)sizeof...(F)) return (int)cudaErrorInvalidValue;
+  for (int a = 0; a < spec.m; ++a)
+    if (spec.how[a] != how[a] || (how[a] != AB_AGG_COUNT && spec.val_kind[a] != kind[a]))
+      return (int)cudaErrorInvalidValue;
+  return ab_dense_launch(AbGenSource<ROW, K, F...>{in}, spec, st);
+}
+
+// K13's dense form: spec as for K1 (csrc/dense_agg.cu) without the key,
+// value and mask pointers
 #define AB_FUSED_AGG_ENTRY(ROW, K, M)                                                     \
-  struct AbGenSource {                                                                    \
-    static constexpr int KMAX = K;                                                        \
-    static constexpr int MMAX = (M) > 0 ? (M) : 1;                                        \
-    AbFusedIn in;                                                                         \
-    __device__ __forceinline__ bool row(long long i, int* keys,                           \
-                                        unsigned long long* words) const {                \
-      return ROW::keys_words(in, i, keys, words);                                         \
-    }                                                                                     \
-  };                                                                                      \
-  AB_EXPORT int ab_fused_dense(const AbFusedIn* in, const DenseSpec* spec, long long n,   \
-                               int domain, void* acc, void* exists, void* bad,            \
-                               void* stream) {                                            \
-    AbGenSource src{*in};                                                                 \
-    return ab_dense_run(src, *spec, n, domain, acc, exists, bad, (cudaStream_t)stream);  \
+  static_assert(AbFoldList::size == (M), "one fold a value word");                        \
+  AB_EXPORT int ab_fused_dense(const AbFusedIn* in, const DenseSpec* spec, void* stream) { \
+    return ab_fused_dense_run<ROW, K>(*in, *spec, AbFoldList{}, (cudaStream_t)stream);     \
   }
 
 #else  // host compiler: loops over the same row function

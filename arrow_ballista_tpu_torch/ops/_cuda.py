@@ -70,7 +70,8 @@ SIGNATURES = {
         "ab_sort_order_block": ([_P, _P, _P, _I, _P, _LL, _I, _P, _P, _P], _I),
     },
     "dense_agg": {
-        "ab_dense_group_states": ([_P, _P, _LL, _I, _P, _P, _P, _P], _I),
+        "ab_dense_state_words": ([_I, _I], _LL),
+        "ab_dense_group_states": ([_P, _P], _I),
     },
     "join_build": {
         "ab_build_is_block": ([_LL], _I),
@@ -117,7 +118,7 @@ SIGNATURES = {
 # the C interface of every generated source (csrc/fused_rows.cuh)
 GENERATED_SIGNATURES = {
     "ab_fused_rows": ([_P, _P, _LL, _P], _I),
-    "ab_fused_dense": ([_P, _P, _LL, _I, _P, _P, _P, _P], _I),
+    "ab_fused_dense": ([_P, _P, _P], _I),
 }
 GENERATED_FLAGS = NVCC_FLAGS + ["--fmad=false", "-I", str(CSRC)]
 

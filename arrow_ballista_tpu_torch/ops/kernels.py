@@ -6,7 +6,7 @@ in compile/fused.py and count their launches here).
 
 | kernel | source | replaces (arrow_ballista_tpu/ops/kernels.py) |
 | --- | --- | --- |
-| K1 ``dense_group_states`` | ``csrc/dense_agg.cu`` | ``dense_group_states`` l.564 |
+| K1 ``dense_grouped`` / ``dense_group_states`` | ``csrc/dense_agg.cu`` + ``dense_agg.cuh`` | ``dense_group_states`` l.564 and its compaction l.638, l.677 |
 | K2 ``compaction_order`` | ``csrc/compact.cu`` | ``compaction_order`` l.88 |
 | K3 ``hash64`` / ``bucket_of`` | ``csrc/hash.cu`` | ``hash64`` l.62, ``bucket_of`` l.77 |
 | K4 ``sort_order`` | ``csrc/sort.cu`` | ``sort_order`` l.195 |
@@ -29,7 +29,9 @@ in compile/fused.py and count their launches here).
 A wrapper takes the twin only for a tensor that lies on the CPU (the
 tests); for a CUDA tensor it launches its kernel or raises.  ``LAUNCHES``
 counts each wrapper's launches, so a run can show that its path went
-through the kernels.  Shapes stay static as in the reference: data-
+through the kernels (K1 counts both its forms under ``dense_group_states``;
+``fused_agg_dense`` counts the K13 launches that took the dense form,
+each also one of ``fused_agg``).  Shapes stay static as in the reference: data-
 dependent counts live in fixed capacities with liveness masks.
 
 torch has no full uint64 arithmetic, so 64-bit hashes travel as int64 bit
@@ -62,6 +64,7 @@ LAUNCHES: Dict[str, int] = {"dense_group_states": 0, "compaction_order": 0,
                             "spill_partition": 0, "dispatch_to_buckets": 0,
                             "merge_rank_states": 0, "mesh_derive": 0,
                             "operator_program": 0, "concat_columns": 0,
+                            "fused_agg_dense": 0,
                             "gather_columns": 0, "mask_ops": 0, "bucket_masks": 0}
 # the standalone engine launches from several task threads at once
 _LAUNCH_LOCK = threading.Lock()
@@ -991,65 +994,130 @@ def dense_group_states_plain(key_cols, val_cols, mask, key_ranges, domain):
 
 
 class _DenseSpec(ctypes.Structure):
-    """csrc/dense_agg.cu ``DenseSpec`` (AB_MAX_KEYS 8, AB_MAX_AGGS 32)."""
+    """csrc/dense_agg.cuh ``DenseSpec`` (AB_MAX_KEYS 8, AB_MAX_AGGS 32)."""
 
     _fields_ = [("key", ctypes.c_void_p * 8), ("key_kind", ctypes.c_int * 8),
                 ("lo", ctypes.c_int * 8), ("hi", ctypes.c_int * 8),
                 ("stride", ctypes.c_int * 8), ("k", ctypes.c_int),
                 ("val", ctypes.c_void_p * 32), ("val_kind", ctypes.c_int * 32),
-                ("how", ctypes.c_int * 32), ("m", ctypes.c_int)]
+                ("how", ctypes.c_int * 32), ("m", ctypes.c_int),
+                ("mask", ctypes.c_void_p), ("n", ctypes.c_longlong), ("domain", ctypes.c_int),
+                ("form", ctypes.c_int), ("out_capacity", ctypes.c_int),
+                ("out_key", ctypes.c_void_p * 8), ("out_val", ctypes.c_void_p * 32),
+                ("out_mask", ctypes.c_void_p), ("out_exists", ctypes.c_void_p),
+                ("out_flag", ctypes.c_void_p), ("state", ctypes.c_void_p)]
 
 
-def _dense_launch(key_cols, val_cols, mask, key_ranges, domain):
-    _require_cuda(mask, *key_cols, *[a for a, _ in val_cols])
-    k, m = len(key_cols), len(val_cols)
+DENSE_SLOTS, DENSE_COMPACT = 0, 1  # csrc/dense_agg.cuh AB_DENSE_SLOTS / AB_DENSE_COMPACT
+
+
+def dense_spec(key_dtypes, key_ranges, vals) -> Tuple[_DenseSpec, List[torch.dtype]]:
+    """K1's (and K13's dense form's) plan: the keys' dtypes and ranges and
+    each aggregate's (value dtype, how) -> (spec, output dtypes)."""
+    k, m = len(key_dtypes), len(vals)
     if not 1 <= k <= 8 or m > 32:
         raise ValueError(f"dense aggregation takes 1-8 keys and at most 32 aggregates "
                          f"(got {k}, {m})")
     _sizes, strides = _dense_strides(key_ranges)
-    keep = []  # contiguous copies whose pointers the launch reads
     spec = _DenseSpec()
-    for j, (col, (lo, hi), stride) in enumerate(zip(key_cols, key_ranges, strides)):
-        if col.dtype not in (torch.int32, torch.int64, torch.bool):
-            raise TypeError(f"dense keys must be int32, int64 or bool, got {col.dtype}")
-        c = _flat(col)
-        keep.append(c)
-        spec.key[j] = c.data_ptr()
-        spec.key_kind[j] = _KIND[col.dtype]
+    for j, (dt, (lo, hi), stride) in enumerate(zip(key_dtypes, key_ranges, strides)):
+        if dt not in (torch.int32, torch.int64, torch.bool):
+            raise TypeError(f"dense keys must be int32, int64 or bool, got {dt}")
+        spec.key_kind[j] = _KIND[dt]
         spec.lo[j], spec.hi[j], spec.stride[j] = lo, hi, stride
     spec.k = k
     out_dtypes = []
-    for a, (arr, how) in enumerate(val_cols):
+    for a, (dt, how) in enumerate(vals):
         spec.how[a] = _HOW[how]
-        if how == AGG_COUNT:
-            spec.val_kind[a] = _KIND[torch.int64]
-            out_dtypes.append(torch.int64)
-            continue
-        if arr.dtype not in (torch.int32, torch.int64, torch.float32, torch.float64):
-            raise TypeError(f"dense {how} over {arr.dtype} has no kernel")
-        c = _flat(arr)
-        keep.append(c)
-        spec.val[a] = c.data_ptr()
-        spec.val_kind[a] = _KIND[arr.dtype]
-        out_dtypes.append(arr.dtype)
+        if how != AGG_COUNT and dt not in (torch.int32, torch.int64, torch.float32,
+                                           torch.float64):
+            raise TypeError(f"dense {how} over {dt} has no kernel")
+        out = torch.int64 if how == AGG_COUNT else dt
+        spec.val_kind[a] = _KIND[out]
+        out_dtypes.append(out)
     spec.m = m
-    dev = mask.device
+    return spec, out_dtypes
+
+
+# K1's and K13's state per (device, stream): a ticket, the bad-rows word,
+# the exists counts and the accumulators, all zero between calls (the last
+# block of each launch resets what it touched), grown to the largest call
+_DENSE_STATES: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _carve(dev: torch.device, parts):
+    """One allocation for a call's outputs: ``parts`` are (dtype, count);
+    each view starts 16-byte aligned."""
+    offs, total = [], 0
+    for dt, count in parts:
+        offs.append(total)
+        total += -(-count * dt.itemsize // 16) * 16
+    buf = torch.empty(max(total, 16), dtype=torch.uint8, device=dev)
+    return [buf[o:o + count * dt.itemsize].view(dt) for o, (dt, count) in zip(offs, parts)]
+
+
+def dense_prepare(spec: _DenseSpec, key_dtypes, out_dtypes, dev: torch.device, n: int,
+                  domain: int, out_capacity: Optional[int]):
+    """Fills the call's part of ``spec`` (rows, domain, form, fresh outputs,
+    the stream's state) -> (outputs, stream, state).  ``out_capacity``
+    None: the slot-aligned form, outputs (values, exists, bad-rows flag);
+    else the compacted form, outputs (keys, values, mask, overflow flag).
+    The caller holds ``state`` until it has launched: a thread that grows
+    the stream's state meanwhile must not free this one under the launch."""
+    stream = _stream(dev)
+    words = _cuda.LIBRARIES.get("dense_agg").ab_dense_state_words(len(out_dtypes), domain)
+    state = _stream_words(_DENSE_STATES, dev, stream, words)
+    spec.state = state.data_ptr()
+    spec.n, spec.domain = n, domain
+    m = len(out_dtypes)
+    if out_capacity is None:
+        spec.form = DENSE_SLOTS
+        *vals, exists, flag = _carve(dev, [(dt, domain) for dt in out_dtypes]
+                                     + [(torch.int32, domain), (torch.bool, 1)])
+        outs = (vals, exists, flag[0])
+        spec.out_exists = exists.data_ptr()
+    else:
+        spec.form = DENSE_COMPACT
+        spec.out_capacity = out_capacity
+        parts = _carve(dev, [(dt, out_capacity) for dt in (*key_dtypes, *out_dtypes)]
+                       + [(torch.bool, out_capacity), (torch.bool, 1)])
+        keys, vals, (mask, flag) = parts[:len(key_dtypes)], parts[len(key_dtypes):-2], parts[-2:]
+        for j, t in enumerate(keys):
+            spec.out_key[j] = t.data_ptr()
+        spec.out_mask = mask.data_ptr()
+        # overflow is impossible when every slot fits (and bad rows are
+        # structurally excluded for engine-built ranges)
+        outs = (keys, vals, mask, flag[0] if domain > out_capacity else None)
+    for a in range(m):
+        spec.out_val[a] = vals[a].data_ptr()
+    spec.out_flag = flag.data_ptr()
+    return outs, stream, state
+
+
+def _dense_launch(key_cols, val_cols, mask, key_ranges, domain, out_capacity=None):
+    _require_cuda(mask, *key_cols, *[a for a, _ in val_cols])
+    key_dtypes = [c.dtype for c in key_cols]
+    spec, out_dtypes = dense_spec(key_dtypes, key_ranges,
+                                  [(arr.dtype, how) for arr, how in val_cols])
+    keep = []  # contiguous copies whose pointers the launch reads
+    for j, col in enumerate(key_cols):
+        c = _flat(col)
+        keep.append(c)
+        spec.key[j] = c.data_ptr()
+    for a, (arr, how) in enumerate(val_cols):
+        if how != AGG_COUNT:
+            c = _flat(arr)
+            keep.append(c)
+            spec.val[a] = c.data_ptr()
     mk = _flat(mask)
-    n = mk.shape[0]
-    acc = torch.empty(max(m, 1) * domain, dtype=torch.int64, device=dev)
-    exists = torch.empty(domain, dtype=torch.int32, device=dev)
-    bad = torch.empty(1, dtype=torch.int32, device=dev)
-    if n == 0:
-        raise ValueError("dense aggregation over an empty batch")
+    spec.mask = mk.data_ptr()
+    dev = mask.device
+    outs, stream, _state = dense_prepare(spec, key_dtypes, out_dtypes, dev, mk.shape[0],
+                                         domain, out_capacity)
     lib = _cuda.LIBRARIES.get("dense_agg")
-    err = lib.ab_dense_group_states(ctypes.byref(spec), _ptr(mk), n, domain, _ptr(acc),
-                                    _ptr(exists), _ptr(bad), _stream(dev))
-    _cuda.check(err, "dense_group_states")
+    _cuda.check(lib.ab_dense_group_states(ctypes.byref(spec), stream), "dense_group_states")
     count_launch("dense_group_states")
-    accs = acc.view(max(m, 1), domain)
-    # one 8-byte word a slot; a 32-bit value is the word's low half
-    dense_vals = [accs[a].view(dt)[::8 // dt.itemsize] for a, dt in enumerate(out_dtypes)]
-    return dense_vals, exists, bad[0] != 0
+    return outs
 
 
 def dense_group_states(
@@ -1059,14 +1127,33 @@ def dense_group_states(
     key_ranges: Tuple[Tuple[int, int], ...],
     domain: int,
 ):
-    """Slot-aligned dense accumulators: slot d holds key combination d
-    (row-major packing over ``key_ranges``), for EVERY d in the domain.
+    """K1's slot-aligned form: slot d holds key combination d (row-major
+    packing over ``key_ranges``), for EVERY d in the domain.
 
     Returns (dense_vals: list, exists_cnt: int32[domain], bad_rows: bool
     tensor)."""
     if _is_cpu(mask):
         return dense_group_states_plain(key_cols, val_cols, mask, key_ranges, domain)
     return _dense_launch(key_cols, val_cols, mask, key_ranges, domain)
+
+
+def dense_grouped_plain(key_cols, val_cols, mask, out_capacity: int, key_ranges, domain: int):
+    """Plain twin of K1's compacted form: the slot-aligned twin, then the
+    compaction (K2's twin) and the key decoding."""
+    dense_vals, exists_cnt, bad_rows = dense_group_states_plain(key_cols, val_cols, mask,
+                                                                key_ranges, domain)
+    return finish_dense([k.dtype for k in key_cols], dense_vals, exists_cnt, bad_rows,
+                        out_capacity, key_ranges, domain, plain=True)
+
+
+def dense_grouped(key_cols, val_cols, mask, out_capacity: int, key_ranges, domain: int):
+    """K1's compacted form, grouped_aggregate's dense path in one launch:
+    (out_keys, out_vals, out_mask, overflow or None), the groups in
+    ascending fused-key order, then the empty slots, cut or padded to
+    ``out_capacity``."""
+    if _is_cpu(mask):
+        return dense_grouped_plain(key_cols, val_cols, mask, out_capacity, key_ranges, domain)
+    return _dense_launch(key_cols, val_cols, mask, key_ranges, domain, out_capacity)
 
 
 def compact_dense_states(key_cols_dtypes, dense_vals, exists, out_capacity: int,
@@ -1100,7 +1187,8 @@ def compact_dense_states(key_cols_dtypes, dense_vals, exists, out_capacity: int,
 
 def finish_dense(key_dtypes, dense_vals, exists_cnt, bad_rows, out_capacity, key_ranges,
                  domain, plain: bool = False):
-    """Slot-aligned dense states (K1 or K13) -> grouped_aggregate's result."""
+    """Slot-aligned dense states -> grouped_aggregate's result (the twins'
+    finish; the kernels' compacted form writes it in their launch)."""
     out_keys, out_vals, out_mask, overflow = compact_dense_states(
         key_dtypes, dense_vals, exists_cnt > 0, out_capacity, key_ranges, domain, plain=plain)
     if domain <= out_capacity:
@@ -1112,10 +1200,8 @@ def finish_dense(key_dtypes, dense_vals, exists_cnt, bad_rows, out_capacity, key
 
 def _grouped_aggregate_dense(key_cols, val_cols, mask, out_capacity, key_ranges, domain,
                              plain: bool = False):
-    states = dense_group_states_plain if plain else dense_group_states
-    dense_vals, exists_cnt, bad_rows = states(key_cols, val_cols, mask, key_ranges, domain)
-    return finish_dense([k.dtype for k in key_cols], dense_vals, exists_cnt, bad_rows,
-                        out_capacity, key_ranges, domain, plain=plain)
+    grouped = dense_grouped_plain if plain else dense_grouped
+    return grouped(key_cols, val_cols, mask, out_capacity, key_ranges, domain)
 
 
 def grouped_aggregate(key_cols, val_cols, mask, out_capacity: int, key_ranges=None,
@@ -1124,7 +1210,7 @@ def grouped_aggregate(key_cols, val_cols, mask, out_capacity: int, key_ranges=No
 
     Returns (out_keys, out_vals, out_mask, overflow or None).  When every
     key has a static (lo, hi) range and the domain stays within
-    DENSE_DOMAIN_LIMIT, the dense path (K1 + K2); otherwise the sort path:
+    DENSE_DOMAIN_LIMIT, the dense path (K1's compacted form); otherwise the sort path:
     K4's order over the keys (K2's live-first order when there are no
     keys), then K8 over the reordered rows.  Groups come out in ascending
     key order on both paths.  CONTRACT (as in the reference): every live

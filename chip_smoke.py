@@ -513,6 +513,162 @@ CALL_KERNELS = {
 }
 
 
+# K1's and K13's dense form by CUDA kernel name: the one-launch kernel and
+# the parent's init and accumulate kernels (the parent's finish, K2 and
+# torch glue, runs after them under other names)
+DENSE_KERNELS = {
+    "dense_group_states": ("k1_dense<ColumnSource", "dense_init<ColumnSource",
+                           "dense_shared<ColumnSource", "dense_global<ColumnSource"),
+    "fused_agg_dense": ("k1_dense<AbGenSource", "dense_init<AbGenSource",
+                        "dense_shared<AbGenSource", "dense_global<AbGenSource"),
+}
+DENSE_PATHS = ("q1", "pq_q1", "q4", "sa_pq_q1", "sa_csv_q1")  # and memsweep's q1
+# the parent of the one-launch redesign, as its own chip_smoke.py read it
+# on an H100 80GB HBM3 at 700.00 W (its last chip call): printed beside
+# this run's times; tools/dense_timing.py times both trees in one call
+PARENT_DENSE_MS = {"dense_group_states": (0.4368, "K1's kernels alone at sa_csv_q1's "
+                                                  "6,291,456-row call, its finish not counted"),
+                   "fused_agg": (0.2306, "K13's dense form at sa_pq_q1's 1,048,576-row call")}
+DENSE_ONE_LAUNCH = ("q1", "pq_q1", "sa_pq_q1")
+
+
+def dense_trace(prof) -> dict:
+    """K1's (``dense_group_states``) and K13's dense form's
+    (``fused_agg_dense``) kernels in a torch.profiler trace: per form its
+    launches, their device ms, the parent's init kernels among them, the
+    memsets right before one on its stream and the K2 kernels right after
+    one."""
+    import torch
+
+    streams = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            streams.setdefault(ev.device_resource_id, []).append(ev)
+    out = {name: {"launches": 0, "ms": 0.0, "inits": 0, "memsets": 0, "k2_after": 0}
+           for name in DENSE_KERNELS}
+    for evs in streams.values():
+        evs.sort(key=lambda e: e.time_range.start)
+        for i, ev in enumerate(evs):
+            for name, parts in DENSE_KERNELS.items():
+                if not any(p in ev.name for p in parts):
+                    continue
+                rec = out[name]
+                rec["launches"] += 1
+                rec["ms"] += ev.time_range.elapsed_us() / 1000
+                rec["inits"] += "dense_init<" in ev.name
+                if i > 0 and "memset" in evs[i - 1].name.lower():
+                    rec["memsets"] += 1
+                if i + 1 < len(evs) and "k2_compact_" in evs[i + 1].name:
+                    rec["k2_after"] += 1
+    return out
+
+
+def check_dense_trace(trace: dict, label: str) -> None:
+    """Fails unless each K1 and K13 dense call of the profiled query was one
+    kernel, with no init kernel or memset before it (a K2 kernel right
+    after one is reported, not failed: the next operator may compact the
+    aggregate's output; ``dense_call_activities`` counts what one call
+    queues)."""
+    bad = [f"{name}: {json.dumps(rec)}" for name, rec in trace.items()
+           if rec["launches"] != rec["wrapper_calls"] or rec["inits"] or rec["memsets"]]
+    if not any(rec["wrapper_calls"] for rec in trace.values()):
+        bad.append("no dense aggregate call")
+    if bad:
+        fail(f"{label}'s profiled query: one kernel a dense aggregate call expected: "
+             + "; ".join(bad))
+
+
+def queued_torch_ops():
+    """A TorchDispatchMode that records, while active, every aten op that
+    may queue device work: all but allocations (``empty``) and views.  The
+    kernels' own launches go through ctypes and are not aten ops."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class QueuedOps(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not (func.is_view or func.overloadpacket.__name__ in
+                    ("empty", "empty_strided", "empty_like")):
+                self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    return QueuedOps()
+
+
+DENSE_CALL_ITERS, DENSE_CALL_TRIES = 20, 3
+
+
+def dense_call_activities(K, F, calls: dict, label: str) -> dict:
+    """What one call queues at the path's largest dense aggregate call of
+    each form (K1's compacted form, K13's dense form).  On the host: the
+    aten ops that may queue device work (``queued_torch_ops``) and the
+    wrapper counts that rose; fails unless there is no such op and only the
+    form's own counts rose, by one.  On the card: the device activities by
+    name from torch.profiler over ``DENSE_CALL_ITERS`` warm calls, after a
+    spin kernel and a sync inside the profiled window (the profiler has
+    lost the first launches of a window: 4 of 5 calls recorded on one
+    machine, none of 5 on another), up to ``DENSE_CALL_TRIES`` windows
+    until one records a call's activity; fails unless every activity is
+    K1's kernel (no memset, init, K2 or torch glue) and a call queues at
+    most one (the profiler may miss a launch; it never invents one), or
+    when the spin was recorded but no call's activity in any window.  A
+    profiler that recorded nothing at all is reported, and the host check
+    and the query-level ``check_dense_trace`` stand."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fns, own = {}, {}
+    if "dense_grouped" in calls:
+        args = calls["dense_grouped"][1]
+        fns["dense_grouped"] = lambda: K.dense_grouped(*args)
+        own["dense_grouped"] = {"dense_group_states": 1}
+    if "fused_agg" in calls and K.dense_domain(calls["fused_agg"][1][5]) is not None:
+        fargs = calls["fused_agg"][1]
+        fns["fused_agg"] = lambda: F.fused_agg(*fargs)
+        own["fused_agg"] = {"fused_agg": 1, "fused_agg_dense": 1}
+    out, bad = {}, []
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        before = dict(K.LAUNCHES)
+        with queued_torch_ops() as host:
+            fn()
+        torch.cuda.synchronize()
+        rose = {k: v - before.get(k, 0) for k, v in K.LAUNCHES.items() if v != before.get(k, 0)}
+        rec = out[name] = {"torch_ops": host.ops, "wrapper_counts": rose}
+        if host.ops or rose != own[name]:
+            bad.append(name)
+        for attempt in range(1, DENSE_CALL_TRIES + 1):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                torch.cuda._sleep(20_000_000)  # ~10 ms at 2 GHz
+                torch.cuda.synchronize()
+                for _ in range(DENSE_CALL_ITERS):
+                    fn()
+                torch.cuda.synchronize()
+            rows = device_rows(prof)
+            spun = any("spin_kernel" in key for _ms, _c, key in rows)
+            by = {key.split("(")[0][:60]: count / DENSE_CALL_ITERS
+                  for _ms, count, key in rows if "spin_kernel" not in key}
+            rec.update(device=by, profiler_windows=attempt, spin_recorded=spun)
+            if by:
+                break
+        if by and any("k1_dense<" not in k or c > 1.0 for k, c in by.items()):
+            bad.append(name)
+        elif not by and spun:
+            bad.append(name)
+        elif not by:
+            log(f"{label}: torch.profiler recorded no device activity in "
+                f"{DENSE_CALL_TRIES} windows of {name}'s call: the host check stands")
+    if not out or bad:
+        fail(f"{label}: dense aggregate calls queued {json.dumps(out)} (one K1 kernel a call, "
+             f"no torch op that may queue device work, and only the form's own launch counts "
+             f"expected; at fault: {', '.join(bad) or 'no call captured'})")
+    return out
+
+
 def call_trace(prof) -> dict:
     """K6's and K2's kernels in a torch.profiler trace: per kernel its
     launches and device ms (a shared scan kernel counted only right before
@@ -694,6 +850,18 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def dense_bytes(keys, vals, mask, rows, compacted=True) -> int:
+    """The bytes K1 must move: the keys, the values (a count reads none)
+    and the mask once; the compacted form writes ``rows`` rows of keys,
+    values and mask once, the slot-aligned one ``rows`` (the domain) slots
+    of values and exists counts and its flag."""
+    read = nbytes(*keys, mask) + sum(nbytes(v) for v, how in vals if how != "count")
+    widths = sum(8 if how == "count" else v.element_size() for v, how in vals)
+    if compacted:
+        return read + rows * (sum(k.element_size() for k in keys) + widths + 1)
+    return read + rows * (widths + 4) + 1
+
+
 def grouped_on_order_bytes(keys, vals, mask, cap, n, order) -> int:
     """The bytes K8 must move: the order (int32) read once; through it the
     mask of every row, the keys of the live rows and of the rows before
@@ -791,8 +959,9 @@ class Capture:
     which form each call took (the dense key domain, or the sort path)."""
 
     # wrapper -> index of the argument whose first dimension sizes the call
-    NAMES = {"dense_group_states": 2, "compaction_order": 0, "bucket_of": 0, "hash64": 0,
-             "sort_order": 1, "build_side_sort": 1, "probe_join": 0, "probe_counts": 0,
+    NAMES = {"dense_group_states": 2, "dense_grouped": 2, "compaction_order": 0, "bucket_of": 0,
+             "hash64": 0, "sort_order": 1, "build_side_sort": 1, "probe_join": 0,
+             "probe_counts": 0,
              "segment_any": 0, "grouped_on_order": 2, "presorted_disorder": 1,
              "key_range_check": 1, "clustered_keep": 1, "extract_field": 0,
              "spill_partition": 0, "dispatch_to_buckets": 2, "merge_rank_states": 0,
@@ -1392,8 +1561,9 @@ def profile_query(ctx, sql, label, K=None):
              for name, parts in RADIX_KERNELS.items()}
     clustered = clustered_trace(prof)
     calls = call_trace(prof)
+    dense = dense_trace(prof)
     if before is not None:
-        for name, rec in (*clustered.items(), *calls.items()):
+        for name, rec in (*clustered.items(), *calls.items(), *dense.items()):
             rec["wrapper_calls"] = K.LAUNCHES[name] - before[name]
     busy_ms = sum(r[0] for r in rows)
     if not rows:
@@ -1408,8 +1578,10 @@ def profile_query(ctx, sql, label, K=None):
         f"them on their stream): {json.dumps(clustered)}")
     log(f"  K6 probe_join / K2 compaction_order kernels per query (memsets and copies right "
         f"before them on their stream): {json.dumps(calls)}")
+    log(f"  K1 dense_group_states / K13 dense form kernels per query (device ms, launches, "
+        f"init kernels, memsets before, K2 after): {json.dumps(dense)}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
-            "radix_ms": radix, "clustered": clustered, "calls": calls}
+            "radix_ms": radix, "clustered": clustered, "calls": calls, "dense": dense}
 
 
 def profile_programs(ctx, sql, device):
@@ -1593,6 +1765,28 @@ def dense_check(K, args):
     return err
 
 
+def grouped_err(got, want, vals):
+    """Max abs error of a compacted grouped result (keys, values, mask,
+    overflow or None) against the twin's: integers, keys, masks and flags
+    exact, float sums at rtol 1e-12."""
+    if (got[3] is None) != (want[3] is None) or (got[3] is not None and
+                                                  bool(got[3]) != bool(want[3])):
+        raise AssertionError("overflow flags differ")
+    err = max_err(got[2], want[2])
+    for g, w in zip(got[0], want[0]):
+        err = max(err, max_err(g, w))
+    for (_v, how), g, w in zip(vals, got[1], want[1]):
+        err = max(err, max_err(g, w, rtol=1e-12 if how == "sum" and w.dtype.is_floating_point
+                               else 0.0))
+    return err
+
+
+def dense_grouped_check(K, args):
+    """K1's compacted form against its twin (the slot-aligned twin, then
+    the twin's compaction)."""
+    return grouped_err(K.dense_grouped(*args), K.dense_grouped_plain(*args), args[1])
+
+
 def stress_inputs(K, device, n, seed=1):
     """6M-row stress inputs for each kernel, made from a seed with numpy."""
     import numpy as np
@@ -1653,10 +1847,20 @@ def stress_inputs(K, device, n, seed=1):
     group_keys = [([(t(rng.integers(0, 1 << (40 - 4 * j), rows, dtype=np.int64)), j % 2 == 0)
                     for j in range(nkeys)], t(rng.random(rows) < 0.9))
                   for rows, nkeys in ((1024, 5), (262_144, 7))]
+    # K1's compacted form: the q1 domain cut (overflow), exact and padded,
+    # ranges that leave the -1 codes out (bad rows), one hot slot, and the
+    # wide domain (the device-memory form)
+    q1r, badr, wider = ((-1, 15), (-1, 15)), ((0, 15), (0, 15)), ((-1, 127), (-1, 255))
+    hot = torch.full_like(k1, 2)
+    compacted = [Wrapped("dense_grouped", (keys, dense_vals, mask, cap, r, dense_domain(r)))
+                 for keys, r, cap in (([k1, k2], q1r, 7), ([k1, k2], q1r, 289),
+                                      ([k1, k2], q1r, 300), ([k1, k2], badr, 100),
+                                      ([hot, hot], q1r, 289), ([k1, k2], wider, 33153))]
     return {
-        # the q1 domain (shared-memory form) and one too wide for shared memory
+        # the q1 domain (shared-memory form) and one too wide for shared
+        # memory, in both forms
         "dense_group_states": [([k1, k2], dense_vals, mask, r, dense_domain(r))
-                               for r in (((-1, 15), (-1, 15)), ((-1, 127), (-1, 255)))],
+                               for r in (q1r, wider)] + compacted,
         "compaction_order": [(mask,), *compaction_stress(t, rng, big)],
         "bucket_of": [(hash_keys, 16), (hash_keys, 7)],
         "sort_order": [(sort_keys, mask), ([(t(full), True)], mask), (wide_keys, mask),
@@ -2464,6 +2668,54 @@ def fused_stress(device, n, seed=4):
     return out
 
 
+def dense_sweep_chain(device, n, slots, seed=11):
+    """K13's dense form over a synthetic chain of n rows whose live rows
+    fall evenly on ``slots`` key pairs (of 256: two dictionary keys of 16
+    words each, a 289-slot domain as q1's): a filter, then a partial
+    aggregate of an int64 sum, a float64 sum, a count, an int64 min and a
+    float64 max.  Returns K13's arguments (program, cols, mask, auxs,
+    out_cap, key_ranges)."""
+    import numpy as np
+    import pyarrow as pa
+
+    from arrow_ballista_tpu_torch.catalog import MemoryTable
+    from arrow_ballista_tpu_torch.compile import fused as F
+    from arrow_ballista_tpu_torch.models import expr as E
+    from arrow_ballista_tpu_torch.models.batch import concat_batches
+    from arrow_ballista_tpu_torch.ops import kernels as K
+    from arrow_ballista_tpu_torch.ops import operators as O
+    from arrow_ballista_tpu_torch.ops.physical import TaskContext
+
+    rng = np.random.default_rng(seed)
+    words = [f"w{i:02d}" for i in range(16)]
+    pairs = rng.permutation(256)[:slots]
+    pick = pairs[rng.integers(0, slots, n)]
+    table = pa.table({
+        "a": pa.DictionaryArray.from_arrays(pa.array((pick // 16).astype(np.int32)),
+                                            pa.array(words)),
+        "b": pa.DictionaryArray.from_arrays(pa.array((pick % 16).astype(np.int32)),
+                                            pa.array(words)),
+        "v": pa.array(rng.integers(-10**6, 10**6, n).astype(np.int64)),
+        "f": pa.array(rng.random(n) * 100),
+    })
+    ctx = TaskContext(device=device)
+    scan = MemoryTable("sweep", table).scan(None, [], 1)
+    big = concat_batches(scan.schema, scan.execute(0, ctx), device=device).shrink()
+    filt = O.FilterExec(scan, E.BinOp(">", E.Column("v"), E.Lit(-990_000)))
+    aggs = [O.AggSpec("sum", E.Column("v"), "sv"), O.AggSpec("sum", E.Column("f"), "sf"),
+            O.AggSpec("count", None, "c"), O.AggSpec("min", E.Column("v"), "mnv"),
+            O.AggSpec("max", E.Column("f"), "mxf")]
+    agg = O.HashAggregateExec(filt, [(E.Column("a"), "a"), (E.Column("b"), "b")], aggs,
+                              "partial")
+    prog = F.FusedStageExec([agg, filt]).program(ctx)
+    auxs, dicts = prog.auxs_and_dicts(big.dicts)
+    ranges = agg._key_ranges(prog.agg_compiled[1], dicts)
+    domain = K.dense_domain(ranges)
+    if domain is None:
+        fail("dense sweep chain: no dense key domain")
+    return prog, big.columns, big.mask, auxs, min(big.capacity, domain), ranges
+
+
 def fused_check(F, name, args):
     """K12 or K13 against its twin on the same inputs: every column and the
     mask (K12, NaN where the twin has NaN), every group (K13; float sums at
@@ -2557,6 +2809,8 @@ def check_kernel(K, name, args):
         return max_err(K.spill_partition(*args), K.spill_partition_plain(*args))
     if name == "dense_group_states":
         return dense_check(K, args)
+    if name == "dense_grouped":
+        return dense_grouped_check(K, args)
     if name == "compaction_order":  # with its live count
         (mask,) = args
         got, count = K.compaction_order(mask, with_count=True)
@@ -2830,12 +3084,17 @@ def kernel_timings(K, name, args, device):
                 return K.grouped_aggregate(keys, vals, m, out_cap, key_ranges=ranges)
         library = None  # no one PyTorch call computes a fused chain
         extra["interpreted_"] = interpreted
-    elif name == "dense_group_states":
-        key_cols, val_cols, mask, key_ranges, domain = args
-        read_vals = [v for v, how in val_cols if how != "count"]
-        moved = nbytes(*key_cols, mask, *read_vals) + len(val_cols) * domain * 8 + domain * 4 + 1
-        kern = lambda: K.dense_group_states(key_cols, val_cols, mask, key_ranges, domain)  # noqa: E731
-        plain = lambda: K.dense_group_states_plain(key_cols, val_cols, mask, key_ranges, domain)  # noqa: E731
+    elif name in ("dense_group_states", "dense_grouped"):
+        if name == "dense_grouped":
+            key_cols, val_cols, mask, out_cap, key_ranges, domain = args
+            moved = dense_bytes(key_cols, val_cols, mask, out_cap)
+            kern = lambda: K.dense_grouped(*args)  # noqa: E731
+            plain = lambda: K.dense_grouped_plain(*args)  # noqa: E731
+        else:
+            key_cols, val_cols, mask, key_ranges, domain = args
+            moved = dense_bytes(key_cols, val_cols, mask, domain, compacted=False)
+            kern = lambda: K.dense_group_states(*args)  # noqa: E731
+            plain = lambda: K.dense_group_states_plain(*args)  # noqa: E731
         # one library call for the same sums and counts: index_add_ of the
         # stacked value matrix at precomputed slot ids
         sizes, strides = K._dense_strides(key_ranges)
@@ -3103,12 +3362,13 @@ def radix_stress_timings(K, device, sort_inputs, build_inputs):
 
 
 def dense_hot_slot_sweep(K, args, device, slots=(1, 4, 64, 289)):
-    """K1's device time on the main path's largest call with its live rows
-    spread evenly over ``slots`` groups instead of q1's four: a test of
-    whether atomic contention on a few hot slots sets K1's time."""
+    """K1's compacted form on the main path's largest call with its live
+    rows spread evenly over ``slots`` groups instead of q1's four, each
+    held against its twin: a test of whether a few hot slots set K1's
+    time.  Returns {slots: device ms}."""
     import torch
 
-    key_cols, val_cols, mask, key_ranges, domain = args
+    key_cols, val_cols, mask, out_cap, key_ranges, domain = args
     sizes, strides = K._dense_strides(key_ranges)
     g = torch.Generator(device=device).manual_seed(7)
     out = {}
@@ -3120,7 +3380,22 @@ def dense_hot_slot_sweep(K, args, device, slots=(1, 4, 64, 289)):
         keys = []
         for k, (lo, _hi), size, st in zip(key_cols, key_ranges, sizes, strides):
             keys.append(((slot // st) % size + lo).to(k.dtype))
-        out[h] = device_ms(lambda: K.dense_group_states(keys, val_cols, mask, key_ranges, domain))[0]
+        sargs = (keys, val_cols, mask, out_cap, key_ranges, domain)
+        dense_grouped_check(K, sargs)
+        out[h] = device_ms(lambda: K.dense_grouped(*sargs))[0]
+    return out
+
+
+def k13_hot_slot_sweep(F, device, n, slots=(1, 4, 64, 256)):
+    """K13's dense form over ``dense_sweep_chain`` at n rows, live rows on
+    each count of key pairs, each held against the interpreted chain.
+    Returns {slots: device ms}."""
+    out = {}
+    for h in slots:
+        args = dense_sweep_chain(device, n, h)
+        fused_check(F, "fused_agg", args)
+        nxt = rotating(args, fused_bytes(args[0], args[1], args[2], args[4]))
+        out[h] = device_ms(lambda: F.fused_agg(*nxt()))[0]
     return out
 
 
@@ -3227,6 +3502,10 @@ LAUNCH_KEY["bucket_of"] = "hash64"
 WRAPPERS = {name: (name,) for name in KERNEL_META}
 WRAPPERS["bucket_of"] = ("bucket_of", "hash64")
 WRAPPERS["probe_join"] = ("probe_join", "probe_counts")
+# K1: the compacted form (grouped_aggregate's dense path) and the
+# slot-aligned one (the mesh's dense reduce); timed at the compacted form's
+# largest call, the slot-aligned form's beside it
+WRAPPERS["dense_group_states"] = ("dense_grouped", "dense_group_states")
 WRAPPERS["gather_columns"] = ("gather_columns", "pack_for_host")
 WRAPPERS["mask_ops"] = ("window_mask", "mask_or", "mask_and", "mask_andnot")
 
@@ -3574,8 +3853,8 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                 allowed = {"hash64", "probe_join", "segment_any", "operator_program",
                            "gather_columns", "mask_ops"}
                 if path in PASSTHROUGH_PATHS:
-                    allowed |= {"fused_agg", "passthrough_rows", "sort_order",
-                                "grouped_on_order", "compaction_order"}
+                    allowed |= {"fused_agg", "fused_agg_dense", "passthrough_rows",
+                                "sort_order", "grouped_on_order", "compaction_order"}
                 if not standalone or not varied <= allowed:
                     fail(f"{path}: warm run launched {dict(K.LAUNCHES)} != cold "
                          f"{launches[path]}")
@@ -3640,6 +3919,14 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                 fail(f"{path}'s profiled query recorded no device time: its kernels unchecked")
             if path in ("q3", "pq_q18"):  # K6 and K2: their kernels a call, no memset
                 check_call_trace(prof_q["calls"], path)
+            if path in DENSE_ONE_LAUNCH:  # K1 / K13 dense: one kernel a call
+                if prof_q is None:
+                    fail(f"{path}'s profiled query recorded no device time: K1 unchecked")
+                check_dense_trace(prof_q["dense"], path)
+                acts = report.setdefault("dense_call_activities", {})[path] = \
+                    dense_call_activities(K, F, captured[path], path)
+                log(f"{path}: device activities one dense aggregate call queues at its largest "
+                    f"call: {json.dumps(acts)}")
             if path == "pq_q18":  # K10 and K11: one kernel a call, no memset before it
                 for kname, rec in prof_q["clustered"].items():
                     if not rec["launches"] or rec["launches"] != rec["wrapper_calls"] \
@@ -3653,6 +3940,13 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         log(f"path {path}: {secs:.1f} s")
     for group in sorted({path_group(p) for p in paths}):
         log(f"phase {group}: {PHASE_S[group]:.1f} s")
+    # K1's and K13's dense device ms per profiled warm query
+    dense_q = {p: {form: {k: rec[k] for k in ("ms", "launches", "wrapper_calls")}
+                   for form, rec in (report.get(f"{p}_profile") or {}).get("dense", {}).items()}
+               for p in DENSE_PATHS if p in paths}
+    report["dense_ms_per_query"] = dense_q
+    log(f"K1 (dense_group_states) / K13 dense (fused_agg_dense) device ms, launches and calls "
+        f"per warm query: {json.dumps(dense_q)}")
     # csv: the same rows as the parquet paths, bit for bit
     for a, b in (("csv_q1", "pq_q1"), ("csv_q3", "pq_q3"), ("sa_csv_q1", "sa_pq_q1")):
         try:
@@ -3749,6 +4043,14 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         fail(f"memsweep: nothing denied or spilled, or a reservation was left: {mem}")
     report["memsweep"] = {"memory_stats": mem, **{
         q: {k: v for k, v in r.items() if k != "frame"} for q, r in sweep.items()}}
+    if cuda:  # K1's dense device ms on memsweep's q1 (2^20-row batches, the budget)
+        prof_m = profile_query(msweep, QUERIES[1], "memsweep q1", K)
+        if prof_m is not None:
+            report["dense_ms_per_query"]["memsweep"] = {
+                form: {k: rec[k] for k in ("ms", "launches", "wrapper_calls")}
+                for form, rec in prof_m["dense"].items()}
+            log(f"memsweep q1: K1 / K13 dense device ms, launches and calls: "
+                f"{json.dumps(report['dense_ms_per_query']['memsweep'])}")
     paths["memsweep"] = (msweep, None)
     phase_done("memsweep", t_phase)
 
@@ -4003,9 +4305,10 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             timed, path, args = name, "stress", stress[name][0]
             n = args[0].shape[0]
         else:
-            timed = name if name in wrappers else max(
-                wrappers, key=lambda w: max(captured[p][w][0] for p in paths
-                                            if w in captured[p]))
+            timed = name if name in wrappers and name != "dense_group_states" else max(
+                wrappers, key=lambda w: (w == "dense_grouped",
+                                         max(captured[p][w][0] for p in paths
+                                             if w in captured[p])))
             path = max((p for p in paths if timed in captured[p]),
                        key=lambda p: captured[p][timed][0])
             n, args = captured[path][timed]
@@ -4073,7 +4376,9 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             + (f"; interpreted chain {fmt(times['interpreted_ms'])} device, "
                f"{fmt(times['interpreted_wall_ms'])} wall" if name.startswith("fused_") else "")
             + f"; stress {stress_rows} rows ok; "
-            f"max abs err {err:.3g}; launches per query {json.dumps(per_path)}")
+            f"max abs err {err:.3g}; launches per query {json.dumps(per_path)}"
+            + (f"; the parent's recorded time: {PARENT_DENSE_MS[name][0]} ms "
+               f"({PARENT_DENSE_MS[name][1]})" if name in PARENT_DENSE_MS else ""))
         if name == "bucket_masks" and "bucket_masks" in captured.get("q1", {}):
             # q1's call (the local engine's batch into its 16 partitions)
             qn, qargs = captured["q1"]["bucket_masks"]
@@ -4148,11 +4453,31 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             report["radix_stress"]["seconds"] = time.perf_counter() - t_radix
             log(f"radix stress timings: {report['radix_stress']['seconds']:.1f} s")
         report.setdefault("kernel_check_s", {})[name] = time.perf_counter() - t_kernel
-        if name == "dense_group_states" and cuda:
+        if name == "dense_group_states" and cuda and timed == "dense_grouped":
             sweep = dense_hot_slot_sweep(K, args, device)
-            log("kernel dense_group_states hot-slot sweep (device ms per call, "
+            report["kernels"][-1]["hot_slot_sweep_ms"] = sweep
+            log("kernel dense_group_states hot-slot sweep (compacted form, device ms per call, "
                 f"{n} rows): " + ", ".join(
                     f"{h} slots {fmt(v)}" for h, v in sweep.items()))
+            seen = [p for p in paths if "dense_group_states" in captured[p]]
+            if seen:  # the slot-aligned form at its own largest call (the mesh's)
+                sp = max(seen, key=lambda p: captured[p]["dense_group_states"][0])
+                sn, sargs = captured[sp]["dense_group_states"]
+                st, smoved = kernel_timings(K, "dense_group_states", sargs, device)
+                report["kernels"][-1]["slot_aligned"] = {
+                    "captured_on": sp, "rows": sn, "ms": st["ms"], "wall_ms": st["wall_ms"],
+                    "plain_ms": st["plain_ms"], "library_ms": st["library_ms"],
+                    "bound_ms": smoved / HBM_BYTES_PER_S * 1000, "bound_bytes": smoved}
+                log(f"kernel dense_group_states, slot-aligned form: rows {sn} ({sp}); device "
+                    f"kernel {fmt(st['ms'])}, plain {fmt(st['plain_ms'])}, library "
+                    f"{fmt(st['library_ms'])}, bound {smoved / HBM_BYTES_PER_S * 1000:.6f} ms; "
+                    f"wall kernel {fmt(st['wall_ms'])}")
+        if name == "fused_agg" and cuda:
+            sweep = k13_hot_slot_sweep(F, device, min(stress_rows, 1 << 20))
+            report["kernels"][-1]["dense_hot_slot_sweep_ms"] = sweep
+            log(f"kernel fused_agg, dense form: hot-slot sweep over a synthetic chain "
+                f"({min(stress_rows, 1 << 20)} rows, device ms per call): " + ", ".join(
+                    f"{h} key pairs {fmt(v)}" for h, v in sweep.items()))
         phase_done(f"kernel_checks/{name}", t_kernel)
 
     PHASE_S["kernel_checks"] = sum(v for k, v in PHASE_S.items()

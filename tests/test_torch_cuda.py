@@ -143,6 +143,186 @@ def test_dense_kernel_matches_twin(dev, case):
             np.testing.assert_array_equal(g.cpu().numpy(), p.numpy())
 
 
+def _dense_same(got, want, vals):
+    """K1's compacted result (keys, values, mask, overflow or None) against
+    its twin's: integers, keys, masks and flags exact, float sums at rtol
+    1e-12 (the order of additions differs), NaN in the same places."""
+    assert (got[3] is None) == (want[3] is None)
+    if got[3] is not None:
+        assert bool(got[3]) == bool(want[3])
+    assert torch.equal(got[2].cpu(), want[2])
+    for g, w in zip(got[0], want[0]):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    for (v, how), g, w in zip(vals, got[1], want[1]):
+        assert g.dtype == w.dtype
+        if w.dtype.is_floating_point and how == "sum":
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-12, atol=0)
+        else:
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+def _dense_grouped_on_card(dev, keys, vals, mask, ranges, cap):
+    d = TK.dense_domain(ranges)
+    got = TK.dense_grouped([_t(k).to(dev) for k in keys], [(_t(v).to(dev), h) for v, h in vals],
+                           _t(mask).to(dev), cap, ranges, d)
+    want = TK.dense_grouped_plain([_t(k) for k in keys], [(_t(v), h) for v, h in vals],
+                                  _t(mask), cap, ranges, d)
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", ["small", "domain", "padded"])
+@pytest.mark.parametrize("case", DENSE_CASES)
+def test_dense_compacted_kernel_matches_twin(dev, case, cap):
+    """K1's compacted form (grouped_aggregate's dense path in one launch):
+    out_capacity below the domain (cut, overflow | bad rows), equal to it
+    and above it (zero padding)."""
+    keys, vals, mask, ranges = dense_case(case, N, np.random.default_rng(41))
+    d = TK.dense_domain(ranges)
+    out_cap = {"small": max(1, d // 3), "domain": d, "padded": d + 37}[cap]
+    got, want = _dense_grouped_on_card(dev, keys, vals, mask, ranges, out_cap)
+    _dense_same(got, want, [(_t(v), h) for v, h in vals])
+
+
+def _dense_shape(rng, n, slots=None, wide=False):
+    """Keys, values (every fold), mask and ranges; live rows on ``slots``
+    slots of a 289-slot domain (or a 33,153-slot one, too wide for shared
+    memory)."""
+    ranges = ((-1, 127), (-1, 255)) if wide else ((-1, 15), (-1, 15))
+    sizes = [hi - lo + 1 for lo, hi in ranges]
+    d = sizes[0] * sizes[1]
+    chosen = rng.permutation(d)[:slots or d]
+    slot = chosen[rng.integers(0, len(chosen), n)]
+    keys = [(slot // sizes[1] + ranges[0][0]).astype(np.int32),
+            (slot % sizes[1] + ranges[1][0]).astype(np.int64)]
+    # float sums of non-negative values: no cancellation, so the order of
+    # additions moves a sum by a few ulps, within rtol 1e-12
+    f = rng.random(n) * 100
+    f[rng.random(n) < 0.001] = np.nan
+    q = (rng.integers(-64, 64, n) / 4).astype(np.float32)
+    vals = [(rng.integers(-10**12, 10**12, n).astype(np.int64), "sum"),
+            (rng.integers(2**29, 2**31 - 1, n).astype(np.int32), "sum"),
+            (f, "sum"), (q, "sum"), (np.zeros(n, np.int64), "count"),
+            (rng.integers(-10**12, 10**12, n).astype(np.int64), "min"),
+            (rng.integers(-2**31, 2**31 - 1, n).astype(np.int32), "max"), (f, "min"), (f, "max"),
+            (q, "min"), (q, "max")]
+    return keys, vals, rng.random(n) < 0.8, ranges
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 31, 255, 256, 257, 1023, 1025, 4097, 100_003])
+def test_dense_kernel_at_edge_sizes(dev, n):
+    """No rows, one row, fewer rows than a warp and than a block's pass,
+    a pass +-1 and several passes; both forms."""
+    rng = np.random.default_rng(42 + n)
+    keys, vals, mask, ranges = _dense_shape(rng, n)
+    got, want = _dense_grouped_on_card(dev, keys, vals, mask, ranges, 289)
+    _dense_same(got, want, [(_t(v), h) for v, h in vals])
+    gv, ge, gb = TK.dense_group_states([_t(k).to(dev) for k in keys],
+                                       [(_t(v).to(dev), h) for v, h in vals],
+                                       _t(mask).to(dev), ranges, 289)
+    pv, pe, pb = TK.dense_group_states_plain([_t(k) for k in keys],
+                                             [(_t(v), h) for v, h in vals], _t(mask), ranges, 289)
+    assert torch.equal(ge.cpu(), pe) and bool(gb) == bool(pb)
+    _dense_same(([], gv, ge.cpu() > 0, None), ([], pv, pe > 0, None),
+                [(_t(v), h) for v, h in vals])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [1, 2, 4, 289])
+@pytest.mark.parametrize("wide", [False, True], ids=["shared", "global"])
+def test_dense_kernel_on_hot_slots(dev, slots, wide):
+    """Every live row on one slot (a warp's 32 lanes one group), a few, or
+    spread: the warp's combining tree at every depth, in block-private
+    shared accumulators and straight in the state."""
+    rng = np.random.default_rng(43 + slots)
+    keys, vals, mask, ranges = _dense_shape(rng, 300_007, slots, wide)
+    d = TK.dense_domain(ranges)
+    got, want = _dense_grouped_on_card(dev, keys, vals, mask, ranges, d)
+    _dense_same(got, want, [(_t(v), h) for v, h in vals])
+
+
+def _dense_reset_inputs(rng, count):
+    """Calls whose domain, aggregate count, capacity and form shrink and
+    grow, so a word one call left behind would show in the next."""
+    out = []
+    for i in range(count):
+        n = int(rng.choice([0, 1, 900, 40_000, 200_000]))
+        keys, vals, mask, ranges = _dense_shape(rng, n, int(rng.choice([1, 4, 300])),
+                                                wide=i % 7 == 3)
+        pick = rng.permutation(len(vals))[:int(rng.integers(0, len(vals) + 1))]
+        vals = [vals[j] for j in sorted(pick)]
+        if i % 3 == 1:  # a one-key domain of five slots
+            keys, ranges = [keys[0] % 5 - 1], ((-1, 3),)
+        d = TK.dense_domain(ranges)
+        cap = None if i % 4 == 0 else int(rng.choice([1, max(1, d // 2), d, d + 9]))
+        out.append((keys, vals, mask, ranges, cap))
+    return out
+
+
+def _dense_reset_launch(dev, inputs):
+    results = []
+    for keys, vals, mask, ranges, cap in inputs:
+        args = ([_t(k).to(dev) for k in keys], [(_t(v).to(dev), h) for v, h in vals],
+                _t(mask).to(dev))
+        d = TK.dense_domain(ranges)
+        results.append(TK.dense_group_states(*args, ranges, d) if cap is None
+                       else TK.dense_grouped(*args, cap, ranges, d))
+    return results
+
+
+def _dense_reset_check(inputs, results):
+    for (keys, vals, mask, ranges, cap), got in zip(inputs, results):
+        args = ([_t(k) for k in keys], [(_t(v), h) for v, h in vals], _t(mask))
+        d = TK.dense_domain(ranges)
+        tv = [(_t(v), h) for v, h in vals]
+        if cap is None:
+            pv, pe, pb = TK.dense_group_states_plain(*args, ranges, d)
+            assert torch.equal(got[1].cpu(), pe) and bool(got[2]) == bool(pb)
+            _dense_same(([], got[0], got[1].cpu() > 0, None), ([], pv, pe > 0, None), tv)
+        else:
+            _dense_same(got, TK.dense_grouped_plain(*args, cap, ranges, d), tv)
+
+
+@pytest.mark.cuda
+def test_dense_kernel_back_to_back_on_one_stream(dev):
+    """200 calls of both forms queued back to back, their domains,
+    aggregates and capacities shrinking and growing: each launch's last
+    block leaves the stream's state zero for the next."""
+    inputs = _dense_reset_inputs(np.random.default_rng(44), 200)
+    results = _dense_reset_launch(dev, inputs)
+    torch.cuda.synchronize()
+    _dense_reset_check(inputs, results)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("own_streams", [False, True])
+def test_dense_kernel_from_four_threads(dev, own_streams):
+    import threading
+
+    rng = np.random.default_rng(45)
+    inputs = [_dense_reset_inputs(rng, 30) for _ in range(4)]
+    results = [None] * 4
+    start = threading.Barrier(4)
+
+    def work(i):
+        ctx = torch.cuda.stream(torch.cuda.Stream(dev)) if own_streams else \
+            contextlib.nullcontext()
+        with ctx:
+            start.wait()
+            results[i] = _dense_reset_launch(dev, inputs[i])
+            torch.cuda.current_stream(dev).synchronize()
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    for inp, res in zip(inputs, results):
+        _dense_reset_check(inp, res)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", JOIN_CASES)
 def test_build_sort_and_probe_kernels_match_twins(dev, case):

@@ -40,7 +40,16 @@ kernel, the memsets and copies right before them and their wrappers' calls
 parent of their redesign, and counts the shared scan kernels as K2's only
 in a K2 call), K8's (``grouped_on_order``) and K22's bucket form
 (``bucket_masks``, one launch a partition in the parent of its redesign)
-likewise, and the device ms of all kernels.  Run parent, change,
+likewise, ``dense``: K1's and K13's own kernels (``chip_smoke.dense_trace``:
+launches and device ms by name, the parent's init kernel among them) and
+``device_ms``, the device time of what torch ops queued inside the dense
+aggregate calls (a profiler range around each call: in the parent of the
+one-launch redesign its K2 and the compaction's torch glue; None when a
+call queued none; a kernel launched through ctypes is not attributed to
+the range, and the standalone engine's task threads record no range),
+so the dense device ms of a query is the kernels' plus ``device_ms``;
+``calls`` counts the ranges, host and device side; and the device ms of
+all kernels.  Run parent, change,
 change, parent in one call and compare the medians.
 
 ``--pair PARENT,CHANGE`` keeps one process of each tree alive (this
@@ -73,7 +82,8 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)  # benchmarks/ and chip_smoke
-from chip_smoke import RADIX_KERNELS, call_trace, clustered_trace  # noqa: E402
+from chip_smoke import (RADIX_KERNELS, call_trace, clustered_trace, dense_trace,  # noqa: E402
+                        range_device_ms)
 
 TABLES = ("lineitem", "orders", "customer", "part", "partsupp", "supplier", "nation",
           "region")
@@ -113,6 +123,42 @@ def _data(directory: str, sf: float):
     return mem, {n: os.path.join(directory, f"{n}.parquet") for n in TABLES}
 
 
+DENSE_RANGE = "ab_dense_aggregate"
+
+
+@contextlib.contextmanager
+def _dense_ranges():
+    """Each dense aggregate call inside a torch.profiler range: the local
+    and standalone dense path (``kernels._grouped_aggregate_dense``), the
+    mesh's slot-aligned states (``kernels.dense_group_states``) and K13's
+    dense form (``fused.fused_agg`` over a dense key domain), so that its
+    device time counts with all it queues (in a tree before the one-launch
+    redesign, K2 and the torch glue of the compaction too)."""
+    from torch.profiler import record_function
+
+    from arrow_ballista_tpu_torch.compile import fused as F
+    from arrow_ballista_tpu_torch.ops import kernels as K
+
+    def ranged(fn, dense=lambda *a: True):
+        def call(*a, **kw):
+            if not dense(*a):
+                return fn(*a, **kw)
+            with record_function(DENSE_RANGE):
+                return fn(*a, **kw)
+        return call
+
+    saved = [(K, "_grouped_aggregate_dense"), (K, "dense_group_states"), (F, "fused_agg")]
+    orig = [getattr(mod, name) for mod, name in saved]
+    K._grouped_aggregate_dense = ranged(orig[0])
+    K.dense_group_states = ranged(orig[1])
+    F.fused_agg = ranged(orig[2], lambda *a: K.dense_domain(a[5]) is not None)
+    try:
+        yield
+    finally:
+        for (mod, name), fn in zip(saved, orig):
+            setattr(mod, name, fn)
+
+
 def _kernel_times(ctx, sql):
     """One more warm run under torch.profiler: the device ms of K4's and
     K5's kernels in it (RADIX_KERNELS), their launches, K10's and K11's
@@ -126,7 +172,8 @@ def _kernel_times(ctx, sql):
     from arrow_ballista_tpu_torch.ops import kernels as K
 
     before = dict(K.LAUNCHES)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _dense_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
         ctx.sql(sql).to_pandas()
         torch.cuda.synchronize()
     by_name = {}
@@ -152,6 +199,11 @@ def _kernel_times(ctx, sql):
         # counted under mask_ops) has no count of its calls
         rec["wrapper_calls"] = K.LAUNCHES[name] - before[name] if name in K.LAUNCHES else None
         out[name] = rec
+    # the dense aggregate: its calls' device ms with all they queue, and
+    # K1's and K13's own kernels by name (dense_trace)
+    out["dense"] = {"device_ms": range_device_ms(prof, DENSE_RANGE),
+                    "calls": sum(1 for ev in prof.events() if ev.name == DENSE_RANGE),
+                    **dense_trace(prof)}
     out["all_device_ms"] = sum(v[0] for v in by_name.values())
     return out
 
