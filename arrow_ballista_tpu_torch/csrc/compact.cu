@@ -1,4 +1,6 @@
-// K2: compaction_order — stable permutation that moves live rows first.
+// K2: compaction_order — stable permutation that moves live rows first;
+// and K16: spill_order — the same core over a spilled build batch's
+// partitions (below).
 //
 // Replaces arrow_ballista_tpu/ops/kernels.py compaction_order (l.88), which
 // ColumnBatch.shrink ("batch.shrink"), pack_for_host and the stable
@@ -245,6 +247,410 @@ __global__ void __launch_bounds__(CP_THREADS)
 }
 
 // --------------------------------------------------------------------------
+// K16: spill_order, K2's core over 2P buckets
+// --------------------------------------------------------------------------
+
+// Replaces the reference's "join.spill_part" program (arrow_ballista_tpu/
+// ops/operators.py:1512, part_fn: the top log2(P) bits of hash64 over the
+// build keys) together with the compaction of pack_for_host
+// (arrow_ballista_tpu/ops/kernels.py:122) that the spilled build batch goes
+// through next.  A row's bucket is its partition p if live, P + p if dead;
+// the output is the stable counting sort of the rows by bucket: live rows
+// grouped by partition in ascending order, each group in row order, then
+// the dead rows likewise, and the live count.  K2 is the case of one
+// partition.  The hash is computed in registers (common.cuh ab_hash_row)
+// and each row's partition written once; the bucket bytes stay in shared
+// memory (one launch) or make one trip through a scratch array (two).
+//
+// Bound: bytes.  The keys and the mask read once, the partition (4 bytes
+// a row) and the permutation written once.
+//
+// A round is cp_round widened: a thread holds the bucket bytes of its 8
+// rows; its counts of each bucket, packed four to a 64-bit word in 16-bit
+// fields, are scanned over the block in one pass (so_block_scan), the
+// round's bucket offsets follow from the totals in the same packed words,
+// and the rows are staged in bucket order and written out in runs.
+//
+// * One launch up to CP_ONE_ROWS rows (k16_spill_coop): a cooperative grid
+//   of tiles of one round (2,048 rows, up to 64 tiles: a thread's chain of
+//   dependent instructions, not bytes, sets a tile's time, so a thread
+//   takes 8 rows).  A thread hashes its rows with the keys' loads issued
+//   together (so_hash); one block scan both ranks the round and counts the
+//   tile; the tiles publish their counts, grid.sync(), and each reads them
+//   all (so_tile_starts): each bucket's start and its rows in the tiles
+//   before.  (A cluster of 8 blocks, the counts through distributed shared
+//   memory, ran on 8 SMs: 0.034 ms at 131,072 rows on an H100, against
+//   0.0104 for spill_partition and K2.)
+// * Two launches above it, over the same tiles: k16_spill_count hashes a
+//   tile and writes its bucket bytes to the scratch array and its counts;
+//   k16_spill_scatter reads every tile's counts (so_tile_starts: 32 KB a
+//   tile at 2^20 rows, from L2) and places its round.  Nothing persists
+//   between calls.  At 524,288 rows it takes 0.0178 ms and at 2^21 0.0586
+//   against 0.0118 and 0.0207 for spill_partition and K2 (an H100 80GB
+//   HBM3 at 700 W); what holds it back is not known.  Tiles of 4,096 rows
+//   took 0.0188 ms at 524,288 rows, 0.0220 with a look-back over the
+//   tiles before.
+
+#define SO_PARTS_MAX 8                   // the kernel's partitions at most
+#define SO_BUCKETS_MAX (2 * SO_PARTS_MAX)
+#define SO_Q (SO_BUCKETS_MAX / 4)        // packed words of four 16-bit counts
+#define SO_THREADS 256                   // a block of either form
+#define SO_CO_ROWS 8                     // a thread's rows
+#define SO_CO_TILE (SO_THREADS * SO_CO_ROWS)  // a tile of either form: 2,048 rows, one round
+#define SO_NONE 0xffu                    // the bucket byte of a row past n
+
+struct SoArgs {
+  HashCols c;
+  const uint8_t* mask;
+  long long n;
+  int zero, bits, parts;
+  int32_t* part;      // n partitions
+  int32_t* perm;      // n rows in bucket order
+  int* n_live;        // the live count
+};
+
+// one column's values of rows r0 .. r0 + R - 1 widened as ab_widen_u64
+// does; whole: all R rows lie below n.  Loads are issued together (16-byte
+// words where the rows are aligned), so a thread pays one latency a column.
+template <int R>
+__device__ __forceinline__ void so_widen(const void* p, int kind, long long r0, long long n,
+                                         bool whole, uint64_t (&x)[R]) {
+  if (kind == AB_KIND_I64) {
+    const long long* q = (const long long*)p + r0;
+    if (whole && (reinterpret_cast<uintptr_t>(q) & 15) == 0) {
+#pragma unroll
+      for (int k = 0; k < R / 2; ++k) {
+        const longlong2 v = __ldg(reinterpret_cast<const longlong2*>(q) + k);
+        x[2 * k] = (uint64_t)v.x;
+        x[2 * k + 1] = (uint64_t)v.y;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < R; ++k) x[k] = r0 + k < n ? (uint64_t)__ldg(q + k) : 0ULL;
+    }
+  } else if (kind == AB_KIND_I32) {
+    const int* q = (const int*)p + r0;
+    if (whole && (reinterpret_cast<uintptr_t>(q) & 15) == 0) {
+#pragma unroll
+      for (int k = 0; k < R / 4; ++k) {
+        const int4 v = __ldg(reinterpret_cast<const int4*>(q) + k);
+        x[4 * k] = (uint64_t)(int64_t)v.x;
+        x[4 * k + 1] = (uint64_t)(int64_t)v.y;
+        x[4 * k + 2] = (uint64_t)(int64_t)v.z;
+        x[4 * k + 3] = (uint64_t)(int64_t)v.w;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < R; ++k) x[k] = r0 + k < n ? (uint64_t)(int64_t)__ldg(q + k) : 0ULL;
+    }
+  } else {  // AB_KIND_BOOL
+    const uint8_t* q = (const uint8_t*)p + r0;
+#pragma unroll
+    for (int k = 0; k < R; ++k) x[k] = r0 + k < n ? (uint64_t)(__ldg(q + k) != 0) : 0ULL;
+  }
+}
+
+// byte k (k < R) of a word of R bucket bytes
+template <int R>
+__device__ __forceinline__ unsigned so_byte(const unsigned (&w)[R / 4], int k) {
+  return (w[k >> 2] >> (8 * (k & 3))) & 0xffu;
+}
+
+// Rows r0 .. r0 + R - 1 (R = 4, 8 or 16): their partitions written out
+// (16-byte stores where aligned) and their bucket bytes into w (SO_NONE
+// past n); cnt gets the word's bucket counts, packed.
+template <int R>
+__device__ __forceinline__ void so_hash(const SoArgs& a, long long r0,
+                                        unsigned long long (&cnt)[SO_Q], unsigned (&w)[R / 4]) {
+  const bool whole = r0 + R <= a.n;
+  uint64_t h[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) h[k] = 0ULL;
+  if (!a.zero) {
+    for (int j = 0; j < a.c.k; ++j) {
+      uint64_t x[R];
+      so_widen<R>(a.c.ptr[j], a.c.kind[j], r0, a.n, whole, x);
+#pragma unroll
+      for (int k = 0; k < R; ++k) h[k] = ab_hash_combine(h[k], x[k]);
+    }
+  }
+  const uint64_t top = (1ULL << a.bits) - 1ULL;
+  int p[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) p[k] = (int)((h[k] >> (64 - a.bits)) & top);
+  int32_t* out = a.part + r0;
+  if (whole && (reinterpret_cast<uintptr_t>(out) & 15) == 0) {
+#pragma unroll
+    for (int k = 0; k < R / 4; ++k)
+      reinterpret_cast<int4*>(out)[k] = make_int4(p[4 * k], p[4 * k + 1], p[4 * k + 2],
+                                                  p[4 * k + 3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+      if (r0 + k < a.n) out[k] = p[k];
+  }
+  // the mask bytes: one load where aligned and whole
+  unsigned m[R / 4];
+  const uint8_t* q = a.mask + r0;
+  if (whole && (reinterpret_cast<uintptr_t>(q) & (R - 1)) == 0) {
+    if constexpr (R == 16) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(q));
+      m[0] = v.x;
+      m[1] = v.y;
+      m[2] = v.z;
+      m[3] = v.w;
+    } else if constexpr (R == 8) {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(q));
+      m[0] = v.x;
+      m[1] = v.y;
+    } else {
+      m[0] = __ldg(reinterpret_cast<const unsigned*>(q));
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < R / 4; ++k) m[k] = 0u;
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+      if (r0 + k < a.n) m[k >> 2] |= (unsigned)__ldg(q + k) << (8 * (k & 3));
+  }
+#pragma unroll
+  for (int k = 0; k < R / 4; ++k) w[k] = 0u;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const unsigned bk = r0 + k >= a.n ? SO_NONE
+                        : so_byte<R>(m, k) ? (unsigned)p[k] : (unsigned)(a.parts + p[k]);
+    w[k >> 2] |= bk << (8 * (k & 3));
+    const unsigned long long inc = bk == SO_NONE ? 0ULL : 1ULL << (16 * (bk & 3));
+#pragma unroll
+    for (int qq = 0; qq < SO_Q; ++qq) cnt[qq] += qq == (int)(bk >> 2) ? inc : 0ULL;
+  }
+}
+
+// exclusive block scan of SO_Q packed words at once; tot gets the block's
+// sums.  ws holds (T / 32) * SO_Q words.
+template <int T>
+__device__ __forceinline__ void so_block_scan(const unsigned long long (&v)[SO_Q],
+                                              unsigned long long (&ex)[SO_Q],
+                                              unsigned long long (&tot)[SO_Q],
+                                              unsigned long long* ws) {
+  constexpr int W = T / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned long long x[SO_Q];
+#pragma unroll
+  for (int q = 0; q < SO_Q; ++q) {
+    x[q] = v[q];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned long long y = __shfl_up_sync(0xffffffffu, x[q], o);
+      if (lane >= o) x[q] += y;
+    }
+  }
+  if (lane == 31) {
+#pragma unroll
+    for (int q = 0; q < SO_Q; ++q) ws[warp * SO_Q + q] = x[q];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int q = 0; q < SO_Q; ++q) {
+      unsigned long long w = lane < W ? ws[lane * SO_Q + q] : 0ULL;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned long long y = __shfl_up_sync(0xffffffffu, w, o);
+        if (lane >= o) w += y;
+      }
+      if (lane < W) ws[lane * SO_Q + q] = w;  // inclusive over warps
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < SO_Q; ++q) {
+    ex[q] = (warp > 0 ? ws[(warp - 1) * SO_Q + q] : 0ULL) + x[q] - v[q];
+    tot[q] = ws[(W - 1) * SO_Q + q];
+  }
+  __syncthreads();  // ws is the next round's
+}
+
+__device__ __forceinline__ unsigned so_field(const unsigned long long (&v)[SO_Q], unsigned b) {
+  unsigned long long w = 0ULL;
+#pragma unroll
+  for (int q = 0; q < SO_Q; ++q) w = q == (int)(b >> 2) ? v[q] : w;
+  return (unsigned)(w >> (16 * (b & 3))) & 0xffffu;
+}
+
+// The placement of a round of R rows a thread whose counts are scanned: ex,
+// the thread's exclusive prefix of each bucket over the block, tot the
+// block's counts.
+template <int T, int R>
+__device__ __forceinline__ void so_place(const unsigned (&w)[R / 4], long long r0, int nb,
+                                         const unsigned long long (&ex)[SO_Q],
+                                         const unsigned long long (&tot)[SO_Q],
+                                         int32_t* __restrict__ perm, int* stage,
+                                         uint8_t* stage_b, long long* next, long long* dst) {
+  unsigned long long base[SO_Q];
+  // the round's bucket offsets: an exclusive prefix over the 16-bit fields
+  // (a round's rows, at most R T, fit a field)
+  unsigned long long carry = 0ULL;
+#pragma unroll
+  for (int q = 0; q < SO_Q; ++q) {
+    const unsigned long long t = tot[q];
+    const unsigned long long incl = t + (t << 16) + (t << 32) + (t << 48);
+    base[q] = incl - t + carry * 0x0001000100010001ULL;
+    carry += incl >> 48;
+  }
+  if ((int)threadIdx.x < nb) {  // thread b: where the round's rows of bucket b go
+    const unsigned b = threadIdx.x;
+    dst[b] = next[b] - (long long)so_field(base, b);
+    next[b] += (long long)so_field(tot, b);
+  }
+#pragma unroll
+  for (int q = 0; q < SO_Q; ++q) base[q] += ex[q];
+  const long long r = r0 + (long long)threadIdx.x * R;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const unsigned bk = so_byte<R>(w, k);
+    if (bk == SO_NONE) continue;
+    const unsigned slot = so_field(base, bk);
+    const unsigned long long inc = 1ULL << (16 * (bk & 3));
+#pragma unroll
+    for (int q = 0; q < SO_Q; ++q) base[q] += q == (int)(bk >> 2) ? inc : 0ULL;
+    stage[cp_slot(slot)] = (int)(r + k);
+    stage_b[slot] = (uint8_t)bk;
+  }
+  __syncthreads();
+  const unsigned nv = (unsigned)carry;
+  for (unsigned i = threadIdx.x; i < nv; i += T) perm[dst[stage_b[i]] + i] = stage[cp_slot(i)];
+  __syncthreads();  // the stage and dst are the next round's
+}
+
+// next[b] = the start of bucket b + its rows in the tiles before t, from
+// every tile's counts (tiles * nb words); tile 0 writes the live count.
+// Thread (g, b) of 16 groups of 16 sums bucket b over the tiles g, g + 16,
+// ..., eight loads in flight at a time (one at a time took the same time:
+// 0.0175 against 0.0178 ms for the two launches at 524,288 rows on an
+// H100); the groups are summed by shuffles and over the warps in red.
+__device__ __forceinline__ void so_tile_starts(const unsigned* counts, long long tiles,
+                                               long long t, int nb, int parts, int* n_live,
+                                               long long* next,
+                                               unsigned long long (*red)[2][SO_BUCKETS_MAX]) {
+  constexpr int G = SO_THREADS / SO_BUCKETS_MAX;
+  const int b = threadIdx.x % SO_BUCKETS_MAX, g = threadIdx.x / SO_BUCKETS_MAX;
+  const unsigned lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned long long all = 0ULL, before = 0ULL;
+  for (long long i0 = g; i0 < tiles; i0 += 8 * G) {
+    unsigned v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const long long i = i0 + (long long)u * G;
+      v[u] = b < nb && i < tiles ? __ldcg(counts + i * nb + b) : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      all += v[u];
+      before += i0 + (long long)u * G < t ? v[u] : 0u;
+    }
+  }
+  all += __shfl_down_sync(0xffffffffu, all, 16);  // lanes l and l + 16 hold one bucket
+  before += __shfl_down_sync(0xffffffffu, before, 16);
+  if (lane < 16) {
+    red[warp][0][lane] = all;
+    red[warp][1][lane] = before;
+  }
+  __syncthreads();
+  if (warp == 0) {  // lane b: bucket b's start, and this tile's first row of it
+    unsigned long long sum = 0ULL, bef = 0ULL;
+    if ((int)lane < nb) {
+#pragma unroll
+      for (int w = 0; w < SO_THREADS / 32; ++w) {
+        sum += red[w][0][lane];
+        bef += red[w][1][lane];
+      }
+    }
+    unsigned long long incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned long long y = __shfl_up_sync(0xffffffffu, incl, o);
+      if ((int)lane >= o) incl += y;
+    }
+    const unsigned long long live = __shfl_sync(0xffffffffu, incl, parts - 1);
+    if ((int)lane < nb) next[lane] = (long long)(incl - sum + bef);
+    if (t == 0 && lane == 0) *n_live = (int)live;
+  }
+  __syncthreads();
+}
+
+// One launch up to CP_ONE_ROWS rows: a cooperative grid of tiles of one
+// round each.  counts: tiles * nb words, no initial value.
+__global__ void __launch_bounds__(SO_THREADS) k16_spill_coop(SoArgs a, unsigned* counts) {
+  constexpr int T = SO_THREADS;
+  __shared__ int stage[CP_STAGE(T)];
+  __shared__ uint8_t stage_b[16 * T];
+  __shared__ unsigned long long ws[(T / 32) * SO_Q];
+  __shared__ long long next[SO_BUCKETS_MAX], dst[SO_BUCKETS_MAX];
+  __shared__ unsigned long long red[T / 32][2][SO_BUCKETS_MAX];
+  cg::grid_group grid = cg::this_grid();
+  const int nb = 2 * a.parts;
+  const long long t = blockIdx.x, r0 = t * SO_CO_TILE;
+  unsigned long long cnt[SO_Q], ex[SO_Q], tot[SO_Q];
+#pragma unroll
+  for (int q = 0; q < SO_Q; ++q) cnt[q] = 0ULL;
+  unsigned w[SO_CO_ROWS / 4];
+  so_hash<SO_CO_ROWS>(a, r0 + SO_CO_ROWS * threadIdx.x, cnt, w);
+  so_block_scan<T>(cnt, ex, tot, ws);  // ranks the round and counts the tile
+  if ((int)threadIdx.x < nb) counts[t * nb + threadIdx.x] = so_field(tot, threadIdx.x);
+  grid.sync();  // every tile's counts are out
+  so_tile_starts(counts, gridDim.x, t, nb, a.parts, a.n_live, next, red);
+  so_place<T, SO_CO_ROWS>(w, r0, nb, ex, tot, a.perm, stage, stage_b, next, dst);
+}
+
+// words: the tiles' bucket bytes (the scatter's input); counts: tiles * nb
+// words.  No initial value: each tile writes its own.
+__global__ void __launch_bounds__(SO_THREADS)
+    k16_spill_count(SoArgs a, uint2* __restrict__ words, unsigned* __restrict__ counts) {
+  __shared__ unsigned long long ws[(SO_THREADS / 32) * SO_Q];
+  const int nb = 2 * a.parts;
+  const long long t = blockIdx.x;
+  unsigned long long cnt[SO_Q], ex[SO_Q], tot[SO_Q];
+#pragma unroll
+  for (int q = 0; q < SO_Q; ++q) cnt[q] = 0ULL;
+  unsigned w[SO_CO_ROWS / 4];
+  so_hash<SO_CO_ROWS>(a, t * SO_CO_TILE + SO_CO_ROWS * threadIdx.x, cnt, w);
+  words[t * SO_THREADS + threadIdx.x] = make_uint2(w[0], w[1]);
+  so_block_scan<SO_THREADS>(cnt, ex, tot, ws);
+  if ((int)threadIdx.x < nb) counts[t * nb + threadIdx.x] = so_field(tot, threadIdx.x);
+}
+
+// the tile's rows placed as k16_spill_coop places them, its bucket bytes
+// from the count pass
+__global__ void __launch_bounds__(SO_THREADS)
+    k16_spill_scatter(SoArgs a, const uint2* __restrict__ words,
+                      const unsigned* __restrict__ counts) {
+  constexpr int T = SO_THREADS;
+  __shared__ int stage[CP_STAGE(T)];
+  __shared__ uint8_t stage_b[16 * T];
+  __shared__ unsigned long long ws[(T / 32) * SO_Q];
+  __shared__ long long next[SO_BUCKETS_MAX], dst[SO_BUCKETS_MAX];
+  __shared__ unsigned long long red[T / 32][2][SO_BUCKETS_MAX];
+  const int nb = 2 * a.parts;
+  const long long t = blockIdx.x;
+  const uint2 word = words[t * T + threadIdx.x];
+  const unsigned w[SO_CO_ROWS / 4] = {word.x, word.y};
+  so_tile_starts(counts, gridDim.x, t, nb, a.parts, a.n_live, next, red);
+  unsigned long long cnt[SO_Q], ex[SO_Q], tot[SO_Q];
+#pragma unroll
+  for (int q = 0; q < SO_Q; ++q) cnt[q] = 0ULL;
+#pragma unroll
+  for (int k = 0; k < SO_CO_ROWS; ++k) {
+    const unsigned bk = so_byte<SO_CO_ROWS>(w, k);
+    const unsigned long long inc = bk == SO_NONE ? 0ULL : 1ULL << (16 * (bk & 3));
+#pragma unroll
+    for (int q = 0; q < SO_Q; ++q) cnt[q] += q == (int)(bk >> 2) ? inc : 0ULL;
+  }
+  so_block_scan<T>(cnt, ex, tot, ws);
+  so_place<T, SO_CO_ROWS>(w, t * SO_CO_TILE, nb, ex, tot, a.perm, stage, stage_b, next, dst);
+}
+
+// --------------------------------------------------------------------------
 // the C interface
 // --------------------------------------------------------------------------
 
@@ -312,5 +718,57 @@ AB_EXPORT int ab_compaction_order(const void* mask, long long n, void* perm, voi
   if (err) return err;
   k2_compact_scatter<<<(unsigned)tiles, CP_THREADS, 0, s>>>(
       words, shift, n, (unsigned long long*)status, (const int*)n_live, (int32_t*)perm);
+  return ab_last_error();
+}
+
+// K16's launches for n rows: 1 up to CP_ONE_ROWS, else 2.
+AB_EXPORT int ab_spill_launches(long long n) { return n <= CP_ONE_ROWS ? 1 : 2; }
+
+// The scratch of a call of n rows: one launch, the tiles' counts (tiles *
+// 2 * parts words); two, the tiles' bucket bytes, then tiles * 2 * parts
+// counts.  No initial value: each form writes what it reads.
+AB_EXPORT long long ab_spill_scratch_bytes(long long n, int parts) {
+  const long long tiles = (n + SO_CO_TILE - 1) / SO_CO_TILE;
+  return (ab_spill_launches(n) == 1 ? 0 : tiles * SO_CO_TILE) + 4 * tiles * 2 * parts;
+}
+
+// ptrs / kinds / k: the key columns (as K3 takes them); mask: bool[n];
+// zero: forced collisions (every hash 0); bits: log2 of the partitions, 1
+// to 3; part: int32[n]; perm: int32[n]; n_live: int32[1]; scratch:
+// ab_spill_scratch_bytes(n, parts) bytes, 16-byte aligned.
+AB_EXPORT int ab_spill_order(const void* const* ptrs, const int* kinds, int k, const void* mask,
+                             long long n, int zero, int bits, void* part, void* perm,
+                             void* n_live, void* scratch, void* stream) {
+  if (n < 1 || n > 0x7fffffffLL || bits < 1 || bits > 3) return (int)cudaErrorInvalidValue;
+  SoArgs a;
+  int err = ab_fill_hash_cols(&a.c, ptrs, kinds, k);
+  if (err) return err;
+  a.mask = (const uint8_t*)mask;
+  a.n = n;
+  a.zero = zero;
+  a.bits = bits;
+  a.parts = 1 << bits;
+  a.part = (int32_t*)part;
+  a.perm = (int32_t*)perm;
+  a.n_live = (int*)n_live;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (scratch == nullptr || (reinterpret_cast<uintptr_t>(scratch) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (ab_spill_launches(n) == 1) {
+    const unsigned tiles = (unsigned)((n + SO_CO_TILE - 1) / SO_CO_TILE);
+    unsigned* counts = (unsigned*)scratch;
+    void* params[] = {&a, &counts};
+    err = (int)cudaLaunchCooperativeKernel((const void*)k16_spill_coop, dim3(tiles),
+                                           dim3(SO_THREADS), params, 0, s);
+    if (err) return err;
+    return ab_last_error();
+  }
+  const long long tiles = (n + SO_CO_TILE - 1) / SO_CO_TILE;
+  uint2* words = (uint2*)scratch;
+  unsigned* counts = (unsigned*)((char*)scratch + tiles * SO_CO_TILE);
+  k16_spill_count<<<(unsigned)tiles, SO_THREADS, 0, s>>>(a, words, counts);
+  err = ab_last_error();
+  if (err) return err;
+  k16_spill_scatter<<<(unsigned)tiles, SO_THREADS, 0, s>>>(a, words, counts);
   return ab_last_error();
 }

@@ -1,5 +1,7 @@
-// K3: hash64 / bucket_of — shuffle partition ids per row; and K16:
-// spill_partition — the spilled join's build partition of each row.
+// K3: hash64 / bucket_of — shuffle partition ids per row; and K16's first
+// form, spill_partition — the spilled join's build partition of each row
+// (the spilled join now calls K16's second form, spill_order in
+// compact.cu, which also orders the rows by partition for the pack).
 //
 // Replaces arrow_ballista_tpu/ops/kernels.py hash64 (l.62) and bucket_of
 // (l.77), used by the repartition bucketing program (ops/shuffle.py:499).

@@ -245,11 +245,15 @@ class ColumnBatch:
         return tuple(i64), tuple(f64), tuple(f32)
 
     def packed_numpy(self, hint: Optional[int] = None,
-                     extra32: Optional[Dict[str, torch.Tensor]] = None) -> tuple:
+                     extra32: Optional[Dict[str, torch.Tensor]] = None,
+                     order: Optional[tuple] = None) -> tuple:
         """Host numpy columns of live rows only, via ONE packed
         device->host copy that also carries the live-row count.  Returns
         (cols, n).  When the count exceeds ``hint``, one more exact-size
-        fetch happens."""
+        fetch happens.  ``order`` is an optional precomputed (int32
+        permutation with the live rows first, int32[1] live count), as K16's
+        ``spill_order`` gives it: the rows come out in its order and K2 does
+        not run."""
         from ..ops.kernels import pack_for_host, to_host, unpack_from_host
 
         extra32 = extra32 or {}
@@ -265,7 +269,8 @@ class ColumnBatch:
         cols = dict(self.columns)
         cols.update(extra32)
         while True:
-            buf, fbuf = pack_for_host(cols, self.mask, target, namesi64, namesf64, names32)
+            buf, fbuf = pack_for_host(cols, self.mask, target, namesi64, namesf64, names32,
+                                      order)
             out, n = unpack_from_host(to_host(buf), to_host(fbuf) if fbuf is not None else None,
                                       target, i64, f64, f32)
             if out is not None:

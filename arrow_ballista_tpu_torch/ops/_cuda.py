@@ -60,6 +60,9 @@ SIGNATURES = {
         "ab_compact_launches": ([_LL], _I),
         "ab_compact_tiles": ([_LL], _LL),
         "ab_compaction_order": ([_P, _LL, _P, _P, _P, _P, _P], _I),
+        "ab_spill_launches": ([_LL], _I),
+        "ab_spill_scratch_bytes": ([_LL, _I], _LL),
+        "ab_spill_order": ([_P, _P, _I, _P, _LL, _I, _I, _P, _P, _P, _P, _P], _I),
     },
     "sort": {
         "ab_sort_minmax_blocks": ([_LL], _I),
@@ -83,7 +86,8 @@ SIGNATURES = {
         "ab_probe_join": ([_P, _P, _LL, _P, _LL, _I, _LL, _P, _P, _P, _P, _P, _P, _P], _I),
     },
     "segment": {
-        "ab_segment_any": ([_P, _I, _P, _LL, _LL, _P, _P], _I),
+        "ab_segment_state_words": ([_LL], _LL),
+        "ab_segment_any": ([_P, _I, _P, _LL, _LL, _P, _I, _P, _P, _P], _I),
     },
     "seg_agg": {
         "ab_seg_state_words": ([_LL], _LL),

@@ -12,13 +12,13 @@ in compile/fused.py and count their launches here).
 | K4 ``sort_order`` | ``csrc/sort.cu`` | ``sort_order`` l.195 |
 | K5 ``build_side_sort`` | ``csrc/join_build.cu`` | ``build_side_sort`` l.728 |
 | K6 ``probe_join`` / ``probe_counts`` | ``csrc/probe.cu`` | ``probe_join`` l.739 |
-| K7 ``segment_any`` | ``csrc/segment.cu`` | ``segment_any`` l.772 |
+| K7 ``segment_any`` (the join's mask folded in) | ``csrc/segment.cu`` | ``segment_any`` l.772 and its mask in the join program, operators.py:1319 |
 | K8 ``grouped_on_order`` | ``csrc/seg_agg.cu`` | ``_grouped_aggregate_on_order`` l.314 |
 | K9 ``presorted_disorder`` | ``csrc/clustered.cu`` | ``grouped_aggregate_presorted`` l.237 |
 | K10 ``key_range_check`` | ``csrc/clustered.cu`` | operators.py:632-654 "sort.range_check" |
 | K11 ``clustered_keep`` | ``csrc/clustered.cu`` | operators.py:672-697 "agg.clustered_keep" |
 | K14 ``extract_field`` | ``csrc/extract.cu`` + ``civil.cuh`` | ``extract_field`` l.800, ``civil_from_days`` l.782 |
-| K16 ``spill_partition`` | ``csrc/hash.cu`` | operators.py:1512 "join.spill_part" |
+| K16 ``spill_order`` (and ``spill_partition``) | ``csrc/compact.cu`` (``csrc/hash.cu``) | operators.py:1512 "join.spill_part" and the pack's compaction l.122 |
 | K17 ``dispatch_to_buckets`` | ``csrc/dispatch.cu`` | parallel/ici_shuffle.py:33 |
 | K18 ``merge_rank_states`` | ``csrc/rank_merge.cu`` | parallel/distributed.py:136-145 psum/pmin/pmax |
 | K20 ``concat_columns`` | ``csrc/gather.cu`` | models/batch.py:435 "batch.concat" |
@@ -61,7 +61,8 @@ LAUNCHES: Dict[str, int] = {"dense_group_states": 0, "compaction_order": 0,
                             "presorted_disorder": 0, "key_range_check": 0,
                             "clustered_keep": 0, "fused_rows": 0, "fused_agg": 0,
                             "extract_field": 0, "passthrough_rows": 0,
-                            "spill_partition": 0, "dispatch_to_buckets": 0,
+                            "spill_partition": 0, "spill_order": 0,
+                            "dispatch_to_buckets": 0,
                             "merge_rank_states": 0, "mesh_derive": 0,
                             "operator_program": 0, "concat_columns": 0,
                             "fused_agg_dense": 0,
@@ -276,6 +277,62 @@ def spill_partition(key_arrays: Sequence[torch.Tensor], num_parts: int) -> torch
                                        bits, _ptr(out), _stream(dev)), "spill_partition")
     count_launch("spill_partition")
     return out
+
+
+SPILL_ORDER_MAX_PARTS = 8  # csrc/compact.cu SO_PARTS_MAX
+
+
+def spill_order_plain(key_arrays: Sequence[torch.Tensor], mask: torch.Tensor, num_parts: int):
+    """Plain twin of K16's ordered form: ``spill_partition_plain``, then a
+    stable argsort on (dead, partition)."""
+    part = spill_partition_plain(key_arrays, num_parts)
+    key = (~mask).to(torch.int64) * num_parts + part.to(torch.int64)
+    order = torch.sort(key, stable=True).indices.to(torch.int32)
+    return part, order, mask.sum().to(torch.int32).reshape(1)
+
+
+def spill_order(key_arrays: Sequence[torch.Tensor], mask: torch.Tensor, num_parts: int):
+    """A spilled build batch's partitions and the pack's order in one pass:
+    (part, order, count).  ``part`` is ``spill_partition``'s int32
+    partition of every row; ``order`` the stable int32 permutation that
+    puts the live rows first, grouped by partition in ascending order and
+    in row order within one, then the dead rows likewise; ``count`` the
+    live rows as an int32 tensor of one element (``compaction_order(...,
+    with_count=True)``'s).  ``order[:count]`` is what the pack gathers.
+    One launch up to 2^17 rows (a cooperative grid of 2,048-row tiles),
+    two above (csrc/compact.cu)."""
+    if _is_cpu(mask):
+        return spill_order_plain(key_arrays, mask, num_parts)
+    bits = _spill_bits(num_parts)
+    if num_parts > SPILL_ORDER_MAX_PARTS:
+        raise ValueError(f"spill_order takes at most {SPILL_ORDER_MAX_PARTS} partitions on the "
+                         f"card, got {num_parts}")
+    _require_cuda(mask, *key_arrays)
+    if mask.dtype != torch.bool:
+        raise TypeError(f"mask must be bool, got {mask.dtype}")
+    cols, ptrs, kinds = _hash_columns(key_arrays)
+    m = _flat(mask)
+    n = m.shape[0]
+    if cols[0].shape[0] != n:
+        raise ValueError("keys and mask must have one length")
+    dev = m.device
+    part = torch.empty(n, dtype=torch.int32, device=dev)
+    order = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return part, order, torch.zeros(1, dtype=torch.int32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    lib = _cuda.LIBRARIES.get("compact")
+    launches = lib.ab_spill_launches(n)
+    stream = _stream(dev)
+    # each form writes every byte of the scratch it reads
+    scratch = torch.empty(lib.ab_spill_scratch_bytes(n, num_parts), dtype=torch.uint8, device=dev)
+    _cuda.check(lib.ab_spill_order(ptrs, kinds, len(cols), _ptr(m), n,
+                                   int(force_hash_collisions()), bits, _ptr(part), _ptr(order),
+                                   _ptr(count), _ptr(scratch), stream), "spill_order")
+    count_launch("spill_order")
+    _PLANS.spill_order = {"form": "one_launch" if launches == 1 else "two_launch", "rows": n,
+                          "launches": launches}
+    return part, order, count
 
 
 # --------------------------------------------------------------------------
@@ -594,7 +651,10 @@ def mask_and(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def mask_andnot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """K22: ``a & ~b`` (an anti join's or an outer join's unmatched rows)."""
+    """K22: ``a & ~b``.  No join path calls it since the joins fold their
+    masks into K7 (``segment_any(..., within, negate=True)``); it stays as
+    the andnot mode of K22's one binary kernel (a mode switch in
+    csrc/gather.cu), held against its twin with the other modes."""
     if _is_cpu(a):
         return mask_andnot_plain(a, b)
     return _mask_launch("andnot", a, b)
@@ -640,11 +700,15 @@ def bucket_masks(mask: torch.Tensor, bucket: torch.Tensor, num_out: int) -> torc
 # --------------------------------------------------------------------------
 
 
-def pack_for_host_plain(cols, mask, target: int, namesi64, namesf64, names32):
-    """Plain twin of pack_for_host: K2's twin, gathers, ``torch.cat`` and
-    ``torch.stack``, as the reference writes it."""
-    order = compaction_order(mask)[:target].long()
-    parts = [mask.sum().to(torch.int64).reshape(1)]
+def pack_for_host_plain(cols, mask, target: int, namesi64, namesf64, names32, order=None):
+    """Plain twin of pack_for_host: K2's twin (or the given order and
+    count), gathers, ``torch.cat`` and ``torch.stack``, as the reference
+    writes it."""
+    if order is None:
+        order = (compaction_order(mask), mask.sum().to(torch.int32).reshape(1))
+    perm, count = order
+    order = perm[:target].long()
+    parts = [count.to(torch.int64).reshape(1)]
     for k in namesi64:
         parts.append(cols[k][order])
     if names32:
@@ -665,19 +729,21 @@ def pack_for_host_plain(cols, mask, target: int, namesi64, namesf64, names32):
     return buf, fbuf
 
 
-def pack_for_host(cols, mask, target: int, namesi64, namesf64, names32):
+def pack_for_host(cols, mask, target: int, namesi64, namesf64, names32, order=None):
     """Compact live rows to the front and pack columns + live-row count.
 
     Same layout as the reference (arrow_ballista_tpu/ops/kernels.py:122):
     ``buf`` is one int64 buffer [count:1][each int64 column:target][all
     32-bit columns, bit-paired into int64]; ``fbuf`` stacks float64 columns
-    (or None).  K2 orders the rows and counts them; one K21 pass gathers
-    every column straight into its slice of ``buf`` or its row of ``fbuf``
-    (bools widened to int32) and writes the count."""
+    (or None).  K2 orders the rows and counts them, unless ``order`` gives
+    a precomputed (int32 permutation with the live rows first, int32[1]
+    live count), as K16's ``spill_order`` does; one K21 pass gathers every
+    column through it straight into its slice of ``buf`` or its row of
+    ``fbuf`` (bools widened to int32) and writes the count."""
     if _is_cpu(mask):
-        return pack_for_host_plain(cols, mask, target, namesi64, namesf64, names32)
-    order, count = compaction_order(mask, with_count=True)
-    idx = order[:target]
+        return pack_for_host_plain(cols, mask, target, namesi64, namesf64, names32, order)
+    perm, count = compaction_order(mask, with_count=True) if order is None else order
+    idx = perm[:target]
     dev = mask.device
     n32 = len(names32) * target
     buf = torch.empty(1 + len(namesi64) * target + (n32 + 1) // 2, dtype=torch.int64,
@@ -828,8 +894,9 @@ def _bitonic_steps(n: int) -> int:
 
 def kernel_plan(name: str) -> dict:
     """This thread's last call's plan of K2 (``compaction_order``: form,
-    rows, launches) or K6 (``probe_join``, either wrapper: mode, rows,
-    launches)."""
+    rows, launches), K6 (``probe_join``, either wrapper: mode, rows,
+    launches), K16's ordered form (``spill_order``: form, rows, launches)
+    or K7 (``segment_any``: rows, segments, launches)."""
     return dict(getattr(_PLANS, name, {}))
 
 
@@ -1452,11 +1519,14 @@ def key_range_check_plain(keys: torch.Tensor, mask: torch.Tensor, lo: int, hi: i
 # K8's look-back payloads (two folds a tile and aggregate) are a buffer of
 # their own, kept apart so that one call's folds never lie where a later
 # call expects a zero status word; a status word guards each fold, so
-# they need no reset.
+# they need no reset.  K7 keeps one hit byte a segment, which its verdict
+# kernel reads and puts back to zero.
 _ACCUMULATORS: Dict[Tuple[int, int], torch.Tensor] = {}
 _PROBE_STATES: Dict[Tuple[int, int], torch.Tensor] = {}
 _SEG_STATES: Dict[Tuple[int, int], torch.Tensor] = {}
 _SEG_PAYLOADS: Dict[Tuple[int, int], torch.Tensor] = {}
+_SEG_ANY_STATES: Dict[Tuple[int, int], torch.Tensor] = {}
+_SEG_ANY_LOCK = threading.Lock()
 _ACCUMULATORS_LOCK = threading.Lock()
 
 
@@ -1736,35 +1806,64 @@ def probe_join(probe_hash: torch.Tensor, probe_mask: torch.Tensor,
     return probe_idx, build_pos, pair_valid, out[0]
 
 
-def segment_any_plain(values, seg_ids, num_segments: int) -> torch.Tensor:
+def segment_any_plain(values, seg_ids, num_segments: int, within=None,
+                      negate: bool = False) -> torch.Tensor:
     """Plain twin of K7: segment_max(values as int32) > 0, out-of-range
-    ids dropped."""
+    ids dropped; then ``hit ^ negate``, ANDed with ``within`` when given."""
     v = values.to(torch.int32)
     seg = seg_ids.long()
     ok = (seg >= 0) & (seg < num_segments)
     idx = torch.where(ok, seg, num_segments)
     best = torch.full((num_segments + 1,), torch.iinfo(torch.int32).min, dtype=torch.int32,
                       device=v.device).scatter_reduce_(0, idx, v, "amax", include_self=True)
-    return best[:num_segments] > 0
+    hit = best[:num_segments] > 0
+    if negate:
+        hit = ~hit
+    return hit if within is None else within & hit
 
 
-def segment_any(values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """Per-segment logical OR (the semi/anti/left/full join verdicts)."""
+def segment_any(values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int, within=None,
+                negate: bool = False) -> torch.Tensor:
+    """Per-segment logical OR of ``values`` (bool, or int32 > 0) by int32
+    ``seg_ids``, ids outside [0, num_segments) dropped: the semi, anti,
+    left and full join verdicts.  With ``within`` (a bool mask of
+    num_segments) the result is ``within & hit``, or ``within & ~hit`` with
+    ``negate``; so a join's verdict and its mask are one launch, with no
+    clearing pass or mask kernel (csrc/segment.cu: two launches over a
+    per-stream byte a segment, zero between calls)."""
     if _is_cpu(values):
-        return segment_any_plain(values, seg_ids, num_segments)
-    _require_cuda(values, seg_ids)
+        return segment_any_plain(values, seg_ids, num_segments, within, negate)
+    _require_cuda(values, seg_ids, *([within] if within is not None else []))
     if values.dtype not in (torch.bool, torch.int32) or seg_ids.dtype != torch.int32:
         raise TypeError(f"segment_any takes bool or int32 values and int32 ids, got "
                         f"{values.dtype}, {seg_ids.dtype}")
+    ns = int(num_segments)
+    if ns < 1:
+        raise ValueError(f"segment_any needs at least one segment, got {ns}")
     v, sg = _flat(values), _flat(seg_ids)
+    if sg.shape[0] != v.shape[0]:
+        raise ValueError("values and segment ids must have one length")
+    w = None
+    if within is not None:
+        if within.dtype != torch.bool or within.numel() != ns:
+            raise ValueError("within must be a bool mask of num_segments")
+        w = _flat(within)
     dev = v.device
-    hit = torch.empty(int(num_segments), dtype=torch.bool, device=dev)
+    # rounded up to 16 bytes: the kernel stores 16-byte words
+    out = torch.empty((ns + 15) // 16 * 16, dtype=torch.bool, device=dev)
     lib = _cuda.LIBRARIES.get("segment")
-    _cuda.check(lib.ab_segment_any(_ptr(v), _KIND[values.dtype], _ptr(sg), v.shape[0],
-                                   int(num_segments), _ptr(_flat(hit)), _stream(dev)),
-                "segment_any")
+    stream = _stream(dev)
+    # the stream's hit bytes are marked by one launch and read back to zero
+    # by the next: no other call may queue its launches between them
+    with _SEG_ANY_LOCK:
+        state = _stream_words(_SEG_ANY_STATES, dev, stream, lib.ab_segment_state_words(ns))
+        _cuda.check(lib.ab_segment_any(_ptr(v), _KIND[values.dtype], _ptr(sg), v.shape[0], ns,
+                                       None if w is None else _ptr(w), int(bool(negate)),
+                                       _ptr(_flat(out)), _ptr(state), stream), "segment_any")
     count_launch("segment_any")
-    return hit
+    _PLANS.segment_any = {"rows": v.shape[0], "segments": ns,
+                          "launches": 2 if v.shape[0] else 1}
+    return out[:ns]
 
 
 # --------------------------------------------------------------------------

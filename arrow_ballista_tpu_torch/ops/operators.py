@@ -1278,9 +1278,9 @@ class JoinExec(ExecutionPlan):
             # NULL keys, then the residual filter: one mask program
             ok = operator_program(vprog, {**pg, **bg}, pair_valid, faux)
 
+            # each verdict is one K7 launch with the probe mask folded in
             if jt in ("semi", "anti"):
-                hit = K.segment_any(ok, pi, n_probe)
-                mask = K.mask_and(pmask, hit) if jt == "semi" else K.mask_andnot(pmask, hit)
+                mask = K.segment_any(ok, pi, n_probe, within=pmask, negate=jt == "anti")
                 return pcols, mask, total, None
 
             out_cols = {n: pg[n] for n in lnames}
@@ -1288,20 +1288,18 @@ class JoinExec(ExecutionPlan):
             out_mask = ok
             if jt in ("left", "full"):
                 # unmatched probe rows, build side NULL-filled
-                hit = K.segment_any(ok, pi, n_probe)
+                miss = K.segment_any(ok, pi, n_probe, within=pmask, negate=True)
                 tail = {n: pcols[n] if n in lnames else torch.full(
                     (n_probe,), rfill[n], dtype=v.dtype, device=v.device)
                     for n, v in out_cols.items()}
-                out_cols, out_mask = K.concat_columns(
-                    [out_cols, tail], [out_mask, K.mask_andnot(pmask, hit)], 0)
+                out_cols, out_mask = K.concat_columns([out_cols, tail], [out_mask, miss], 0)
             if jt == "full":
                 # unmatched build rows, probe side NULL-filled
-                hit_b = K.segment_any(ok, bidx, n_build)
+                miss_b = K.segment_any(ok, bidx, n_build, within=bmask, negate=True)
                 tail = {n: bcols[n] if n in rnames else torch.full(
                     (n_build,), lfill[n], dtype=v.dtype, device=v.device)
                     for n, v in out_cols.items()}
-                out_cols, out_mask = K.concat_columns(
-                    [out_cols, tail], [out_mask, K.mask_andnot(bmask, hit_b)], 0)
+                out_cols, out_mask = K.concat_columns([out_cols, tail], [out_mask, miss_b], 0)
             # an inner join's probe-row index per pair rides along for the
             # spilled path's order-restoring merge (all matches of a probe
             # row share its hash, hence one build partition)
@@ -1428,8 +1426,11 @@ class JoinExec(ExecutionPlan):
                       ) -> List[ColumnBatch]:
         """Reservation denied: partitioned-build spill for inner, semi and
         anti joins.  Build batches split by the top bits of the join-key
-        hash (K16) into ``_SPILL_PARTS`` disk partitions (IPC runs); each
+        hash into ``_SPILL_PARTS`` disk partitions (IPC runs); each
         partition then rehydrates alone and the whole probe runs against it.
+        K16 (``spill_order``) gives a batch's partitions and the pack's
+        order in one pass: the live rows grouped by partition, in row order
+        within one, so each partition's run is a slice of the host columns.
 
         Bit-identical to the single in-memory build:
 
@@ -1462,15 +1463,16 @@ class JoinExec(ExecutionPlan):
                     side = operator_program(rprog, b.columns, b.mask,
                                             rprog.aux_arrays(b.dicts))
                     keys = [side[f"__k{i}"] for i in range(len(self.on))]
-                    cols, _n = b.packed_numpy(
-                        extra32={"__part": K.spill_partition(keys, nparts)})
-                    pids = cols.pop("__part")
+                    part, order, count = K.spill_order(keys, b.mask, nparts)
+                    cols, _n = b.packed_numpy(extra32={"__part": part}, order=(order, count))
+                    # the live rows come grouped by partition, ascending
+                    bounds = np.searchsorted(cols.pop("__part"), np.arange(nparts + 1))
                     for p in range(nparts):
-                        sel = pids == p
-                        if not sel.any():
+                        lo, hi = int(bounds[p]), int(bounds[p + 1])
+                        if lo == hi:
                             continue
                         runs[p].append(spiller.write_run(
-                            rsch, {f.name: cols[f.name][sel] for f in rsch}, b.dicts))
+                            rsch, {f.name: cols[f.name][lo:hi] for f in rsch}, b.dicts))
                 self.metrics().add("spill_runs", len(spiller.runs))
                 self.metrics().add("spill_bytes", sum(r.num_bytes for r in spiller.runs))
 

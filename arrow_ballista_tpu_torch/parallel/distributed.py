@@ -269,17 +269,17 @@ def _probe_emit(join_type, key_names, sflags, null_key_sentinel, probe_names,
             ok = ok & (a[pil] != null_key_sentinel)
     ovf_j = total > out_capacity
 
+    # a verdict and its probe mask are one K7 launch
     if join_type in ("semi", "anti"):
-        hit = K.segment_any(ok, pi, p_mask.shape[0])
-        out_mask = p_mask & (hit if join_type == "semi" else ~hit)
+        out_mask = K.segment_any(ok, pi, p_mask.shape[0], within=p_mask,
+                                 negate=join_type == "anti")
         out_cols = {m: p_cols[m] for m in probe_names}
     else:
         out_cols = {m: p_cols[m][pil] for m in probe_names}
         out_cols.update({m: b_cols[m][bil] for m in build_names})
         out_mask = ok
         if join_type == "left":
-            hit = K.segment_any(ok, pi, p_mask.shape[0])
-            miss = p_mask & ~hit
+            miss = K.segment_any(ok, pi, p_mask.shape[0], within=p_mask, negate=True)
             out_cols = {
                 m: torch.cat([
                     out_cols[m],

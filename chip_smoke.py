@@ -289,8 +289,13 @@ PATH_KERNELS["sa_pt"] = ("fused_agg", "passthrough_rows", "hash64")
 PASSTHROUGH_PATHS = ("sa_q20", "sa_pt")
 for _q in SPILL_QUERIES:
     PATH_KERNELS[f"spill_q{_q}"] = ("compaction_order",)
-# the spilled joins' partitions (K16) must launch on at least one spill path
-SPILL_KERNELS = ("spill_partition",)
+# the spilled joins' partitions and pack order (K16's ordered form) must
+# launch on at least one spill path; its first form (spill_partition)
+# launches on no path and is held against its twin at its stress shapes
+SPILL_KERNELS = ("spill_order",)
+# the paths whose largest folded verdict (K7 with the probe mask) must
+# queue K7's two kernels and nothing else
+FOLDED_VERDICT_PATHS = ("q4", "pq_q4", "mesh4_q18")
 PATH_KERNELS["memsweep"] = ("compaction_order",)
 # K19-K22 on every path of the local engine: the scan filters, projections,
 # aggregate operands, join verification and repartition keys as generated
@@ -300,8 +305,11 @@ PATH_KERNELS["memsweep"] = ("compaction_order",)
 _LOCAL_NEW = ("operator_program", "concat_columns", "gather_columns", "bucket_masks")
 for _p in ("q1", "q3", "q4", "pq_q1", "pq_q3", "pq_q4", "pq_q18"):
     PATH_KERNELS[_p] = PATH_KERNELS[_p] + _LOCAL_NEW
-# K22's binary forms: q3's and q18's LIMIT (the window), q4's semi join (and)
-for _p in ("q3", "q4", "pq_q3", "pq_q4", "pq_q18"):
+# K22's binary forms: q3's and q18's LIMIT (the window); a semi or anti
+# verdict folds its mask into K7, so q4 launches none, and the and /
+# or forms run where a spilled semi or anti join merges its partitions'
+# verdicts (spill_q4, spill_q21)
+for _p in ("q3", "pq_q3", "pq_q18"):
     PATH_KERNELS[_p] = PATH_KERNELS[_p] + ("mask_ops",)
 # q7-q9 repartition nothing over parquet at these partitions (no K22)
 for _q in EXTRACT_QUERIES:
@@ -423,6 +431,56 @@ class RepartitionBatches:
 
     def __exit__(self, *exc):
         self.cls._materialize = self.orig
+
+
+class SpillSplitCheck:
+    """Watches, while active, the spilled joins' build split: the batch of
+    each ``spill_order`` call (K16's ordered form) must be packed through
+    the order it returned (the next ``pack_for_host`` call on the thread
+    gets it) with no K2 call in between; counts the calls, the packs that
+    got the order and the K2 calls in the split."""
+
+    NAMES = ("spill_order", "pack_for_host", "compaction_order")
+
+    def __enter__(self):
+        import threading
+
+        from arrow_ballista_tpu_torch.ops import kernels as K
+
+        self.K = K
+        self.orig = {n: getattr(K, n) for n in self.NAMES}
+        self.calls = self.packed = self.k2 = 0
+        lock, local, orig = threading.Lock(), threading.local(), self.orig
+
+        def spill_order(*a, **kw):
+            out = orig["spill_order"](*a, **kw)
+            local.open = True
+            with lock:
+                self.calls += 1
+            return out
+
+        def pack_for_host(*a, **kw):
+            if getattr(local, "open", False):
+                local.open = False
+                given = (len(a) > 6 and a[6] is not None) or kw.get("order") is not None
+                with lock:
+                    self.packed += int(given)
+            return orig["pack_for_host"](*a, **kw)
+
+        def compaction_order(*a, **kw):
+            if getattr(local, "open", False):
+                with lock:
+                    self.k2 += 1
+            return orig["compaction_order"](*a, **kw)
+
+        for name, fn in (("spill_order", spill_order), ("pack_for_host", pack_for_host),
+                         ("compaction_order", compaction_order)):
+            setattr(K, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.K, name, fn)
 
 
 def fail(msg: str) -> None:
@@ -601,72 +659,99 @@ def queued_torch_ops():
 DENSE_CALL_ITERS, DENSE_CALL_TRIES = 20, 3
 
 
-def dense_call_activities(K, F, calls: dict, label: str) -> dict:
-    """What one call queues at the path's largest dense aggregate call of
-    each form (K1's compacted form, K13's dense form).  On the host: the
-    aten ops that may queue device work (``queued_torch_ops``) and the
-    wrapper counts that rose; fails unless there is no such op and only the
-    form's own counts rose, by one.  On the card: the device activities by
-    name from torch.profiler over ``DENSE_CALL_ITERS`` warm calls, after a
-    spin kernel and a sync inside the profiled window (the profiler has
-    lost the first launches of a window: 4 of 5 calls recorded on one
-    machine, none of 5 on another), up to ``DENSE_CALL_TRIES`` windows
-    until one records a call's activity; fails unless every activity is
-    K1's kernel (no memset, init, K2 or torch glue) and a call queues at
-    most one (the profiler may miss a launch; it never invents one), or
-    when the spin was recorded but no call's activity in any window.  A
-    profiler that recorded nothing at all is reported, and the host check
-    and the query-level ``check_dense_trace`` stand."""
+def one_call_activities(K, fn, own: dict, kernels: tuple, label: str) -> tuple:
+    """What one warm call of ``fn`` queues.  On the host: the aten ops that
+    may queue device work (``queued_torch_ops``) and the wrapper counts
+    that rose; at fault unless there is no such op and the counts that rose
+    are ``own``.  On the card: the device activities by name from
+    torch.profiler over ``DENSE_CALL_ITERS`` warm calls, after a spin
+    kernel and a sync inside the profiled window (the profiler has lost the
+    first launches of a window: 4 of 5 calls recorded on one machine, none
+    of 5 on another), up to ``DENSE_CALL_TRIES`` windows until one records
+    a call's activity; at fault unless every activity's name holds one of
+    ``kernels`` and each comes at most once a call (the profiler may miss a
+    launch; it never invents one), or when the spin was recorded but no
+    call's activity in any window.  A profiler that recorded nothing at all
+    is logged, and the host check stands.  Returns (record, at fault)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fns, own = {}, {}
+    fn()
+    torch.cuda.synchronize()
+    before = dict(K.LAUNCHES)
+    with queued_torch_ops() as host:
+        fn()
+    torch.cuda.synchronize()
+    rose = {k: v - before.get(k, 0) for k, v in K.LAUNCHES.items() if v != before.get(k, 0)}
+    rec = {"torch_ops": host.ops, "wrapper_counts": rose}
+    bad = bool(host.ops) or rose != own
+    for attempt in range(1, DENSE_CALL_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(20_000_000)  # ~10 ms at 2 GHz
+            torch.cuda.synchronize()
+            for _ in range(DENSE_CALL_ITERS):
+                fn()
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        spun = any("spin_kernel" in key for _ms, _c, key in rows)
+        by = {key.split("(")[0][:60]: count / DENSE_CALL_ITERS
+              for _ms, count, key in rows if "spin_kernel" not in key}
+        rec.update(device=by, profiler_windows=attempt, spin_recorded=spun)
+        if by:
+            break
+    if by and any(not any(k in key for k in kernels) or c > 1.0 for key, c in by.items()):
+        bad = True
+    elif not by and spun:
+        bad = True
+    elif not by:
+        log(f"{label}: torch.profiler recorded no device activity in {DENSE_CALL_TRIES} "
+            "windows of the call: the host check stands")
+    return rec, bad
+
+
+def dense_call_activities(K, F, calls: dict, label: str) -> dict:
+    """``one_call_activities`` at the path's largest dense aggregate call
+    of each form (K1's compacted form, K13's dense form): one K1 kernel a
+    call (no memset, init, K2 or torch glue) and only the form's own
+    launch counts."""
+    out, bad = {}, []
     if "dense_grouped" in calls:
         args = calls["dense_grouped"][1]
-        fns["dense_grouped"] = lambda: K.dense_grouped(*args)
-        own["dense_grouped"] = {"dense_group_states": 1}
+        out["dense_grouped"], fault = one_call_activities(
+            K, lambda: K.dense_grouped(*args), {"dense_group_states": 1}, ("k1_dense<",),
+            f"{label} dense_grouped")
+        if fault:
+            bad.append("dense_grouped")
     if "fused_agg" in calls and K.dense_domain(calls["fused_agg"][1][5]) is not None:
         fargs = calls["fused_agg"][1]
-        fns["fused_agg"] = lambda: F.fused_agg(*fargs)
-        own["fused_agg"] = {"fused_agg": 1, "fused_agg_dense": 1}
-    out, bad = {}, []
-    for name, fn in fns.items():
-        fn()
-        torch.cuda.synchronize()
-        before = dict(K.LAUNCHES)
-        with queued_torch_ops() as host:
-            fn()
-        torch.cuda.synchronize()
-        rose = {k: v - before.get(k, 0) for k, v in K.LAUNCHES.items() if v != before.get(k, 0)}
-        rec = out[name] = {"torch_ops": host.ops, "wrapper_counts": rose}
-        if host.ops or rose != own[name]:
-            bad.append(name)
-        for attempt in range(1, DENSE_CALL_TRIES + 1):
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                torch.cuda._sleep(20_000_000)  # ~10 ms at 2 GHz
-                torch.cuda.synchronize()
-                for _ in range(DENSE_CALL_ITERS):
-                    fn()
-                torch.cuda.synchronize()
-            rows = device_rows(prof)
-            spun = any("spin_kernel" in key for _ms, _c, key in rows)
-            by = {key.split("(")[0][:60]: count / DENSE_CALL_ITERS
-                  for _ms, count, key in rows if "spin_kernel" not in key}
-            rec.update(device=by, profiler_windows=attempt, spin_recorded=spun)
-            if by:
-                break
-        if by and any("k1_dense<" not in k or c > 1.0 for k, c in by.items()):
-            bad.append(name)
-        elif not by and spun:
-            bad.append(name)
-        elif not by:
-            log(f"{label}: torch.profiler recorded no device activity in "
-                f"{DENSE_CALL_TRIES} windows of {name}'s call: the host check stands")
+        out["fused_agg"], fault = one_call_activities(
+            K, lambda: F.fused_agg(*fargs), {"fused_agg": 1, "fused_agg_dense": 1}, ("k1_dense<",),
+            f"{label} fused_agg")
+        if fault:
+            bad.append("fused_agg")
     if not out or bad:
         fail(f"{label}: dense aggregate calls queued {json.dumps(out)} (one K1 kernel a call, "
              f"no torch op that may queue device work, and only the form's own launch counts "
              f"expected; at fault: {', '.join(bad) or 'no call captured'})")
     return out
+
+
+def verdict_call_activities(K, calls: dict, label: str) -> dict:
+    """``one_call_activities`` at the path's largest folded verdict (K7
+    with the probe mask of a semi, anti or left join): K7's two kernels,
+    each at most once a call, no torch op and only K7's count.  The parent
+    queued three activities (clear, mark, K22's and), on the mesh four
+    (clear, mark and two torch ops)."""
+    if "segment_any" not in calls or calls["segment_any"][1][3] is None:
+        fail(f"{label}: no folded verdict captured (K7 with the probe mask)")
+    args = calls["segment_any"][1]
+    rec, bad = one_call_activities(K, lambda: K.segment_any(*args), {"segment_any": 1},
+                                   ("k7_mark<", "k7_verdict"), label)
+    rec.update(rows=int(args[0].shape[0]), segments=int(args[2]), negate=bool(args[4]))
+    if bad:
+        fail(f"{label}: a folded verdict queued {json.dumps(rec)} (K7's two kernels, no torch "
+             "op and only K7's count expected)")
+    return rec
 
 
 def call_trace(prof) -> dict:
@@ -940,7 +1025,10 @@ def _tensors(x):
 
 # the wrappers whose call sizes each path reports, by power of two: how far
 # the largest call stands for the rest
-SIZED_CALLS = ("compaction_order", "probe_join", "probe_counts")
+SIZED_CALLS = ("compaction_order", "probe_join", "probe_counts", "spill_order")
+# wrappers whose keyword arguments are kept, bound into positional ones
+# (K7's fold; the pack's precomputed order)
+BOUND_KWARGS = ("segment_any", "pack_for_host")
 
 
 def log_call_sizes(report, path, cap) -> None:
@@ -964,7 +1052,8 @@ class Capture:
              "probe_counts": 0,
              "segment_any": 0, "grouped_on_order": 2, "presorted_disorder": 1,
              "key_range_check": 1, "clustered_keep": 1, "extract_field": 0,
-             "spill_partition": 0, "dispatch_to_buckets": 2, "merge_rank_states": 0,
+             "spill_partition": 0, "spill_order": 1, "dispatch_to_buckets": 2,
+             "merge_rank_states": 0,
              "concat_columns": 1, "gather_columns": 0, "pack_for_host": 1, "window_mask": 0,
              "mask_or": 0, "mask_and": 0, "mask_andnot": 0, "bucket_masks": 0}
     FUSED = {"fused_rows": 2, "fused_agg": 2, "passthrough_rows": 2, "mesh_derive": 3}
@@ -999,7 +1088,15 @@ class Capture:
         return self
 
     def _wrap(self, name, fn, sizes):
+        import inspect
+
+        sig = inspect.signature(fn) if name in BOUND_KWARGS else None
+
         def wrapper(*args, **kwargs):
+            if sig is not None:
+                bound = sig.bind(*args, **kwargs)
+                bound.apply_defaults()
+                args, kwargs = tuple(bound.args), {}
             with self._lock:
                 for t in _tensors(args):
                     if t.device.type != self.device.type:
@@ -1640,10 +1737,10 @@ def profile_programs(ctx, sql, device):
             account("expr", program_bytes(prog, cols, mask, auxs))
         return out
 
-    def pack(cols, mask, target, namesi64, namesf64, names32):
+    def pack(cols, mask, target, namesi64, namesf64, names32, order=None):
         with record_function(names["pack"]):
             buf, fbuf = timed("pack", lambda: orig["pack"](cols, mask, target, namesi64,
-                                                           namesf64, names32))
+                                                           namesf64, names32, order))
         read = sum(cols[k].element_size() * min(target, cols[k].shape[0])
                    for k in (*namesi64, *namesf64, *names32))
         account("pack", nbytes(mask) + read + cuda_bytes([buf, fbuf]))
@@ -2273,13 +2370,25 @@ def join_stress(K, t, rng, n, big):
         for cap in sorted({max(64, total // 2), total + 1000}):
             probes.append((ph, pmask, bh, cap))
     ns = 1 << 20
+    # K7 over K6-shaped ids (the fill tail, runs many tiles long whose only
+    # true value comes late, ids out of range, signed int32 values) and over
+    # unordered ids, each with a mask folded in
+    from tests.torch_cases import k6_segment_case
+
+    folded = []
+    for case, segs, negate in (("fill_tail", n // 4, True), ("long_runs_late_hit", 400, False),
+                               ("out_of_range_ids", n // 2, True), ("int32_signed", 1000, False)):
+        v, seg = k6_segment_case(case, n, segs, rng)
+        folded.append((t(v), t(seg), segs, t(rng.random(segs) < 0.7), negate))
+    folded.append((t(rng.random(n) < 0.2), t(rng.integers(0, ns, n).astype(np.int32)), ns,
+                   t(rng.random(ns) < 0.7), True))
     return {
         "build_side_sort": [(bkeys, bmask), (bkeys, dead)],
         "probe_join": probes + probe_stress(K, t, rng, big),
         "segment_any": [(torch.ones(n, dtype=torch.bool, device=bmask.device),
                          torch.full((n,), ns // 2, dtype=torch.int32, device=bmask.device), ns),
                         (t(rng.integers(-3, 3, n).astype(np.int32)),
-                         t(rng.integers(-5, ns + 5, n).astype(np.int32)), ns)],
+                         t(rng.integers(-5, ns + 5, n).astype(np.int32)), ns), *folded],
     }
 
 
@@ -2311,7 +2420,7 @@ def forced_collision_inputs(K, device, n, seed=2):
     bh = K.build_side_sort_plain(bkeys, bmask)[0]
     return {"build_side_sort": (bkeys, bmask),
             "probe_join": (K.hash64_plain(pkeys), pmask, bh, 1 << 20),
-            "spill_partition": (bkeys, 8)}
+            "spill_partition": (bkeys, 8), "spill_order": (bkeys, bmask, 8)}
 
 
 def seg_agg_stress(t, rng, n):
@@ -2527,9 +2636,14 @@ def new_kernel_stress(device, n, seed=5):
     keys = [t(rng.integers(-1, 50, n).astype(np.int32)),
             t(np.where(rng.random(n) < 0.05, np.iinfo(np.int64).min,
                        rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64)))]
+    live = t(rng.random(n) < 0.6)
+    one = 1 << 17  # K16's one-launch limit
     return {"extract_field": [(day_t, f) for f in ("year", "month", "day")],
             "passthrough_rows": [(prog, batch.columns, batch.mask, aux)],
-            "spill_partition": [(keys, 8)]}
+            "spill_partition": [(keys, 8)],
+            "spill_order": [(keys, live, 8), (keys, torch.zeros_like(live), 8),
+                            ([k[:one] for k in keys], live[:one], 4),
+                            ([k[:one + 1] for k in keys], live[:one + 1], 2)]}
 
 
 def mesh_stress(device, n, seed=6):
@@ -2807,6 +2921,11 @@ def check_kernel(K, name, args):
         return max_err(K.extract_field(*args), K.extract_field_plain(*args))
     if name == "spill_partition":
         return max_err(K.spill_partition(*args), K.spill_partition_plain(*args))
+    if name == "spill_order":  # the partitions, the order and the live count
+        got, want = K.spill_order(*args), K.spill_order_plain(*args)
+        if int(got[2]) != int(want[2]):
+            raise AssertionError(f"live counts differ: {int(got[2])} vs {int(want[2])}")
+        return max(max_err(got[0], want[0]), max_err(got[1], want[1]))
     if name == "dense_group_states":
         return dense_check(K, args)
     if name == "dense_grouped":
@@ -2962,8 +3081,9 @@ def kernel_timings(K, name, args, device):
             return [torch.cat([x[k] for x in c]) for k in names], torch.cat(list(m))
     elif name in ("gather_columns", "pack_for_host"):
         if name == "pack_for_host":
-            cols, mask, target, n64, nf64, n32 = args
-            idx = K.compaction_order(mask)[:target]
+            cols, mask, target, n64, nf64, n32 = args[:6]
+            order = args[6] if len(args) > 6 else None
+            idx = (K.compaction_order(mask) if order is None else order[0])[:target]
             sel = {k: cols[k] for k in (*n64, *nf64, *n32)}
             args = (idx, sel)
         idx, sel = args
@@ -3058,6 +3178,20 @@ def kernel_timings(K, name, args, device):
         kern = lambda: K.extract_field(days, field)  # noqa: E731
         plain = lambda: K.extract_field_plain(days, field)  # noqa: E731
         library = None  # PyTorch has no calendar arithmetic on integer days
+    elif name == "spill_order":
+        keys, mask, parts = args
+        # the keys and the mask read once, the partition of every row and
+        # the live part of the order written once
+        moved = nbytes(*keys, mask) + 4 * mask.shape[0] + 4 * int(mask.sum())
+        nxt = rotating(args, moved)
+        kern = lambda: K.spill_order(*nxt())  # noqa: E731
+        plain = lambda: K.spill_order_plain(*nxt())  # noqa: E731
+        library = None  # no PyTorch call computes this hash
+
+        def parent_pair():  # the parent's split: K16's first form, then the pack's K2
+            k, m, p = nxt()
+            return K.spill_partition(k, p), K.compaction_order(m, with_count=True)
+        extra["parent_pair_"] = parent_pair
     elif name == "spill_partition":
         keys, parts = args
         moved = nbytes(*keys) + keys[0].shape[0] * 4
@@ -3173,10 +3307,12 @@ def kernel_timings(K, name, args, device):
             return torch.cumsum(counts, 0), torch.repeat_interleave(rows, counts,
                                                                     output_size=total)
     elif name == "segment_any":
-        v, seg, ns = args
+        v, seg, ns = args[:3]
+        within = args[3] if len(args) > 3 else None
         # the values read once, the segment id of each true value, the
-        # verdicts written once
-        moved = nbytes(v) + int((v > 0).sum()) * seg.element_size() + ns
+        # mask folded in read once, the verdicts written once
+        moved = nbytes(v) + int((v > 0).sum()) * seg.element_size() + ns \
+            + (nbytes(within) if within is not None else 0)
         nxt = rotating(args, moved)
         kern = lambda: K.segment_any(*nxt())  # noqa: E731
         plain = lambda: K.segment_any_plain(*nxt())  # noqa: E731
@@ -3432,6 +3568,8 @@ KERNEL_META = {
                          "arrow_ballista_tpu/ops/operators.py:745"),
     "spill_partition": ("arrow_ballista_tpu_torch/csrc/hash.cu",
                         "arrow_ballista_tpu/ops/operators.py:1512"),
+    "spill_order": ("arrow_ballista_tpu_torch/csrc/compact.cu",
+                    "arrow_ballista_tpu/ops/operators.py:1512"),
     "dispatch_to_buckets": ("arrow_ballista_tpu_torch/csrc/dispatch.cu",
                             "arrow_ballista_tpu/parallel/ici_shuffle.py:33"),
     "merge_rank_states": ("arrow_ballista_tpu_torch/csrc/rank_merge.cu",
@@ -3478,7 +3616,7 @@ LIBRARY_CALL = {
                   "key's words",
     "build_side_sort": "sort(stable=True) of the sign-flipped hashes",
     "probe_join": "a composite, not one call: searchsorted x2 + cumsum + repeat_interleave",
-    "segment_any": "scatter_reduce_(amax)",
+    "segment_any": "scatter_reduce_(amax) (the hit alone; the mask folded in is left out)",
     "grouped_on_order": "index_add_ / scatter_reduce_ at the twin's segment ids",
     "presorted_disorder": None,
     "key_range_check": "aminmax of the masked keys",
@@ -3486,6 +3624,7 @@ LIBRARY_CALL = {
     "extract_field": None,
     "passthrough_rows": None,
     "spill_partition": None,
+    "spill_order": None,
     "dispatch_to_buckets": None,
     "merge_rank_states": None,
     "mesh_derive": None,
@@ -3516,7 +3655,7 @@ WRAPPERS["mask_ops"] = ("window_mask", "mask_or", "mask_and", "mask_andnot")
 
 
 def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROWS,
-        sa_partitions: str = "auto") -> dict:
+        sa_partitions: str = "auto", save_calls: str = None) -> dict:
     """The whole check.  ``sa_partitions``: the standalone engine's shuffle
     partitions ('auto' as bench.py runs it; a CPU rehearsal at a small scale
     factor passes a count, as 'auto' then plans one stage and fuses nothing)."""
@@ -3744,9 +3883,29 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         C.reset_bytes()
         K.reset_launch_counts()
         builds0 = len(_cuda.LIBRARIES.generated_builds)
-        with Capture(K, F, device) as cap, RepartitionBatches() as split:
+        with Capture(K, F, device) as cap, RepartitionBatches() as split, \
+                SpillSplitCheck() as spill_split:
             df, cold_s = once(c, sql)
         launches[path] = dict(K.LAUNCHES)
+        if spill_split.calls != launches[path]["spill_order"] \
+                or spill_split.packed != spill_split.calls or spill_split.k2:
+            fail(f"{path}: the spill split made {spill_split.calls} K16 calls "
+                 f"({launches[path]['spill_order']} counted), packed {spill_split.packed} "
+                 f"batches through K16's order and called K2 {spill_split.k2} times in it "
+                 "(every batch through its order and no K2 expected)")
+        if spill_split.calls:
+            sizes = cap.sizes.get("spill_order", {})
+            kernels = sum(c * (1 if rows <= 1 << 17 else 2) for rows, c in sizes.items())
+            # the parent's, derived, not measured: one K16 launch a build
+            # batch, then the pack's K2 over it (one launch up to 2^17 rows,
+            # two above, as this tree's own K2)
+            report.setdefault("k16_split", {})[path] = {
+                "calls": spill_split.calls, "kernels": kernels, "k2_in_split": 0,
+                "parent_derived": {"k16_launches": spill_split.calls,
+                                   "k2_kernels": kernels}}
+            log(f"{path}: K16 split {spill_split.calls} build batches in {kernels} kernel "
+                f"launches and no K2 (the parent, derived: {spill_split.calls} K16 launches "
+                f"and {kernels} K2 kernels)")
         batches = sum(b for b, _q in split.splits)
         if launches[path]["bucket_masks"] != batches or (path in ("q1", "pq_q1")
                                                          and not batches):
@@ -3919,6 +4078,11 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                 fail(f"{path}'s profiled query recorded no device time: its kernels unchecked")
             if path in ("q3", "pq_q18"):  # K6 and K2: their kernels a call, no memset
                 check_call_trace(prof_q["calls"], path)
+            if path in FOLDED_VERDICT_PATHS:  # K7: its kernels alone a folded verdict
+                acts = report.setdefault("verdict_call_activities", {})[path] = \
+                    verdict_call_activities(K, captured[path], path)
+                log(f"{path}: device activities one folded verdict queues at its largest K7 "
+                    f"call: {json.dumps(acts)}")
             if path in DENSE_ONE_LAUNCH:  # K1 / K13 dense: one kernel a call
                 if prof_q is None:
                     fail(f"{path}'s profiled query recorded no device time: K1 unchecked")
@@ -3989,7 +4153,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     mem = MEMORY_STATS.snapshot()
     spilled = {op: sum(t.get(op, 0) for t in spill_tags.values())
                for op in ("HashAggregateExec", "JoinExec")}
-    k16 = {p: launches[p]["spill_partition"] for p in spill_tags}
+    k16 = {p: launches[p]["spill_order"] for p in spill_tags}
     log(f"spill paths: memory stats {json.dumps(mem)}; spill runs by operator "
         f"{json.dumps(spilled)}; K16 launches per path {json.dumps(k16)}")
     if not mem.get("reserve_denied_total") or not all(spilled.values()) \
@@ -4053,6 +4217,21 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                 f"{json.dumps(report['dense_ms_per_query']['memsweep'])}")
     paths["memsweep"] = (msweep, None)
     phase_done("memsweep", t_phase)
+    if save_calls:  # the largest K16 and K7 calls over the paths, for the timing tool
+        import torch
+
+        saved = {}
+        for name in ("spill_order", "segment_any"):
+            seen = [(captured[p][name][0], p) for p in captured if name in captured[p]]
+            if seen:
+                n, p = max(seen)
+                saved[name] = {"path": p, "rows": n,
+                               "args": [a.cpu() if isinstance(a, torch.Tensor) else
+                                        [t.cpu() for t in a] if isinstance(a, list) else a
+                                        for a in captured[p][name][1]]}
+        torch.save(saved, save_calls)
+        log(f"saved the largest K16 / K7 calls to {save_calls}: "
+            f"{ {k: (v['path'], v['rows']) for k, v in saved.items()} }")
 
     # tpch22: the 22 queries through the standalone engine over parquet,
     # cold then warm, held against the port on the CPU (the child's answers)
@@ -4282,7 +4461,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                 report["probe_compact_reset_calls"] = probe_compact_reset_check(K, device)
                 log(f"K6 / K2 back to back on one stream and from four threads: "
                     f"{report['probe_compact_reset_calls']} calls of each equal their twins")
-            if name in ("build_side_sort", "probe_join", "spill_partition"):
+            if name in ("build_side_sort", "probe_join", "spill_partition", "spill_order"):
                 was = K._FORCE_COLLISIONS
                 K._FORCE_COLLISIONS = True
                 try:
@@ -4303,7 +4482,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             # launched on no path (K14: EXTRACT runs inside the generated
             # programs): timed at its first stress input
             timed, path, args = name, "stress", stress[name][0]
-            n = args[0].shape[0]
+            n = (args[0][0] if isinstance(args[0], (list, tuple)) else args[0]).shape[0]
         else:
             timed = name if name in wrappers and name != "dense_group_states" else max(
                 wrappers, key=lambda w: (w == "dense_grouped",
@@ -4356,6 +4535,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             **({"interpreted_ms": times["interpreted_ms"],
                 "interpreted_wall_ms": times["interpreted_wall_ms"]}
                if name == "operator_program" else {}),
+            **{k: v for k, v in times.items() if k.startswith("parent_")},
             **({"timed_wrapper": timed} if timed != name else {}),
             **({"timed_call": call_shape} if call_shape else {}),
             **({"replaces_all": REPLACES_ALL[name]} if name in REPLACES_ALL else {}),
@@ -4625,7 +4805,10 @@ def main() -> None:
     card = smi("name,power.limit")
     log(f"card: {card}")
     t0 = time.perf_counter()
-    report = run("cuda")
+    # --save-calls FILE: also write the largest K16 and K7 calls (for
+    # tools/spill_segment_timing.py --calls)
+    save = sys.argv[2] if len(sys.argv) == 3 and sys.argv[1] == "--save-calls" else None
+    report = run("cuda", save_calls=save)
     total = time.perf_counter() - t0
     log(f"phases (s): {json.dumps({k: round(v, 1) for k, v in report['phase_s'].items()})}")
     print(card, flush=True)

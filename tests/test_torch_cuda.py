@@ -18,7 +18,7 @@ from tests.torch_cases import (BUCKET_CASES, CONCAT_CASES, DENSE_CASES, FUSED_CH
                                JOIN_QUERIES, KEEP_CASES, MASK_OPS_CASES,
                                PACK_CASES, PRESORTED_CASES, PROBE_CASES, RADIX_CASES,
                                RANGE_CASES,
-                               SEG_AGG_CASES,
+                               SEG_AGG_CASES, K6_SEGMENT_CASES, k6_segment_case,
                                SEGMENT_CASES, SETTINGS, SORT_CASES, STANDALONE_SETTINGS,
                                STANDALONE_SQL, UNORDERED, assert_frames_equal, dense_case,
                                edge_days, find_chain, hand_chain, hand_table, hash_cols,
@@ -960,6 +960,299 @@ def test_spill_partition_kernel_matches_twin(dev, case, forced):
     assert torch.equal(got.cpu(), want)
 
 
+# K16's ordered form: one row, a word, the one-launch limit (2^17) +-1 and
+# 2^20 + 3 (the standalone engine's batch, two launches)
+SPILL_ORDER_SIZES = [1, 17, COMPACT_ONE_ROWS - 1, COMPACT_ONE_ROWS, COMPACT_ONE_ROWS + 1,
+                     (1 << 20) + 3]
+
+
+def _spill_order_on_card(dev, cols, mask, parts):
+    """K16's ordered form on the card against its twin on the CPU: the
+    partitions, the order, the count; the call's plan."""
+    got = TK.spill_order([_t(c).to(dev) for c in cols], _t(mask).to(dev), parts)
+    plan = TK.kernel_plan("spill_order")
+    want = TK.spill_order_plain([_t(c) for c in cols], _t(mask), parts)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g.cpu(), w)
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SPILL_ORDER_SIZES)
+def test_spill_order_kernel_at_every_size(dev, n):
+    rng = np.random.default_rng(n)
+    cols = [rng.integers(-2**40, 2**40, n).astype(np.int64)]
+    for case in ("random", "all_live", "all_dead"):
+        for parts in (2, 8):
+            plan = _spill_order_on_card(dev, cols, mask_case(case, n, rng), parts)
+            one = n <= COMPACT_ONE_ROWS
+            assert plan == {"form": _compact_form(n), "rows": n, "launches": 1 if one else 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forced", [False, True])
+@pytest.mark.parametrize("case", HASH_CASES)
+def test_spill_order_kernel_matches_twin(dev, case, forced):
+    """Keys of every kind K3 hashes (NULL codes, int64 extremes, bools,
+    three columns), forced collisions (every row in partition 0), in both
+    forms."""
+    was = TK._FORCE_COLLISIONS
+    TK._FORCE_COLLISIONS = forced
+    try:
+        for n in (N, COMPACT_ONE_ROWS + 8193):
+            rng = np.random.default_rng(17)
+            _spill_order_on_card(dev, hash_cols(case, n, rng), rng.random(n) < 0.6, 8)
+    finally:
+        TK._FORCE_COLLISIONS = was
+
+
+@pytest.mark.cuda
+def test_spill_order_on_mask_and_key_views_at_byte_offsets(dev):
+    for offset in (1, 7, 15):
+        for n in (1000, COMPACT_ONE_ROWS + 5):
+            rng = np.random.default_rng(offset)
+            m = rng.random(n) < 0.5
+            big = torch.ones(n + 32, dtype=torch.bool, device=dev)
+            big[offset:offset + n] = _t(m).to(dev)
+            keys = _t(rng.integers(0, 99, n + 1).astype(np.int32)).to(dev)[1:]
+            got = TK.spill_order([keys], big[offset:offset + n], 4)
+            want = TK.spill_order_plain([keys.cpu()], _t(m), 4)
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w)
+
+
+# K7: the verdict with the mask folded in (within, negate)
+FOLDS = [(False, False), (True, False), (True, True), (False, True)]
+
+
+def _segment_on_card(dev, v, seg, ns, within, negate, w_mask=None):
+    w = w_mask if w_mask is not None else (
+        np.random.default_rng(ns).random(ns) < 0.7 if within else None)
+    wd = None if w is None else (w if isinstance(w, torch.Tensor) else _t(w).to(dev))
+    vd = v if isinstance(v, torch.Tensor) else _t(v).to(dev)
+    got = TK.segment_any(vd, _t(seg).to(dev), ns, within=wd, negate=negate)
+    assert TK.kernel_plan("segment_any")["launches"] == (2 if len(seg) else 1)
+    want = TK.segment_any_plain(vd.cpu(), _t(seg), ns, None if wd is None else wd.cpu(), negate)
+    assert got.shape == (ns,) and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("within, negate", FOLDS)
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_segment_any_kernel_folded_matches_twin(dev, case, within, negate):
+    for n, ns in ((N, 4099), ((1 << 20) + 5, 100_003), (7, 1)):
+        v, seg = segment_case(case, n, ns, np.random.default_rng(n))
+        _segment_on_card(dev, v, seg, ns, within, negate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("within, negate", FOLDS)
+@pytest.mark.parametrize("case", K6_SEGMENT_CASES)
+def test_segment_any_kernel_on_k6_ids_matches_twin(dev, case, within, negate):
+    """K6-shaped ids: probe-major pairs and the fill tail, runs many tiles
+    long whose only true value comes late, ids out of range, few pairs over
+    many segments (more words than the writing tiles take in one round), no
+    pairs."""
+    for n, ns in ((N, 4099), ((1 << 21) + 5, 100_003), ((1 << 20) + 5, 300), (5, 1),
+                  (70_000, 1_000_003)):
+        v, seg = k6_segment_case(case, n, ns, np.random.default_rng(n))
+        _segment_on_card(dev, v, seg, ns, within, negate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k6_pairs", "out_of_range_ids"])
+def test_segment_any_on_views_at_byte_offsets(dev, case):
+    rng = np.random.default_rng(3)
+    n, ns = 50_000, 20_011
+    v, seg = k6_segment_case(case, n, ns, rng)
+    for offset in (1, 4, 9, 15):
+        vb = torch.zeros(n + 32, dtype=torch.bool, device=dev)
+        vb[offset:offset + n] = _t(v).to(dev)
+        wb = torch.zeros(ns + 32, dtype=torch.bool, device=dev)
+        wm = rng.random(ns) < 0.5
+        wb[offset:offset + ns] = _t(wm).to(dev)
+        _segment_on_card(dev, vb[offset:offset + n], seg, ns, True, offset % 2 == 1,
+                         w_mask=wb[offset:offset + ns])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k6_pairs", "unordered"])
+def test_folded_verdict_queues_only_k7(dev, case):
+    """A folded verdict queues K7's two kernels and nothing else: no clear
+    kernel, no memset, no K22 launch and no torch op after it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import queued_torch_ops
+
+    rng = np.random.default_rng(5)
+    v, seg = k6_segment_case("k6_pairs", 1 << 20, 300_000, rng)
+    if case == "unordered":
+        seg = rng.permutation(seg)
+    vd, sd = _t(v).to(dev), _t(seg).to(dev)
+    wd = _t(np.random.default_rng(6).random(300_000) < 0.5).to(dev)
+
+    def call():
+        return TK.segment_any(vd, sd, 300_000, within=wd, negate=True)
+
+    call()
+    torch.cuda.synchronize()
+    before = dict(TK.LAUNCHES)
+    with queued_torch_ops() as host:
+        call()
+    assert host.ops == []
+    assert {k: v - before[k] for k, v in TK.LAUNCHES.items() if v != before[k]} == \
+        {"segment_any": 1}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(20_000_000)
+        torch.cuda.synchronize()
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.key
+            and (getattr(e, "self_device_time_total", 0) or 0) > 0]
+    assert all(("k7_mark" in k or "k7_verdict" in k) and c <= 10 for k, c in rows), rows
+
+
+def _k16_k7_inputs(rng, calls):
+    """Growing and shrinking sizes, partition counts and segment counts, so
+    that a hit byte or a count left behind would show."""
+    sizes = [(1 << 20) + 3, 5, COMPACT_ONE_ROWS + 1, 1000, 1 << 19, 3, (1 << 18) + 7, 64]
+    out = []
+    for i in range(calls):
+        n = sizes[i % len(sizes)] if i % 3 else int(rng.integers(1, 300_000))
+        parts = (2, 4, 8)[i % 3]
+        keys = rng.integers(0, 5000, n).astype(np.int64)
+        mask = rng.random(n) < 0.6
+        ns = int(rng.integers(1, max(2, n // 2)))
+        v, seg = k6_segment_case("long_runs_late_hit" if i % 4 == 0 else "k6_pairs", n, ns,
+                                     rng)
+        w = rng.random(ns) < 0.5
+        out.append((keys, mask, parts, v, seg, ns, w, bool(i % 2)))
+    return out
+
+
+def _k16_k7_launch(dev, inputs):
+    staged = [(_t(k).to(dev), _t(m).to(dev), p, _t(v).to(dev), _t(s).to(dev), ns, _t(w).to(dev),
+               neg) for k, m, p, v, s, ns, w, neg in inputs]
+    return [(TK.spill_order([k], m, p),
+             TK.segment_any(v, s, ns, within=w, negate=neg))
+            for k, m, p, v, s, ns, w, neg in staged]
+
+
+def _k16_k7_check(inputs, results):
+    for (k, m, p, v, s, ns, w, neg), (order, verdict) in zip(inputs, results):
+        want = TK.spill_order_plain([_t(k)], _t(m), p)
+        for g, x in zip(order, want):
+            assert torch.equal(g.cpu(), x)
+        assert torch.equal(verdict.cpu(), TK.segment_any_plain(_t(v), _t(s), ns, _t(w), neg))
+
+
+@pytest.mark.cuda
+def test_spill_order_and_segment_any_back_to_back_on_one_stream(dev):
+    """60 calls of each, queued back to back on one stream: K7 leaves the
+    stream's hit bytes zero, and neither kernel reads what a call before
+    it wrote, for a larger or smaller call next."""
+    inputs = _k16_k7_inputs(np.random.default_rng(43), 60)
+    results = _k16_k7_launch(dev, inputs)
+    torch.cuda.synchronize()
+    _k16_k7_check(inputs, results)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("own_streams", [False, True])
+def test_spill_order_and_segment_any_from_four_threads(dev, own_streams):
+    import threading
+
+    rng = np.random.default_rng(44)
+    inputs = [_k16_k7_inputs(rng, 12) for _ in range(4)]
+    results = [None] * 4
+    start = threading.Barrier(4)
+
+    def work(i):
+        ctx = torch.cuda.stream(torch.cuda.Stream(dev)) if own_streams else \
+            contextlib.nullcontext()
+        with ctx:
+            start.wait()
+            results[i] = _k16_k7_launch(dev, inputs[i])
+            torch.cuda.current_stream(dev).synchronize()
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    for inp, res in zip(inputs, results):
+        _k16_k7_check(inp, res)
+
+
+@pytest.mark.cuda
+def test_segment_any_from_eight_streams_at_once(dev):
+    """Eight threads, each on its own stream, queue large K7 calls at once
+    (the standalone engine's task streams): each stream's hit bytes are
+    its own."""
+    import threading
+
+    rng = np.random.default_rng(45)
+    inputs = []
+    for i in range(8):
+        ns = 1_000_003 + i
+        v, seg = k6_segment_case("k6_pairs", (1 << 21) + i, ns, rng)
+        if i % 2:
+            seg = rng.permutation(seg)
+        inputs.append((v, seg, ns, rng.random(ns) < 0.5, bool(i % 3)))
+    results = [None] * 8
+    start = threading.Barrier(8)
+
+    def work(i):
+        v, seg, ns, w, neg = inputs[i]
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            vd, sd, wd = _t(v).to(dev), _t(seg).to(dev), _t(w).to(dev)
+            start.wait()
+            results[i] = [TK.segment_any(vd, sd, ns, within=wd, negate=neg) for _ in range(4)]
+            torch.cuda.current_stream(dev).synchronize()
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for (v, seg, ns, w, neg), got in zip(inputs, results):
+        want = TK.segment_any_plain(_t(v), _t(seg), ns, _t(w), neg)
+        for g in got:
+            assert torch.equal(g.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_spill_split_is_one_launch_and_no_compaction(dev):
+    """The spill split of a 2^17-row build batch: one K16 launch and the
+    pack's gather, no K2; the runs' rows as the CPU's."""
+    from arrow_ballista_tpu_torch.models.batch import ColumnBatch
+    from arrow_ballista_tpu_torch.models.schema import FLOAT64, INT64, Field, Schema
+
+    rng = np.random.default_rng(8)
+    n = COMPACT_ONE_ROWS
+    schema = Schema([Field("k", INT64), Field("x", FLOAT64)])
+    host = {"k": rng.integers(0, 10**6, n).astype(np.int64), "x": rng.normal(size=n)}
+    mask = rng.random(n) < 0.7
+    frames = []
+    for device in (dev, torch.device("cpu")):
+        cols = {k: _t(a).to(device) for k, a in host.items()}
+        batch = ColumnBatch(schema, cols, _t(mask).to(device), {})
+        TK.reset_launch_counts()
+        part, order, count = TK.spill_order([cols["k"]], batch.mask, 8)
+        out, rows = batch.packed_numpy(extra32={"__part": part}, order=(order, count))
+        if device.type == "cuda":
+            assert TK.LAUNCHES["spill_order"] == 1 and TK.LAUNCHES["compaction_order"] == 0
+            assert TK.kernel_plan("spill_order")["launches"] == 1
+        frames.append((out, rows))
+    (a, na), (b, nb) = frames
+    assert na == nb == int(mask.sum())
+    for name in ("k", "x", "__part"):
+        np.testing.assert_array_equal(a[name], b[name])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nulls", [False, True], ids=["plain", "nulls"])
 def test_passthrough_kernel_matches_twin(dev, nulls):
@@ -1011,8 +1304,8 @@ def test_passthrough_kernel_matches_twin(dev, nulls):
 @pytest.mark.parametrize("q", [3, 18, 21])
 def test_spilled_queries_on_the_card_match_the_cpu(dev, q):
     """A 1 MiB host budget with partitioned joins: the aggregates and the
-    joins spill (K16 on the joins' build sides) on the card and equal the
-    unlimited run on the CPU."""
+    joins spill (K16's ordered form on the joins' build sides) on the card
+    and equal the unlimited run on the CPU."""
     from arrow_ballista_tpu_torch import BallistaConfig, BallistaContext
     from arrow_ballista_tpu_torch.memory import STATS
     from benchmarks.queries import QUERIES
@@ -1030,7 +1323,7 @@ def test_spilled_queries_on_the_card_match_the_cpu(dev, q):
         if device is dev:
             snap = STATS.snapshot()
             assert snap.get("spill_runs_total", 0) > 0 and snap["reserved_bytes.host"] == 0
-            assert TK.LAUNCHES["spill_partition"] > 0
+            assert TK.LAUNCHES["spill_order"] > 0
     assert_frames_equal(frames[0], frames[1])
 
 

@@ -17,7 +17,8 @@ import jax.numpy as jnp
 from arrow_ballista_tpu.ops import kernels as JK
 from arrow_ballista_tpu_torch.ops import kernels as TK
 from tests.torch_cases import (JOIN_CASES, PROBE_CASES, SEG_AGG_CASES, SEGMENT_CASES,
-                               join_case, probe_case, seg_agg_case, segment_case)
+                               K6_SEGMENT_CASES, join_case, probe_case, seg_agg_case,
+                               segment_case, k6_segment_case)
 
 # the suite runs in parallel worker processes: one core per worker for torch
 torch.set_num_threads(1)
@@ -316,6 +317,113 @@ def test_segment_any_matches(case):
     got = TK.segment_any(_t(v), _t(seg), 257)
     assert got.dtype == torch.bool
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# within / negate: the join's mask folded into the verdict, as the
+# reference's join program composes it (p_mask & hit, p_mask & ~hit)
+FOLDS = [(False, False), (True, False), (True, True), (False, True)]
+
+
+def _reference_fold(v, seg, ns, within, negate):
+    hit = _np(JK.segment_any(jnp.asarray(v), jnp.asarray(seg), ns))
+    if negate:
+        hit = ~hit
+    return hit if within is None else within & hit
+
+
+@pytest.mark.parametrize("within, negate", FOLDS)
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_segment_any_folded_matches(case, within, negate):
+    rng = np.random.default_rng(25)
+    v, seg = segment_case(case, 5000, 257, rng)
+    w = rng.random(257) < 0.7 if within else None
+    want = _reference_fold(v, seg, 257, w, negate)
+    got = TK.segment_any(_t(v), _t(seg), 257, within=None if w is None else _t(w), negate=negate)
+    np.testing.assert_array_equal(got.numpy(), want)
+    plain = TK.segment_any_plain(_t(v), _t(seg), 257, None if w is None else _t(w), negate)
+    np.testing.assert_array_equal(plain.numpy(), want)
+
+
+@pytest.mark.parametrize("within, negate", FOLDS)
+@pytest.mark.parametrize("case", K6_SEGMENT_CASES)
+def test_segment_any_k6_ids_folded_matches(case, within, negate):
+    """K6-shaped ids (probe-major runs, the fill tail, runs many tiles long,
+    ids out of range, no pairs) with the mask folded in."""
+    rng = np.random.default_rng(26)
+    v, seg = k6_segment_case(case, 20_000, 301, rng)
+    assert (np.diff(seg.astype(np.int64)) >= 0).all()
+    w = rng.random(301) < 0.7 if within else None
+    want = _reference_fold(v, seg, 301, w, negate) if len(seg) else \
+        (np.zeros(301, bool) ^ negate) & (w if w is not None else True)
+    got = TK.segment_any(_t(v), _t(seg), 301, within=None if w is None else _t(w),
+                         negate=negate)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _k7_model(values, seg, ns, within, negate, threads, rng, hit=None):
+    """csrc/segment.cu step for step in numpy, with its block size as an
+    argument: k7_mark's blocks in a random order, each lane storing 1 at
+    the hit byte of each true pair's segment (8 pairs a lane) once a run of
+    equal ids; then k7_verdict's blocks in a random order, 16 segments a
+    lane, each verdict written once from the hit bytes, within and negate,
+    and the hit bytes put back to zero.  ``hit`` is the per-stream state
+    (zero between calls)."""
+    n = len(seg)
+    true = values > 0
+    hit = np.zeros(-(-ns // 16) * 16, np.uint8) if hit is None else hit
+    assert not hit.any(), "the hit bytes must be zero between calls"
+    stores = 0
+    for t in rng.permutation(-(-n // (threads * 8))):
+        for th in range(threads):
+            j0 = (t * threads + th) * 8
+            last = -1
+            for j in range(j0, min(j0 + 8, n)):
+                s_ = int(seg[j])
+                if not true[j] or s_ < 0 or s_ >= ns or s_ == last:
+                    continue
+                hit[s_] = 1
+                last = s_
+                stores += 1
+    out = np.full(len(hit), 255, np.uint8)
+    for t in rng.permutation(-(-ns // (threads * 16))):
+        for th in range(threads):
+            s0 = 16 * (t * threads + th)
+            if s0 >= ns:
+                continue
+            h = hit[s0:s0 + 16].copy()
+            m = np.ones(16, np.uint8) if within is None else \
+                np.pad(within[s0:s0 + 16].astype(np.uint8), (0, max(0, s0 + 16 - ns)))
+            assert (out[s0:s0 + 16] == 255).all(), f"segments from {s0} written twice"
+            out[s0:s0 + 16] = (h ^ int(negate)) & m
+            if h.any():
+                hit[s0:s0 + 16] = 0
+    assert not hit.any(), "the hit bytes must be zero for the next call"
+    assert (out[:ns] != 255).all()
+    return out[:ns].astype(bool), stores
+
+
+@pytest.mark.parametrize("sizes", [128, 8], ids=["card", "small"])
+@pytest.mark.parametrize("case", K6_SEGMENT_CASES + SEGMENT_CASES)
+def test_k7_kernel_model_matches_reference(case, sizes):
+    """The kernels' marking runs, hit bytes and verdict words in numpy, at
+    the card's block sizes and at small ones, one state over every fold,
+    against the reference's verdict and mask; K6-shaped ids take about one
+    store a lane."""
+    rng = np.random.default_rng(27)
+    if case in K6_SEGMENT_CASES:
+        v, seg = k6_segment_case(case, 30_000, 301, rng)
+    else:
+        v, seg = segment_case(case, 30_000, 301, rng)
+    w = rng.random(301) < 0.6
+    hit = np.zeros(304, np.uint8)
+    for within, negate in FOLDS:
+        mask = w if within else None
+        got, stores = _k7_model(v, seg, 301, mask, negate, sizes, rng, hit)
+        want = _reference_fold(v, seg, 301, mask, negate) if len(seg) else \
+            (np.zeros(301, bool) ^ negate) & (mask if mask is not None else True)
+        np.testing.assert_array_equal(got, want)
+        if case == "k6_pairs" and sizes == 128:
+            assert stores <= len(seg) // 8 + 1 + 301, stores  # a lane's runs
 
 
 # --------------------------------------------------------------------------

@@ -297,6 +297,45 @@ def segment_case(case, n, num_segments, rng):
 
 SEGMENT_CASES = ["bool_random", "int32_signed_out_of_range", "one_segment_all_rows"]
 
+# K7 over K6's probe index: ids non-decreasing (probe-major pairs, then
+# np - 1 in every slot past the total)
+K6_SEGMENT_CASES = ["k6_pairs", "long_runs_late_hit", "fill_tail", "out_of_range_ids",
+                    "few_pairs_many_segments", "int32_signed", "no_pairs"]
+
+
+def k6_segment_case(case, n, num_segments, rng):
+    """(values, non-decreasing seg_ids) for segment_any over K6-shaped
+    ids, n pairs over num_segments segments."""
+    ns = num_segments
+    if case == "no_pairs":
+        return np.zeros(0, dtype=bool), np.zeros(0, dtype=np.int32)
+    if case == "few_pairs_many_segments":
+        n = max(1, n // 64)
+    if case in ("k6_pairs", "few_pairs_many_segments", "int32_signed", "fill_tail"):
+        total = n * 3 // 5 if case == "fill_tail" else n
+        seg = np.sort(rng.integers(0, ns, total)).astype(np.int32)
+        seg = np.concatenate([seg, np.full(n - total, ns - 1, np.int32)])
+        values = rng.random(n) < 0.3
+        if case == "fill_tail":  # slots past the total are invalid pairs
+            values[total:] = False
+        if case == "int32_signed":
+            return rng.integers(-3, 3, n).astype(np.int32), seg
+        return values, seg
+    if case == "long_runs_late_hit":
+        # runs many tiles long, each true only near its end or nowhere
+        lengths = rng.integers(1, 3 * 4096, ns)
+        seg = np.repeat(np.arange(ns, dtype=np.int32), lengths)[:n]
+        values = np.zeros(len(seg), dtype=bool)
+        ends = np.cumsum(lengths)
+        for s in range(0, ns, 3):
+            if ends[s] - 1 < len(seg):
+                values[ends[s] - 1] = True
+        return values, seg
+    if case == "out_of_range_ids":
+        seg = np.sort(rng.integers(-5, ns + 5, n)).astype(np.int32)
+        return rng.random(n) < 0.4, seg
+    raise KeyError(case)
+
 # --------------------------------------------------------------------------
 # K8: the sort-path grouped aggregate
 # --------------------------------------------------------------------------

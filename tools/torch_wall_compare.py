@@ -18,14 +18,18 @@ host clock), with the contexts and configurations of ``chip_smoke.py``:
 the local engine with its defaults, and the standalone one with 'auto'
 shuffle partitions, 2^20-row batches and four task slots.  A path is
 ``q<n>`` (local, in memory), ``pq_q<n>`` (local, parquet), ``sa_q<n>``
-(standalone, in memory), ``sa_pq_q<n>`` (standalone, parquet) or
+(standalone, in memory), ``sa_pq_q<n>`` (standalone, parquet),
 ``mesh4_q3`` / ``mesh4_q3_part`` / ``mesh4_q18`` (the local engine over
 parquet on a mesh of four ranks over the first card, ``chip_smoke.py``'s
-settings).  Prints one JSON line: ``{"root", "device", "paths": {path:
+settings) or ``spill_q<n>`` (the local engine over parquet with every join
+partitioned under a 1 MiB host budget, ``chip_smoke.py``'s spill settings;
+``chip_smoke.py`` runs them over SF0.25: pass ``--sf 0.25``).  Prints one JSON line: ``{"root", "device", "paths": {path:
 {"cold_ms", "warm_ms", "median_ms", "rows"}}}``.  With ``--profile OUT``
 the warm runs of each path also run under cProfile, and OUT gets the 30
 functions with the most
-own time, per path (host time: where the walls go when the card idles).
+own time, per path (host time: where the walls go when the card idles),
+and the spilled join's own time (``_join_spilled``, the build split's
+host work).
 With ``--kernels`` one more warm run of each path runs under
 torch.profiler, and each path gets ``kernels``: the device ms and
 launches of K4's (``sort_order``) and K5's (``build_side_sort``) CUDA
@@ -250,12 +254,16 @@ class Tree:
                     "mesh4_q3_part": {**mesh_on, "ballista.join.broadcast_threshold": "0",
                                       "ballista.shuffle.mesh.broadcast_rows": "0"},
                     "mesh4_q18": {**mesh_on, "ballista.agg.capacity": str(1 << 21)}}
+        spill_cfg = {"ballista.join.broadcast_threshold": "0",
+                     "ballista.memory.host.budget.bytes": str(1 << 20)}
         if engine in ("sa", "sa_pq"):
             ctx = BallistaContext.standalone(BallistaConfig(sa_cfg), concurrent_tasks=4,
                                              device=self.device)
             self.standalone.append(ctx)
         elif engine == "mesh4":
             ctx = BallistaContext.local(BallistaConfig(mesh_cfg[path]), device=self.device)
+        elif engine == "spill":
+            ctx = BallistaContext.local(BallistaConfig(spill_cfg), device=self.device)
         else:
             ctx = BallistaContext.local(device=self.device)
         for name, table in self.mem.items():
@@ -326,7 +334,9 @@ def single(args) -> None:
                     kernels = _kernel_times(ctx, sql)
             if prof is not None:
                 text = io.StringIO()
-                pstats.Stats(prof, stream=text).sort_stats("tottime").print_stats(30)
+                stats = pstats.Stats(prof, stream=text).sort_stats("tottime")
+                stats.print_stats(30)
+                stats.print_stats("_join_spilled")
                 with open(args.profile, "a") as f:
                     f.write(f"== {tree.root} {path}: {args.runs} warm runs\n{text.getvalue()}\n")
             out["paths"][path] = {"cold_ms": walls[0], "warm_ms": walls[1:],
