@@ -5,9 +5,20 @@
 // K9 presorted_disorder replaces the disorder flag of
 // arrow_ballista_tpu/ops/kernels.py grouped_aggregate_presorted (l.237):
 //   disorder = any(live[i] & live[i-1] & k[i] < k[i-1]) over the rows in
-//   K2's compaction order.  One thread a row reads k[i-1] itself, so pairs
-//   that straddle block edges are seen; __syncthreads_or folds a block and
-//   one thread stores the flag.
+//   K2's compaction order.  That order is stable and puts the live rows
+//   first, so the flag is True exactly when the live keys, in row order,
+//   ever decrease (consecutive live rows compared across dead ones): K9
+//   reads the rows as they are, with no order or gather.  A lane holds 8
+//   rows in K10's layout (below); its words interleave across the warp, so
+//   word by word each lane compares its first live key with the last live
+//   key of the nearest lower lane that has one (a ballot, then a shuffle
+//   from that lane), or of the words before.  The block folds its warps in
+//   order into a tile record: whether the tile has a live row, its first
+//   and last live key and whether it found a decrease inside.  The block
+//   that draws the last ticket folds the records in tile order (a tile's
+//   first live key below the last live key of the previous tile that has
+//   one is a disorder) and writes the flag.  Keys are read only for words
+//   that hold a live row.
 // K10 key_range_check replaces "sort.range_check"
 // (arrow_ballista_tpu/ops/operators.py:632-654):
 //   live = mask & (k != NULL sentinel, when the key is nullable);
@@ -31,22 +42,24 @@
 //   in device memory through L1 (the same code, another pointer).  K11
 //   reads a word of keys only where a row of it needs the test: a padded
 //   partial's dead tail (most of the main path's rows) reads none.
-// Both kernels: a block takes a tile of AB_CL_TILE rows, a lane 8 of them
-// as 16-byte words of keys (2 int64 or 4 int32 rows a word) and the
+// All three kernels: a block takes a tile of AB_CL_TILE rows (K9: two warp
+// tiles a warp, AB_K9_TILE rows), a lane 8 of them a warp tile as 16-byte
+// words of keys (2 int64 or 4 int32 rows a word) and the
 // matching 2- or 4-byte integers of mask, pred and keep, laid out so that
 // every load and store of a warp is contiguous (ab_load_lane); a lane's
 // 8 interval searches run interleaved.  The grid covers the rows once.
 // The last, partial warp tile, and inputs not so aligned (views at a byte
 // offset), go row by row in the same layout.  One launch a call and no
 // memset: each block folds its partial (K10 the flag, K11 the count) into
-// a per-stream accumulator, and the block that draws the last ticket
-// (ab_last_block, common.cuh) writes the result and resets the
-// accumulator; a call with no rows launches one block that does just that.
+// a per-stream accumulator, or writes its record (K9) into a per-stream
+// state, and the block that draws the last ticket (ab_last_block,
+// common.cuh) writes the result and resets the accumulator or the ticket; a
+// call with no rows launches one block that does just that.
 // Keys are int32 (widened, as the reference's astype(int64)) or int64.
 // Bound: bytes (keys, mask and predicate read once, the keep bytes written
-// once).  K11 also does at most n x (log2 m + 1) compares: far under the
-// card's integer rate at the main path's at most a few thousand intervals.
-// K9 still zeroes its flag by cudaMemsetAsync before its launch.
+// once; K9 the mask and the live rows' keys).  K11 also does at most n x
+// (log2 m + 1) compares: far under the card's integer rate at the main
+// path's at most a few thousand intervals.
 #include <limits.h>
 
 #include "common.cuh"
@@ -55,16 +68,6 @@
 #define AB_CL_ROWS 8  // rows a lane
 #define AB_CL_TILE (AB_CL_THREADS * AB_CL_ROWS)
 #define AB_KEEP_SMEM_PAIRS 2048  // merged intervals in shared memory (32 KB)
-
-template <typename T>
-__global__ void presorted_disorder(const T* __restrict__ k, const uint8_t* __restrict__ mask,
-                                   long long n, uint8_t* __restrict__ flag) {
-  bool bad = false;
-  long long step = (long long)gridDim.x * blockDim.x;
-  for (long long i = 1 + (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step)
-    bad = bad || (mask[i] && mask[i - 1] && k[i] < k[i - 1]);
-  if (__syncthreads_or(bad) && threadIdx.x == 0) *flag = 1;
-}
 
 // A lane takes AB_CL_ROWS rows as AB_CL_ROWS / R 16-byte words of keys, R
 // rows a word (R = 2 for int64, 4 for int32): word j of lane l of warp w
@@ -141,6 +144,148 @@ template <typename T>
 __device__ __forceinline__ long long ab_lane_row(long long wbase, int lane, int r) {
   constexpr int R = 16 / sizeof(T);
   return wbase + (long long)((r / R) * 32 + lane) * R + r % R;
+}
+
+// K9's fold of rows in order: whether a row is live, the first and the
+// last live key, and whether a live key fell below the live key before it
+struct ClOrder {
+  int has, bad;
+  long long first, last;
+};
+
+// a's rows, then b's
+__device__ __forceinline__ ClOrder ab_order_then(const ClOrder& a, const ClOrder& b) {
+  if (!a.has) return {b.has, a.bad | b.bad, b.first, b.last};
+  if (!b.has) return {a.has, a.bad | b.bad, a.first, a.last};
+  return {1, a.bad | b.bad | (b.first < a.last ? 1 : 0), a.first, b.last};
+}
+
+// The block's partial folds, one a thread in row order (K9's last block),
+// folded in order into thread 0's return value: each lane takes the lane above it at 1, 2,
+// 4, 8 and 16, so lane 0 ends with the warp's 32 in order; then thread 0
+// takes the warps in order.
+__device__ __forceinline__ ClOrder ab_block_order(ClOrder x, ClOrder* warps) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    ClOrder y;
+    y.has = __shfl_down_sync(0xffffffffu, x.has, o);
+    y.bad = __shfl_down_sync(0xffffffffu, x.bad, o);
+    y.first = __shfl_down_sync(0xffffffffu, x.first, o);
+    y.last = __shfl_down_sync(0xffffffffu, x.last, o);
+    if (lane + o < 32) x = ab_order_then(x, y);
+  }
+  if (lane == 0) warps[warp] = x;
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int w = 1; w < AB_CL_THREADS / 32; ++w) x = ab_order_then(x, warps[w]);
+  return x;
+}
+
+#define AB_K9_RECORD 3  // a tile's record: flags (1 a live row, 2 a decrease inside), first, last
+#define AB_K9_SUB 2     // consecutive warp tiles a warp (their loads in flight together)
+#define AB_K9_TILE (AB_CL_TILE * AB_K9_SUB)
+
+// grid: one block a AB_K9_TILE rows, at least one; state: int64[1 +
+// AB_K9_RECORD * grid], the stream's: a ticket (zero between launches,
+// reset by the last block), then one record a tile (written before read)
+template <typename T>
+__global__ void __launch_bounds__(AB_CL_THREADS)
+    k9_disorder(const T* __restrict__ k, const uint8_t* __restrict__ mask, long long n,
+                uint8_t* __restrict__ flag, long long* __restrict__ state) {
+  constexpr int R = 16 / sizeof(T), W = AB_CL_ROWS / R;
+  __shared__ ClOrder warps[AB_CL_THREADS / 32];
+  __shared__ int last_block;
+  const int lane = threadIdx.x & 31;
+  const long long wbase0 = (long long)blockIdx.x * AB_K9_TILE +
+                           (threadIdx.x >> 5) * (long long)(AB_CL_WARP_ROWS * AB_K9_SUB);
+  long long v[AB_K9_SUB][AB_CL_ROWS];
+  unsigned live[AB_K9_SUB];
+#pragma unroll
+  for (int u = 0; u < AB_K9_SUB; ++u) {
+    const long long wbase = wbase0 + u * AB_CL_WARP_ROWS;
+    live[u] = 0;
+    if (ab_aligned(k, 16) && ab_aligned(mask, R) && wbase + AB_CL_WARP_ROWS <= n) {
+      unsigned unused;
+      ab_load_lane<T, true>(k, mask, nullptr, wbase, lane, v[u], &live[u], &unused);
+    } else {  // the last warp tile, or an input at a byte offset: row by row
+#pragma unroll
+      for (int r = 0; r < AB_CL_ROWS; ++r) {
+        const long long i = ab_lane_row<T>(wbase, lane, r);
+        v[u][r] = 0;
+        if (i < n && mask[i]) {
+          live[u] |= 1u << r;
+          v[u][r] = (long long)k[i];
+        }
+      }
+    }
+  }
+  // word by word (each a run of 32 R rows over the lanes), the warp's
+  // rows so far in w (the same in every lane)
+  ClOrder w = {0, 0, 0, 0};
+  int bad = 0;
+#pragma unroll
+  for (int u = 0; u < AB_K9_SUB; ++u) {
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      int has = 0;
+      long long first = 0, lastk = 0;
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int r = j * R + q;
+        if ((live[u] >> r) & 1u) {
+          if (has) bad |= v[u][r] < lastk ? 1 : 0;
+          else first = v[u][r];
+          lastk = v[u][r];
+          has = 1;
+        }
+      }
+      const unsigned ball = __ballot_sync(0xffffffffu, has);
+      const unsigned lower = ball & ((1u << lane) - 1u);
+      const long long before = __shfl_sync(0xffffffffu, lastk, lower ? 31 - __clz(lower) : 0);
+      if (has) bad |= (lower ? first < before : (w.has && first < w.last)) ? 1 : 0;
+      if (ball) {  // the same in every lane
+        const long long f = __shfl_sync(0xffffffffu, first, __ffs(ball) - 1);
+        const long long l = __shfl_sync(0xffffffffu, lastk, 31 - __clz(ball));
+        if (!w.has) w.first = f;
+        w.last = l;
+        w.has = 1;
+      }
+    }
+  }
+  w.bad = __any_sync(0xffffffffu, bad) ? 1 : 0;
+  // the warps in order (each lane holds its warp's fold)
+  if (lane == 0) warps[threadIdx.x >> 5] = w;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    ClOrder tile = warps[0];
+    for (int i = 1; i < AB_CL_THREADS / 32; ++i) tile = ab_order_then(tile, warps[i]);
+    long long* rec = state + 1 + (long long)AB_K9_RECORD * blockIdx.x;
+    rec[0] = tile.has | (tile.bad << 1);
+    rec[1] = tile.first;
+    rec[2] = tile.last;
+    last_block = ab_last_block(reinterpret_cast<unsigned long long*>(state)) ? 1 : 0;
+  }
+  __syncthreads();
+  if (!last_block) return;
+  // the last block: every tile's record in tile order, a contiguous run a
+  // thread, then the threads in order
+  const long long tiles = gridDim.x;
+  const long long per = (tiles + AB_CL_THREADS - 1) / AB_CL_THREADS;
+  const long long t0 = min(tiles, (long long)threadIdx.x * per), t1 = min(tiles, t0 + per);
+  ClOrder x = {0, 0, 0, 0};
+  for (long long t = t0; t < t1; ++t) {
+    const long long* rec = state + 1 + AB_K9_RECORD * t;
+    const long long f = __ldcg(rec);
+    const ClOrder o = {(int)(f & 1), (int)((f >> 1) & 1), __ldcg(rec + 1), __ldcg(rec + 2)};
+    x = ab_order_then(x, o);
+  }
+  __syncthreads();  // warps[] was read by thread 0 above
+  x = ab_block_order(x, warps);
+  if (threadIdx.x == 0) {
+    *flag = x.bad ? 1 : 0;
+    state[0] = 0;  // the ticket, for the next launch on this stream
+  }
 }
 
 template <typename T>
@@ -302,28 +447,37 @@ __global__ void __launch_bounds__(AB_CL_THREADS)
 
 static inline bool key_kind_ok(int kind) { return kind == AB_KIND_I32 || kind == AB_KIND_I64; }
 
-// k: int32 or int64[n] (kind); mask: bool[n]; flag: bool[1]
-AB_EXPORT int ab_presorted_disorder(const void* k, int kind, const void* mask, long long n,
-                                    void* flag, void* stream) {
-  if (n < 0 || !key_kind_ok(kind)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  int err = (int)cudaMemsetAsync(flag, 0, 1, s);
-  if (err || n < 2) return err;
-  const int threads = 256, grid = ab_grid(n - 1, threads, 132 * 8);
-  if (kind == AB_KIND_I32)
-    presorted_disorder<int32_t><<<grid, threads, 0, s>>>((const int32_t*)k,
-                                                         (const uint8_t*)mask, n, (uint8_t*)flag);
-  else
-    presorted_disorder<int64_t><<<grid, threads, 0, s>>>((const int64_t*)k,
-                                                         (const uint8_t*)mask, n, (uint8_t*)flag);
-  return ab_last_error();
-}
-
 static inline int ab_cl_grid(long long n, unsigned* grid) {
   const long long tiles = (n + AB_CL_TILE - 1) / AB_CL_TILE;
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   *grid = tiles > 0 ? (unsigned)tiles : 1u;  // no rows: one block writes the result
   return 0;
+}
+
+// int64 words of K9's per-stream state for n rows: a ticket and one
+// record a tile
+AB_EXPORT long long ab_disorder_state_words(long long n) {
+  const long long tiles = (n + AB_K9_TILE - 1) / AB_K9_TILE;
+  return 1 + AB_K9_RECORD * (tiles > 0 ? tiles : 1);
+}
+
+// k: int32 or int64[n] (kind); mask: bool[n]; flag: bool[1]; state:
+// int64[ab_disorder_state_words(n)], the stream's, its first word zero
+// between launches
+AB_EXPORT int ab_presorted_disorder(const void* k, int kind, const void* mask, long long n,
+                                    void* flag, void* state, void* stream) {
+  if (n < 0 || !key_kind_ok(kind) || state == nullptr) return (int)cudaErrorInvalidValue;
+  const long long tiles = (n + AB_K9_TILE - 1) / AB_K9_TILE;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const unsigned grid = tiles > 0 ? (unsigned)tiles : 1u;  // fewer than two rows: one block
+  cudaStream_t s = (cudaStream_t)stream;
+  if (kind == AB_KIND_I32)
+    k9_disorder<int32_t><<<grid, AB_CL_THREADS, 0, s>>>((const int32_t*)k, (const uint8_t*)mask,
+                                                        n, (uint8_t*)flag, (long long*)state);
+  else
+    k9_disorder<int64_t><<<grid, AB_CL_THREADS, 0, s>>>((const int64_t*)k, (const uint8_t*)mask,
+                                                        n, (uint8_t*)flag, (long long*)state);
+  return ab_last_error();
 }
 
 // flag: bool[1]; sentinel ignored unless has_sentinel; acc: uint64[2], the

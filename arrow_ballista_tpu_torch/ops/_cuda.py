@@ -95,7 +95,8 @@ SIGNATURES = {
         "ab_grouped_on_order": ([_P, _P, _P, _LL, _LL, _P, _P, _P, _P, _P], _I),
     },
     "clustered": {
-        "ab_presorted_disorder": ([_P, _I, _P, _LL, _P, _P], _I),
+        "ab_disorder_state_words": ([_LL], _LL),
+        "ab_presorted_disorder": ([_P, _I, _P, _LL, _P, _P, _P], _I),
         "ab_key_range_check": ([_P, _I, _P, _LL, _I, _LL, _LL, _LL, _P, _P, _P], _I),
         "ab_clustered_keep": ([_P, _I, _P, _P, _LL, _P, _P, _I, _P, _P, _P, _P], _I),
     },
@@ -104,7 +105,8 @@ SIGNATURES = {
     },
     "dispatch": {
         "ab_dispatch_scratch_ints": ([_LL, _I], _LL),
-        "ab_dispatch_to_buckets": ([_P, _P, _LL, _I, _LL, _P, _P, _P, _P, _P, _P], _I),
+        "ab_dispatch_count": ([_P, _P, _LL, _I, _LL, _P, _P, _P, _P, _P], _I),
+        "ab_dispatch_scatter": ([_P, _P, _LL, _I, _LL, _P, _P, _P, _P, _P], _I),
     },
     "rank_merge": {
         "ab_merge_rank_states": ([_P, _I, _LL, _I, _I, _P, _P], _I),

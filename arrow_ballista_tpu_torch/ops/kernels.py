@@ -895,8 +895,9 @@ def _bitonic_steps(n: int) -> int:
 def kernel_plan(name: str) -> dict:
     """This thread's last call's plan of K2 (``compaction_order``: form,
     rows, launches), K6 (``probe_join``, either wrapper: mode, rows,
-    launches), K16's ordered form (``spill_order``: form, rows, launches)
-    or K7 (``segment_any``: rows, segments, launches)."""
+    launches), K16's ordered form (``spill_order``: form, rows, launches),
+    K7 (``segment_any``: rows, segments, launches) or K17
+    (``dispatch_to_buckets``: rows, count and scatter launches)."""
     return dict(getattr(_PLANS, name, {}))
 
 
@@ -1454,22 +1455,31 @@ def _key_kind(k: torch.Tensor, mask: torch.Tensor) -> int:
     return _KIND[k.dtype]
 
 
-def presorted_disorder_plain(keys_s: torch.Tensor, mask_s: torch.Tensor) -> torch.Tensor:
-    """Plain twin of K9: any adjacent live pair whose key decreases."""
-    return (mask_s[1:] & mask_s[:-1] & (keys_s[1:] < keys_s[:-1])).any()
+def presorted_disorder_plain(keys: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K9: the reference's flag (any adjacent live pair, in
+    K2's compaction order, whose key decreases) written over row order,
+    where those pairs are the consecutive live rows."""
+    k = keys[mask]
+    return (k[1:] < k[:-1]).any()
 
 
-def presorted_disorder(keys_s: torch.Tensor, mask_s: torch.Tensor) -> torch.Tensor:
-    """0-d bool on the device: True when live keys are NOT non-decreasing
-    in row order."""
-    if _is_cpu(mask_s):
-        return presorted_disorder_plain(keys_s, mask_s)
-    _require_cuda(keys_s, mask_s)
-    k, m = _flat(keys_s), _flat(mask_s)
+def presorted_disorder(keys: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """0-d bool on the device: True when the live keys, in row order, are
+    NOT non-decreasing.  One launch, no memset: each tile leaves a record in
+    a per-stream state (``_DISORDER_STATES``) and the block that draws the
+    last ticket folds them in tile order."""
+    if _is_cpu(mask):
+        return presorted_disorder_plain(keys, mask)
+    _require_cuda(keys, mask)
+    kind = _key_kind(keys, mask)
+    k, m = _flat(keys), _flat(mask)
+    n = m.shape[0]
     flag = torch.empty(1, dtype=torch.bool, device=m.device)
     lib = _cuda.LIBRARIES.get("clustered")
-    _cuda.check(lib.ab_presorted_disorder(_ptr(k), _key_kind(keys_s, mask_s), _ptr(m), m.shape[0],
-                                          _ptr(_flat(flag)), _stream(m.device)),
+    stream = _stream(m.device)
+    state = _stream_words(_DISORDER_STATES, m.device, stream, lib.ab_disorder_state_words(n))
+    _cuda.check(lib.ab_presorted_disorder(_ptr(k), kind, _ptr(m), n, _ptr(_flat(flag)),
+                                          _ptr(state), stream),
                 "presorted_disorder")
     count_launch("presorted_disorder")
     return flag[0]
@@ -1478,17 +1488,15 @@ def presorted_disorder(keys_s: torch.Tensor, mask_s: torch.Tensor) -> torch.Tens
 def grouped_aggregate_presorted(key_cols, val_cols, mask, out_capacity: int):
     """Sort-free grouping for input already ordered by its single group key
     (clustered scans): K2's compaction order replaces the sort, K9 flags
-    disorder, K8 groups.  Returns (out_keys, out_vals, out_mask, overflow,
-    disorder); on disorder the caller discards the result and re-runs the
-    sort path (split runs of one key would emit duplicate partial states,
-    which break early-HAVING filters)."""
+    disorder over the rows as they are, K8 groups through the order.
+    Returns (out_keys, out_vals, out_mask, overflow, disorder); on disorder
+    the caller discards the result and re-runs the sort path (split runs of
+    one key would emit duplicate partial states, which break early-HAVING
+    filters)."""
     if len(key_cols) != 1:
         raise ValueError("presorted grouping takes exactly one key")
     order = compaction_order(mask)
-    idx = order.long()
-    mask_s = mask[idx]
-    k = key_cols[0][idx]
-    disorder = presorted_disorder(k, mask_s)
+    disorder = presorted_disorder(key_cols[0], mask)
     out_keys, out_vals, out_mask, overflow = grouped_on_order(
         key_cols, val_cols, mask, out_capacity, mask.shape[0], order)
     return out_keys, out_vals, out_mask, overflow, disorder
@@ -1520,12 +1528,15 @@ def key_range_check_plain(keys: torch.Tensor, mask: torch.Tensor, lo: int, hi: i
 # their own, kept apart so that one call's folds never lie where a later
 # call expects a zero status word; a status word guards each fold, so
 # they need no reset.  K7 keeps one hit byte a segment, which its verdict
-# kernel reads and puts back to zero.
+# kernel reads and puts back to zero.  K9's state is a ticket and one
+# record a tile, each written before it is read (the ticket reset by the
+# last block).  K17's count takes its ticket from the accumulator.
 _ACCUMULATORS: Dict[Tuple[int, int], torch.Tensor] = {}
 _PROBE_STATES: Dict[Tuple[int, int], torch.Tensor] = {}
 _SEG_STATES: Dict[Tuple[int, int], torch.Tensor] = {}
 _SEG_PAYLOADS: Dict[Tuple[int, int], torch.Tensor] = {}
 _SEG_ANY_STATES: Dict[Tuple[int, int], torch.Tensor] = {}
+_DISORDER_STATES: Dict[Tuple[int, int], torch.Tensor] = {}
 _SEG_ANY_LOCK = threading.Lock()
 _ACCUMULATORS_LOCK = threading.Lock()
 
@@ -1974,9 +1985,9 @@ class _DispatchCols(ctypes.Structure):
 
 
 def _dispatch_groups(cols: Dict[str, torch.Tensor]) -> List[List[str]]:
-    """The columns of a dispatch split into launches of at most
+    """The columns of a dispatch split into scatter launches of at most
     ``_DISPATCH_MAX_COLS`` columns of each element width, in column order;
-    always at least one launch (the mask and counts need one)."""
+    always at least one launch (the mask needs one)."""
     groups: List[List[str]] = [[]]
     seen: Dict[int, int] = {}
     for name, col in cols.items():
@@ -1997,10 +2008,14 @@ def dispatch_to_buckets(cols: Dict[str, torch.Tensor], dest: torch.Tensor,
     ``capacity`` are dropped and flag ``overflow``.  Returns (send_cols,
     send_mask, overflow: 0-d bool, counts: int32[num_dest]).
 
-    One launch takes up to ``_DISPATCH_MAX_COLS`` columns of each width;
-    more go through further launches, each of which ranks the rows anew
-    (the rank is deterministic, so every launch fills the same slots and
-    writes the same mask, counts and flag)."""
+    Two launches: the count (each tile's rows a bucket, scanned into each
+    tile's first rank, the counts and the flag) and the scatter (each tile
+    sorted by bucket on chip and written as contiguous runs, the empty
+    slots zeroed by the same launch).  The scatter takes up to
+    ``_DISPATCH_MAX_COLS`` columns of each width; more go through further
+    scatter launches over the same count, each counted as a launch of the
+    wrapper.  The tile ranks live in the call's own scratch, so another
+    call's launches may fall between the two on a stream."""
     if _is_cpu(mask):
         return dispatch_to_buckets_plain(cols, dest, mask, num_dest, capacity)
     _require_cuda(mask, dest, *cols.values())
@@ -2031,8 +2046,14 @@ def dispatch_to_buckets(cols: Dict[str, torch.Tensor], dest: torch.Tensor,
     lib = _cuda.LIBRARIES.get("dispatch")
     scratch = torch.empty(max(1, lib.ab_dispatch_scratch_ints(n, num_dest)), dtype=torch.int32,
                           device=dev)
+    stream = _stream(dev)
+    _cuda.check(lib.ab_dispatch_count(_ptr(d), _ptr(m), n, int(num_dest), int(capacity),
+                                      _ptr(counts), _ptr(_flat(overflow)), _ptr(scratch),
+                                      _ptr(_accumulator(dev, stream)), stream),
+                "dispatch_to_buckets")
     widths = {8: ("in8", "out8", "n8"), 4: ("in4", "out4", "n4"), 1: ("in1", "out1", "n1")}
-    for group in _dispatch_groups(flat_cols):
+    groups = _dispatch_groups(flat_cols)
+    for g, group in enumerate(groups):
         spec = _DispatchCols()
         for name in group:
             fin, fout, fn = widths[flat_cols[name].dtype.itemsize]
@@ -2040,12 +2061,14 @@ def dispatch_to_buckets(cols: Dict[str, torch.Tensor], dest: torch.Tensor,
             getattr(spec, fin)[k] = flat_cols[name].data_ptr()
             getattr(spec, fout)[k] = send_cols[name].data_ptr()
             setattr(spec, fn, k + 1)
-        err = lib.ab_dispatch_to_buckets(_ptr(d), _ptr(m), n, int(num_dest), int(capacity),
-                                         ctypes.byref(spec), _ptr(_flat(send_mask)),
-                                         _ptr(counts), _ptr(_flat(overflow)), _ptr(scratch),
-                                         _stream(dev))
+        out_mask = _ptr(_flat(send_mask)) if g == 0 else None  # the first group writes it
+        err = lib.ab_dispatch_scatter(_ptr(d), _ptr(m), n, int(num_dest), int(capacity),
+                                      ctypes.byref(spec), out_mask, _ptr(counts), _ptr(scratch),
+                                      stream)
         _cuda.check(err, "dispatch_to_buckets")
         count_launch("dispatch_to_buckets")
+    _PLANS.dispatch_to_buckets = {"rows": n, "count_launches": 1,
+                                  "scatter_launches": len(groups), "launches": 1 + len(groups)}
     return send_cols, send_mask.view(num_dest, capacity), overflow[0], counts
 
 

@@ -113,7 +113,9 @@ Phases (any failure exits non-zero and prints no result line):
    300 calls back to back on one stream and calls from four threads at
    once, on one stream and on a stream each;
    for K1 int32 sums that wrap and int32 and float32 min and max; for K9
-   sorted and shuffled keys; for K10 keys out of range and NULL keys; for
+   keys in row order with dead gaps and tile edges (tests/torch_cases.py
+   DISORDER_CASES) and shuffled keys, each with its expected flag; for K10
+   keys out of range and NULL keys; for
    K11 1,000 intervals and 5,000 merged ones; for K10 and K11 0, 1, 15, 17,
    255, 257, 2,047, 2,049 and 2^20 + 5 rows of int32 and int64 keys at their
    extremes, all rows dead, inputs viewed at byte offsets 1-15, 100 calls
@@ -146,8 +148,9 @@ Phases (any failure exits non-zero and prints no result line):
    standalone paths against the same oracles;
 6. times (warm): kernel, plain twin and library call at the main path's
    shapes, each as device time per call (torch.profiler: the card's own
-   time for everything one call launches; where it records nothing, CUDA
-   events around calls queued behind a spin kernel) and as wall time per
+   time for everything one call launches; where it records nothing, or
+   less than the bound (it lost launches), CUDA events around calls queued
+   behind a spin kernel) and as wall time per
    call (CUDA events around back-to-back calls, host work included), with
    each kernel's least time (bytes moved at 3.35 TB/s), and for K12 / K13
    the interpreted chain's times (no one PyTorch call computes a fused
@@ -167,7 +170,12 @@ Phases (any failure exits non-zero and prints no result line):
    onesweep, composite bits, passes) on every path and at every check, and
    their kernels' device ms per profiled query; K10's and K11's kernels,
    launches and the memsets before them per profiled query (on pq_q18 one
-   kernel a call and no memset, or the run fails); K6's and K2's kernels,
+   kernel a call and no memset, or the run fails); what one call queues at
+   the largest K17 call of mesh4_q3, mesh4_q3_part and mesh4_q18 (K17's
+   count and scatter kernels and nothing else) and at the largest presorted
+   grouping of pq_q18 and sa_pq_q18 (K2's, K9's and K8's kernels, no cast,
+   gather or memset), on the host and by the profiler after a spin kernel,
+   or the run fails; K6's and K2's kernels,
    device ms and the memsets and copies before them per profiled query (on
    q3 and pq_q18 K6's fused kernel and at most its fill a call, K2's one
    kernel or its count and scatter, and no memset or copy, or the run
@@ -296,6 +304,13 @@ SPILL_KERNELS = ("spill_order",)
 # the paths whose largest folded verdict (K7 with the probe mask) must
 # queue K7's two kernels and nothing else
 FOLDED_VERDICT_PATHS = ("q4", "pq_q4", "mesh4_q18")
+# the paths whose largest K17 call must queue K17's two kernels and nothing
+# else (the parent queued four: count, scan, tail and scatter)
+DISPATCH_CALL_PATHS = ("mesh4_q3", "mesh4_q3_part", "mesh4_q18")
+# the paths whose largest presorted grouping must queue K2's, K9's and K8's
+# kernels and nothing else (the parent cast K2's order, gathered the mask
+# and the keys, and cleared K9's flag by a memset)
+PRESORTED_CALL_PATHS = ("pq_q18", "sa_pq_q18")
 PATH_KERNELS["memsweep"] = ("compaction_order",)
 # K19-K22 on every path of the local engine: the scan filters, projections,
 # aggregate operands, join verification and repartition keys as generated
@@ -754,6 +769,41 @@ def verdict_call_activities(K, calls: dict, label: str) -> dict:
     return rec
 
 
+def dispatch_call_activities(K, calls: dict, label: str) -> dict:
+    """``one_call_activities`` at the path's largest K17 call: its count
+    and its scatter kernel, each at most once a call, two launches on the
+    host, no torch op that may queue device work and only K17's count."""
+    if "dispatch_to_buckets" not in calls:
+        fail(f"{label}: no K17 call captured")
+    args = calls["dispatch_to_buckets"][1]
+    rec, bad = one_call_activities(K, lambda: K.dispatch_to_buckets(*args),
+                                   {"dispatch_to_buckets": 1}, ("k17_count<", "k17_scatter<"),
+                                   label)
+    rec.update(rows=int(args[2].shape[0]), destinations=int(args[3]), capacity=int(args[4]),
+               plan=K.kernel_plan("dispatch_to_buckets"))
+    if bad or rec["plan"].get("launches") != 2 or sum(rec["device"].values()) > 2:
+        fail(f"{label}: a K17 call queued {json.dumps(rec)} (its count and scatter kernels, "
+             "no memset or torch op, and only K17's count expected)")
+    return rec
+
+
+def presorted_call_activities(K, calls: dict, label: str) -> dict:
+    """``one_call_activities`` at the path's largest presorted grouping:
+    K2's, K9's and K8's kernels and nothing else (no cast, gather or
+    memset for K9), and only the three wrappers' counts, one each."""
+    if "grouped_aggregate_presorted" not in calls:
+        fail(f"{label}: no presorted grouping captured")
+    args = calls["grouped_aggregate_presorted"][1]
+    own = {"compaction_order": 1, "presorted_disorder": 1, "grouped_on_order": 1}
+    rec, bad = one_call_activities(K, lambda: K.grouped_aggregate_presorted(*args), own,
+                                   ("k2_compact_", "k9_disorder<", "k8_seg_"), label)
+    rec.update(rows=int(args[2].shape[0]))
+    if bad:
+        fail(f"{label}: a presorted grouping queued {json.dumps(rec)} (K2's, K9's and K8's "
+             "kernels, no cast, gather, memset or other torch op expected)")
+    return rec
+
+
 def call_trace(prof) -> dict:
     """K6's and K2's kernels in a torch.profiler trace: per kernel its
     launches and device ms (a shared scan kernel counted only right before
@@ -1051,6 +1101,7 @@ class Capture:
              "hash64": 0, "sort_order": 1, "build_side_sort": 1, "probe_join": 0,
              "probe_counts": 0,
              "segment_any": 0, "grouped_on_order": 2, "presorted_disorder": 1,
+             "grouped_aggregate_presorted": 2,
              "key_range_check": 1, "clustered_keep": 1, "extract_field": 0,
              "spill_partition": 0, "spill_order": 1, "dispatch_to_buckets": 2,
              "merge_rank_states": 0,
@@ -2181,8 +2232,12 @@ def seg_reset_check(K, device, calls=300, seed=15):
 
 
 def clustered_stress(t, rng, n):
-    """K9-K11 inputs: sorted keys (no disorder), the same keys shuffled
-    (disorder), one decrease at a block edge only, and int32 keys; range
+    """K9-K11 inputs: K9 over the rows as they are (tests/torch_cases.py
+    DISORDER_CASES at 2^20 + 5 rows: decreases hidden across a run of dead
+    rows and at the 2,048-row tile edge, equal keys across a dead row, only
+    dead keys decreasing, int32 and int64 extremes, one and two live rows,
+    every row dead; and sorted, shuffled and a decrease across dead rows at
+    n rows), each with the flag it must give; range
     checks with a key above the range in the last row, one below, NULL
     sentinel keys that must not count, and only dead rows outside; keep
     masks over q18-like 16 intervals, over 1,000 with NULL keys and over
@@ -2195,15 +2250,18 @@ def clustered_stress(t, rng, n):
     import torch
 
     from arrow_ballista_tpu_torch.ops.kernels import KeepIntervals
+    from tests.torch_cases import DISORDER_CASES, disorder_case
 
     device = t(np.zeros(1)).device
     i64_min = np.iinfo(np.int64).min
     mask = t(rng.random(n) < 0.9)
     sorted_k = np.sort(rng.integers(0, n // 4, n)).astype(np.int64)
-    edge = sorted_k.copy()
-    edge[256 * 40 - 1] = edge[256 * 40] + 1  # thread 0 of a block sees the pair
-    disorder = [(t(sorted_k), mask), (t(rng.permutation(sorted_k)), mask),
-                (t(edge), torch.ones_like(mask)), (t(sorted_k.astype(np.int32)), mask)]
+    disorder, disorder_flags = [], []
+    for case, rows in [(c, (1 << 20) + 5) for c in DISORDER_CASES] + \
+            [("sorted", n), ("shuffled", n), ("decrease_across_dead_run", n)]:
+        k9_keys, k9_mask = disorder_case(case, rows, rng)
+        disorder.append((t(k9_keys), t(k9_mask)))
+        disorder_flags.append(DISORDER_CASES[case])
     lo, hi = int(sorted_k[0]), int(sorted_k[-1])
     above = sorted_k.copy()
     above[-1] = hi + 1
@@ -2270,7 +2328,7 @@ def clustered_stress(t, rng, n):
     return {"presorted_disorder": disorder, "key_range_check": ranges,
             "clustered_keep": keeps,
             # what K9 and K10 must report on each input above
-            "expected_flags": {"presorted_disorder": [False, True, True, False],
+            "expected_flags": {"presorted_disorder": disorder_flags,
                                "key_range_check": flags}}
 
 
@@ -3404,6 +3462,12 @@ def kernel_timings(K, name, args, device):
             source = "queued_events" if ms is not None else None
         if ms is None and device.type == "cuda":
             ms, source = device_ms(fn)
+        if source == "profiler" and ms < moved / HBM_BYTES_PER_S * 1000:
+            # below the least time the card could take for this work: the
+            # profiler lost launches of its window; read queued events
+            queued = queued_events_ms(fn)
+            if queued is not None:
+                ms, source = queued, "queued_events"
         if ms is None:
             ms, source = times[label + "wall_ms"], "wall"
         times[label + "ms"], times[label + "ms_source"] = ms, source
@@ -4083,6 +4147,16 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                     verdict_call_activities(K, captured[path], path)
                 log(f"{path}: device activities one folded verdict queues at its largest K7 "
                     f"call: {json.dumps(acts)}")
+            if path in DISPATCH_CALL_PATHS:  # K17: its two kernels alone a call
+                acts = report.setdefault("dispatch_call_activities", {})[path] = \
+                    dispatch_call_activities(K, captured[path], path)
+                log(f"{path}: device activities one K17 call queues at its largest call: "
+                    f"{json.dumps(acts)}")
+            if path in PRESORTED_CALL_PATHS:  # K9 on the rows as they are
+                acts = report.setdefault("presorted_call_activities", {})[path] = \
+                    presorted_call_activities(K, captured[path], path)
+                log(f"{path}: device activities one presorted grouping queues at its largest "
+                    f"call: {json.dumps(acts)}")
             if path in DENSE_ONE_LAUNCH:  # K1 / K13 dense: one kernel a call
                 if prof_q is None:
                     fail(f"{path}'s profiled query recorded no device time: K1 unchecked")
@@ -4217,21 +4291,31 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                 f"{json.dumps(report['dense_ms_per_query']['memsweep'])}")
     paths["memsweep"] = (msweep, None)
     phase_done("memsweep", t_phase)
-    if save_calls:  # the largest K16 and K7 calls over the paths, for the timing tool
-        import torch
+    if save_calls:  # the largest K16, K7 and K9 calls over the paths and K17's
+        import torch  # largest on each mesh path with a dispatch, for the timing tools
+
+        def on_host(a):
+            if isinstance(a, torch.Tensor):
+                return a.cpu()
+            if isinstance(a, (list, tuple)):
+                return [on_host(x) for x in a]
+            if isinstance(a, dict):
+                return {k: on_host(x) for k, x in a.items()}
+            return a
 
         saved = {}
-        for name in ("spill_order", "segment_any"):
+        for name in ("spill_order", "segment_any", "presorted_disorder"):
             seen = [(captured[p][name][0], p) for p in captured if name in captured[p]]
             if seen:
                 n, p = max(seen)
-                saved[name] = {"path": p, "rows": n,
-                               "args": [a.cpu() if isinstance(a, torch.Tensor) else
-                                        [t.cpu() for t in a] if isinstance(a, list) else a
-                                        for a in captured[p][name][1]]}
+                saved[name] = {"path": p, "rows": n, "args": on_host(captured[p][name][1])}
+        saved["dispatch_by_path"] = {p: on_host(captured[p]["dispatch_to_buckets"][1])
+                                     for p in DISPATCH_CALL_PATHS
+                                     if "dispatch_to_buckets" in captured.get(p, {})}
         torch.save(saved, save_calls)
-        log(f"saved the largest K16 / K7 calls to {save_calls}: "
-            f"{ {k: (v['path'], v['rows']) for k, v in saved.items()} }")
+        log(f"saved the largest K16 / K7 / K9 calls and K17's by path to {save_calls}: "
+            f"{ {k: (v['path'], v['rows']) for k, v in saved.items() if 'path' in v} }, "
+            f"K17 on {sorted(saved['dispatch_by_path'])}")
 
     # tpch22: the 22 queries through the standalone engine over parquet,
     # cold then warm, held against the port on the CPU (the child's answers)
@@ -4805,8 +4889,9 @@ def main() -> None:
     card = smi("name,power.limit")
     log(f"card: {card}")
     t0 = time.perf_counter()
-    # --save-calls FILE: also write the largest K16 and K7 calls (for
-    # tools/spill_segment_timing.py --calls)
+    # --save-calls FILE: also write the largest K16, K7 and K9 calls and K17's
+    # by mesh path (for tools/spill_segment_timing.py and
+    # tools/dispatch_disorder_timing.py --calls)
     save = sys.argv[2] if len(sys.argv) == 3 and sys.argv[1] == "--save-calls" else None
     report = run("cuda", save_calls=save)
     total = time.perf_counter() - t0

@@ -36,7 +36,8 @@ from arrow_ballista_tpu_torch.ops.physical import TaskContext as TCtx
 from benchmarks.datagen import generate_tables
 from benchmarks.queries import QUERIES
 from benchmarks.tpch import decimal_to_int64_storage
-from tests.torch_cases import (I64_MAX, I64_MIN, INTERVAL_CASES, PRESORTED_CASES,
+from tests.torch_cases import (DISORDER_CASES, I64_MAX, I64_MIN, INTERVAL_CASES,
+                               PRESORTED_CASES, disorder_case,
                                assert_frames_equal, interval_case, interval_keys, pad_intervals,
                                presorted_case)
 
@@ -289,6 +290,30 @@ def test_stale_declared_ranges_disable_early_filter(tmp_path):
 # --------------------------------------------------------------------------
 # the programs: K9 (inside grouped_aggregate_presorted), K10, K11
 # --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", list(DISORDER_CASES))
+def test_disorder_twin_over_row_order_matches_the_reference(case):
+    """K9's twin reads the rows as they are (the live keys in row order must
+    not decrease); the reference compares adjacent live rows in K2's
+    compaction order, from grouped_aggregate_presorted: the same flag on
+    decreases across dead runs and at rows 2,047 / 2,048 and 2,048 / 2,049,
+    equal keys across a dead row, dead keys that decrease, int32 and int64
+    extremes, one and two live rows and every row dead."""
+    keys, mask = disorder_case(case, 4099, np.random.default_rng(22))
+    n = keys.shape[0]
+    jd = JK.grouped_aggregate_presorted([jnp.asarray(keys)], [(jnp.zeros(n, jnp.int64), "count")],
+                                        jnp.asarray(mask), n)[4]
+    td = TK.presorted_disorder(torch.from_numpy(keys), torch.from_numpy(mask))
+    assert bool(td) == bool(jd) == DISORDER_CASES[case]
+
+
+def test_disorder_twin_over_no_rows():
+    """No rows, and one row: no pair, no disorder (the reference's grouping
+    needs a row, so this one is held against the definition)."""
+    for n in (0, 1):
+        keys, mask = np.zeros(n, np.int64), np.ones(n, bool)
+        assert not bool(TK.presorted_disorder(torch.from_numpy(keys), torch.from_numpy(mask)))
 
 
 @pytest.mark.parametrize("case", PRESORTED_CASES)

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from arrow_ballista_tpu_torch.ops import kernels as TK
-from tests.torch_cases import (BUCKET_CASES, CONCAT_CASES, DENSE_CASES, FUSED_CHAINS,
+from tests.torch_cases import (BUCKET_CASES, CONCAT_CASES, DENSE_CASES, DISORDER_CASES,
+                               FUSED_CHAINS, disorder_case,
                                GATHER_CASES, SEG_CASES, SEG_TILE, bucket_case, seg_case,
                                HASH_CASES, I64_MAX, I64_MIN, INTERVAL_CASES, JOIN_CASES,
                                JOIN_QUERIES, KEEP_CASES, MASK_OPS_CASES,
@@ -410,6 +411,126 @@ def test_presorted_aggregate_kernels_match_twins(dev, case):
     assert torch.equal(got[2].cpu(), want[2]) and torch.equal(got[0][0].cpu(), want[0][0])
     for (v, how), g, w in zip(vals, got[1], want[1]):
         assert torch.equal(g.cpu(), w)  # quarter values: float sums exact in any order
+
+
+def _view(dev, a, shift):
+    """``a`` on the card, ``shift`` elements past a 16-byte boundary."""
+    big = torch.zeros(a.shape[0] + 16, dtype=_t(a).dtype, device=dev)
+    big[shift:shift + a.shape[0]] = _t(a).to(dev)
+    return big[shift:shift + a.shape[0]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2050, 4099, (1 << 20) + 5])
+@pytest.mark.parametrize("case", list(DISORDER_CASES))
+def test_disorder_kernel_matches_twin(dev, case, n):
+    """K9 over the rows as they are: decreases across dead runs and at the
+    2,048-row tile edge, dead keys that decrease, extremes, one and two
+    live rows, every row dead."""
+    keys, mask = disorder_case(case, n, np.random.default_rng(n))
+    got = TK.presorted_disorder(_t(keys).to(dev), _t(mask).to(dev))
+    want = TK.presorted_disorder_plain(_t(keys), _t(mask))
+    assert bool(got) == bool(want) == DISORDER_CASES[case]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_disorder_kernel_at_small_sizes(dev, dtype):
+    """0, 1 and 2 rows (one block), and the warp and block tile edges."""
+    rng = np.random.default_rng(7)
+    for n in (0, 1, 2, 3, 255, 256, 257, 511, 512, 513, 2047, 2048, 2049, 4095, 4096, 4097,
+              8193):
+        for trial in range(4):
+            keys = np.sort(rng.integers(-50, 50, n)).astype(dtype)
+            mask = rng.random(n) < (0.5, 0.9, 1.0, 0.1)[trial]
+            if n >= 2 and trial % 2:
+                i = int(rng.integers(0, n - 1))
+                keys[i + 1] = keys[i] - 1
+                mask[i:i + 2] = True
+            got = TK.presorted_disorder(_t(keys).to(dev), _t(mask).to(dev))
+            assert bool(got) == bool(TK.presorted_disorder_plain(_t(keys), _t(mask))), (n, trial)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", range(1, 16))
+def test_disorder_kernel_on_views_at_byte_offsets(dev, offset):
+    """The mask at byte offsets 1-15 and the keys 4 or 8 bytes off a 16-byte
+    boundary (the row-by-row path)."""
+    n = 100_003
+    for case in ("sorted", "decrease_across_dead_run", "int32_extremes_decrease",
+                 "equal_across_dead_row"):
+        keys, mask = disorder_case(case, n, np.random.default_rng(offset))
+        shift = offset % (16 // keys.dtype.itemsize)
+        views = (_view(dev, keys, shift), _view(dev, mask, offset))
+        assert views[1].data_ptr() % 16 == offset
+        got = TK.presorted_disorder(*views)
+        assert bool(got) == bool(TK.presorted_disorder_plain(_t(keys), _t(mask))) == \
+            DISORDER_CASES[case]
+
+
+def _disorder_inputs(rng, calls):
+    """Inputs whose flags alternate and whose tile counts change."""
+    out = []
+    for i in range(calls):
+        n = int(rng.integers(0, 300_000))
+        keys = np.sort(rng.integers(-2**40, 2**40, n))
+        mask = rng.random(n) < rng.random()
+        if i % 2 and n > 1:
+            j = int(rng.integers(0, n - 1))
+            keys[j + 1] = keys[j] - 1
+            mask[j:j + 2] = True
+        out.append((keys, mask))
+    return out
+
+
+def _disorder_all(dev, inputs):
+    staged = [(_t(k).to(dev), _t(m).to(dev)) for k, m in inputs]
+    return [TK.presorted_disorder(k, m) for k, m in staged]
+
+
+def _check_disorder(inputs, results):
+    for (k, m), flag in zip(inputs, results):
+        assert bool(flag) == bool(TK.presorted_disorder_plain(_t(k), _t(m)))
+
+
+@pytest.mark.cuda
+def test_disorder_kernel_back_to_back_on_one_stream(dev):
+    """100 calls queued back to back: each launch's last block puts the
+    stream's ticket back, and each tile's record is written before read."""
+    inputs = _disorder_inputs(np.random.default_rng(41), 100)
+    results = _disorder_all(dev, inputs)
+    torch.cuda.synchronize()
+    assert len({bool(r) for r in results}) == 2
+    _check_disorder(inputs, results)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("own_streams", [False, True])
+def test_disorder_kernel_from_four_threads(dev, own_streams):
+    """Four threads at once, on the stream they share or a stream each."""
+    import threading
+
+    rng = np.random.default_rng(42)
+    inputs = [_disorder_inputs(rng, 25) for _ in range(4)]
+    results = [None] * 4
+    start = threading.Barrier(4)
+
+    def work(i):
+        ctx = torch.cuda.stream(torch.cuda.Stream(dev)) if own_streams else \
+            contextlib.nullcontext()
+        with ctx:
+            start.wait()
+            results[i] = _disorder_all(dev, inputs[i])
+            torch.cuda.current_stream(dev).synchronize()
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    for inp, res in zip(inputs, results):
+        _check_disorder(inp, res)
 
 
 @pytest.mark.cuda
@@ -1327,34 +1448,111 @@ def test_spilled_queries_on_the_card_match_the_cpu(dev, q):
     assert_frames_equal(frames[0], frames[1])
 
 
+def _dispatch_cols(rng, n):
+    return {"i64": rng.integers(-2**62, 2**62, n), "f64": rng.random(n),
+            "i32": rng.integers(-9, 9, n).astype(np.int32), "b": rng.random(n) < 0.5,
+            "f32": rng.random(n).astype(np.float32)}
+
+
+def _dispatch_on_card(dev, cols, dest, mask, n_dest, cap):
+    return TK.dispatch_to_buckets({k: _t(v).to(dev) for k, v in cols.items()}, _t(dest).to(dev),
+                                  _t(mask).to(dev), n_dest, cap)
+
+
+def _assert_dispatch(got, cols, dest, mask, n_dest, cap):
+    """Every buffer slot, the mask, the counts and the flag, bit for bit
+    (the floats compared as their bits)."""
+    want = TK.dispatch_to_buckets_plain({k: _t(v) for k, v in cols.items()}, _t(dest), _t(mask),
+                                        n_dest, cap)
+    for k, w in want[0].items():
+        g = got[0][k].cpu()
+        if w.dtype.is_floating_point:
+            g, w = g.view(torch.int64 if w.element_size() == 8 else torch.int32), \
+                w.view(torch.int64 if w.element_size() == 8 else torch.int32)
+        assert torch.equal(g, w), k
+    assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[3].cpu(), want[3])
+    assert bool(got[2]) == bool(want[2])
+    return want
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("overflow", [False, True], ids=["fits", "overflows"])
-@pytest.mark.parametrize("n_dest", [1, 2, 3, 8, 64])
+@pytest.mark.parametrize("n_dest", [1, 2, 3, 4, 8, 64])
 def test_dispatch_kernel_matches_twin(dev, n_dest, overflow):
-    """K17: send buffers, masks, counts and the overflow flag bit for bit."""
+    """K17: send buffers, masks, counts and the overflow flag bit for bit;
+    one count launch and one scatter launch a call."""
     rng = np.random.default_rng(n_dest)
     n = 300_007
     dest = rng.integers(0, n_dest, n).astype(np.int32)
     mask = rng.random(n) < 0.8
-    cols = {"i64": rng.integers(-2**62, 2**62, n), "f64": rng.random(n),
-            "i32": rng.integers(-9, 9, n).astype(np.int32), "b": rng.random(n) < 0.5,
-            "f32": rng.random(n).astype(np.float32)}
+    cols = _dispatch_cols(rng, n)
     counts = np.bincount(dest[mask], minlength=n_dest)
     cap = int(counts.max()) - 5 if overflow else int(counts.max()) + 11
-    got = TK.dispatch_to_buckets({k: _t(v).to(dev) for k, v in cols.items()}, _t(dest).to(dev),
-                                 _t(mask).to(dev), n_dest, cap)
-    want = TK.dispatch_to_buckets_plain({k: _t(v) for k, v in cols.items()}, _t(dest), _t(mask),
-                                        n_dest, cap)
-    for k in cols:
-        assert torch.equal(got[0][k].cpu(), want[0][k]), k
-    assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[3].cpu(), want[3])
-    assert bool(got[2]) == bool(want[2]) == overflow
+    got = _dispatch_on_card(dev, cols, dest, mask, n_dest, cap)
+    assert TK.kernel_plan("dispatch_to_buckets")["launches"] == 2
+    _assert_dispatch(got, cols, dest, mask, n_dest, cap)
+    assert bool(got[2]) == overflow
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", ["below", "above"])
+@pytest.mark.parametrize("n_dest", [1, 3, 64])
+@pytest.mark.parametrize("n", [0, 1, 4095, 4096, 4097, 8193])
+def test_dispatch_kernel_at_tile_edges(dev, n, n_dest, cap):
+    """Zero rows, one, and the 2,048-row tile's multiples +-1; capacities
+    below and above the largest count; destinations outside [0, n_dest)
+    dropped."""
+    rng = np.random.default_rng(n + n_dest)
+    dest = rng.integers(-1, n_dest + 1, n).astype(np.int32)
+    mask = rng.random(n) < 0.9
+    cols = _dispatch_cols(rng, n)
+    most = int(np.bincount(dest[mask & (dest >= 0) & (dest < n_dest)], minlength=n_dest).max()) \
+        if n else 0
+    c = max(1, most - 2) if cap == "below" else most + 3
+    _assert_dispatch(_dispatch_on_card(dev, cols, dest, mask, n_dest, c), cols, dest, mask,
+                     n_dest, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_dest", [1, 4, 64])
+def test_dispatch_kernel_with_every_row_dead(dev, n_dest):
+    """No row lands: every slot and the mask zero, the counts zero."""
+    rng = np.random.default_rng(9)
+    n = 10_007
+    dest = rng.integers(0, n_dest, n).astype(np.int32)
+    cols = _dispatch_cols(rng, n)
+    mask = np.zeros(n, dtype=bool)
+    want = _assert_dispatch(_dispatch_on_card(dev, cols, dest, mask, n_dest, 777), cols, dest,
+                            mask, n_dest, 777)
+    assert not bool(want[1].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", range(1, 16))
+def test_dispatch_kernel_on_views_at_byte_offsets(dev, offset):
+    """The mask and the 1-byte column at byte offsets 1-15, dest and the
+    4-byte column 4, 8 or 12 bytes off a 16-byte boundary (the row-by-row
+    loads and the column stage's element path)."""
+    rng = np.random.default_rng(100 + offset)
+    n, n_dest = 50_001, 4
+    dest = rng.integers(0, n_dest, n).astype(np.int32)
+    mask = rng.random(n) < 0.7
+    cols = _dispatch_cols(rng, n)
+    cap = int(np.bincount(dest[mask], minlength=n_dest).max()) + 5
+    shift4 = offset % 4
+    views = {"i64": _t(cols["i64"]).to(dev), "f64": _t(cols["f64"]).to(dev),
+             "i32": _view(dev, cols["i32"], shift4), "b": _view(dev, cols["b"], offset),
+             "f32": _view(dev, cols["f32"], 3 - shift4)}
+    dv, mv = _view(dev, dest, 3 - shift4), _view(dev, mask, 15 - offset)
+    assert views["b"].data_ptr() % 16 == offset
+    got = TK.dispatch_to_buckets(views, dv, mv, n_dest, cap)
+    _assert_dispatch(got, cols, dest, mask, n_dest, cap)
 
 
 @pytest.mark.cuda
 def test_dispatch_kernel_takes_more_than_32_columns_of_a_width(dev):
-    """K17 past 32 columns of a width: one launch per group of 32, the
-    same slots as the twin's."""
+    """K17 past 32 columns of a width: the count launched once, one scatter
+    launch per group of 32, the same slots as the twin's."""
     rng = np.random.default_rng(5)
     n, n_dest = 100_003, 4
     dest = rng.integers(0, n_dest, n).astype(np.int32)
@@ -1367,12 +1565,72 @@ def test_dispatch_kernel_takes_more_than_32_columns_of_a_width(dev):
     got = TK.dispatch_to_buckets({k: _t(v).to(dev) for k, v in cols.items()}, _t(dest).to(dev),
                                  _t(mask).to(dev), n_dest, cap)
     assert TK.LAUNCHES["dispatch_to_buckets"] == 3
+    plan = TK.kernel_plan("dispatch_to_buckets")
+    assert plan["count_launches"] == 1 and plan["scatter_launches"] == 3
     want = TK.dispatch_to_buckets_plain({k: _t(v) for k, v in cols.items()}, _t(dest), _t(mask),
                                         n_dest, cap)
     for k in cols:
         assert torch.equal(got[0][k].cpu(), want[0][k]), k
     assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[3].cpu(), want[3])
     assert bool(got[2]) and bool(want[2])
+
+
+def _dispatch_inputs(rng, calls):
+    """Calls of changing sizes, destinations and capacities."""
+    out = []
+    for _ in range(calls):
+        n = int(rng.integers(0, 200_000))
+        n_dest = int(rng.choice([1, 2, 4, 8, 17, 64]))
+        dest = rng.integers(0, n_dest, n).astype(np.int32)
+        mask = rng.random(n) < rng.random()
+        cols = {"k": rng.integers(-2**62, 2**62, n), "v": rng.integers(0, 9, n).astype(np.int32)}
+        most = int(np.bincount(dest[mask], minlength=n_dest).max()) if n else 0
+        out.append((cols, dest, mask, n_dest, max(1, int(most * rng.uniform(0.8, 2.0)))))
+    return out
+
+
+def _dispatch_all(dev, inputs):
+    staged = [({k: _t(v).to(dev) for k, v in c.items()}, _t(d).to(dev), _t(m).to(dev), nd, cap)
+              for c, d, m, nd, cap in inputs]
+    return [TK.dispatch_to_buckets(*a) for a in staged]
+
+
+@pytest.mark.cuda
+def test_dispatch_kernel_back_to_back_on_one_stream(dev):
+    """60 calls queued back to back: the count's ticket is back to zero for
+    the next call, and each call's scatter reads its own tile ranks."""
+    inputs = _dispatch_inputs(np.random.default_rng(51), 60)
+    results = _dispatch_all(dev, inputs)
+    torch.cuda.synchronize()
+    for args, got in zip(inputs, results):
+        _assert_dispatch(got, *args)
+
+
+@pytest.mark.cuda
+def test_dispatch_kernel_from_four_threads_on_one_stream(dev):
+    """Four threads on the stream they share: another call's launches may
+    fall between a call's count and its scatter."""
+    import threading
+
+    rng = np.random.default_rng(52)
+    inputs = [_dispatch_inputs(rng, 12) for _ in range(4)]
+    results = [None] * 4
+    start = threading.Barrier(4)
+
+    def work(i):
+        start.wait()
+        results[i] = _dispatch_all(dev, inputs[i])
+        torch.cuda.current_stream(dev).synchronize()
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    for inp, res in zip(inputs, results):
+        for args, got in zip(inp, res):
+            _assert_dispatch(got, *args)
 
 
 @pytest.mark.cuda

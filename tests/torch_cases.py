@@ -488,6 +488,66 @@ def presorted_case(case, n, rng):
     return keys, vals, mask
 
 
+# K9 over the rows as they are: the flag is True exactly when the live
+# keys, in row order, ever decrease (the reference compares adjacent live
+# rows in K2's compaction order).  Each case with the flag it must give;
+# the decreases at rows 2,047 / 2,048 and 2,048 / 2,049 straddle K9's
+# 2,048-row tile edge.
+DISORDER_CASES = {"sorted": False, "shuffled": True, "decrease_across_dead_run": True,
+                  "equal_across_dead_row": False, "only_dead_decrease": False,
+                  "decrease_at_2047_2048": True, "decrease_at_2048_2049": True,
+                  "int32_extremes": False, "int32_extremes_decrease": True,
+                  "int64_extremes": False, "int64_extremes_decrease": True,
+                  "one_live": False, "two_live": False, "two_live_decrease": True,
+                  "all_dead": False}
+
+
+def disorder_case(case, n, rng):
+    """(keys, mask) for K9 at n rows (n >= 2,050): keys sorted with ties
+    and 20% of the rows dead unless the case says otherwise."""
+    dtype = np.int32 if case.startswith("int32") else np.int64
+    mask = rng.random(n) < 0.8
+    keys = np.sort(rng.integers(-1000, 1000 + n // 4, n)).astype(dtype)
+    if case == "shuffled":
+        keys = rng.permutation(keys)
+    elif case == "decrease_across_dead_run":  # live i, 40 dead rows, live i + 41
+        i = n // 3
+        mask[i], mask[i + 1:i + 41], mask[i + 41] = True, False, True
+        keys[i + 1:i + 41] = I64_MAX  # dead keys above both decide nothing
+        keys[i + 41] = keys[i] - 1
+    elif case == "equal_across_dead_row":  # live k, dead k - 100, live k
+        i = n // 3
+        mask[i:i + 3] = [True, False, True]
+        keys[i + 1], keys[i + 2] = keys[i] - 100, keys[i]
+    elif case == "only_dead_decrease":
+        dead = ~mask
+        keys[dead] = -np.arange(int(dead.sum()), dtype=dtype) * 7
+    elif case.startswith("decrease_at_"):
+        i = int(case.split("_")[2])  # rows i and i + 1
+        mask[i:i + 2] = True
+        keys[i + 1] = keys[i] - 1
+    elif "extremes" in case:
+        info = np.iinfo(dtype)
+        keys = np.sort(rng.integers(info.min, info.max, n, dtype=dtype, endpoint=True))
+        keys[0], keys[-1] = info.min, info.max
+        mask[0] = mask[-1] = True
+        if case.endswith("_decrease"):  # max, then min
+            i = n // 2
+            mask[i:i + 2] = True
+            keys[i], keys[i + 1] = info.max, info.min
+    elif case in ("one_live", "two_live", "two_live_decrease", "all_dead"):
+        keys = rng.integers(-1000, 1000, n).astype(dtype)  # any order among dead rows
+        mask[:] = False
+        live = {"one_live": 1, "two_live": 2, "two_live_decrease": 2, "all_dead": 0}[case]
+        at = np.sort(rng.choice(n, live, replace=False))
+        mask[at] = True
+        if live == 2:
+            keys[at] = [5, 9] if case == "two_live" else [9, 5]
+    elif case != "sorted":
+        raise KeyError(case)
+    return keys, mask
+
+
 RANGE_CASES = ["inside", "above", "below", "null_keys_only_outside", "dead_rows_outside",
                "int32_keys", "all_dead"]
 
