@@ -109,7 +109,8 @@ SIGNATURES = {
         "ab_dispatch_scatter": ([_P, _P, _LL, _I, _LL, _P, _P, _P, _P, _P], _I),
     },
     "rank_merge": {
-        "ab_merge_rank_states": ([_P, _I, _LL, _I, _I, _P, _P], _I),
+        "ab_merge_spec_bytes": ([], _I),
+        "ab_merge_columns": ([_P, _P], _I),
     },
     "gather": {
         "ab_concat_spec_bytes": ([_I], _I),

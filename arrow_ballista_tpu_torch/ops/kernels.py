@@ -20,7 +20,7 @@ in compile/fused.py and count their launches here).
 | K14 ``extract_field`` | ``csrc/extract.cu`` + ``civil.cuh`` | ``extract_field`` l.800, ``civil_from_days`` l.782 |
 | K16 ``spill_order`` (and ``spill_partition``) | ``csrc/compact.cu`` (``csrc/hash.cu``) | operators.py:1512 "join.spill_part" and the pack's compaction l.122 |
 | K17 ``dispatch_to_buckets`` | ``csrc/dispatch.cu`` | parallel/ici_shuffle.py:33 |
-| K18 ``merge_rank_states`` | ``csrc/rank_merge.cu`` | parallel/distributed.py:136-145 psum/pmin/pmax |
+| K18 ``merge_rank_columns`` (and its one-column case ``merge_rank_states``) | ``csrc/rank_merge.cu`` | parallel/distributed.py:136-145 psum/pmin/pmax and the ``> 0`` |
 | K20 ``concat_columns`` | ``csrc/gather.cu`` | models/batch.py:435 "batch.concat" |
 | K21 ``gather_columns`` | ``csrc/gather.cu`` | models/batch.py:439 "batch.shrink", ``pack_for_host`` l.122 |
 | K22 ``window_mask`` / ``mask_or`` / ``mask_and`` | ``csrc/gather.cu`` | operators.py:1029-1040 "join.window_mask", "join.mask_or", "join.mask_and" |
@@ -29,7 +29,8 @@ in compile/fused.py and count their launches here).
 A wrapper takes the twin only for a tensor that lies on the CPU (the
 tests); for a CUDA tensor it launches its kernel or raises.  ``LAUNCHES``
 counts each wrapper's launches, so a run can show that its path went
-through the kernels (K1 counts both its forms under ``dense_group_states``;
+through the kernels (K1 counts both its forms under ``dense_group_states``,
+K18 both its wrappers' launches under ``merge_rank_states``;
 ``fused_agg_dense`` counts the K13 launches that took the dense form,
 each also one of ``fused_agg``).  Shapes stay static as in the reference: data-
 dependent counts live in fixed capacities with liveness masks.
@@ -896,8 +897,9 @@ def kernel_plan(name: str) -> dict:
     """This thread's last call's plan of K2 (``compaction_order``: form,
     rows, launches), K6 (``probe_join``, either wrapper: mode, rows,
     launches), K16's ordered form (``spill_order``: form, rows, launches),
-    K7 (``segment_any``: rows, segments, launches) or K17
-    (``dispatch_to_buckets``: rows, count and scatter launches)."""
+    K7 (``segment_any``: rows, segments, launches), K17
+    (``dispatch_to_buckets``: rows, count and scatter launches) or K18
+    (``merge_rank_columns``: columns, ranks, slots, launches)."""
     return dict(getattr(_PLANS, name, {}))
 
 
@@ -2077,43 +2079,138 @@ def dispatch_to_buckets(cols: Dict[str, torch.Tensor], dest: torch.Tensor,
 # --------------------------------------------------------------------------
 
 MERGE_MAX_RANKS = 64  # csrc/rank_merge.cu AB_MERGE_MAX_RANKS
-_MERGE_HOW = {AGG_SUM: 0, AGG_COUNT: 0, AGG_MIN: 2, AGG_MAX: 3, "or": 3}
+# how -> csrc/rank_merge.cu AB_HOW_* ("or" merges bool arrays; "exists" is
+# the wrapped integer sum written as the bool sum > 0)
+MERGE_EXISTS = "exists"
+_MERGE_HOW = {AGG_SUM: 0, AGG_COUNT: 0, AGG_MIN: 2, AGG_MAX: 3, "or": 3, MERGE_EXISTS: 5}
+# (dtype, how) -> (kind, how code, merged dtype), for every merge K18 takes
+_MERGE_CODES = {
+    **{(dt, how): (_KIND[dt], code, dt) for dt in (torch.int32, torch.int64, torch.float32,
+                                                   torch.float64)
+       for how, code in _MERGE_HOW.items() if how != MERGE_EXISTS},
+    **{(dt, MERGE_EXISTS): (_KIND[dt], _MERGE_HOW[MERGE_EXISTS], torch.bool)
+       for dt in (torch.int32, torch.int64)},
+    **{(torch.bool, how): (_KIND[torch.bool], _MERGE_HOW[how], torch.bool)
+       for how in (AGG_MAX, "or")},
+}
+
+
+MERGE_MAX_COLS, MERGE_MAX_PTRS = 16, 64  # csrc/rank_merge.cu AB_MERGE_MAX_COLS / _PTRS
+
+
+class _MergeSpec(ctypes.Structure):
+    """csrc/rank_merge.cu ``MergeSpec``: one launch's column table."""
+    _fields_ = [("start", ctypes.c_longlong * (MERGE_MAX_COLS + 1)),
+                ("out", ctypes.c_void_p * MERGE_MAX_COLS),
+                ("src", ctypes.c_void_p * MERGE_MAX_PTRS),
+                ("n_cols", ctypes.c_int), ("n_ranks", ctypes.c_int),
+                ("kind", ctypes.c_ubyte * MERGE_MAX_COLS),
+                ("how", ctypes.c_ubyte * MERGE_MAX_COLS)]
+
+
+_MERGE_CHECKED = None  # the rank_merge library whose struct was checked
+
+
+def _merge_lib():
+    global _MERGE_CHECKED
+    lib = _cuda.LIBRARIES.get("rank_merge")
+    if lib is not _MERGE_CHECKED:
+        if lib.ab_merge_spec_bytes() != ctypes.sizeof(_MergeSpec):
+            raise RuntimeError("csrc/rank_merge.cu MergeSpec and ops/kernels.py _MergeSpec "
+                               "differ")
+        _MERGE_CHECKED = lib
+    return lib
 
 
 def merge_rank_states_plain(xs: Sequence[torch.Tensor], how: str) -> torch.Tensor:
-    """Plain twin of K18: ``torch.stack(xs)`` summed, or its min or max
-    (a bool array merges by OR), over the ranks."""
+    """Plain twin of K18's one column: ``torch.stack(xs)`` summed, or its
+    min or max (a bool array merges by OR), over the ranks; ``exists`` is
+    the sum compared with 0."""
     s = torch.stack(list(xs))
     if s.dtype == torch.bool:
         return s.any(0)
-    if how in (AGG_SUM, AGG_COUNT):
-        return s.sum(0, dtype=s.dtype)
+    if how in (AGG_SUM, AGG_COUNT, MERGE_EXISTS):
+        total = s.sum(0, dtype=s.dtype)
+        return total > 0 if how == MERGE_EXISTS else total
     return s.amin(0) if how == AGG_MIN else s.amax(0)
+
+
+def merge_rank_columns_plain(columns) -> List[torch.Tensor]:
+    """Plain twin of K18: each (rank arrays, how) column merged by
+    ``merge_rank_states_plain``."""
+    return [merge_rank_states_plain(xs, how) for xs, how in columns]
+
+
+def merge_rank_columns(columns) -> List[torch.Tensor]:
+    """K18: every column of a dense merge over the ranks in one launch.
+    ``columns`` is [(xs, how)]: xs the ranks' arrays of one dtype and
+    shape, in rank order, on one device (the same ranks in every column);
+    how sum or count (integer sums wrap), min or max (float NaN
+    propagates), "or" (bool arrays; max too) or ``MERGE_EXISTS`` (an
+    integer sum, written as the bool ``sum > 0``).  Returns the merged
+    arrays, one a column.  One launch takes up to ``MERGE_MAX_COLS``
+    columns and ``MERGE_MAX_PTRS`` rank arrays (csrc/rank_merge.cu's
+    parameter struct); a wider merge takes one launch a group of whole
+    columns."""
+    if not columns:
+        return []
+    if _is_cpu(columns[0][0][0]):
+        return merge_rank_columns_plain(columns)
+    n = len(columns[0][0])
+    if not 1 <= n <= MERGE_MAX_RANKS:
+        raise ValueError(f"a rank merge takes 1-{MERGE_MAX_RANKS} ranks, got {n}")
+    dev = columns[0][0][0].device
+    if dev.type != "cuda":
+        raise ValueError(f"kernel inputs must share one CUDA device, got {dev}")
+    outs, srcs, kinds, hows, starts = [], [], [], [], [0]
+    keep = []  # contiguous copies of strided inputs, held until the launches are queued
+    for xs, how in columns:
+        x0 = xs[0]
+        dt, shape = x0.dtype, x0.shape
+        if len(xs) != n:
+            raise ValueError(f"every column of a rank merge takes {n} ranks, got {len(xs)}")
+        for x in xs:
+            if x.dtype != dt or x.shape != shape:
+                raise TypeError("rank states must share one dtype and shape")
+            if x.device != dev:
+                raise ValueError(f"kernel inputs must share one CUDA device, got {x.device}")
+            if not x.is_contiguous():
+                x = x.contiguous()
+                keep.append(x)
+            srcs.append(x.data_ptr())
+        code = _MERGE_CODES.get((dt, how))
+        if code is None:
+            raise ValueError(f"no rank merge {how!r} over {dt}")
+        kinds.append(code[0])
+        hows.append(code[1])
+        outs.append(torch.empty(shape, dtype=code[2], device=dev))
+        starts.append(starts[-1] + x0.numel())
+    if starts[-1] == 0:
+        return outs
+    lib = _merge_lib()
+    per_launch = min(MERGE_MAX_COLS, MERGE_MAX_PTRS // n)
+    stream = _stream(dev)
+    launches = 0
+    for c0 in range(0, len(columns), per_launch):
+        c1 = min(len(columns), c0 + per_launch)
+        k = c1 - c0
+        spec = _MergeSpec()
+        spec.n_cols, spec.n_ranks = k, n
+        spec.start[:k + 1] = [s - starts[c0] for s in starts[c0:c1 + 1]]
+        spec.out[:k] = [o.data_ptr() for o in outs[c0:c1]]
+        spec.src[:k * n] = srcs[c0 * n:c1 * n]
+        spec.kind[:k] = kinds[c0:c1]
+        spec.how[:k] = hows[c0:c1]
+        _cuda.check(lib.ab_merge_columns(ctypes.byref(spec), stream), "merge_rank_columns")
+        count_launch("merge_rank_states")
+        launches += 1
+    _PLANS.merge_rank_columns = {"columns": len(columns), "ranks": n, "slots": starts[-1],
+                                 "launches": launches}
+    return outs
 
 
 def merge_rank_states(xs: Sequence[torch.Tensor], how: str) -> torch.Tensor:
     """Element-wise sum (``how`` sum or count), min or max of the ranks'
     slot-aligned arrays, which lie on one device; bool arrays merge by OR.
-    Integer sums wrap."""
-    xs = list(xs)
-    if _is_cpu(xs[0]):
-        return merge_rank_states_plain(xs, how)
-    _require_cuda(*xs)
-    dt = xs[0].dtype
-    if dt not in _KIND or any(x.dtype != dt or x.shape != xs[0].shape for x in xs):
-        raise TypeError("rank states must share one dtype and shape")
-    if how not in _MERGE_HOW or (dt == torch.bool and how not in (AGG_MAX, "or")):
-        raise ValueError(f"no rank merge {how!r} over {dt}")
-    if not 1 <= len(xs) <= MERGE_MAX_RANKS:
-        raise ValueError(f"a rank merge takes 1-{MERGE_MAX_RANKS} ranks, got {len(xs)}")
-    flat = [_flat(x) for x in xs]
-    dev = flat[0].device
-    out = torch.empty(xs[0].shape, dtype=dt, device=dev)
-    ptrs = (ctypes.c_void_p * len(flat))(*[f.data_ptr() for f in flat])
-    lib = _cuda.LIBRARIES.get("rank_merge")
-    err = lib.ab_merge_rank_states(ctypes.cast(ptrs, ctypes.c_void_p), len(flat),
-                                   flat[0].numel(), _KIND[dt], _MERGE_HOW[how],
-                                   _ptr(_flat(out)), _stream(dev))
-    _cuda.check(err, "merge_rank_states")
-    count_launch("merge_rank_states")
-    return out
+    Integer sums wrap.  K18's one-column case."""
+    return merge_rank_columns([(list(xs), how)])[0]

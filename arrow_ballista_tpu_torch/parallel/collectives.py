@@ -7,15 +7,17 @@ them is a copy between their tensors: ``copy_`` into a buffer on the
 receiving rank's device, which is a peer copy between cards and a device
 copy on one card.  It is data movement, as NCCL's would be, so no hand
 kernel does it; ``BYTES`` counts what each collective copies.  The
-element-wise reductions (``psum``, ``pmin``, ``pmax``) gather the ranks'
-arrays onto the first rank's device and merge them there with K18
-(``kernels.merge_rank_states``); their result is the replicated value,
+element-wise reduction (``reduce_columns``: the reference's ``psum``,
+``pmin`` and ``pmax`` of every column of a dense merge, and its
+``psum(...) > 0``) gathers the ranks' arrays onto the first rank's device
+and merges every column there in one K18 launch
+(``kernels.merge_rank_columns``); its result is the replicated value,
 held once.
 
 Each collective takes one entry per rank, in rank order, and returns one
-entry per rank (the reductions: the one merged tensor).  Inside a rank's
-``per_shard`` body (parallel/distributed.py) a collective is reached by
-yielding a ``Collective``.
+entry per rank (the reduction: the one tuple of merged tensors).  Inside a
+rank's ``per_shard`` body (parallel/distributed.py) a collective is reached
+by yielding a ``Collective``.
 """
 from __future__ import annotations
 
@@ -91,25 +93,22 @@ def all_gather(parts: Sequence[torch.Tensor], mesh: Mesh) -> List[torch.Tensor]:
     return out
 
 
-def _reduce(xs: Sequence[torch.Tensor], mesh: Mesh, how: str) -> torch.Tensor:
+def reduce_columns(columns: Sequence[Sequence[torch.Tensor]], hows: Sequence[Sequence[str]],
+                   mesh: Mesh) -> tuple:
+    """``columns[r]`` is rank r's list of slot-aligned arrays and
+    ``hows[r]`` their merges (the same on every rank: sum or count, min,
+    max, "or" for bool arrays, ``kernels.MERGE_EXISTS`` for the integer
+    sum written as ``sum > 0``).  Returns the merged arrays, one a column,
+    replicated: every column in one K18 launch."""
     dev = mesh.devices[0]
     moved = []
-    for x in xs:
-        if x.device != dev:
-            _count("psum", x.numel() * x.element_size())
-            x = x.to(dev, non_blocking=True)
-        moved.append(x)
-    return K.merge_rank_states(moved, how)
-
-
-def psum(xs: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:
-    """Slot-wise sum over the ranks (integer sums wrap); bool arrays OR."""
-    return _reduce(xs, mesh, K.AGG_SUM if xs[0].dtype != torch.bool else "or")
-
-
-def pmin(xs: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:
-    return _reduce(xs, mesh, K.AGG_MIN)
-
-
-def pmax(xs: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:
-    return _reduce(xs, mesh, K.AGG_MAX)
+    for rank_cols in columns:
+        row = []
+        for x in rank_cols:
+            if x.device != dev:
+                _count("psum", x.numel() * x.element_size())
+                x = x.to(dev, non_blocking=True)
+            row.append(x)
+        moved.append(row)
+    per_column = zip(zip(*moved), hows[0])
+    return tuple(K.merge_rank_columns([(list(xs), how) for xs, how in per_column]))

@@ -41,7 +41,6 @@ from .mesh import Mesh, mesh_axis_size
 
 # aggregate merge rule: partial counts merge by summation, rest by themselves
 _MERGE = {"sum": "sum", "count": "sum", "min": "min", "max": "max"}
-_REDUCE = {"sum": C.psum, "count": C.psum, "min": C.pmin, "max": C.pmax}
 
 
 def _shuffle_capacity(rows_per_shard: int, n: int, factor: float) -> int:
@@ -189,8 +188,10 @@ def distributed_dense_aggregate(
     """Reduce-collective aggregate for dense key domains: every rank
     reduces its rows into slot-aligned dense states (K1: slot d IS key
     combination d), then the merge across ranks is one element-wise sum,
-    min or max per aggregate over ``[domain]`` arrays (K18).  No
-    all_to_all, no shuffle capacity, no skew sensitivity.
+    min or max per aggregate over ``[domain]`` arrays, the exists counts'
+    sum written as ``> 0`` and the bad flags' OR: one collective, one K18
+    launch (the reference's ``len(agg_specs) + 2`` collectives and its
+    compare).  No all_to_all, no shuffle capacity, no skew sensitivity.
 
     Returns ``run(cols, mask) -> (keys, vals, mask, overflow)``, each one
     ``[domain]`` tensor (the reference's replicated outputs): groups
@@ -202,16 +203,14 @@ def distributed_dense_aggregate(
         keys = [cols[k] for k in key_names]
         vals = [(cols[v], how) for v, how in agg_specs]
         dense_vals, exists_cnt, bad = K.dense_group_states(keys, vals, mask, key_ranges, domain)
-        merged = []
-        for v, (_, how) in zip(dense_vals, agg_specs):
-            merged.append((yield Collective(_REDUCE[how], v)))
-        exists = yield Collective(C.psum, exists_cnt)
-        bad = yield Collective(C.psum, bad.reshape(1))
-        return [k.dtype for k in keys], merged, exists, bad
+        hows = [_MERGE[how] for _, how in agg_specs] + [K.MERGE_EXISTS, "or"]
+        merged = yield Collective(C.reduce_columns, [*dense_vals, exists_cnt, bad.reshape(1)],
+                                  hows)
+        return [k.dtype for k in keys], merged
 
     def gather(outs):
-        key_dtypes, merged, exists, bad = outs[0]  # replicated
-        fk, fv, fmask, ovf = K.compact_dense_states(key_dtypes, merged, exists > 0, domain,
+        key_dtypes, (*merged, exists, bad) = outs[0]  # replicated
+        fk, fv, fmask, ovf = K.compact_dense_states(key_dtypes, merged, exists, domain,
                                                     key_ranges, domain)
         return fk, fv, fmask, ovf | bad[0]
 

@@ -121,13 +121,18 @@ Phases (any failure exits non-zero and prints no result line):
    extremes, all rows dead, inputs viewed at byte offsets 1-15, 100 calls
    back to back on one stream and calls from four threads at once, on one
    stream and on a stream each; for K17 2, 4 and 8 destinations with capacities
-   that fit and that overflow, and 40 int64 columns (two launches); for K18 2, 4 and 8 rank arrays (int64 sums
-   that wrap, float64 sums); for the mesh derive NULL keys and values;
+   that fit and that overflow, and 40 int64 columns (two launches); for
+   K18 2, 4 and 8 rank arrays (int64 sums that wrap, float64 sums), and
+   its many-column form (one dense merge's columns of every dtype, NaN in
+   float min and max, exists counts, a bool flag) over 1 and 4 ranks and
+   72 columns over 8 ranks (nine launches); for the mesh derive NULL keys
+   and values;
    for K12 and K13 a row chain and a dense and a
    sort-path aggregate chain with NULL keys and values, int64 sums and
    products that wrap, float64 sums and a dictionary predicate; for K14
    days over 1900-2100, the leap days of 1900 / 2000 / 2100, negative days
-   and the NULL sentinel; for K15 NULL keys and values; for K16 forced
+   and the NULL sentinel, and every int32 day, each field; for K15 NULL
+   keys and values; for K16 forced
    collisions and the values dead rows may carry; for K19 a filter, a
    projection and computed sort keys over NULL strings and integers, NaN
    and products that wrap; for K20 40 columns of every dtype and 70
@@ -174,8 +179,12 @@ Phases (any failure exits non-zero and prints no result line):
    the largest K17 call of mesh4_q3, mesh4_q3_part and mesh4_q18 (K17's
    count and scatter kernels and nothing else) and at the largest presorted
    grouping of pq_q18 and sa_pq_q18 (K2's, K9's and K8's kernels, no cast,
-   gather or memset), on the host and by the profiler after a spin kernel,
-   or the run fails; K6's and K2's kernels,
+   gather or memset) and at the largest dense merge of mesh_q1 and
+   mesh4_q1 (one K18 kernel: every state, the exists counts' ``> 0`` and
+   the bad flag in one launch), on the host and by the profiler after a
+   spin kernel, or the run fails; each generated program that inlines
+   K14's civil core (K19 on pq_q7-q9, K13 on sa_q7-q9) at its largest
+   call, held against its twin and timed; K6's and K2's kernels,
    device ms and the memsets and copies before them per profiled query (on
    q3 and pq_q18 K6's fused kernel and at most its fill a call, K2's one
    kernel or its count and scatter, and no memset or copy, or the run
@@ -311,6 +320,10 @@ DISPATCH_CALL_PATHS = ("mesh4_q3", "mesh4_q3_part", "mesh4_q18")
 # kernels and nothing else (the parent cast K2's order, gathered the mask
 # and the keys, and cleared K9's flag by a memset)
 PRESORTED_CALL_PATHS = ("pq_q18", "sa_pq_q18")
+# the paths whose dense merge (the mesh's dense aggregate: every state, the
+# exists counts and the bad flag) must queue one K18 kernel and nothing
+# else (the parent queued one K18 kernel a column and a torch compare)
+MERGE_CALL_PATHS = ("mesh_q1", "mesh4_q1")
 PATH_KERNELS["memsweep"] = ("compaction_order",)
 # K19-K22 on every path of the local engine: the scan filters, projections,
 # aggregate operands, join verification and repartition keys as generated
@@ -787,6 +800,28 @@ def dispatch_call_activities(K, calls: dict, label: str) -> dict:
     return rec
 
 
+def merge_call_activities(K, calls: dict, label: str) -> dict:
+    """``one_call_activities`` at the path's largest dense merge (the
+    ``reduce_columns`` collective: every aggregate state, the exists counts
+    and the bad flag): one K18 kernel, one launch on the host, no torch op
+    that may queue device work (the parent's compare ``exists > 0``
+    included) and only K18's count."""
+    from arrow_ballista_tpu_torch.parallel import collectives as C
+
+    if "reduce_columns" not in calls:
+        fail(f"{label}: no dense merge captured")
+    args = calls["reduce_columns"][1]
+    rec, bad = one_call_activities(K, lambda: C.reduce_columns(*args), {"merge_rank_states": 1},
+                                   ("k18_merge",), label)
+    rec.update(ranks=len(args[0]), columns=len(args[0][0]),
+               slots=int(sum(x.numel() for x in args[0][0])),
+               plan=K.kernel_plan("merge_rank_columns"))
+    if bad or rec["plan"].get("launches") != 1 or sum(rec["device"].values()) > 1:
+        fail(f"{label}: a dense merge queued {json.dumps(rec)} (one K18 kernel, no memset, copy "
+             "or torch op, and only K18's count expected)")
+    return rec
+
+
 def presorted_call_activities(K, calls: dict, label: str) -> dict:
     """``one_call_activities`` at the path's largest presorted grouping:
     K2's, K9's and K8's kernels and nothing else (no cast, gather or
@@ -1081,6 +1116,15 @@ SIZED_CALLS = ("compaction_order", "probe_join", "probe_counts", "spill_order")
 BOUND_KWARGS = ("segment_any", "pack_for_host")
 
 
+def civil_key(wrapper: str, prog) -> str:
+    """A generated program that inlines EXTRACT: its wrapper, its label (a
+    K19 program) and its source's digest."""
+    import hashlib
+
+    digest = hashlib.sha256(prog.gen.source.encode()).hexdigest()[:10]
+    return f"{wrapper}:{getattr(prog, 'label', '')}:{digest}"
+
+
 def log_call_sizes(report, path, cap) -> None:
     if cap.sizes:
         sizes = {w: dict(sorted(h.items())) for w, h in cap.sizes.items()}
@@ -1104,14 +1148,17 @@ class Capture:
              "grouped_aggregate_presorted": 2,
              "key_range_check": 1, "clustered_keep": 1, "extract_field": 0,
              "spill_partition": 0, "spill_order": 1, "dispatch_to_buckets": 2,
-             "merge_rank_states": 0,
+             "merge_rank_states": 0, "merge_rank_columns": 0,
              "concat_columns": 1, "gather_columns": 0, "pack_for_host": 1, "window_mask": 0,
              "mask_or": 0, "mask_and": 0, "mask_andnot": 0, "bucket_masks": 0}
     FUSED = {"fused_rows": 2, "fused_agg": 2, "passthrough_rows": 2, "mesh_derive": 3}
     # K19: recorded once overall and once per program (its label)
     PROGRAMS = {"operator_program": 2}
-    # the mesh exchange's copies (parallel/collectives.py), sized by bytes
-    COLLECTIVES = {"all_to_all": 0}
+    # the mesh exchange's copies (parallel/collectives.py), sized by bytes,
+    # and the dense merge, sized by slots
+    COLLECTIVES = {"all_to_all": 0, "reduce_columns": 0}
+    # the generated programs whose source inlines K14's civil core
+    CIVIL = ("operator_program", "fused_rows", "fused_agg")
 
     def __init__(self, K, F, device):
         import threading
@@ -1127,6 +1174,7 @@ class Capture:
         self.forms = {}  # K13 form -> calls
         self.radix = {}  # K4 / K5 -> "form bits/passes" -> calls
         self.sizes = {}  # K2 / K6 wrapper -> rows rounded up to a power of two -> calls
+        self.civil = {}  # generated program with EXTRACT -> (rows, args) of its largest call
         self._lock = threading.Lock()
 
     def __enter__(self):
@@ -1153,7 +1201,12 @@ class Capture:
                     if t.device.type != self.device.type:
                         self.off_device.append((name, str(t.device)))
                 sized = args[sizes[name]]
-                n = (sized[0] if isinstance(sized, (list, tuple)) else sized).shape[0]
+                if name == "merge_rank_columns":  # slots over the columns
+                    n = sum(xs[0].numel() for xs, _how in sized)
+                elif name == "reduce_columns":  # slots over the first rank's columns
+                    n = sum(x.numel() for x in sized[0])
+                else:
+                    n = (sized[0] if isinstance(sized, (list, tuple)) else sized).shape[0]
                 if name == "all_to_all":
                     n = nbytes(*sized)
                 if name == "concat_columns":  # every source's rows and the pad
@@ -1166,6 +1219,10 @@ class Capture:
                         self.calls[key] = (n, _clone(args))
                 if name in ("passthrough_rows", "mesh_derive") and not args[0].gen.outputs:
                     n = -1  # every output is an input column: no launch to check
+                if name in self.CIVIL and n >= 0 and "ab_civil_field(" in args[0].gen.source:
+                    key = civil_key(name, args[0])
+                    if key not in self.civil or n > self.civil[key][0]:
+                        self.civil[key] = (n, _clone(args))
                 if name == "fused_agg":
                     form = "dense" if self.K.dense_domain(args[5]) is not None else "sort"
                     self.forms[form] = self.forms.get(form, 0) + 1
@@ -2704,6 +2761,79 @@ def new_kernel_stress(device, n, seed=5):
                             ([k[:one + 1] for k in keys], live[:one + 1], 2)]}
 
 
+ALL_DAYS_CHUNK = 1 << 27
+
+
+def extract_all_days_check(K, device) -> dict:
+    """K14 against its twin over every int32 day, each field, in chunks of
+    ``ALL_DAYS_CHUNK`` consecutive days made on the card; exact."""
+    import torch
+
+    lo, hi = -(2 ** 31), 2 ** 31
+    checked = 0
+    for start in range(lo, hi, ALL_DAYS_CHUNK):
+        days = torch.arange(start, min(start + ALL_DAYS_CHUNK, hi), dtype=torch.int64,
+                            device=device).to(torch.int32)
+        want = K.civil_from_days_plain(days)
+        for field, code in K.EXTRACT_FIELDS.items():
+            if not torch.equal(K.extract_field(days, field), want[code]):
+                raise AssertionError(f"EXTRACT({field}) differs from the twin in the days "
+                                     f"[{start}, {start + days.numel()})")
+        checked += days.numel()
+        del days, want
+    torch.cuda.synchronize()
+    return {"days": checked, "fields": len(K.EXTRACT_FIELDS), "max_abs_err": 0}
+
+
+def civil_launch(wrapper: str):
+    """The wrapper (K19's, K12's or K13's) that launches a generated
+    program."""
+    from arrow_ballista_tpu_torch.compile import fused as F
+    from arrow_ballista_tpu_torch.compile import programs as P
+
+    return getattr(P if wrapper == "operator_program" else F, wrapper)
+
+
+def civil_program_time(K, key: str, args, device) -> dict:
+    """One generated program that inlines K14's civil core (``civil_key``)
+    at one call: held against its twin (exact but float sums), its device
+    ms (everything one call queues, the inputs rotating past the L2), wall
+    ms and bound (``program_bytes`` / ``fused_bytes``)."""
+    from arrow_ballista_tpu_torch.compile import fused as F
+
+    wrapper = key.split(":")[0]
+    prog, cols, mask = args[:3]
+    if wrapper == "operator_program":
+        err = check_kernel(K, f"operator_program:{prog.label}", args)
+        moved = program_bytes(*args)
+    else:
+        err = fused_check(F, wrapper, args)
+        moved = fused_bytes(prog, cols, mask, args[4] if wrapper == "fused_agg" else 0)
+    nxt = rotating(args, moved)
+    launch = civil_launch(wrapper)
+    fn = lambda: launch(*nxt())  # noqa: E731
+    wall = time_ms(fn, device)
+    ms, source = device_ms(fn) if device.type == "cuda" else (None, None)
+    return {"program": key, "rows": int(mask.shape[0]), "max_abs_err": err,
+            "ms": wall if ms is None else ms, "ms_source": source or "wall", "wall_ms": wall,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1000}
+
+
+def extract_program_timings(K, civil: dict, device) -> dict:
+    """Each generated program that inlines K14's civil core (K19 on pq_q7-q9,
+    K13 / K12 on sa_q7-q9) at its largest call on its path
+    (``civil_program_time``); per path the sum over its programs."""
+    out = {}
+    for path, calls in civil.items():
+        progs = [civil_program_time(K, key, args, device)
+                 for key, (_n, args) in sorted(calls.items())]
+        total = sum(p["ms"] for p in progs)
+        out[path] = {"programs": progs, "ms_sum": total}
+        log(f"{path}: the generated programs that inline the civil core, largest call each: "
+            f"device ms sum {total}; {json.dumps(progs)}")
+    return out
+
+
 def mesh_stress(device, n, seed=6):
     """K17, K18 and the mesh derive at n rows, made from a seed with numpy:
     K17 with 2, 4 and 8 destinations, the capacities fitting (10% over the
@@ -2711,8 +2841,12 @@ def mesh_stress(device, n, seed=6):
     int32, float32 and bool columns with dead rows, and 40 int64 columns
     at n / 8 rows (past one launch's 32 of a width); K18 over 2, 4 and 8
     rank arrays of n slots (int64 sums that wrap, int64 min, int32 sums,
-    float64 sums and max, bool OR); the derive of an aggregate with NULL
-    keys and values (count(*), count, sum, min, max)."""
+    float64 sums and max, bool OR), and its many-column form over 1 and 4
+    ranks of n slots and 8 ranks of 72 columns (nine launches), each merge
+    with int64 sums that wrap and min, int32 max, float64 sums, float64
+    min and max with NaN, float32 counts, exists counts and a bool flag;
+    the derive of an aggregate with NULL keys and values (count(*), count,
+    sum, min, max)."""
     import math
 
     import numpy as np
@@ -2724,6 +2858,7 @@ def mesh_stress(device, n, seed=6):
     from arrow_ballista_tpu_torch.models.schema import INT32, INT64, Field, Schema
     from arrow_ballista_tpu_torch.ops import mesh_exec as M
     from arrow_ballista_tpu_torch.ops import operators as O
+    from arrow_ballista_tpu_torch.ops.kernels import MERGE_EXISTS
     from arrow_ballista_tpu_torch.ops.physical import MemoryScanExec, TaskContext
 
     rng = np.random.default_rng(seed)
@@ -2754,6 +2889,27 @@ def mesh_stress(device, n, seed=6):
                   ([t(rng.normal(size=n) * 1e6) for _ in range(ranks)], "sum"),
                   ([t(rng.normal(size=n)) for _ in range(ranks)], "max"),
                   ([t(rng.random(n) < 0.01) for _ in range(ranks)], "or")]
+
+    def columns(ranks, slots):  # one dense merge's columns of every dtype and merge
+        nan = lambda a: np.where(rng.random(slots) < 0.05, np.nan, a)  # noqa: E731
+        return [([t(rng.integers(2**62, 2**63 - 1, slots, dtype=np.int64)) for _ in range(ranks)],
+                 "sum"),
+                ([t(rng.integers(-2**63, 2**63 - 1, slots, dtype=np.int64))
+                  for _ in range(ranks)], "min"),
+                ([t(rng.integers(-2**31, 2**31 - 1, slots).astype(np.int32))
+                  for _ in range(ranks)], "max"),
+                ([t(rng.normal(size=slots) * 1e6) for _ in range(ranks)], "sum"),
+                ([t(nan(rng.normal(size=slots))) for _ in range(ranks)], "min"),
+                ([t(nan(rng.normal(size=slots))) for _ in range(ranks)], "max"),
+                ([t(rng.random(slots).astype(np.float32)) for _ in range(ranks)], "count"),
+                ([t((rng.integers(0, 2**31 - 1, slots) * (rng.random(slots) < 0.3))
+                    .astype(np.int32)) for _ in range(ranks)], MERGE_EXISTS),
+                ([t(rng.random(1) < 0.2) for _ in range(ranks)], "or")]
+
+    # the many-column form: nine columns of every dtype in one launch, and
+    # 72 columns over 8 ranks (past one table's 64 rank arrays: nine launches)
+    merge += [Wrapped("merge_rank_columns", (columns(ranks, n),)) for ranks in (1, 4)]
+    merge.append(Wrapped("merge_rank_columns", ([c for _ in range(8) for c in columns(8, 4099)],)))
 
     def nullable(values, typ, share=0.1):
         return pa.array(np.where(rng.random(n) < share, None, values), type=typ)
@@ -2912,6 +3068,28 @@ def fused_check(F, name, args):
     return err
 
 
+def merge_err(xs, how, got, want) -> float:
+    """One merged column against its twin: exact, but a float sum within
+    1e-12 (float32: 1e-6) of its terms' summed magnitude (the twin adds in
+    its own order; a float sum's rounding scales with its terms, not with
+    its result, which may cancel to ~0)."""
+    import torch
+
+    if how in ("sum", "count") and xs[0].dtype.is_floating_point:
+        tol = 1e-6 if xs[0].dtype == torch.float32 else 1e-12
+        got, want = got.cpu(), want.cpu()
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"merged {got.dtype}{tuple(got.shape)}, the twin "
+                                 f"{want.dtype}{tuple(want.shape)}")
+        diff = (got - want).abs()
+        scale = torch.stack([x.abs().cpu() for x in xs]).sum(0)
+        if not bool((diff <= tol * scale).all()):
+            raise AssertionError(f"float sums differ beyond {tol} of the terms' "
+                                 f"magnitude: {float(diff.max())}")
+        return float(diff.max()) if diff.numel() else 0.0
+    return max_err(got, want)
+
+
 def check_kernel(K, name, args):
     if name.startswith("operator_program"):  # K19: the new mask, or every column, exact
         from arrow_ballista_tpu_torch.compile import programs as P
@@ -2942,20 +3120,15 @@ def check_kernel(K, name, args):
         err = max(max_err(gm, wm), max_err(gn, wn))
         return max(err, max(max_err(gc[c], w) for c, w in wc.items()))
     if name == "merge_rank_states":
-        import torch
-
         xs, how = args
-        got, want = K.merge_rank_states(*args), K.merge_rank_states_plain(*args)
-        if how in ("sum", "count") and xs[0].dtype.is_floating_point:
-            # the twin adds in its own order; a float sum's rounding scales
-            # with its terms, not with its result, which may cancel to ~0
-            diff = (got - want).abs()
-            scale = torch.stack([x.abs() for x in xs]).sum(0)
-            if not bool((diff <= 1e-12 * scale).all()):
-                raise AssertionError(f"float sums differ beyond 1e-12 of the terms' "
-                                     f"magnitude: {float(diff.max())}")
-            return float(diff.max())
-        return max_err(got, want)
+        return merge_err(xs, how, K.merge_rank_states(*args), K.merge_rank_states_plain(*args))
+    if name == "merge_rank_columns":  # every column
+        (columns,) = args
+        got, want = K.merge_rank_columns(columns), K.merge_rank_columns_plain(columns)
+        if len(got) != len(want):
+            raise AssertionError(f"{len(got)} merged columns, the twin {len(want)}")
+        return max([0.0] + [merge_err(xs, how, g, w)
+                            for (xs, how), g, w in zip(columns, got, want)])
     if name == "mesh_derive":  # every derived column, exact
         from arrow_ballista_tpu_torch.compile import fused as F
 
@@ -3197,6 +3370,24 @@ def kernel_timings(K, name, args, device):
         kern = lambda: K.merge_rank_states(*nxt())  # noqa: E731
         plain = lambda: K.merge_rank_states_plain(*nxt())  # noqa: E731
         library = None  # the twin's stack + reduce is two calls
+    elif name == "merge_rank_columns":
+        (columns,) = args
+        # every rank array read once, every merged column written once (an
+        # exists column as bools)
+        moved = sum(nbytes(*xs) + xs[0].numel() * (1 if how == K.MERGE_EXISTS
+                                                    else xs[0].element_size())
+                    for xs, how in columns)
+        nxt = rotating(args, moved)
+        kern = lambda: K.merge_rank_columns(*nxt())  # noqa: E731
+        plain = lambda: K.merge_rank_columns_plain(*nxt())  # noqa: E731
+        library = None  # one stack + reduce a column
+
+        def per_column():  # the parent's form: a launch a column, then the compare
+            (cols,) = nxt()
+            outs = [K.merge_rank_states(xs, K.AGG_SUM if how == K.MERGE_EXISTS else how)
+                    for xs, how in cols]
+            return [o > 0 if how == K.MERGE_EXISTS else o for o, (_xs, how) in zip(outs, cols)]
+        extra["per_column_"] = per_column
     elif name == "mesh_derive":
         from arrow_ballista_tpu_torch.compile import fused as F
 
@@ -3711,6 +3902,8 @@ WRAPPERS["probe_join"] = ("probe_join", "probe_counts")
 WRAPPERS["dense_group_states"] = ("dense_grouped", "dense_group_states")
 WRAPPERS["gather_columns"] = ("gather_columns", "pack_for_host")
 WRAPPERS["mask_ops"] = ("window_mask", "mask_or", "mask_and", "mask_andnot")
+# K18: the many-column form (the mesh's dense merge) and its one-column case
+WRAPPERS["merge_rank_states"] = ("merge_rank_states", "merge_rank_columns")
 
 
 # --------------------------------------------------------------------------
@@ -3933,6 +4126,7 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     k13_forms = {}  # path -> K13 form -> calls
+    civil_calls = {}  # EXTRACT path -> generated program with the civil core -> (rows, args)
     for path, (c, sql) in paths.items():
         t_path = time.perf_counter()
         scope = contextlib.ExitStack()
@@ -3998,6 +4192,10 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         if missing:
             fail(f"{path}: kernels not launched on its path: {missing} ({launches[path]})")
         captured[path] = cap.calls
+        if path in {p for q in EXTRACT_QUERIES for p in (f"pq_q{q}", f"sa_q{q}")}:
+            if not cap.civil:
+                fail(f"{path}: no call of a generated program with EXTRACT was captured")
+            civil_calls[path] = dict(cap.civil)
         log_call_sizes(report, path, cap)
         k13_forms[path] = dict(cap.forms)
         if cap.radix:
@@ -4151,6 +4349,11 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                 acts = report.setdefault("dispatch_call_activities", {})[path] = \
                     dispatch_call_activities(K, captured[path], path)
                 log(f"{path}: device activities one K17 call queues at its largest call: "
+                    f"{json.dumps(acts)}")
+            if path in MERGE_CALL_PATHS:  # K18: one kernel a dense merge
+                acts = report.setdefault("merge_call_activities", {})[path] = \
+                    merge_call_activities(K, captured[path], path)
+                log(f"{path}: device activities one dense merge queues at its largest merge: "
                     f"{json.dumps(acts)}")
             if path in PRESORTED_CALL_PATHS:  # K9 on the rows as they are
                 acts = report.setdefault("presorted_call_activities", {})[path] = \
@@ -4533,6 +4736,9 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
                     fail(f"{name}: flags {got} at the stress shapes, expected {expected}")
             if name == "build_side_sort":  # 2^23 rows, then again with every hash 0
                 err = max(err, check_kernel(K, name, radix_build))
+            if name == "extract_field" and cuda:  # K14 over every int32 day
+                report["extract_all_days"] = extract_all_days_check(K, device)
+                log(f"K14 over every int32 day: {json.dumps(report['extract_all_days'])}")
             if name == "clustered_keep" and cuda:  # K10 and K11 with no memset between calls
                 report["clustered_reset_calls"] = clustered_reset_check(K, device)
                 log(f"K10 / K11 back to back on one stream and from four threads: "
@@ -4619,7 +4825,8 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             **({"interpreted_ms": times["interpreted_ms"],
                 "interpreted_wall_ms": times["interpreted_wall_ms"]}
                if name == "operator_program" else {}),
-            **{k: v for k, v in times.items() if k.startswith("parent_")},
+            **{k: v for k, v in times.items() if k.startswith(("parent_", "per_column_"))},
+            **({"all_days": report.get("extract_all_days")} if name == "extract_field" else {}),
             **({"timed_wrapper": timed} if timed != name else {}),
             **({"timed_call": call_shape} if call_shape else {}),
             **({"replaces_all": REPLACES_ALL[name]} if name in REPLACES_ALL else {}),
@@ -4642,7 +4849,10 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
             + f"; stress {stress_rows} rows ok; "
             f"max abs err {err:.3g}; launches per query {json.dumps(per_path)}"
             + (f"; the parent's recorded time: {PARENT_DENSE_MS[name][0]} ms "
-               f"({PARENT_DENSE_MS[name][1]})" if name in PARENT_DENSE_MS else ""))
+               f"({PARENT_DENSE_MS[name][1]})" if name in PARENT_DENSE_MS else "")
+            + (f"; one launch a column (the parent's form, this tree's kernel): device "
+               f"{fmt(times['per_column_ms'])}, wall {fmt(times['per_column_wall_ms'])}"
+               if "per_column_ms" in times else ""))
         if name == "bucket_masks" and "bucket_masks" in captured.get("q1", {}):
             # q1's call (the local engine's batch into its 16 partitions)
             qn, qargs = captured["q1"]["bucket_masks"]
@@ -4747,6 +4957,9 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     PHASE_S["kernel_checks"] = sum(v for k, v in PHASE_S.items()
                                    if k.startswith("kernel_checks/"))
     log(f"phase kernel_checks: {PHASE_S['kernel_checks']:.1f} s")
+    t_phase = time.perf_counter()
+    report["extract_programs"] = extract_program_timings(K, civil_calls, device)
+    phase_done("extract_programs", t_phase)
     log("radix plans (K4 sort_order / K5 build_side_sort: form, composite bits, passes, "
         f"launches) of every call held against its twin: {json.dumps(RADIX_PLANS)}")
     report["radix_plans"] = list(RADIX_PLANS)

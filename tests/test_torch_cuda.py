@@ -22,7 +22,8 @@ from tests.torch_cases import (BUCKET_CASES, CONCAT_CASES, DENSE_CASES, DISORDER
                                SEG_AGG_CASES, K6_SEGMENT_CASES, k6_segment_case,
                                SEGMENT_CASES, SETTINGS, SORT_CASES, STANDALONE_SETTINGS,
                                STANDALONE_SQL, UNORDERED, assert_frames_equal, dense_case,
-                               edge_days, find_chain, hand_chain, hand_table, hash_cols,
+                               edge_days, era_days, find_chain, hand_chain, hand_table,
+                               hash_cols,
                                interval_case, interval_keys, join_case, keep_case, mask_case,
                                pad_intervals, presorted_case, probe_case, radix_case,
                                range_case,
@@ -1067,6 +1068,22 @@ def test_extract_kernel_matches_twin(dev, field):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("field", ["year", "month", "day"])
+def test_extract_kernel_matches_twin_on_the_era_days(dev, field):
+    """The civil core's 32-bit form after the era, at every 100th era
+    boundary and both ends of int32: the whole array, a view one row in,
+    and its first and last 1-9 rows."""
+    days = _t(era_days())
+    want = TK.extract_field_plain(days, field)
+    on_card = days.to(dev)
+    assert torch.equal(TK.extract_field(on_card, field).cpu(), want)
+    assert torch.equal(TK.extract_field(on_card[1:], field).cpu(), want[1:])
+    for n in range(1, 10):
+        assert torch.equal(TK.extract_field(on_card[-n:], field).cpu(), want[-n:])
+        assert torch.equal(TK.extract_field(on_card[:n], field).cpu(), want[:n])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("forced", [False, True])
 @pytest.mark.parametrize("case", HASH_CASES)
 def test_spill_partition_kernel_matches_twin(dev, case, forced):
@@ -1658,6 +1675,126 @@ def test_rank_merge_kernel_matches_twin(dev, n, dtype, how):
         assert bool(((got - want).abs() <= 1e-12 * scale).all())
     else:
         assert torch.equal(got, want)
+
+
+def _merge_case(n, rng, domain, columns=1):
+    """``columns`` rounds of a dense merge's columns over n ranks (CPU
+    tensors): int64 sums that wrap and min, int32 sums and max, float64
+    sums, float64 min and max with NaN, float32 sums, exists counts, a bool
+    flag."""
+    nan = lambda a: np.where(rng.random(domain) < 0.05, np.nan, a)  # noqa: E731
+    out = []
+    for _ in range(columns):
+        out += [
+            ([_t(rng.integers(2**62, 2**63 - 1, domain) * rng.choice([-1, 1], domain))
+              for _ in range(n)], "sum"),
+            ([_t(rng.integers(-2**63, 2**63 - 1, domain, dtype=np.int64)) for _ in range(n)],
+             "min"),
+            ([_t(rng.integers(-2**31, 2**31 - 1, domain).astype(np.int32)) for _ in range(n)],
+             "sum"),
+            ([_t(rng.integers(-9, 9, domain).astype(np.int32)) for _ in range(n)], "max"),
+            ([_t(rng.normal(size=domain) * 1e6) for _ in range(n)], "sum"),
+            ([_t(nan(rng.normal(size=domain))) for _ in range(n)], "min"),
+            ([_t(nan(rng.normal(size=domain))) for _ in range(n)], "max"),
+            ([_t(rng.random(domain).astype(np.float32)) for _ in range(n)], "count"),
+            ([_t((rng.integers(0, 2**31 - 1, domain) * (rng.random(domain) < 0.3))
+                 .astype(np.int32)) for _ in range(n)], TK.MERGE_EXISTS),
+            ([_t(rng.random(1) < 0.2) for _ in range(n)], "or"),
+        ]
+    return out
+
+
+def _assert_merged(columns, got):
+    """Integers, bools and float min / max exact; float sums within 1e-12
+    (float32: 1e-6) of the terms' summed magnitude."""
+    want = TK.merge_rank_columns_plain(columns)
+    assert len(got) == len(want)
+    for (xs, how), g, w in zip(columns, got, want):
+        g = g.cpu()
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if how in ("sum", "count") and xs[0].dtype.is_floating_point:
+            tol = 1e-6 if xs[0].dtype == torch.float32 else 1e-12
+            scale = torch.stack([x.abs() for x in xs]).sum(0)
+            assert bool(((g - w).abs() <= tol * scale).all())
+        else:
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 4, 6])
+@pytest.mark.parametrize("domain", [1, 12, 65_537])
+def test_many_column_merge_kernel_matches_twin_in_one_launch(dev, n, domain):
+    """K18's many-column form: ten columns of every dtype in one launch
+    (up to 6 ranks: 60 of the table's 64 rank arrays)."""
+    columns = _merge_case(n, np.random.default_rng(n * 7 + domain), domain)
+    TK.reset_launch_counts()
+    got = TK.merge_rank_columns([([x.to(dev) for x in xs], how) for xs, how in columns])
+    assert TK.LAUNCHES["merge_rank_states"] == 1
+    assert TK.kernel_plan("merge_rank_columns")["launches"] == 1
+    _assert_merged(columns, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, rounds", [(1, 2), (1, 7), (8, 1), (64, 1)])
+def test_many_column_merge_past_one_table_takes_more_launches(dev, n, rounds):
+    """20 or 70 columns (past a table's 16), or 8 and 64 ranks x 10 columns
+    (past its 64 rank arrays): one launch a group of whole columns."""
+    columns = _merge_case(n, np.random.default_rng(n), 300, rounds)
+    per_launch = min(TK.MERGE_MAX_COLS, TK.MERGE_MAX_PTRS // n)
+    TK.reset_launch_counts()
+    got = TK.merge_rank_columns([([x.to(dev) for x in xs], how) for xs, how in columns])
+    launches = -(-len(columns) // per_launch)
+    assert launches > 1
+    assert TK.LAUNCHES["merge_rank_states"] == launches
+    _assert_merged(columns, got)
+
+
+@pytest.mark.cuda
+def test_many_column_merge_reads_views_at_byte_offsets(dev):
+    """Rank arrays that are views into larger buffers, 1-15 bytes in (bool
+    and the int32 exists counts), 4 or 8 bytes in (the rest)."""
+    rng = np.random.default_rng(3)
+    columns = _merge_case(4, rng, 4099)
+    views = []
+    for c, (xs, how) in enumerate(columns):
+        row = []
+        for r, x in enumerate(xs):
+            off = 1 + (c + r) % 15 if x.dtype == torch.bool else 1 + (c + r) % 3
+            buf = torch.zeros(x.numel() + off + 5, dtype=x.dtype, device=dev)
+            buf[off:off + x.numel()] = x.to(dev)
+            row.append(buf[off:off + x.numel()])
+        views.append((row, how))
+    _assert_merged(columns, TK.merge_rank_columns(views))
+
+
+@pytest.mark.cuda
+def test_many_column_merge_takes_strided_rank_arrays(dev):
+    """Rank arrays that are every other element of a buffer: merged from
+    contiguous copies the wrapper holds until its launch is queued, while
+    the outputs are allocated around them."""
+    columns = _merge_case(4, np.random.default_rng(4), 2053)
+    strided = []
+    for xs, how in columns:
+        row = []
+        for x in xs:
+            buf = torch.zeros(2 * x.numel(), dtype=x.dtype, device=dev)
+            buf[::2] = x.to(dev)
+            row.append(buf[::2])
+        strided.append((row, how))
+    _assert_merged(columns, TK.merge_rank_columns(strided))
+
+
+@pytest.mark.cuda
+def test_many_column_merge_back_to_back_on_one_stream(dev):
+    """100 merges queued back to back, then each held against its twin."""
+    rng = np.random.default_rng(5)
+    cases = [_merge_case(1 + i % 8, rng, 1 + (i * 37) % 700) for i in range(100)]
+    on_card = [[([x.to(dev) for x in xs], how) for xs, how in c] for c in cases]
+    torch.cuda.synchronize()
+    results = [TK.merge_rank_columns(c) for c in on_card]
+    torch.cuda.synchronize()
+    for c, got in zip(cases, results):
+        _assert_merged(c, got)
 
 
 @pytest.mark.cuda

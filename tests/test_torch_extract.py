@@ -8,6 +8,10 @@ on the CPU.
   the reference computes with a floor division;
 - K14's C body (csrc/civil.cuh), compiled by the host's g++, equals the
   twin on the same days;
+- the civil core's 32-bit form after the era: the header under g++ and the
+  twin equal the JAX package's ``extract_field`` at every era boundary in
+  the int32 range (k * 146097 - 719468 + {-1, 0, 1}, every 100th era), at
+  the first and last 65,536 int32 days and at 200,000 seeded days;
 - a fused chain with EXTRACT: its generated source calls the header, and
   compiled by g++ (as tests/test_torch_fused.py does) equals the twin bit
   for bit;
@@ -33,7 +37,7 @@ from arrow_ballista_tpu_torch.ops.expressions import NumpyOps
 from arrow_ballista_tpu_torch.ops.physical import TaskContext
 from benchmarks.queries import QUERIES
 from tests.test_torch_fused import _bits, _gxx_library, _host_rows
-from tests.torch_cases import (STANDALONE_SETTINGS, assert_frames_equal, edge_days,
+from tests.torch_cases import (STANDALONE_SETTINGS, assert_frames_equal, edge_days, era_days,
                                fused_labels, hand_table, plan_nodes, stage_summary)
 
 torch.set_num_threads(1)
@@ -85,6 +89,24 @@ def test_civil_header_compiled_by_gxx_equals_the_twin(field, tmp_path):
                    ctypes.c_int(TK.EXTRACT_FIELDS[field]), out.ctypes.data_as(ctypes.c_void_p))
     np.testing.assert_array_equal(out, TK.extract_field_plain(torch.from_numpy(days),
                                                               field).numpy())
+
+
+@pytest.mark.parametrize("field", FIELDS)
+def test_extract_twin_equals_the_reference_on_the_era_days(field):
+    days = era_days()
+    got = TK.extract_field(torch.from_numpy(days), field)
+    np.testing.assert_array_equal(got.numpy(), _jax(days, field))
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="no g++ on the PATH")
+@pytest.mark.parametrize("field", FIELDS)
+def test_civil_header_compiled_by_gxx_equals_the_reference_on_the_era_days(field, tmp_path):
+    lib = _gxx_library(SHIM, tmp_path)
+    days = era_days()
+    out = np.zeros_like(days)
+    lib.civil_host(days.ctypes.data_as(ctypes.c_void_p), ctypes.c_longlong(len(days)),
+                   ctypes.c_int(TK.EXTRACT_FIELDS[field]), out.ctypes.data_as(ctypes.c_void_p))
+    np.testing.assert_array_equal(out, _jax(days, field))
 
 
 def _extract_chain(agg: bool):

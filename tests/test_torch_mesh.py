@@ -9,7 +9,12 @@ numpy-seeded inputs:
   destinations, with and without overflow;
 - K18's twin against ``lax.psum`` / ``pmin`` / ``pmax`` over shard_map
   (integers exact, wrapping sums included; float64 sums rtol 1e-12; the
-  ``bad`` flags' OR);
+  ``bad`` flags' OR), one column at a time and as one many-column merge
+  (int32, int64, float64 and bool columns, NaN in float min and max, int64
+  sums that wrap, the exists counts' ``psum(...) > 0``) at 1, 2, 4 and 8
+  ranks;
+- ``distributed_dense_aggregate`` against the reference's at 1, 2, 4 and 8
+  ranks, in rows and rejected rows, its merge one collective;
 - the five cases of tests/test_parallel.py at 1, 2, 4 and 8 ranks (the
   skewed one at the reference's 8), the programs' outputs compared row for
   row in rank order;
@@ -37,7 +42,10 @@ from arrow_ballista_tpu_torch.ops import kernels as TK
 from arrow_ballista_tpu_torch.parallel import (distributed_filter_aggregate,
                                                distributed_grouped_aggregate, make_mesh,
                                                shard_rows, shuffle_rows)
-from arrow_ballista_tpu_torch.parallel.distributed import _run_ranks
+from arrow_ballista_tpu.parallel.distributed import (distributed_dense_aggregate as
+                                                     j_dense_aggregate)
+from arrow_ballista_tpu_torch.parallel import collectives as TC
+from arrow_ballista_tpu_torch.parallel.distributed import _run_ranks, distributed_dense_aggregate
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -127,6 +135,111 @@ def test_rank_merge_twin_matches_psum_pmin_pmax(n, dtype, how):
         np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
     else:
         np.testing.assert_array_equal(got, want)
+
+
+def _merge_columns(n, rng, domain):
+    """One dense merge's columns over n ranks, numpy: (arrays, how) each."""
+    nan = lambda a: np.where(rng.random(domain) < 0.05, np.nan, a)  # noqa: E731
+    return [
+        ([rng.integers(2**62, 2**63 - 1, domain) * rng.choice([-1, 1], domain)
+          for _ in range(n)], "sum"),
+        ([rng.integers(-2**63, 2**63 - 1, domain, dtype=np.int64) for _ in range(n)], "min"),
+        ([rng.integers(-2**31, 2**31 - 1, domain).astype(np.int32) for _ in range(n)], "sum"),
+        ([rng.integers(-9, 9, domain).astype(np.int32) for _ in range(n)], "max"),
+        ([rng.normal(size=domain) * 1e6 for _ in range(n)], "sum"),
+        ([rng.normal(size=domain) for _ in range(n)], "min"),
+        ([rng.normal(size=domain) for _ in range(n)], "max"),
+        ([nan(rng.normal(size=domain)) for _ in range(n)], "min"),
+        ([nan(rng.normal(size=domain)) for _ in range(n)], "max"),
+        ([rng.integers(0, 2**31 - 1, domain).astype(np.int32) * (rng.random(domain) < 0.3)
+          for _ in range(n)], TK.MERGE_EXISTS),
+        ([rng.random(1) < 0.2 for _ in range(n)], "or"),
+    ]
+
+
+@pytest.mark.parametrize("n", RANKS)
+def test_many_column_merge_twin_matches_psum_pmin_pmax(n):
+    """K18's many-column twin, each column against the reference's own
+    collective: psum / pmin / pmax, ``psum(exists_cnt) > 0`` (its int32
+    sums wrap before the compare) and ``psum(bad.astype(int32)) > 0``.
+    A float min or max with NaN is held against the collective's reduction
+    computation, ``lax.min`` / ``lax.max`` folded in rank order, which
+    propagates NaN: XLA's CPU all-reduce runtime skips NaN instead (a slot
+    NaN on every rank comes out as the identity, +-inf)."""
+    import functools
+
+    rng = np.random.default_rng(40 + n)
+    columns = _merge_columns(n, rng, 1031)
+    got = TK.merge_rank_columns([([_t(x) for x in xs], how) for xs, how in columns])
+    assert len(got) == len(columns)
+    for (xs, how), g in zip(columns, got):
+        if xs[0].dtype == np.float64 and how in ("min", "max") and np.isnan(xs).any():
+            fold = lax.min if how == "min" else lax.max
+            want = np.asarray(functools.reduce(fold, [jnp.asarray(x) for x in xs]))
+        elif how == TK.MERGE_EXISTS:
+            want = _j_reduce(xs, "sum") > 0
+        elif how == "or":
+            want = _j_reduce([x.astype(np.int32) for x in xs], "sum") > 0
+        else:
+            want = _j_reduce(xs, how)
+        assert g.dtype == (torch.bool if how in ("or", TK.MERGE_EXISTS) else _t(xs[0]).dtype)
+        if xs[0].dtype == np.float64 and how == "sum":
+            np.testing.assert_allclose(g.numpy(), want, rtol=1e-12, atol=0)
+        else:
+            np.testing.assert_array_equal(g.numpy(), want, err_msg=f"{xs[0].dtype} {how}")
+
+
+@pytest.mark.parametrize("how", ["min", "max"])
+@pytest.mark.parametrize("n", RANKS)
+def test_merge_of_nan_slots_differs_from_the_cpu_collective_as_recorded(n, how):
+    """The one known difference from the reference, pinned: a slot NaN on
+    every rank, one NaN on rank 0 only, one finite.  K18's twin propagates
+    NaN in rank order; the reference's ``pmin`` / ``pmax`` on XLA's CPU
+    runtime skip NaN over two or more ranks, so the first slot comes out
+    as the identity (+inf for min, -inf for max) and the second as the
+    other ranks' value."""
+    xs = [np.array([np.nan, np.nan if r == 0 else 1.0, 2.0 + r]) for r in range(n)]
+    got = TK.merge_rank_columns([([_t(x) for x in xs], how)])[0].numpy()
+    last = 2.0 if how == "min" else 1.0 + n
+    np.testing.assert_array_equal(got, [np.nan, np.nan, last])
+    want = ([np.nan, np.nan, last] if n == 1
+            else [np.inf if how == "min" else -np.inf, 1.0, last])
+    np.testing.assert_array_equal(_j_reduce(xs, how), want)
+
+
+@pytest.mark.parametrize("bad", [False, True], ids=["in_range", "bad_rows"])
+@pytest.mark.parametrize("n", RANKS)
+def test_distributed_dense_aggregate_matches_the_reference_in_one_merge(n, bad, monkeypatch):
+    rng = np.random.default_rng(60 + n)
+    rows = 256 * n
+    cols = {"f": rng.integers(0, 3, rows).astype(np.int64),
+            "s": rng.integers(0, 2, rows).astype(np.int64),
+            "q": rng.integers(-2**62, 2**62, rows),
+            "p": rng.normal(size=rows) * 1e3,
+            "i": rng.integers(-2**31, 2**31 - 1, rows).astype(np.int32)}
+    mask = rng.random(rows) < 0.9
+    if bad:  # a live row outside the declared key range: the overflow flag
+        cols["f"][rows // 2], mask[rows // 2] = 7, True
+    specs = [("q", "sum"), ("q", "count"), ("p", "min"), ("p", "max"), ("p", "sum"),
+             ("i", "sum"), ("i", "max")]
+    ranges, domain = ((0, 2), (0, 1)), 6
+    reduces = []
+    real = TC.reduce_columns
+
+    def counted(columns, hows, mesh):
+        reduces.append(len(columns[0]))
+        return real(columns, hows, mesh)
+
+    monkeypatch.setattr(TC, "reduce_columns", counted)
+    run = distributed_dense_aggregate(_tmesh(n), lambda c, m: (c, m), ["f", "s"], specs,
+                                      ranges, domain)
+    jmesh = j_make_mesh(n)
+    jrun = j_dense_aggregate(jmesh, lambda c, m: (c, m), ["f", "s"], specs, ranges, domain)
+    got = run(*_tsharded(cols, mask, _tmesh(n)))
+    want = jrun({k: _jplace(jmesh, v) for k, v in cols.items()}, _jplace(jmesh, mask))
+    assert reduces == [len(specs) + 2]  # one collective: every state, exists and bad
+    assert bool(got[3]) == bad
+    _compare_states(got, want, rtol_cols=(4,))
 
 
 # --------------------------------------------------------------------------

@@ -802,6 +802,20 @@ def edge_days():
     return np.concatenate([span, edges, extremes]).astype(np.int32)
 
 
+def era_days():
+    """``edge_days()``, the era boundaries every 100th era over int32 (the
+    day before, at and after k * 146097 - 719468), the first and last
+    65,536 int32 days and 200,000 days from a seeded generator."""
+    lo, hi = -(2 ** 31), 2 ** 31 - 1
+    eras = np.arange(-14_700, 14_701, 100, dtype=np.int64) * 146_097 - 719_468
+    bounds = (eras[:, None] + np.array([-1, 0, 1])).reshape(-1)
+    rng = np.random.default_rng(15)
+    days = np.concatenate([edge_days(), bounds[(bounds >= lo) & (bounds <= hi)],
+                           np.arange(lo, lo + 65_536), np.arange(hi - 65_535, hi + 1),
+                           rng.integers(lo, hi, 200_000, endpoint=True)])
+    return days.astype(np.int32)
+
+
 # --------------------------------------------------------------------------
 # TPC-H against a sqlite3 oracle (the comparators of tests/test_tpch.py,
 # with the port's parser: no JAX, so chip_smoke.py uses them on the card)
