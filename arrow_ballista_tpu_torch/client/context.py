@@ -6,8 +6,11 @@ materializes exchanges in memory), and ``standalone()``, the scheduler and
 its executors in process (scheduler/standalone.py: stages, task slots,
 Arrow IPC shuffle files, whole-stage fusion).  Both run on the card unless
 the caller names another device; without a card they raise and never fall
-back to the CPU.  The remote engine is still to be ported (ROADMAP.md
-queue 1 item 12).
+back to the CPU.  Both answer ``EXPLAIN ANALYZE`` (``explain_analyze``)
+and the fusion advisor (``advise``); a standalone session also assembles a
+job's forensics bundle (``forensics``), diagnoses it (``doctor``) and
+streams a running job's journal and progress (``watch``), all from obs/.
+The remote engine is still to be ported (ROADMAP.md queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -232,17 +235,180 @@ class BallistaContext:
                                              "value": [str(v) for _, v in rows]}))
 
     def _explain(self, stmt: "ast.Explain") -> BallistaDataFrame:
+        """EXPLAIN [ANALYZE] [VERBOSE] <select>: (plan_type, plan) rows;
+        ANALYZE runs the query and appends a row with the runtime-annotated
+        plan (obs/stats.py)."""
         import pandas as pd
 
         from ..scheduler.physical_planner import explain_rows
 
-        if stmt.analyze:
-            raise NotImplementedError(
-                "EXPLAIN ANALYZE needs the runtime statistics store, not ported yet "
-                "(ROADMAP.md queue 1 item 11)")
         rows = explain_rows(self.catalog, self.config, stmt.statement, self.device,
                             verbose=stmt.verbose)
+        if stmt.analyze:
+            report = self._explain_analyze_statement(stmt.statement)
+            rows = rows + [{"plan_type": "explain_analyze", "plan": report["text"]}]
         return self._static_df(pd.DataFrame(rows, columns=["plan_type", "plan"]))
+
+    # --- observability (obs/) -------------------------------------------
+    def explain_analyze(self, sql: str) -> Dict:
+        """Run ``sql`` and return the EXPLAIN ANALYZE report: the physical
+        plan annotated with observed rows/bytes/wall time per operator (and,
+        with the device observatory on, each operator's kernel launches and
+        their event times) and skew/duration quantiles per stage.  The dict
+        is the JSON form; its ``"text"`` key holds the rendered report.
+        Accepts a bare SELECT or a full ``EXPLAIN ANALYZE <select>``."""
+        stmt = parse_sql(sql)
+        if isinstance(stmt, ast.Explain):
+            stmt = stmt.statement
+        if not isinstance(stmt, ast.Select):
+            raise PlanningError("explain_analyze requires a SELECT query")
+        return self._explain_analyze_statement(stmt)
+
+    def advise(self, sql: str) -> Dict:
+        """Run ``sql`` and return the stage-fusion advisor report
+        (obs/advisor.py): operator chains ranked by the transfer and build
+        overhead one fused kernel would eliminate.  The ``"text"`` key holds
+        the rendered report."""
+        from ..obs.advisor import advise_report
+        from ..utils.config import OBS_DEVICE_ADVISOR_MIN_SAVINGS_MS
+
+        return advise_report(
+            self.explain_analyze(sql),
+            min_savings_ms=float(self.config.get(OBS_DEVICE_ADVISOR_MIN_SAVINGS_MS)))
+
+    def _last_job(self, what: str, job_id: Optional[str]) -> str:
+        if self._standalone is None:
+            raise PlanningError(f"{what} requires a standalone session")
+        job_id = job_id or self._standalone.last_job_id
+        if not job_id:
+            raise PlanningError("no job has run in this session yet")
+        return job_id
+
+    def forensics(self, job_id: Optional[str] = None) -> Dict:
+        """The self-contained forensics bundle of ``job_id`` (default: the
+        last job this session ran): flight-recorder timeline, stage stats,
+        device stats, profile and trace, AQE records, scheduler counters and
+        cluster history in one JSON artifact (obs/doctor.py).  Standalone
+        sessions only."""
+        from ..obs.doctor import assemble_forensics
+
+        job_id = self._last_job("forensics", job_id)
+        bundle = assemble_forensics(self._standalone.scheduler, job_id)
+        if bundle is None:
+            raise PlanningError(f"job {job_id!r} is not known to the scheduler")
+        return bundle
+
+    def doctor(self, job_id: Optional[str] = None) -> Dict:
+        """The query doctor (obs/doctor.py) over ``job_id``'s forensics
+        bundle: ranked pathology findings with their metric evidence and
+        config-knob remedies; the ``"text"`` key holds the rendered
+        diagnosis."""
+        from ..obs.doctor import diagnose
+
+        return diagnose(self.forensics(job_id))
+
+    def cancel(self, job_id: Optional[str] = None) -> None:
+        raise NotImplementedError(
+            "job cancellation from a session is not ported yet (ROADMAP.md queue 1 item 12 C)")
+
+    def watch(self, job_id: Optional[str] = None, timeout: Optional[float] = None):
+        """Live watch stream of ``job_id`` (default: the last job this
+        session ran): a generator of frames tagged ``{"t": "event" |
+        "progress" | "end"}`` — journal events as they happen, progress
+        snapshots (a non-decreasing ``fraction``, rows/s, a quantile ETA)
+        every ``ballista.live.watch.poll.seconds``, and one terminal frame.
+        Event frames need the flight recorder (``ballista.journal.enabled``);
+        progress and terminal frames flow either way.  Standalone sessions
+        only."""
+        return self._watch_standalone(self._last_job("watch", job_id), timeout)
+
+    def _watch_standalone(self, job_id: str, timeout: Optional[float]):
+        import time
+
+        from ..obs import journal
+        from ..obs.progress import job_progress, monotonic_fraction
+        from ..utils.config import LIVE_WATCH_POLL_S, LIVE_WATCH_QUEUE_EVENTS
+        from ..utils.errors import ExecutionError
+
+        sched = self._standalone.scheduler
+        if sched.jobs.get_status(job_id) is None:
+            raise PlanningError(f"job {job_id!r} is not known to the scheduler")
+        poll_s = float(self.config.get(LIVE_WATCH_POLL_S))
+        capacity = int(self.config.get(LIVE_WATCH_QUEUE_EVENTS))
+        deadline = time.monotonic() + (timeout if timeout is not None
+                                       else float(self.config.job_timeout_s))
+        floor = 0.0
+        with journal.subscribe(job_id=job_id, capacity=capacity) as sub:
+            # subscribe BEFORE replaying the retained timeline, then dedup
+            # on (actor, seq): nothing emitted during the handoff is lost,
+            # nothing is shown twice
+            replayed = set()
+            for ev in journal.job_timeline(job_id):
+                replayed.add((ev.get("actor"), ev.get("seq")))
+                yield {"t": "event", "event": ev}
+            while time.monotonic() < deadline:
+                for ev in sub.poll(timeout=poll_s):
+                    key = (ev.get("actor"), ev.get("seq"))
+                    if ev.get("kind") != "watch.gap" and key in replayed:
+                        continue
+                    yield {"t": "event", "event": ev}
+                replayed.clear()  # only the handoff window needs it
+                st = sched.jobs.get_status(job_id)
+                graph = sched.jobs.get_graph(job_id)
+                if graph is not None:
+                    prog = job_progress(graph)
+                    floor = monotonic_fraction(prog, floor)
+                    prog["fraction"] = floor
+                    yield {"t": "progress", "progress": prog,
+                           "state": st.state if st else None}
+                if st is not None and st.state in ("successful", "failed", "cancelled"):
+                    yield {"t": "end", "state": st.state, "error": st.error}
+                    return
+        raise ExecutionError(f"watch of job {job_id} timed out")
+
+    def _apply_device_obs(self) -> None:
+        """The device observatory's process-wide switches, from this
+        session's config (obs/device.py)."""
+        from ..obs import device as device_obs
+        from ..utils.config import OBS_DEVICE_ENABLED, OBS_DEVICE_WATERMARKS
+
+        device_obs.set_enabled(bool(self.config.get(OBS_DEVICE_ENABLED)))
+        device_obs.set_watermarks(bool(self.config.get(OBS_DEVICE_WATERMARKS)))
+
+    def _explain_analyze_statement(self, stmt) -> Dict:
+        """Plan and run one SELECT and build the annotated report.  The
+        standalone engine reads the job's ExecutionGraph and its stats
+        store; the local engine reads the executed operators' metrics, its
+        device fold coming from one task scope around the whole run (so
+        its launches are timed on the card)."""
+        import time
+
+        from ..obs import device as device_obs
+        from ..obs.stats import explain_analyze_report, local_explain_report
+
+        planner = PhysicalPlanner(self.catalog, self.config, self.device)
+        planned = planner.plan_query(optimize(SqlToRel(self.catalog).plan(stmt)))
+        self.last_plan = planned.plan
+        t0 = time.monotonic()
+        if self.engine != "standalone":
+            self._apply_device_obs()
+            with device_obs.task_scope(self.device) as dev_acc:
+                batches = self._execute_local(planned)
+                # counting the rows may launch a kernel: inside the scope
+                rows = sum(b.num_rows for b in batches)
+            wall_ms = (time.monotonic() - t0) * 1000.0
+            return local_explain_report(
+                planned.plan, wall_ms, rows_returned=rows,
+                device_stats=dev_acc.snapshot() if dev_acc is not None else None)
+        if self._standalone is None:
+            raise PlanningError("this standalone context was shut down")
+        batches = self._standalone.execute(planned)
+        wall_ms = (time.monotonic() - t0) * 1000.0
+        graph = self._standalone.scheduler.jobs.get_graph(self._standalone.last_job_id)
+        if graph is None:
+            raise PlanningError(f"job {self._standalone.last_job_id} has no retained graph")
+        return explain_analyze_report(graph, wall_ms,
+                                      rows_returned=sum(b.num_rows for b in batches))
 
     # --- execution ------------------------------------------------------
     def _execute_logical(self, logical: L.LogicalPlan) -> List[ColumnBatch]:
@@ -258,7 +424,13 @@ class BallistaContext:
     def _execute_local(self, planned: PlannedQuery) -> List[ColumnBatch]:
         # a fresh job id per query: the joins' broadcast build caches are
         # keyed by it, and dropped when the job ends
+        from .. import faults
         from ..memory import MemoryGovernor
+
+        self._apply_device_obs()
+        # arm the session's fault plan (a no-op unless ballista.faults.plan or
+        # BALLISTA_FAULTS_PLAN names one, and once a plan is installed)
+        faults.configure(self.config)
 
         ctx = TaskContext(device=self.device, config=self.config, work_dir=self.work_dir,
                           job_id=uuid.uuid4().hex[:7],

@@ -2,9 +2,12 @@
 
 Mirrors arrow_ballista_tpu/compile/chains.py: the walk over a live,
 resolved stage plan that finds maximal single-child chains of operators
-(``plan_chains``), the operators that break a chain (``UNFUSABLE``), the
-reasons recorded for chain members the compiler leaves interpreted
-(``STATIC_REASONS``) and a chain's structural fingerprint.
+(``plan_chains``), the same walk over an EXPLAIN ANALYZE operator tree
+(``dict_chains``, the fusion advisor's view in obs/advisor.py, so the
+advisor ranks only chains the compiler considers), the operators that break
+a chain (``UNFUSABLE``), the reasons recorded for chain members the
+compiler leaves interpreted (``STATIC_REASONS``) and a chain's structural
+fingerprint.
 """
 from __future__ import annotations
 
@@ -64,6 +67,13 @@ def _generic_chains(items: List[object], path_of: Callable[[object], str],
             chains.append(chain)
             consumed.update(path_of(c) for c in chain)
     return chains
+
+
+def dict_chains(tree: List[Dict]) -> List[List[Dict]]:
+    """Chains over an EXPLAIN ANALYZE ``operator_tree`` (the advisor's
+    view: dicts with ``path``/``op`` keys)."""
+    return _generic_chains(
+        tree, lambda op: op["path"], lambda op: op["op"] not in UNFUSABLE)
 
 
 def walk_plan_paths(plan) -> List[Tuple[str, object]]:

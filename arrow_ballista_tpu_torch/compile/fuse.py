@@ -21,6 +21,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
+from ..obs import journal
 from ..ops.operators import FilterExec, HashAggregateExec, ProjectionExec, RenameExec
 from ..ops.physical import exprs_sig, has_scalar_subquery
 from ..utils.config import COMPILE_DONATE, COMPILE_ENABLED, COMPILE_MIN_OPS, COMPILE_OPERATORS
@@ -193,6 +194,9 @@ def fuse_stage(graph, stage) -> int:
     for rec in records:
         stage.fusion_rewrites.append(rec)
         graph.compile_log.append(rec)
+        if rec["fused"] and journal.enabled():
+            journal.emit("stage.fused", job_id=graph.job_id, stage_id=stage.stage_id,
+                         chains=rec["fused_ops"], donate=rec["donate"])
     return fused_count
 
 

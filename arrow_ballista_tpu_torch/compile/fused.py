@@ -57,8 +57,8 @@ from ..ops.expressions import TorchOps
 from ..ops.operators import (FilterExec, HashAggregateExec, ProjectionExec, RenameExec,
                              _full_column, _state_bytes, agg_inputs, passthrough_states,
                              poor_reduction)
-from ..ops.physical import (ExecutionPlan, TaskContext, deferred_count, schema_sig,
-                            shared_program)
+from ..ops.physical import (ExecutionPlan, TaskContext, deferred_count, deferred_rows,
+                            schema_sig, shared_program)
 from ..utils.errors import CapacityError, InternalError
 from . import codegen as G
 from .chains import chain_fingerprint
@@ -429,7 +429,9 @@ class FusedStageExec(ExecutionPlan):
             with self.metrics().timer("compute_time"):
                 auxs, dicts = prog.auxs_and_dicts(b.dicts)
                 cols, mask = fused_rows(prog, b.columns, b.mask, auxs)
-                out.append(ColumnBatch(self._schema, cols, mask, dicts))
+                result = ColumnBatch(self._schema, cols, mask, dicts)
+                deferred_rows(self.metrics(), "output_rows", result)
+                out.append(result)
         return out
 
     def _execute_agg(self, prog: FusedProgram, partition: int, ctx: TaskContext):

@@ -36,6 +36,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from ..obs import device as device_obs
 from ..ops import _cuda
 from ..ops import kernels as K
 from . import codegen as G
@@ -311,10 +312,22 @@ def prepare(plan, ctx) -> List[GeneratedProgram]:
     if ctx.device.type != "cuda":
         return []
     progs = []
+    owners = []
     for node, ps in _node_programs(plan, ctx):
         for p in ps:
             _ = p.gen
         node.metrics().add("generated_programs", len(ps))
         progs.extend(ps)
+        owners.extend((node, p) for p in ps)
+    built = len(_cuda.LIBRARIES.generated_builds)
     _cuda.LIBRARIES.build_generated([p.gen.source for p in progs if p.launches()])
+    if device_obs._enabled:
+        # each launching program's lookup: an nvcc build of its source now,
+        # or a library already built (obs/device.py jit_* keys)
+        secs = dict(_cuda.LIBRARIES.generated_builds[built:])
+        for node, p in owners:
+            if p.launches():
+                name = _cuda.generated_path(p.gen.source).name
+                device_obs.record_generated(node, f"{type(node).__name__}:{getattr(p, 'label', '')}", name,
+                                            secs.pop(name, None))
     return progs

@@ -10,8 +10,9 @@ governor is the only admission gate, so reserved bytes are the model of
 operator-held state.
 
 The reference's device pool and the heartbeat pressure it feeds wait for
-the admission controller that reads them (ROADMAP.md queue 1 item 12), as
-does the ``executor.memory.reserve`` failpoint.
+the admission controller that reads them (ROADMAP.md queue 1 item 12).
+Every reservation passes the ``executor.memory.reserve`` failpoint
+(faults/) first.
 
 A denial raises :class:`~..utils.errors.MemoryExhausted`, retryable
 back-pressure by taxonomy.  Process-global :data:`STATS` counts denials,
@@ -22,6 +23,7 @@ from __future__ import annotations
 import threading
 from typing import Dict, Optional
 
+from .. import faults
 from ..utils.config import MEM_HOST_BUDGET, MEM_SPILL_ENABLED, resolve_pool_budget
 from ..utils.errors import MemoryExhausted
 
@@ -122,8 +124,11 @@ class MemoryGovernor:
 
     # --- reserve / release ----------------------------------------------
     def reserve(self, nbytes: int, *, site: str = "") -> Reservation:
-        """Grant ``nbytes`` or raise :class:`MemoryExhausted`."""
+        """Grant ``nbytes`` or raise :class:`MemoryExhausted`.  The
+        failpoint fires first, so a fault plan can deny (``error=resource``)
+        or delay any grant."""
         nbytes = int(nbytes)
+        faults.inject("executor.memory.reserve", pool=POOL, nbytes=nbytes, op=site)
         with self._lock:
             if self._budget > 0:
                 avail = self._budget - self._reserved

@@ -9,8 +9,9 @@ on disk; the read path re-hashes before decoding, so corruption on disk
 surfaces as a retryable :class:`~..utils.errors.IntegrityError` and never
 as wrong rows.
 
-The reference's ``executor.spill.write`` failpoint waits for the port of
-``faults/`` (ROADMAP.md queue 1 item 12).
+Every run write passes the ``executor.spill.write`` failpoint (faults/):
+``raise`` is a spill I/O failure, ``corrupt`` flips bytes on disk after
+the CRC, so the read-back check must catch it.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .. import faults
 from ..models.ipc import crc32_file, read_ipc_files, write_ipc_rows
 from ..models.schema import Schema
 from ..utils.errors import IntegrityError
@@ -67,8 +69,16 @@ class Spiller:
             self._seq += 1
         os.makedirs(self.dir, exist_ok=True)
         path = os.path.join(self.dir, f"run-{seq}.arrow")
+        rule = faults.inject("executor.spill.write", path=path)
         num_rows, num_bytes = write_ipc_rows(schema, data, dicts, path)
-        run = SpillRun(path, crc32_file(path), num_rows, num_bytes)
+        crc = crc32_file(path)
+        if rule is not None and rule.action == "corrupt":
+            # after the CRC: the reader's integrity check must catch it
+            with open(path, "rb") as fh:
+                raw = fh.read()
+            with open(path, "wb") as fh:
+                fh.write(faults.corrupt_bytes(raw))
+        run = SpillRun(path, crc, num_rows, num_bytes)
         with self._lock:
             self.runs.append(run)
         STATS.add("spill_runs_total")

@@ -18,11 +18,13 @@ bucket).
 from __future__ import annotations
 
 import json
+import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..obs import device as device_obs
 from .schema import DataType, Field, Schema
 
 _TORCH_DTYPES = {
@@ -63,6 +65,8 @@ def upload(arrays: Sequence[np.ndarray], device) -> list:
     one host->device copy; returns one tensor per array (views of a shared
     device buffer).  On the CPU the staging buffer is the result."""
     device = torch.device(device)
+    observed = device_obs._enabled and device.type == "cuda"
+    t0 = time.perf_counter() if observed else 0.0
     arrays = [np.ascontiguousarray(a) for a in arrays]
     offsets, total = [], 0
     for a in arrays:
@@ -78,6 +82,8 @@ def upload(arrays: Sequence[np.ndarray], device) -> list:
     out = []
     for a, off in zip(arrays, offsets):
         out.append(buf[off:off + a.nbytes].view(torch_dtype(a.dtype)))
+    if observed:
+        device_obs.record_transfer("h2d", total, time.perf_counter() - t0)
     return out
 
 
@@ -268,11 +274,18 @@ class ColumnBatch:
             target = min(hint if hint else max(1024, cap >> 2), cap)
         cols = dict(self.columns)
         cols.update(extra32)
+        observed = device_obs._enabled and self.mask.device.type == "cuda"
         while True:
             buf, fbuf = pack_for_host(cols, self.mask, target, namesi64, namesf64, names32,
                                       order)
-            out, n = unpack_from_host(to_host(buf), to_host(fbuf) if fbuf is not None else None,
-                                      target, i64, f64, f32)
+            t0 = time.perf_counter() if observed else 0.0
+            hbuf = to_host(buf)
+            hfbuf = to_host(fbuf) if fbuf is not None else None
+            if observed:
+                device_obs.record_transfer(
+                    "d2h", hbuf.nbytes + (hfbuf.nbytes if hfbuf is not None else 0),
+                    time.perf_counter() - t0)
+            out, n = unpack_from_host(hbuf, hfbuf, target, i64, f64, f32)
             if out is not None:
                 break
             target = min(round_capacity(n), cap)

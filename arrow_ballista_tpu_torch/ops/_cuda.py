@@ -309,6 +309,12 @@ class KernelLibraries:
                 return lib
             if not path.exists():
                 self._finish_nvcc(self._start_nvcc(source, path), path)
+                # built at its first launch (a fused chain): the build
+                # counts against the operator whose scope is open
+                from ..obs import device as device_obs
+
+                device_obs.record_generated(None, device_obs.current_op_name(), path.name,
+                                            self.generated_builds[-1][1])
             loaded = ctypes.CDLL(str(path))
             for fn, (argtypes, restype) in GENERATED_SIGNATURES.items():
                 f = getattr(loaded, fn, None)

@@ -53,6 +53,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..obs import device as _obs
 from ..utils.config import env_flag
 from . import _cuda
 
@@ -73,9 +74,15 @@ _LAUNCH_LOCK = threading.Lock()
 
 
 def count_launch(name: str) -> None:
-    """One launch of kernel ``name``; wrappers call it where they launch."""
+    """One launch of kernel ``name``; wrappers call it where they launch.
+    The single point every launch goes through: with the device
+    observatory on (obs/device.py), it also attributes the launch to the
+    open operator and task scopes of this thread and closes its event
+    bracket; off, that costs one predicate."""
     with _LAUNCH_LOCK:
         LAUNCHES[name] += 1
+    if _obs._enabled:
+        _obs.record_launch(name)
 
 
 def reset_launch_counts() -> None:
@@ -103,6 +110,8 @@ def _require_cuda(*tensors: torch.Tensor) -> None:
 def _stream(device: torch.device) -> ctypes.c_void_p:
     """The device's current CUDA stream.  The raw getter skips the Stream
     object that ``torch.cuda.current_stream`` builds on every launch."""
+    if _obs._timing:  # a task scope times launches: open this launch's bracket
+        _obs.launch_begin()
     raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
     if raw is None:
         return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

@@ -1420,7 +1420,9 @@ class JoinExec(ExecutionPlan):
         dicts = dict(probe.dicts)
         if self.join_type in ("inner", "left", "full"):
             dicts.update(build.dicts)
-        return [ColumnBatch(self._schema, dict(out_cols), out_mask, dicts)]
+        result = ColumnBatch(self._schema, dict(out_cols), out_mask, dicts)
+        deferred_rows(self.metrics(), "output_rows", result)
+        return [result]
 
     def _join_spilled(self, ctx, probe: ColumnBatch, build_parts, lsch, rsch
                       ) -> List[ColumnBatch]:

@@ -13,6 +13,7 @@ mask program (compile/programs.py).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import threading
 import time
@@ -25,6 +26,7 @@ from ..models import expr as E
 from ..models.batch import ColumnBatch
 from ..models.ipc import int64_decimal_storage_scale
 from ..models.schema import DataType, Schema
+from ..obs import device as device_obs
 from ..utils.config import BallistaConfig
 from ..utils.errors import CancelledError, ExecutionError
 from .expressions import ExprCompiler
@@ -59,6 +61,14 @@ class MetricsSet:
 
     def timer(self, name: str):
         return _Timer(self, name)
+
+    def peek(self) -> Dict[str, float]:
+        """The values recorded so far, deferred ones left unresolved (a
+        tracing span's before/after snapshot: resolving them mid-task would
+        move the passthrough latch, which resolves at the task's metrics
+        snapshot)."""
+        with self._lock:
+            return dict(self.values)
 
     def to_dict(self):
         with self._lock:
@@ -136,7 +146,10 @@ def shared_program(key, build):
         hit = _program_cache.get(key)
         if hit is not None:
             _program_cache.move_to_end(key)
-            return hit
+    if hit is not None:
+        device_obs.record_program_cache(True)
+        return hit
+    device_obs.record_program_cache(False)
     built = build()
     with _program_cache_lock:
         now = _program_cache.get(key)
@@ -198,15 +211,46 @@ class TaskContext:
     # state reserve before materializing it and spill on a denial; None
     # means no accounting
     governor: Optional[object] = None
+    # obs.tracing.TaskSpanRecorder of the running task; None = tracing off
+    span_recorder: Optional[object] = None
 
     def check_cancelled(self) -> None:
         if self.cancelled is not None and self.cancelled():
+            from .. import faults
+
+            # delay failpoint: widens the window between the cancel and the
+            # raise, so a test can race cancellation against completion
+            faults.inject("executor.task.cancel.checkpoint",
+                          job_id=self.job_id, stage_id=self.stage_id)
             raise CancelledError(f"job {self.job_id} cancelled")
 
     def op_span(self, op):
-        """Times one operator's execute call into its ``elapsed_time``
-        metric (host wall time, children included)."""
-        return op.metrics().timer("elapsed_time")
+        """Spans one operator's execute call: times it into its
+        ``elapsed_time`` metric (host wall time, children included), enters
+        the device observatory's attribution scope when that is on
+        (obs/device.py: the kernels launched inside count against this
+        operator) and the tracing span when a recorder rides along.  With
+        both off it is the timer alone."""
+        if self.span_recorder is None:
+            if not device_obs._enabled:
+                return op.metrics().timer("elapsed_time")
+            return device_obs.op_scope(op, timed=True)
+        return _span_and_device(self.span_recorder.op_span(op), op)
+
+
+@contextlib.contextmanager
+def _span_and_device(span_cm, op):
+    """Tracing span around the timed device-attribution scope of one
+    operator execute: the span's metric-delta snapshot
+    (TaskSpanRecorder.op_span) sees the time and the launches this call
+    added."""
+    with span_cm:
+        if device_obs._enabled:
+            with device_obs.op_scope(op, timed=True):
+                yield
+        else:
+            with op.metrics().timer("elapsed_time"):
+                yield
 
 
 # --------------------------------------------------------------------------

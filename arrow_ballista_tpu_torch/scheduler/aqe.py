@@ -17,15 +17,20 @@ graph.  Three rewrites, each gated on the observed numbers and on the
    outputs.
 
 Every rewrite runs on the scheduler's event-loop thread, between
-resolution and the first task launch.  The reference's pre-mutation
-failpoint and its plan-validator re-check are still to be ported (the
-fault-injection framework and analysis/plan_checks.py, ROADMAP.md queue 1).
+resolution and the first task launch.  The ``scheduler.aqe.before_rewrite``
+failpoint (faults/) fires between decision and mutation: an injected error
+or ``drop`` abandons the rewrite and leaves the graph untouched — AQE is an
+optimization, never a correctness dependency.  The reference's
+plan-validator re-check is still to be ported (analysis/plan_checks.py,
+ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Dict, List, Optional, Tuple
 
+from .. import faults
 from ..ops.operators import (
     CoalescePartitionsExec,
     FilterExec,
@@ -37,6 +42,10 @@ from ..ops.operators import (
 from ..ops.shuffle import ShuffleReaderExec, ShuffleWriterExec, UnresolvedShuffleExec
 from .planner import collect_nodes
 from .types import TaskId
+
+log = logging.getLogger(__name__)
+
+FAILPOINT = "scheduler.aqe.before_rewrite"
 
 
 @dataclasses.dataclass
@@ -303,6 +312,8 @@ def rewrite_resolved_stage(graph, stage, policy: AqePolicy) -> None:
     if not coalesced and not splits:
         return
     kinds = (["coalesce"] if coalesced else []) + (["skew"] if splits else [])
+    if not _fire_failpoint(graph, stage.stage_id, "+".join(kinds)):
+        return
     before = stage.partitions
     _apply_groups(stage, groups, splits, readers)
     _resize_stage(stage, len(groups))
@@ -349,6 +360,8 @@ def maybe_broadcast_switch(graph, stage, events: List[Tuple[str, object]],
                 continue
             if not isinstance(join.right, UnresolvedShuffleExec) \
                     or join.right.stage_id != stage.stage_id:
+                continue
+            if not _fire_failpoint(graph, cid, "broadcast"):
                 continue
             join.dist = "broadcast"
             grafted = _maybe_graft_probe_exchange(graph, consumer, join,
@@ -430,6 +443,20 @@ def _maybe_graft_probe_exchange(graph, consumer, join,
 # --------------------------------------------------------------------------
 # shared plumbing
 # --------------------------------------------------------------------------
+
+def _fire_failpoint(graph, stage_id: int, kind: str) -> bool:
+    """Evaluate the pre-mutation failpoint.  ``drop`` (and any injected
+    error) abandons the rewrite — the graph is still unmutated here, so
+    skipping is always safe."""
+    try:
+        rule = faults.inject(FAILPOINT, job_id=graph.job_id,
+                             stage_id=stage_id, kind=kind)
+    except Exception as e:  # injected raise: AQE degrades to a no-op
+        log.warning("aqe: rewrite of %s stage %s abandoned: %s",
+                    graph.job_id, stage_id, e)
+        return False
+    return rule is None or rule.action != "drop"
+
 
 def _record(graph, stage, record: dict) -> None:
     stage.aqe_rewrites.append(record)

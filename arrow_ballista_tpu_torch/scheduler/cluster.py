@@ -90,6 +90,14 @@ class ClusterState:
                     and (hb.status == "dead" or now - hb.timestamp > timeout_s)]
 
     # --- slots -----------------------------------------------------------
+    def total_slots(self) -> int:
+        with self._lock:
+            return sum(m.task_slots for m in self._executors.values())
+
+    def total_available(self) -> int:
+        with self._lock:
+            return sum(self._available.values())
+
     def reserve_slots(self, n: int, executors: Optional[List[str]] = None
                       ) -> List[ExecutorReservation]:
         """Atomically grab up to ``n`` free slots."""

@@ -13,14 +13,20 @@ its producers' outputs) when every producer is SUCCESSFUL; the AQE rewrites
 freshly resolved plan, before any of its tasks launches.  A fetch failure
 rolls the consumer back and re-opens the producer's lost map partition;
 retryable task errors reset the task; execution errors fail the job.
-Speculative attempts, the flight-recorder journal and the runtime
-statistics store are still to be ported (ROADMAP.md queue 1).
+Every completed task refolds its stage's summary into the graph's runtime
+statistics store (``graph.stats``, obs/stats.py: EXPLAIN ANALYZE, the
+doctor, progress), and stage resolution and task launches are journaled
+(obs/journal.py).  Speculative attempts are still to be ported (ROADMAP.md
+queue 1); the speculation fields the observability folds read stay empty.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Tuple
 
+from ..obs import journal
+from ..obs.stats import RuntimeStatsStore
 from ..ops.shuffle import (
     PartitionLocation,
     ShuffleReaderExec,
@@ -59,6 +65,9 @@ class TaskInfo:
     status: object = None
     # attempt id this info belongs to (TaskId.task_attempt)
     attempt: int = 0
+    speculative: bool = False
+    # monotonic launch time: a running task's age (the live straggler rule)
+    started_at: float = 0.0
 
 
 class ExecutionStage:
@@ -84,6 +93,14 @@ class ExecutionStage:
         # partition -> executors where it failed retryably (this attempt):
         # the retry is steered to another executor when one is alive
         self.failed_on: Dict[int, set] = {}
+        # speculative duplicates: none until speculation is ported (the
+        # progress and profile folds read it)
+        self.speculative_tasks: Dict[int, TaskInfo] = {}
+        # completed-attempt durations (s): task-duration quantiles
+        self.durations: List[float] = []
+        # append-only per-attempt history (entries carry their
+        # stage_attempt epoch)
+        self.attempt_log: List[dict] = []
         # map partition -> (executor_id, [ShuffleWritePartition])
         self.outputs: Dict[int, Tuple[str, List[ShuffleWritePartition]]] = {}
         # AQE rewrite records applied to this stage (append-only, tagged
@@ -96,7 +113,11 @@ class ExecutionStage:
     def new_attempt(self, partition: int, executor_id: str) -> TaskInfo:
         attempt = self.task_attempts[partition]
         self.task_attempts[partition] = attempt + 1
-        return TaskInfo(partition, executor_id, "running", attempt=attempt)
+        self.attempt_log.append({"partition": partition, "attempt": attempt,
+                                 "stage_attempt": self.stage_attempt,
+                                 "executor_id": executor_id, "speculative": False})
+        return TaskInfo(partition, executor_id, "running", attempt=attempt,
+                        started_at=time.monotonic())
 
     # --- metrics ---------------------------------------------------------
     def operator_metrics(self) -> Dict[str, Dict[str, float]]:
@@ -276,6 +297,11 @@ class ExecutionGraph:
         # and the flat decision log
         self.compiler = None
         self.compile_log: List[dict] = []
+        # runtime statistics (obs/stats.py), refolded per completed task
+        self.stats = RuntimeStatsStore(job_id)
+        # tracing propagation context of the job's execution span
+        # (obs/profile.py), handed to every task
+        self.trace: Dict[str, str] = {}
         self.revive()
 
     @staticmethod
@@ -308,6 +334,10 @@ class ExecutionGraph:
                     from ..compile.fuse import fuse_stage
 
                     fuse_stage(self, stage)
+                if journal.enabled():
+                    journal.emit("stage.resolved", job_id=self.job_id,
+                                 stage_id=stage.stage_id, partitions=stage.partitions,
+                                 producers=list(stage.producer_ids))
         return changed
 
     def available_task_count(self) -> int:
@@ -333,7 +363,17 @@ class ExecutionGraph:
                 stage.task_infos[p] = info
                 tid = TaskId(self.job_id, stage.stage_id, info.partition,
                              task_attempt=info.attempt, stage_attempt=stage.stage_attempt)
-                return TaskDescription(tid, stage.resolved_plan, scalars=self.scalars)
+                if journal.enabled():
+                    # registers the causal key the scheduler's task.finish
+                    # event chains back to
+                    journal.emit("task.launch", job_id=self.job_id,
+                                 causal_key=("task", self.job_id, stage.stage_id,
+                                             info.partition, info.attempt),
+                                 stage_id=stage.stage_id, partition=info.partition,
+                                 attempt=info.attempt, executor_id=info.executor_id,
+                                 speculative=False)
+                return TaskDescription(tid, stage.resolved_plan, scalars=self.scalars,
+                                       trace=dict(self.trace))
         return None
 
     # --- status intake ---------------------------------------------------
@@ -361,11 +401,19 @@ class ExecutionGraph:
         info = stage.task_infos[p]
         if info is not None and info.state == "success":
             return  # a duplicate report: the recorded outputs stay
+        started = info.started_at if info is not None else 0.0
+        if started:
+            stage.durations.append(time.monotonic() - started)
         stage.task_infos[p] = TaskInfo(p, st.executor_id, "success", st,
-                                       attempt=st.task.task_attempt)
+                                       attempt=st.task.task_attempt, started_at=started)
         stage.outputs[p] = (st.executor_id, list(st.shuffle_writes))
-        if stage.all_successful() and stage.state == RUNNING:
+        completed = stage.all_successful() and stage.state == RUNNING
+        if completed:
             stage.state = SUCCESSFUL
+        # refold after the state transition (the final summary records the
+        # stage as successful) and before downstream stages resolve
+        self.stats.fold_stage(stage)
+        if completed:
             if stage.stage_id == self.final_stage_id:
                 self.status = "successful"
                 events.append(("job_successful", stage.output_locations(self.addr_resolver)))

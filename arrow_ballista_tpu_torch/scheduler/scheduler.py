@@ -11,7 +11,12 @@ standalone engine drives:
 - push scheduling: free slots are reserved atomically, filled with
   pending tasks of the active jobs and launched through the
   ``TaskLauncher`` seam (the in-process launcher of standalone.py);
-- a reaper thread expires executors whose heartbeats stopped.
+- a reaper thread expires executors whose heartbeats stopped;
+- observability (obs/): a job span with its phases per job and the
+  retained job profiles (``self.obs``), the flight-recorder journal of the
+  job lifecycle, task launches and finishes and AQE rewrites, the cluster
+  time series (``cluster_history``), the SLO tracker and, with
+  ``ballista.live.enabled``, the in-flight doctor.
 
 Still to be ported (ROADMAP.md queue 1): admission control, speculative
 execution, executor quarantine and poison containment, job deadlines, the
@@ -25,10 +30,14 @@ import logging
 import random
 import string
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..compile.fuse import CompilePolicy, fuse_resolved_stages
+from ..obs import journal
+from ..obs.profile import JobObservability
+from ..obs.stats import ClusterHistory
 from .aqe import AqePolicy
 from .cluster import DEFAULT_EXECUTOR_TIMEOUT_S, ClusterState, JobState
 from .event_loop import EventLoop
@@ -114,7 +123,13 @@ class SchedulerConfig:
     def __init__(self, executor_timeout_s: float = DEFAULT_EXECUTOR_TIMEOUT_S,
                  reaper_interval_s: float = 15.0,
                  event_buffer_size: int = 10000,
-                 job_data_cleanup_delay_s: float = 30.0):
+                 job_data_cleanup_delay_s: float = 30.0,
+                 stats_history_capacity: int = 512,
+                 stats_history_interval_s: float = 5.0,
+                 live_enabled: bool = False,
+                 live_doctor_interval_s: float = 5.0,
+                 slo_p99_target_ms: float = 0.0,
+                 slo_window_s: float = 300.0):
         # one timeout drives "stop offering" (less the drain grace, see
         # cluster.alive_cutoff_s) and "declare lost" (the reaper)
         self.executor_timeout_s = float(executor_timeout_s)
@@ -123,14 +138,68 @@ class SchedulerConfig:
         # delay before a finished job's shuffle data is removed (long
         # enough for the client to read the final stage); < 0 disables
         self.job_data_cleanup_delay_s = job_data_cleanup_delay_s
+        # cluster time series (obs/stats.py ClusterHistory)
+        self.stats_history_capacity = int(stats_history_capacity)
+        self.stats_history_interval_s = float(stats_history_interval_s)
+        # live observability plane (obs/live.py, obs/slo.py)
+        self.live_enabled = bool(live_enabled)
+        self.live_doctor_interval_s = float(live_doctor_interval_s)
+        self.slo_p99_target_ms = float(slo_p99_target_ms)
+        self.slo_window_s = float(slo_window_s)
+
+    @staticmethod
+    def from_config(cfg) -> "SchedulerConfig":
+        """The ``ballista.stats.*``, ``ballista.live.*`` and
+        ``ballista.slo.*`` keys of a session's BallistaConfig."""
+        from ..utils import config as C
+
+        return SchedulerConfig(
+            stats_history_capacity=int(cfg.get(C.STATS_HISTORY_CAPACITY)),
+            stats_history_interval_s=float(cfg.get(C.STATS_HISTORY_INTERVAL_S)),
+            live_enabled=bool(cfg.get(C.LIVE_ENABLED)),
+            live_doctor_interval_s=float(cfg.get(C.LIVE_DOCTOR_INTERVAL_S)),
+            slo_p99_target_ms=float(cfg.get(C.SLO_P99_TARGET_MS)),
+            slo_window_s=float(cfg.get(C.SLO_WINDOW_S)))
 
 
 class SchedulerServer:
-    def __init__(self, launcher: TaskLauncher, config: Optional[SchedulerConfig] = None):
+    def __init__(self, launcher: TaskLauncher, config: Optional[SchedulerConfig] = None,
+                 observability: Optional[JobObservability] = None):
         self.config = config or SchedulerConfig()
         self.cluster = ClusterState()
         self.jobs = JobState()
         self.launcher = launcher
+        self.scheduler_id = "scheduler-" + "".join(
+            random.choices(string.ascii_lowercase + string.digits, k=8))
+        # tracing + profile retention (obs/profile.py): phase spans per
+        # job, task span intake, the profiles the forensics bundle reads
+        self.obs = observability if observability is not None else JobObservability()
+        # flight recorder: enable-only (the process-global journal is shared
+        # with the in-process executors, which enable it from the session)
+        from ..utils.config import (JOURNAL_CAPACITY, JOURNAL_ENABLED, JOURNAL_SPILL_PATH,
+                                    BallistaConfig, env_flag)
+
+        defaults = BallistaConfig()
+        if env_flag("BALLISTA_JOURNAL") or bool(defaults.get(JOURNAL_ENABLED)):
+            journal.set_enabled(True)
+        if journal.enabled():
+            journal.configure(capacity=int(defaults.get(JOURNAL_CAPACITY)),
+                              spill_path=str(defaults.get(JOURNAL_SPILL_PATH)))
+            if not journal.actor():
+                journal.set_actor(self.scheduler_id)
+        from ..obs.live import LiveDoctor
+        from ..obs.slo import NullSloTracker, SloPolicy, SloTracker
+
+        self.live_doctor = LiveDoctor()
+        self.slo = (SloTracker(SloPolicy(self.config.slo_p99_target_ms,
+                                         self.config.slo_window_s))
+                    if self.config.slo_p99_target_ms > 0 else NullSloTracker())
+        self.history = ClusterHistory(self.config.stats_history_capacity,
+                                      self.config.stats_history_interval_s)
+        # job_id -> submission wall time (ms): the SLO's queue-to-done time
+        self._queued_at_ms: Dict[str, int] = {}
+        self._history_sampler: Optional[threading.Thread] = None
+        self._live_doctor_thread: Optional[threading.Thread] = None
         # job_id -> the submitting session's BallistaConfig (read at planning)
         self._meta_lock = threading.Lock()
         self._job_configs: Dict[str, object] = {}
@@ -160,13 +229,21 @@ class SchedulerServer:
             self._reaper = threading.Thread(target=self._reap_loop, name="executor-reaper",
                                             daemon=True)
             self._reaper.start()
+        self._history_sampler = threading.Thread(target=self._history_loop,
+                                                 name="cluster-history-sampler", daemon=True)
+        self._history_sampler.start()
+        if self.config.live_enabled and self.config.live_doctor_interval_s > 0:
+            self._live_doctor_thread = threading.Thread(target=self._live_doctor_loop,
+                                                        name="live-doctor", daemon=True)
+            self._live_doctor_thread.start()
 
     def shutdown(self) -> None:
         # stop the event loop before the launch pool, so no handler races a
         # submit against the pool's shutdown
         self._stopped.set()
-        if self._reaper is not None:
-            self._reaper.join(timeout=5.0)
+        for t in (self._reaper, self._history_sampler, self._live_doctor_thread):
+            if t is not None:
+                t.join(timeout=5.0)
         with self._cleanup_lock:
             timers = list(self._cleanup_timers.values())
             self._cleanup_timers.clear()
@@ -198,14 +275,22 @@ class SchedulerServer:
 
     def submit_job(self, job_id: str,
                    plan_fn: Callable[[], Tuple[object, Dict[str, object]]],
-                   config: Optional[object] = None) -> None:
+                   config: Optional[object] = None,
+                   trace: Optional[Dict[str, str]] = None) -> None:
         """``config``: the submitting session's BallistaConfig, read at
         planning for ``ballista.aqe.*`` and ``ballista.compile.*`` (None =
-        defaults)."""
+        defaults).  ``trace``: the client's propagation context
+        (obs/tracing.py ``new_trace_context``), the parent of the job span."""
         self.jobs.accept_job(job_id)
-        if config is not None:
-            with self._meta_lock:
+        self.obs.on_submitted(job_id, trace)
+        if journal.enabled():
+            journal.emit_job("job.submitted", job_id)
+        with self._meta_lock:
+            if config is not None:
                 self._job_configs[job_id] = config
+            self._queued_at_ms[job_id] = int(time.time() * 1000)
+        # no admission queue in the port: the job is admitted at once
+        self.obs.on_admitted(job_id)
         self._event_loop.post(JobQueued(job_id, plan_fn))
 
     def update_task_status(self, executor_id: str, statuses: List[TaskStatus]) -> None:
@@ -251,10 +336,9 @@ class SchedulerServer:
             graph = self.jobs.get_graph(job_id)
             if graph is not None and graph.status == "running":
                 graph.status = "failed"
-            self.jobs.set_status(JobStatus(
+            self._finish(JobStatus(
                 job_id, "failed",
                 error=f"scheduler event handler crashed: {type(exc).__name__}: {exc}"))
-            self._count("jobs_failed")
 
     def _on_event(self, event: object) -> None:
         if isinstance(event, JobQueued):
@@ -298,11 +382,38 @@ class SchedulerServer:
 
     def _on_job_planned(self, ev: JobPlanned) -> None:
         if ev.graph is None:
-            self.jobs.set_status(JobStatus(ev.job_id, "failed", error=ev.error))
-            self._count("jobs_failed")
+            if journal.enabled():
+                journal.emit_job("job.plan_failed", ev.job_id, error=ev.error)
+            self._finish(JobStatus(ev.job_id, "failed", error=ev.error))
             return
+        self.obs.on_planned(ev.job_id)
+        if journal.enabled():
+            journal.emit_job("job.planned", ev.job_id, stages=len(ev.graph.stages))
+        # hand the execution span's context to every task of this job
+        ev.graph.trace = self.obs.task_parent(ev.job_id)
         self.jobs.submit_job(ev.job_id, ev.graph)
         self._offer()
+
+    def _finish(self, status: JobStatus, graph: Optional[ExecutionGraph] = None) -> None:
+        """A job's terminal status: its profile is retained (obs/profile.py),
+        its wall time recorded against the SLO, its outcome counted, and
+        then the status set (which wakes the waiting client)."""
+        with self._meta_lock:
+            queued_at = self._queued_at_ms.pop(status.job_id, 0)
+        try:
+            self.obs.on_finished(status, graph or self.jobs.get_graph(status.job_id))
+        except Exception:  # noqa: BLE001 — observability is best-effort
+            log.exception("profile finalization failed for %s", status.job_id)
+        if status.state == "successful":
+            if queued_at:
+                self.slo.record(int(time.time() * 1000) - queued_at, ok=True)
+        elif status.state == "failed":
+            # a failed job always burns SLO budget, whatever its wall time
+            self.slo.record(int(time.time() * 1000) - queued_at if queued_at else 0.0,
+                            ok=False)
+        self._count({"successful": "jobs_successful", "failed": "jobs_failed",
+                     "cancelled": "jobs_cancelled"}[status.state])
+        self.jobs.set_status(status)
 
     def _on_task_updating(self, ev: TaskUpdating) -> None:
         statuses = ev.statuses
@@ -314,6 +425,17 @@ class SchedulerServer:
         self.cluster.free_slots(ev.executor_id, len(statuses))
         by_job: Dict[str, List[TaskStatus]] = {}
         for st in statuses:
+            if st.journal:
+                # the executor's flight-record buffer: merged into the job's
+                # timeline (in-process executors' events dedup by seq)
+                journal.absorb(st.task.job_id, st.journal)
+            if journal.enabled():
+                journal.emit("task.finish", job_id=st.task.job_id,
+                             parent_key=("task", st.task.job_id, st.task.stage_id,
+                                         st.task.partition, st.task.task_attempt),
+                             stage_id=st.task.stage_id, partition=st.task.partition,
+                             attempt=st.task.task_attempt, state=st.state,
+                             executor_id=st.executor_id or ev.executor_id)
             by_job.setdefault(st.task.job_id, []).append(st)
         for job_id, sts in by_job.items():
             graph = self.jobs.get_graph(job_id)
@@ -328,10 +450,9 @@ class SchedulerServer:
                     continue
                 if graph.status == "running":
                     graph.status = "failed"
-                self.jobs.set_status(JobStatus(
+                self._finish(JobStatus(
                     job_id, "failed",
-                    error=f"status absorption crashed: {type(e).__name__}: {e}"))
-                self._count("jobs_failed")
+                    error=f"status absorption crashed: {type(e).__name__}: {e}"), graph)
         self._offer()
 
     def _absorb_job_statuses(self, job_id: str, graph: ExecutionGraph,
@@ -341,19 +462,24 @@ class SchedulerServer:
                 executor_id, task_id = payload
                 self._submit_work(self._cancel_one, executor_id, task_id)
             elif kind == "job_successful":
-                self.jobs.set_status(JobStatus(job_id, "successful", locations=payload))
-                self._count("jobs_successful")
+                if journal.enabled():
+                    journal.emit_job("job.successful", job_id)
+                self._finish(JobStatus(job_id, "successful", locations=payload), graph)
                 self._schedule_job_data_cleanup(graph)
             elif kind == "job_failed":
-                self.jobs.set_status(JobStatus(job_id, "failed", error=str(payload)))
-                self._count("jobs_failed")
+                if journal.enabled():
+                    journal.emit_job("job.failed", job_id, error=str(payload))
+                self._finish(JobStatus(job_id, "failed", error=str(payload)), graph)
                 self._cancel_running(graph)
                 self._schedule_job_data_cleanup(graph)
         self._drain_aqe_events(graph)
 
     def _drain_aqe_events(self, graph: ExecutionGraph) -> None:
-        """Fold the graph's buffered AQE rewrite events into the counters."""
+        """Fold the graph's buffered AQE rewrite events into the counters
+        (and the journal)."""
         for kind, n in graph.aqe_events:
+            if journal.enabled():
+                journal.emit("aqe.rewrite", job_id=graph.job_id, rewrite=kind, partitions=n)
             self._count(f"aqe_{kind}", n)
         graph.aqe_events.clear()
 
@@ -370,8 +496,9 @@ class SchedulerServer:
         if graph is None or graph.status != "running":
             return
         graph.cancel()
-        self.jobs.set_status(JobStatus(ev.job_id, "cancelled"))
-        self._count("jobs_cancelled")
+        if journal.enabled():
+            journal.emit_job("job.cancelled", ev.job_id)
+        self._finish(JobStatus(ev.job_id, "cancelled"), graph)
         self._cancel_running(graph)
         self._schedule_job_data_cleanup(graph)
 
@@ -480,6 +607,53 @@ class SchedulerServer:
             log.exception("launch on %s failed", executor_id)
             self.cluster.free_slots(executor_id, len(tasks))
             self._event_loop.post(ExecutorLost(executor_id, f"launch failed: {e}"))
+
+    # --- cluster time series and the live plane (obs/) -------------------
+    def cluster_sample(self) -> Dict:
+        """One utilization/saturation sample (a pure read)."""
+        total = self.cluster.total_slots()
+        available = self.cluster.total_available()
+        ev = self._event_loop.stats()
+        return {
+            "ts": round(time.time(), 3),
+            "executors_alive": len(self.cluster.alive_executors(self.config.executor_timeout_s)),
+            "executors_total": len(self.cluster.executors()),
+            "total_slots": total,
+            "available_slots": available,
+            "utilization": round((total - available) / total, 4) if total else 0.0,
+            "pending_tasks": self.pending_task_count(),
+            "active_jobs": len(self.jobs.active_graphs()),
+            "event_queue_depth": ev["queue_depth"],
+            "event_loop_lag_s": ev["last_lag_s"],
+            "event_loop_max_lag_s": ev["max_lag_s"],
+            "event_handler_seconds_mean": ev["handler_seconds_mean"],
+            "slow_events": ev["slow_events"],
+        }
+
+    def cluster_history(self) -> Dict:
+        """The sample ring plus a fresh sample (``now``)."""
+        out = self.history.snapshot()
+        out["now"] = self.cluster_sample()
+        return out
+
+    def slo_report(self) -> Dict:
+        """The SLO burn-rate report (``{"enabled": false}`` without a
+        target)."""
+        return self.slo.snapshot()
+
+    def _history_loop(self) -> None:
+        while not self._stopped.wait(self.config.stats_history_interval_s):
+            try:
+                self.history.record(self.cluster_sample())
+            except Exception:  # noqa: BLE001 — sampling must outlive one bad read
+                log.exception("cluster history sampling failed")
+
+    def _live_doctor_loop(self) -> None:
+        while not self._stopped.wait(self.config.live_doctor_interval_s):
+            try:
+                self.live_doctor.scan(self)
+            except Exception:  # noqa: BLE001 — scan again next interval
+                log.exception("live doctor scan failed")
 
     # --- failure detection ----------------------------------------------
     def _reap_loop(self) -> None:

@@ -4,7 +4,11 @@ Mirrors arrow_ballista_tpu/scheduler/standalone.py: the whole stage-DAG
 machinery (stage split, AQE, whole-stage fusion, task slots, Arrow IPC
 shuffle files, lineage recovery) runs in-process, with the executors
 called directly instead of over RPC.  Every executor runs its tasks on
-the cluster's device.  The serving path (plan, result and subplan
+the cluster's device.  The session's config arms the fault plan
+(``ballista.faults.plan``), the job profiles (``ballista.observability.*``)
+and the scheduler's live plane (``ballista.stats.*``, ``ballista.live.*``,
+``ballista.slo.*``), and each job carries a fresh trace context.  The
+serving path (plan, result and subplan
 caches) is still to be ported (ROADMAP.md queue 1).
 """
 from __future__ import annotations
@@ -66,10 +70,18 @@ class StandaloneCluster:
                  scheduler_config: Optional[SchedulerConfig] = None, device=None):
         self.config = config or BallistaConfig()
         self.device = torch.device("cuda" if device is None else device)
+        # arm the failpoints (a no-op unless a plan is configured)
+        from .. import faults
+        from ..obs.profile import JobObservability
+
+        faults.configure(self.config)
         self.work_dir = work_dir or tempfile.mkdtemp(prefix="ballista-torch-")
         self._owns_work_dir = work_dir is None
         self.launcher = InProcessTaskLauncher()
-        self.scheduler = SchedulerServer(self.launcher, scheduler_config)
+        if scheduler_config is None:
+            scheduler_config = SchedulerConfig.from_config(self.config)
+        self.scheduler = SchedulerServer(self.launcher, scheduler_config,
+                                         observability=JobObservability.from_config(self.config))
         self.launcher.scheduler = self.scheduler
         self.scheduler.init()
         self.last_job_id: Optional[str] = None
@@ -108,9 +120,13 @@ class StandaloneCluster:
         finally:
             clear_job_build_caches(scalar_ctx.job_id)
 
+        from ..obs.tracing import new_trace_context
+
         job_id = random_job_id()
+        # remembered so explain_analyze / forensics / watch find the job
         self.last_job_id = job_id
-        self.scheduler.submit_job(job_id, lambda: (planned.plan, scalars), config=self.config)
+        self.scheduler.submit_job(job_id, lambda: (planned.plan, scalars), config=self.config,
+                                  trace=new_trace_context())
         status = self.scheduler.wait_for_job(job_id, timeout=float(self.config.job_timeout_s))
         if status.state == "failed":
             raise ExecutionError(f"job {job_id} failed: {status.error}")

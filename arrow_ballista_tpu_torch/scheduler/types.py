@@ -3,8 +3,9 @@
 Mirrors arrow_ballista_tpu/scheduler/types.py (the reference's protobuf
 contract as plain dataclasses): task identity and status with the failure
 taxonomy, executor metadata and heartbeats, task definitions and job
-status.  Fields the port's code never reads (tracing spans, device
-observatory and flight-recorder payloads, fleet leases) are left out.
+status.  A task status carries the task's tracing spans, its device
+observatory fold and its flight-recorder events (obs/); fields the port's
+code never reads (fleet leases, speculation) are left out.
 """
 from __future__ import annotations
 
@@ -42,6 +43,9 @@ class TaskDescription:
     plan: "object"  # the stage's ShuffleWriterExec root
     # job-level scalar-subquery values, shipped with every task
     scalars: Dict[str, object] = dataclasses.field(default_factory=dict)
+    # tracing propagation context (obs/tracing.py): the job execution
+    # span's {trace_id, span_id}, the parent of the task's span tree
+    trace: Dict[str, str] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -73,6 +77,14 @@ class TaskStatus:
     # per-operator metrics of the stage plan at the task's end (cumulative:
     # the tasks of a stage share its operator instances)
     metrics: Dict[str, Dict[str, float]] = dataclasses.field(default_factory=dict)
+    # the task's span tree (obs.tracing.Span list; empty with tracing off)
+    spans: List[object] = dataclasses.field(default_factory=list)
+    # the task's own device-observatory fold (obs/device.py; empty when
+    # the observatory is off)
+    device_stats: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # flight-recorder events emitted during the task (obs/journal.py;
+    # empty when the journal is off)
+    journal: List[Dict] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass

@@ -54,6 +54,30 @@ COMPILE_ENABLED = "ballista.compile.enabled"
 COMPILE_MIN_OPS = "ballista.compile.min.ops"
 COMPILE_OPERATORS = "ballista.compile.operators"
 COMPILE_DONATE = "ballista.compile.donate"
+# observability (obs/): tracing spans and job profiles, the device
+# observatory (a launch registry over the port's kernels, obs/device.py),
+# the flight-recorder journal, the cluster time series, the live doctor and
+# the SLO tracker
+OBS_TRACING = "ballista.observability.tracing"
+OBS_PROFILE_RETENTION = "ballista.observability.profile.retention"
+OBS_COLLECTOR = "ballista.observability.collector"
+OBS_OTLP_ENDPOINT = "ballista.observability.otlp.endpoint"
+OBS_DEVICE_ENABLED = "ballista.observability.device.enabled"
+OBS_DEVICE_WATERMARKS = "ballista.observability.device.watermarks"
+OBS_DEVICE_ADVISOR_MIN_SAVINGS_MS = "ballista.observability.device.advisor.min_savings_ms"
+JOURNAL_ENABLED = "ballista.journal.enabled"
+JOURNAL_CAPACITY = "ballista.journal.capacity"
+JOURNAL_SPILL_PATH = "ballista.journal.spill_path"
+STATS_HISTORY_CAPACITY = "ballista.stats.history.capacity"
+STATS_HISTORY_INTERVAL_S = "ballista.stats.history.interval.seconds"
+LIVE_ENABLED = "ballista.live.enabled"
+LIVE_DOCTOR_INTERVAL_S = "ballista.live.doctor.interval.seconds"
+LIVE_WATCH_QUEUE_EVENTS = "ballista.live.watch.queue.events"
+LIVE_WATCH_POLL_S = "ballista.live.watch.poll.seconds"
+SLO_P99_TARGET_MS = "ballista.slo.latency.p99.target.ms"
+SLO_WINDOW_S = "ballista.slo.window.seconds"
+# deterministic fault injection (faults/)
+FAULTS_PLAN = "ballista.faults.plan"
 
 
 @dataclasses.dataclass
@@ -204,6 +228,81 @@ _ENTRIES: Dict[str, ConfigEntry] = {
                     "read and recorded for parity with the reference; does "
                     "nothing in the port: a generated kernel never writes "
                     "its inputs, so there is no buffer to donate"),
+        ConfigEntry(OBS_TRACING, True, _parse_bool,
+                    "tracing spans: a job span per standalone job with its "
+                    "phases, a task span per task and an operator span per "
+                    "execute call, folded into the job profile the forensics "
+                    "bundle carries (False = no spans, no profile)"),
+        ConfigEntry(OBS_PROFILE_RETENTION, 64, int,
+                    "finished job profiles (and their span sets) the "
+                    "scheduler retains in a ring buffer"),
+        ConfigEntry(OBS_COLLECTOR, "noop", str,
+                    "span export collector: 'noop' (default), 'memory' "
+                    "(bounded in-process buffer), or 'otlp' (best-effort "
+                    "OTLP/HTTP JSON POST to "
+                    "ballista.observability.otlp.endpoint)"),
+        ConfigEntry(OBS_OTLP_ENDPOINT, "", str,
+                    "OTLP/HTTP endpoint (e.g. "
+                    "http://localhost:4318/v1/traces) used when the 'otlp' "
+                    "collector is selected"),
+        ConfigEntry(OBS_DEVICE_ENABLED, True, _parse_bool,
+                    "device observatory (obs/device.py): every kernel launch "
+                    "attributed to its operator and task, CUDA event times "
+                    "per launch inside a task scope, nvcc builds of "
+                    "generated sources, host<->device transfer bytes and "
+                    "memory watermarks (False = every probe is a single "
+                    "predicate check)"),
+        ConfigEntry(OBS_DEVICE_WATERMARKS, True, _parse_bool,
+                    "sample allocated device bytes and the host RSS peak at "
+                    "task/operator boundaries (requires "
+                    "ballista.observability.device.enabled)"),
+        ConfigEntry(OBS_DEVICE_ADVISOR_MIN_SAVINGS_MS, 1.0, float,
+                    "fusion advisor (obs/advisor.py): drop stage operator "
+                    "chains whose estimated fusion savings fall below this "
+                    "many milliseconds"),
+        ConfigEntry(JOURNAL_ENABLED, False, _parse_bool,
+                    "flight recorder (obs/journal.py): causally-ordered "
+                    "journal of job lifecycle, task attempts, stage "
+                    "resolution, AQE rewrites, fusion and failpoint firings, "
+                    "feeding the forensics bundle and the query doctor "
+                    "(False = every probe is a single predicate check)"),
+        ConfigEntry(JOURNAL_CAPACITY, 4096, int,
+                    "events retained in the process-global journal ring "
+                    "and in each per-job timeline"),
+        ConfigEntry(JOURNAL_SPILL_PATH, "", str,
+                    "append every journal event as one JSON line to this "
+                    "file; empty = no spill"),
+        ConfigEntry(STATS_HISTORY_CAPACITY, 512, int,
+                    "ring-buffer capacity of the scheduler's cluster time "
+                    "series (oldest samples are evicted)"),
+        ConfigEntry(STATS_HISTORY_INTERVAL_S, 5.0, float,
+                    "seconds between cluster-history samples (executor "
+                    "utilization, event-loop lag)"),
+        ConfigEntry(LIVE_ENABLED, False, _parse_bool,
+                    "live observability plane: run the in-flight doctor "
+                    "scan thread against running jobs (obs/live.py)"),
+        ConfigEntry(LIVE_DOCTOR_INTERVAL_S, 5.0, float,
+                    "cadence of the in-flight doctor scan over running "
+                    "jobs; <= 0 disables the scan thread even when live "
+                    "is on"),
+        ConfigEntry(LIVE_WATCH_QUEUE_EVENTS, 1024, int,
+                    "bound of each watch subscriber's event queue; a "
+                    "consumer that falls behind sheds oldest events and "
+                    "receives one watch.gap event with the drop count"),
+        ConfigEntry(LIVE_WATCH_POLL_S, 0.25, float,
+                    "how often ctx.watch() re-checks a quiet job's state "
+                    "and emits a progress frame"),
+        ConfigEntry(SLO_P99_TARGET_MS, 0.0, float,
+                    "latency SLO: 99% of completed jobs must finish under "
+                    "this wall time (a failed job always counts as a "
+                    "violation); 0 disables SLO tracking"),
+        ConfigEntry(SLO_WINDOW_S, 300.0, float,
+                    "slow burn-rate window of the SLO tracker in seconds; "
+                    "the fast window is 1/12 of it"),
+        ConfigEntry(FAULTS_PLAN, "", str,
+                    "deterministic fault-injection plan: inline JSON or "
+                    "'@/path/to/plan.json' (faults/); empty = disabled, all "
+                    "failpoint sites are no-ops"),
     ]
 }
 

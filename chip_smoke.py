@@ -198,6 +198,22 @@ Phases (any failure exits non-zero and prints no result line):
    the scan's read and convert times cold and warm, the scan cache's
    resident bytes and the peak device memory.
 
+7. ``obs`` (last, on the SF1 tables already loaded): q1's and q3's EXPLAIN ANALYZE
+   in the local engine with the device observatory on, under the profiler
+   (rows against the oracle, every operator's output_rows against an
+   unobserved run, every launched kernel attributed to its operators with
+   the process counter's launches and, on the card, an event time; the
+   event times per kernel and their sum beside the profiler's device ms of
+   the same query); standalone q1 and q3 over parquet with the journal and
+   tracing on (a valid forensics bundle, no doctor finding, a watch stream
+   ending successful, each task's launches and event times); one
+   ``executor.task.slow`` straggler that the doctor must report; and the
+   warm q1 wall with the observatory off, on, and on through EXPLAIN
+   ANALYZE (CUDA events on every launch), five runs each, alternating,
+   with the card's name and power limit, without a gate.
+   ``python3 chip_smoke.py --obs-only [FILE]`` runs the build, the data and
+   this phase alone (its report as JSON to FILE).
+
 Each phase's seconds are printed on a line of their own as it ends
 (``phase <name>: <s> s``: the build, the data, each group of paths, the
 memory sweep, tpch22, the sqlite check, the oracles, each kernel's checks
@@ -1290,12 +1306,16 @@ def q1_oracle(lineitem):
 
 def check_q1(ctx, sql, oracle):
     """Run q1 through collect() and compare the raw physical columns."""
+    return check_q1_batches(ctx.sql(sql).collect(), ctx.device, oracle)
+
+
+def check_q1_batches(batches, device, oracle):
+    """q1's result batches against the oracle (raw physical columns)."""
     import numpy as np
 
-    batches = ctx.sql(sql).collect()
     rows = {}
     for b in batches:
-        if b.device.type != ctx.device.type:
+        if b.device.type != device.type:
             fail(f"q1 result batch on {b.device}")
         data = b.compacted_numpy()
         rf = b.dicts["l_returnflag"][data["l_returnflag"]]
@@ -3912,10 +3932,11 @@ WRAPPERS["merge_rank_states"] = ("merge_rank_states", "merge_rank_columns")
 
 
 def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROWS,
-        sa_partitions: str = "auto", save_calls: str = None) -> dict:
+        sa_partitions: str = "auto", save_calls: str = None, obs_only: bool = False) -> dict:
     """The whole check.  ``sa_partitions``: the standalone engine's shuffle
     partitions ('auto' as bench.py runs it; a CPU rehearsal at a small scale
-    factor passes a count, as 'auto' then plans one stage and fuses nothing)."""
+    factor passes a count, as 'auto' then plans one stage and fuses nothing).
+    ``obs_only``: the build, the data and phase obs alone."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -4003,6 +4024,13 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         sa_pq.register_parquet(name, path)
     for name, table in tables.items():
         sa_mem.register_table(name, table)
+    if obs_only:
+        t_phase = time.perf_counter()
+        report["obs"] = obs_phase(device, ctx, sa_pq, sqls, {"q1": q1_oracle(lineitem),
+                                                             "q3": q3_oracle(tables)}, K)
+        phase_done("obs", t_phase)
+        report["phase_s"] = dict(PHASE_S)
+        return report
     paths = {**{p: (ctx, q) for p, q in sqls.items()},
              **{f"pq_{p}": (pctx, q) for p, q in sqls.items()}, "pq_q18": (pctx, q18),
              **{f"sa_pq_{p}": (sa_pq, q) for p, q in sqls.items()}, "sa_pq_q18": (sa_pq, q18),
@@ -5024,8 +5052,253 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         log(f"entry step: {n_rows} rows in {ms:.4f} ms = {n_rows / ms * 1000:.0f} rows/s")
         report[f"entry_rows_per_s_{n_rows}"] = n_rows / ms * 1000
     phase_done("entry", t_phase)
+    t_phase = time.perf_counter()
+    report["obs"] = obs_phase(device, ctx, sa_pq, sqls, oracles, K)
+    phase_done("obs", t_phase)
     report["phase_s"] = dict(PHASE_S)
     return report
+
+
+# --------------------------------------------------------------------------
+# phase obs: EXPLAIN ANALYZE with the device observatory, forensics, the
+# doctor and the watch stream
+# --------------------------------------------------------------------------
+
+# the registry's kernels whose profiler kernel names this script already
+# tells apart (RADIX_KERNELS, CALL_KERNELS, DENSE_KERNELS, CLUSTERED_KERNELS):
+# their device ms per profiled query beside the registry's event ms
+OBS_PROFILED_KERNELS = ("sort_order", "build_side_sort", "probe_join", "compaction_order",
+                        "grouped_on_order", "bucket_masks", "dense_group_states",
+                        "key_range_check", "clustered_keep")
+OBS_WALL_RUNS = 5
+# counter names that tag a launch another name already counted (K13's dense
+# form: each is also one of fused_agg, whose event bracket holds its time)
+OBS_TAG_COUNTS = ("fused_agg_dense",)
+
+
+def profiler_kernel_ms(prof) -> dict:
+    """Device ms per profiled query of the kernels in OBS_PROFILED_KERNELS."""
+    rows = device_rows(prof)
+    out = {name: sum(r[0] for r in rows if any(p in r[2] for p in parts))
+           for name, parts in RADIX_KERNELS.items()}
+    calls = call_trace(prof)
+    out.update({name: rec["ms"] for name, rec in calls.items()})
+    out.update({name: rec["ms"] for name, rec in clustered_trace(prof).items()})
+    out["dense_group_states"] = dense_trace(prof)["dense_group_states"]["ms"]
+    return {k: out[k] for k in OBS_PROFILED_KERNELS}
+
+
+def registry_kernels(device_stats: dict) -> tuple:
+    """({kernel: launches}, {kernel: event ms}) of a device-observatory fold."""
+    launches = {k.split(".", 1)[1]: int(v) for k, v in device_stats.items()
+                if k.startswith("launches.")}
+    event_ms = {k.split(".", 1)[1]: float(v) for k, v in device_stats.items()
+                if k.startswith("kernel_ms.")}
+    return launches, event_ms
+
+
+def obs_phase(device, ctx, sa, sqls, oracles, K) -> dict:
+    """Phase obs, on the SF1 tables already loaded: q1's and q3's EXPLAIN
+    ANALYZE in the local engine with the device observatory on (q1's rows
+    against the oracle, every operator's output_rows against an unobserved
+    run, every launched kernel with its launches attributed to operators and
+    an event time, per kernel and in all beside the profiler's device ms of
+    the same query);
+    standalone q1 and q3 with the journal and tracing on (a valid forensics
+    bundle, no doctor finding, a watch stream ending successful); one
+    ``executor.task.slow`` straggler the doctor must report; and, without a
+    gate, the warm q1 wall with the observatory off and on, alternating."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from arrow_ballista_tpu_torch import faults
+    from arrow_ballista_tpu_torch.obs import journal
+    from arrow_ballista_tpu_torch.obs.doctor import validate_bundle
+    from arrow_ballista_tpu_torch.obs.stats import local_explain_report
+
+    cuda = device.type == "cuda"
+    out = {"card": smi("name,power.limit") if cuda else "cpu"}
+    q1, key = sqls["q1"], "ballista.observability.device.enabled"
+
+    def observe(on: bool) -> None:
+        ctx.config.set(key, "true" if on else "false")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def local_explain(name: str) -> dict:
+        """One local EXPLAIN ANALYZE under the profiler, held against an
+        unobserved run of the same query (q1's rows also against its
+        oracle)."""
+        sql = sqls[name]
+        observe(False)
+        if name == "q1":
+            check_q1(ctx, sql, oracles["q1"])
+        else:
+            want_rows = sum(b.num_rows for b in ctx.sql(sql).collect())
+        plain = {(o["path"], o["op"]): o["rows"]
+                 for o in local_explain_report(ctx.last_plan)["stages"][0]["operator_tree"]}
+        observe(True)
+        captured = []
+        real = ctx._execute_local
+
+        def keep(planned):
+            got = real(planned)
+            captured.extend(got)
+            return got
+
+        ctx._execute_local = keep
+        try:
+            before = dict(K.LAUNCHES)
+            with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if cuda
+                  else contextlib.nullcontext()) as prof:
+                t0 = time.perf_counter()
+                report = ctx.explain_analyze(sql)
+                sync()
+                wall_ms = (time.perf_counter() - t0) * 1000
+        finally:
+            del ctx._execute_local
+        delta = {k: K.LAUNCHES[k] - before.get(k, 0) for k in K.LAUNCHES
+                 if K.LAUNCHES[k] != before.get(k, 0)}
+        if name == "q1":
+            want_rows, worst = check_q1_batches(captured, device, oracles["q1"])
+        if report["rows_returned"] != want_rows:
+            fail(f"obs: {name}'s report returned {report['rows_returned']} rows, "
+                 f"not {want_rows}")
+        stage = report["stages"][0]
+        observed = {(o["path"], o["op"]): o["rows"] for o in stage["operator_tree"]}
+        if observed != plain:
+            bad = {f"{p}:{op}": (observed.get((p, op)), plain.get((p, op)))
+                   for p, op in set(observed) | set(plain)
+                   if observed.get((p, op)) != plain.get((p, op))}
+            fail(f"obs: {name}'s observed output_rows differ from an unobserved run: {bad}")
+        launches, event_ms = registry_kernels(stage["device"])
+        per_op = {}
+        for o in stage["operator_tree"]:
+            for k, v in o["metrics"].items():
+                if k.startswith("launches."):
+                    per_op[k.split(".", 1)[1]] = per_op.get(k.split(".", 1)[1], 0) + int(v)
+        if not launches or launches != delta or per_op != launches:
+            fail(f"obs: {name}'s launches: registry {launches}, process counter {delta}, "
+                 f"operators {per_op}")
+        if cuda:
+            untimed = sorted(k for k in launches
+                             if event_ms.get(k, 0.0) <= 0.0 and k not in OBS_TAG_COUNTS)
+            if untimed:
+                fail(f"obs: {name}'s kernels launched with no event time: {untimed}")
+        prof_total = sum(r[0] for r in device_rows(prof)) if cuda else None
+        prof_kernels = profiler_kernel_ms(prof) if cuda else {}
+        rec = {"wall_ms": wall_ms, "rows": want_rows, "launches": launches,
+               "event_ms": event_ms, "event_ms_total": sum(event_ms.values()),
+               "profiler_device_ms_total": prof_total, "profiler_kernel_ms": prof_kernels,
+               "operators": {f"{o['path']}:{o['op']}": {
+                   k: v for k, v in o["metrics"].items()
+                   if k.startswith(("launches.", "kernel_ms."))}
+                   for o in stage["operator_tree"]}}
+        if name == "q1":
+            rec["worst_rel_err"] = worst
+        log(f"obs {name} local EXPLAIN ANALYZE ({out['card']}): wall {wall_ms:.1f} ms "
+            f"profiled, {want_rows} rows{' equal to the oracle' if name == 'q1' else ''}, "
+            f"output_rows equal to an unobserved run; kernel event ms total "
+            f"{sum(event_ms.values()):.4f}, profiler device ms total "
+            f"{'not measured' if prof_total is None else f'{prof_total:.4f}'} (all kernels, "
+            f"copies and memsets of the query)")
+        for k in sorted(launches):
+            pk = prof_kernels.get(k)
+            log(f"  obs kernel {name} {k}: launches {launches[k]}, event ms "
+                f"{event_ms.get(k, 'not measured')}, profiler ms "
+                f"{'not mapped' if pk is None else f'{pk:.4f}'}")
+        return rec
+
+    for name in ("q1", "q3"):
+        out[f"{name}_local"] = local_explain(name)
+
+    # standalone q1 and q3 with the journal and tracing on
+    journal.set_enabled(True)
+    try:
+        for name in ("q1", "q3"):
+            t0 = time.perf_counter()
+            before = dict(K.LAUNCHES)
+            if name == "q1":
+                check_q1(sa, sqls["q1"], oracles["q1"])
+            else:
+                check_q3(sa, sqls["q3"], oracles["q3"])
+            job_wall = (time.perf_counter() - t0) * 1000
+            bundle = sa.forensics()
+            problems = validate_bundle(bundle)
+            if problems:
+                fail(f"obs: sa_pq_{name}'s forensics bundle: {problems}")
+            diag = sa.doctor()
+            if diag["findings"]:
+                fail(f"obs: sa_pq_{name}: the doctor found {diag['text']}")
+            frames = list(sa.watch(timeout=60.0))
+            fracs = [f["progress"]["fraction"] for f in frames if f["t"] == "progress"]
+            if frames[-1].get("t") != "end" or frames[-1].get("state") != "successful" \
+                    or any(a > b for a, b in zip(fracs, fracs[1:])):
+                fail(f"obs: sa_pq_{name}'s watch stream: {frames[-1]}, fractions {fracs}")
+            dev = {}
+            for st in bundle["stages"]:
+                for k, v in st["device"].items():
+                    dev[k] = dev.get(k, 0) + v
+            tl, te = registry_kernels(dev)
+            if cuda:
+                untimed = sorted(k for k in tl
+                                 if te.get(k, 0.0) <= 0.0 and k not in OBS_TAG_COUNTS)
+                if untimed:
+                    fail(f"obs: sa_pq_{name}'s kernels launched in tasks with no event "
+                         f"time: {untimed}")
+            delta = {k: K.LAUNCHES[k] - before.get(k, 0) for k in K.LAUNCHES
+                     if K.LAUNCHES[k] != before.get(k, 0)}
+            kinds = [e["kind"] for e in bundle["journal"]]
+            spans = len(bundle["trace"]["traceEvents"]) if bundle.get("trace") else 0
+            out[f"sa_{name}"] = {"wall_ms": job_wall, "journal_events": len(kinds),
+                                 "trace_events": spans, "task_launches": tl,
+                                 "task_event_ms": te, "process_launches": delta,
+                                 "stages": len(bundle["stages"])}
+            log(f"obs sa_pq_{name}: {len(bundle['stages'])} stages, {len(kinds)} journal "
+                f"events ({kinds[0]} .. {kinds[-1]}), {spans} trace events, doctor clean, "
+                f"watch ended successful; the last job's launches in tasks {json.dumps(tl)}, "
+                f"their event ms {json.dumps({k: round(v, 4) for k, v in te.items()})}; "
+                f"launches in the process over the check ({'two queries: with and without '
+                'its LIMIT' if name == 'q3' else 'one query'}) {json.dumps(delta)}")
+        # one straggler: a stage-1 task stalls 2 s
+        plan = faults.FaultPlan.from_obj({"seed": 16, "rules": [{
+            "site": "executor.task.slow", "action": "delay", "delay_ms": 2000, "times": 1,
+            "match": {"stage_id": 1}}]})
+        with faults.use_plan(plan):
+            check_q1(sa, sqls["q1"], oracles["q1"])
+        rules = [f["rule"] for f in sa.doctor()["findings"]]
+        if not plan.schedule() or "straggler" not in rules:
+            fail(f"obs: the executor.task.slow straggler was not diagnosed: fired "
+                 f"{plan.schedule()}, findings {rules}")
+        out["straggler"] = {"fired": list(plan.schedule()), "findings": rules}
+        log(f"obs straggler: executor.task.slow fired {plan.schedule()}, doctor findings "
+            f"{rules}")
+    finally:
+        journal.set_enabled(False)
+        faults.clear()
+
+    # the warm q1 wall with the observatory off and on, alternating
+    walls = {"off": [], "on": [], "on_explain_analyze": []}
+    for _ in range(OBS_WALL_RUNS):
+        for mode in walls:
+            observe(mode != "off")
+            t0 = time.perf_counter()
+            if mode == "on_explain_analyze":
+                ctx.explain_analyze(q1)
+            else:
+                ctx.sql(q1).collect()
+            sync()
+            walls[mode].append((time.perf_counter() - t0) * 1000)
+    observe(True)
+    out["q1_wall_ms"] = walls
+    log(f"obs q1 warm wall ms ({out['card']}), {OBS_WALL_RUNS} runs each, alternating: "
+        + "; ".join(f"{m} {[round(v, 2) for v in w]} (median {sorted(w)[len(w) // 2]:.2f})"
+                    for m, w in walls.items()))
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -5106,7 +5379,13 @@ def main() -> None:
     # by mesh path (for tools/spill_segment_timing.py and
     # tools/dispatch_disorder_timing.py --calls)
     save = sys.argv[2] if len(sys.argv) == 3 and sys.argv[1] == "--save-calls" else None
-    report = run("cuda", save_calls=save)
+    # --obs-only [FILE]: the build, the data and phase obs alone (its report
+    # as JSON to FILE)
+    obs_only = len(sys.argv) in (2, 3) and sys.argv[1] == "--obs-only"
+    report = run("cuda", save_calls=save, obs_only=obs_only)
+    if obs_only and len(sys.argv) == 3:
+        with open(sys.argv[2], "w") as fh:
+            json.dump(report["obs"], fh, indent=1, default=str)
     total = time.perf_counter() - t0
     log(f"phases (s): {json.dumps({k: round(v, 1) for k, v in report['phase_s'].items()})}")
     print(card, flush=True)

@@ -37,11 +37,19 @@ for _ in range(2):
 assert len(pdf) > 0, pdf
 # the standalone engine: stages, shuffle files, whole-stage fusion
 sa = abt.BallistaContext.standalone(
-    abt.BallistaConfig({{"ballista.shuffle.partitions": "4"}}), device="cpu")
+    abt.BallistaConfig({{"ballista.shuffle.partitions": "4", "ballista.journal.enabled": "true"}}),
+    device="cpu")
 for name, path in [(n, os.path.join(tmp, n + ".parquet")) for n in ("lineitem", "orders", "customer")]:
     sa.register_parquet(name, path)
 sdf = sa.sql(QUERIES[1]).to_pandas()
 assert sdf.equals(pctx.sql(QUERIES[1]).to_pandas()), sdf
+# observability (obs/) and fault injection (faults/)
+from arrow_ballista_tpu_torch import faults
+assert sa.doctor()["findings"] == [] and list(sa.watch())[-1]["state"] == "successful"
+assert sa.explain_analyze(QUERIES[1])["rows_returned"] == len(df)
+with faults.use_plan(faults.FaultPlan.from_obj({{"rules": [
+        {{"site": "executor.memory.reserve", "action": "delay", "delay_ms": 0}}]}})):
+    assert ctx.explain_analyze(QUERIES[1])["rows_returned"] == len(df)
 sa.shutdown()
 # the memory governor and the spill paths (memory/), and EXTRACT
 spill = abt.BallistaContext.local(abt.BallistaConfig({{
@@ -93,7 +101,11 @@ def test_no_port_file_imports_jax_or_the_reference():
     assert {"compile/codegen.py", "compile/fused.py", "compile/fuse.py", "compile/chains.py",
             "scheduler/scheduler.py", "scheduler/standalone.py", "scheduler/aqe.py",
             "executor/executor.py", "models/ipc.py", "ops/shuffle.py",
-            "memory/__init__.py", "memory/governor.py", "memory/spill.py"} <= rel
+            "memory/__init__.py", "memory/governor.py", "memory/spill.py",
+            "faults/__init__.py", "executor/metrics.py", "scheduler/metrics.py",
+            *(f"obs/{m}.py" for m in ("__init__", "advisor", "device", "doctor", "http",
+                                      "journal", "live", "profile", "progress", "slo",
+                                      "stats", "trace_event", "tracing"))} <= rel
     bad = []
     for path in files:
         for mod in _imports(path):

@@ -108,10 +108,11 @@ def test_set_and_show_settings(contexts):
 
 
 @pytest.mark.parametrize("setting, sql, item", [
-    # the runtime statistics store is still to port (the mesh, which
-    # raised here before, is held against the reference in
+    # cancelling a job from a session waits for the remote engine's cancel
+    # fan-out (EXPLAIN ANALYZE, which raised here before, is held against
+    # the reference in tests/test_torch_explain_analyze.py; the mesh in
     # tests/test_torch_mesh_exec.py)
-    (None, "explain analyze " + QUERIES[1], "queue 1 item 11"),
+    (None, lambda ctx: ctx.cancel(), "queue 1 item 12 C"),
     # the csv, json and avro scans, which raised here before, are held
     # against the reference in tests/test_torch_formats.py; registering a
     # csv table with a remote scheduler waits for the remote engine
@@ -135,7 +136,7 @@ def test_unported_paths_raise_naming_their_roadmap_item(contexts, setting, sql, 
 
 
 @pytest.mark.parametrize("key", ["ballista.memory.device.budget.bytes",
-                                 "ballista.observability.tracing",
+                                 "ballista.speculation.enabled",
                                  "ballista.executor.task_slots"])
 def test_set_of_a_key_the_port_does_not_read_raises(contexts, key):
     from arrow_ballista_tpu_torch.utils.errors import ConfigurationError
