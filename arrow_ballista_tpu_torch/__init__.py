@@ -15,6 +15,21 @@ Quick start::
 """
 from __future__ import annotations
 
+import os as _os
+import sys as _sys
+
+# pyarrow's bundled mimalloc pool crashes the remote executor (SIGSEGV in
+# the IPC stream writer of a chunked shuffle fetch, in about half the runs
+# of a two-executor q1; none in ten with the system allocator), as it did
+# the reference's scheduler.  The system pool is set before pyarrow first
+# allocates, or switched live when pyarrow came first.
+_os.environ.setdefault("ARROW_DEFAULT_MEMORY_POOL", "system")
+if "pyarrow" in _sys.modules:
+    try:
+        _sys.modules["pyarrow"].set_memory_pool(_sys.modules["pyarrow"].system_memory_pool())
+    except Exception:  # noqa: BLE001 — the allocator choice is a mitigation
+        pass
+
 __version__ = "0.1.0"
 
 from .client.context import BallistaContext, BallistaDataFrame

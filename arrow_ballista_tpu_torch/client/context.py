@@ -1,16 +1,22 @@
 """BallistaContext: the user entry point of the port.
 
-Mirrors arrow_ballista_tpu/client/context.py for two engines on one
-device: ``local()``, a single-process operator tree walk (RepartitionExec
-materializes exchanges in memory), and ``standalone()``, the scheduler and
-its executors in process (scheduler/standalone.py: stages, task slots,
-Arrow IPC shuffle files, whole-stage fusion).  Both run on the card unless
-the caller names another device; without a card they raise and never fall
-back to the CPU.  Both answer ``EXPLAIN ANALYZE`` (``explain_analyze``)
-and the fusion advisor (``advise``); a standalone session also assembles a
-job's forensics bundle (``forensics``), diagnoses it (``doctor``) and
-streams a running job's journal and progress (``watch``), all from obs/.
-The remote engine is still to be ported (ROADMAP.md queue 1 item 12).
+Mirrors arrow_ballista_tpu/client/context.py for three engines:
+``local()``, a single-process operator tree walk (RepartitionExec
+materializes exchanges in memory); ``standalone()``, the scheduler and its
+executors in process (scheduler/standalone.py: stages, task slots, Arrow
+IPC shuffle files, whole-stage fusion); and ``remote(host, port)``, a
+session on a scheduler service (scheduler/netservice.py) whose executors
+(executor/server.py) run the tasks and exchange shuffle partitions through
+their data planes (client/remote.py).  Results land on the context's
+device: the card unless the caller names another; without a card a
+context raises and never falls back to the CPU.  The local and standalone
+engines answer ``EXPLAIN ANALYZE`` (``explain_analyze``) and the fusion
+advisor (``advise``); a standalone session also assembles a job's
+forensics bundle (``forensics``), diagnoses it (``doctor``) and streams a
+running job's journal and progress (``watch``), all from obs/.  A remote
+session streams ``watch`` from the scheduler and cancels (``cancel``); its
+forensics and EXPLAIN ANALYZE come with the scheduler's REST API
+(ROADMAP.md queue 1 item 12 E).
 """
 from __future__ import annotations
 
@@ -94,6 +100,42 @@ class BallistaDataFrame:
         return pd.concat(frames, ignore_index=True) if frames else pd.DataFrame()
 
 
+class RemoteDataFrame:
+    """A remote query, lazily executed: ``collect`` submits the SQL text to
+    the scheduler, waits for the job and fetches the final partitions onto
+    the context's device.  ``static`` carries an immediate result (SET,
+    SHOW, EXPLAIN, DDL)."""
+
+    def __init__(self, ctx: "BallistaContext", sql: Optional[str], static=None):
+        self.ctx = ctx
+        self._sql = sql
+        self._static = static
+
+    def collect(self) -> List[ColumnBatch]:
+        if self._sql is None:
+            return []
+        return self.ctx._remote.execute_sql(self._sql)
+
+    def to_pandas(self):
+        import pandas as pd
+
+        if self._static is not None:
+            return self._static
+        frames = [b.to_pandas() for b in self.collect()]
+        return pd.concat(frames, ignore_index=True) if frames else pd.DataFrame()
+
+    def to_arrow(self):
+        import pyarrow as pa
+
+        if self._static is not None:
+            return pa.Table.from_pandas(self._static)
+        batches = self.collect()
+        tables = [b.to_arrow() for b in batches if b.num_rows > 0]
+        if not tables:
+            return batches[0].to_arrow() if batches else pa.table({})
+        return pa.concat_tables(tables)
+
+
 class BallistaContext:
     def __init__(self, config: Optional[BallistaConfig] = None, device=None,
                  work_dir: Optional[str] = None, engine: str = "local"):
@@ -101,6 +143,7 @@ class BallistaContext:
         self.device = resolve_device(device)
         self.engine = engine
         self._standalone = None
+        self._remote = None
         self.catalog = SchemaCatalog()
         self.work_dir = work_dir or os.path.join(tempfile.gettempdir(), "ballista_torch")
         self.last_plan: Optional[ExecutionPlan] = None
@@ -136,44 +179,84 @@ class BallistaContext:
         return ctx
 
     def shutdown(self) -> None:
-        """Stop a standalone context's scheduler and executors."""
+        """Stop a standalone context's scheduler and executors, or close a
+        remote context's session."""
         if self._standalone is not None:
             self._standalone.shutdown()
             self._standalone = None
+        if self._remote is not None:
+            self._remote.close()
+            self._remote = None
 
     @staticmethod
-    def remote(*_args, **_kwargs) -> "BallistaContext":
-        raise NotImplementedError(
-            "remote sessions are not ported yet (ROADMAP.md queue 1 item 12)")
+    def remote(host: Optional[str] = None, port: Optional[int] = None,
+               config: Optional[BallistaConfig] = None, endpoints=None,
+               device=None) -> "BallistaContext":
+        """A session on the scheduler service at ``host:port``
+        (scheduler/netservice.py): SQL text ships to the scheduler, results
+        come back from the executors' data planes onto ``device`` (the
+        card by default).  ``endpoints`` with more than one scheduler (a
+        fleet) is ROADMAP.md queue 1 item 12 C."""
+        from .remote import RemoteCluster
+
+        ctx = BallistaContext(config, device=device, engine="remote")
+        ctx._remote = RemoteCluster(host, port, ctx.config, endpoints=endpoints,
+                                    device=ctx.device)
+        return ctx
 
     # --- registration ---------------------------------------------------
     def register_table(self, name: str, table) -> None:
+        if self._remote is not None:
+            import pyarrow as pa
+
+            if not isinstance(table, pa.Table):
+                table = pa.Table.from_pandas(table)
+            self._remote.register_table(name, table)
+            return
         self.catalog.register(MemoryTable(name, table))
 
     def register_parquet(self, name: str, path, schema: Optional[Schema] = None) -> None:
         """A parquet file, a directory of them, or a list of either: paths
         or object-store URLs (utils/object_store.py)."""
+        if self._remote is not None:
+            self._remote.register_external_table(name, "parquet", path, schema)
+            return
         self.catalog.register(ParquetTable(name, path, schema))
 
     def register_csv(self, name: str, path, schema: Optional[Schema] = None,
                      delimiter: str = ",", has_header: bool = True) -> None:
         """CSV files (``.csv``, or ``.tbl`` with a trailing delimiter); the
         schema is inferred from the first file when none is given."""
+        if self._remote is not None:
+            self._remote.register_external_table(name, "csv", path, schema, delimiter,
+                                                 has_header)
+            return
         self.catalog.register(CsvTable(name, path, schema, delimiter, has_header))
 
     def register_json(self, name: str, path, schema: Optional[Schema] = None) -> None:
         """Newline-delimited JSON files."""
+        if self._remote is not None:
+            self._remote.register_external_table(name, "json", path, schema)
+            return
         self.catalog.register(JsonTable(name, path, schema))
 
     def register_avro(self, name: str, path, schema: Optional[Schema] = None) -> None:
         """Avro object container files (null or deflate codec)."""
+        if self._remote is not None:
+            self._remote.register_external_table(name, "avro", path, schema)
+            return
         self.catalog.register(AvroTable(name, path, schema))
 
     def deregister_table(self, name: str) -> None:
+        if self._remote is not None:
+            self._remote.deregister_table(name)
+            return
         self.catalog.deregister(name)
 
     # --- SQL ------------------------------------------------------------
-    def sql(self, sql: str) -> BallistaDataFrame:
+    def sql(self, sql: str):
+        if self._remote is not None:
+            return self._remote_sql(sql)
         stmt = self._parse_cached(sql)
         if isinstance(stmt, ast.SetVariable):
             self.config.set(stmt.key, stmt.value)  # unported keys raise
@@ -201,6 +284,41 @@ class BallistaContext:
             self.register_table(name, t)
             return self.sql(f"select column_name, data_type from {name}")
         return BallistaDataFrame(self, SqlToRel(self.catalog).plan(stmt))
+
+    def _remote_sql(self, sql: str) -> RemoteDataFrame:
+        """DDL, SET and SHOW go to the scheduler by RPC; a SELECT ships as
+        its text."""
+        import pandas as pd
+
+        stmt = self._parse_cached(sql)
+        if isinstance(stmt, ast.SetVariable):
+            # validated here, then set on both ends: the scheduler plans
+            # with the session's config, the client reads its own copy
+            self.config.set(stmt.key, stmt.value)
+            self._remote.update_session({stmt.key: stmt.value})
+            return RemoteDataFrame(self, None, static=pd.DataFrame())
+        if isinstance(stmt, ast.ShowSettings):
+            return RemoteDataFrame(self, None, static=self._show_settings(
+                stmt.key, self.config.to_dict()).to_pandas())
+        if isinstance(stmt, ast.Explain):
+            return RemoteDataFrame(self, None, static=pd.DataFrame(self._remote.explain(sql)))
+        if isinstance(stmt, ast.CreateExternalTable):
+            schema = None
+            if stmt.columns:
+                schema = Schema(Field(n, parse_type_name(t)) for n, t in stmt.columns)
+            self._remote.register_external_table(stmt.name, stmt.file_format, stmt.location,
+                                                 schema, delimiter=stmt.delimiter,
+                                                 has_header=stmt.has_header)
+            return RemoteDataFrame(self, None, static=pd.DataFrame())
+        if isinstance(stmt, ast.ShowTables):
+            return RemoteDataFrame(self, None, static=pd.DataFrame(
+                {"table_name": sorted(self._remote.list_tables())}))
+        if isinstance(stmt, ast.ShowColumns):
+            schema = self._remote.table_schema(stmt.table)
+            return RemoteDataFrame(self, None, static=pd.DataFrame({
+                "column_name": [f.name for f in schema],
+                "data_type": [str(f.dtype) for f in schema]}))
+        return RemoteDataFrame(self, sql)
 
     def _create_external_table(self, stmt: "ast.CreateExternalTable") -> BallistaDataFrame:
         schema = None
@@ -257,6 +375,10 @@ class BallistaContext:
         their event times) and skew/duration quantiles per stage.  The dict
         is the JSON form; its ``"text"`` key holds the rendered report.
         Accepts a bare SELECT or a full ``EXPLAIN ANALYZE <select>``."""
+        if self._remote is not None:
+            raise NotImplementedError(
+                "EXPLAIN ANALYZE of a remote job comes with the scheduler's REST API "
+                "(ROADMAP.md queue 1 item 12 E)")
         stmt = parse_sql(sql)
         if isinstance(stmt, ast.Explain):
             stmt = stmt.statement
@@ -277,6 +399,11 @@ class BallistaContext:
             min_savings_ms=float(self.config.get(OBS_DEVICE_ADVISOR_MIN_SAVINGS_MS)))
 
     def _last_job(self, what: str, job_id: Optional[str]) -> str:
+        if self._remote is not None:
+            job_id = job_id or self._remote.last_job_id
+            if not job_id:
+                raise PlanningError("no job has run in this session yet")
+            return job_id
         if self._standalone is None:
             raise PlanningError(f"{what} requires a standalone session")
         job_id = job_id or self._standalone.last_job_id
@@ -292,6 +419,10 @@ class BallistaContext:
         sessions only."""
         from ..obs.doctor import assemble_forensics
 
+        if self._remote is not None:
+            raise NotImplementedError(
+                "the forensics bundle of a remote job comes with the scheduler's REST API "
+                "(ROADMAP.md queue 1 item 12 E)")
         job_id = self._last_job("forensics", job_id)
         bundle = assemble_forensics(self._standalone.scheduler, job_id)
         if bundle is None:
@@ -308,6 +439,11 @@ class BallistaContext:
         return diagnose(self.forensics(job_id))
 
     def cancel(self, job_id: Optional[str] = None) -> None:
+        """Cancel ``job_id`` (default: the last job this session ran) on a
+        remote scheduler: its running tasks get a cancel fan-out."""
+        if self._remote is not None:
+            self._remote.cancel_job(self._last_job("cancel", job_id))
+            return
         raise NotImplementedError(
             "job cancellation from a session is not ported yet (ROADMAP.md queue 1 item 12 C)")
 
@@ -319,7 +455,9 @@ class BallistaContext:
         every ``ballista.live.watch.poll.seconds``, and one terminal frame.
         Event frames need the flight recorder (``ballista.journal.enabled``);
         progress and terminal frames flow either way.  Standalone sessions
-        only."""
+        and remote sessions (a remote one long-polls the scheduler)."""
+        if self._remote is not None:
+            return self._remote.watch(self._last_job("watch", job_id), timeout=timeout)
         return self._watch_standalone(self._last_job("watch", job_id), timeout)
 
     def _watch_standalone(self, job_id: str, timeout: Optional[float]):

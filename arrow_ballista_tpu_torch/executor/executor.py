@@ -20,9 +20,10 @@ import shutil
 import threading
 import time
 import traceback
+import uuid
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Set
 
 import torch
 
@@ -46,6 +47,10 @@ from ..utils.errors import (CancelledError, ExecutorKilled, FetchFailedError, In
 from .execution_engine import DefaultExecutionEngine, ExecutionEngine
 
 log = logging.getLogger(__name__)
+
+# one id per executor process: the stage's metric fold keys cumulative
+# snapshots by it and the plan instance (TaskStatus.process_id)
+PROCESS_ID = uuid.uuid4().hex[:12]
 
 
 def remove_job_data(work_dir: str, job_id: str) -> None:
@@ -84,6 +89,10 @@ class Executor:
         self._cancelled_tasks: "OrderedDict[tuple, None]" = OrderedDict()
         self._max_cancelled = 1024
         self._lock = threading.Lock()
+        # in-flight tasks, (job, stage, partition, attempt): the heartbeat's
+        # running set, the janitor's live jobs and the free-slot count of
+        # pull mode (executor/server.py)
+        self._inflight: Set[tuple] = set()
         # prometheus-style process counters (always collected: a few ints)
         from .metrics import ExecutorMetrics
 
@@ -169,6 +178,17 @@ class Executor:
     def _run_task_inner(self, task: TaskDescription, launch_ms: int, recorder):
         """(status, the stage's exec or None)."""
         tid = task.task
+        key = (tid.job_id, tid.stage_id, tid.partition, tid.task_attempt)
+        with self._lock:
+            self._inflight.add(key)
+        try:
+            return self._run_task_body(task, launch_ms, recorder)
+        finally:
+            with self._lock:
+                self._inflight.discard(key)
+
+    def _run_task_body(self, task: TaskDescription, launch_ms: int, recorder):
+        tid = task.task
         try:
             if self._is_cancelled(tid):
                 return TaskStatus(tid, self.metadata.executor_id, "killed"), None
@@ -181,6 +201,7 @@ class Executor:
                               scalars=dict(task.scalars), work_dir=self.work_dir,
                               job_id=tid.job_id, stage_id=tid.stage_id,
                               executor_id=self.metadata.executor_id,
+                              executor_host=self.metadata.host,
                               cancelled=lambda: self._is_cancelled(tid),
                               governor=self.governor, span_recorder=recorder)
             # the stage's generated programs, traced and built before its
@@ -198,7 +219,10 @@ class Executor:
             return TaskStatus(tid, self.metadata.executor_id, "success",
                               shuffle_writes=writes, launch_time_ms=launch_ms,
                               start_time_ms=start_ms, end_time_ms=end_ms,
-                              metrics=stage_exec.collect_plan_metrics()), stage_exec
+                              metrics=stage_exec.collect_plan_metrics(),
+                              # the plan instance: a process may hold several
+                              # of one stage (a re-resolved plan decodes anew)
+                              process_id=f"{PROCESS_ID}-{id(task.plan):x}"), stage_exec
         except (CancelledError, ExecutorKilled):
             # a cancel noticed between batches, or the faults kill action
             # (the executor simulating SIGKILL): the task unwinds as killed
@@ -252,6 +276,21 @@ class Executor:
                                    task_id.task_attempt)] = None
             while len(self._cancelled_tasks) > self._max_cancelled:
                 self._cancelled_tasks.popitem(last=False)
+
+    def active_tasks(self) -> int:
+        with self._lock:
+            return len(self._inflight)
+
+    def running_task_ids(self) -> List[tuple]:
+        """(job, stage, partition, attempt) of the in-flight tasks: the
+        heartbeat's running set (empty for an idle executor)."""
+        with self._lock:
+            return sorted(self._inflight)
+
+    def active_job_ids(self) -> Set[str]:
+        """Jobs with a task in flight here (the janitor keeps their data)."""
+        with self._lock:
+            return {key[0] for key in self._inflight}
 
     def shutdown(self) -> None:
         self.pool.shutdown(wait=True)

@@ -1,10 +1,10 @@
 """Executor metrics: process counters + prometheus text exposition.
 
 The port's copy of arrow_ballista_tpu/executor/metrics.py: the same
-exposition format, so one scrape config covers both engines.  The
-listener that serves it (obs/http.py) comes with the remote executor, and
-the shuffle fetch counters with the data plane (ROADMAP.md queue 1 item
-12 A); until then ``gather`` leaves them out.
+exposition format, so one scrape config covers both engines.  The remote
+executor serves it (executor/server.py ``metrics_port``, obs/http.py); the
+shuffle fetch counters by transport path come from the data plane's
+process-wide ``STATS`` (net/dataplane.py).
 """
 from __future__ import annotations
 
@@ -61,6 +61,32 @@ class ExecutorMetrics:
                     self.shuffle_bytes, "shuffle bytes written")
             counter("executor_shuffle_rows_written_total",
                     self.shuffle_rows, "shuffle rows written")
+            # read-side data-plane accounting: process-global (one view per
+            # executor process; in-process executors share it)
+            from ..net.dataplane import STATS as dp_stats
+
+            snap = dp_stats.snapshot()
+            name = "shuffle_bytes_fetched_total"
+            lines.append(f"# HELP {name} shuffle bytes read by this process, "
+                         "by transport path (local_mmap = zero-copy "
+                         "co-located read, local_copy = non-mmap local read, "
+                         "remote = data-plane fetch; remote counts "
+                         "bytes-on-wire, post-compression)")
+            lines.append(f"# TYPE {name} counter")
+            for p, v in sorted(snap["bytes_fetched"].items()):
+                lines.append(f'{name}{{path="{p}"}} {v}')
+            counter("shuffle_fetch_chunks_total", snap["chunks"],
+                    "chunks received over the streaming shuffle protocol")
+            counter("shuffle_fetch_chunks_resumed_total",
+                    snap["resumed_chunks"],
+                    "chunks skipped by resuming a retried stream at the "
+                    "first unverified chunk")
+            lines.append("# HELP shuffle_wire_compression_ratio raw/wire "
+                         "byte ratio of streamed shuffle fetches (>1 = "
+                         "compression shrank the wire; 1.0 = none yet)")
+            lines.append("# TYPE shuffle_wire_compression_ratio gauge")
+            lines.append("shuffle_wire_compression_ratio "
+                         f"{dp_stats.compression_ratio():.4f}")
             # device-observatory process totals (obs/device.py STATS):
             # process-global like the data-plane counters above
             from ..obs.device import STATS as dev_stats
@@ -88,10 +114,14 @@ class ExecutorMetrics:
                     int(dsnap["program_cache_misses"]),
                     "shared_program closure-cache misses (a closure was "
                     "built and inserted)")
+            # the process's launch counter (ops/kernels.py LAUNCHES; the
+            # observatory keeps no process total), K13's dense tag left out
+            from ..ops import kernels as K
+
             counter("device_kernel_launches_total",
-                    int(dsnap["kernel_launches"]),
+                    sum(v for k, v in K.LAUNCHES.items() if k != "fused_agg_dense"),
                     "launches of the port's kernels (ops/kernels.py "
-                    "count_launch) while the observatory was on")
+                    "count_launch)")
             counter("device_h2d_bytes_total", int(dsnap["h2d_bytes"]),
                     "bytes moved host->device through the batch upload "
                     "(models/batch.py upload)")

@@ -9,8 +9,9 @@ to spill" (memory/spill.py), never "crash the executor".  The budget is
 governor is the only admission gate, so reserved bytes are the model of
 operator-held state.
 
-The reference's device pool and the heartbeat pressure it feeds wait for
-the admission controller that reads them (ROADMAP.md queue 1 item 12).
+The reference's device pool waits for the admission controller that reads
+it (ROADMAP.md queue 1 item 12 D); the host pool's ``pressure`` rides the
+remote executor's heartbeats (executor/server.py).
 Every reservation passes the ``executor.memory.reserve`` failpoint
 (faults/) first.
 
@@ -121,6 +122,14 @@ class MemoryGovernor:
             return None
         with self._lock:
             return self._budget - self._reserved
+
+    def pressure(self) -> float:
+        """Fraction of the host budget reserved (0.0 when unlimited): rides
+        the remote executor's heartbeats (executor/server.py)."""
+        if self._budget <= 0:
+            return 0.0
+        with self._lock:
+            return self._reserved / self._budget
 
     # --- reserve / release ----------------------------------------------
     def reserve(self, nbytes: int, *, site: str = "") -> Reservation:

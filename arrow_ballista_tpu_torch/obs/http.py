@@ -4,8 +4,8 @@ The executor-side analog of the scheduler's RestApi: a
 ThreadingHTTPServer over closured GET routes, each returning
 ``(body, content_type)``.  Kept generic so any daemon role can expose a
 scrape surface without dragging in the scheduler package.  The port's copy
-of arrow_ballista_tpu/obs/http.py; the executor daemon that serves it
-comes with the remote engine.
+of arrow_ballista_tpu/obs/http.py; the remote executor serves it
+(executor/server.py ``metrics_port``).
 """
 from __future__ import annotations
 

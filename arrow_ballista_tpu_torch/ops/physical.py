@@ -202,6 +202,9 @@ class TaskContext:
     job_id: str = ""
     stage_id: int = 0
     executor_id: str = ""  # identity of the executing node (shuffle locality)
+    # the executor's advertised host: a shuffle reader maps a co-located
+    # producer's file when its host matches ("" = no host match)
+    executor_host: str = ""
     # shuffle partition locations: (stage_id, partition) -> [PartitionLocation]
     shuffle_locations: Dict = dataclasses.field(default_factory=dict)
     # cooperative cancellation probe; operators call check_cancelled() at

@@ -12,8 +12,15 @@ Mirrors arrow_ballista_tpu/ops/shuffle.py:
   ids, and a host-side stable grouping sort hands the writer one
   contiguous slice per output partition.
 - ``ShuffleReaderExec`` (a stage's leaf): reads one output partition's
-  files from every map task (the local path); a location on another host
-  needs the executor data plane, not ported (ROADMAP.md queue 1 item 12).
+  files from every map task.  Three paths, as in the reference: the
+  producer's own files (the same executor, or port 0: an in-process
+  deployment), a co-located producer's file mapped through ``mmap`` (the
+  same advertised host, ``ballista.shuffle.local.host_match``; its size
+  and CRC checked, any doubt falls back to the fetch), and the remote
+  fetch through the producer's data plane (net/dataplane.py: streamed
+  lz4 chunks or the whole file, at most
+  ``ballista.shuffle.max_concurrent_fetches`` at once on a process-wide
+  pool).  Every path decodes on the task's device.
 - ``UnresolvedShuffleExec``: placeholder leaf for a producer stage that
   has not run yet; the scheduler resolves it into a reader.
 - ``RepartitionExec``: the local engine's in-memory exchange (K3, then
@@ -27,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -213,6 +221,7 @@ class ShuffleReaderExec(ExecutionPlan):
             return self._execute(partition, ctx)
 
     def _execute(self, partition: int, ctx: TaskContext) -> List[ColumnBatch]:
+        from ..utils.config import SHUFFLE_LOCAL_HOST_MATCH
         from ..utils.errors import FetchFailedError
 
         locs = self.locations.get(partition)
@@ -221,27 +230,167 @@ class ShuffleReaderExec(ExecutionPlan):
         if locs is None:
             raise InternalError(
                 f"no shuffle locations for stage {self.stage_id} partition {partition}")
+        host_match = bool(ctx.config.get(SHUFFLE_LOCAL_HOST_MATCH)) and bool(ctx.executor_host)
         paths = []
+        colocated: List[PartitionLocation] = []
+        remote: List[PartitionLocation] = []
         for loc in locs:
             if loc.num_rows == 0:
                 continue  # skip empty map outputs
-            # the local path, gated on executor identity (port 0: an
-            # in-process deployment, where the path is authoritative)
+            # the local path, gated on executor identity (a same-named path
+            # on another machine may be a stale leftover); port 0 means an
+            # in-process deployment, where the path is authoritative
             if loc.executor_id == ctx.executor_id or loc.port == 0:
                 if not os.path.exists(loc.path):
                     raise FetchFailedError(loc.executor_id, self.stage_id, loc.map_partition,
                                            f"shuffle file missing: {loc.path}")
                 paths.append(loc.path)
+            elif (host_match and loc.host == ctx.executor_host
+                  and loc.format in ("", "arrow_file") and os.path.exists(loc.path)):
+                # a co-located producer on the same advertised host: map
+                # its file instead of fetching the bytes through its data
+                # plane (the host comes from the cluster's metadata; the
+                # size and CRC check rejects a stale same-named file)
+                colocated.append(loc)
             else:
-                raise NotImplementedError(
-                    f"shuffle partition on another host ({loc.host}:{loc.port}): the "
-                    "remote fetch through the executor data plane (net/dataplane) is not "
-                    "ported yet (ROADMAP.md queue 1 item 12)")
+                remote.append(loc)
         with self.metrics().timer("fetch_time"):
             batches = read_ipc_files(paths, self._schema, capacity=ctx.config.batch_size,
                                      device=ctx.device)
+            for loc in colocated:
+                got = self._read_colocated(loc, ctx)
+                if got is None:
+                    remote.append(loc)  # verification failed: fetch instead
+                else:
+                    batches.extend(got)
+            batches.extend(self._fetch_remote_all(remote, ctx))
         self.metrics().add("output_rows", sum(b.num_rows for b in batches))
         return batches
+
+    def _read_colocated(self, loc: PartitionLocation,
+                        ctx: TaskContext) -> Optional[List[ColumnBatch]]:
+        """A co-located producer's file through ``mmap``: its size checked
+        against the producer's recorded bytes, then (with
+        ``ballista.shuffle.integrity.verify``) its CRC-32 over the mapped
+        buffer.  None when anything disagrees (a stale file, a checksum
+        mismatch, a failed map): the caller fetches it instead."""
+        import zlib
+
+        import pyarrow as pa
+        import pyarrow.ipc as ipc
+
+        from ..models.ipc import physical_table_to_batches
+        from ..net.dataplane import STATS
+        from ..utils.config import SHUFFLE_INTEGRITY
+
+        try:
+            st = os.stat(loc.path)
+            if loc.num_bytes > 0 and st.st_size != loc.num_bytes:
+                return None  # stale or partially written same-named file
+            path_label = "local_mmap"
+            try:
+                source = pa.memory_map(loc.path, "r")
+            except OSError:
+                # a filesystem that refuses mmap: a plain read
+                source = pa.OSFile(loc.path, "rb")
+                path_label = "local_copy"
+            with source:
+                if ctx.config.get(SHUFFLE_INTEGRITY) and loc.checksum >= 0:
+                    buf = source.read_buffer()  # a view of the map
+                    if zlib.crc32(memoryview(buf)) != loc.checksum:
+                        return None
+                    source.seek(0)
+                table = ipc.open_file(source).read_all()
+            batches = physical_table_to_batches(table, self._schema,
+                                                capacity=ctx.config.batch_size,
+                                                device=ctx.device)
+        except Exception:  # noqa: BLE001 — any local doubt: the remote fetch
+            return None
+        STATS.record(path_label, st.st_size)
+        self.metrics().add(f"bytes_{path_label}", st.st_size)
+        return batches
+
+    # one bounded pool for every concurrent reduce task of the process; the
+    # per-call semaphore (ballista.shuffle.max_concurrent_fetches) bounds a
+    # task's fetches in flight
+    _FETCH_POOL = None
+    _FETCH_POOL_LOCK = threading.Lock()
+    _FETCH_POOL_WORKERS = 64
+
+    @classmethod
+    def _fetch_pool(cls):
+        if cls._FETCH_POOL is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            with cls._FETCH_POOL_LOCK:
+                if cls._FETCH_POOL is None:
+                    cls._FETCH_POOL = ThreadPoolExecutor(max_workers=cls._FETCH_POOL_WORKERS,
+                                                         thread_name_prefix="shuffle-fetch")
+        return cls._FETCH_POOL
+
+    def _fetch_remote_all(self, remote: List[PartitionLocation],
+                          ctx: TaskContext) -> List[ColumnBatch]:
+        """Bounded-concurrency remote fetch, the locations shuffled so that
+        simultaneous readers do not all start on the same executor."""
+        if not remote:
+            return []
+        if len(remote) == 1:
+            return self._fetch_remote(remote[0], ctx)
+        import random
+
+        from ..utils.config import SHUFFLE_MAX_CONCURRENT_FETCHES
+
+        limit = max(1, int(ctx.config.get(SHUFFLE_MAX_CONCURRENT_FETCHES)))
+        gate = threading.Semaphore(min(limit, len(remote)))
+        order = list(remote)
+        random.shuffle(order)
+
+        def fetch(loc: PartitionLocation) -> List[ColumnBatch]:
+            with gate:
+                return self._fetch_remote(loc, ctx)
+
+        out: List[ColumnBatch] = []
+        for got in self._fetch_pool().map(fetch, order):
+            out.extend(got)
+        return out
+
+    def _fetch_remote(self, loc: PartitionLocation, ctx: TaskContext) -> List[ColumnBatch]:
+        from ..net.dataplane import (StreamUnsupported, fetch_partition_batches,
+                                     fetch_partition_stream)
+        from ..net.retry import RetryPolicy
+        from ..utils.config import (SHUFFLE_INTEGRITY, SHUFFLE_WIRE_CHUNK_ROWS,
+                                    SHUFFLE_WIRE_COMPRESSION, SHUFFLE_WIRE_STREAMING)
+        from ..utils.errors import FetchFailedError
+
+        policy = RetryPolicy.from_config(ctx.config)
+        expected = loc.checksum if ctx.config.get(SHUFFLE_INTEGRITY) else -1
+        fault_ctx = {"stage_id": self.stage_id, "map_partition": loc.map_partition,
+                     "executor_id": loc.executor_id}
+        try:
+            if ctx.config.get(SHUFFLE_WIRE_STREAMING) and loc.grpc_port > 0:
+                try:
+                    batches, stats = fetch_partition_stream(
+                        loc.host, loc.grpc_port, loc.path, self._schema, ctx.config.batch_size,
+                        policy=policy, expected_checksum=expected,
+                        chunk_rows=int(ctx.config.get(SHUFFLE_WIRE_CHUNK_ROWS)),
+                        compression=str(ctx.config.get(SHUFFLE_WIRE_COMPRESSION)),
+                        fault_ctx=fault_ctx, device=ctx.device)
+                    self.metrics().add("remote_fetches", 1)
+                    self.metrics().add("fetch_chunks", stats["chunks"])
+                    self.metrics().add("wire_bytes", stats["wire_bytes"])
+                    self.metrics().add("raw_bytes", stats["raw_bytes"])
+                    return batches
+                except StreamUnsupported:
+                    pass  # a peer without the stream: the whole file
+            batches = fetch_partition_batches(
+                loc.host, loc.port, loc.path, self._schema, ctx.config.batch_size,
+                policy=policy, expected_checksum=expected, fault_ctx=fault_ctx,
+                device=ctx.device)
+            self.metrics().add("remote_fetches", 1)
+            return batches
+        except Exception as err:  # noqa: BLE001 — retries exhausted
+            raise FetchFailedError(loc.executor_id, self.stage_id, loc.map_partition,
+                                   f"remote fetch failed: {err}") from err
 
     def _label(self):
         return f"ShuffleReaderExec: stage={self.stage_id} partitions={self.partition_count}"

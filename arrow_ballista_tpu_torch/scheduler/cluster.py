@@ -2,9 +2,12 @@
 
 Mirrors the in-memory ``ClusterState`` and ``JobState`` of
 arrow_ballista_tpu/scheduler/cluster.py.  Slot reservation is atomic under
-a lock and packs onto the fewest executors (the reference's default
-"bias" policy; its round-robin policy and the KV-backed variants are
-still to be ported, ROADMAP.md queue 1).
+a lock, with the reference's two distribution policies: "bias" packs onto
+the fewest executors, "round-robin" spreads one slot an executor a cycle
+(what makes a two-executor job read shuffle files across executors).
+Memory pressure from the heartbeats orders both: a near-full executor is
+offered work last.  The KV-backed variants come with the fleet
+(ROADMAP.md queue 1 item 12 C).
 """
 from __future__ import annotations
 
@@ -35,11 +38,15 @@ def alive_cutoff_s(timeout_s: float) -> float:
 class ClusterState:
     """Executor slots + metadata + heartbeats."""
 
-    def __init__(self):
+    def __init__(self, task_distribution: str = "bias"):
+        if task_distribution not in ("bias", "round-robin"):
+            raise ValueError(f"unknown task distribution {task_distribution!r}")
+        self.task_distribution = task_distribution
         self._lock = threading.Lock()
         self._executors: Dict[str, ExecutorMetadata] = {}
         self._heartbeats: Dict[str, ExecutorHeartbeat] = {}
         self._available: Dict[str, int] = {}  # free task slots
+        self._rr_cursor = 0
 
     # --- registration ----------------------------------------------------
     def register_executor(self, meta: ExecutorMetadata) -> None:
@@ -61,6 +68,21 @@ class ClusterState:
     def save_heartbeat(self, hb: ExecutorHeartbeat) -> None:
         with self._lock:
             self._heartbeats[hb.executor_id] = hb
+
+    def touch_heartbeat(self, executor_id: str) -> None:
+        """Refresh the timestamp without touching the status: a status
+        report or a poll proves life, but must not flip a terminating
+        executor back to active."""
+        with self._lock:
+            hb = self._heartbeats.get(executor_id)
+            if hb is not None:
+                hb.timestamp = time.time()
+            else:
+                self._heartbeats[executor_id] = ExecutorHeartbeat(executor_id)
+
+    def _pressure_locked(self, executor_id: str) -> float:
+        hb = self._heartbeats.get(executor_id)
+        return hb.memory_pressure if hb is not None else 0.0
 
     def executors(self) -> List[ExecutorMetadata]:
         with self._lock:
@@ -105,12 +127,31 @@ class ClusterState:
             pool = executors if executors is not None else list(self._available)
             pool = [e for e in pool if e in self._available]
             out: List[ExecutorReservation] = []
-            # pack: drain one executor before touching the next
-            for eid in sorted(pool, key=lambda e: -self._available[e]):
-                take = min(n - len(out), self._available[eid])
-                self._available[eid] -= take
-                out.extend(ExecutorReservation(eid) for _ in range(take))
-                if len(out) >= n:
+            if self.task_distribution == "bias":
+                # pack: drain one executor before touching the next
+                for eid in sorted(pool, key=lambda e: (round(self._pressure_locked(e), 1),
+                                                       -self._available[e])):
+                    take = min(n - len(out), self._available[eid])
+                    self._available[eid] -= take
+                    out.extend(ExecutorReservation(eid) for _ in range(take))
+                    if len(out) >= n:
+                        break
+                return out
+            # round-robin: one slot an executor a cycle, from where the
+            # last reservation stopped
+            pool = sorted(pool, key=lambda e: (round(self._pressure_locked(e), 1), e))
+            while len(out) < n and pool:
+                progressed = False
+                for i in range(len(pool)):
+                    eid = pool[(self._rr_cursor + i) % len(pool)]
+                    if self._available[eid] > 0:
+                        self._available[eid] -= 1
+                        out.append(ExecutorReservation(eid))
+                        progressed = True
+                        if len(out) >= n:
+                            self._rr_cursor = (self._rr_cursor + i + 1) % len(pool)
+                            break
+                if not progressed:
                     break
             return out
 
@@ -149,6 +190,10 @@ class JobState:
     def get_graph(self, job_id: str) -> Optional[ExecutionGraph]:
         with self._lock:
             return self._graphs.get(job_id)
+
+    def job_ids(self) -> List[str]:
+        with self._lock:
+            return sorted(self._graphs)
 
     def active_graphs(self) -> List[ExecutionGraph]:
         with self._lock:

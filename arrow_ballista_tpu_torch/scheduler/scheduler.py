@@ -8,9 +8,18 @@ standalone engine drives:
   state transitions are single-threaded;
 - planning builds the job's ExecutionGraph, installs its AQE policy and
   its CompilePolicy, and fuses the stages that resolved at build time;
-- push scheduling: free slots are reserved atomically, filled with
-  pending tasks of the active jobs and launched through the
-  ``TaskLauncher`` seam (the in-process launcher of standalone.py);
+- push scheduling: free slots are reserved atomically ("bias" or
+  "round-robin", scheduler/cluster.py), filled with pending tasks of the
+  active jobs and launched through the ``TaskLauncher`` seam (the
+  in-process launcher of standalone.py, or the network launcher of
+  netservice.py);
+- pull scheduling (``SchedulerConfig(policy="pull")``): executors poll
+  (``poll_work``, a ``PollWork`` event on the same loop) with their
+  statuses and free slots and get pending tasks back.  Without the
+  reference's quarantine and admission gates: those come with ROADMAP.md
+  queue 1 items 12 C and 12 D;
+- heartbeats re-register an unknown executor from the metadata they
+  carry, and reap the tasks an executor still runs for a finished job;
 - a reaper thread expires executors whose heartbeats stopped;
 - observability (obs/): a job span with its phases per job and the
   retained job profiles (``self.obs``), the flight-recorder journal of the
@@ -21,12 +30,13 @@ standalone engine drives:
 Still to be ported (ROADMAP.md queue 1): admission control, speculative
 execution, executor quarantine and poison containment, job deadlines, the
 serving caches, plan validation (analysis/plan_checks.py), fleet leases
-and the KV backends, and the remote engine's RPC surface.
+and the KV backends.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
+import queue
 import random
 import string
 import threading
@@ -119,10 +129,23 @@ class Offer:
     """Try to hand out tasks."""
 
 
+@dataclasses.dataclass
+class PollWork:
+    """A pull-mode work request: absorb the statuses, then fill the
+    executor's free slots; the tasks travel back through ``reply``."""
+
+    executor_id: str
+    num_free_slots: int
+    statuses: List[TaskStatus]
+    reply: "queue.Queue"
+
+
 class SchedulerConfig:
-    def __init__(self, executor_timeout_s: float = DEFAULT_EXECUTOR_TIMEOUT_S,
+    def __init__(self, task_distribution: str = "bias",
+                 executor_timeout_s: float = DEFAULT_EXECUTOR_TIMEOUT_S,
                  reaper_interval_s: float = 15.0,
                  event_buffer_size: int = 10000,
+                 policy: str = "push",
                  job_data_cleanup_delay_s: float = 30.0,
                  stats_history_capacity: int = 512,
                  stats_history_interval_s: float = 5.0,
@@ -130,6 +153,12 @@ class SchedulerConfig:
                  live_doctor_interval_s: float = 5.0,
                  slo_p99_target_ms: float = 0.0,
                  slo_window_s: float = 300.0):
+        if policy not in ("push", "pull"):
+            raise ValueError(f"unknown scheduling policy {policy!r}")
+        # "bias" (pack) or "round-robin" (spread) slot reservation
+        self.task_distribution = task_distribution
+        # "push": the scheduler launches; "pull": executors poll_work
+        self.policy = policy
         # one timeout drives "stop offering" (less the drain grace, see
         # cluster.alive_cutoff_s) and "declare lost" (the reaper)
         self.executor_timeout_s = float(executor_timeout_s)
@@ -149,11 +178,13 @@ class SchedulerConfig:
 
     @staticmethod
     def from_config(cfg) -> "SchedulerConfig":
-        """The ``ballista.stats.*``, ``ballista.live.*`` and
-        ``ballista.slo.*`` keys of a session's BallistaConfig."""
+        """The ``ballista.cluster.executor_timeout_s``,
+        ``ballista.stats.*``, ``ballista.live.*`` and ``ballista.slo.*``
+        keys of a session's BallistaConfig."""
         from ..utils import config as C
 
         return SchedulerConfig(
+            executor_timeout_s=float(cfg.get(C.CLUSTER_EXECUTOR_TIMEOUT_S)),
             stats_history_capacity=int(cfg.get(C.STATS_HISTORY_CAPACITY)),
             stats_history_interval_s=float(cfg.get(C.STATS_HISTORY_INTERVAL_S)),
             live_enabled=bool(cfg.get(C.LIVE_ENABLED)),
@@ -166,7 +197,7 @@ class SchedulerServer:
     def __init__(self, launcher: TaskLauncher, config: Optional[SchedulerConfig] = None,
                  observability: Optional[JobObservability] = None):
         self.config = config or SchedulerConfig()
-        self.cluster = ClusterState()
+        self.cluster = ClusterState(self.config.task_distribution)
         self.jobs = JobState()
         self.launcher = launcher
         self.scheduler_id = "scheduler-" + "".join(
@@ -268,7 +299,21 @@ class SchedulerServer:
         self._event_loop.post(Offer())
 
     def heartbeat(self, hb: ExecutorHeartbeat) -> None:
+        known = self.cluster.get_executor(hb.executor_id) is not None
         self.cluster.save_heartbeat(hb)
+        if not known and hb.metadata is not None:
+            # a restarted scheduler relearns the executor from its beat
+            log.info("re-registering unknown heartbeater %s", hb.executor_id)
+            self.register_executor(hb.metadata)
+            # registration installs an 'active' beat: keep the reported one
+            self.cluster.save_heartbeat(hb)
+        for job_id in sorted({entry[0] for entry in hb.running}):
+            # the executor still runs tasks of a finished or unknown job (a
+            # cancel it never got): cancel them again
+            st = self.jobs.get_status(job_id)
+            if st is None or st.state in ("successful", "failed", "cancelled"):
+                log.warning("reaping zombie tasks of job %s on %s", job_id, hb.executor_id)
+                self._submit_work(self.launcher.cancel_tasks, hb.executor_id, job_id)
 
     def executor_stopped(self, executor_id: str, reason: str = "") -> None:
         self._event_loop.post(ExecutorLost(executor_id, reason))
@@ -305,6 +350,17 @@ class SchedulerServer:
 
     def cancel_job(self, job_id: str) -> None:
         self._event_loop.post(JobCancel(job_id))
+
+    def poll_work(self, executor_id: str, num_free_slots: int,
+                  statuses: List[TaskStatus], timeout: float = 10.0) -> List[TaskDescription]:
+        """Pull mode (blocking): absorb ``statuses`` and return up to
+        ``num_free_slots`` tasks for ``executor_id``."""
+        reply: "queue.Queue" = queue.Queue(maxsize=1)
+        self._event_loop.post(PollWork(executor_id, num_free_slots, statuses, reply))
+        try:
+            return reply.get(timeout=timeout)
+        except queue.Empty:
+            return []
 
     def get_job_status(self, job_id: str) -> Optional[JobStatus]:
         return self.jobs.get_status(job_id)
@@ -353,6 +409,8 @@ class SchedulerServer:
             self._on_job_cancel(event)
         elif isinstance(event, Offer):
             self._offer()
+        elif isinstance(event, PollWork):
+            self._on_poll_work(event)
         else:
             log.warning("unknown scheduler event %r", event)
 
@@ -423,6 +481,33 @@ class SchedulerServer:
         if not statuses:
             return  # a sibling event already drained this inbox
         self.cluster.free_slots(ev.executor_id, len(statuses))
+        self._absorb_statuses(ev.executor_id, statuses)
+        self._offer()
+
+    def _on_poll_work(self, ev: PollWork) -> None:
+        tasks: List[TaskDescription] = []
+        try:
+            # timestamp only: a draining executor's poll keeps it draining
+            self.cluster.touch_heartbeat(ev.executor_id)
+            if ev.statuses:
+                self._absorb_statuses(ev.executor_id, ev.statuses)
+            graphs = self.jobs.active_graphs()
+            # retry anti-affinity context (see pop_next_task)
+            alive = set(self.cluster.alive_executors(self.config.executor_timeout_s))
+            while len(tasks) < ev.num_free_slots:
+                task = None
+                for graph in graphs:
+                    task = graph.pop_next_task(ev.executor_id, alive=alive)
+                    if task is not None:
+                        break
+                if task is None:
+                    break
+                tasks.append(task)
+        finally:
+            ev.reply.put(tasks)
+
+    def _absorb_statuses(self, executor_id: str, statuses: List[TaskStatus]) -> None:
+        """The status intake of push (TaskUpdating) and pull (PollWork)."""
         by_job: Dict[str, List[TaskStatus]] = {}
         for st in statuses:
             if st.journal:
@@ -435,7 +520,7 @@ class SchedulerServer:
                                          st.task.partition, st.task.task_attempt),
                              stage_id=st.task.stage_id, partition=st.task.partition,
                              attempt=st.task.task_attempt, state=st.state,
-                             executor_id=st.executor_id or ev.executor_id)
+                             executor_id=st.executor_id or executor_id)
             by_job.setdefault(st.task.job_id, []).append(st)
         for job_id, sts in by_job.items():
             graph = self.jobs.get_graph(job_id)
@@ -453,7 +538,6 @@ class SchedulerServer:
                 self._finish(JobStatus(
                     job_id, "failed",
                     error=f"status absorption crashed: {type(e).__name__}: {e}"), graph)
-        self._offer()
 
     def _absorb_job_statuses(self, job_id: str, graph: ExecutionGraph,
                              sts: List[TaskStatus]) -> None:
@@ -561,6 +645,8 @@ class SchedulerServer:
     # --- push scheduling -------------------------------------------------
     def _offer(self) -> None:
         """Reserve free slots and fill them with pending tasks."""
+        if self.config.policy != "push":
+            return  # pull mode: executors come to us through poll_work
         pending = self.pending_task_count()
         alive = set(self.cluster.alive_executors(self.config.executor_timeout_s))
         if pending == 0 or not alive:

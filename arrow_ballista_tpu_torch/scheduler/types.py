@@ -1,11 +1,13 @@
-"""Control-plane message types of the standalone engine.
+"""Control-plane message types of the standalone and remote engines.
 
 Mirrors arrow_ballista_tpu/scheduler/types.py (the reference's protobuf
 contract as plain dataclasses): task identity and status with the failure
 taxonomy, executor metadata and heartbeats, task definitions and job
 status.  A task status carries the task's tracing spans, its device
-observatory fold and its flight-recorder events (obs/); fields the port's
-code never reads (fleet leases, speculation) are left out.
+observatory fold and its flight-recorder events (obs/).  The remote
+engine encodes exactly these shapes (serde.py), field for field as the
+reference does; the fleet's job leases come with ROADMAP.md queue 1 item
+12 C, and the speculative flag stays False until speculation is ported.
 """
 from __future__ import annotations
 
@@ -33,6 +35,9 @@ class TaskId:
     # a fresh attempt id per launch of (stage_attempt, partition)
     task_attempt: int = 0
     stage_attempt: int = 0
+    # a speculative duplicate of a straggling attempt (always False until
+    # speculation is ported; carried for the wire shape)
+    speculative: bool = False
 
 
 @dataclasses.dataclass
@@ -41,6 +46,7 @@ class TaskDescription:
 
     task: TaskId
     plan: "object"  # the stage's ShuffleWriterExec root
+    task_internal_id: int = 0
     # job-level scalar-subquery values, shipped with every task
     scalars: Dict[str, object] = dataclasses.field(default_factory=dict)
     # tracing propagation context (obs/tracing.py): the job execution
@@ -77,6 +83,9 @@ class TaskStatus:
     # per-operator metrics of the stage plan at the task's end (cumulative:
     # the tasks of a stage share its operator instances)
     metrics: Dict[str, Dict[str, float]] = dataclasses.field(default_factory=dict)
+    # the executing process and plan instance: the stage's metric fold
+    # takes the last cumulative snapshot per instance (execution_graph.py)
+    process_id: str = ""
     # the task's span tree (obs.tracing.Span list; empty with tracing off)
     spans: List[object] = dataclasses.field(default_factory=list)
     # the task's own device-observatory fold (obs/device.py; empty when
@@ -100,7 +109,14 @@ class ExecutorMetadata:
 class ExecutorHeartbeat:
     executor_id: str
     timestamp: float = dataclasses.field(default_factory=time.time)
-    status: str = "active"  # 'active' | 'dead'
+    status: str = "active"  # 'active' | 'dead' | 'terminating'
+    # carried so a restarted scheduler re-registers an unknown heartbeater
+    metadata: Optional[ExecutorMetadata] = None
+    # memory governor pressure in [0, 1]; 0.0 is omitted on the wire
+    memory_pressure: float = 0.0
+    # in-flight (job_id, stage_id, partition, task_attempt) tuples; empty
+    # is omitted on the wire
+    running: List[tuple] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -108,6 +124,7 @@ class ExecutorReservation:
     """A reserved task slot."""
 
     executor_id: str
+    job_id: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -117,3 +134,6 @@ class JobStatus:
     error: str = ""
     # successful: per output-partition locations of the final stage
     locations: Dict[int, List[PartitionLocation]] = dataclasses.field(default_factory=dict)
+    # failed and retriable: transient back-pressure (the admission queue,
+    # ROADMAP.md queue 1 item 12 D); clients may resubmit
+    retriable: bool = False

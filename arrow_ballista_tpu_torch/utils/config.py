@@ -20,7 +20,7 @@ MEM_TASK_BUDGET = "ballista.memory.task.budget.bytes"
 # memory governor (memory/): reserve -> grant -> release accounting over a
 # host budget; operators that hold unbounded state reserve before
 # materializing and spill on denial.  The reference's device budget waits
-# for the admission controller that reads it (ROADMAP.md queue 1 item 12)
+# for the admission controller that reads it (ROADMAP.md queue 1 item 12 D)
 MEM_HOST_BUDGET = "ballista.memory.host.budget.bytes"
 MEM_SPILL_ENABLED = "ballista.memory.spill.enabled"
 # the mesh (parallel/, ops/mesh_exec.py): stage pairs fused over the ranks
@@ -78,6 +78,21 @@ SLO_P99_TARGET_MS = "ballista.slo.latency.p99.target.ms"
 SLO_WINDOW_S = "ballista.slo.window.seconds"
 # deterministic fault injection (faults/)
 FAULTS_PLAN = "ballista.faults.plan"
+# the remote engine: client-side RPC deadlines and bounded backoff
+# (net/retry.py), executor liveness (scheduler/cluster.py), and the shuffle
+# transport between executors (ops/shuffle.py, net/dataplane.py)
+RPC_CONNECT_TIMEOUT_S = "ballista.rpc.connect.timeout.seconds"
+RPC_READ_TIMEOUT_S = "ballista.rpc.read.timeout.seconds"
+RPC_RETRY_BASE_S = "ballista.rpc.retry.base.seconds"
+RPC_RETRY_CAP_S = "ballista.rpc.retry.cap.seconds"
+RPC_RETRY_DEADLINE_S = "ballista.rpc.retry.deadline.seconds"
+CLUSTER_EXECUTOR_TIMEOUT_S = "ballista.cluster.executor_timeout_s"
+SHUFFLE_INTEGRITY = "ballista.shuffle.integrity.verify"
+SHUFFLE_LOCAL_HOST_MATCH = "ballista.shuffle.local.host_match"
+SHUFFLE_MAX_CONCURRENT_FETCHES = "ballista.shuffle.max_concurrent_fetches"
+SHUFFLE_WIRE_STREAMING = "ballista.shuffle.wire.streaming"
+SHUFFLE_WIRE_CHUNK_ROWS = "ballista.shuffle.wire.chunk_rows"
+SHUFFLE_WIRE_COMPRESSION = "ballista.shuffle.wire.compression"
 
 
 @dataclasses.dataclass
@@ -303,6 +318,52 @@ _ENTRIES: Dict[str, ConfigEntry] = {
                     "deterministic fault-injection plan: inline JSON or "
                     "'@/path/to/plan.json' (faults/); empty = disabled, all "
                     "failpoint sites are no-ops"),
+        ConfigEntry(RPC_CONNECT_TIMEOUT_S, 5.0, float,
+                    "TCP connect deadline for client-side control-plane "
+                    "RPCs (net/retry.py)"),
+        ConfigEntry(RPC_READ_TIMEOUT_S, 60.0, float,
+                    "read deadline for client-side control-plane RPCs "
+                    "(net/retry.py)"),
+        ConfigEntry(RPC_RETRY_BASE_S, 0.2, float,
+                    "base backoff between RPC retries; doubles per attempt "
+                    "(jittered, capped at ballista.rpc.retry.cap.seconds)"),
+        ConfigEntry(RPC_RETRY_CAP_S, 5.0, float,
+                    "upper bound on a single RPC retry backoff"),
+        ConfigEntry(RPC_RETRY_DEADLINE_S, 30.0, float,
+                    "give-up deadline across all retries of one RPC; on "
+                    "expiry a retryable failure surfaces (the executor marks "
+                    "the scheduler unreachable; a failed launch becomes "
+                    "ExecutorLost)"),
+        ConfigEntry(CLUSTER_EXECUTOR_TIMEOUT_S, 180.0, float,
+                    "seconds without a heartbeat before an executor is "
+                    "declared lost (reaper -> ExecutorLost).  Work offers "
+                    "stop earlier, at timeout minus a drain grace of "
+                    "min(60s, timeout/2)"),
+        ConfigEntry(SHUFFLE_INTEGRITY, True, _parse_bool,
+                    "verify the producer-recorded CRC-32 of every remotely "
+                    "fetched or co-located shuffle partition before "
+                    "decoding it; a mismatch raises a retryable "
+                    "IntegrityError (re-fetch, then lineage rollback)"),
+        ConfigEntry(SHUFFLE_LOCAL_HOST_MATCH, True, _parse_bool,
+                    "a reader whose executor advertises the same host as a "
+                    "shuffle producer maps the producer's IPC file (mmap) "
+                    "instead of fetching it over the data plane; any size "
+                    "or CRC doubt falls back to the remote fetch"),
+        ConfigEntry(SHUFFLE_MAX_CONCURRENT_FETCHES, 50, int,
+                    "per reduce-task cap on concurrent remote shuffle "
+                    "fetches (on one process-wide pool)"),
+        ConfigEntry(SHUFFLE_WIRE_STREAMING, True, _parse_bool,
+                    "remote shuffle fetches stream as CRC'd Arrow IPC "
+                    "chunks decoded while later chunks are in flight; a "
+                    "retry resumes at the first unverified chunk.  False = "
+                    "whole-file fetch_partition blobs"),
+        ConfigEntry(SHUFFLE_WIRE_CHUNK_ROWS, 1 << 16, int,
+                    "rows per streamed shuffle chunk (chunk boundaries are "
+                    "multiples of it, so a resume is exact)"),
+        ConfigEntry(SHUFFLE_WIRE_COMPRESSION, "lz4", str,
+                    "Arrow IPC buffer compression of the streamed remote "
+                    "fetch: 'lz4', 'zstd' or 'none'; an unavailable codec "
+                    "degrades to 'none'"),
     ]
 }
 

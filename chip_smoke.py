@@ -214,6 +214,28 @@ Phases (any failure exits non-zero and prints no result line):
    ``python3 chip_smoke.py --obs-only [FILE]`` runs the build, the data and
    this phase alone (its report as JSON to FILE).
 
+8. ``remote`` (after obs, on the SF1 parquet files): the remote engine.  A
+   SchedulerNetService (round-robin distribution, the standalone paths'
+   base config), two ExecutorServers of four task slots with separate work
+   directories, one in this process and one in a child process
+   (``python3 -c``, its own CUDA context), and ``BallistaContext.remote``.
+   rm_pq_q1, rm_pq_q3 and rm_pq_q18 run cold then warm, first with the
+   default host match (co-located partitions through mmap), then with
+   ``ballista.shuffle.local.host_match=false`` (the wire: lz4 chunks; the
+   child restarts with it).  Every run's rows equal sa_pq's bit for bit and
+   the numpy oracles; both executors run on the card and launch kernels
+   (the child's counted from its task statuses); every kernel call of the
+   in-process executor's cold run equals its twin; the readers fetch
+   through the path asked for; no fused chain falls back; a warm run
+   builds no generated source in either process; the work directories end
+   empty after the scheduler's cleanup delay and the child exits 0.  It
+   prints each run's wall beside the standalone walls, each executor's
+   data plane (native or python) and the bytes fetched by path, with the
+   card's name and power limit; the phase must stay under 120 s.  Each
+   kernel's entry adds the remote paths' launches and checks.
+   ``python3 chip_smoke.py --remote-only [FILE]`` runs the build, the data,
+   the standalone runs of q1, q3 and q18 and this phase alone.
+
 Each phase's seconds are printed on a line of their own as it ends
 (``phase <name>: <s> s``: the build, the data, each group of paths, the
 memory sweep, tpch22, the sqlite check, the oracles, each kernel's checks
@@ -3932,11 +3954,13 @@ WRAPPERS["merge_rank_states"] = ("merge_rank_states", "merge_rank_columns")
 
 
 def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROWS,
-        sa_partitions: str = "auto", save_calls: str = None, obs_only: bool = False) -> dict:
+        sa_partitions: str = "auto", save_calls: str = None, obs_only: bool = False,
+        remote_only: bool = False) -> dict:
     """The whole check.  ``sa_partitions``: the standalone engine's shuffle
     partitions ('auto' as bench.py runs it; a CPU rehearsal at a small scale
     factor passes a count, as 'auto' then plans one stage and fuses nothing).
-    ``obs_only``: the build, the data and phase obs alone."""
+    ``obs_only`` / ``remote_only``: the build, the data and phase obs /
+    phase remote alone."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -4006,9 +4030,6 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         log(f"parquet at SF{spill_sf} (the spill paths): "
             f"{spill_rg}-row row groups, written in {time.perf_counter() - t0:.1f} s (set-up)")
         phase_done("spill_data", t0)
-    # no order of the small scale factors' rehearsals passes q18's 300
-    q18_having = 300 if sf >= 1 else 200
-    q18 = QUERIES[18].replace("> 300", f"> {q18_having}")
     sqls = {"q1": QUERIES[1], "q3": QUERIES[3], "q4": QUERIES[4]}
     # the standalone engine with bench.py's base config: 'auto' shuffle
     # partitions, 2^20-row batches, four task slots
@@ -4029,6 +4050,32 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
         report["obs"] = obs_phase(device, ctx, sa_pq, sqls, {"q1": q1_oracle(lineitem),
                                                              "q3": q3_oracle(tables)}, K)
         phase_done("obs", t_phase)
+        report["phase_s"] = dict(PHASE_S)
+        return report
+    # no order of the small scale factors' rehearsals passes q18's 300
+    q18_having = 300 if sf >= 1 else 200
+    q18 = QUERIES[18].replace("> 300", f"> {q18_having}")
+    if remote_only:
+        # the standalone paths' rows and walls the remote runs are held
+        # against, then the phase
+        rm_sqls = {"q1": sqls["q1"], "q3": sqls["q3"], "q18": q18}
+        sa_frames, sa_walls = {}, {}
+        for q, sql in rm_sqls.items():
+            walls = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                frame = sa_pq.sql(sql).to_pandas()
+                if cuda:
+                    torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1000)
+            sa_frames[q] = frame
+            sa_walls[q] = {"cold_ms": walls[0], "warm_ms": walls[1]}
+        t_phase = time.perf_counter()
+        report["remote"] = remote_phase(
+            device, pq_paths, rm_sqls, {"q1": q1_oracle(lineitem), "q3": q3_oracle(tables),
+                                        "q18": q18_oracle(tables, q18_having)},
+            K, F, sa_cfg, sa_walls, sa_frames)
+        phase_done("remote", t_phase)
         report["phase_s"] = dict(PHASE_S)
         return report
     paths = {**{p: (ctx, q) for p, q in sqls.items()},
@@ -5055,6 +5102,30 @@ def run(device_name: str = "cuda", sf: float = SF, stress_rows: int = STRESS_ROW
     t_phase = time.perf_counter()
     report["obs"] = obs_phase(device, ctx, sa_pq, sqls, oracles, K)
     phase_done("obs", t_phase)
+    t_phase = time.perf_counter()
+    rm_sqls = {"q1": sqls["q1"], "q3": sqls["q3"], "q18": q18}
+    report["remote"] = remote_phase(
+        device, pq_paths, rm_sqls, {"q1": oracles["q1"], "q3": oracles["q3"], "q18": q18_want},
+        K, F, sa_cfg,
+        {q: {"cold_ms": report[f"sa_pq_{q}_cold_ms"], "warm_ms": report[f"sa_pq_{q}_warm_ms"]
+             or report[f"sa_pq_{q}_cold_ms"]} for q in rm_sqls},
+        {q: path_frames[f"sa_pq_{q}"] for q in rm_sqls})
+    # the remote paths beside the others in each kernel's launches (both
+    # executors' cold runs with the host match) and its per-path checks
+    for entry in report["kernels"]:
+        name = entry["name"]
+        for rm_path, launched in report["remote"]["kernel_launches"].items():
+            if rm_path.endswith("_wire"):
+                continue
+            entry["launches_per_path"][rm_path] = launched.get(LAUNCH_KEY[name], 0)
+            errs = {w: e for w, e in report["remote"]["checked"].get(rm_path, {}).items()
+                    if w in WRAPPERS[name] or (name == "operator_program"
+                                               and w.startswith("operator_program"))}
+            if errs:
+                entry["checked_per_path"][rm_path] = errs
+                entry["max_abs_err"] = max([entry["max_abs_err"], *errs.values()])
+        entry["launches"] = sum(entry["launches_per_path"].values())
+    phase_done("remote", t_phase)
     report["phase_s"] = dict(PHASE_S)
     return report
 
@@ -5302,6 +5373,313 @@ def obs_phase(device, ctx, sa, sqls, oracles, K) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase remote: the remote engine (a scheduler service, two executor servers,
+# one of them in a child process, and a remote session)
+# --------------------------------------------------------------------------
+
+REMOTE_QUERIES = ("q1", "q3", "q18")
+REMOTE_SLOTS = 4
+# the scheduler removes a finished job's shuffle data this long after it ends
+REMOTE_CLEANUP_DELAY_S = 1.0
+REMOTE_PHASE_LIMIT_S = 120.0
+
+# the child executor: the port's ExecutorServer in a process of its own (its
+# own CUDA context), stopped when the parent closes its stdin
+REMOTE_CHILD = r"""
+import json, os, sys
+sys.path.insert(0, {root!r})
+from arrow_ballista_tpu_torch.executor.server import ExecutorServer
+from arrow_ballista_tpu_torch.utils.config import BallistaConfig
+ex = ExecutorServer("127.0.0.1", {port}, "127.0.0.1", 0, work_dir={work!r},
+                    concurrent_tasks={slots}, executor_id={eid!r},
+                    config=BallistaConfig({settings!r}), metrics_port=0, device={device!r})
+ex.start()
+with open({ready!r} + ".tmp", "w") as fh:
+    json.dump({{"pid": os.getpid(), "data_plane": ex.data_plane,
+               "metrics_port": ex.obs_http.port, "device": str(ex.device)}}, fh)
+os.replace({ready!r} + ".tmp", {ready!r})
+sys.stdin.read()
+ex.stop(notify=True)
+print("STOPPED", flush=True)
+"""
+
+
+def prom_values(text: str, name: str) -> dict:
+    """{label set or '': value} of one metric in a prometheus exposition."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(name + "{") or line.startswith(name + " "):
+            key, _, val = line.rpartition(" ")
+            out[key[len(name):]] = float(val)
+    return out
+
+
+def remote_phase(device, pq_paths, sqls, oracles, K, F, sa_cfg, sa_walls, sa_frames) -> dict:
+    """Phase remote, on the SF1 parquet files ``pq_paths``: a SchedulerNetService with
+    round-robin distribution and the standalone paths' base config, two
+    ExecutorServers of REMOTE_SLOTS task slots and separate work
+    directories (one in this process, one in a child process), and
+    ``BallistaContext.remote``.  rm_pq_q1 / q3 / q18 each run cold then warm,
+    first with the default host match (co-located partitions through mmap),
+    then with ``ballista.shuffle.local.host_match=false`` (the wire, lz4
+    chunks; the child restarts with it).  Fails unless every run's rows
+    equal the standalone path's bit for bit and the numpy oracles, every
+    task ran on the device with each executor launching kernels, every
+    kernel launch of the in-process executor equals its twin, the fetch
+    paths are the ones asked for, no fused chain falls back, a warm run
+    builds no generated source, the child stops cleanly and the work
+    directories end empty."""
+    import torch
+
+    from arrow_ballista_tpu_torch import BallistaConfig, BallistaContext
+    from arrow_ballista_tpu_torch.executor.server import ExecutorServer
+    from arrow_ballista_tpu_torch.net.dataplane import STATS as DP_STATS
+    from arrow_ballista_tpu_torch.ops import _cuda
+    from arrow_ballista_tpu_torch.scheduler.netservice import SchedulerNetService
+    from arrow_ballista_tpu_torch.scheduler.scheduler import SchedulerConfig
+    from tests.torch_cases import assert_frames_equal
+
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    out = {"card": smi("name,power.limit") if cuda else "cpu", "runs": {}}
+    root = tempfile.mkdtemp(prefix="chip_smoke_remote_", dir=os.path.join(ROOT, "tmp"))
+    atexit.register(shutil.rmtree, root, True)
+    svc = SchedulerNetService("127.0.0.1", 0, config=BallistaConfig(sa_cfg),
+                              scheduler_config=SchedulerConfig(
+                                  task_distribution="round-robin",
+                                  job_data_cleanup_delay_s=REMOTE_CLEANUP_DELAY_S),
+                              device=device)
+    svc.start()
+    atexit.register(svc.stop)
+    work = {eid: os.path.join(root, eid) for eid in ("rm-exec-0", "rm-exec-1")}
+    local_ex = ExecutorServer("127.0.0.1", svc.port, "127.0.0.1", 0,
+                              work_dir=work["rm-exec-0"], concurrent_tasks=REMOTE_SLOTS,
+                              executor_id="rm-exec-0", config=BallistaConfig(sa_cfg),
+                              device=device)
+    local_ex.start()
+    atexit.register(local_ex.stop, notify=False)
+
+    def start_child(settings, tag):
+        ready = os.path.join(root, f"child-{tag}.json")
+        log_path = os.path.join(root, f"child-{tag}.log")
+        fh = open(log_path, "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-c", REMOTE_CHILD.format(
+                root=ROOT, port=svc.port, work=work["rm-exec-1"], slots=REMOTE_SLOTS,
+                eid="rm-exec-1", settings=settings, ready=ready, device=str(device))],
+            stdin=subprocess.PIPE, stdout=fh, stderr=subprocess.STDOUT, cwd=ROOT)
+        atexit.register(lambda: proc.poll() is None and proc.kill())
+        t0 = time.perf_counter()
+        while not os.path.exists(ready):
+            if proc.poll() is not None or time.perf_counter() - t0 > 120:
+                proc.kill()
+                with open(log_path) as lf:
+                    fail(f"remote: the child executor did not start (exit {proc.poll()}):\n"
+                         f"{lf.read()[-3000:]}")
+            time.sleep(0.05)
+        with open(ready) as rf:
+            info = json.load(rf)
+        # registered once its server answers a ping and the scheduler knows it
+        while svc.server.cluster.get_executor("rm-exec-1") is None:
+            if time.perf_counter() - t0 > 120:
+                fail("remote: the child executor never registered")
+            time.sleep(0.05)
+        info["start_s"] = time.perf_counter() - t0
+        return proc, fh, log_path, info
+
+    def stop_child(proc, fh, log_path):
+        proc.stdin.close()
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            fail("remote: the child executor did not stop within 60 s")
+        fh.close()
+        with open(log_path) as lf:
+            text = lf.read()
+        if rc != 0 or "STOPPED" not in text:
+            fail(f"remote: the child executor exited {rc}:\n{text[-3000:]}")
+        return rc
+
+    def child_metrics(port, log_path):
+        import urllib.request
+
+        try:
+            text = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) \
+                .read().decode()
+        except OSError as e:
+            with open(log_path) as lf:
+                fail(f"remote: the child executor's /metrics does not answer ({e}):\n"
+                     f"{lf.read()[-3000:]}")
+        return {"bytes": {k.split('"')[1]: v for k, v in
+                          prom_values(text, "shuffle_bytes_fetched_total").items()}}
+
+    def task_folds(job_id):
+        """Per executor: the tasks, their devices' launches, nvcc builds,
+        and the readers' fetch metrics of one job (from the statuses)."""
+        graph = svc.server.jobs.get_graph(job_id)
+        per = {}
+        fallbacks = 0
+        reads = {"bytes_local_mmap": 0, "remote_fetches": 0, "wire_bytes": 0,
+                 "raw_bytes": 0}
+        for stage in graph.stages.values():
+            for name, v in stage.aggregate_metrics().items():
+                metric = name.rsplit(".", 1)[1]
+                if metric == "fused_fallbacks":
+                    fallbacks += v
+                if "ShuffleReaderExec" in name and metric in reads:
+                    reads[metric] += v
+            for t in stage.task_infos:
+                if t is None or t.status is None:
+                    continue
+                rec = per.setdefault(t.executor_id, {"tasks": 0, "launches": {}, "builds": 0})
+                rec["tasks"] += 1
+                for k, v in (t.status.device_stats or {}).items():
+                    if k.startswith("launches."):
+                        name = k.split(".", 1)[1]
+                        rec["launches"][name] = rec["launches"].get(name, 0) + int(v)
+                    elif k in ("jit_compiles", "jit_retraces"):
+                        rec["builds"] += int(v)
+        return per, reads, fallbacks
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    kernel_launches = {}  # rm path -> kernel -> launches (both executors, cold, host match)
+    checked = {}  # rm path -> wrapper -> max abs err of the in-process executor's call
+    for mode, settings in (("mmap", {}), ("wire",
+                                          {"ballista.shuffle.local.host_match": "false"})):
+        for k, v in settings.items():
+            local_ex.executor.config.set(k, v)
+        proc, fh, log_path, child = start_child({**sa_cfg, **settings}, mode)
+        planes = {"rm-exec-0": local_ex.data_plane, "rm-exec-1": child["data_plane"]}
+        devices = {"rm-exec-0": str(local_ex.device), "rm-exec-1": child["device"]}
+        if any(torch.device(d).type != device.type for d in devices.values()):
+            fail(f"remote: an executor runs on the wrong device: {devices}")
+        ctx = BallistaContext.remote("127.0.0.1", svc.port, BallistaConfig(sa_cfg),
+                                     device=device)
+        for name in ("lineitem", "orders", "customer"):
+            ctx.register_parquet(name, pq_paths[name])
+        for q in REMOTE_QUERIES:
+            path = f"rm_pq_{q}" + ("_wire" if mode == "wire" else "")
+            rec = {"mode": mode, "data_planes": planes, "devices": devices,
+                   "child_start_s": child["start_s"]}
+            runs = []
+            for run in ("cold", "warm"):
+                dp_before = DP_STATS.snapshot()
+                child_before = child_metrics(child["metrics_port"], log_path)
+                K.reset_launch_counts()
+                builds0 = len(_cuda.LIBRARIES.generated_builds)
+                scope = Capture(K, F, device) if run == "cold" else contextlib.nullcontext()
+                with scope as cap:
+                    t0 = time.perf_counter()
+                    df = ctx.sql(sqls[q]).to_pandas()
+                    sync()
+                    wall = time.perf_counter() - t0
+                job_id = ctx._remote.last_job_id
+                per, reads, fallbacks = task_folds(job_id)
+                dp_after = DP_STATS.snapshot()
+                child_after = child_metrics(child["metrics_port"], log_path)
+                moved = {
+                    "in_process": {p: dp_after["bytes_fetched"][p] - dp_before["bytes_fetched"][p]
+                                   for p in dp_after["bytes_fetched"]},
+                    "child": {p: child_after["bytes"].get(p, 0) - child_before["bytes"].get(p, 0)
+                              for p in child_after["bytes"]}}
+                try:
+                    assert_frames_equal(df, sa_frames[q], exact=True)
+                except AssertionError as e:
+                    fail(f"{path} {run}: rows differ from sa_pq_{q}: {e}")
+                if set(per) != {"rm-exec-0", "rm-exec-1"}:
+                    fail(f"{path} {run}: tasks ran on {sorted(per)}, not on both executors")
+                if cuda and any(not r["launches"] for r in per.values()):
+                    fail(f"{path} {run}: an executor's tasks launched no kernel: "
+                         f"{ {e: r['launches'] for e, r in per.items()} }")
+                if fallbacks:
+                    fail(f"{path} {run}: fused_fallbacks {fallbacks}")
+                if mode == "wire" and (reads["remote_fetches"] <= 0 or reads["wire_bytes"] <= 0
+                                       or reads["bytes_local_mmap"]):
+                    fail(f"{path} {run}: host match off, but the readers fetched {reads}")
+                if mode == "mmap" and (reads["remote_fetches"] or reads["bytes_local_mmap"] <= 0):
+                    fail(f"{path} {run}: host match on, but the readers fetched {reads}")
+                builds = len(_cuda.LIBRARIES.generated_builds) - builds0
+                if run == "warm" and (builds or any(r["builds"] for r in per.values())):
+                    fail(f"{path} warm: generated sources built again (this process {builds}, "
+                         f"tasks { {e: r['builds'] for e, r in per.items()} })")
+                if run == "cold":
+                    if cap.off_device:
+                        fail(f"{path}: tensors off the device: {cap.off_device[:5]}")
+                    errs = {}
+                    try:
+                        for name in KERNEL_META:
+                            for w in WRAPPERS[name]:
+                                if w in cap.calls:
+                                    errs[w] = check_kernel(K, w, cap.calls[w][1])
+                        for key, (_n, args) in cap.calls.items():
+                            if key.startswith("operator_program:"):
+                                errs[key] = check_kernel(K, key, args)
+                    except AssertionError as e:
+                        fail(f"{path}: a kernel of the in-process executor disagrees with its "
+                             f"twin: {e}")
+                    checked[path] = errs
+                    launched = {}
+                    for r in per.values():
+                        for k, v in r["launches"].items():
+                            launched[k] = launched.get(k, 0) + v
+                    kernel_launches[path] = launched
+                    missing = [k for k in PATH_KERNELS.get(f"sa_pq_{q}", ())
+                               if cuda and not launched.get(k)]
+                    if missing:
+                        fail(f"{path}: kernels of sa_pq_{q} launched by neither executor: "
+                             f"{missing} ({launched})")
+                runs.append({"run": run, "wall_ms": wall * 1000, "reads": reads,
+                             "bytes_fetched": moved, "tasks": {e: r["tasks"] for e, r in
+                                                               per.items()},
+                             "launches": {e: r["launches"] for e, r in per.items()},
+                             "builds": {"this_process": builds,
+                                        **{e: r["builds"] for e, r in per.items()}}})
+                log(f"{path} {run} ({out['card']}): wall {wall * 1000:.1f} ms (standalone "
+                    f"sa_pq_{q} cold {sa_walls[q]['cold_ms']:.1f} ms, warm "
+                    f"{sa_walls[q]['warm_ms']:.1f} ms); data planes {json.dumps(planes)}; "
+                    f"readers {json.dumps(reads)}; bytes fetched by path {json.dumps(moved)}; "
+                    f"tasks {json.dumps({e: r['tasks'] for e, r in per.items()})}")
+            # the numpy oracles (more queries: q3 and q18 also without LIMIT)
+            if q == "q1":
+                check_q1(ctx, sqls[q], oracles[q])
+            elif q == "q3":
+                check_q3(ctx, sqls[q], oracles[q])
+            else:
+                check_q18(ctx, sqls[q], oracles[q])
+            rec["runs"] = runs
+            out["runs"][path] = rec
+        ctx.shutdown()
+        # the scheduler's delayed cleanup empties both work directories
+        t0 = time.perf_counter()
+        left = None
+        while time.perf_counter() - t0 < 10 * REMOTE_CLEANUP_DELAY_S + 10:
+            left = {e: [d for d in os.listdir(w) if os.path.isdir(os.path.join(w, d))]
+                    for e, w in work.items() if os.path.isdir(w)}
+            if not any(left.values()):
+                break
+            time.sleep(0.2)
+        if any(left.values()):
+            fail(f"remote ({mode}): job data left after the cleanup delay: {left}")
+        out.setdefault("child_exit", {})[mode] = stop_child(proc, fh, log_path)
+    local_ex.stop(notify=False)
+    svc.stop()
+    out["kernel_launches"] = kernel_launches
+    out["checked"] = checked
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"remote: kernels held against their twins in the in-process executor "
+        f"{json.dumps({p: {w: round(e, 6) for w, e in c.items()} for p, c in checked.items()})}")
+    log(f"phase remote: {out['seconds']:.1f} s (limit {REMOTE_PHASE_LIMIT_S:.0f} s), "
+        f"{out['card']}")
+    if out["seconds"] > REMOTE_PHASE_LIMIT_S and cuda:
+        fail(f"remote: the phase took {out['seconds']:.1f} s, over {REMOTE_PHASE_LIMIT_S} s")
+    return out
+
+
+# --------------------------------------------------------------------------
 # the 22 TPC-H queries: the port on the CPU as the reference answers
 # --------------------------------------------------------------------------
 
@@ -5382,10 +5760,13 @@ def main() -> None:
     # --obs-only [FILE]: the build, the data and phase obs alone (its report
     # as JSON to FILE)
     obs_only = len(sys.argv) in (2, 3) and sys.argv[1] == "--obs-only"
-    report = run("cuda", save_calls=save, obs_only=obs_only)
-    if obs_only and len(sys.argv) == 3:
+    # --remote-only [FILE]: the build, the data, the standalone runs of q1,
+    # q3 and q18 and phase remote alone (its report as JSON to FILE)
+    remote_only = len(sys.argv) in (2, 3) and sys.argv[1] == "--remote-only"
+    report = run("cuda", save_calls=save, obs_only=obs_only, remote_only=remote_only)
+    if (obs_only or remote_only) and len(sys.argv) == 3:
         with open(sys.argv[2], "w") as fh:
-            json.dump(report["obs"], fh, indent=1, default=str)
+            json.dump(report["obs" if obs_only else "remote"], fh, indent=1, default=str)
     total = time.perf_counter() - t0
     log(f"phases (s): {json.dumps({k: round(v, 1) for k, v in report['phase_s'].items()})}")
     print(card, flush=True)

@@ -2269,3 +2269,74 @@ def test_a_program_over_an_int32_sum_matches_the_cpu(dev):
         ctx.register_table("orders", _sf001_tables()["orders"])
         frames.append(ctx.sql(sql).to_pandas())
     assert_frames_equal(frames[0], frames[1])
+
+
+# --------------------------------------------------------------------------
+# the remote engine on the card
+# --------------------------------------------------------------------------
+
+# wrappers with a plain twin of the same arguments, checked call by call
+REMOTE_TWINS = ("hash64", "bucket_of", "compaction_order", "bucket_masks")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("host_match", ["true", "false"])
+def test_remote_q3_on_the_card_matches_the_cpu(dev, tmp_path, monkeypatch, host_match):
+    """q3 through a scheduler service and two in-process executor servers
+    on cuda:0 (eight task threads launching at once), the shuffle through
+    the mmap path or the wire: the rows equal the port's local engine on the
+    CPU, every task ran on the card and launched kernels, and every call of
+    the wrappers in REMOTE_TWINS equals its plain twin."""
+    import threading
+
+    from arrow_ballista_tpu_torch import BallistaContext
+    from tests.torch_cases import remote_cluster, remote_context
+
+    checked, bad, lock = {}, [], threading.Lock()
+
+    def twin_checked(name, real, plain):
+        def run(*args, **kw):
+            got = real(*args, **kw)
+            host = [[a.cpu() for a in x] if isinstance(x, (list, tuple)) else
+                    (x.cpu() if isinstance(x, torch.Tensor) else x) for x in args]
+            want = plain(*host)
+            order = got[0] if kw.get("with_count") else got  # K2: (order, count)
+            same = torch.equal(order.cpu(), want)
+            with lock:
+                checked[name] = checked.get(name, 0) + 1
+                if not same:
+                    bad.append(name)
+            return got
+        return run
+
+    for name in REMOTE_TWINS:
+        monkeypatch.setattr(TK, name, twin_checked(name, getattr(TK, name),
+                                                   getattr(TK, f"{name}_plain")))
+    tables = _sf001_tables()
+    sql = STANDALONE_SQL["q3"]
+    settings = {"ballista.shuffle.local.host_match": host_match}
+    with remote_cluster("torch", str(tmp_path), device=dev,
+                        executor_settings=settings) as (sched, exs):
+        ctx = remote_context("torch", sched, device=dev)
+        for name in ("lineitem", "orders", "customer"):
+            ctx.register_table(name, tables[name])
+        TK.reset_launch_counts()
+        got = ctx.sql(sql).to_pandas()
+        graph = sched.server.jobs.get_graph(ctx._remote.last_job_id)
+        ctx.shutdown()
+        assert all(ex.device.type == "cuda" for ex in exs)
+    local = BallistaContext.local(device="cpu")
+    for name in ("lineitem", "orders", "customer"):
+        local.register_table(name, tables[name])
+    want = local.sql(sql).to_pandas()
+    assert len(want) > 0
+    assert_frames_equal(got, want)
+    assert not bad, bad
+    assert checked.get("bucket_of"), checked
+    launched = {}
+    for st in graph.stages.values():
+        for t in st.task_infos:
+            for k, v in (t.status.device_stats or {}).items():
+                if k.startswith("launches."):
+                    launched.setdefault(t.executor_id, {})[k] = v
+    assert set(launched) == {ex.metadata.executor_id for ex in exs}, launched

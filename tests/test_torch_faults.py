@@ -296,3 +296,44 @@ def test_cancel_checkpoint_failpoint_fires_only_once_a_cancel_landed():
         with pytest.raises(CancelledError):
             ctx.check_cancelled()
     assert plan.schedule() == (("executor.task.cancel.checkpoint", 0, 1, "delay"),)
+
+
+@pytest.fixture(scope="module")
+def remote_q3(tmp_path_factory):
+    """A port cluster of two executors that exchange every shuffle
+    partition through the wire (host match off), a session with q3's
+    tables, and q3's rows without faults."""
+    from benchmarks.datagen import generate_tables
+    from benchmarks.queries import QUERIES
+    from tests.torch_cases import remote_cluster, remote_context
+
+    work = str(tmp_path_factory.mktemp("remote_faults"))
+    tables = generate_tables(0.01, seed=0)
+    with remote_cluster("torch", work,
+                        executor_settings={"ballista.shuffle.local.host_match": "false"}) \
+            as (sched, _exs):
+        ctx = remote_context("torch", sched)
+        for name in ("lineitem", "orders", "customer"):
+            ctx.register_table(name, tables[name])
+        want = ctx.sql(QUERIES[3]).to_pandas()
+        yield ctx, QUERIES[3], want
+        ctx.shutdown()
+
+
+@pytest.mark.parametrize("site, action, match", [
+    # a lost launch: the scheduler's retrying client sends it again
+    ("rpc.client.send", "drop", {"method": "launch_multi_task"}),
+    # a corrupt shuffle chunk: its CRC fails and the fetch resumes at it
+    ("shuffle.fetch.recv", "corrupt", {}),
+])
+def test_remote_q3_survives_a_fault_bit_for_bit(remote_q3, site, action, match):
+    ctx, sql, want = remote_q3
+    tjournal.set_enabled(True)
+    plan = tfaults.FaultPlan.from_obj({"seed": 17, "rules": [
+        {"site": site, "action": action, "times": 1, "match": match}]})
+    with tfaults.use_plan(plan):
+        got = ctx.sql(sql).to_pandas()
+    assert [(s, a) for s, _i, _h, a in plan.schedule()] == [(site, action)]
+    assert_frames_equal(got, want, exact=True)
+    fired = [e for e in tjournal.snapshot() if e["kind"] == "fault.fired"]
+    assert [(e["attrs"]["site"], e["attrs"]["action"]) for e in fired] == [(site, action)]

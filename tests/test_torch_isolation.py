@@ -51,6 +51,26 @@ with faults.use_plan(faults.FaultPlan.from_obj({{"rules": [
         {{"site": "executor.memory.reserve", "action": "delay", "delay_ms": 0}}]}})):
     assert ctx.explain_analyze(QUERIES[1])["rows_returned"] == len(df)
 sa.shutdown()
+# the remote engine: a scheduler service, two executor servers, a session
+from arrow_ballista_tpu_torch.executor.server import ExecutorServer
+from arrow_ballista_tpu_torch.scheduler.netservice import SchedulerNetService
+from arrow_ballista_tpu_torch.scheduler.scheduler import SchedulerConfig
+svc = SchedulerNetService(device="cpu", scheduler_config=SchedulerConfig(
+    task_distribution="round-robin"))
+svc.start()
+exs = [ExecutorServer("127.0.0.1", svc.port, work_dir=tempfile.mkdtemp(), device="cpu")
+       for _ in range(2)]
+for ex in exs:
+    ex.start()
+rctx = abt.BallistaContext.remote("127.0.0.1", svc.port, abt.BallistaConfig(
+    {{"ballista.shuffle.partitions": "4"}}), device="cpu")
+for name in ("lineitem", "orders", "customer"):
+    rctx.register_parquet(name, os.path.join(tmp, name + ".parquet"))
+assert rctx.sql(QUERIES[1]).to_pandas().equals(pctx.sql(QUERIES[1]).to_pandas())
+rctx.shutdown()
+for ex in exs:
+    ex.stop(notify=False)
+svc.stop()
 # the memory governor and the spill paths (memory/), and EXTRACT
 spill = abt.BallistaContext.local(abt.BallistaConfig({{
     "ballista.memory.host.budget.bytes": "4096", "ballista.join.broadcast_threshold": "0"}}),
@@ -103,6 +123,11 @@ def test_no_port_file_imports_jax_or_the_reference():
             "executor/executor.py", "models/ipc.py", "ops/shuffle.py",
             "memory/__init__.py", "memory/governor.py", "memory/spill.py",
             "faults/__init__.py", "executor/metrics.py", "scheduler/metrics.py",
+            # the remote engine
+            "serde.py", "native.py", "net/__init__.py", "net/wire.py", "net/retry.py",
+            "net/rpc.py", "net/dataplane.py", "executor/server.py",
+            "executor/flight_service.py", "client/remote.py", "scheduler/netservice.py",
+            "scheduler/session.py", "utils/logsetup.py",
             *(f"obs/{m}.py" for m in ("__init__", "advisor", "device", "doctor", "http",
                                       "journal", "live", "profile", "progress", "slo",
                                       "stats", "trace_event", "tracing"))} <= rel

@@ -1,6 +1,6 @@
 """The port's mesh operators (ops/mesh_exec.py) against the JAX package's.
 
-Counterparts of 12 of the 14 cases of tests/test_mesh_exec.py and of
+Counterparts of the 14 cases of tests/test_mesh_exec.py and of
 tests/test_nulls.py::test_mesh_join_null_keys_never_match: each runs the
 same SQL over the same tables through the reference's mesh (its 8 virtual
 CPU devices) and the port's (``use_local_devices`` with 1, 2, 4 and 8 CPU
@@ -8,9 +8,10 @@ ranks) and compares the rows: exact on integer, decimal and string
 columns, rtol 1e-12 on floating averages.  The fused operators' own
 outputs are compared row for row in rank order, not only sorted.
 
-Left out: ``test_mesh_hybrid_through_network_scheduler`` and
-``test_mesh_task_join_serde_roundtrip``, which need the remote engine and
-the plan serde, not ported yet (ROADMAP.md queue 1 item 12 A).
+The hybrid exchange also runs through the port's network scheduler with
+two executors (the mesh-fused partial tasks on both, their states crossing
+executors through the data plane), and a plan holding a task-mesh join
+round-trips the port's serde into the reference's encoding.
 """
 import contextlib
 import functools
@@ -446,3 +447,35 @@ def test_the_mesh_keys_set_and_show_as_in_the_reference(key, value):
     for ctx in (j, t):
         ctx.sql(f"set {key} = {value}")
     assert t.sql(f"show {key}").to_pandas().equals(j.sql(f"show {key}").to_pandas())
+
+
+@pytest.mark.parametrize("n", [1, 4])
+def test_mesh_hybrid_through_network_scheduler_matches_the_reference(n, tmp_path):
+    from tests.torch_cases import remote_cluster, remote_context
+
+    settings = {**HYBRID, **BASE}
+    with remote_cluster("torch", str(tmp_path), slots=2) as (sched, exs), _ranks(n):
+        ctx = remote_context("torch", sched, settings)
+        for name, table in _agg_table().items():
+            ctx.register_table(name, table)
+        got = ctx.sql(QUERIES[0]).to_pandas()
+        graph = sched.server.jobs.get_graph(ctx._remote.last_job_id)
+        ctx.shutdown()
+    assert_frames_equal(got, _reference(tuple(sorted(settings.items())), "agg", QUERIES[0]))
+    plans = [st.resolved_plan for st in graph.stages.values()]
+    assert any(t_collect(p, TM.MeshPartialAggregateExec) for p in plans)
+    ran_on = {t.executor_id for st in graph.stages.values() for t in st.task_infos if t}
+    assert ran_on == {ex.metadata.executor_id for ex in exs}, ran_on
+
+
+def test_mesh_task_join_serde_roundtrip_matches_the_reference():
+    from arrow_ballista_tpu import serde as JS
+    from arrow_ballista_tpu_torch import serde as TS
+
+    j, t = _contexts({**JOIN_BASE, **HYBRID}, _join_tables())
+    jp, tp = _plans(j, t, JOIN_QUERIES[0])
+    obj = TS.plan_to_obj(tp)
+    back = TS.plan_from_obj(obj)
+    assert t_collect(back, TM.MeshTaskJoinExec)
+    assert back.display() == tp.display() == jp.display()
+    assert TS.plan_to_obj(back) == obj == JS.plan_to_obj(jp)

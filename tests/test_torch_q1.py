@@ -114,10 +114,12 @@ def test_set_and_show_settings(contexts):
     # tests/test_torch_mesh_exec.py)
     (None, lambda ctx: ctx.cancel(), "queue 1 item 12 C"),
     # the csv, json and avro scans, which raised here before, are held
-    # against the reference in tests/test_torch_formats.py; registering a
-    # csv table with a remote scheduler waits for the remote engine
-    (None, lambda ctx: type(ctx).remote("localhost", 50050).register_csv(
-        "t_csv", "/nonexistent/t.csv"), "queue 1 item 12"),
+    # against the reference in tests/test_torch_formats.py, and their
+    # registration with a remote scheduler in tests/test_torch_remote.py; a
+    # fleet of schedulers waits for the fleet
+    (None, lambda ctx: type(ctx).remote(endpoints=[("127.0.0.1", 50050),
+                                                   ("127.0.0.1", 50051)], device="cpu"),
+     "queue 1 item 12 C"),
 ])
 def test_unported_paths_raise_naming_their_roadmap_item(contexts, setting, sql, item):
     """q6 and q3, which raised here before joins and the sort-path

@@ -156,12 +156,40 @@ def test_reader_reads_one_partition_from_every_map_task(tmp_path):
 
 
 def test_reader_refuses_a_remote_location(tmp_path):
+    """A location on another host (``host`` / ``port`` of its executor's
+    data plane), which the reader refused before the remote engine was
+    ported, is fetched through the running data plane, streamed in chunks
+    and as the whole file, into the rows the local read gives."""
+    from arrow_ballista_tpu_torch.executor.server import ExecutorServer
+    from arrow_ballista_tpu_torch.utils.config import BallistaConfig
+
     files, writer = _write("torch", tmp_path, "hash")
-    loc = TS.PartitionLocation("executor-9", 0, 0, files[0][0], num_rows=5, host="elsewhere",
-                               port=50051)
-    reader = TS.ShuffleReaderExec(1, writer.schema, 4, {0: [loc]})
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        reader.execute(0, TP.TaskContext(device=torch.device("cpu"), executor_id="executor-0"))
+    server = ExecutorServer("127.0.0.1", 1, work_dir=str(tmp_path / "torch"),
+                            executor_id="executor-9", device="cpu")
+    server.start(register=False)
+    try:
+        for streaming, q in [(st, q) for st in ("true", "false") for q in sorted(files)]:
+            paths = files[q]
+            conf = BallistaConfig({"ballista.shuffle.wire.streaming": streaming})
+            locs = [TS.PartitionLocation("executor-9", m, q, path, num_rows=1,
+                                         host="127.0.0.1", port=server.metadata.port,
+                                         grpc_port=server.metadata.grpc_port,
+                                         checksum=TIPC.crc32_file(path))
+                    for m, path in enumerate(sorted(paths))]
+            remote = TS.ShuffleReaderExec(1, writer.schema, 4, {q: locs})
+            ctx = TP.TaskContext(device=torch.device("cpu"), config=conf,
+                                 executor_id="executor-0", executor_host="elsewhere")
+            got = _rows(remote.execute(q, ctx), writer.schema)
+            local = TS.ShuffleReaderExec(1, writer.schema, 4, {q: [
+                TS.PartitionLocation("executor-0", m, q, path, num_rows=1)
+                for m, path in enumerate(sorted(paths))]})
+            want = _rows(local.execute(q, TP.TaskContext(device=torch.device("cpu"),
+                                                         executor_id="executor-0")),
+                         writer.schema)
+            assert got == want and len(got) > 0
+            assert remote.metrics().to_dict()["remote_fetches"] == len(locs)
+    finally:
+        server.stop(notify=False)
 
 
 def test_null_strings_round_trip_through_the_ports_files(tmp_path):

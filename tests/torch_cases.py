@@ -3,7 +3,12 @@ tests/test_torch_kernels.py and tests/test_torch_join_kernels.py hold the
 twins against the JAX package on the CPU, tests/test_torch_joins.py the
 port's SQL against the JAX package, and tests/test_torch_cuda.py the CUDA
 kernels against the twins and the port's SQL on the card against the port
-on the CPU."""
+on the CPU.  ``remote_cluster`` starts either package's scheduler service
+and executors in process (the reference's only when a test asks for it,
+so this module imports no JAX)."""
+import contextlib
+import os
+
 import numpy as np
 
 from benchmarks.queries import QUERIES
@@ -1217,3 +1222,79 @@ def seg_case(case, rng):
     elif case not in ("tile_minus_1", "tile", "tile_plus_1"):
         raise KeyError(case)
     return keys, vals, mask, cap
+
+
+# --------------------------------------------------------------------------
+# the remote engine: a scheduler service and its executors, in process
+# --------------------------------------------------------------------------
+
+# short RPC deadlines: no test waits on a socket for more than seconds
+RPC_SETTINGS = {"ballista.rpc.connect.timeout.seconds": "2",
+                "ballista.rpc.read.timeout.seconds": "20",
+                "ballista.rpc.retry.base.seconds": "0.05",
+                "ballista.rpc.retry.cap.seconds": "0.5",
+                "ballista.rpc.retry.deadline.seconds": "5"}
+REMOTE_SETTINGS = {"ballista.shuffle.partitions": "4", **RPC_SETTINGS}
+
+
+@contextlib.contextmanager
+def remote_cluster(pkg: str, work_dir: str, executors: int = 2, settings=None,
+                   executor_settings=None, slots: int = 4, device="cpu", **scheduler_kw):
+    """A ``pkg`` ('torch' or 'jax') scheduler service on 127.0.0.1 port 0
+    and ``executors`` executor servers with separate work directories,
+    round-robin task distribution unless ``scheduler_kw`` says otherwise;
+    yields (service, [executor servers]).  The port's run on ``device``.  The
+    reference's executors serve through its Python RPC handler: building
+    its native data plane rewrites a tracked file under native/ while
+    other test processes may load it."""
+    if pkg == "jax":
+        from arrow_ballista_tpu import native as jnative
+        from arrow_ballista_tpu.executor.server import ExecutorServer
+        from arrow_ballista_tpu.scheduler.netservice import SchedulerNetService
+        from arrow_ballista_tpu.scheduler.scheduler import SchedulerConfig
+        from arrow_ballista_tpu.utils.config import BallistaConfig
+
+        dev = {}
+    else:
+        from arrow_ballista_tpu_torch.executor.server import ExecutorServer
+        from arrow_ballista_tpu_torch.scheduler.netservice import SchedulerNetService
+        from arrow_ballista_tpu_torch.scheduler.scheduler import SchedulerConfig
+        from arrow_ballista_tpu_torch.utils.config import BallistaConfig
+
+        dev = {"device": device}
+    scheduler_kw.setdefault("task_distribution", "round-robin")
+    policy = scheduler_kw.get("policy", "push")
+    with contextlib.ExitStack() as stack:
+        if pkg == "jax":
+            mp = stack.enter_context(__import__("pytest").MonkeyPatch.context())
+            mp.setattr(jnative, "dataplane", lambda: None)
+        sched = SchedulerNetService("127.0.0.1", 0,
+                                    config=BallistaConfig({**REMOTE_SETTINGS, **(settings or {})}),
+                                    scheduler_config=SchedulerConfig(**scheduler_kw), **dev)
+        sched.start()
+        stack.callback(sched.stop)
+        servers = []
+        for i in range(executors):
+            ex = ExecutorServer("127.0.0.1", sched.port, "127.0.0.1", 0,
+                                work_dir=os.path.join(work_dir, f"{pkg}-exec{i}"),
+                                concurrent_tasks=slots, executor_id=f"{pkg}-exec-{i}",
+                                config=BallistaConfig({**RPC_SETTINGS,
+                                                       **(executor_settings or {})}),
+                                policy=policy, **dev)
+            ex.start()
+            stack.callback(ex.stop, notify=False)
+            servers.append(ex)
+        yield sched, servers
+
+
+def remote_context(pkg: str, sched, settings=None, device="cpu"):
+    """A remote session on ``sched`` (the port's on ``device``)."""
+    conf = {**REMOTE_SETTINGS, **(settings or {})}
+    if pkg == "jax":
+        import arrow_ballista_tpu as jab
+
+        return jab.BallistaContext.remote("127.0.0.1", sched.port, jab.BallistaConfig(conf))
+    import arrow_ballista_tpu_torch as tab
+
+    return tab.BallistaContext.remote("127.0.0.1", sched.port, tab.BallistaConfig(conf),
+                                      device=device)
